@@ -4,10 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``mano_hand_tpu_torch/csrc`` with
-``nvcc``, drives the port's main path once at full MANO width (the
-batched full forward through kernel K1, and a serving engine whose
-pose-only traffic runs through kernel K2), holds each kernel against its
-plain PyTorch version and the float64 NumPy oracle, and times both.
+``nvcc`` and drives the port's two main paths once at full MANO width:
+
+* serving: the batched full forward through kernel K1, and a serving
+  engine whose pose-only traffic runs through kernel K2;
+* training: 5 SGD steps on (pose, shape) through each differentiable
+  kernel route — K3 (``forward_batched_pallas``), K4
+  (``forward_batched_pallas_fused``) and K1
+  (``forward_batched_pallas_fused_full``), whose backwards take their
+  vertex cotangent from K3 — against the same steps through the plain
+  path, then one parameter-gradient backward through the K1 route.
+
+Each kernel is held against its plain PyTorch version and the float64
+NumPy oracle and timed beside it; ``forward_chunked`` is held on every
+route against its default route.
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
@@ -19,6 +29,7 @@ imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -33,12 +44,18 @@ import torch
 SEED = 0
 DEVICE = "cuda"                  # the card this run measures
 K1_BATCHES = (8192, 1000, 1)     # the timed batch, a ragged tile, one row
+K3_BATCH = 8192
+K4_BATCHES = K1_BATCHES
+CHUNK_BATCH, CHUNK_SIZE = 8192 + 37, 4096   # a ragged trailing chunk
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 5, 0.1
+TRAIN_TOL = 1e-3     # per-step loss, each route vs the plain path, relative
+GRAD_TOL = 1e-4      # gradients: max|a - b| / max(1, max|b|), the JAX bar
 K2_CAPACITIES = (64, 1000)       # 1000 is above the TPU kernel's 512 gate
 K2_BATCH = 1024
 ORACLE_ROWS = 64
 KERNEL_TOL = 1e-5    # kernel vs its plain version, both fp32 on the card
 ORACLE_TOL = 1e-4    # vs the float64 oracle: the repo's vertex gate
-WARMUP, REPEATS = 3, 20
+WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores and
 # device-memory bandwidth, by the name nvidia-smi gives the card.
@@ -81,8 +98,11 @@ def peaks(gpu_name: str):
 
 
 def cuda_ms(fn) -> float:
-    """Median milliseconds of ``fn`` over REPEATS runs after WARMUP, each
-    run between two CUDA events."""
+    """Milliseconds per call of ``fn``: the median over REPEATS samples,
+    after WARMUP calls, of PER_SAMPLE back-to-back calls between two CUDA
+    events, divided by PER_SAMPLE. Back to back, the host enqueues the
+    next launch while the card runs this one, so a kernel longer than its
+    Python wrapper is timed without the wrapper's host time."""
     for _ in range(WARMUP):
         fn()
     times = []
@@ -90,10 +110,11 @@ def cuda_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(PER_SAMPLE):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / PER_SAMPLE)
     return statistics.median(times)
 
 
@@ -131,6 +152,32 @@ def k2_work(b, rows_used, v, j):
     return flops, moved
 
 
+def k3_work(b, v, j):
+    """(fp32 FLOP, bytes) of batched skinning: the 12-plane skin blend
+    and the per-vertex 3x3 apply; weights, R, t and v_posed read once,
+    verts written once."""
+    flops = b * (2 * 12 * j * v + 18 * v)
+    moved = 4 * (v * j + b * 12 * j + 2 * b * v * 3)
+    return flops, moved
+
+
+def k4_work(b, v, j, s):
+    """(fp32 FLOP, bytes) of blend + skin: the blend over K coefficients
+    and the skinning; the packed asset, coefficients, R and t read once,
+    verts written once."""
+    k = s + 1 + 9 * (j - 1)
+    kpad = -(-k // 4) * 4
+    flops = b * (2 * k * 3 * v + 2 * 12 * j * v + 18 * v)
+    moved = 4 * (kpad * 3 * v + j * v + b * (kpad + 12 * j) + b * v * 3)
+    return flops, moved
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| / max(1, max|b|), the JAX tests' gradient bar."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
 def bound(flops, moved, gpu_name):
     peak_flops, peak_bw = peaks(gpu_name)
     t_ops, t_bytes = flops / peak_flops, moved / peak_bw
@@ -144,10 +191,25 @@ def main() -> int:
               "run needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mano_hand_tpu_torch import ops
     from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS
     from mano_hand_tpu_torch.models import core, oracle
-    from mano_hand_tpu_torch.ops import _build, fused_forward, fused_posed
+    from mano_hand_tpu_torch.ops import (
+        _build, fused_forward, fused_posed, fused_skin,
+    )
     from mano_hand_tpu_torch.serving import ServingEngine
+
+    def zero_counts():
+        fused_forward.launches = 0
+        fused_forward.blend_skin_launches = 0
+        fused_posed.launches = 0
+        fused_skin.launches = 0
+
+    def counts():
+        return {"K1": fused_forward.launches, "K2": fused_posed.launches,
+                "K3": fused_skin.launches,
+                "K4": fused_forward.blend_skin_launches}
 
     t_start = time.perf_counter()
     # 1. Environment. The plain versions must not run in TF32.
@@ -195,8 +257,7 @@ def main() -> int:
                   rng.normal(size=(n, s)).astype(np.float32))
                  for n in (1, 7, 16, 33)]
 
-    fused_forward.launches = 0
-    fused_posed.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     k1_out = {}
     with torch.no_grad():
@@ -320,8 +381,158 @@ def main() -> int:
     emit({"phase": "engine", "requests": 44, "max_abs_err_direct": eng_err})
     require(eng_err <= KERNEL_TOL, f"engine vs direct {eng_err}")
 
-    # 8. Times, at the main path's largest shapes, in turns with the plain
-    #    version; the bound from this run's shapes and the card's peaks.
+    # 8. K3: the skinning kernel at B = 8192 on the plain pre-stage's
+    #    transforms vs its plain version; the K3 route vs the oracle.
+    routes = {"K3": core.forward_batched_pallas,
+              "K4": core.forward_batched_pallas_fused,
+              "K1": core.forward_batched_pallas_fused_full}
+    pose3 = torch.from_numpy(rng.normal(
+        scale=0.5, size=(K3_BATCH, j, 3)).astype(np.float32)).to(dev)
+    shape3 = torch.from_numpy(rng.normal(
+        size=(K3_BATCH, s)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        w3 = params.lbs_weights.contiguous()
+        out = core.forward_batched(params, pose3, shape3, fused=False)
+        world_rot, world_t = ops.forward_kinematics(
+            params.parents, out.rot_mats, out.joints)
+        rot3, t3 = ops.skinning_transforms(world_rot, world_t, out.joints)
+        k3_args = (w3, rot3.contiguous(), t3.contiguous(),
+                   out.rest_verts.contiguous())
+        got = fused_skin.skin_batched(*k3_args)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), "K3 finite")
+        k3_err = max_err(got, fused_skin.skin_batched_plain(*k3_args))
+        # The backward's form: R^T and t = 0.
+        k3_bwd_args = (w3, rot3.transpose(-1, -2).contiguous(),
+                       t3.new_zeros(t3.shape), out.verts.contiguous())
+        k3_err = max(k3_err, max_err(fused_skin.skin_batched(*k3_bwd_args),
+                                     fused_skin.skin_batched_plain(
+                                         *k3_bwd_args)))
+        n = ORACLE_ROWS
+        k3_oracle = max_err(
+            core.forward_batched_pallas(params, pose3[:n], shape3[:n]),
+            oracle.forward_batch_verts(params, pose3[:n].cpu().numpy(),
+                                       shape3[:n].cpu().numpy()))
+    emit({"phase": "K3", "batch": K3_BATCH, "max_abs_err_plain": k3_err,
+          "max_abs_err_oracle": k3_oracle})
+    require(k3_err <= KERNEL_TOL, f"K3 vs plain {k3_err} <= {KERNEL_TOL}")
+    require(k3_oracle <= ORACLE_TOL, f"K3 route vs oracle {k3_oracle}")
+
+    # 9. K4: through forward_batched_pallas_fused at B = 8192, 1000, 1.
+    k4_err = k4_oracle = 0.0
+    with torch.no_grad():
+        for b, (pose, shape) in k1_in.items():
+            pose_t = torch.from_numpy(pose).to(dev)
+            shape_t = torch.from_numpy(shape).to(dev)
+            got = core.forward_batched_pallas_fused(params, pose_t, shape_t)
+            torch.cuda.synchronize()
+            require(tuple(got.shape) == (b, v, 3), f"K4 shape at B={b}")
+            require(bool(torch.isfinite(got).all()), f"K4 finite at B={b}")
+            plain = fused_forward.forward_verts_plain(ops1, pose_t, shape_t)
+            k4_err = max(k4_err, max_err(got, plain))
+            n = min(b, ORACLE_ROWS)
+            ref = oracle.forward_batch_verts(params, pose[:n], shape[:n])
+            k4_oracle = max(k4_oracle, max_err(got[:n], ref))
+    emit({"phase": "K4", "batches": list(K4_BATCHES),
+          "max_abs_err_plain": k4_err, "max_abs_err_oracle": k4_oracle})
+    require(k4_err <= KERNEL_TOL, f"K4 vs plain {k4_err} <= {KERNEL_TOL}")
+    require(k4_oracle <= ORACLE_TOL, f"K4 vs oracle {k4_oracle}")
+
+    # 10. forward_chunked on every route vs its default route, counted.
+    posec = torch.from_numpy(rng.normal(
+        scale=0.5, size=(CHUNK_BATCH, j, 3)).astype(np.float32)).to(dev)
+    shapec = torch.from_numpy(rng.normal(
+        size=(CHUNK_BATCH, s)).astype(np.float32)).to(dev)
+    flags = {"K3": {"use_pallas": True}, "K4": {"use_pallas_fused": True},
+             "K1": {"use_pallas_fused_full": True}}
+    zero_counts()
+    chunk_err = {}
+    with torch.no_grad():
+        want = core.forward_chunked(params, posec, shapec, CHUNK_SIZE)
+        for name, kw in flags.items():
+            got = core.forward_chunked(params, posec, shapec, CHUNK_SIZE, **kw)
+            torch.cuda.synchronize()
+            require(tuple(got.shape) == (CHUNK_BATCH, v, 3), "chunked shape")
+            chunk_err[name] = max_err(got, want)
+    chunk_launches = counts()
+    emit({"phase": "chunked", "batch": CHUNK_BATCH, "chunk": CHUNK_SIZE,
+          "max_abs_err_default": chunk_err, "launches": chunk_launches})
+    for name, e in chunk_err.items():
+        require(e <= KERNEL_TOL, f"forward_chunked {name} route {e}")
+        require(chunk_launches[name] == -(-CHUNK_BATCH // CHUNK_SIZE),
+                f"{name} ran once per chunk")
+
+    # 11. Training, this slice's main path: 5 SGD steps on (pose, shape)
+    #     from zero through each kernel route and through the plain path,
+    #     then one parameter-gradient backward through the K1 route. Every
+    #     count is zeroed just before and read just after.
+    tgt_pose = torch.from_numpy(rng.normal(
+        scale=0.5, size=(TRAIN_BATCH, j, 3)).astype(np.float32)).to(dev)
+    tgt_shape = torch.from_numpy(rng.normal(
+        size=(TRAIN_BATCH, s)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        target = core.forward_batched(params, tgt_pose, tgt_shape).verts
+
+    def train(fwd):
+        pose = torch.zeros((TRAIN_BATCH, j, 3), device=dev,
+                           requires_grad=True)
+        shape = torch.zeros((TRAIN_BATCH, s), device=dev, requires_grad=True)
+        opt = torch.optim.SGD([pose, shape], lr=TRAIN_LR)
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            loss = ((fwd(params, pose, shape) - target) ** 2).sum()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses
+
+    def param_grads(fwd):
+        leaves = {f: getattr(params, f).clone().requires_grad_(True)
+                  for f in FORWARD_FIELDS}
+        prm = dataclasses.replace(params, **leaves)
+        fwd(prm, tgt_pose, tgt_shape).sum().backward()
+        return {f: leaves[f].grad for f in FORWARD_FIELDS}
+
+    def plain(prm, pose, shape):
+        return core.forward_batched(prm, pose, shape).verts
+
+    t0 = time.perf_counter()
+    zero_counts()
+    losses = {name: train(fwd) for name, fwd in routes.items()}
+    grads_k1 = param_grads(routes["K1"])
+    torch.cuda.synchronize()
+    train_launches = counts()
+    train_seconds = time.perf_counter() - t0
+    losses["plain"] = train(plain)
+    grads_plain = param_grads(plain)
+    loss_rel = {name: max(abs(a - b) / abs(b) for a, b in
+                          zip(ls, losses["plain"]))
+                for name, ls in losses.items() if name != "plain"}
+    grad_rel = {f: rel_err(grads_k1[f], grads_plain[f])
+                for f in FORWARD_FIELDS}
+    emit({"phase": "train", "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+          "lr": TRAIN_LR, "seconds": round(train_seconds, 3),
+          "losses": losses, "loss_rel_vs_plain": loss_rel,
+          "k1_param_grad_rel_vs_plain": grad_rel,
+          "launches": train_launches})
+    for name, ls in losses.items():
+        require(all(np.isfinite(ls)), f"{name} losses finite")
+        require(ls[-1] < ls[0], f"{name} loss falls over {TRAIN_STEPS} steps")
+    for name, r in loss_rel.items():
+        require(r <= TRAIN_TOL, f"{name} loss tracks the plain path ({r})")
+    for f, r in grad_rel.items():
+        require(r <= GRAD_TOL, f"K1-route {f} grad vs plain ({r})")
+        require(float(grads_plain[f].abs().max()) > 0, f"{f} grad nonzero")
+    # K3 runs once per K3-route forward and once per backward of every
+    # route: 3 routes x 5 steps + 1 parameter backward.
+    require(train_launches["K3"] >= 5 + 3 * TRAIN_STEPS + 1,
+            "K3 launched by the forwards and every backward")
+    require(train_launches["K4"] >= TRAIN_STEPS, "K4 launched in training")
+    require(train_launches["K1"] >= TRAIN_STEPS + 1, "K1 launched in training")
+
+    # 12. Times, at the main paths' largest shapes, in turns with the plain
+    #     version; the bound from this run's shapes and the card's peaks.
     b1 = K1_BATCHES[0]
     pose1 = torch.from_numpy(k1_in[b1][0]).to(dev)
     shape1 = torch.from_numpy(k1_in[b1][1]).to(dev)
@@ -337,16 +548,49 @@ def main() -> int:
             lambda: fused_posed.forward_posed_gather_plain(
                 table.v_shaped, table.joints, idx_t, pose_t, pb, wt,
                 table.parents))
+        k3_ms, k3_plain_ms = interleaved_ms(
+            lambda: fused_skin.skin_batched(*k3_args),
+            lambda: fused_skin.skin_batched_plain(*k3_args))
+        coef4, rot4, t4 = (x.contiguous() for x in fused_forward.pre_stage(
+            ops1.parents_tuple, ops1.jb[..., s], ops1.jb[..., :s], pose1,
+            shape1, ops1.kpad))
+        k4_ms, k4_plain_ms = interleaved_ms(
+            lambda: fused_forward.blend_skin_fused(ops1, coef4, rot4, t4),
+            lambda: fused_forward.blend_skin_plain(ops1, coef4, rot4, t4))
+        # The repack a parameter step costs K1 and K4 (on the card).
+        repack_ms = cuda_ms(lambda: fused_forward._pack(params))
+    # Forward + backward of each route at the training batch, against the
+    # plain path's forward + backward (in turns, as above).
+    pose_tr = tgt_pose.clone().requires_grad_(True)
+    shape_tr = tgt_shape.clone().requires_grad_(True)
+
+    def step(fwd):
+        return lambda: fwd(params, pose_tr, shape_tr).sum().backward()
+
+    route_ms = {}
+    for name, fwd in routes.items():
+        ms, plain_ms = interleaved_ms(step(fwd), step(plain))
+        route_ms[name] = {"ms": ms, "plain_ms": plain_ms}
     f1, m1 = k1_work(b1, v, j, s)
     f2, m2 = k2_work(K2_BATCH, used, v, j)
+    f3, m3 = k3_work(K3_BATCH, v, j)
+    f4, m4 = k4_work(b1, v, j, s)
     k1_bound, k1_by = bound(f1, m1, gpu_name)
     k2_bound, k2_by = bound(f2, m2, gpu_name)
+    k3_bound, k3_by = bound(f3, m3, gpu_name)
+    k4_bound, k4_by = bound(f4, m4, gpu_name)
     emit({"phase": "times", "nvidia_smi": smi,
           "K1": {"batch": b1, "ms": k1_ms, "plain_ms": k1_plain_ms,
                  "flops": f1, "bytes": m1},
           "K2": {"batch": K2_BATCH, "capacity": K2_CAPACITIES[-1],
                  "rows_used": used, "ms": k2_ms, "plain_ms": k2_plain_ms,
-                 "flops": f2, "bytes": m2}})
+                 "flops": f2, "bytes": m2},
+          "K3": {"batch": K3_BATCH, "ms": k3_ms, "plain_ms": k3_plain_ms,
+                 "flops": f3, "bytes": m3},
+          "K4": {"batch": b1, "ms": k4_ms, "plain_ms": k4_plain_ms,
+                 "flops": f4, "bytes": m4},
+          "repack_ms": repack_ms,
+          "route_fwd_bwd": {"batch": TRAIN_BATCH, **route_ms}})
 
     kernels = [
         {"name": "K1 fused_forward", "route": "cuda",
@@ -355,15 +599,30 @@ def main() -> int:
          "launches": launches["K1"], "max_abs_err": k1_err,
          "max_abs_err_oracle": k1_oracle, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None, "shape": f"B={b1}"},
+         "library_ms": None, "shape": f"B={b1}", "path": "serving",
+         "launches_train": train_launches["K1"]},
         {"name": "K2 fused_posed", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_posed.cu",
          "replaces": "mano_hand_tpu/ops/pallas_posed.py:382",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "max_abs_err_oracle": k2_oracle, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None,
+         "library_ms": None, "path": "serving",
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}"},
+        {"name": "K3 skin", "route": "cuda",
+         "source": "mano_hand_tpu_torch/csrc/skin.cu",
+         "replaces": "mano_hand_tpu/ops/pallas_lbs.py:107",
+         "launches": train_launches["K3"], "max_abs_err": k3_err,
+         "max_abs_err_oracle": k3_oracle, "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None, "shape": f"B={K3_BATCH}", "path": "train"},
+        {"name": "K4 blend_skin", "route": "cuda",
+         "source": "mano_hand_tpu_torch/csrc/blend_skin.cu",
+         "replaces": "mano_hand_tpu/ops/pallas_forward.py:239",
+         "launches": train_launches["K4"], "max_abs_err": k4_err,
+         "max_abs_err_oracle": k4_oracle, "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+         "library_ms": None, "shape": f"B={b1}", "path": "train"},
     ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": kernels})

@@ -2,15 +2,26 @@
 
 The port of ``mano_hand_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
 H100. It imports torch and numpy only. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; the two hand-written CUDA
-kernels (``ops/fused_forward.py`` K1, ``ops/fused_posed.py`` K2) build
-with ``nvcc`` at their first launch.
+unless the caller passes ``device="cpu"``; the four hand-written CUDA
+kernels (``ops/fused_forward.py`` K1 and K4, ``ops/fused_posed.py`` K2,
+``ops/fused_skin.py`` K3) build with ``nvcc`` at their first launch.
+Gradients reach pose, shape and the parameters through the three
+differentiable kernel routes and ``forward_chunked``, the huge-batch
+entry point.
 """
 
 from mano_hand_tpu_torch import constants
 from mano_hand_tpu_torch.assets import (
     ManoParams, params_from_numpy, synthetic_params, validate,
 )
+from mano_hand_tpu_torch.models import (
+    ManoOutput, forward, forward_batched, forward_batched_pallas,
+    forward_batched_pallas_fused, forward_batched_pallas_fused_full,
+    forward_chunked,
+)
 
-__all__ = ["ManoParams", "constants", "params_from_numpy",
-           "synthetic_params", "validate"]
+__all__ = ["ManoOutput", "ManoParams", "constants", "forward",
+           "forward_batched", "forward_batched_pallas",
+           "forward_batched_pallas_fused",
+           "forward_batched_pallas_fused_full", "forward_chunked",
+           "params_from_numpy", "synthetic_params", "validate"]

@@ -26,6 +26,16 @@ ARRAY_FIELDS = (
     "faces",
 )
 
+#: The float fields the forward reads, in the order the kernel routes'
+#: autograd Functions take them: the five that gradients reach.
+FORWARD_FIELDS = (
+    "v_template",
+    "shape_basis",
+    "pose_basis",
+    "j_regressor",
+    "lbs_weights",
+)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ManoParams:
@@ -72,6 +82,10 @@ class ManoParams:
     @property
     def dtype(self) -> torch.dtype:
         return self.v_template.dtype
+
+    def forward_tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The ``FORWARD_FIELDS`` tensors, in that order."""
+        return tuple(getattr(self, f) for f in FORWARD_FIELDS)
 
     def astype(self, dtype: torch.dtype) -> "ManoParams":
         """Cast all float fields to ``dtype`` (faces stay integer)."""

@@ -1,7 +1,8 @@
-// Device functions shared by the two MANO forward kernels (fused_forward.cu,
-// fused_posed.cu). Plain fp32 FFMA throughout: no tensor cores, no TF32, and
-// the build uses no --use_fast_math, so sinf/cosf/sqrtf and division are the
-// accurate IEEE versions.
+// Device functions shared by the MANO kernels (fused_forward.cu K1,
+// fused_posed.cu K2, skin.cu K3, blend_skin.cu K4). Plain fp32 FFMA
+// throughout: no tensor cores, no TF32, and the build uses no
+// --use_fast_math, so sinf/cosf/sqrtf and division are the accurate IEEE
+// versions.
 //
 // One block owns a tile of kTileRows batch rows and a tile of kThreads
 // vertices. It runs in four phases:
@@ -11,10 +12,14 @@
 //      tree (parents[j] < j), one thread per row;
 //   C  per (row, joint): inverse bind, t <- world_t - world_R @ J_rest;
 //   D  per vertex (one thread each): the blend v_posed = base + coef . basis
-//      for kRowChunk rows at a time in registers, then linear blend skinning
-//      sum_j W[v, j] (R_j, t_j) applied to v_posed, written to [B, V, 3].
+//      for kRowChunk rows at a time in registers (blend_rows), then linear
+//      blend skinning sum_j W[v, j] (R_j, t_j) applied to v_posed, written to
+//      [B, V, 3] (skin_apply).
 // Phases A-C (about 2 KFLOP a row) are recomputed by every vertex tile of a
-// batch tile; phase D (about 1 MFLOP a row) is the work.
+// batch tile; phase D (about 1 MFLOP a row) is the work. K3 and K4 take the
+// skinning transforms (and K4 the coefficients) from global memory instead
+// of phases A-C (load_skin_rows, load_coef_rows); K3 reads v_posed from
+// global memory and runs only skin_apply.
 
 #pragma once
 
@@ -157,11 +162,107 @@ __device__ inline void inverse_bind_rows(const Tile& t, int J) {
   }
 }
 
-// Phase D: blend + skin for this thread's vertex over the tile's live rows.
-// basis is [kpad][3][V] (loads coalesced across v); wt is [J][V]. base, when
-// not null, is a [C][V][3] table whose row rowsrc[r] starts the blend sum
-// (the gathered kernel); otherwise the sum starts at 0 and the template is a
-// basis row driven by a constant-1 coefficient (the full kernel).
+// Tile loader (K3, K4), in place of phases A-C when the skinning transforms
+// come from outside: skin slots of every (tile row, joint) from global
+// rot [B][J][3][3] and t [B][J][3], in the layout phase C leaves (R
+// row-major, then t).
+__device__ inline void load_skin_rows(const float* __restrict__ rot,
+                                      const float* __restrict__ tr, int B,
+                                      int row0, int J, const Tile& t) {
+  for (int i = threadIdx.x; i < kTileRows * J * 12; i += blockDim.x) {
+    const int rj = i / 12, e = i - rj * 12;
+    const int r = rj / J, j = rj - r * J;
+    const size_t src = (size_t)tile_row(row0, r, B) * J + j;
+    t.skin[i] = e < 9 ? rot[src * 9 + e] : tr[src * 3 + (e - 9)];
+  }
+}
+
+// Tile loader (K4): the blend coefficients of every tile row from global
+// coef [B][kpad], in place of phase A's (R - I) and the shape coefficients.
+__device__ inline void load_coef_rows(const float* __restrict__ coef, int B,
+                                      int row0, int kpad, const Tile& t) {
+  for (int i = threadIdx.x; i < kTileRows * kpad; i += blockDim.x) {
+    const int r = i / kpad, k = i - r * kpad;
+    t.coef[i] = coef[(size_t)tile_row(row0, r, B) * kpad + k];
+  }
+}
+
+// Phase D, blend part: v_posed of vertex v for the kRowChunk tile rows from
+// r0, into acc. basis is [kpad][3][V] (loads coalesced across v). base, when
+// not null, is a [C][V][3] table whose row rowsrc[r] starts the sum (the
+// gathered kernel); otherwise the sum starts at 0 and the template is a
+// basis row driven by a constant-1 coefficient.
+__device__ __forceinline__ void blend_rows(const Tile& t, int kpad,
+                                           const float* __restrict__ basis,
+                                           const float* __restrict__ base,
+                                           int V, int v, int r0,
+                                           float (&acc)[kRowChunk][3]) {
+#pragma unroll
+  for (int i = 0; i < kRowChunk; ++i) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      acc[i][c] = base == nullptr
+                      ? 0.0f
+                      : __ldg(base + ((size_t)t.rowsrc[r0 + i] * V + v) * 3 + c);
+  }
+  for (int k = 0; k < kpad; k += 4) {
+    float bv[4][3];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        bv[kk][c] = __ldg(basis + ((size_t)(k + kk) * 3 + c) * V + v);
+#pragma unroll
+    for (int i = 0; i < kRowChunk; ++i) {
+      const float4 cf =
+          *reinterpret_cast<const float4*>(t.coef + (r0 + i) * kpad + k);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        acc[i][c] += cf.x * bv[0][c];
+        acc[i][c] += cf.y * bv[1][c];
+        acc[i][c] += cf.z * bv[2][c];
+        acc[i][c] += cf.w * bv[3][c];
+      }
+    }
+  }
+}
+
+// Phase D, skin-apply part, for one (tile row, vertex): with M = sum_j w_j R_j
+// and u = sum_j w_j t_j over the row's skin slots sk [J][12], writes
+// o = M p + u. weight(j) returns W[v, j]. JT > 0 unrolls the joint loop JT
+// times (guarded by J) so weights held in a register array stay in
+// registers (K3); JT == 0 loops J times (K1, K2, K4 read W from global).
+template <int JT, typename Weight>
+__device__ __forceinline__ void skin_apply(const float* __restrict__ sk, int J,
+                                           const Weight& weight, float px,
+                                           float py, float pz,
+                                           float* __restrict__ o) {
+  float m[12];
+#pragma unroll
+  for (int e = 0; e < 12; ++e) m[e] = 0.0f;
+  const float4* s4 = reinterpret_cast<const float4*>(sk);
+  auto add = [&](int j) {
+    const float w = weight(j);
+    const float4 s0 = s4[3 * j], s1 = s4[3 * j + 1], s2 = s4[3 * j + 2];
+    m[0] += w * s0.x;  m[1] += w * s0.y;  m[2] += w * s0.z;
+    m[3] += w * s0.w;  m[4] += w * s1.x;  m[5] += w * s1.y;
+    m[6] += w * s1.z;  m[7] += w * s1.w;  m[8] += w * s2.x;
+    m[9] += w * s2.y;  m[10] += w * s2.z; m[11] += w * s2.w;
+  };
+  if constexpr (JT > 0) {
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+      if (j < J) add(j);
+  } else {
+    for (int j = 0; j < J; ++j) add(j);
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    o[a] = m[3 * a] * px + m[3 * a + 1] * py + m[3 * a + 2] * pz + m[9 + a];
+}
+
+// Phase D: blend + skin for this thread's vertex over the tile's live rows,
+// kRowChunk rows of v_posed at a time in registers; wt is [J][V].
 // Must run after the block's last __syncthreads: threads past V return.
 __device__ inline void blend_skin_rows(const Tile& t, int kpad, int J,
                                 const float* __restrict__ basis,
@@ -171,57 +272,16 @@ __device__ inline void blend_skin_rows(const Tile& t, int kpad, int J,
   const int v = blockIdx.y * blockDim.x + threadIdx.x;
   if (v >= V) return;
   const int rows_here = min(kTileRows, B - row0);
+  const auto weight = [&](int j) { return __ldg(wt + (size_t)j * V + v); };
   for (int r0 = 0; r0 < rows_here; r0 += kRowChunk) {
     float acc[kRowChunk][3];
-#pragma unroll
-    for (int i = 0; i < kRowChunk; ++i) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        acc[i][c] = base == nullptr
-                        ? 0.0f
-                        : __ldg(base + ((size_t)t.rowsrc[r0 + i] * V + v) * 3 + c);
-    }
-    for (int k = 0; k < kpad; k += 4) {
-      float bv[4][3];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          bv[kk][c] = __ldg(basis + ((size_t)(k + kk) * 3 + c) * V + v);
-#pragma unroll
-      for (int i = 0; i < kRowChunk; ++i) {
-        const float4 cf =
-            *reinterpret_cast<const float4*>(t.coef + (r0 + i) * kpad + k);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          acc[i][c] += cf.x * bv[0][c];
-          acc[i][c] += cf.y * bv[1][c];
-          acc[i][c] += cf.z * bv[2][c];
-          acc[i][c] += cf.w * bv[3][c];
-        }
-      }
-    }
+    blend_rows(t, kpad, basis, base, V, v, r0, acc);
 #pragma unroll
     for (int i = 0; i < kRowChunk; ++i) {
       const int r = r0 + i;
       if (r >= rows_here) break;
-      float m[12];
-#pragma unroll
-      for (int e = 0; e < 12; ++e) m[e] = 0.0f;
-      const float4* sk = reinterpret_cast<const float4*>(t.skin + r * J * 12);
-      for (int j = 0; j < J; ++j) {
-        const float w = __ldg(wt + (size_t)j * V + v);
-        const float4 s0 = sk[3 * j], s1 = sk[3 * j + 1], s2 = sk[3 * j + 2];
-        m[0] += w * s0.x;  m[1] += w * s0.y;  m[2] += w * s0.z;
-        m[3] += w * s0.w;  m[4] += w * s1.x;  m[5] += w * s1.y;
-        m[6] += w * s1.z;  m[7] += w * s1.w;  m[8] += w * s2.x;
-        m[9] += w * s2.y;  m[10] += w * s2.z; m[11] += w * s2.w;
-      }
-      float* o = out + ((size_t)(row0 + r) * V + v) * 3;
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        o[a] = m[3 * a] * acc[i][0] + m[3 * a + 1] * acc[i][1] +
-               m[3 * a + 2] * acc[i][2] + m[9 + a];
+      skin_apply<0>(t.skin + r * J * 12, J, weight, acc[i][0], acc[i][1],
+                    acc[i][2], out + ((size_t)(row0 + r) * V + v) * 3);
     }
   }
 }

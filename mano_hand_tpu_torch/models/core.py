@@ -7,9 +7,13 @@ Plain functions over a frozen ``ManoParams``:
 
 Batching is a leading dimension written out (every op broadcasts over
 it). Names follow the JAX package's ``models/core.py`` so each function's
-counterpart is easy to find; ``forward_batched_pallas_fused_full`` and
-``forward_posed_gather_fused`` keep their names and run the hand-written
-CUDA kernels K1 and K2 (``ops/fused_forward.py``, ``ops/fused_posed.py``).
+counterpart is easy to find. The kernel routes keep their names and run
+the hand-written CUDA kernels: ``forward_batched_pallas`` K3
+(``ops/fused_skin.py``), ``forward_batched_pallas_fused`` K4 and
+``forward_batched_pallas_fused_full`` K1 (``ops/fused_forward.py``), all
+three differentiable, and ``forward_posed_gather_fused`` K2
+(``ops/fused_posed.py``, inference only). ``forward_chunked`` is the
+huge-batch entry point over any of them.
 The subject-table functions are functional: each returns a new table and
 leaves its input untouched, so a table captured by an in-flight batch
 stays valid while the serving engine installs subjects.
@@ -24,7 +28,7 @@ import torch
 
 from mano_hand_tpu_torch import constants, ops
 from mano_hand_tpu_torch.assets.schema import ManoParams
-from mano_hand_tpu_torch.ops import fused_forward, fused_posed
+from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 from mano_hand_tpu_torch.ops.common import IdentityCache
 
 
@@ -88,15 +92,24 @@ def _blend_bases(params: ManoParams):
     return vertex_basis, joint_template, joint_shape_basis
 
 
-_bases = IdentityCache()
+_bases = IdentityCache(sources=ManoParams.forward_tensors)
 
 
 def fused_blend_bases(params: ManoParams):
-    """Per-asset derived tensors of the fused-basis path (cached):
+    """Per-asset derived tensors of the fused-basis path:
     (vertex_basis [V*3, S+P], joint_template [J, 3],
     joint_shape_basis [J, 3, S]). Joints are an affine map of the shaped
     template, so the regressor precomposes with the shape basis, and the
-    shape + pose blendshapes concatenate into one matrix."""
+    shape + pose blendshapes concatenate into one matrix.
+
+    Cached per asset while its tensors are unchanged (an in-place update
+    rebuilds them). When a parameter requires grad under grad mode the
+    tensors are built per call, so each forward differentiates to the
+    parameters as they are now; a cached tensor never carries autograd
+    history."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in params.forward_tensors()):
+        return _blend_bases(params)
     return _bases.get(params, _blend_bases)
 
 
@@ -341,17 +354,104 @@ def forward_posed_gather(table: SubjectTable, subject_idx: torch.Tensor,
 
 
 # ------------------------------------------------------- the CUDA kernel routes
-def forward_batched_pallas_fused_full(params: ManoParams, pose: torch.Tensor,
-                                      shape: torch.Tensor) -> torch.Tensor:
-    """Batched vertices [B, V, 3] float32 with the WHOLE forward in one
-    kernel launch (K1, ``ops/fused_forward.py``); inference only. The
-    name keeps the JAX counterpart's; on a CPU tensor the kernel's plain
-    version runs."""
+def _f32_inputs(params: ManoParams, pose: torch.Tensor, shape: torch.Tensor):
     b = pose.shape[0]
     pose = pose.reshape(b, params.n_joints, 3).to(torch.float32)
     shape = shape.reshape(b, params.n_shape).to(torch.float32)
-    return fused_forward.forward_verts_fused_full(
-        params, pose.contiguous(), shape.contiguous())
+    return pose.contiguous(), shape.contiguous()
+
+
+def forward_batched_pallas(params: ManoParams, pose: torch.Tensor,
+                           shape: torch.Tensor) -> torch.Tensor:
+    """Batched vertices [B, V, 3] float32 with skinning in one kernel
+    launch (K3, ``ops/fused_skin.py``) after the plain PyTorch pre-skinning
+    stages (blendshapes, joint regression, Rodrigues, FK). Differentiable:
+    autograd runs through the pre-stages, and the skinning's backward
+    takes its vertex cotangent from K3 again. The name keeps the JAX
+    counterpart's; on a CPU tensor the kernel's plain version runs."""
+    if pose.shape[0] == 0:
+        return torch.zeros((0, params.n_verts, 3), dtype=torch.float32,
+                           device=params.device)
+    pose, shape = _f32_inputs(params, pose, shape)
+    f32 = torch.float32
+    v_shaped = ops.shape_blend(params.v_template.to(f32),
+                               params.shape_basis.to(f32), shape)
+    joints = ops.regress_joints(params.j_regressor.to(f32), v_shaped)
+    rot = ops.rotation_matrix(pose)
+    v_posed = ops.pose_blend(v_shaped, params.pose_basis.to(f32), rot)
+    world_rot, world_t = ops.forward_kinematics(params.parents, rot, joints)
+    skin_rot, skin_t = ops.skinning_transforms(world_rot, world_t, joints)
+    return fused_skin.skin_batched_ad(
+        params.lbs_weights.to(f32).contiguous(), skin_rot.contiguous(),
+        skin_t.contiguous(), v_posed.contiguous())
+
+
+def forward_batched_pallas_fused(params: ManoParams, pose: torch.Tensor,
+                                 shape: torch.Tensor) -> torch.Tensor:
+    """Batched vertices [B, V, 3] float32: the PyTorch pre-stage, then
+    blend and skin in one kernel launch (K4, ``ops/fused_forward.py``),
+    so v_posed never reaches device memory. Differentiable to pose, shape
+    and the five parameter tensors through the shared hybrid backward."""
+    pose, shape = _f32_inputs(params, pose, shape)
+    return fused_forward.forward_verts_fused_ad(params, pose, shape)
+
+
+def forward_batched_pallas_fused_full(params: ManoParams, pose: torch.Tensor,
+                                      shape: torch.Tensor) -> torch.Tensor:
+    """Batched vertices [B, V, 3] float32 with the WHOLE forward in one
+    kernel launch (K1, ``ops/fused_forward.py``). Differentiable to pose,
+    shape and the five parameter tensors through the shared hybrid
+    backward (its vertex cotangent from K3). The name keeps the JAX
+    counterpart's; on a CPU tensor the kernel's plain version runs."""
+    pose, shape = _f32_inputs(params, pose, shape)
+    return fused_forward.forward_verts_fused_full_ad(params, pose, shape)
+
+
+def forward_chunked(params: ManoParams, pose: torch.Tensor,
+                    shape: torch.Tensor, chunk_size: int = 8192,
+                    use_pallas: bool = False, use_pallas_fused: bool = False,
+                    use_pallas_fused_full: bool = False) -> torch.Tensor:
+    """Huge-batch vertices [B, V, 3], ``chunk_size`` rows at a time.
+
+    Bounds each chunk's intermediates (the plain path's [chunk, V, 3, 3]
+    blend) while every launch stays large. Any batch size works: a
+    trailing partial chunk is zero-padded and the padding sliced off.
+    ``use_pallas_fused_full`` runs each chunk through K1,
+    ``use_pallas_fused`` through K4, ``use_pallas`` through K3 (first
+    flag set wins, in that order); the default is
+    ``forward_batched(...).verts``. Differentiable through every route.
+    """
+    if use_pallas_fused_full:
+        chunk_fn = forward_batched_pallas_fused_full
+    elif use_pallas_fused:
+        chunk_fn = forward_batched_pallas_fused
+    elif use_pallas:
+        chunk_fn = forward_batched_pallas
+    else:
+        def chunk_fn(prm, p, s):
+            return forward_batched(prm, p, s).verts
+    b = pose.shape[0]
+    if b == 0:
+        return chunk_fn(params, pose, shape)
+    pose_c, shape_c, _ = _pad_and_chunk(pose, shape, chunk_size)
+    verts = torch.cat([chunk_fn(params, p, s)
+                       for p, s in zip(pose_c, shape_c)])
+    return verts[:b]
+
+
+def _pad_and_chunk(pose: torch.Tensor, shape: torch.Tensor, chunk_size: int):
+    """Zero-pad the batch to a chunk multiple and reshape to
+    [n_chunks, chunk, ...]; returns (pose, shape, chunk_size)."""
+    b = pose.shape[0]
+    chunk_size = max(1, min(chunk_size, b))   # max(1, ..) keeps B = 0 legal
+    pad = (-b) % chunk_size
+    if pad:
+        pose = torch.cat([pose, pose.new_zeros((pad, *pose.shape[1:]))])
+        shape = torch.cat([shape, shape.new_zeros((pad, *shape.shape[1:]))])
+    n_chunks = (b + pad) // chunk_size
+    return (pose.reshape(n_chunks, chunk_size, *pose.shape[1:]),
+            shape.reshape(n_chunks, chunk_size, *shape.shape[1:]),
+            chunk_size)
 
 
 def forward_posed_gather_fused(table: SubjectTable,

@@ -1,7 +1,8 @@
 """The port's ops: plain PyTorch building blocks of the MANO forward, and
-the two hand-written CUDA kernels (``fused_forward`` K1, ``fused_posed``
-K2) with their plain versions. Importing builds nothing: the kernels
-compile at their first launch (``ops/_build.py``)."""
+the four hand-written CUDA kernels (``fused_forward`` K1 and K4,
+``fused_posed`` K2, ``fused_skin`` K3) with their plain versions.
+Importing builds nothing: the kernels compile at their first launch
+(``ops/_build.py``)."""
 
 from mano_hand_tpu_torch.ops.blend import pose_blend, regress_joints, shape_blend
 from mano_hand_tpu_torch.ops.fk import (

@@ -132,6 +132,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mano_fused_forward.restype = i32
     lib.mano_fused_posed.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
     lib.mano_fused_posed.restype = i32
+    lib.mano_skin.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.mano_skin.restype = i32
+    lib.mano_blend_skin.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.mano_blend_skin.restype = i32
     lib.mano_cuda_error_string.argtypes = [i32]
     lib.mano_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,31 +13,46 @@ no counterpart here: fp32 FFMA is exact to f32 rounding already.)
 
 from __future__ import annotations
 
+import functools
 import threading
 import weakref
+from typing import Tuple
 
 import torch
 
 
+def _versions(tensors) -> tuple:
+    # Inference tensors keep no version counter (they cannot be updated
+    # in place outside inference mode).
+    return tuple(-1 if t.is_inference() else t._version for t in tensors)
+
+
 class IdentityCache:
-    """Values derived from an object, cached while that object lives.
+    """Values derived from an object, cached while that object lives and
+    the tensors they were built from are unchanged.
 
     Keyed by identity (tensors and ``ManoParams`` compare elementwise or
     by identity, so a ``WeakKeyDictionary`` cannot hold tensors); an
-    entry is dropped when its key object is collected. For per-asset
-    packing that must not be redone per call.
+    entry is dropped when its key object is collected. Each entry also
+    records the ``_version`` counters of ``sources(obj)`` (by default the
+    key itself, a tensor): an in-place update of any of them — an
+    optimizer step on a parameter — rebuilds the value instead of serving
+    a stale one. For per-asset packing that must not be redone per call.
+    ``build`` must not return tensors that carry autograd history.
     """
 
-    def __init__(self):
+    def __init__(self, sources=lambda obj: (obj,)):
+        self._sources = sources
         self._entries: dict = {}
         self._lock = threading.Lock()
 
     def get(self, obj, build):
         key = id(obj)
+        versions = _versions(self._sources(obj))
         with self._lock:
             hit = self._entries.get(key)
-        if hit is not None and hit[0]() is obj:
-            return hit[1]
+        if hit is not None and hit[0]() is obj and hit[1] == versions:
+            return hit[2]
         value = build(obj)
         entries = self._entries
 
@@ -45,8 +60,47 @@ class IdentityCache:
             entries.pop(key, None)
 
         with self._lock:
-            self._entries[key] = (weakref.ref(obj, drop), value)
+            self._entries[key] = (weakref.ref(obj, drop), versions, value)
         return value
+
+
+@functools.lru_cache(maxsize=None)
+def parents_tensor(parents: Tuple[int, ...],
+                   device: torch.device) -> torch.Tensor:
+    """The kinematic tree as an int32 ``[J]`` tensor on ``device`` (one
+    host copy per tree and device, ever)."""
+    return torch.tensor(parents, dtype=torch.int32, device=device)
+
+
+#: The largest kinematic tree the kernels' shared-memory tiles hold
+#: (``kMaxJoints`` in ``csrc/mano_common.cuh``).
+MAX_JOINTS = 64
+
+
+def refuse_grad(what: str, instead: str, *tensors) -> None:
+    """Raise if a raw kernel call would silently drop a gradient: under
+    grad mode, none of ``tensors`` may require grad (the differentiable
+    form is ``instead``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{what} is the inference only kernel call and records no "
+            f"gradient; use {instead} for gradients")
+
+
+def check_operands(want: dict, device: torch.device) -> None:
+    """Raise unless every ``name: (tensor, shape)`` of ``want`` has that
+    shape and is float32, contiguous and on ``device`` (the layout the
+    kernels index)."""
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(
+                f"{name} must be {list(shape)}, got {list(x.shape)}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
 
 
 def cdiv(a: int, b: int) -> int:

@@ -1,6 +1,7 @@
-"""K1: the whole batched MANO forward in one CUDA launch.
+"""K1 and K4: the batched MANO forward in one CUDA launch, and the shared
+backward of the two fused routes.
 
-Replaces the TPU kernel ``mano_hand_tpu/ops/pallas_forward.py:
+K1 replaces the TPU kernel ``mano_hand_tpu/ops/pallas_forward.py:
 forward_verts_fused_full`` (``pallas_call`` at line 723). The kernel
 (``csrc/fused_forward.cu``, device functions in ``csrc/mano_common.cuh``)
 computes, per (batch tile, vertex tile) block: Rodrigues, the shaped rest
@@ -8,20 +9,37 @@ joints ``[beta | 1] . jb``, FK along ``parents``, the inverse bind, the
 blend ``[beta | 1 | (R - I)] . basis`` and linear blend skinning, writing
 ``[B, V, 3]`` fp32.
 
-What bounds it on an H100: fp32 operations (about 1 MFLOP a row against
-9.3 KB written — see the source note in the ``.cu`` file). This first
-version keeps every intermediate on chip and uses plain fp32 FFMA; making
-it fast (wider register tiles, tensor cores under a stated precision) is
-later work.
+K4 replaces ``pallas_forward.py:blend_skin_fused`` (``pallas_call`` at
+lines 228 and 239): the blend and the skinning in one launch
+(``csrc/blend_skin.cu``), fed the per-row coefficients and skinning
+transforms by the small PyTorch ``pre_stage`` (Rodrigues, shaped joints,
+FK, inverse bind; ``pallas_forward.py:_pre_stage``).
 
-Operand prep is cached per ``ManoParams`` object: the packed basis
-``[Kpad, 3, V]`` (rows: shape basis, template, pose basis in the
+What bounds both on an H100: fp32 operations (about 1 MFLOP a row against
+9.3 KB written — see the source notes in the ``.cu`` files). Both keep
+v_posed on chip and use plain fp32 FFMA; making them fast (wider
+register tiles, tensor cores under a stated precision) is later work.
+
+Gradients: ``forward_verts_fused_ad`` (K4 forward) and
+``forward_verts_fused_full_ad`` (K1 forward) are autograd Functions with
+one backward, ``pallas_forward.py:_bwd``: the pre-stage re-runs under
+autograd, the vertex cotangent comes from the skinning kernel K3
+(``ops/fused_skin.py``) with ``R^T`` and ``t = 0``, the coefficient
+cotangent from one product with the packed basis, and the parameter
+cotangents (``v_template``, ``shape_basis``, ``pose_basis``,
+``j_regressor``, ``lbs_weights``) only where autograd asks for them.
+
+Operand prep is cached per ``ManoParams`` object and rebuilt on the
+params' device when one of its tensors changes in place: the packed
+basis ``[Kpad, 3, V]`` (rows: shape basis, template, pose basis in the
 reference's row-major (R - I) order, zero padding to a multiple of 4),
 the weights ``[J, V]`` and the joint basis ``[J, 3, S + 1]`` (last column
-the template joints).
+the template joints). A repack moves about 1.4 MB on the card and never
+goes through the host.
 
-``forward_verts_plain`` is the same arithmetic in plain PyTorch over the
-same operands: the CPU path and the kernel's reference on the card.
+``forward_verts_plain`` and ``blend_skin_plain`` are the same arithmetic
+in plain PyTorch over the same operands: the CPU path and the kernels'
+references on the card.
 """
 
 from __future__ import annotations
@@ -31,17 +49,21 @@ import threading
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from mano_hand_tpu_torch.ops import _build, fk, lbs
-from mano_hand_tpu_torch.ops.common import IdentityCache, cdiv
+from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS, ManoParams
+from mano_hand_tpu_torch.ops import _build, fk, fused_skin, lbs
+from mano_hand_tpu_torch.ops.common import (
+    MAX_JOINTS, IdentityCache, cdiv, check_operands, parents_tensor,
+    refuse_grad,
+)
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
-#: Kernel launches so far (the main-path evidence; reset it to 0 freely).
+#: K1 launches so far (the main-path evidence; reset it to 0 freely).
 launches = 0
+#: K4 launches so far.
+blend_skin_launches = 0
 _count_lock = threading.Lock()
-
-#: The largest kinematic tree the kernel's shared-memory tile holds.
-MAX_JOINTS = 64
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -65,18 +87,22 @@ class FusedOperands:
     def n_shape(self) -> int:
         return self.jb.shape[-1] - 1
 
+    @property
+    def kpad(self) -> int:
+        return self.basis.shape[0]
+
 
 def _pack(params) -> FusedOperands:
-    # Packed once per asset, in float64 on the host, then moved: no
-    # library contraction runs on the card for the kernel route.
-    def host(t):
-        return t.detach().to("cpu", torch.float64)
+    # Packed on the params' device, the joint products in float64 so the
+    # packing adds no rounding of its own. No library contraction of the
+    # kernels' own work runs here: these are per-asset constants.
+    def f64(t):
+        return t.detach().to(torch.float64)
 
-    shape_basis = host(params.shape_basis)              # [V, 3, S]
-    pose_basis = host(params.pose_basis)                # [V, 3, P]
-    v_template = host(params.v_template)                # [V, 3]
-    j_reg = host(params.j_regressor)                    # [J, V]
-    dev = params.device
+    shape_basis = f64(params.shape_basis)               # [V, 3, S]
+    pose_basis = f64(params.pose_basis)                 # [V, 3, P]
+    v_template = f64(params.v_template)                 # [V, 3]
+    j_reg = f64(params.j_regressor)                     # [J, V]
     v, _, s = shape_basis.shape
     k = s + 1 + pose_basis.shape[-1]
     kpad = cdiv(k, 4) * 4
@@ -90,55 +116,70 @@ def _pack(params) -> FusedOperands:
     jsb = torch.einsum("jv,vcs->jcs", j_reg, shape_basis)
     jb = torch.cat([jsb, jt[..., None]], dim=-1)
     return FusedOperands(
-        basis=basis.float().contiguous().to(dev),
-        wt=params.lbs_weights.T.float().contiguous(),
-        jb=jb.float().contiguous().to(dev),
-        parents=torch.tensor(params.parents, dtype=torch.int32, device=dev),
+        basis=basis.float().contiguous(),
+        wt=params.lbs_weights.detach().T.float().contiguous(),
+        jb=jb.float().contiguous(),
+        parents=parents_tensor(tuple(params.parents), params.device),
         parents_tuple=tuple(params.parents),
         n_coef=k,
     )
 
 
-_operands = IdentityCache()
+_operands = IdentityCache(sources=ManoParams.forward_tensors)
 
 
 def fused_operands(params) -> FusedOperands:
-    """The packed, batch-invariant operands of ``params`` (cached)."""
+    """The packed, batch-invariant operands of ``params`` (cached while
+    its tensors are unchanged)."""
     return _operands.get(params, _pack)
 
 
-def coefficients(ops: FusedOperands, rot: torch.Tensor,
-                 shape: torch.Tensor) -> torch.Tensor:
+def coefficients(rot: torch.Tensor, shape: torch.Tensor,
+                 kpad: int) -> torch.Tensor:
     """The per-row blend coefficients ``[beta | 1 | (R - I) | 0]``
-    [B, Kpad] in the packed basis' row order."""
+    [B, kpad] in the packed basis' row order."""
     b = rot.shape[0]
     eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
-    pad = ops.basis.shape[0] - ops.n_coef
-    return torch.cat([
-        shape, shape.new_ones(b, 1),
-        (rot[:, 1:] - eye).flatten(1), shape.new_zeros(b, pad),
-    ], dim=1)
+    feat = (rot[:, 1:] - eye).flatten(1)
+    pad = kpad - shape.shape[1] - 1 - feat.shape[1]
+    return torch.cat([shape, shape.new_ones(b, 1), feat,
+                      shape.new_zeros(b, pad)], dim=1)
+
+
+def pre_stage(parents: Tuple[int, ...], jt: torch.Tensor, jsb: torch.Tensor,
+              pose: torch.Tensor, shape: torch.Tensor, kpad: int):
+    """The small per-row stage before K4 (``pallas_forward._pre_stage``):
+    Rodrigues, the shaped rest joints ``jt + jsb . beta``, FK and the
+    inverse bind. Returns (coefficients [B, kpad], skinning rotations
+    [B, J, 3, 3], skinning translations [B, J, 3]); differentiable."""
+    rot = rotation_matrix(pose)                           # [B, J, 3, 3]
+    joints = jt + torch.einsum("jcs,bs->bjc", jsb, shape)
+    world_rot, world_t = fk.forward_kinematics(parents, rot, joints)
+    skin_rot, skin_t = fk.skinning_transforms(world_rot, world_t, joints)
+    return coefficients(rot, shape, kpad), skin_rot, skin_t
+
+
+def _packed_pre_stage(ops: FusedOperands, pose, shape):
+    s = ops.n_shape
+    return pre_stage(ops.parents_tuple, ops.jb[..., s], ops.jb[..., :s],
+                     pose, shape, ops.kpad)
+
+
+def blend_skin_plain(ops: FusedOperands, coef: torch.Tensor,
+                     skin_rot: torch.Tensor,
+                     skin_t: torch.Tensor) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch: [B, V, 3]."""
+    v_posed = torch.einsum("bk,kcv->bvc", coef, ops.basis)
+    return lbs.skin(ops.wt.T, skin_rot, skin_t, v_posed)
 
 
 def forward_verts_plain(ops: FusedOperands, pose: torch.Tensor,
                         shape: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: [B, V, 3]."""
-    s = ops.n_shape
-    rot = rotation_matrix(pose)                           # [B, J, 3, 3]
-    coef = coefficients(ops, rot, shape)
-    v_posed = torch.einsum("bk,kcv->bvc", coef, ops.basis)
-    joints = ops.jb[..., s] + torch.einsum(
-        "jcs,bs->bjc", ops.jb[..., :s], shape)
-    world_rot, world_t = fk.forward_kinematics(ops.parents_tuple, rot, joints)
-    _, skin_t = fk.skinning_transforms(world_rot, world_t, joints)
-    return lbs.skin(ops.wt.T, world_rot, skin_t, v_posed)
+    """K1's arithmetic in plain PyTorch: [B, V, 3]."""
+    return blend_skin_plain(ops, *_packed_pre_stage(ops, pose, shape))
 
 
 def _check(ops: FusedOperands, pose: torch.Tensor, shape: torch.Tensor):
-    if pose.requires_grad or shape.requires_grad:
-        raise ValueError(
-            "the fused forward is inference only (no backward yet); use "
-            "core.forward_batched for gradients")
     b, j, s = pose.shape[0], ops.n_joints, ops.n_shape
     if tuple(pose.shape) != (b, j, 3):
         raise ValueError(f"pose must be [B, {j}, 3], got {tuple(pose.shape)}")
@@ -169,12 +210,16 @@ def check_tree(parents: Tuple[int, ...]) -> None:
 
 def forward_verts_fused_full(params, pose: torch.Tensor,
                              shape: torch.Tensor) -> torch.Tensor:
-    """Batched vertices [B, V, 3] with the whole forward in one launch.
+    """Batched vertices [B, V, 3] with the whole forward in one launch
+    (K1).
 
     ``pose`` [B, J, 3] and ``shape`` [B, S], float32, on the params'
     device. A CPU tensor runs ``forward_verts_plain``; a CUDA tensor
-    launches the kernel (or raises).
+    launches the kernel (or raises). Records no gradient: see
+    ``forward_verts_fused_full_ad``.
     """
+    refuse_grad("forward_verts_fused_full", "forward_verts_fused_full_ad",
+                pose, shape, *params.forward_tensors())
     ops = fused_operands(params)
     _check(ops, pose, shape)
     dev = pose.device
@@ -193,10 +238,176 @@ def forward_verts_fused_full(params, pose: torch.Tensor,
         rc = lib.mano_fused_forward(
             pose.data_ptr(), shape.data_ptr(), ops.basis.data_ptr(),
             ops.wt.data_ptr(), ops.jb.data_ptr(), ops.parents.data_ptr(),
-            out.data_ptr(), b, v, ops.n_joints, ops.n_shape,
-            ops.basis.shape[0], stream)
+            out.data_ptr(), b, v, ops.n_joints, ops.n_shape, ops.kpad,
+            stream)
     _build.check(lib, rc, "fused_forward")
     global launches
     with _count_lock:
         launches += 1
     return out
+
+
+def blend_skin_fused(ops: FusedOperands, coef: torch.Tensor,
+                     skin_rot: torch.Tensor,
+                     skin_t: torch.Tensor) -> torch.Tensor:
+    """Blend + skin in one launch (K4): [B, V, 3] from the coefficients
+    ``coef`` [B, Kpad] (``coefficients`` order) and the skinning
+    transforms ``skin_rot`` [B, J, 3, 3], ``skin_t`` [B, J, 3], float32
+    and contiguous on the operands' device. A CPU tensor runs
+    ``blend_skin_plain``; a CUDA tensor launches the kernel (or raises).
+    Records no gradient."""
+    refuse_grad("blend_skin_fused", "forward_verts_fused_ad", coef,
+                skin_rot, skin_t)
+    b, j = coef.shape[0], ops.n_joints
+    check_operands({"coef": (coef, (b, ops.kpad)),
+                    "skin_rot": (skin_rot, (b, j, 3, 3)),
+                    "skin_t": (skin_t, (b, j, 3))}, ops.basis.device)
+    dev = coef.device
+    if dev.type == "cpu":
+        return blend_skin_plain(ops, coef, skin_rot, skin_t)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((b, ops.n_verts, 3), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mano_blend_skin(
+            coef.data_ptr(), skin_rot.data_ptr(), skin_t.data_ptr(),
+            ops.basis.data_ptr(), ops.wt.data_ptr(), out.data_ptr(), b,
+            ops.n_verts, j, ops.kpad, stream)
+    _build.check(lib, rc, "blend_skin")
+    global blend_skin_launches
+    with _count_lock:
+        blend_skin_launches += 1
+    return out
+
+
+def forward_verts_fused(params, pose: torch.Tensor,
+                        shape: torch.Tensor) -> torch.Tensor:
+    """Batched vertices [B, V, 3]: the PyTorch ``pre_stage``, then blend
+    and skin in one launch (K4). Same contract as
+    ``forward_verts_fused_full``; records no gradient (see
+    ``forward_verts_fused_ad``)."""
+    refuse_grad("forward_verts_fused", "forward_verts_fused_ad", pose,
+                shape, *params.forward_tensors())
+    ops = fused_operands(params)
+    _check(ops, pose, shape)
+    coef, skin_rot, skin_t = _packed_pre_stage(ops, pose, shape)
+    return blend_skin_fused(ops, coef.contiguous(), skin_rot.contiguous(),
+                            skin_t.contiguous())
+
+
+# ------------------------------------------------------------- the backward
+def _fused_backward(ctx, g):
+    """``pallas_forward.py:_bwd``: cotangents (pose, shape, *the five
+    parameter tensors*) for the vertex cotangent ``g`` [B, V, 3]."""
+    names = ("pose", "shape") + FORWARD_FIELDS
+    need = dict(zip(names, ctx.needs_input_grad[1:]))
+    saved = dict(zip(names, ctx.saved_tensors))
+    ops = fused_operands(ctx.params)
+    s = ops.n_shape
+    g = g.float().contiguous()
+    f32 = torch.float32
+
+    # The pre-stage re-runs under autograd on detached leaves (the
+    # counterpart of jax.vjp(pre_p, ...)); its joint operands come from
+    # the parameters themselves so their cotangents flow.
+    pre_names = ("pose", "shape", "v_template", "shape_basis", "j_regressor")
+    with torch.enable_grad():
+        leaf = {n: saved[n].detach().requires_grad_(need[n])
+                for n in pre_names}
+        j_reg = leaf["j_regressor"].to(f32)
+        jt = j_reg @ leaf["v_template"].to(f32)
+        jsb = torch.einsum("jv,vcs->jcs", j_reg,
+                           leaf["shape_basis"].to(f32))
+        coef, skin_rot, skin_t = pre_stage(ops.parents_tuple, jt, jsb,
+                                           leaf["pose"], leaf["shape"],
+                                           ops.kpad)
+    coef_d = coef.detach()
+    rot_d, t_d = skin_rot.detach(), skin_t.detach()
+    w = saved["lbs_weights"].detach().to(f32).contiguous()
+    need_basis = any(need[n] for n in ("v_template", "shape_basis",
+                                       "pose_basis"))
+
+    # Vertex cotangent dL/dv_posed from K3 (R^T, t = 0); then the
+    # coefficient cotangent through the packed basis. v_posed is rebuilt
+    # (one product) only for the rotation and weight cotangents.
+    needs = (need["lbs_weights"], skin_rot.requires_grad,
+             skin_t.requires_grad, coef.requires_grad or need_basis)
+    v_posed = (torch.einsum("bk,kcv->bvc", coef_d, ops.basis)
+               if needs[0] or needs[1] else None)
+    grad_w, grad_rot, grad_t, grad_vp = fused_skin.skin_vjp(
+        w, rot_d, t_d, v_posed, g, needs=needs)
+    pairs = [(skin_rot, grad_rot), (skin_t, grad_t)]
+    if coef.requires_grad:
+        pairs.append((coef, torch.einsum("bvc,kcv->bk", grad_vp, ops.basis)))
+    wanted = [n for n in pre_names if need[n]]
+    pairs = [(o, c) for o, c in pairs if o.requires_grad]
+    grads = dict.fromkeys(names)
+    if pairs and wanted:
+        outs, cots = zip(*pairs)
+        got = torch.autograd.grad(outs, [leaf[n] for n in wanted], cots,
+                                  allow_unused=True)
+        grads.update(zip(wanted, got))
+
+    # Direct vertex-path parameter cotangents, added on top: the weights
+    # (skin_vjp) and the packed basis, unpacked through the port's
+    # [shape | template | pose | pad] row order.
+    grads["lbs_weights"] = grad_w
+    if need_basis:
+        grad_basis = torch.einsum("bk,bvc->kcv", coef_d, grad_vp)
+        p = ops.n_coef - s - 1
+        direct = {"shape_basis": grad_basis[:s].permute(2, 1, 0),
+                  "v_template": grad_basis[s].T,
+                  "pose_basis": grad_basis[s + 1:s + 1 + p].permute(2, 1, 0)}
+        for n, d in direct.items():
+            if need[n]:
+                grads[n] = d if grads[n] is None else grads[n] + d
+    return tuple(None if grads[n] is None else grads[n].to(saved[n].dtype)
+                 for n in names)
+
+
+class FusedVerts(torch.autograd.Function):
+    """``forward_verts_fused`` (K4) with the hybrid backward
+    (``pallas_forward.forward_verts_fused_ad``). Inputs: the params
+    object (not differentiated), pose, shape, then the ``FORWARD_FIELDS``
+    tensors so autograd routes their cotangents."""
+
+    @staticmethod
+    def forward(ctx, params, pose, shape, *param_tensors):
+        ctx.params = params
+        ctx.save_for_backward(pose, shape, *param_tensors)
+        return forward_verts_fused(params, pose, shape)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return (None, *_fused_backward(ctx, g))
+
+
+class FusedVertsFull(FusedVerts):
+    """``forward_verts_fused_full`` (K1) with the same backward
+    (``pallas_forward.forward_verts_fused_full_ad``)."""
+
+    @staticmethod
+    def forward(ctx, params, pose, shape, *param_tensors):
+        ctx.params = params
+        ctx.save_for_backward(pose, shape, *param_tensors)
+        return forward_verts_fused_full(params, pose, shape)
+
+
+def forward_verts_fused_ad(params, pose: torch.Tensor,
+                           shape: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``forward_verts_fused``: gradients reach pose, shape
+    and the five parameter tensors (once differentiable)."""
+    return FusedVerts.apply(params, pose, shape, *params.forward_tensors())
+
+
+def forward_verts_fused_full_ad(params, pose: torch.Tensor,
+                                shape: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``forward_verts_fused_full``: gradients reach pose,
+    shape and the five parameter tensors (once differentiable)."""
+    return FusedVertsFull.apply(params, pose, shape,
+                                *params.forward_tensors())

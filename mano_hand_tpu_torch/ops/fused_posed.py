@@ -19,19 +19,18 @@ Out-of-range indices are CLAMPED to ``[0, C - 1]`` — by the kernel, by
 
 Operand prep (the pose basis packed ``[Ppad, 3, V]`` in the reference's
 row-major (R - I) order, the weights ``[J, V]``) is cached per asset
-tensor, so every functional table update reuses it.
+tensor, so every functional table update reuses it; an in-place update
+of ``pose_basis`` or ``lbs_weights`` repacks it.
 """
 
 from __future__ import annotations
 
-import functools
 import threading
-from typing import Tuple
 
 import torch
 
 from mano_hand_tpu_torch.ops import _build, fk, lbs
-from mano_hand_tpu_torch.ops.common import IdentityCache, cdiv
+from mano_hand_tpu_torch.ops.common import IdentityCache, cdiv, parents_tensor
 from mano_hand_tpu_torch.ops.fused_forward import check_tree
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
@@ -41,6 +40,7 @@ _count_lock = threading.Lock()
 
 
 def _pack_pose_basis(pose_basis: torch.Tensor) -> torch.Tensor:
+    pose_basis = pose_basis.detach()
     v, _, p = pose_basis.shape
     ppad = cdiv(p, 4) * 4
     return torch.cat([
@@ -50,24 +50,19 @@ def _pack_pose_basis(pose_basis: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_weights(lbs_weights: torch.Tensor) -> torch.Tensor:
-    return lbs_weights.T.float().contiguous()
+    return lbs_weights.detach().T.float().contiguous()
 
 
 _bases = IdentityCache()
 _weights = IdentityCache()
 
 
-@functools.lru_cache(maxsize=None)
-def _parents_tensor(parents: Tuple[int, ...], device: torch.device):
-    return torch.tensor(parents, dtype=torch.int32, device=device)
-
-
 def posed_operands(table):
     """``(pose_basis2 [Ppad, 3, V], wt [J, V], parents [J] int32)`` of a
-    table's shared asset tensors (cached per tensor)."""
+    table's shared asset tensors (cached per tensor while unchanged)."""
     return (_bases.get(table.pose_basis, _pack_pose_basis),
             _weights.get(table.lbs_weights, _pack_weights),
-            _parents_tensor(tuple(table.parents), table.v_shaped.device))
+            parents_tensor(tuple(table.parents), table.v_shaped.device))
 
 
 def forward_posed_gather_plain(v_shaped, joints, idx, pose, pose_basis2,

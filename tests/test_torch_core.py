@@ -11,6 +11,8 @@ Tolerances:
   subject: <= 1e-5 (the same arithmetic regrouped).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from mano_hand_tpu.assets import synthetic_params as jax_synthetic
 from mano_hand_tpu.models import core as jcore
 from mano_hand_tpu.models import oracle as joracle
 from mano_hand_tpu_torch.assets import synthetic_params
+from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS as FIELDS
 from mano_hand_tpu_torch.models import core, oracle
 
 TOL = 1e-5
@@ -184,3 +187,50 @@ def test_subject_table_ops_are_functional(assets):
         core.subject_table(tp, 0)
     with pytest.raises(ValueError):
         core.stack_shaped([])
+
+
+def test_parameter_sgd_steps_through_forward_batched(assets):
+    """Training the five parameter tensors through the default (fused)
+    ``forward_batched``: every step runs (the fused bases are never
+    cached with autograd history, so a second backward does not reach a
+    freed graph) and every step's vertices equal the unfused path's on
+    the parameters as they are then (no stale cached bases); <= 1e-5."""
+    _, tp, _ = assets
+    leaves = {f: getattr(tp, f).clone().requires_grad_(True) for f in FIELDS}
+    prm = dataclasses.replace(tp, **leaves)
+    pose, beta = _inputs(4, seed=8)
+    pose, beta = torch.from_numpy(pose), torch.from_numpy(beta)
+    target = torch.from_numpy(_inputs(4, seed=9)[0])
+    target = core.forward_batched(tp, target, beta).verts
+    opt = torch.optim.SGD(list(leaves.values()), lr=1e-3)
+    first = leaves["v_template"].detach().clone()
+    for _ in range(3):
+        verts = core.forward_batched(prm, pose, beta).verts
+        with torch.no_grad():
+            unfused = core.forward_batched(prm, pose, beta,
+                                           fused=False).verts
+        assert _err(verts.detach(), unfused) <= TOL
+        opt.zero_grad()
+        ((verts - target) ** 2).sum().backward()
+        opt.step()
+    assert float((leaves["v_template"].detach() - first).abs().max()) > 0
+    # Under no_grad the same (updated) params take the cached bases.
+    with torch.no_grad():
+        cached = core.forward_batched(prm, pose, beta).verts
+        again = core.forward_batched(prm, pose, beta).verts
+        unfused = core.forward_batched(prm, pose, beta, fused=False).verts
+        assert core.fused_blend_bases(prm)[0].grad_fn is None
+    assert torch.equal(cached, again) and _err(cached, unfused) <= TOL
+
+
+def test_fused_bases_cache_follows_in_place_updates(assets):
+    _, tp, _ = assets
+    prm = dataclasses.replace(
+        tp, **{f: getattr(tp, f).clone() for f in FIELDS})
+    first = core.fused_blend_bases(prm)
+    assert core.fused_blend_bases(prm)[0] is first[0]
+    with torch.no_grad():
+        prm.shape_basis.mul_(1.5)
+    again = core.fused_blend_bases(prm)
+    assert again[0] is not first[0]
+    assert torch.allclose(again[0][:, :10], 1.5 * first[0][:, :10])

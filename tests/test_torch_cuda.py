@@ -11,16 +11,22 @@ imports JAX), registering the marker on the command line:
 Shapes cover what ``chip_smoke.py`` does not: ragged and tiny batches,
 generic kinematic trees (J = 7 and J = 40), a one-row subject table and
 out-of-range subject indices. Tolerance: kernel vs plain version, both
-fp32 FFMA with TF32 off, <= 1e-5 (summation order only).
+fp32 FFMA with TF32 off, <= 1e-5 (summation order only). Gradients
+through the three kernel routes against autograd of the plain path: the
+JAX tests' relative bar, max|a - b| / max(1, max|b|) < 1e-4.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
 from mano_hand_tpu_torch.assets import synthetic_params
+from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS as FIELDS
 from mano_hand_tpu_torch.models import core
-from mano_hand_tpu_torch.ops import fused_forward, fused_posed
+from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 from mano_hand_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -153,3 +159,106 @@ def test_engine_serves_pose_only_through_k2(dev):
         want = core.forward_posed_batched(
             shaped, torch.from_numpy(p).to(dev)).verts
         assert _err(torch.from_numpy(o), want) <= TOL
+
+
+def _skin_inputs(b, v, j, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.random((v, j)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    arrays = (w, rng.normal(size=(b, j, 3, 3)).astype(np.float32),
+              rng.normal(size=(b, j, 3)).astype(np.float32),
+              rng.normal(scale=0.1, size=(b, v, 3)).astype(np.float32))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("b,v,j", [(1, 778, 16), (45, 778, 16),
+                                   (1000, 778, 16), (45, 300, 7),
+                                   (45, 300, 40)])
+def test_k3_kernel_matches_plain(dev, b, v, j):
+    args = _skin_inputs(b, v, j, dev, seed=b + j)
+    before = fused_skin.launches
+    got = fused_skin.skin_batched(*args)
+    torch.cuda.synchronize()
+    assert fused_skin.launches == before + 1
+    want = fused_skin.skin_batched_plain(*args)
+    assert got.shape == (b, v, 3)
+    assert _err(got, want) <= TOL
+
+
+def _k4(params, b, seed=0):
+    rng = np.random.default_rng(seed)
+    pose = torch.from_numpy(rng.normal(
+        scale=0.5, size=(b, params.n_joints, 3)).astype(np.float32))
+    shape = torch.from_numpy(rng.normal(
+        size=(b, params.n_shape)).astype(np.float32))
+    dev = params.device
+    before = fused_forward.blend_skin_launches
+    got = core.forward_batched_pallas_fused(params, pose.to(dev),
+                                            shape.to(dev))
+    torch.cuda.synchronize()
+    assert fused_forward.blend_skin_launches == before + 1
+    want = fused_forward.forward_verts_plain(
+        fused_forward.fused_operands(params), pose.to(dev), shape.to(dev))
+    return got, want
+
+
+@pytest.mark.parametrize("b", [1, 45, 1000])
+def test_k4_kernel_matches_plain(dev, b):
+    got, want = _k4(_params(dev), b)
+    assert got.shape == (b, 778, 3) and bool(torch.isfinite(got).all())
+    assert _err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("n_joints", [7, 40])
+def test_k4_generic_tree(dev, n_joints):
+    params = _params(dev, n_joints=n_joints, n_verts=300)
+    got, want = _k4(params, 45, seed=n_joints)
+    assert got.shape == (45, 300, 3)
+    assert _err(got, want) <= TOL
+
+
+ROUTES = ("forward_batched_pallas", "forward_batched_pallas_fused",
+          "forward_batched_pallas_fused_full")
+
+
+def _grads(params, route, pose, shape):
+    leaves = {f: getattr(params, f).clone().requires_grad_(True)
+              for f in FIELDS}
+    prm = dataclasses.replace(params, **leaves)
+    pose = pose.clone().requires_grad_(True)
+    shape = shape.clone().requires_grad_(True)
+    if route is None:
+        out = core.forward_batched(prm, pose, shape).verts
+    else:
+        out = getattr(core, route)(prm, pose, shape)
+    (out * out).sum().backward()
+    return {"pose": pose.grad, "shape": shape.grad,
+            **{f: leaves[f].grad for f in FIELDS}}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_route_grads_match_plain_autograd(dev, route):
+    params = _params(dev)
+    rng = np.random.default_rng(11)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(64, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(64, 10)).astype(
+        np.float32)).to(dev)
+    k3 = fused_skin.launches
+    got = _grads(params, route, pose, shape)
+    torch.cuda.synchronize()
+    assert fused_skin.launches >= k3 + 1     # the backward's K3
+    want = _grads(params, None, pose, shape)
+    for name, b in want.items():
+        a = got[name]
+        rel = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        assert rel < 1e-4, (name, rel)
+        assert float(b.abs().max()) > 0, name
+
+
+def test_k3_wrapper_raises_on_a_strided_rotation(dev):
+    w, rot, t, vp = _skin_inputs(4, 778, 16, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_skin.skin_batched(w, rot.transpose(-1, -2), t, vp)
+    with pytest.raises(ValueError, match="inference only"):
+        fused_skin.skin_batched(w, rot.requires_grad_(True), t, vp)

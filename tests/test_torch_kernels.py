@@ -26,8 +26,9 @@ from mano_hand_tpu.assets import synthetic_params as jax_synthetic
 from mano_hand_tpu.models import core as jcore
 from mano_hand_tpu.ops import pallas_forward, pallas_posed
 from mano_hand_tpu_torch.assets import synthetic_params
+from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS
 from mano_hand_tpu_torch.models import core
-from mano_hand_tpu_torch.ops import fused_forward, fused_posed
+from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 
 TOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +49,9 @@ def assets():
 @pytest.fixture(autouse=True)
 def _zero_counts():
     fused_forward.launches = 0
+    fused_forward.blend_skin_launches = 0
     fused_posed.launches = 0
+    fused_skin.launches = 0
 
 
 def _inputs(b, seed=0):
@@ -197,13 +200,131 @@ def test_k2_wrapper_rejects(assets, case, exc, match):
         fused_posed.forward_posed_gather_fused(ttab, idx, pose, **kw)
 
 
+@pytest.mark.parametrize("field", ["v_template", "pose_basis",
+                                   "lbs_weights"])
+@pytest.mark.parametrize("route", ["K1", "K4", "K2"])
+def test_kernel_routes_follow_in_place_param_updates(assets, route, field):
+    """After an in-place update of a parameter tensor (an optimizer
+    step), the packed operands are rebuilt: each route (its plain version
+    on the CPU) follows the unfused path to <= 1e-5. K2's table shares
+    ``pose_basis`` and ``lbs_weights`` with the params; its baked
+    ``v_shaped`` is re-baked after a template update, as the engine does."""
+    _, tp = assets
+    prm = dataclasses.replace(
+        tp, **{f: getattr(tp, f).clone() for f in FORWARD_FIELDS})
+    pose, beta = _inputs(4, seed=10)
+    pose, beta = torch.from_numpy(pose), torch.from_numpy(beta)
+    idx = torch.tensor([2, 0, 1, 2], dtype=torch.int32)
+
+    def table():
+        return core.stack_shaped([core.specialize(prm, b) for b in beta[:3]])
+
+    tab = table()
+
+    def run():
+        if route == "K1":
+            return core.forward_batched_pallas_fused_full(prm, pose, beta)
+        if route == "K4":
+            return core.forward_batched_pallas_fused(prm, pose, beta)
+        return core.forward_posed_gather_fused(tab, idx, pose)
+
+    before = run()
+    delta = torch.from_numpy(np.random.default_rng(11).normal(
+        scale=0.01, size=tuple(getattr(prm, field).shape)).astype(np.float32))
+    with torch.no_grad():
+        getattr(prm, field).add_(delta)
+    if route == "K2" and field == "v_template":
+        tab = table()
+    got = run()
+    rows = beta[idx.long()] if route == "K2" else beta
+    want = core.forward_batched(prm, pose, rows, fused=False).verts
+    assert _err(got, want) <= TOL
+    assert _err(got, before) > 1e-3                    # it really moved
+    assert (fused_forward.launches, fused_forward.blend_skin_launches,
+            fused_posed.launches) == (0, 0, 0)
+
+
+def test_k4_plain_matches_port_core(assets):
+    _, tp = assets
+    pose, beta = _inputs(6, seed=12)
+    got = core.forward_batched_pallas_fused(
+        tp, torch.from_numpy(pose.reshape(6, 48)), torch.from_numpy(beta))
+    want = core.forward_batched(tp, torch.from_numpy(pose),
+                                torch.from_numpy(beta)).verts
+    assert got.shape == (6, 778, 3) and _err(got, want) <= TOL
+    empty = core.forward_batched_pallas_fused(
+        tp, torch.zeros(0, 16, 3), torch.zeros(0, 10))
+    assert empty.shape == (0, 778, 3)
+    assert fused_forward.blend_skin_launches == 0
+
+
+def test_k3_plain_matches_port_core(assets):
+    _, tp = assets
+    pose, beta = _inputs(6, seed=13)
+    got = core.forward_batched_pallas(tp, torch.from_numpy(pose),
+                                      torch.from_numpy(beta))
+    want = core.forward_batched(tp, torch.from_numpy(pose),
+                                torch.from_numpy(beta)).verts
+    assert got.shape == (6, 778, 3) and _err(got, want) <= TOL
+    empty = core.forward_batched_pallas(tp, torch.zeros(0, 16, 3),
+                                        torch.zeros(0, 10))
+    assert empty.shape == (0, 778, 3)
+    assert fused_skin.launches == 0
+
+
+@pytest.mark.parametrize("case,match", [
+    ("grad", "inference only"),
+    ("f64", "float32"),
+    ("strided", "contiguous"),
+    ("shape", "must be"),
+    ("tree", "at most 64 joints"),
+])
+def test_k3_wrapper_rejects(case, match):
+    j = 65 if case == "tree" else 16
+    w = torch.full((20, j), 1.0 / j)
+    rot = torch.eye(3).expand(2, j, 3, 3).contiguous()
+    t = torch.zeros(2, j, 3)
+    vp = torch.zeros(2, 20, 3)
+    if case == "grad":
+        vp.requires_grad_(True)
+    elif case == "f64":
+        t = t.double()
+    elif case == "strided":
+        rot = rot.transpose(-1, -2)
+    elif case == "shape":
+        vp = torch.zeros(2, 21, 3)
+    with pytest.raises(ValueError, match=match):
+        fused_skin.skin_batched(w, rot, t, vp)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("grad", "inference only"),
+    ("coef", "coef must be"),
+    ("strided", "contiguous"),
+])
+def test_k4_wrapper_rejects(assets, case, match):
+    _, tp = assets
+    ops = fused_forward.fused_operands(tp)
+    coef = torch.zeros(2, ops.kpad)
+    rot = torch.eye(3).expand(2, 16, 3, 3).contiguous()
+    t = torch.zeros(2, 16, 3)
+    if case == "grad":
+        coef.requires_grad_(True)
+    elif case == "coef":
+        coef = torch.zeros(2, ops.n_coef)
+    elif case == "strided":
+        rot = rot.transpose(-1, -2)
+    with pytest.raises(ValueError, match=match):
+        fused_forward.blend_skin_fused(ops, coef, rot, t)
+
+
 def test_kernel_modules_import_without_triton_or_nvcc():
     """Importing the kernel modules compiles and imports nothing: the
     build happens at the first CUDA launch."""
     code = (
         "import sys\n"
         "from mano_hand_tpu_torch.ops import _build, fused_forward, "
-        "fused_posed\n"
+        "fused_posed, fused_skin\n"
         "from mano_hand_tpu_torch.models import core\n"
         "assert 'triton' not in sys.modules\n"
         "assert _build._lib is None\n"
