@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``mano_hand_tpu_torch/csrc`` with
-``nvcc`` and drives the port's two main paths once at full MANO width:
+``nvcc`` and drives the port's three main paths once at full MANO width,
+each with every launch count zeroed just before it and read just after:
 
 * serving: the batched full forward through kernel K1, and a serving
   engine whose pose-only traffic runs through kernel K2;
@@ -13,11 +14,22 @@ Builds the port's CUDA kernels from ``mano_hand_tpu_torch/csrc`` with
   (``forward_batched_pallas_fused``) and K1
   (``forward_batched_pallas_fused_full``), whose backwards take their
   vertex cotangent from K3 — against the same steps through the plain
-  path, then one parameter-gradient backward through the K1 route.
+  path, then one parameter-gradient backward through the K1 route;
+* two hands and the bf16 tier: both hands (the synthetic right hand and
+  its mirror) in one launch of kernel K5
+  (``forward_hands_pallas_fused_full``) at [2, 4096], [2, 1000], [2, 1]
+  and [2, 32768], and a serving engine under a ``PrecisionPolicy`` whose
+  interleaved tier-0 and tier-1 pose-only requests run through K2's bf16
+  variant and K2 respectively.
 
 Each kernel is held against its plain PyTorch version and the float64
-NumPy oracle and timed beside it; ``forward_chunked`` is held on every
-route against its default route.
+NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
+against f32 K2 inside the policy's stated envelope) and timed beside
+it; ``forward_chunked`` is held on every route against its default
+route, the tiered engine's results against direct calls of each
+family, a 120-frame two-hand clip
+(``models/anim.py``) against the oracle and K5, and the f32 family
+against its kernels under the caller's TF32 setting.
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
@@ -53,17 +65,22 @@ GRAD_TOL = 1e-4      # gradients: max|a - b| / max(1, max|b|), the JAX bar
 K2_CAPACITIES = (64, 1000)       # 1000 is above the TPU kernel's 512 gate
 K2_BATCH = 1024
 ORACLE_ROWS = 64
+K5_BATCHES = (4096, 1000, 1)     # rows per hand: 8192 rows as K1's, ragged, 1
+K5_BIG, K5_BIG_CHECK = 32768, 1024   # BASELINE config 3: [2, 32768]
+CLIP_FRAMES, CLIP_KEYS = 120, 8      # BASELINE config 5: a two-hand clip
+TIER_SUBJECTS, TIER_CLIENTS, TIER_REQUESTS = 8, 4, 10
 KERNEL_TOL = 1e-5    # kernel vs its plain version, both fp32 on the card
 ORACLE_TOL = 1e-4    # vs the float64 oracle: the repo's vertex gate
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
-# Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores and
-# device-memory bandwidth, by the name nvidia-smi gives the card.
-PEAKS = (  # (name fragment, fp32 FLOP/s, bytes/s), first match wins
-    ("H100 PCIe", 51e12, 2.0e12),
-    ("H100 NVL", 60e12, 3.9e12),
-    ("H200", 67e12, 4.8e12),
-    ("H100", 67e12, 3.35e12),
+# Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
+# on the tensor cores and device-memory bandwidth, by the name nvidia-smi
+# gives the card.
+PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
+    ("H100 PCIe", 51e12, 756e12, 2.0e12),
+    ("H100 NVL", 60e12, 835e12, 3.9e12),
+    ("H200", 67e12, 989e12, 4.8e12),
+    ("H100", 67e12, 989e12, 3.35e12),
 )
 
 
@@ -91,9 +108,10 @@ def nvidia_smi() -> str:
 
 
 def peaks(gpu_name: str):
-    for frag, flops, bw in PEAKS:
+    """(fp32 FLOP/s, bf16 FLOP/s, bytes/s) of the card."""
+    for frag, *rates in PEAKS:
         if frag in gpu_name:
-            return flops, bw
+            return rates
     raise RuntimeError(f"no data-sheet peaks known for {gpu_name!r}")
 
 
@@ -152,6 +170,21 @@ def k2_work(b, rows_used, v, j):
     return flops, moved
 
 
+def k2_bf16_work(b, rows_used, v, j):
+    """(bf16-operand FLOP, fp32 FLOP, bytes) of K2's bf16 tier: the pose
+    blend and skin contractions with bf16 operands, the template add and
+    the per-vertex 3x3 apply in fp32; the pose basis and the weights read
+    once as bf16, the table rows, pose and index as fp32, verts written."""
+    p = 9 * (j - 1)
+    ppad = -(-p // 4) * 4
+    contraction = b * (2 * p * 3 * v + 2 * 12 * j * v)
+    rest = b * (3 * v + 18 * v)
+    asset = 2 * (ppad * 3 * v + j * v) + 4 * j
+    table = 4 * rows_used * (v * 3 + j * 3)
+    moved = 4 * b * (3 * j + 1) + table + asset + 4 * b * v * 3
+    return contraction, rest, moved
+
+
 def k3_work(b, v, j):
     """(fp32 FLOP, bytes) of batched skinning: the 12-plane skin blend
     and the per-vertex 3x3 apply; weights, R, t and v_posed read once,
@@ -178,9 +211,13 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
-def bound(flops, moved, gpu_name):
-    peak_flops, peak_bw = peaks(gpu_name)
-    t_ops, t_bytes = flops / peak_flops, moved / peak_bw
+def bound(flops, moved, gpu_name, bf16_flops=0):
+    """(ms, "operations" | "bytes"): the larger of the fp32 FLOP over the
+    fp32 peak plus the bf16-operand FLOP over the bf16 tensor-core peak,
+    and the bytes over the memory rate."""
+    peak_f32, peak_bf16, peak_bw = peaks(gpu_name)
+    t_ops = flops / peak_f32 + bf16_flops / peak_bf16
+    t_bytes = moved / peak_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -192,24 +229,28 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mano_hand_tpu_torch import ops
-    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.assets import mirror_params, synthetic_params
     from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS
-    from mano_hand_tpu_torch.models import core, oracle
+    from mano_hand_tpu_torch.models import anim, core, oracle
     from mano_hand_tpu_torch.ops import (
         _build, fused_forward, fused_posed, fused_skin,
     )
-    from mano_hand_tpu_torch.serving import ServingEngine
+    from mano_hand_tpu_torch.serving import PrecisionPolicy, ServingEngine
 
     def zero_counts():
         fused_forward.launches = 0
         fused_forward.blend_skin_launches = 0
+        fused_forward.hands_launches = 0
         fused_posed.launches = 0
+        fused_posed.bf16_launches = 0
         fused_skin.launches = 0
 
     def counts():
         return {"K1": fused_forward.launches, "K2": fused_posed.launches,
                 "K3": fused_skin.launches,
-                "K4": fused_forward.blend_skin_launches}
+                "K4": fused_forward.blend_skin_launches,
+                "K5": fused_forward.hands_launches,
+                "K2_bf16": fused_posed.bf16_launches}
 
     t_start = time.perf_counter()
     # 1. Environment. The plain versions must not run in TF32.
@@ -531,7 +572,216 @@ def main() -> int:
     require(train_launches["K4"] >= TRAIN_STEPS, "K4 launched in training")
     require(train_launches["K1"] >= TRAIN_STEPS + 1, "K1 launched in training")
 
-    # 12. Times, at the main paths' largest shapes, in turns with the plain
+    # 12. Two hands and the bf16 tier, this slice's main path: both hands
+    #     (the right hand and its mirror) through K5, then a serving engine
+    #     under a PrecisionPolicy with interleaved tier-0 (bf16) and tier-1
+    #     (f32) pose-only requests. Every count is zeroed just before and
+    #     read just after.
+    left = mirror_params(params)
+    stacked = core.stack_params(left, params)
+    k5_in = {b: (rng.normal(scale=0.5, size=(2, b, j, 3)).astype(np.float32),
+                 rng.normal(size=(2, b, s)).astype(np.float32))
+             for b in (*K5_BATCHES, K5_BIG)}
+    tier_betas = rng.normal(size=(TIER_SUBJECTS, s)).astype(np.float32)
+    tier_reqs = [[(int(rng.integers(0, TIER_SUBJECTS)), (c + i) % 2,
+                   rng.normal(scale=0.5, size=(int(rng.integers(1, 33)),
+                                               j, 3)).astype(np.float32))
+                  for i in range(TIER_REQUESTS)]
+                 for c in range(TIER_CLIENTS)]
+    tier_eng = ServingEngine(params, device=dev, max_bucket=256,
+                             max_delay_s=0.005, posed_kernel="fused",
+                             precision_policy=PrecisionPolicy())
+    tier_keys = [tier_eng.specialize(bt) for bt in tier_betas]
+    envelope = tier_eng.precision_policy.max_vertex_err_m   # bf16 vs f32
+    tier_futs = [[] for _ in tier_reqs]
+
+    def tier_client(tid):
+        try:
+            for subj, tier, pose in tier_reqs[tid]:
+                tier_futs[tid].append(tier_eng.submit(
+                    pose, subject=tier_keys[subj], priority=tier))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    k5_out = {}
+    with torch.no_grad():
+        for b, (pose, shape) in k5_in.items():
+            k5_out[b] = core.forward_hands_pallas_fused_full(
+                stacked, torch.from_numpy(pose).to(dev),
+                torch.from_numpy(shape).to(dev))
+            torch.cuda.synchronize()
+    with tier_eng:
+        threads = [threading.Thread(target=tier_client, args=(t,))
+                   for t in range(TIER_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            require(not t.is_alive(), "tier client thread finished")
+        if errors:
+            raise errors[0]
+        tier_out = [[f.result(timeout=300) for f in futs]
+                    for futs in tier_futs]
+    torch.cuda.synchronize()
+    launches3 = counts()
+    tier_snap = tier_eng.counters.snapshot()
+    emit({"phase": "main_path_two_hands_bf16",
+          "seconds": round(time.perf_counter() - t0, 3),
+          "launches": launches3, "engine": tier_snap})
+    require(launches3["K5"] == len(k5_in), "K5 launched once per batch")
+    require(launches3["K2_bf16"] > 0, "K2's bf16 variant launched")
+    require(launches3["K2"] > 0, "K2 (f32) launched for tier 1")
+    require(launches3["K1"] == 0, "K5 is one launch, not two K1 launches")
+    require(tier_snap["requests_dispatched"] == TIER_CLIENTS * TIER_REQUESTS,
+            "every tiered request dispatched")
+    require(0 < tier_snap["dispatches_bf16"] < tier_snap["dispatches"],
+            "both precision families dispatched")
+
+    # 13. K5 vs its plain version, vs one K1 launch per hand, vs the oracle.
+    ops5 = fused_forward.fused_operands_hands(stacked)
+    k5_err = k5_k1 = k5_oracle = 0.0
+    with torch.no_grad():
+        for b, (pose, shape) in k5_in.items():
+            got = k5_out[b]
+            require(tuple(got.shape) == (2, b, v, 3), f"K5 shape at B={b}")
+            require(bool(torch.isfinite(got).all()), f"K5 finite at B={b}")
+            rows = (np.r_[np.arange(K5_BIG_CHECK - 1), b - 1]
+                    if b > K5_BIG_CHECK else np.arange(b))
+            pose_t = torch.from_numpy(pose[:, rows]).to(dev)
+            shape_t = torch.from_numpy(shape[:, rows]).to(dev)
+            want5 = fused_forward.forward_verts_hands_plain(
+                ops5, pose_t, shape_t)
+            k5_err = max(k5_err, max_err(got[:, rows], want5))
+            for h, hand in enumerate(stacked.hands):
+                if b == K5_BATCHES[0]:
+                    one = fused_forward.forward_verts_fused_full(
+                        hand, torch.from_numpy(pose[h]).to(dev),
+                        torch.from_numpy(shape[h]).to(dev))
+                    k5_k1 = max(k5_k1, max_err(got[h], one))
+                n = min(b, ORACLE_ROWS)
+                ref = oracle.forward_batch_verts(hand, pose[h, :n],
+                                                 shape[h, :n])
+                k5_oracle = max(k5_oracle, max_err(got[h, :n], ref))
+    emit({"phase": "K5", "batches": [list(k) for k in
+                                     ((2, b) for b in k5_in)],
+          "big_rows_checked": K5_BIG_CHECK, "max_abs_err_plain": k5_err,
+          "max_abs_err_k1_per_hand": k5_k1, "max_abs_err_oracle": k5_oracle})
+    require(k5_err <= KERNEL_TOL, f"K5 vs plain {k5_err} <= {KERNEL_TOL}")
+    require(k5_k1 <= KERNEL_TOL, f"K5 vs K1 per hand {k5_k1}")
+    require(k5_oracle <= ORACLE_TOL, f"K5 vs oracle {k5_oracle}")
+
+    # 14. A 120-frame two-hand clip (BASELINE config 5) through
+    #     models/anim.py vs the oracle per hand and vs K5 on the same clip.
+    keys = rng.normal(scale=0.6, size=(CLIP_KEYS, 2 * j, 3))
+    clip = anim.resample_poses_slerp(keys, CLIP_FRAMES).reshape(
+        CLIP_FRAMES, 2, j, 3).astype(np.float32)
+    clip_shape = np.broadcast_to(rng.normal(size=(1, 2, s)),
+                                 (CLIP_FRAMES, 2, s)).astype(np.float32)
+    with torch.no_grad():
+        got = anim.evaluate_two_hand_sequence(left, params, clip, clip_shape)
+        torch.cuda.synchronize()
+        k5_clip = core.forward_hands_pallas_fused_full(
+            stacked, torch.from_numpy(clip.transpose(1, 0, 2, 3)).to(dev),
+            torch.from_numpy(clip_shape.transpose(1, 0, 2)).to(dev))
+    require(tuple(got.shape) == (CLIP_FRAMES, 2, v, 3), "clip shape")
+    clip_oracle = max(
+        max_err(got[:, h], oracle.forward_batch_verts(
+            hand, clip[:, h], clip_shape[:, h]))
+        for h, hand in enumerate((left, params)))
+    clip_k5 = max_err(got.transpose(0, 1), k5_clip)
+    emit({"phase": "anim", "frames": CLIP_FRAMES,
+          "max_abs_err_oracle": clip_oracle, "max_abs_err_k5": clip_k5})
+    require(clip_oracle <= ORACLE_TOL, f"clip vs oracle {clip_oracle}")
+    require(clip_k5 <= KERNEL_TOL, f"clip vs K5 {clip_k5}")
+
+    # 15. K2's bf16 variant at K2's shape (B = 1024 from C = 1000) vs its
+    #     plain bf16 version, and vs f32 K2: nonzero, inside the envelope.
+    table, idx_t, pose_t, pb, wt, used = k2_case[K2_CAPACITIES[-1]]
+    bf16 = torch.bfloat16
+    pb16, wt16, _ = fused_posed.posed_operands(table, bf16)
+    with torch.no_grad():
+        got = fused_posed.forward_posed_gather_fused(table, idx_t, pose_t,
+                                                     compute_dtype=bf16)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), "K2 bf16 finite")
+        k2b_err = max_err(got, fused_posed.forward_posed_gather_plain(
+            table.v_shaped, table.joints, idx_t, pose_t, pb16, wt16,
+            table.parents))
+        k2b_f32 = max_err(got, fused_posed.forward_posed_gather_fused(
+            table, idx_t, pose_t))
+    emit({"phase": "K2_bf16", "batch": K2_BATCH,
+          "capacity": K2_CAPACITIES[-1], "max_abs_err_plain": k2b_err,
+          "max_abs_err_vs_f32": k2b_f32, "envelope": envelope})
+    require(k2b_err <= KERNEL_TOL, f"K2 bf16 vs plain {k2b_err}")
+    require(1e-6 < k2b_f32 <= envelope,
+            f"K2 bf16 vs f32 {k2b_f32}: nonzero and inside {envelope}")
+
+    # 16. The tiered engine: tier 1 equals a direct f32 K2 call; tier 0
+    #     equals the plain bf16 version on the engine's table and is nonzero
+    #     and inside the envelope against f32 K2.
+    tier_table = tier_eng.table
+    tpb16, twt16, _ = fused_posed.posed_operands(tier_table, bf16)
+    tier_err = {0: 0.0, 1: 0.0}
+    tier_min0 = float("inf")
+    tier0_plain = 0.0
+    with torch.no_grad():
+        for reqs, outs in zip(tier_reqs, tier_out):
+            for (subj, tier, pose), out in zip(reqs, outs):
+                slot = tier_eng._subject_slots[tier_keys[subj]]
+                idx_s = torch.full((pose.shape[0],), slot, dtype=torch.int32,
+                                   device=dev)
+                pose_s = torch.from_numpy(pose).to(dev)
+                want = core.forward_posed_gather_fused(tier_table, idx_s,
+                                                       pose_s)
+                e = max_err(out, want)
+                tier_err[tier] = max(tier_err[tier], e)
+                if tier == 0:
+                    tier_min0 = min(tier_min0, e)
+                    tier0_plain = max(tier0_plain, max_err(
+                        out, fused_posed.forward_posed_gather_plain(
+                            tier_table.v_shaped, tier_table.joints, idx_s,
+                            pose_s, tpb16, twt16, tier_table.parents)))
+    emit({"phase": "precision_engine",
+          "requests": TIER_CLIENTS * TIER_REQUESTS,
+          "tier1_max_abs_err_f32": tier_err[1],
+          "tier0_max_abs_err_plain_bf16": tier0_plain,
+          "tier0_max_abs_err_f32": tier_err[0],
+          "tier0_min_request_err": tier_min0, "envelope": envelope,
+          "dispatches": tier_snap["dispatches"],
+          "dispatches_bf16": tier_snap["dispatches_bf16"]})
+    require(tier_err[1] <= KERNEL_TOL, f"tier 1 vs f32 K2 {tier_err[1]}")
+    require(tier0_plain <= KERNEL_TOL,
+            f"tier 0 vs the plain bf16 version {tier0_plain}")
+    # A tier-0 request served by the f32 family would read 0.0 here.
+    require(tier_min0 > 1e-6 and tier_err[0] <= envelope,
+            f"tier 0 (bf16) vs f32: {tier_min0}..{tier_err[0]}")
+
+    # 17. The f32 family under the caller's TF32 setting: the plain
+    #     forward and the plain gather against K1 and K2.
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with torch.no_grad():
+            pose_f, shape_f = (torch.from_numpy(x[:K2_BATCH]).to(dev)
+                               for x in k1_in[K1_BATCHES[0]])
+            tf32_full = max_err(
+                core.forward_batched(params, pose_f, shape_f).verts,
+                fused_forward.forward_verts_fused_full(params, pose_f,
+                                                       shape_f))
+            tf32_gather = max_err(
+                core.forward_posed_gather(table, idx_t, pose_t).verts,
+                fused_posed.forward_posed_gather_fused(table, idx_t, pose_t))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    emit({"phase": "tf32_switch", "caller_precision": "high",
+          "forward_batched_vs_k1": tf32_full,
+          "forward_posed_gather_vs_k2": tf32_gather})
+    require(max(tf32_full, tf32_gather) <= KERNEL_TOL,
+            "the f32 family ignores the caller's TF32 switch")
+
+    # 18. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     b1 = K1_BATCHES[0]
     pose1 = torch.from_numpy(k1_in[b1][0]).to(dev)
@@ -557,6 +807,27 @@ def main() -> int:
         k4_ms, k4_plain_ms = interleaved_ms(
             lambda: fused_forward.blend_skin_fused(ops1, coef4, rot4, t4),
             lambda: fused_forward.blend_skin_plain(ops1, coef4, rot4, t4))
+        b5 = K5_BATCHES[0]
+        pose5, shape5 = (torch.from_numpy(x).to(dev) for x in k5_in[b5])
+        k5_ms, k5_plain_ms = interleaved_ms(
+            lambda: fused_forward.forward_verts_fused_full_hands(
+                stacked, pose5, shape5),
+            lambda: fused_forward.forward_verts_hands_plain(
+                ops5, pose5, shape5))
+        # The same work as two one-hand K1 launches (the TPU's motivation
+        # for K5 was saving the second launch), in turns with K5.
+        k5_vs_k1x2, k1x2_ms = interleaved_ms(
+            lambda: fused_forward.forward_verts_fused_full_hands(
+                stacked, pose5, shape5),
+            lambda: [fused_forward.forward_verts_fused_full(
+                hand, pose5[h], shape5[h])
+                for h, hand in enumerate(stacked.hands)])
+        k2b_ms, k2b_plain_ms = interleaved_ms(
+            lambda: fused_posed.forward_posed_gather_fused(
+                table, idx_t, pose_t, compute_dtype=bf16),
+            lambda: fused_posed.forward_posed_gather_plain(
+                table.v_shaped, table.joints, idx_t, pose_t, pb16, wt16,
+                table.parents))
         # The repack a parameter step costs K1 and K4 (on the card).
         repack_ms = cuda_ms(lambda: fused_forward._pack(params))
     # Forward + backward of each route at the training batch, against the
@@ -579,6 +850,10 @@ def main() -> int:
     k2_bound, k2_by = bound(f2, m2, gpu_name)
     k3_bound, k3_by = bound(f3, m3, gpu_name)
     k4_bound, k4_by = bound(f4, m4, gpu_name)
+    f5, m5 = (2 * x for x in k1_work(b5, v, j, s))   # both hands
+    k5_bound, k5_by = bound(f5, m5, gpu_name)
+    c2b, r2b, m2b = k2_bf16_work(K2_BATCH, used, v, j)
+    k2b_bound, k2b_by = bound(r2b, m2b, gpu_name, bf16_flops=c2b)
     emit({"phase": "times", "nvidia_smi": smi,
           "K1": {"batch": b1, "ms": k1_ms, "plain_ms": k1_plain_ms,
                  "flops": f1, "bytes": m1},
@@ -589,6 +864,13 @@ def main() -> int:
                  "flops": f3, "bytes": m3},
           "K4": {"batch": b1, "ms": k4_ms, "plain_ms": k4_plain_ms,
                  "flops": f4, "bytes": m4},
+          "K5": {"hands": 2, "batch": b5, "ms": k5_ms,
+                 "plain_ms": k5_plain_ms, "flops": f5, "bytes": m5,
+                 "ms_beside_two_k1": k5_vs_k1x2, "two_k1_ms": k1x2_ms},
+          "K2_bf16": {"batch": K2_BATCH, "capacity": K2_CAPACITIES[-1],
+                      "rows_used": used, "ms": k2b_ms,
+                      "plain_ms": k2b_plain_ms, "bf16_flops": c2b,
+                      "flops": r2b, "bytes": m2b},
           "repack_ms": repack_ms,
           "route_fwd_bwd": {"batch": TRAIN_BATCH, **route_ms}})
 
@@ -623,6 +905,23 @@ def main() -> int:
          "max_abs_err_oracle": k4_oracle, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
          "library_ms": None, "shape": f"B={b1}", "path": "train"},
+        {"name": "K5 fused_forward_hands", "route": "cuda",
+         "source": "mano_hand_tpu_torch/csrc/fused_forward.cu",
+         "replaces": "mano_hand_tpu/ops/pallas_forward.py:830",
+         "launches": launches3["K5"], "max_abs_err": k5_err,
+         "max_abs_err_oracle": k5_oracle, "max_abs_err_k1": k5_k1,
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": None,
+         "shape": f"H=2 B={b5}", "path": "two_hands"},
+        {"name": "K2 fused_posed (bf16)", "route": "cuda",
+         "source": "mano_hand_tpu_torch/csrc/fused_posed.cu",
+         "replaces": "mano_hand_tpu/ops/pallas_posed.py:382",
+         "compute_dtype": "bfloat16", "launches": launches3["K2_bf16"],
+         "max_abs_err": k2b_err, "max_abs_err_vs_f32": k2b_f32,
+         "ms": k2b_ms, "plain_ms": k2b_plain_ms, "bound_ms": k2b_bound,
+         "bound_by": k2b_by, "library_ms": None,
+         "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
+         "path": "bf16_tier"},
     ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": kernels})

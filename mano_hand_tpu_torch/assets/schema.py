@@ -9,6 +9,7 @@ key on the object itself.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -97,6 +98,68 @@ class ManoParams:
         """Move every tensor to ``device``."""
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(device) for f in ARRAY_FIELDS})
+
+
+#: The ``side`` of a ``StackedParams``: never a valid single-hand side.
+STACKED = "stacked"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StackedParams:
+    """Several hands' parameter sets on a leading hand axis (the output of
+    ``core.stack_params``): every ``ARRAY_FIELDS`` tensor is ``[H, ...]``
+    and the hands share one kinematic tree. Its ``side`` is ``"stacked"``,
+    so it is never ``validate``d; ``hands`` gives each hand back as a
+    ``ManoParams`` of views (their in-place updates reach the stack)."""
+
+    v_template: torch.Tensor     # [H, V, 3]
+    shape_basis: torch.Tensor    # [H, V, 3, S]
+    pose_basis: torch.Tensor     # [H, V, 3, P]
+    j_regressor: torch.Tensor    # [H, J, V]
+    lbs_weights: torch.Tensor    # [H, V, J]
+    pca_basis: torch.Tensor      # [H, 45, 45]
+    pca_mean: torch.Tensor       # [H, 45]
+    faces: torch.Tensor          # [H, F, 3]
+    parents: Tuple[int, ...] = C.MANO_PARENTS
+    sides: Tuple[str, ...] = ()  # each hand's own side
+    side: str = STACKED
+
+    @property
+    def n_hands(self) -> int:
+        return self.v_template.shape[0]
+
+    @property
+    def n_verts(self) -> int:
+        return self.v_template.shape[1]
+
+    @property
+    def n_joints(self) -> int:
+        return self.j_regressor.shape[1]
+
+    @property
+    def n_shape(self) -> int:
+        return self.shape_basis.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.v_template.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.v_template.dtype
+
+    def forward_tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The stacked ``FORWARD_FIELDS`` tensors, in that order."""
+        return tuple(getattr(self, f) for f in FORWARD_FIELDS)
+
+    @functools.cached_property
+    def hands(self) -> Tuple[ManoParams, ...]:
+        """One ``ManoParams`` per hand, its tensors views of the stack
+        (built once, so per-asset caches keyed on them hit)."""
+        return tuple(
+            ManoParams(**{f: getattr(self, f)[h] for f in ARRAY_FIELDS},
+                       parents=self.parents, side=self.sides[h])
+            for h in range(self.n_hands))
 
 
 def validate(p: ManoParams) -> ManoParams:

@@ -1,7 +1,13 @@
-// K1: the whole batched MANO forward in one launch, (pose, shape) -> verts.
+// K1 and K5: the whole batched MANO forward in one launch, (pose, shape) ->
+// verts, for one hand (K1) or several hands at once (K5).
 //
-// Replaces the TPU kernel mano_hand_tpu/ops/pallas_forward.py:
-// forward_verts_fused_full (its pallas_call at :723).
+// Replaces the TPU kernels mano_hand_tpu/ops/pallas_forward.py:
+// forward_verts_fused_full (its pallas_call at :723) and
+// forward_verts_fused_full_hands (its pallas_call at :830). The TPU pair
+// mirrors its launch code line for line; here they are one kernel with a
+// hand axis: blockIdx.z picks the hand, whose operands (basis, weights,
+// joint basis, pose, shape, out) sit at a per-hand stride; the kinematic
+// tree is shared. K1 is the H = 1 launch, K5 the H = 2 launch.
 //
 // What bounds it on an H100: fp32 operations. Per row the blend is
 // 2 K 3V FLOP (K = S + 1 + 9 (J - 1) = 146 for MANO, about 0.68 MFLOP) and the
@@ -11,27 +17,35 @@
 // world transforms, the coefficient vector, v_posed — on chip: the prelude
 // (Rodrigues, shaped joints, FK, inverse bind) lives in shared memory, and
 // v_posed for kRowChunk rows at a time lives in registers, so device memory
-// sees only pose/shape in, verts out, and the asset (1.4 MB, L2-resident).
-// The TPU layout machinery (lane permutation of the joints, bf16 hi/lo
-// split, stacked skin dots, (8, 128) padding) has no counterpart here.
+// sees only pose/shape in, verts out, and the asset (1.4 MB a hand,
+// L2-resident). The TPU layout machinery (lane permutation of the joints,
+// bf16 hi/lo split, stacked skin dots, (8, 128) padding) has no counterpart
+// here.
 
 #include "mano_common.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(mano::kThreads)
-fused_forward_kernel(const float* __restrict__ pose,   // [B, J, 3]
-                     const float* __restrict__ shape,  // [B, S]
-                     const float* __restrict__ basis,  // [kpad, 3, V]
-                     const float* __restrict__ wt,     // [J, V]
-                     const float* __restrict__ jb,     // [J, 3, S + 1]
-                     const int* __restrict__ parents,  // [J]
-                     float* __restrict__ out,          // [B, V, 3]
+fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
+                     const float* __restrict__ shape,  // [H, B, S]
+                     const float* __restrict__ basis,  // [H, kpad, 3, V]
+                     const float* __restrict__ wt,     // [H, J, V]
+                     const float* __restrict__ jb,     // [H, J, 3, S + 1]
+                     const int* __restrict__ parents,  // [J] (shared)
+                     float* __restrict__ out,          // [H, B, V, 3]
                      int B, int V, int J, int S, int kpad) {
   extern __shared__ float4 smem4[];
   const mano::Tile t = mano::carve(reinterpret_cast<float*>(smem4), kpad, J);
   const int row0 = blockIdx.x * mano::kTileRows;
   const int k = S + 1 + 9 * (J - 1);
+  const size_t h = blockIdx.z;
+  pose += h * B * J * 3;
+  shape += h * B * S;
+  basis += h * kpad * 3 * V;
+  wt += h * J * V;
+  jb += h * J * 3 * (S + 1);
+  out += h * B * V * 3;
 
   for (int i = threadIdx.x; i < J; i += blockDim.x) t.parents[i] = parents[i];
   // Coefficients [beta | 1 | (R - I) ... | 0 pad]; the 1 drives the template row.
@@ -61,16 +75,17 @@ fused_forward_kernel(const float* __restrict__ pose,   // [B, J, 3]
 
 }  // namespace
 
+// H hands: operands stacked on a leading hand axis (H = 1: K1, H > 1: K5).
 extern "C" int mano_fused_forward(const void* pose, const void* shape,
                                   const void* basis, const void* wt,
                                   const void* jb, const void* parents,
-                                  void* out, int B, int V, int J, int S,
-                                  int kpad, void* stream) {
+                                  void* out, int H, int B, int V, int J,
+                                  int S, int kpad, void* stream) {
   const size_t smem = mano::tile_smem_bytes(kpad, J);
   const int err = mano::prepare_smem(fused_forward_kernel, smem);
   if (err != 0) return err;
   const dim3 grid((B + mano::kTileRows - 1) / mano::kTileRows,
-                  (V + mano::kThreads - 1) / mano::kThreads);
+                  (V + mano::kThreads - 1) / mano::kThreads, H);
   fused_forward_kernel<<<grid, mano::kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pose), static_cast<const float*>(shape),

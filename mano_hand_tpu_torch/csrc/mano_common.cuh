@@ -1,8 +1,10 @@
-// Device functions shared by the MANO kernels (fused_forward.cu K1,
+// Device functions shared by the MANO kernels (fused_forward.cu K1 and K5,
 // fused_posed.cu K2, skin.cu K3, blend_skin.cu K4). Plain fp32 FFMA
 // throughout: no tensor cores, no TF32, and the build uses no
 // --use_fast_math, so sinf/cosf/sqrtf and division are the accurate IEEE
-// versions.
+// versions. K2's bf16 tier reads a bf16 basis and bf16 weights and rounds
+// its coefficients and skinning entries to bf16 (the kBf16 template flags);
+// its products of two bf16 values are exact in fp32 and accumulate in fp32.
 //
 // One block owns a tile of kTileRows batch rows and a tile of kThreads
 // vertices. It runs in four phases:
@@ -16,13 +18,21 @@
 //      blend skinning sum_j W[v, j] (R_j, t_j) applied to v_posed, written to
 //      [B, V, 3] (skin_apply).
 // Phases A-C (about 2 KFLOP a row) are recomputed by every vertex tile of a
-// batch tile; phase D (about 1 MFLOP a row) is the work. K3 and K4 take the
+// batch tile; phase D (about 1 MFLOP a row) is the work. In the bf16 tier
+// (kBf16) phases A-C use separately rounded operations (__fmul_rn,
+// __fadd_rn: never contracted to FMA) in the order of the plain versions
+// (ops/rodrigues.py, ops/fk.py), so the rotations and skinning transforms
+// equal theirs bit for bit and the bf16 roundings of them agree; the fp32
+// kernels let the compiler fuse them into FMAs (the exact form made K1
+// measurably slower) and agree with the plain versions to fp32 rounding.
+// K3 and K4 take the
 // skinning transforms (and K4 the coefficients) from global memory instead
 // of phases A-C (load_skin_rows, load_coef_rows); K3 reads v_posed from
 // global memory and runs only skin_apply.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace mano {
@@ -58,24 +68,68 @@ __device__ inline Tile carve(float* smem, int kpad, int J) {
   return t;
 }
 
-// Taylor-guarded Rodrigues, the formula of ops/rodrigues.py:
-// R = (1 - b t2) I + a K + b r r^T, a = sin(t)/t, b = (1 - cos(t))/t^2.
+// A value as fp32, from fp32 or bf16 storage (read-only cache).
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// x rounded to bf16 (to nearest even) when kBf16, as fp32.
+template <bool kBf16>
+__device__ __forceinline__ float maybe_bf16(float x) {
+  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+// fp32 arithmetic of the prelude: separately rounded when kExact (never
+// contracted to FMA), free for the compiler to fuse otherwise.
+template <bool kExact>
+__device__ __forceinline__ float mul(float a, float b) {
+  if constexpr (kExact) return __fmul_rn(a, b);
+  return a * b;
+}
+template <bool kExact>
+__device__ __forceinline__ float add(float a, float b) {
+  if constexpr (kExact) return __fadd_rn(a, b);
+  return a + b;
+}
+template <bool kExact>
+__device__ __forceinline__ float sub(float a, float b) {
+  if constexpr (kExact) return __fsub_rn(a, b);
+  return a - b;
+}
+// (u0 v0 + u1 v1) + u2 v2, the plain versions' 3-term dot.
+template <bool kExact>
+__device__ __forceinline__ float dot3(float u0, float u1, float u2, float v0,
+                                      float v1, float v2) {
+  return add<kExact>(add<kExact>(mul<kExact>(u0, v0), mul<kExact>(u1, v1)),
+                     mul<kExact>(u2, v2));
+}
+
+// Taylor-guarded Rodrigues, the formula and operation order of
+// ops/rodrigues.py: R = (1 - b t2) I + a K + b r r^T, a = sin(t)/t,
+// b = (1 - cos(t))/t^2. Below t2 = 1e-8 the series is a = 1 and b = 0.5
+// exactly in fp32.
+template <bool kExact>
 __device__ __forceinline__ void rodrigues(float x, float y, float z,
                                           float* R) {
-  const float t2 = x * x + y * y + z * z;
-  float a, b;
-  if (t2 < 1e-8f) {
-    a = 1.0f - t2 / 6.0f + t2 * t2 / 120.0f;
-    b = 0.5f - t2 / 24.0f + t2 * t2 / 720.0f;
-  } else {
+  const auto mul = [](float u, float v) { return mano::mul<kExact>(u, v); };
+  const auto add = [](float u, float v) { return mano::add<kExact>(u, v); };
+  const auto sub = [](float u, float v) { return mano::sub<kExact>(u, v); };
+  const float t2 = add(add(mul(x, x), mul(y, y)), mul(z, z));
+  float a = 1.0f, b = 0.5f;
+  if (!(t2 < 1e-8f)) {
     const float th = sqrtf(t2);
-    a = sinf(th) / th;
-    b = (1.0f - cosf(th)) / (th * th);
+    a = __fdiv_rn(sinf(th), th);
+    b = __fdiv_rn(sub(1.0f, cosf(th)), mul(th, th));
   }
-  const float d = 1.0f - b * t2;
-  R[0] = d + b * x * x;  R[1] = b * x * y - a * z;  R[2] = b * x * z + a * y;
-  R[3] = b * x * y + a * z;  R[4] = d + b * y * y;  R[5] = b * y * z - a * x;
-  R[6] = b * x * z - a * y;  R[7] = b * y * z + a * x;  R[8] = d + b * z * z;
+  const float d = sub(1.0f, mul(b, t2));
+  const float ax = mul(a, x), ay = mul(a, y), az = mul(a, z);
+  const float bxy = mul(b, mul(x, y)), bxz = mul(b, mul(x, z)),
+              byz = mul(b, mul(y, z));
+  R[0] = add(d, mul(b, mul(x, x)));  R[1] = sub(bxy, az);  R[2] = add(bxz, ay);
+  R[3] = add(bxy, az);  R[4] = add(d, mul(b, mul(y, y)));  R[5] = sub(byz, ax);
+  R[6] = sub(bxz, ay);  R[7] = add(byz, ax);  R[8] = add(d, mul(b, mul(z, z)));
 }
 
 // Tile rows past the batch end replay the last row (never written out).
@@ -85,7 +139,9 @@ __device__ __forceinline__ int tile_row(int row0, int r, int B) {
 
 // Phase A, rotations: local R of every (row, joint) into skin[r][j][0:9];
 // (R - I) of joints 1.. into coef[r][koff + 9 (j - 1) + e] (the reference's
-// row-major pose feature, so the basis rows need no permutation).
+// row-major pose feature, so the basis rows need no permutation), rounded
+// to bf16 when kBf16. The local R (an FK input) is never rounded.
+template <bool kBf16 = false>
 __device__ inline void rodrigues_rows(const float* __restrict__ pose, int B,
                                int row0, int J, const Tile& t, int kpad,
                                int koff) {
@@ -93,14 +149,15 @@ __device__ inline void rodrigues_rows(const float* __restrict__ pose, int B,
     const int r = i / J, j = i - r * J;
     const float* q = pose + ((size_t)tile_row(row0, r, B) * J + j) * 3;
     float R[9];
-    rodrigues(q[0], q[1], q[2], R);
+    rodrigues<kBf16>(q[0], q[1], q[2], R);
     float* sk = t.skin + (r * J + j) * 12;
 #pragma unroll
     for (int e = 0; e < 9; ++e) sk[e] = R[e];
     if (j > 0) {
       float* c = t.coef + r * kpad + koff + (j - 1) * 9;
 #pragma unroll
-      for (int e = 0; e < 9; ++e) c[e] = R[e] - ((e % 4 == 0) ? 1.0f : 0.0f);
+      for (int e = 0; e < 9; ++e)
+        c[e] = maybe_bf16<kBf16>(R[e] - ((e % 4 == 0) ? 1.0f : 0.0f));
     }
   }
 }
@@ -117,7 +174,11 @@ __device__ inline void zero_coef_pad(const Tile& t, int k, int kpad) {
 // Phase B: forward kinematics, one thread per row, in place over skin:
 // world_R[j] = world_R[p] @ R[j], world_t[j] = world_R[p] @ (J_j - J_p)
 // + world_t[p]. parents is topologically ordered, so p is final before j.
+// kExact: separately rounded, in the order of ops/fk.py.
+template <bool kExact = false>
 __device__ inline void fk_rows(const Tile& t, int J) {
+  const auto add = [](float u, float v) { return mano::add<kExact>(u, v); };
+  const auto sub = [](float u, float v) { return mano::sub<kExact>(u, v); };
   for (int r = threadIdx.x; r < kTileRows; r += blockDim.x) {
     float* sk = t.skin + r * J * 12;
     const float* jr = t.jrest + r * J * 3;
@@ -131,23 +192,27 @@ __device__ inline void fk_rows(const Tile& t, int J) {
       float L[9];
 #pragma unroll
       for (int e = 0; e < 9; ++e) L[e] = W[e];
-      const float d0 = jr[3 * j] - jr[3 * p];
-      const float d1 = jr[3 * j + 1] - jr[3 * p + 1];
-      const float d2 = jr[3 * j + 2] - jr[3 * p + 2];
+      const float d0 = sub(jr[3 * j], jr[3 * p]);
+      const float d1 = sub(jr[3 * j + 1], jr[3 * p + 1]);
+      const float d2 = sub(jr[3 * j + 2], jr[3 * p + 2]);
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
 #pragma unroll
         for (int b = 0; b < 3; ++b)
-          W[3 * a + b] = P[3 * a] * L[b] + P[3 * a + 1] * L[3 + b] +
-                         P[3 * a + 2] * L[6 + b];
-        W[9 + a] = P[3 * a] * d0 + P[3 * a + 1] * d1 + P[3 * a + 2] * d2 +
-                   P[9 + a];
+          W[3 * a + b] = dot3<kExact>(P[3 * a], P[3 * a + 1], P[3 * a + 2],
+                                      L[b], L[3 + b], L[6 + b]);
+        W[9 + a] = add(dot3<kExact>(P[3 * a], P[3 * a + 1], P[3 * a + 2], d0,
+                                    d1, d2),
+                       P[9 + a]);
       }
     }
   }
 }
 
 // Phase C: inverse bind per (row, joint): t <- world_t - world_R @ J_rest.
+// kBf16: computed as ops/fk.py computes it, then the slot's 12 skinning
+// entries rounded to bf16 (after FK).
+template <bool kBf16 = false>
 __device__ inline void inverse_bind_rows(const Tile& t, int J) {
   for (int i = threadIdx.x; i < kTileRows * J; i += blockDim.x) {
     float* sk = t.skin + i * 12;
@@ -155,10 +220,15 @@ __device__ inline void inverse_bind_rows(const Tile& t, int J) {
     float u[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      u[a] = sk[9 + a] -
-             (sk[3 * a] * jr[0] + sk[3 * a + 1] * jr[1] + sk[3 * a + 2] * jr[2]);
+      u[a] = sub<kBf16>(sk[9 + a], dot3<kBf16>(sk[3 * a], sk[3 * a + 1],
+                                               sk[3 * a + 2], jr[0], jr[1],
+                                               jr[2]));
 #pragma unroll
-    for (int a = 0; a < 3; ++a) sk[9 + a] = u[a];
+    for (int a = 0; a < 3; ++a) sk[9 + a] = maybe_bf16<kBf16>(u[a]);
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int e = 0; e < 9; ++e) sk[e] = maybe_bf16<true>(sk[e]);
+    }
   }
 }
 
@@ -191,9 +261,11 @@ __device__ inline void load_coef_rows(const float* __restrict__ coef, int B,
 // r0, into acc. basis is [kpad][3][V] (loads coalesced across v). base, when
 // not null, is a [C][V][3] table whose row rowsrc[r] starts the sum (the
 // gathered kernel); otherwise the sum starts at 0 and the template is a
-// basis row driven by a constant-1 coefficient.
+// basis row driven by a constant-1 coefficient. TB is the basis' storage
+// type (float, or __nv_bfloat16 for K2's bf16 tier).
+template <typename TB>
 __device__ __forceinline__ void blend_rows(const Tile& t, int kpad,
-                                           const float* __restrict__ basis,
+                                           const TB* __restrict__ basis,
                                            const float* __restrict__ base,
                                            int V, int v, int r0,
                                            float (&acc)[kRowChunk][3]) {
@@ -211,7 +283,7 @@ __device__ __forceinline__ void blend_rows(const Tile& t, int kpad,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        bv[kk][c] = __ldg(basis + ((size_t)(k + kk) * 3 + c) * V + v);
+        bv[kk][c] = ldg_f32(basis + ((size_t)(k + kk) * 3 + c) * V + v);
 #pragma unroll
     for (int i = 0; i < kRowChunk; ++i) {
       const float4 cf =
@@ -262,17 +334,19 @@ __device__ __forceinline__ void skin_apply(const float* __restrict__ sk, int J,
 }
 
 // Phase D: blend + skin for this thread's vertex over the tile's live rows,
-// kRowChunk rows of v_posed at a time in registers; wt is [J][V].
+// kRowChunk rows of v_posed at a time in registers; wt is [J][V]. TB and TW
+// are the basis' and the weights' storage types (float or __nv_bfloat16).
 // Must run after the block's last __syncthreads: threads past V return.
+template <typename TB, typename TW>
 __device__ inline void blend_skin_rows(const Tile& t, int kpad, int J,
-                                const float* __restrict__ basis,
-                                const float* __restrict__ wt,
+                                const TB* __restrict__ basis,
+                                const TW* __restrict__ wt,
                                 const float* __restrict__ base, int V, int B,
                                 int row0, float* __restrict__ out) {
   const int v = blockIdx.y * blockDim.x + threadIdx.x;
   if (v >= V) return;
   const int rows_here = min(kTileRows, B - row0);
-  const auto weight = [&](int j) { return __ldg(wt + (size_t)j * V + v); };
+  const auto weight = [&](int j) { return ldg_f32(wt + (size_t)j * V + v); };
   for (int r0 = 0; r0 < rows_here; r0 += kRowChunk) {
     float acc[kRowChunk][3];
     blend_rows(t, kpad, basis, base, V, v, r0, acc);

@@ -11,9 +11,15 @@ counterpart is easy to find. The kernel routes keep their names and run
 the hand-written CUDA kernels: ``forward_batched_pallas`` K3
 (``ops/fused_skin.py``), ``forward_batched_pallas_fused`` K4 and
 ``forward_batched_pallas_fused_full`` K1 (``ops/fused_forward.py``), all
-three differentiable, and ``forward_posed_gather_fused`` K2
-(``ops/fused_posed.py``, inference only). ``forward_chunked`` is the
-huge-batch entry point over any of them.
+three differentiable, ``forward_hands_pallas_fused_full`` K5 (both hands
+of a ``stack_params`` pair in one launch, inference only) and
+``forward_posed_gather_fused`` K2 (``ops/fused_posed.py``, inference
+only, f32 or the bf16 serving tier). ``forward_chunked`` is the
+huge-batch entry point over K1, K3 and K4.
+The pose-only functions take ``compute_dtype`` (None, or
+``torch.bfloat16`` for the bf16 serving tier: the pose blend and the
+skinning contractions take bf16 operands and accumulate in f32, while
+Rodrigues, FK, the residual adds and the output stay f32).
 The subject-table functions are functional: each returns a new table and
 leaves its input untouched, so a table captured by an in-flight batch
 stays valid while the serving engine installs subjects.
@@ -27,9 +33,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from mano_hand_tpu_torch import constants, ops
-from mano_hand_tpu_torch.assets.schema import ManoParams
+from mano_hand_tpu_torch.assets.schema import (
+    ARRAY_FIELDS, STACKED, ManoParams, StackedParams,
+)
 from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
-from mano_hand_tpu_torch.ops.common import IdentityCache
+from mano_hand_tpu_torch.ops.common import (
+    IdentityCache, check_compute_dtype, einsum,
+)
 
 
 class ManoOutput(NamedTuple):
@@ -86,8 +96,9 @@ def _blend_bases(params: ManoParams):
         params.shape_basis.reshape(v * 3, s),
         params.pose_basis.reshape(v * 3, pdim),
     ], dim=1)
-    joint_template = params.j_regressor @ params.v_template
-    joint_shape_basis = torch.einsum("jv,vcs->jcs", params.j_regressor,
+    joint_template = einsum("jv,vc->jc", params.j_regressor,
+                            params.v_template)
+    joint_shape_basis = einsum("jv,vcs->jcs", params.j_regressor,
                                      params.shape_basis)
     return vertex_basis, joint_template, joint_shape_basis
 
@@ -137,9 +148,9 @@ def forward_fused_rotmats(params: ManoParams, rot_mats: torch.Tensor,
     coeff = torch.cat(
         [shape, (rot_mats[..., 1:, :, :] - eye).flatten(-3)], dim=-1)
     v_posed = (params.v_template.reshape(-1)
-               + torch.einsum("rk,...k->...r", vertex_basis, coeff)
+               + einsum("rk,...k->...r", vertex_basis, coeff)
                ).unflatten(-1, (params.n_verts, 3))
-    joints = joint_template + torch.einsum("jcs,...s->...jc",
+    joints = joint_template + einsum("jcs,...s->...jc",
                                            joint_shape_basis, shape)
     world_rot, world_t = ops.forward_kinematics(params.parents, rot_mats,
                                                 joints)
@@ -195,38 +206,41 @@ def specialize(params: ManoParams,
                       params.lbs_weights, tuple(params.parents))
 
 
-def forward_posed(shaped: ShapedHand,
-                  pose: Optional[torch.Tensor] = None) -> ManoOutput:
+def forward_posed(shaped: ShapedHand, pose: Optional[torch.Tensor] = None,
+                  compute_dtype=None) -> ManoOutput:
     """Pose-only forward over a baked shape stage: pose [J, 3]."""
     dtype = shaped.v_shaped.dtype
     if pose is None:
         pose = torch.zeros((shaped.n_joints, 3), dtype=dtype,
                            device=shaped.v_shaped.device)
     return forward_posed_rotmats(
-        shaped, _pose_rotmats(pose, shaped.n_joints, dtype))
+        shaped, _pose_rotmats(pose, shaped.n_joints, dtype), compute_dtype)
 
 
-def forward_posed_rotmats(shaped: ShapedHand,
-                          rot_mats: torch.Tensor) -> ManoOutput:
+def forward_posed_rotmats(shaped: ShapedHand, rot_mats: torch.Tensor,
+                          compute_dtype=None) -> ManoOutput:
     """Pose-only forward from rotation matrices [..., J, 3, 3]: pose
     blend -> FK -> LBS over the baked constants."""
+    check_compute_dtype(compute_dtype)
     rot_mats = rot_mats.to(shaped.v_shaped.dtype)
-    v_posed = ops.pose_blend(shaped.v_shaped, shaped.pose_basis, rot_mats)
+    v_posed = ops.pose_blend(shaped.v_shaped, shaped.pose_basis, rot_mats,
+                             compute_dtype)
     world_rot, world_t = ops.forward_kinematics(shaped.parents, rot_mats,
                                                 shaped.joints)
     skin_rot, skin_t = ops.skinning_transforms(world_rot, world_t,
                                                shaped.joints)
-    verts = ops.skin(shaped.lbs_weights, skin_rot, skin_t, v_posed)
+    verts = ops.skin(shaped.lbs_weights, skin_rot, skin_t, v_posed,
+                     compute_dtype)
     joints = shaped.joints.expand(*rot_mats.shape[:-3], *shaped.joints.shape)
     return ManoOutput(verts, joints, v_posed, rot_mats, world_t)
 
 
-def forward_posed_batched(shaped: ShapedHand,
-                          pose: torch.Tensor) -> ManoOutput:
+def forward_posed_batched(shaped: ShapedHand, pose: torch.Tensor,
+                          compute_dtype=None) -> ManoOutput:
     """One subject, many poses: pose [B, J, 3] (or [B, J*3])."""
     return forward_posed_rotmats(
         shaped, _pose_rotmats(pose, shaped.n_joints, shaped.v_shaped.dtype,
-                              lead=(pose.shape[0],)))
+                              lead=(pose.shape[0],)), compute_dtype)
 
 
 # ------------------------------------------------------------ subject table
@@ -337,19 +351,23 @@ def table_row(table: SubjectTable, slot: int) -> ShapedHand:
 
 
 def forward_posed_gather(table: SubjectTable, subject_idx: torch.Tensor,
-                         pose: torch.Tensor) -> ManoOutput:
+                         pose: torch.Tensor,
+                         compute_dtype=None) -> ManoOutput:
     """Mixed-subject pose-only forward: row ``r`` runs the pose stage over
     subject ``subject_idx[r]``'s baked constants. Indices are clamped to
-    ``[0, C - 1]`` (torch indexing would raise; the JAX path clamps)."""
+    ``[0, C - 1]`` (torch indexing would raise; the JAX path clamps).
+    The gather itself is f32 data movement under either compute dtype."""
+    check_compute_dtype(compute_dtype)
     dtype = table.v_shaped.dtype
     rows = torch.as_tensor(subject_idx, device=table.v_shaped.device)
     rows = rows.long().clamp(0, table.capacity - 1)
     rot = _pose_rotmats(pose, table.n_joints, dtype, lead=(pose.shape[0],))
     v_rows, j_rows = table.v_shaped[rows], table.joints[rows]
-    v_posed = ops.pose_blend(v_rows, table.pose_basis, rot)
+    v_posed = ops.pose_blend(v_rows, table.pose_basis, rot, compute_dtype)
     world_rot, world_t = ops.forward_kinematics(table.parents, rot, j_rows)
     skin_rot, skin_t = ops.skinning_transforms(world_rot, world_t, j_rows)
-    verts = ops.skin(table.lbs_weights, skin_rot, skin_t, v_posed)
+    verts = ops.skin(table.lbs_weights, skin_rot, skin_t, v_posed,
+                     compute_dtype)
     return ManoOutput(verts, j_rows, v_posed, rot, world_t)
 
 
@@ -460,10 +478,48 @@ def forward_posed_gather_fused(table: SubjectTable,
                                compute_dtype=None) -> torch.Tensor:
     """Mixed-subject pose-only vertices [B, V, 3] float32 in one kernel
     launch (K2, ``ops/fused_posed.py``); inference only, out-of-range
-    indices clamped like ``forward_posed_gather``."""
+    indices clamped like ``forward_posed_gather``. ``compute_dtype=
+    torch.bfloat16`` launches K2's bf16 variant (the serving bf16 tier,
+    the same roundings as ``forward_posed_gather(compute_dtype=...)``)."""
     b = pose.shape[0]
     pose = pose.reshape(b, table.n_joints, 3).to(torch.float32)
     idx = torch.as_tensor(subject_idx, device=table.v_shaped.device)
     return fused_posed.forward_posed_gather_fused(
         table, idx.to(torch.int32).contiguous(), pose.contiguous(),
         compute_dtype=compute_dtype)
+
+
+# ------------------------------------------------------------------ two hands
+def stack_params(left: ManoParams, right: ManoParams) -> StackedParams:
+    """Stack a (left, right) asset pair on a leading hand axis: one
+    ``StackedParams`` with ``[2, ...]`` tensors (copies), ``side``
+    "stacked" (never ``validate``d). The kinematic trees must match."""
+    if tuple(left.parents) != tuple(right.parents):
+        raise ValueError("cannot stack params with different kinematic trees")
+    fields = {f: torch.stack([getattr(left, f), getattr(right, f)])
+              for f in ARRAY_FIELDS}
+    return StackedParams(**fields, parents=tuple(left.parents),
+                         sides=(left.side, right.side), side=STACKED)
+
+
+def forward_hands(stacked: StackedParams, pose: torch.Tensor,
+                  shape: torch.Tensor) -> ManoOutput:
+    """Multi-hand batched forward: pose [H, B, J, 3] (or [H, B, J*3]),
+    shape [H, B, S] -> a ``ManoOutput`` of hand-major ``[H, B, ...]``
+    tensors, each hand through ``forward_batched`` under its own params.
+    Plain PyTorch, differentiable."""
+    outs = [forward_batched(hand, pose[h], shape[h])
+            for h, hand in enumerate(stacked.hands)]
+    return ManoOutput(*(torch.stack(leaf) for leaf in zip(*outs)))
+
+
+def forward_hands_pallas_fused_full(stacked: StackedParams,
+                                    pose: torch.Tensor,
+                                    shape: torch.Tensor) -> torch.Tensor:
+    """Both hands' vertices [2, B, V, 3] float32 with the whole forward in
+    ONE kernel launch (K5, ``ops/fused_forward.py``): the single-launch
+    counterpart of ``forward_hands``. Inference only; pose [2, B, J, 3]
+    (or flat [2, B, J*3]), shape [2, B, S]. On a CPU tensor the kernel's
+    plain version runs."""
+    return fused_forward.forward_verts_fused_full_hands(
+        stacked, pose.to(torch.float32), shape.to(torch.float32))

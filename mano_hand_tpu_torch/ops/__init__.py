@@ -1,6 +1,7 @@
 """The port's ops: plain PyTorch building blocks of the MANO forward, and
-the four hand-written CUDA kernels (``fused_forward`` K1 and K4,
-``fused_posed`` K2, ``fused_skin`` K3) with their plain versions.
+the hand-written CUDA kernels (``fused_forward`` K1, K5 and K4,
+``fused_posed`` K2 with its bf16 variant, ``fused_skin`` K3) with their
+plain versions.
 Importing builds nothing: the kernels compile at their first launch
 (``ops/_build.py``)."""
 

@@ -3,22 +3,108 @@
 Precision on Hopper: everything on a parity path computes in IEEE fp32.
 The hand-written kernels (``csrc/``) use plain fp32 FFMA, are built
 without ``--use_fast_math`` (so ``sinf``/``cosf``/division stay
-accurate) and never touch the tensor cores. The plain PyTorch versions
-are run with ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``: a TF32 product keeps about
-three decimal digits, far outside the 1e-4 vertex gate. (The JAX
-package's TPU policy — a 3-pass bf16 split, its ``Precision.HIGH`` — has
-no counterpart here: fp32 FFMA is exact to f32 rounding already.)
+accurate) and never touch the tensor cores. The port's own float32
+contractions go through ``einsum`` below, which pins IEEE fp32 for the
+call (``ieee_fp32``) whatever the caller chose with
+``torch.set_float32_matmul_precision``: a TF32 product keeps about three
+decimal digits, far outside the 1e-4 vertex gate. The kernel routes'
+backward functions hold the same guard around their bodies. (The JAX
+package pins this with an explicit ``precision=`` on every contraction;
+its TPU policy — a 3-pass bf16 split — has no counterpart here: fp32
+FFMA is exact to f32 rounding already.)
+
+The one reduced-precision form is the bf16 serving tier
+(``compute_dtype=torch.bfloat16``): contraction operands rounded to bf16
+(``round_bf16``) and products accumulated in f32. A product of two bf16
+values is exact in f32, so "round, cast back, contract in f32" is that
+form exactly, on either device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import weakref
 from typing import Tuple
 
 import torch
+
+
+# ------------------------------------------------------------ IEEE fp32 pin
+# The float32 matmul setting is process-global (cuBLAS reads it when an op
+# is enqueued), so the guard is reference-counted across threads: the
+# first thread in sets IEEE and the last one out restores the caller's
+# setting, and a guard never lowers another thread's precision (a caller's
+# concurrent matmuls run IEEE while one is open: slower, never less
+# exact). The setting is read and restored through the API it was set
+# with: mixing torch's legacy and per-backend APIs makes later reads raise.
+_ieee_lock = threading.Lock()
+_ieee_depth = 0
+_ieee_saved = None   # (api, caller's value, value set) while a guard is open
+
+
+def _matmul_precision() -> tuple:
+    """(api, value) of the caller's float32 matmul setting."""
+    try:
+        return "legacy", torch.get_float32_matmul_precision()
+    except RuntimeError:   # set through torch.backends.cuda.matmul
+        return "backend", torch.backends.cuda.matmul.fp32_precision
+
+
+def _set_matmul_precision(api: str, value: str) -> None:
+    if api == "legacy":
+        torch.set_float32_matmul_precision(value)
+    else:
+        torch.backends.cuda.matmul.fp32_precision = value
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Pin IEEE fp32 for float32 matmuls inside the block (no TF32, no
+    bf16 passes), whatever ``torch.set_float32_matmul_precision`` the
+    caller chose; restored on exit. Reentrant and thread-safe."""
+    global _ieee_depth, _ieee_saved
+    with _ieee_lock:
+        if _ieee_depth == 0:
+            api, value = _matmul_precision()
+            target = "highest" if api == "legacy" else "ieee"
+            if value != target:
+                _set_matmul_precision(api, target)
+                _ieee_saved = (api, value, target)
+        _ieee_depth += 1
+    try:
+        yield
+    finally:
+        with _ieee_lock:
+            _ieee_depth -= 1
+            if _ieee_depth == 0 and _ieee_saved is not None:
+                api, value, target = _ieee_saved
+                _ieee_saved = None
+                # A caller that changed the setting meanwhile keeps theirs.
+                if _matmul_precision() == (api, target):
+                    _set_matmul_precision(api, value)
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` under ``ieee_fp32``: the port's contractions."""
+    with ieee_fp32():
+        return torch.einsum(equation, *operands)
+
+
+def check_compute_dtype(compute_dtype) -> None:
+    """Raise unless ``compute_dtype`` is None (fp32) or ``torch.bfloat16``
+    (the bf16 serving tier) — the only two forms with a stated error."""
+    if compute_dtype is not None and compute_dtype != torch.bfloat16:
+        raise ValueError(
+            f"compute_dtype must be torch.bfloat16 (the serving bf16 tier) "
+            f"or None, got {compute_dtype}")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even), as float32: a contraction
+    operand of the bf16 tier."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def _versions(tensors) -> tuple:
@@ -38,7 +124,9 @@ class IdentityCache:
     key itself, a tensor): an in-place update of any of them — an
     optimizer step on a parameter — rebuilds the value instead of serving
     a stale one. For per-asset packing that must not be redone per call.
-    ``build`` must not return tensors that carry autograd history.
+    ``build`` must not return tensors that carry autograd history. A
+    tuple key (a pair of assets) is keyed on every object in it and
+    dropped when any of them is collected.
     """
 
     def __init__(self, sources=lambda obj: (obj,)):
@@ -47,11 +135,13 @@ class IdentityCache:
         self._lock = threading.Lock()
 
     def get(self, obj, build):
-        key = id(obj)
+        objs = obj if isinstance(obj, tuple) else (obj,)
+        key = tuple(map(id, objs))
         versions = _versions(self._sources(obj))
         with self._lock:
             hit = self._entries.get(key)
-        if hit is not None and hit[0]() is obj and hit[1] == versions:
+        if (hit is not None and hit[1] == versions
+                and all(ref() is o for ref, o in zip(hit[0], objs))):
             return hit[2]
         value = build(obj)
         entries = self._entries
@@ -59,8 +149,9 @@ class IdentityCache:
         def drop(_ref, key=key):
             entries.pop(key, None)
 
+        refs = tuple(weakref.ref(o, drop) for o in objs)
         with self._lock:
-            self._entries[key] = (weakref.ref(obj, drop), versions, value)
+            entries[key] = (refs, versions, value)
         return value
 
 

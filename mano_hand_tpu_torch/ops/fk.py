@@ -5,6 +5,12 @@ level-parallel composition: all joints at one depth compose against
 their parents in one batched step (3 steps for MANO instead of 15).
 Levels are derived from the ``parents`` tuple and cached. Every function
 here broadcasts over leading batch dimensions.
+
+Each 3-term dot product is written out as ``(p0 + p1) + p2`` of separately
+rounded products: K2's bf16 variant (``csrc/mano_common.cuh``, the
+``kExact`` prelude) performs the same operations in the same order
+without fused multiply-adds, so its skinning transforms agree bit for bit
+with these and its bf16 rounding of them agrees too.
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ def forward_kinematics(
     """Compose the kinematic chain; returns (world_rot [..., J, 3, 3],
     world_t [..., J, 3]) — world_t are the posed joint positions.
 
-    The 3x3 composes are broadcast multiply-sums (full fp32 FMA), not
-    matrix products, so no TF32 setting can reach them.
+    The 3x3 composes are elementwise products and sums, not matrix
+    products, so no TF32 setting can reach them.
     """
     parents = tuple(parents)
     batch = torch.broadcast_shapes(rot_local.shape[:-3], joints.shape[:-2])
@@ -52,14 +58,21 @@ def forward_kinematics(
         par = [parents[i] for i in idx]
         parent_rot = world_rot[..., par, :, :]                 # [..., k, 3, 3]
         local_t = joints[..., idx, :] - joints[..., par, :]    # [..., k, 3]
-        world_rot[..., idx, :, :] = (
-            parent_rot[..., :, :, None] * rot_local[..., idx, None, :, :]
-        ).sum(dim=-2)
+        world_rot[..., idx, :, :] = _dot3(
+            parent_rot[..., :, :, None], rot_local[..., idx, None, :, :], -2)
         world_t[..., idx, :] = (
-            (parent_rot * local_t[..., None, :]).sum(dim=-1)
+            _dot3(parent_rot, local_t[..., None, :], -1)
             + world_t[..., par, :]
         )
     return world_rot, world_t
+
+
+def _dot3(u: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (of size 3) of ``u * v`` as ``(p0 + p1) + p2``.
+    ``unbind``, not three ``select``s: its backward is one ``stack``
+    where each ``select``'s would allocate and fill a zero tensor."""
+    p0, p1, p2 = (u * v).unbind(dim)
+    return (p0 + p1) + p2
 
 
 def skinning_transforms(
@@ -69,5 +82,5 @@ def skinning_transforms(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inverse bind: map rest-pose space to posed space per joint —
     rotation unchanged, translation world_t - world_rot @ J_rest."""
-    skin_t = world_t - (world_rot * joints[..., None, :]).sum(dim=-1)
+    skin_t = world_t - _dot3(world_rot, joints[..., None, :], -1)
     return world_rot, skin_t

@@ -1,5 +1,5 @@
-"""K1 and K4: the batched MANO forward in one CUDA launch, and the shared
-backward of the two fused routes.
+"""K1, K5 and K4: the batched MANO forward in one CUDA launch, for one
+hand or for both at once, and the shared backward of the two fused routes.
 
 K1 replaces the TPU kernel ``mano_hand_tpu/ops/pallas_forward.py:
 forward_verts_fused_full`` (``pallas_call`` at line 723). The kernel
@@ -8,6 +8,12 @@ computes, per (batch tile, vertex tile) block: Rodrigues, the shaped rest
 joints ``[beta | 1] . jb``, FK along ``parents``, the inverse bind, the
 blend ``[beta | 1 | (R - I)] . basis`` and linear blend skinning, writing
 ``[B, V, 3]`` fp32.
+
+K5 replaces ``pallas_forward.py:forward_verts_fused_full_hands``
+(``pallas_call`` at line 830): K1 for several hands of a
+``StackedParams`` in one launch, ``[H, B, V, 3]``. It is the same kernel
+with a hand grid axis over per-hand operands (``forward_verts_fused_
+full_hands``); K1 is its one-hand launch. Inference only.
 
 K4 replaces ``pallas_forward.py:blend_skin_fused`` (``pallas_call`` at
 lines 228 and 239): the blend and the skinning in one launch
@@ -54,8 +60,8 @@ from torch.autograd.function import once_differentiable
 from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS, ManoParams
 from mano_hand_tpu_torch.ops import _build, fk, fused_skin, lbs
 from mano_hand_tpu_torch.ops.common import (
-    MAX_JOINTS, IdentityCache, cdiv, check_operands, parents_tensor,
-    refuse_grad,
+    MAX_JOINTS, IdentityCache, cdiv, check_operands, einsum, ieee_fp32,
+    parents_tensor, refuse_grad,
 )
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
@@ -63,15 +69,20 @@ from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 launches = 0
 #: K4 launches so far.
 blend_skin_launches = 0
+#: K5 (several hands in one launch) launches so far.
+hands_launches = 0
 _count_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FusedOperands:
-    basis: torch.Tensor      # [Kpad, 3, V] f32
-    wt: torch.Tensor         # [J, V] f32
-    jb: torch.Tensor         # [J, 3, S + 1] f32
-    parents: torch.Tensor    # [J] int32
+    """The packed operands of one hand, or of several (K5) with a leading
+    hand axis on ``basis``, ``wt`` and ``jb``."""
+
+    basis: torch.Tensor      # [(H,) Kpad, 3, V] f32
+    wt: torch.Tensor         # [(H,) J, V] f32
+    jb: torch.Tensor         # [(H,) J, 3, S + 1] f32
+    parents: torch.Tensor    # [J] int32 (shared by the hands)
     parents_tuple: Tuple[int, ...]
     n_coef: int              # K = S + 1 + 9 (J - 1), before padding
 
@@ -81,7 +92,7 @@ class FusedOperands:
 
     @property
     def n_joints(self) -> int:
-        return self.wt.shape[0]
+        return self.wt.shape[-2]
 
     @property
     def n_shape(self) -> int:
@@ -89,7 +100,12 @@ class FusedOperands:
 
     @property
     def kpad(self) -> int:
-        return self.basis.shape[0]
+        return self.basis.shape[-3]
+
+    def hand(self, h: int) -> "FusedOperands":
+        """Hand ``h`` of stacked operands (views)."""
+        return dataclasses.replace(self, basis=self.basis[h], wt=self.wt[h],
+                                   jb=self.jb[h])
 
 
 def _pack(params) -> FusedOperands:
@@ -113,7 +129,7 @@ def _pack(params) -> FusedOperands:
         shape_basis.new_zeros(kpad - k, 3, v),
     ])
     jt = j_reg @ v_template                              # [J, 3]
-    jsb = torch.einsum("jv,vcs->jcs", j_reg, shape_basis)
+    jsb = einsum("jv,vcs->jcs", j_reg, shape_basis)
     jb = torch.cat([jsb, jt[..., None]], dim=-1)
     return FusedOperands(
         basis=basis.float().contiguous(),
@@ -132,6 +148,26 @@ def fused_operands(params) -> FusedOperands:
     """The packed, batch-invariant operands of ``params`` (cached while
     its tensors are unchanged)."""
     return _operands.get(params, _pack)
+
+
+def _pack_hands(stacked) -> FusedOperands:
+    per = [_pack(hand) for hand in stacked.hands]
+    return dataclasses.replace(
+        per[0], basis=torch.stack([o.basis for o in per]),
+        wt=torch.stack([o.wt for o in per]),
+        jb=torch.stack([o.jb for o in per]))
+
+
+# Keyed on the stacked tensors' versions: the hands are views of them, so
+# an in-place update of either hand repacks.
+_hand_operands = IdentityCache(sources=lambda s: s.forward_tensors())
+
+
+def fused_operands_hands(stacked) -> FusedOperands:
+    """The packed operands of every hand of a ``StackedParams``, each
+    hand packed as ``fused_operands`` packs it, stacked on a leading hand
+    axis (cached while the stacked tensors are unchanged)."""
+    return _hand_operands.get(stacked, _pack_hands)
 
 
 def coefficients(rot: torch.Tensor, shape: torch.Tensor,
@@ -153,7 +189,7 @@ def pre_stage(parents: Tuple[int, ...], jt: torch.Tensor, jsb: torch.Tensor,
     inverse bind. Returns (coefficients [B, kpad], skinning rotations
     [B, J, 3, 3], skinning translations [B, J, 3]); differentiable."""
     rot = rotation_matrix(pose)                           # [B, J, 3, 3]
-    joints = jt + torch.einsum("jcs,bs->bjc", jsb, shape)
+    joints = jt + einsum("jcs,bs->bjc", jsb, shape)
     world_rot, world_t = fk.forward_kinematics(parents, rot, joints)
     skin_rot, skin_t = fk.skinning_transforms(world_rot, world_t, joints)
     return coefficients(rot, shape, kpad), skin_rot, skin_t
@@ -169,7 +205,7 @@ def blend_skin_plain(ops: FusedOperands, coef: torch.Tensor,
                      skin_rot: torch.Tensor,
                      skin_t: torch.Tensor) -> torch.Tensor:
     """K4's arithmetic in plain PyTorch: [B, V, 3]."""
-    v_posed = torch.einsum("bk,kcv->bvc", coef, ops.basis)
+    v_posed = einsum("bk,kcv->bvc", coef, ops.basis)
     return lbs.skin(ops.wt.T, skin_rot, skin_t, v_posed)
 
 
@@ -177,6 +213,14 @@ def forward_verts_plain(ops: FusedOperands, pose: torch.Tensor,
                         shape: torch.Tensor) -> torch.Tensor:
     """K1's arithmetic in plain PyTorch: [B, V, 3]."""
     return blend_skin_plain(ops, *_packed_pre_stage(ops, pose, shape))
+
+
+def forward_verts_hands_plain(ops: FusedOperands, pose: torch.Tensor,
+                              shape: torch.Tensor) -> torch.Tensor:
+    """K5's arithmetic in plain PyTorch over stacked operands: pose
+    [H, B, J, 3], shape [H, B, S] -> [H, B, V, 3]."""
+    return torch.stack([forward_verts_plain(ops.hand(h), pose[h], shape[h])
+                        for h in range(pose.shape[0])])
 
 
 def _check(ops: FusedOperands, pose: torch.Tensor, shape: torch.Tensor):
@@ -222,28 +266,73 @@ def forward_verts_fused_full(params, pose: torch.Tensor,
                 pose, shape, *params.forward_tensors())
     ops = fused_operands(params)
     _check(ops, pose, shape)
-    dev = pose.device
-    if dev.type == "cpu":
+    if pose.device.type == "cpu":
         return forward_verts_plain(ops, pose, shape)
+    if pose.shape[0] == 0:
+        return pose.new_empty((0, ops.n_verts, 3))
+    out = _launch_forward(ops, pose[None], shape[None])[0]
+    global launches
+    with _count_lock:
+        launches += 1
+    return out
+
+
+def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
+                    shape: torch.Tensor) -> torch.Tensor:
+    """One launch of the K1/K5 kernel over H hands: pose [H, B, J, 3],
+    shape [H, B, S] -> [H, B, V, 3] with B >= 1; ``ops`` is one hand's
+    (H = 1) or stacked. Raises on a non-CUDA device or a failed launch."""
+    dev = pose.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     pose, shape = pose.contiguous(), shape.contiguous()
-    b, v = pose.shape[0], ops.n_verts
-    out = torch.empty((b, v, 3), dtype=torch.float32, device=dev)
-    if b == 0:
-        return out
+    h, b, v = pose.shape[0], pose.shape[1], ops.n_verts
+    out = torch.empty((h, b, v, 3), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_fused_forward(
             pose.data_ptr(), shape.data_ptr(), ops.basis.data_ptr(),
             ops.wt.data_ptr(), ops.jb.data_ptr(), ops.parents.data_ptr(),
-            out.data_ptr(), b, v, ops.n_joints, ops.n_shape, ops.kpad,
+            out.data_ptr(), h, b, v, ops.n_joints, ops.n_shape, ops.kpad,
             stream)
     _build.check(lib, rc, "fused_forward")
-    global launches
+    return out
+
+
+def forward_verts_fused_full_hands(stacked, pose: torch.Tensor,
+                                   shape: torch.Tensor) -> torch.Tensor:
+    """Every hand's vertices [H, B, V, 3] in one launch (K5).
+
+    ``stacked`` is a ``StackedParams`` (``core.stack_params``); ``pose``
+    [H, B, J, 3] (or flat [H, B, J * 3]) and ``shape`` [H, B, S],
+    float32, on its device. A CPU tensor runs
+    ``forward_verts_hands_plain``; a CUDA tensor launches the kernel (or
+    raises). Inference only: refuses grad-requiring inputs.
+    """
+    refuse_grad("forward_verts_fused_full_hands", "core.forward_hands",
+                pose, shape, *stacked.forward_tensors())
+    ops = fused_operands_hands(stacked)
+    h, j, s = stacked.n_hands, ops.n_joints, ops.n_shape
+    if pose.ndim == 3 and pose.shape[-1] == 3 * j:
+        pose = pose.reshape(pose.shape[0], pose.shape[1], j, 3)
+    if pose.ndim != 4 or pose.shape[0] != h:
+        raise ValueError(
+            f"pose must be [{h}, B, {j}, 3] (or flat [{h}, B, {3 * j}]), "
+            f"got {tuple(pose.shape)}")
+    b = pose.shape[1]
+    if tuple(shape.shape) != (h, b, s):
+        raise ValueError(f"shape must be [{h}, {b}, {s}], got "
+                         f"{tuple(shape.shape)}")
+    _check(ops, pose.flatten(0, 1), shape.flatten(0, 1))
+    if pose.device.type == "cpu":
+        return forward_verts_hands_plain(ops, pose, shape)
+    if b == 0:
+        return pose.new_empty((h, 0, ops.n_verts, 3))
+    out = _launch_forward(ops, pose, shape)
+    global hands_launches
     with _count_lock:
-        launches += 1
+        hands_launches += 1
     return out
 
 
@@ -319,8 +408,8 @@ def _fused_backward(ctx, g):
         leaf = {n: saved[n].detach().requires_grad_(need[n])
                 for n in pre_names}
         j_reg = leaf["j_regressor"].to(f32)
-        jt = j_reg @ leaf["v_template"].to(f32)
-        jsb = torch.einsum("jv,vcs->jcs", j_reg,
+        jt = einsum("jv,vc->jc", j_reg, leaf["v_template"].to(f32))
+        jsb = einsum("jv,vcs->jcs", j_reg,
                            leaf["shape_basis"].to(f32))
         coef, skin_rot, skin_t = pre_stage(ops.parents_tuple, jt, jsb,
                                            leaf["pose"], leaf["shape"],
@@ -336,13 +425,13 @@ def _fused_backward(ctx, g):
     # (one product) only for the rotation and weight cotangents.
     needs = (need["lbs_weights"], skin_rot.requires_grad,
              skin_t.requires_grad, coef.requires_grad or need_basis)
-    v_posed = (torch.einsum("bk,kcv->bvc", coef_d, ops.basis)
+    v_posed = (einsum("bk,kcv->bvc", coef_d, ops.basis)
                if needs[0] or needs[1] else None)
     grad_w, grad_rot, grad_t, grad_vp = fused_skin.skin_vjp(
         w, rot_d, t_d, v_posed, g, needs=needs)
     pairs = [(skin_rot, grad_rot), (skin_t, grad_t)]
     if coef.requires_grad:
-        pairs.append((coef, torch.einsum("bvc,kcv->bk", grad_vp, ops.basis)))
+        pairs.append((coef, einsum("bvc,kcv->bk", grad_vp, ops.basis)))
     wanted = [n for n in pre_names if need[n]]
     pairs = [(o, c) for o, c in pairs if o.requires_grad]
     grads = dict.fromkeys(names)
@@ -357,7 +446,7 @@ def _fused_backward(ctx, g):
     # [shape | template | pose | pad] row order.
     grads["lbs_weights"] = grad_w
     if need_basis:
-        grad_basis = torch.einsum("bk,bvc->kcv", coef_d, grad_vp)
+        grad_basis = einsum("bk,bvc->kcv", coef_d, grad_vp)
         p = ops.n_coef - s - 1
         direct = {"shape_basis": grad_basis[:s].permute(2, 1, 0),
                   "v_template": grad_basis[s].T,
@@ -384,7 +473,8 @@ class FusedVerts(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return (None, *_fused_backward(ctx, g))
+        with ieee_fp32():    # covers the pre-stage's autograd.grad too
+            return (None, *_fused_backward(ctx, g))
 
 
 class FusedVertsFull(FusedVerts):

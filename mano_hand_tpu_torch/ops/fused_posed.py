@@ -1,4 +1,5 @@
-"""K2: the gathered pose-only serving forward in one CUDA launch.
+"""K2: the gathered pose-only serving forward in one CUDA launch, in f32
+and in the bf16 serving tier.
 
 Replaces the TPU kernel ``mano_hand_tpu/ops/pallas_posed.py:
 forward_posed_gather_fused`` (``pallas_call`` at line 382). Row ``r`` runs
@@ -9,18 +10,30 @@ the pose stage over subject ``idx[r]`` of a ``SubjectTable``: the kernel
 the pose blend ``(R - I) . pose_basis`` and skinning, writing
 ``[B, V, 3]`` fp32.
 
-What bounds it on an H100: fp32 operations (about 0.95 MFLOP a row
-against 9.3 KB gathered and 9.3 KB written). Any table capacity serves:
-the TPU kernel's 512-row VMEM gate has no counterpart here.
+``compute_dtype=torch.bfloat16`` launches the bf16 variant of the same
+kernel (a template parameter; the TPU kernel's ``compute_dtype`` mode,
+``pallas_posed.py:297-305``): the pose basis and the weights are packed
+as bf16 (half the bytes), the ``(R - I)`` coefficients are rounded to
+bf16 after phase A and the 12 skinning entries of each (row, joint)
+after phases B and C; every product accumulates in f32 and the gathered
+``v_shaped`` base stays f32. The FK inputs (local rotations, rest
+joints) are never rounded: a rounding there would compound along the
+chain (``pallas_posed.py:211-223``). ``forward_posed_gather_plain``
+applies the same roundings at the same points.
+
+What bounds it on an H100: operations (about 0.95 MFLOP a row against
+9.3 KB gathered and 9.3 KB written). Both forms use FFMA; the bf16 one
+does not use the tensor cores yet. Any table capacity serves: the TPU
+kernel's 512-row VMEM gate has no counterpart here.
 
 Out-of-range indices are CLAMPED to ``[0, C - 1]`` — by the kernel, by
 ``forward_posed_gather_plain`` and by ``core.forward_posed_gather`` alike
 (the TPU kernel gathered zeros there; its XLA path clamped).
 
 Operand prep (the pose basis packed ``[Ppad, 3, V]`` in the reference's
-row-major (R - I) order, the weights ``[J, V]``) is cached per asset
-tensor, so every functional table update reuses it; an in-place update
-of ``pose_basis`` or ``lbs_weights`` repacks it.
+row-major (R - I) order, the weights ``[J, V]``, each in f32 and in bf16)
+is cached per asset tensor, so every functional table update reuses it;
+an in-place update of ``pose_basis`` or ``lbs_weights`` repacks it.
 """
 
 from __future__ import annotations
@@ -30,12 +43,17 @@ import threading
 import torch
 
 from mano_hand_tpu_torch.ops import _build, fk, lbs
-from mano_hand_tpu_torch.ops.common import IdentityCache, cdiv, parents_tensor
+from mano_hand_tpu_torch.ops.common import (
+    IdentityCache, cdiv, check_compute_dtype, einsum, parents_tensor,
+    round_bf16,
+)
 from mano_hand_tpu_torch.ops.fused_forward import check_tree
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
-#: Kernel launches so far (the main-path evidence; reset it to 0 freely).
+#: f32 kernel launches so far (the main-path evidence; reset it freely).
 launches = 0
+#: bf16-tier kernel launches so far.
+bf16_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -53,21 +71,36 @@ def _pack_weights(lbs_weights: torch.Tensor) -> torch.Tensor:
     return lbs_weights.detach().T.float().contiguous()
 
 
+def _bf16(pack):
+    return lambda t: pack(t).to(torch.bfloat16)
+
+
 _bases = IdentityCache()
 _weights = IdentityCache()
+_bases_bf16 = IdentityCache()
+_weights_bf16 = IdentityCache()
 
 
-def posed_operands(table):
+def posed_operands(table, compute_dtype=None):
     """``(pose_basis2 [Ppad, 3, V], wt [J, V], parents [J] int32)`` of a
-    table's shared asset tensors (cached per tensor while unchanged)."""
-    return (_bases.get(table.pose_basis, _pack_pose_basis),
-            _weights.get(table.lbs_weights, _pack_weights),
+    table's shared asset tensors: f32, or bf16 for the bf16 tier (cached
+    per tensor while unchanged)."""
+    if compute_dtype is None:
+        bases, weights = (_bases.get(table.pose_basis, _pack_pose_basis),
+                          _weights.get(table.lbs_weights, _pack_weights))
+    else:
+        bases = _bases_bf16.get(table.pose_basis, _bf16(_pack_pose_basis))
+        weights = _weights_bf16.get(table.lbs_weights, _bf16(_pack_weights))
+    return (bases, weights,
             parents_tensor(tuple(table.parents), table.v_shaped.device))
 
 
 def forward_posed_gather_plain(v_shaped, joints, idx, pose, pose_basis2,
                                wt, parents) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: [B, V, 3]."""
+    """The kernel's arithmetic in plain PyTorch: [B, V, 3]. bf16
+    operands (``posed_operands(table, torch.bfloat16)``) select the bf16
+    tier's roundings: the coefficients, then the skinning entries."""
+    bf16 = pose_basis2.dtype == torch.bfloat16
     b = pose.shape[0]
     rows = idx.long().clamp(0, v_shaped.shape[0] - 1)
     rot = rotation_matrix(pose)                           # [B, J, 3, 3]
@@ -75,11 +108,16 @@ def forward_posed_gather_plain(v_shaped, joints, idx, pose, pose_basis2,
     coef = (rot[:, 1:] - eye).flatten(1)
     coef = torch.cat(
         [coef, coef.new_zeros(b, pose_basis2.shape[0] - coef.shape[1])], 1)
-    v_posed = v_shaped[rows] + torch.einsum("bk,kcv->bvc", coef, pose_basis2)
+    if bf16:
+        coef = round_bf16(coef)
+    v_posed = v_shaped[rows] + einsum("bk,kcv->bvc", coef,
+                                      pose_basis2.float())
     j_rows = joints[rows]
     world_rot, world_t = fk.forward_kinematics(parents, rot, j_rows)
     _, skin_t = fk.skinning_transforms(world_rot, world_t, j_rows)
-    return lbs.skin(wt.T, world_rot, skin_t, v_posed)
+    if bf16:
+        world_rot, skin_t = round_bf16(world_rot), round_bf16(skin_t)
+    return lbs.skin(wt.T.float(), world_rot, skin_t, v_posed)
 
 
 def _check(table, idx: torch.Tensor, pose: torch.Tensor):
@@ -113,17 +151,15 @@ def forward_posed_gather_fused(table, subject_idx: torch.Tensor,
 
     ``subject_idx`` [B] int32 and ``pose`` [B, J, 3] float32 on the
     table's device. A CPU tensor runs ``forward_posed_gather_plain``; a
-    CUDA tensor launches the kernel (or raises). ``compute_dtype``
-    (the bf16 serving tier) is not ported yet and raises.
+    CUDA tensor launches the kernel (or raises). ``compute_dtype``:
+    None (f32) or ``torch.bfloat16``, the bf16 serving tier (its own
+    kernel variant and launch counter, ``bf16_launches``).
     """
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "the bf16 compute tier of the gathered kernel is not ported "
-            "yet; call with compute_dtype=None (fp32)")
+    check_compute_dtype(compute_dtype)
     if pose.requires_grad:
         raise ValueError("the gathered kernel is inference only")
     _check(table, subject_idx, pose)
-    pose_basis2, wt, parents = posed_operands(table)
+    pose_basis2, wt, parents = posed_operands(table, compute_dtype)
     dev = pose.device
     if dev.type == "cpu":
         return forward_posed_gather_plain(
@@ -145,9 +181,12 @@ def forward_posed_gather_fused(table, subject_idx: torch.Tensor,
             v_shaped.data_ptr(), joints.data_ptr(), idx.data_ptr(),
             pose.data_ptr(), pose_basis2.data_ptr(), wt.data_ptr(),
             parents.data_ptr(), out.data_ptr(), b, c, v, table.n_joints,
-            pose_basis2.shape[0], stream)
+            pose_basis2.shape[0], int(compute_dtype is not None), stream)
     _build.check(lib, rc, "fused_posed")
-    global launches
+    global launches, bf16_launches
     with _count_lock:
-        launches += 1
+        if compute_dtype is None:
+            launches += 1
+        else:
+            bf16_launches += 1
     return out

@@ -35,7 +35,7 @@ from torch.autograd.function import once_differentiable
 
 from mano_hand_tpu_torch.ops import _build, lbs
 from mano_hand_tpu_torch.ops.common import (
-    MAX_JOINTS, check_operands, refuse_grad,
+    MAX_JOINTS, check_operands, einsum, refuse_grad,
 )
 
 #: Kernel launches so far (the main-path evidence; reset it to 0 freely).
@@ -108,12 +108,12 @@ def skin_vjp(weights, rot, t, v_posed, g, needs):
     if need_rot or need_w:
         outer = g[..., :, None] * v_posed[..., None, :]
         if need_rot:
-            grad_rot = torch.einsum("vj,bvac->bjac", weights, outer)
+            grad_rot = einsum("vj,bvac->bjac", weights, outer)
         if need_w:
-            grad_w = (torch.einsum("bvac,bjac->vj", outer, rot)
-                      + torch.einsum("bva,bja->vj", g, t))
+            grad_w = (einsum("bvac,bjac->vj", outer, rot)
+                      + einsum("bva,bja->vj", g, t))
     if need_t:
-        grad_t = torch.einsum("vj,bva->bja", weights, g)
+        grad_t = einsum("vj,bva->bja", weights, g)
     return grad_w, grad_rot, grad_t, grad_vp
 
 

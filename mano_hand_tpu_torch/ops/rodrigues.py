@@ -8,6 +8,14 @@ with a = sin(theta)/theta and b = (1 - cos(theta))/theta^2 computed
 through Taylor guards below theta^2 = 1e-8, so R and its derivatives are
 finite at theta = 0. Since K @ K = r r^T - |r|^2 I, the matrix is built
 as (1 - b theta^2) I + a K + b r r^T, elementwise (no matrix product).
+
+Each entry is one fixed sequence of separately rounded IEEE fp32
+operations (adding the zero entries of I and K is exact), and theta^2 is
+summed as (x^2 + y^2) + z^2. K2's bf16 variant (``csrc/mano_common.cuh``:
+``rodrigues`` with ``kExact``) performs the same operations without fused
+multiply-adds, so both give the same bits: that tier rounds (R - I) to
+bf16, and equal bits before the rounding round alike. (The fp32 kernels
+fuse multiply-adds and agree to fp32 rounding.)
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ def skew(r: torch.Tensor) -> torch.Tensor:
 
 def rotation_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     """Axis-angle [..., 3] -> rotation matrices [..., 3, 3]."""
-    theta2 = (axis_angle * axis_angle).sum(dim=-1)[..., None, None]
+    xx, yy, zz = (axis_angle * axis_angle).unbind(-1)
+    theta2 = ((xx + yy) + zz)[..., None, None]
     small = theta2 < _SMALL
     # Guard the sqrt so its gradient never sees 0 (the double-where rule:
     # the unselected branch must stay finite too).

@@ -19,7 +19,13 @@ with ragged row counts. The engine:
   ``core.forward_posed_gather``;
 * grows the table by doubling up to ``max_subjects`` rows; beyond that
   the least-recently-used subject's row is reused (evicted). Betas stay
-  registered, so an evicted subject re-bakes on its next dispatch.
+  registered, so an evicted subject re-bakes on its next dispatch;
+* under a ``PrecisionPolicy`` (``serving/precision.py``), serves the
+  pose-only requests of the tiers it names (``submit(priority=...)``)
+  from the bf16 gathered family (``compute_dtype=torch.bfloat16``: K2's
+  bf16 variant under ``posed_kernel="fused"``). A batch serves one
+  precision family, never both; full requests and every request of an
+  engine without a policy are f32.
 
 Table updates are functional (``core.table_set_row`` returns a new
 table), so a batch's ``(table, slots)`` snapshot stays valid while
@@ -53,20 +59,23 @@ import torch
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.ops.common import resolve_device
 from mano_hand_tpu_torch.serving import buckets as bucket_mod
+from mano_hand_tpu_torch.serving.precision import BF16, F32, PrecisionPolicy
 from mano_hand_tpu_torch.utils.profiling import ServingCounters
 
 _SENTINEL = object()
 
 
 class _Request:
-    __slots__ = ("pose", "shape", "rows", "squeeze", "subject", "future")
+    __slots__ = ("pose", "shape", "rows", "squeeze", "subject", "tier",
+                 "future")
 
-    def __init__(self, pose, shape, rows, squeeze, subject):
+    def __init__(self, pose, shape, rows, squeeze, subject, tier=0):
         self.pose = pose            # [n, J, 3] float32
         self.shape = shape          # [n, S] float32, None on the pose-only path
         self.rows = rows
         self.squeeze = squeeze      # caller passed one [J, 3] pose
         self.subject = subject      # subject key, or None (full path)
+        self.tier = tier            # admission tier (0 = interactive)
         self.future: Future = Future()
 
 
@@ -87,6 +96,8 @@ class ServingEngine:
         below it, LRU eviction at it).
     posed_kernel: ``"xla"`` (plain ``core.forward_posed_gather``) or
         ``"fused"`` (the K2 CUDA kernel; its plain version on the CPU).
+    precision_policy: a ``PrecisionPolicy`` naming the tiers whose
+        pose-only requests serve the bf16 family, or None (all f32).
     """
 
     # Capacity the subject table starts at (clamped to max_subjects).
@@ -94,11 +105,17 @@ class ServingEngine:
 
     def __init__(self, params, *, device=None, min_bucket: int = 1,
                  max_bucket: int = 1024, max_delay_s: float = 0.002,
-                 max_subjects: int = 4096, posed_kernel: str = "xla"):
+                 max_subjects: int = 4096, posed_kernel: str = "xla",
+                 precision_policy: Optional[PrecisionPolicy] = None):
         if posed_kernel not in ("xla", "fused"):
             raise ValueError(
                 f"posed_kernel must be 'xla' or 'fused', got "
                 f"{posed_kernel!r}")
+        if precision_policy is not None and not isinstance(
+                precision_policy, PrecisionPolicy):
+            raise TypeError(
+                f"precision_policy must be a serving.precision."
+                f"PrecisionPolicy, got {type(precision_policy).__name__}")
         if max_subjects < 1:
             raise ValueError(f"max_subjects must be >= 1, got {max_subjects}")
         self.device = resolve_device(device)
@@ -109,6 +126,7 @@ class ServingEngine:
         self.max_delay_s = float(max_delay_s)
         self.max_subjects = int(max_subjects)
         self._posed_kernel = posed_kernel
+        self._precision_policy = precision_policy
         self.counters = ServingCounters()
         # _lock guards the subject maps and the live table reference;
         # _install_lock serializes table installs so the functional row
@@ -133,6 +151,10 @@ class ServingEngine:
     @property
     def posed_kernel(self) -> str:
         return self._posed_kernel
+
+    @property
+    def precision_policy(self) -> Optional[PrecisionPolicy]:
+        return self._precision_policy
 
     @property
     def table(self) -> Optional[core.SubjectTable]:
@@ -269,16 +291,21 @@ class ServingEngine:
             "max_subjects is too small for the live working set")
 
     # ------------------------------------------------------------- requests
-    def submit(self, pose, shape=None, subject: Optional[str] = None,
-               ) -> Future:
+    def submit(self, pose, shape=None, subject: Optional[str] = None, *,
+               priority: int = 0) -> Future:
         """Enqueue one forward request; returns a Future of the verts.
 
         ``pose`` is [n, J, 3] (the Future resolves to [n, V, 3] float32)
         or one [J, 3] (resolves to [V, 3]). ``shape`` is [n, S] or [S]
         (default zeros). ``subject`` (a key from ``specialize``) routes
         the request down the pose-only path instead; ``shape`` must then
-        be omitted.
+        be omitted. ``priority`` is the admission tier (0 = interactive,
+        >= 1 = batch); here it selects only the precision family a
+        pose-only request is served from (``precision_policy``).
         """
+        tier = int(priority)
+        if tier < 0:
+            raise ValueError(f"priority must be >= 0, got {priority}")
         pose = np.asarray(pose, np.float32)
         squeeze = pose.ndim == 2
         if squeeze:
@@ -320,7 +347,7 @@ class ServingEngine:
         if self._failure is not None:
             raise RuntimeError(
                 "serving engine dispatcher died") from self._failure
-        req = _Request(pose, shape, n, squeeze, subject)
+        req = _Request(pose, shape, n, squeeze, subject, tier)
         self.start()
         self._queue.put(req)
         if self._failure is not None:
@@ -331,10 +358,11 @@ class ServingEngine:
                 "serving engine dispatcher died") from self._failure
         return req.future
 
-    def forward(self, pose, shape=None,
-                subject: Optional[str] = None) -> np.ndarray:
+    def forward(self, pose, shape=None, subject: Optional[str] = None, *,
+                priority: int = 0) -> np.ndarray:
         """Synchronous convenience: ``submit(...).result()``."""
-        return self.submit(pose, shape, subject=subject).result()
+        return self.submit(pose, shape, subject=subject,
+                           priority=priority).result()
 
     def warmup(self, bucket_list: Optional[Sequence[int]] = None) -> dict:
         """Run one zero batch of the full family per bucket (first-use
@@ -351,16 +379,24 @@ class ServingEngine:
     def warmup_posed(self, bucket_list: Optional[Sequence[int]] = None,
                      ) -> dict:
         """``warmup`` for the pose-only family (needs one specialized
-        subject, so the table exists). Returns {bucket: seconds}."""
+        subject, so the table exists) — and for the bf16 family too when
+        the precision policy names a bf16 tier. Returns {bucket: seconds}
+        over the families warmed."""
         table = self.table
         if table is None:
             raise RuntimeError(
                 "warmup_posed needs a subject table: specialize() first")
+        dtypes = [None]
+        if self._precision_policy is not None \
+                and self._precision_policy.bf16_tiers:
+            dtypes.append(torch.bfloat16)
         out = {}
         for b in self._check_buckets(bucket_list):
             t0 = time.perf_counter()
-            self._run_posed(table, np.zeros((b,), np.int32),
-                            np.zeros((b, self._n_joints, 3), np.float32))
+            for dt in dtypes:
+                self._run_posed(table, np.zeros((b,), np.int32),
+                                np.zeros((b, self._n_joints, 3), np.float32),
+                                dt)
             out[b] = time.perf_counter() - t0
         return out
 
@@ -378,22 +414,38 @@ class ServingEngine:
                 torch.from_numpy(shape).to(self.device)).verts
         return verts.cpu().numpy()
 
-    def _run_posed(self, table, idx: np.ndarray,
-                   pose: np.ndarray) -> np.ndarray:
+    def _run_posed(self, table, idx: np.ndarray, pose: np.ndarray,
+                   compute_dtype=None) -> np.ndarray:
         idx_t = torch.from_numpy(idx).to(self.device)
         pose_t = torch.from_numpy(pose).to(self.device)
         with torch.no_grad():
             if self._posed_kernel == "fused":
-                verts = core.forward_posed_gather_fused(table, idx_t, pose_t)
+                verts = core.forward_posed_gather_fused(
+                    table, idx_t, pose_t, compute_dtype=compute_dtype)
             else:
-                verts = core.forward_posed_gather(table, idx_t, pose_t).verts
+                verts = core.forward_posed_gather(
+                    table, idx_t, pose_t, compute_dtype=compute_dtype).verts
         return verts.cpu().numpy()
 
+    def _req_prec(self, req: _Request) -> str:
+        """The precision family one request is served from: ``"bf16"``
+        only for a pose-only request whose tier the policy names; full
+        requests, and every request of a policy-less engine, are f32."""
+        if self._precision_policy is None or req.subject is None:
+            return F32
+        return self._precision_policy.dtype_for_tier(req.tier)
+
     def _admit(self, nxt: _Request, posed: bool, subjects: set,
-               rows: int) -> Optional[str]:
-        """Why ``nxt`` cannot join the batch being built, or None."""
+               rows: int, prec: str = F32) -> Optional[str]:
+        """Why ``nxt`` cannot join the batch being built, or None:
+        ``"kind"`` (full and pose-only never share a batch),
+        ``"precision"`` (a batch serves one precision family),
+        ``"overflow"`` (past the largest bucket) or ``"subjects"`` (one
+        more distinct subject than the table can hold)."""
         if (nxt.subject is not None) != posed:
             return "kind"
+        if posed and self._req_prec(nxt) != prec:
+            return "precision"
         if rows + nxt.rows > self.buckets[-1]:
             return "overflow"
         if (posed and nxt.subject not in subjects
@@ -407,13 +459,14 @@ class ServingEngine:
         Returns (requests, rows)."""
         reqs, rows = [first], first.rows
         posed = first.subject is not None
+        prec = self._req_prec(first)
         subjects = {first.subject}
         top = self.buckets[-1]
         for _ in range(len(self._pending)):
             if rows >= top:
                 break
             nxt = self._pending.popleft()
-            if self._admit(nxt, posed, subjects, rows) is None:
+            if self._admit(nxt, posed, subjects, rows, prec) is None:
                 reqs.append(nxt)
                 rows += nxt.rows
                 subjects.add(nxt.subject)
@@ -430,7 +483,7 @@ class ServingEngine:
             if nxt is _SENTINEL:
                 self._queue.put(_SENTINEL)   # re-post for the main loop
                 break
-            why = self._admit(nxt, posed, subjects, rows)
+            why = self._admit(nxt, posed, subjects, rows, prec)
             if why is None:
                 reqs.append(nxt)
                 rows += nxt.rows
@@ -466,19 +519,21 @@ class ServingEngine:
             bucket = bucket_mod.bucket_for(rows, self.buckets)
             pose = bucket_mod.pad_rows(
                 np.concatenate([r.pose for r in reqs]), bucket)
+            bf16 = self._req_prec(reqs[0]) == BF16
             if reqs[0].subject is not None:
                 table, slots = self._resolve_batch(reqs)
                 idx = bucket_mod.subject_index_rows(
                     slots, [r.rows for r in reqs], bucket)
                 n_subjects = len(set(slots))
-                verts = self._run_posed(table, idx, pose)
+                verts = self._run_posed(table, idx, pose,
+                                        torch.bfloat16 if bf16 else None)
             else:
                 shape = bucket_mod.pad_rows(
                     np.concatenate([r.shape for r in reqs]), bucket)
                 n_subjects = 1
                 verts = self._run_full(pose, shape)
             self.counters.count_dispatch(bucket, rows, requests=len(reqs),
-                                         subjects=n_subjects)
+                                         subjects=n_subjects, bf16=bf16)
         except BaseException as e:
             self._poison(reqs, e)
             raise

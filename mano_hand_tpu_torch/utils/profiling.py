@@ -15,6 +15,7 @@ class ServingCounters:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.dispatches = 0              # batches sent to the device
+        self.dispatches_bf16 = 0         # of them, bf16-family batches
         self.rows_live = 0               # real request rows dispatched
         self.rows_padded = 0             # pad rows dispatched alongside them
         self.requests_dispatched = 0     # requests merged across dispatches
@@ -25,11 +26,13 @@ class ServingCounters:
         self.specializations_evicted = 0  # LRU table-row evictions
 
     def count_dispatch(self, bucket: int, live_rows: int, requests: int = 1,
-                       subjects: int = 1) -> None:
+                       subjects: int = 1, bf16: bool = False) -> None:
         """One batch sent to the device: ``requests`` submits coalesced,
-        ``subjects`` distinct subjects in it (>= 2 is a mixed batch)."""
+        ``subjects`` distinct subjects in it (>= 2 is a mixed batch),
+        served from the bf16 family when ``bf16``."""
         with self._lock:
             self.dispatches += 1
+            self.dispatches_bf16 += int(bf16)
             self.rows_live += live_rows
             self.rows_padded += bucket - live_rows
             self.requests_dispatched += requests
@@ -68,6 +71,7 @@ class ServingCounters:
         with self._lock:
             out = {
                 "dispatches": self.dispatches,
+                "dispatches_bf16": self.dispatches_bf16,
                 "rows_live": self.rows_live,
                 "rows_padded": self.rows_padded,
                 "requests_dispatched": self.requests_dispatched,

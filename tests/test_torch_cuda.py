@@ -11,7 +11,9 @@ imports JAX), registering the marker on the command line:
 Shapes cover what ``chip_smoke.py`` does not: ragged and tiny batches,
 generic kinematic trees (J = 7 and J = 40), a one-row subject table and
 out-of-range subject indices. Tolerance: kernel vs plain version, both
-fp32 FFMA with TF32 off, <= 1e-5 (summation order only). Gradients
+fp32 FFMA with TF32 off, <= 1e-5 (summation order only; K2's bf16 tier
+too, whose roundings act on bit-equal values in both). K2-bf16 vs f32
+K2: nonzero and inside the policy's stated envelope (2e-3 m). Gradients
 through the three kernel routes against autograd of the plain path: the
 JAX tests' relative bar, max|a - b| / max(1, max|b|) < 1e-4.
 """
@@ -23,11 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from mano_hand_tpu_torch.assets import synthetic_params
+from mano_hand_tpu_torch.assets import mirror_params, synthetic_params
 from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS as FIELDS
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
-from mano_hand_tpu_torch.serving import ServingEngine
+from mano_hand_tpu_torch.serving import PrecisionPolicy, ServingEngine
+from mano_hand_tpu_torch.serving.precision import DEFAULT_ENVELOPE_M
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +122,93 @@ def test_k2_generic_tree(dev):
     got = core.forward_posed_gather_fused(table, idx_t, pose)
     want = core.forward_posed_gather(table, idx_t, pose).verts
     assert _err(got, want) <= TOL
+
+
+def _pair(dev, n_joints=16, n_verts=778):
+    right = _params(dev, n_joints, n_verts)
+    return core.stack_params(mirror_params(right), right)
+
+
+@pytest.mark.parametrize("b,n_joints", [(1, 16), (33, 16), (1000, 16),
+                                        (45, 7)])
+def test_k5_kernel_matches_plain_and_k1(dev, b, n_joints):
+    stacked = _pair(dev, n_joints, 778 if n_joints == 16 else 300)
+    rng = np.random.default_rng(b)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(
+        2, b, n_joints, 3)).astype(np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(2, b, 10)).astype(
+        np.float32)).to(dev)
+    before = fused_forward.hands_launches
+    got = core.forward_hands_pallas_fused_full(stacked, pose, shape)
+    torch.cuda.synchronize()
+    assert fused_forward.hands_launches == before + 1
+    assert got.shape == (2, b, stacked.n_verts, 3)
+    want = fused_forward.forward_verts_hands_plain(
+        fused_forward.fused_operands_hands(stacked), pose, shape)
+    assert _err(got, want) <= TOL
+    k1 = fused_forward.launches
+    for h, hand in enumerate(stacked.hands):
+        one = fused_forward.forward_verts_fused_full(hand, pose[h], shape[h])
+        assert _err(got[h], one) <= TOL
+    assert fused_forward.launches == k1 + 2
+
+
+@pytest.mark.parametrize("c,b", [(1, 1), (3, 45), (700, 1024)])
+def test_k2_bf16_kernel_matches_plain_and_envelope(dev, c, b):
+    params = _params(dev)
+    table = _table(params, c)
+    rng = np.random.default_rng(c + 1)
+    idx_t = torch.from_numpy(rng.integers(-2, c + 2, size=b).astype(
+        np.int32)).to(dev)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+        np.float32)).to(dev)
+    bf16, f32 = fused_posed.bf16_launches, fused_posed.launches
+    got = core.forward_posed_gather_fused(table, idx_t, pose,
+                                          compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_posed.bf16_launches == bf16 + 1
+    assert fused_posed.launches == f32
+    want = core.forward_posed_gather(table, idx_t, pose,
+                                     compute_dtype=torch.bfloat16).verts
+    assert _err(got, want) <= TOL
+    full = core.forward_posed_gather_fused(table, idx_t, pose)
+    assert 1e-6 < _err(got, full) <= DEFAULT_ENVELOPE_M
+
+
+def test_engine_tiers_on_the_card(dev):
+    params = _params(dev)
+    rng = np.random.default_rng(6)
+    betas = rng.normal(size=(4, 10)).astype(np.float32)
+    eng = ServingEngine(params, max_bucket=64, max_delay_s=0.05,
+                        posed_kernel="fused",
+                        precision_policy=PrecisionPolicy())
+    poses = [rng.normal(scale=0.5, size=(int(n), 16, 3)).astype(np.float32)
+             for n in rng.integers(1, 9, size=8)]
+    f32, bf16 = fused_posed.launches, fused_posed.bf16_launches
+    with eng:
+        keys = [eng.specialize(bt) for bt in betas]
+        eng.warmup_posed([8, 64])
+        futs = [eng.submit(p, subject=keys[i % 4], priority=i % 2)
+                for i, p in enumerate(poses)]
+        outs = [f.result(timeout=120) for f in futs]
+    assert fused_posed.launches > f32 and fused_posed.bf16_launches > bf16
+    table = eng.table
+    envelope = eng.precision_policy.max_vertex_err_m
+    for i, (p, o) in enumerate(zip(poses, outs)):
+        slot = eng._subject_slots[keys[i % 4]]
+        idx = torch.full((p.shape[0],), slot, dtype=torch.int32, device=dev)
+        pose = torch.from_numpy(p).to(dev)
+        err = _err(torch.from_numpy(o), core.forward_posed_gather_fused(
+            table, idx, pose))
+        if i % 2:
+            assert err <= TOL, (i, err)
+        else:
+            assert 1e-6 < err <= envelope, (i, err)
+            want = core.forward_posed_gather(
+                table, idx, pose, compute_dtype=torch.bfloat16).verts
+            assert _err(torch.from_numpy(o), want) <= TOL, i
+    snap = eng.counters.snapshot()
+    assert 1 <= snap["dispatches_bf16"] < snap["dispatches"]
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -254,6 +344,66 @@ def test_route_grads_match_plain_autograd(dev, route):
         rel = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
         assert rel < 1e-4, (name, rel)
         assert float(b.abs().max()) > 0, name
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def test_f32_family_ignores_the_callers_tf32_switch(dev):
+    """``torch.set_float32_matmul_precision("high")`` (TF32 in cuBLAS) in
+    the caller must not move the port's f32 family: the plain forward,
+    the plain gather, the engine's f32 pose-only family and the K1-route
+    gradient stay within 1e-4 of the oracle (gradients: the relative
+    1e-4 bar against autograd of the plain path at "highest") and within
+    1e-5 of their kernels. A TF32 product keeps about three digits."""
+    from mano_hand_tpu_torch.models import oracle
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(17)
+    b = 256
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(b, 10)).astype(
+        np.float32)).to(dev)
+    table = _table(params, 8)
+    idx = torch.from_numpy(rng.integers(0, 8, size=b).astype(
+        np.int32)).to(dev)
+    n = 16
+    want = oracle.forward_batch_verts(params, pose[:n].cpu(), shape[:n].cpu())
+    want_plain_grads = _grads(params, None, pose[:64], shape[:64])
+    eng = ServingEngine(params, max_bucket=64, max_delay_s=0.001,
+                        precision_policy=PrecisionPolicy())
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        full = core.forward_batched(params, pose, shape).verts
+        k1 = core.forward_batched_pallas_fused_full(params, pose, shape)
+        gather = core.forward_posed_gather(table, idx, pose).verts
+        k2 = core.forward_posed_gather_fused(table, idx, pose)
+        with eng:
+            key = eng.specialize(table.shape[3].cpu().numpy())
+            served = eng.forward(pose[:n].cpu().numpy(), subject=key,
+                                 priority=1)
+        k1_grads = _grads(params, "forward_batched_pallas_fused_full",
+                          pose[:64], shape[:64])
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    served_k2 = core.forward_posed_gather_fused(
+        table, torch.full((n,), 3, dtype=torch.int32, device=dev), pose[:n])
+    errs = {
+        "forward_batched_vs_oracle": _err(full[:n], torch.from_numpy(want)),
+        "forward_batched_vs_k1": _err(full, k1),
+        "forward_posed_gather_vs_k2": _err(gather, k2),
+        "engine_f32_vs_k2": _err(torch.from_numpy(served), served_k2),
+        **{f"k1_grad_{k}": _rel(k1_grads[k], v)
+           for k, v in want_plain_grads.items()},
+    }
+    print(errs)
+    bars = {k: (1e-4 if "oracle" in k or "grad" in k else TOL)
+            for k in errs}
+    assert all(errs[k] <= bars[k] for k in errs), errs
 
 
 def test_k3_wrapper_raises_on_a_strided_rotation(dev):

@@ -177,7 +177,7 @@ def test_k1_wrapper_rejects(assets, case, exc, match):
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("bf16", NotImplementedError, "bf16"),
+    ("f16", ValueError, "compute_dtype"),
     ("idx_dtype", ValueError, "int32"),
     ("idx_len", ValueError, "subject_idx must be"),
     ("grad", ValueError, "inference only"),
@@ -188,8 +188,8 @@ def test_k2_wrapper_rejects(assets, case, exc, match):
     pose = torch.zeros(3, 16, 3)
     idx = torch.zeros(3, dtype=torch.int32)
     kw = {}
-    if case == "bf16":
-        kw["compute_dtype"] = torch.bfloat16
+    if case == "f16":     # bf16 is the one reduced tier
+        kw["compute_dtype"] = torch.float16
     elif case == "idx_dtype":
         idx = idx.long()
     elif case == "idx_len":
