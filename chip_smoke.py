@@ -144,6 +144,27 @@ def interleaved_ms(kernel, plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def ptxas_of(log: str, fragment: str) -> dict:
+    """Registers, stack and spill bytes of each kernel entry whose mangled
+    name holds ``fragment``, from an ``-Xptxas -v`` build log, keyed by
+    the entry's template argument list (``ILi32EE`` -> ``Li32``)."""
+    found, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            name = ln.split("'")[1]
+            name = name if fragment in name else None
+        elif name and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            key = name.split(fragment, 1)[1].split("EE", 1)[0].lstrip("I")
+            found.setdefault(key, {}).update(
+                stack_bytes=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "Used" in ln and "registers" in ln:
+            key = name.split(fragment, 1)[1].split("EE", 1)[0].lstrip("I")
+            found.setdefault(key, {})["registers"] = int(
+                ln.split("Used")[1].split()[0])
+    return found
+
+
 def k1_work(b, v, j, s):
     """(fp32 FLOP, bytes) the full forward needs for ``b`` rows: the blend
     over K = S + 1 + 9 (J - 1) coefficients, the 12-plane skin blend, the
@@ -235,6 +256,7 @@ def main() -> int:
     from mano_hand_tpu_torch.ops import (
         _build, fused_forward, fused_posed, fused_skin,
     )
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
     from mano_hand_tpu_torch.serving import PrecisionPolicy, ServingEngine
 
     def zero_counts():
@@ -271,9 +293,14 @@ def main() -> int:
     _build.load()
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
+    k1_ptxas = ptxas_of(_build.build_log(), "fused_forward_kernel")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "library": os.path.relpath(so, os.path.dirname(
-              os.path.abspath(__file__))), "ptxas": ptxas})
+              os.path.abspath(__file__))), "ptxas": ptxas,
+          "k1_ptxas": k1_ptxas})
+    require(len(k1_ptxas) >= 1 and all(
+        e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+        for e in k1_ptxas.values()), f"K1/K5 build without spills {k1_ptxas}")
 
     # 3. Params: the synthetic MANO asset at full width, f32, on the card.
     params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
@@ -783,14 +810,31 @@ def main() -> int:
 
     # 18. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
+    #     K1 and K5 at every batch of their paths.
     b1 = K1_BATCHES[0]
+    k1_by_batch, k5_by_batch = {}, {}
+    with torch.no_grad():
+        for b, (pose, shape) in k1_in.items():
+            pose_t, shape_t = (torch.from_numpy(x).to(dev)
+                               for x in (pose, shape))
+            k1_by_batch[b] = dict(zip(("ms", "plain_ms"), interleaved_ms(
+                lambda: fused_forward.forward_verts_fused_full(
+                    params, pose_t, shape_t),
+                lambda: fused_forward.forward_verts_plain(
+                    ops1, pose_t, shape_t))))
+        for b, (pose, shape) in k5_in.items():
+            pose_t, shape_t = (torch.from_numpy(x).to(dev)
+                               for x in (pose, shape))
+            k5_by_batch[b] = dict(zip(("ms", "plain_ms"), interleaved_ms(
+                lambda: fused_forward.forward_verts_fused_full_hands(
+                    stacked, pose_t, shape_t),
+                lambda: fused_forward.forward_verts_hands_plain(
+                    ops5, pose_t, shape_t))))
+        del pose_t, shape_t
     pose1 = torch.from_numpy(k1_in[b1][0]).to(dev)
     shape1 = torch.from_numpy(k1_in[b1][1]).to(dev)
+    k1_ms, k1_plain_ms = k1_by_batch[b1]["ms"], k1_by_batch[b1]["plain_ms"]
     with torch.no_grad():
-        k1_ms, k1_plain_ms = interleaved_ms(
-            lambda: fused_forward.forward_verts_fused_full(
-                params, pose1, shape1),
-            lambda: fused_forward.forward_verts_plain(ops1, pose1, shape1))
         table, idx_t, pose_t, pb, wt, used = k2_case[K2_CAPACITIES[-1]]
         k2_ms, k2_plain_ms = interleaved_ms(
             lambda: fused_posed.forward_posed_gather_fused(
@@ -809,11 +853,14 @@ def main() -> int:
             lambda: fused_forward.blend_skin_plain(ops1, coef4, rot4, t4))
         b5 = K5_BATCHES[0]
         pose5, shape5 = (torch.from_numpy(x).to(dev) for x in k5_in[b5])
-        k5_ms, k5_plain_ms = interleaved_ms(
-            lambda: fused_forward.forward_verts_fused_full_hands(
-                stacked, pose5, shape5),
-            lambda: fused_forward.forward_verts_hands_plain(
-                ops5, pose5, shape5))
+        k5_ms, k5_plain_ms = (k5_by_batch[b5]["ms"],
+                              k5_by_batch[b5]["plain_ms"])
+        # A yardstick of the blend stage alone (about 68 % of K1's FLOP):
+        # one IEEE fp32 product coef [B, Kpad] x basis [Kpad, 3V]. The port
+        # never calls it.
+        basis2d = ops1.basis.reshape(ops1.kpad, -1)
+        with ieee_fp32():
+            blend_sgemm_ms = cuda_ms(lambda: torch.mm(coef4, basis2d))
         # The same work as two one-hand K1 launches (the TPU's motivation
         # for K5 was saving the second launch), in turns with K5.
         k5_vs_k1x2, k1x2_ms = interleaved_ms(
@@ -871,6 +918,8 @@ def main() -> int:
                       "rows_used": used, "ms": k2b_ms,
                       "plain_ms": k2b_plain_ms, "bf16_flops": c2b,
                       "flops": r2b, "bytes": m2b},
+          "K1_by_batch": k1_by_batch, "K5_by_batch": k5_by_batch,
+          "blend_sgemm_ms": blend_sgemm_ms,
           "repack_ms": repack_ms,
           "route_fwd_bwd": {"batch": TRAIN_BATCH, **route_ms}})
 
@@ -882,7 +931,7 @@ def main() -> int:
          "max_abs_err_oracle": k1_oracle, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "shape": f"B={b1}", "path": "serving",
-         "launches_train": train_launches["K1"]},
+         "launches_train": train_launches["K1"], "ptxas": k1_ptxas},
         {"name": "K2 fused_posed", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_posed.cu",
          "replaces": "mano_hand_tpu/ops/pallas_posed.py:382",
@@ -912,7 +961,7 @@ def main() -> int:
          "max_abs_err_oracle": k5_oracle, "max_abs_err_k1": k5_k1,
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_by, "library_ms": None,
-         "shape": f"H=2 B={b5}", "path": "two_hands"},
+         "shape": f"H=2 B={b5}", "path": "two_hands", "ptxas": k1_ptxas},
         {"name": "K2 fused_posed (bf16)", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_posed.cu",
          "replaces": "mano_hand_tpu/ops/pallas_posed.py:382",

@@ -10,54 +10,139 @@
 // tree is shared. K1 is the H = 1 launch, K5 the H = 2 launch.
 //
 // What bounds it on an H100: fp32 operations. Per row the blend is
-// 2 K 3V FLOP (K = S + 1 + 9 (J - 1) = 146 for MANO, about 0.68 MFLOP) and the
-// skinning 2 (12 J + 12) V (about 0.32 MFLOP), against 12 V bytes written
-// (9.3 KB) and 232 bytes read: some 100 FLOP a byte, far above the card's
-// fp32 ridge (about 20). The design keeps every intermediate — rotations,
-// world transforms, the coefficient vector, v_posed — on chip: the prelude
-// (Rodrigues, shaped joints, FK, inverse bind) lives in shared memory, and
-// v_posed for kRowChunk rows at a time lives in registers, so device memory
-// sees only pose/shape in, verts out, and the asset (1.4 MB a hand,
-// L2-resident). The TPU layout machinery (lane permutation of the joints,
-// bf16 hi/lo split, stacked skin dots, (8, 128) padding) has no counterpart
-// here.
+// 2 K 3V FLOP (K = S + 1 + 9 (J - 1) = 146 for MANO, about 0.68 MFLOP) and
+// the skinning 2 (12 J + 12) V (about 0.32 MFLOP), against 12 V bytes
+// written (9.3 KB) and 232 bytes read: some 100 FLOP a byte, far above the
+// card's fp32 ridge (about 20). Every intermediate (rotations, world
+// transforms, the coefficients, v_posed) stays on chip.
+//
+// The design. The blend is a product, coef [rows, kpad] x basis
+// [kpad, 3V], whose epilogue is the skin; it runs as a tiled fp32-FFMA GEMM.
+//   * One prelude per row tile. A block owns kRows batch rows and a span
+//     of vertex sub-tiles (kVertTile vertices each) that it walks in turn,
+//     so Rodrigues, the shaped joints, FK and the inverse bind run once
+//     per row tile and vertex span, not once per 128 vertices. The span
+//     (the vertex split) is chosen per launch from B so that small batches
+//     still spread over every SM; the row tile is chosen from J (32 rows,
+//     or 16 when 32 would not leave room for two blocks an SM).
+//   * The basis streams through a ring of kStages shared-memory stages of
+//     kChunk k-rows x 3 x kVertTile floats, filled by 16-byte cp.async
+//     (cp.async.cg: L2 only) kStages - 1 chunks ahead of the product, so
+//     each basis element leaves L2 once per block and serves every row of
+//     the tile. The operand is pre-tiled by ops/fused_forward.py:_pack
+//     ([nsub, kpad, 3, kVertTile], V zero-padded), so a chunk is one
+//     contiguous run.
+//   * A register micro-tile: each thread accumulates kRows / 4 rows x 2
+//     adjacent vertices x 3 coordinates. Per k it reads the rows'
+//     coefficients as float4 broadcasts and the basis as float2 (a warp
+//     reads 256 contiguous bytes: no bank conflict).
+//   * The skin is the epilogue, in registers: per (row, vertex)
+//     M = sum_j w_j (R_j, t_j) from the row's transforms in shared memory
+//     (float4 broadcasts) and the sub-tile's weights, staged once per
+//     sub-tile; v_posed never leaves registers.
+// Plain fp32 FFMA throughout (no tensor cores, no fast math); the prelude
+// is the fp32 (FMA) form of mano_common.cuh's phases A-C.
 
 #include "mano_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(mano::kThreads)
-fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
-                     const float* __restrict__ shape,  // [H, B, S]
-                     const float* __restrict__ basis,  // [H, kpad, 3, V]
-                     const float* __restrict__ wt,     // [H, J, V]
-                     const float* __restrict__ jb,     // [H, J, 3, S + 1]
-                     const int* __restrict__ parents,  // [J] (shared)
-                     float* __restrict__ out,          // [H, B, V, 3]
-                     int B, int V, int J, int S, int kpad) {
-  extern __shared__ float4 smem4[];
-  const mano::Tile t = mano::carve(reinterpret_cast<float*>(smem4), kpad, J);
-  const int row0 = blockIdx.x * mano::kTileRows;
-  const int k = S + 1 + 9 * (J - 1);
-  const size_t h = blockIdx.z;
-  pose += h * B * J * 3;
-  shape += h * B * S;
-  basis += h * kpad * 3 * V;
-  wt += h * J * V;
-  jb += h * J * 3 * (S + 1);
-  out += h * B * V * 3;
+constexpr int kThreads = 256;
+constexpr int kVertTile = 128;   // ops/fused_forward.py VERT_TILE
+constexpr int kPairs = kVertTile / 2;       // a thread owns 2 adjacent vertices
+constexpr int kGroups = kThreads / kPairs;  // row groups of a block
+constexpr int kChunk = 4;                   // k-rows of one basis stage
+constexpr int kStages = 3;
+constexpr int kStageFloats = kChunk * 3 * kVertTile;
+constexpr bool kStagedStore = true;         // output through shared memory
+constexpr int kWarps = kThreads / 32;
+constexpr int kOutFloats = kWarps * 32 * 2 * 3;  // a row of each warp's vertices
+// Two blocks an SM: 228 KB of shared memory less 1 KB reserved per block.
+constexpr size_t kTwoBlockSmem = (228 * 1024) / 2 - 1024;
 
-  for (int i = threadIdx.x; i < J; i += blockDim.x) t.parents[i] = parents[i];
-  // Coefficients [beta | 1 | (R - I) ... | 0 pad]; the 1 drives the template row.
-  for (int i = threadIdx.x; i < mano::kTileRows * (S + 1); i += blockDim.x) {
-    const int r = i / (S + 1), c = i - r * (S + 1);
-    t.coef[r * kpad + c] =
-        c < S ? shape[(size_t)mano::tile_row(row0, r, B) * S + c] : 1.0f;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory carve of one block (every part a multiple of 4 floats).
+struct Smem {
+  float* coef;   // [kRows][kpad] blend coefficients [beta | 1 | R - I | 0]
+  float* skin;   // [kRows][J][12] local R, then world (R, t), then skin (R, t)
+  float* jrest;  // [kRows][J][3] rest joints
+  float* wt;     // [J][kVertTile] weights of the current sub-tile
+  float* stage;  // [kStages][kChunk][3][kVertTile] basis ring
+  float* out;    // [kWarps][64 * 3] one output row of each warp's vertices
+  int* parents;  // [J]
+};
+
+template <int kRows>
+__host__ __device__ inline size_t smem_bytes(int kpad, int J) {
+  return sizeof(float) * ((size_t)kRows * (kpad + J * 15) +
+                          (size_t)J * kVertTile + kStages * kStageFloats +
+                          kOutFloats) +
+         sizeof(int) * (size_t)J;
+}
+
+template <int kRows>
+__device__ inline Smem carve(float* smem, int kpad, int J) {
+  Smem t;
+  t.coef = smem;
+  t.skin = t.coef + kRows * kpad;
+  t.jrest = t.skin + kRows * J * 12;
+  t.wt = t.jrest + kRows * J * 3;
+  t.stage = t.wt + J * kVertTile;
+  t.out = t.stage + kStages * kStageFloats;
+  t.parents = reinterpret_cast<int*>(t.out + kOutFloats);
+  return t;
+}
+
+// Phases A-C for the tile's rows (mano_common.cuh's rodrigues_rows,
+// fk_rows and inverse_bind_rows in their fp32 form, for kRows rows).
+// Ends with the block synchronised.
+template <int kRows>
+__device__ void prelude(const float* __restrict__ pose,
+                        const float* __restrict__ shape,
+                        const float* __restrict__ jb,
+                        const int* __restrict__ parents, int B, int row0,
+                        int J, int S, int kpad, const Smem& t) {
+  const int k = S + 1 + 9 * (J - 1);
+  for (int i = threadIdx.x; i < J; i += kThreads) t.parents[i] = parents[i];
+  // [beta | 1] and the zero padding; the 1 drives the template row.
+  for (int i = threadIdx.x; i < kRows * kpad; i += kThreads) {
+    const int r = i / kpad, c = i - r * kpad;
+    if (c < S)
+      t.coef[i] = shape[(size_t)mano::tile_row(row0, r, B) * S + c];
+    else if (c == S)
+      t.coef[i] = 1.0f;
+    else if (c >= k)
+      t.coef[i] = 0.0f;
   }
-  mano::zero_coef_pad(t, k, kpad);
-  mano::rodrigues_rows(pose, B, row0, J, t, kpad, S + 1);
+  // A: local R into the skin slots, (R - I) of joints 1.. into coef.
+  for (int i = threadIdx.x; i < kRows * J; i += kThreads) {
+    const int r = i / J, j = i - r * J;
+    const float* q = pose + ((size_t)mano::tile_row(row0, r, B) * J + j) * 3;
+    float R[9];
+    mano::rodrigues<false>(q[0], q[1], q[2], R);
+    float* sk = t.skin + i * 12;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) sk[e] = R[e];
+    if (j > 0) {
+      float* c = t.coef + r * kpad + S + 1 + (j - 1) * 9;
+#pragma unroll
+      for (int e = 0; e < 9; ++e) c[e] = R[e] - ((e % 4 == 0) ? 1.0f : 0.0f);
+    }
+  }
   // Shaped rest joints: J_rest[j][c] = jb[j][c][S] + sum_s jb[j][c][s] beta_s.
-  for (int i = threadIdx.x; i < mano::kTileRows * J * 3; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kRows * J * 3; i += kThreads) {
     const int r = i / (J * 3), jc = i - r * J * 3;
     const float* g = jb + (size_t)jc * (S + 1);
     const float* beta = shape + (size_t)mano::tile_row(row0, r, B) * S;
@@ -66,33 +151,279 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
     t.jrest[i] = acc + g[S];
   }
   __syncthreads();
-  mano::fk_rows(t, J);
+  // B: forward kinematics, one thread per row, in place over the slots.
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    float* sk = t.skin + r * J * 12;
+    const float* jr = t.jrest + r * J * 3;
+    sk[9] = jr[0];
+    sk[10] = jr[1];
+    sk[11] = jr[2];
+    for (int j = 1; j < J; ++j) {
+      const int p = t.parents[j];
+      const float* P = sk + p * 12;
+      float* W = sk + j * 12;
+      float L[9];
+#pragma unroll
+      for (int e = 0; e < 9; ++e) L[e] = W[e];
+      const float d0 = jr[3 * j] - jr[3 * p];
+      const float d1 = jr[3 * j + 1] - jr[3 * p + 1];
+      const float d2 = jr[3 * j + 2] - jr[3 * p + 2];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          W[3 * a + b] = mano::dot3<false>(P[3 * a], P[3 * a + 1],
+                                           P[3 * a + 2], L[b], L[3 + b],
+                                           L[6 + b]);
+        W[9 + a] = mano::dot3<false>(P[3 * a], P[3 * a + 1], P[3 * a + 2],
+                                     d0, d1, d2) +
+                   P[9 + a];
+      }
+    }
+  }
   __syncthreads();
-  mano::inverse_bind_rows(t, J);
+  // C: inverse bind, t <- world_t - world_R @ J_rest.
+  for (int i = threadIdx.x; i < kRows * J; i += kThreads) {
+    float* sk = t.skin + i * 12;
+    const float* jr = t.jrest + i * 3;
+    float u[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      u[a] = sk[9 + a] - mano::dot3<false>(sk[3 * a], sk[3 * a + 1],
+                                           sk[3 * a + 2], jr[0], jr[1], jr[2]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) sk[9 + a] = u[a];
+  }
   __syncthreads();
-  mano::blend_skin_rows(t, kpad, J, basis, wt, nullptr, V, B, row0, out);
+}
+
+template <int kRows>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
+                     const float* __restrict__ shape,  // [H, B, S]
+                     const float* __restrict__ basis,  // [H, nsub, kpad, 3, VT]
+                     const float* __restrict__ wt,     // [H, nsub, J, VT]
+                     const float* __restrict__ jb,     // [H, J, 3, S + 1]
+                     const int* __restrict__ parents,  // [J] (shared)
+                     float* __restrict__ out,          // [H, B, V, 3]
+                     int B, int V, int J, int S, int kpad, int per) {
+  constexpr int kMr = kRows / kGroups;  // rows of a thread's micro-tile
+  extern __shared__ float4 smem4[];
+  const Smem t = carve<kRows>(reinterpret_cast<float*>(smem4), kpad, J);
+  const int row0 = blockIdx.x * kRows;
+  const int nsub = (V + kVertTile - 1) / kVertTile;
+  const int sub0 = blockIdx.y * per;
+  const int sub1 = min(nsub, sub0 + per);
+  const size_t h = blockIdx.z;
+  pose += h * B * J * 3;
+  shape += h * B * S;
+  basis += h * nsub * kpad * 3 * kVertTile;
+  wt += h * nsub * J * kVertTile;
+  jb += h * J * 3 * (S + 1);
+  out += h * B * V * 3;
+
+  // The basis stream: chunk q is k-rows [kChunk (q % nchunk), +kChunk) of
+  // sub-tile sub0 + q / nchunk (the last chunk of a sub-tile may be short:
+  // kpad is a multiple of 4), into stage q % kStages. Every call commits
+  // one group (empty past the end) so wait_group counts chunks.
+  const int nchunk = (kpad + kChunk - 1) / kChunk;
+  const int total = (sub1 - sub0) * nchunk;
+  const auto issue = [&](int q) {
+    if (q < total) {
+      const int sub = sub0 + q / nchunk, k0 = (q % nchunk) * kChunk;
+      const float4* src = reinterpret_cast<const float4*>(
+          basis + ((size_t)sub * kpad + k0) * 3 * kVertTile);
+      float4* dst =
+          reinterpret_cast<float4*>(t.stage + (q % kStages) * kStageFloats);
+      const int n = min(kChunk, kpad - k0) * 3 * kVertTile / 4;
+      for (int i = threadIdx.x; i < n; i += kThreads)
+        cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+  for (int q = 0; q < kStages - 1; ++q) issue(q);   // overlaps the prelude
+  prelude<kRows>(pose, shape, jb, parents, B, row0, J, S, kpad, t);
+
+  const int g = threadIdx.x / kPairs, p = threadIdx.x - g * kPairs;
+  const int rows_here = min(kRows, B - row0);
+  const float* coef = t.coef + g * kMr * kpad;
+  float acc[kMr][2][3];
+  for (int q = 0; q < total; ++q) {
+    const int ch = q % nchunk;
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < kMr; ++i)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) acc[i][a][c] = 0.0f;
+    }
+    cp_async_wait<kStages - 2>();   // this thread's copies of chunk q
+    __syncthreads();                // everyone's; stage (q - 1) is free
+    issue(q + kStages - 1);
+    const float2* bs = reinterpret_cast<const float2*>(
+        t.stage + (q % kStages) * kStageFloats);
+#pragma unroll
+    for (int u = 0; u < kChunk / 4; ++u) {
+      const int k0 = ch * kChunk + 4 * u;
+      if (k0 >= kpad) break;
+      float2 b[4][3];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          b[kk][c] = bs[((4 * u + kk) * 3 + c) * kPairs + p];
+#pragma unroll
+      for (int i = 0; i < kMr; ++i) {
+        const float4 cf =
+            *reinterpret_cast<const float4*>(coef + i * kpad + k0);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          acc[i][0][c] += cf.x * b[0][c].x;
+          acc[i][1][c] += cf.x * b[0][c].y;
+          acc[i][0][c] += cf.y * b[1][c].x;
+          acc[i][1][c] += cf.y * b[1][c].y;
+          acc[i][0][c] += cf.z * b[2][c].x;
+          acc[i][1][c] += cf.z * b[2][c].y;
+          acc[i][0][c] += cf.w * b[3][c].x;
+          acc[i][1][c] += cf.w * b[3][c].y;
+        }
+      }
+    }
+    if (ch != nchunk - 1) continue;
+
+    // Epilogue of the sub-tile: stage its weights (the last reader of the
+    // buffer, the previous epilogue, passed a barrier since), then skin.
+    const int sub = sub0 + q / nchunk;
+    {
+      const float4* src = reinterpret_cast<const float4*>(
+          wt + (size_t)sub * J * kVertTile);
+      float4* dst = reinterpret_cast<float4*>(t.wt);
+      for (int i = threadIdx.x; i < J * kVertTile / 4; i += kThreads)
+        dst[i] = __ldg(src + i);
+    }
+    __syncthreads();
+    const float2* w2 = reinterpret_cast<const float2*>(t.wt);
+    const int v = sub * kVertTile + 2 * p;
+#pragma unroll
+    for (int i = 0; i < kMr; ++i) {
+      const int r = g * kMr + i;
+      if (r >= rows_here) break;
+      float m[2][12];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 12; ++e) m[a][e] = 0.0f;
+      const float4* s4 = reinterpret_cast<const float4*>(t.skin + r * J * 12);
+      for (int j = 0; j < J; ++j) {
+        const float2 w = w2[j * kPairs + p];
+        const float4 s[3] = {s4[3 * j], s4[3 * j + 1], s4[3 * j + 2]};
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          m[0][4 * e] += w.x * s[e].x;
+          m[0][4 * e + 1] += w.x * s[e].y;
+          m[0][4 * e + 2] += w.x * s[e].z;
+          m[0][4 * e + 3] += w.x * s[e].w;
+          m[1][4 * e] += w.y * s[e].x;
+          m[1][4 * e + 1] += w.y * s[e].y;
+          m[1][4 * e + 2] += w.y * s[e].z;
+          m[1][4 * e + 3] += w.y * s[e].w;
+        }
+      }
+      float o[2][3];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          o[a][c] = m[a][3 * c] * acc[i][a][0] +
+                    m[a][3 * c + 1] * acc[i][a][1] +
+                    m[a][3 * c + 2] * acc[i][a][2] + m[a][9 + c];
+      if constexpr (kStagedStore) {
+        // The warp's 64 vertices of row r are 192 contiguous floats of
+        // out: stage them, then store them as 128-byte runs.
+        const int lane = threadIdx.x & 31;
+        float* buf = t.out + (threadIdx.x >> 5) * 192;
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) buf[lane * 6 + a * 3 + c] = o[a][c];
+        __syncwarp();
+        const int vw = v - 2 * lane;   // the warp's first vertex
+        const int n = min(64, V - vw) * 3;
+        float* dst = out + ((size_t)(row0 + r) * V + vw) * 3;
+#pragma unroll
+        for (int e = 0; e < 6; ++e)
+          if (lane + 32 * e < n) dst[lane + 32 * e] = buf[lane + 32 * e];
+        __syncwarp();
+      } else {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          if (v + a >= V) break;
+          float* dst = out + ((size_t)(row0 + r) * V + v + a) * 3;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) dst[c] = o[a][c];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int kRows>
+int launch(const float* pose, const float* shape, const float* basis,
+           const float* wt, const float* jb, const int* parents, float* out,
+           int H, int B, int V, int J, int S, int kpad, int split,
+           cudaStream_t stream) {
+  const auto kernel = fused_forward_kernel<kRows>;
+  const size_t smem = smem_bytes<kRows>(kpad, J);
+  int err = mano::prepare_smem(kernel, smem);
+  if (err != 0) return err;
+  const int nsub = (V + kVertTile - 1) / kVertTile;
+  const int tiles = (B + kRows - 1) / kRows;
+  if (split <= 0) {
+    // Enough blocks to give every block slot of the card one.
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+    if ((err = (int)cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+      return err;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem)) != 0)
+      return err;
+    const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+    const long blocks = (long)tiles * H;
+    split = (int)((slots + blocks - 1) / blocks);
+  }
+  split = split < 1 ? 1 : (split > nsub ? nsub : split);
+  const int per = (nsub + split - 1) / split;
+  split = (nsub + per - 1) / per;
+  kernel<<<dim3(tiles, split, H), kThreads, smem, stream>>>(
+      pose, shape, basis, wt, jb, parents, out, B, V, J, S, kpad, per);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // H hands: operands stacked on a leading hand axis (H = 1: K1, H > 1: K5).
+// basis and wt are the vertex-tiled operands of ops/fused_forward.py:_pack.
+// split: vertex sub-tile spans per row tile (0: chosen from B and the card).
 extern "C" int mano_fused_forward(const void* pose, const void* shape,
                                   const void* basis, const void* wt,
                                   const void* jb, const void* parents,
                                   void* out, int H, int B, int V, int J,
-                                  int S, int kpad, void* stream) {
-  const size_t smem = mano::tile_smem_bytes(kpad, J);
-  const int err = mano::prepare_smem(fused_forward_kernel, smem);
-  if (err != 0) return err;
-  const dim3 grid((B + mano::kTileRows - 1) / mano::kTileRows,
-                  (V + mano::kThreads - 1) / mano::kThreads, H);
-  fused_forward_kernel<<<grid, mano::kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pose), static_cast<const float*>(shape),
-      static_cast<const float*>(basis), static_cast<const float*>(wt),
-      static_cast<const float*>(jb), static_cast<const int*>(parents),
-      static_cast<float*>(out), B, V, J, S, kpad);
-  return (int)cudaGetLastError();
+                                  int S, int kpad, int split, void* stream) {
+  const auto args = [&](auto launcher) {
+    return launcher(static_cast<const float*>(pose),
+                    static_cast<const float*>(shape),
+                    static_cast<const float*>(basis),
+                    static_cast<const float*>(wt),
+                    static_cast<const float*>(jb),
+                    static_cast<const int*>(parents), static_cast<float*>(out),
+                    H, B, V, J, S, kpad, split,
+                    static_cast<cudaStream_t>(stream));
+  };
+  if (smem_bytes<32>(kpad, J) <= kTwoBlockSmem) return args(launch<32>);
+  return args(launch<16>);
 }
 
 extern "C" const char* mano_cuda_error_string(int err) {

@@ -7,8 +7,10 @@ accurate) and never touch the tensor cores. The port's own float32
 contractions go through ``einsum`` below, which pins IEEE fp32 for the
 call (``ieee_fp32``) whatever the caller chose with
 ``torch.set_float32_matmul_precision``: a TF32 product keeps about three
-decimal digits, far outside the 1e-4 vertex gate. The kernel routes'
-backward functions hold the same guard around their bodies. (The JAX
+decimal digits, far outside the 1e-4 vertex gate. The guard holds in
+the backward too: ``einsum``'s own gradients (the plain path's
+``loss.backward()``) and the kernel routes' backward functions run
+under it. (The JAX
 package pins this with an explicit ``precision=`` on every contraction;
 its TPU policy — a 3-pass bf16 split — has no counterpart here: fp32
 FFMA is exact to f32 rounding already.)
@@ -86,8 +88,41 @@ def ieee_fp32():
                     _set_matmul_precision(api, value)
 
 
+class _IeeeEinsum(torch.autograd.Function):
+    """``torch.einsum`` with its forward and its backward under
+    ``ieee_fp32``. The backward re-runs the forward under autograd and
+    asks it for the operand gradients, so they are the very operations
+    (and, on the CPU, the very bits) of ``torch.einsum``'s own backward;
+    only the matmul setting they run under is pinned. Under
+    ``create_graph`` the gradients carry torch's own graph, whose second
+    backward is not pinned."""
+
+    @staticmethod
+    def forward(ctx, equation, *operands):
+        ctx.equation = equation
+        ctx.save_for_backward(*operands)
+        with ieee_fp32():
+            return torch.einsum(equation, *operands)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[1:]
+        create = torch.is_grad_enabled()
+        with torch.enable_grad(), ieee_fp32():
+            leaves = [o if create else o.detach().requires_grad_(n)
+                      for o, n in zip(ctx.saved_tensors, needs)]
+            wanted = [x for x, n in zip(leaves, needs) if n]
+            got = iter(torch.autograd.grad(
+                torch.einsum(ctx.equation, *leaves), wanted, grad,
+                create_graph=create, allow_unused=True))
+        return (None, *(next(got) if n else None for n in needs))
+
+
 def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` under ``ieee_fp32``: the port's contractions."""
+    """``torch.einsum`` under ``ieee_fp32``, forward and backward: the
+    port's contractions."""
+    if torch.is_grad_enabled() and any(o.requires_grad for o in operands):
+        return _IeeeEinsum.apply(equation, *operands)
     with ieee_fp32():
         return torch.einsum(equation, *operands)
 

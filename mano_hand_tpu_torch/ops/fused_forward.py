@@ -85,6 +85,10 @@ class FusedOperands:
     parents: torch.Tensor    # [J] int32 (shared by the hands)
     parents_tuple: Tuple[int, ...]
     n_coef: int              # K = S + 1 + 9 (J - 1), before padding
+    # K1/K5's vertex-tiled copies (``tile_verts``): V zero-padded to whole
+    # tiles of VERT_TILE, one contiguous block per tile.
+    basis_tiles: torch.Tensor   # [(H,) nsub, Kpad, 3, VERT_TILE] f32
+    wt_tiles: torch.Tensor      # [(H,) nsub, J, VERT_TILE] f32
 
     @property
     def n_verts(self) -> int:
@@ -104,8 +108,24 @@ class FusedOperands:
 
     def hand(self, h: int) -> "FusedOperands":
         """Hand ``h`` of stacked operands (views)."""
-        return dataclasses.replace(self, basis=self.basis[h], wt=self.wt[h],
-                                   jb=self.jb[h])
+        return dataclasses.replace(
+            self, basis=self.basis[h], wt=self.wt[h], jb=self.jb[h],
+            basis_tiles=self.basis_tiles[h], wt_tiles=self.wt_tiles[h])
+
+
+#: Vertices of one tile of K1/K5's operands (``kVertTile`` in
+#: ``csrc/fused_forward.cu``).
+VERT_TILE = 128
+
+
+def tile_verts(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., V] as [nsub, ..., VERT_TILE]: the vertex axis cut into
+    tiles of ``VERT_TILE``, the last one zero-padded, each tile contiguous
+    (the layout K1/K5 stream into shared memory)."""
+    v = x.shape[-1]
+    n = cdiv(v, VERT_TILE)
+    x = torch.nn.functional.pad(x, (0, n * VERT_TILE - v))
+    return x.reshape(*x.shape[:-1], n, VERT_TILE).movedim(-2, 0).contiguous()
 
 
 def _pack(params) -> FusedOperands:
@@ -131,13 +151,17 @@ def _pack(params) -> FusedOperands:
     jt = j_reg @ v_template                              # [J, 3]
     jsb = einsum("jv,vcs->jcs", j_reg, shape_basis)
     jb = torch.cat([jsb, jt[..., None]], dim=-1)
+    basis = basis.float().contiguous()
+    wt = params.lbs_weights.detach().T.float().contiguous()
     return FusedOperands(
-        basis=basis.float().contiguous(),
-        wt=params.lbs_weights.detach().T.float().contiguous(),
+        basis=basis,
+        wt=wt,
         jb=jb.float().contiguous(),
         parents=parents_tensor(tuple(params.parents), params.device),
         parents_tuple=tuple(params.parents),
         n_coef=k,
+        basis_tiles=tile_verts(basis),
+        wt_tiles=tile_verts(wt),
     )
 
 
@@ -152,10 +176,9 @@ def fused_operands(params) -> FusedOperands:
 
 def _pack_hands(stacked) -> FusedOperands:
     per = [_pack(hand) for hand in stacked.hands]
-    return dataclasses.replace(
-        per[0], basis=torch.stack([o.basis for o in per]),
-        wt=torch.stack([o.wt for o in per]),
-        jb=torch.stack([o.jb for o in per]))
+    return dataclasses.replace(per[0], **{
+        f: torch.stack([getattr(o, f) for o in per])
+        for f in ("basis", "wt", "jb", "basis_tiles", "wt_tiles")})
 
 
 # Keyed on the stacked tensors' versions: the hands are views of them, so
@@ -278,10 +301,12 @@ def forward_verts_fused_full(params, pose: torch.Tensor,
 
 
 def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
-                    shape: torch.Tensor) -> torch.Tensor:
+                    shape: torch.Tensor, split: int = 0) -> torch.Tensor:
     """One launch of the K1/K5 kernel over H hands: pose [H, B, J, 3],
     shape [H, B, S] -> [H, B, V, 3] with B >= 1; ``ops`` is one hand's
-    (H = 1) or stacked. Raises on a non-CUDA device or a failed launch."""
+    (H = 1) or stacked. ``split``: vertex spans per row tile (0: the
+    kernel's choice from B). Raises on a non-CUDA device or a failed
+    launch."""
     dev = pose.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -292,10 +317,10 @@ def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_fused_forward(
-            pose.data_ptr(), shape.data_ptr(), ops.basis.data_ptr(),
-            ops.wt.data_ptr(), ops.jb.data_ptr(), ops.parents.data_ptr(),
-            out.data_ptr(), h, b, v, ops.n_joints, ops.n_shape, ops.kpad,
-            stream)
+            pose.data_ptr(), shape.data_ptr(), ops.basis_tiles.data_ptr(),
+            ops.wt_tiles.data_ptr(), ops.jb.data_ptr(),
+            ops.parents.data_ptr(), out.data_ptr(), h, b, v, ops.n_joints,
+            ops.n_shape, ops.kpad, split, stream)
     _build.check(lib, rc, "fused_forward")
     return out
 

@@ -46,9 +46,18 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _params(dev, n_joints=16, n_verts=778):
+def _params(dev, n_joints=16, n_verts=778, n_shape=10):
+    if n_verts < 3:   # the generator's faces need 3 vertices: cut them off
+        p = _params(dev, n_joints, 3, n_shape)
+        return dataclasses.replace(
+            p, v_template=p.v_template[:n_verts].contiguous(),
+            shape_basis=p.shape_basis[:n_verts].contiguous(),
+            pose_basis=p.pose_basis[:n_verts].contiguous(),
+            j_regressor=p.j_regressor[:, :n_verts].contiguous(),
+            lbs_weights=p.lbs_weights[:n_verts].contiguous())
     return synthetic_params(seed=1, n_joints=n_joints, n_verts=n_verts,
-                            n_faces=50, dtype=torch.float32, device=dev)
+                            n_shape=n_shape, n_faces=50,
+                            dtype=torch.float32, device=dev)
 
 
 def _err(a, b):
@@ -72,19 +81,58 @@ def _k1(params, b, seed=0):
     return got, want
 
 
-@pytest.mark.parametrize("b", [1, 31, 33, 257])
+# B one below, at and one above the 32-row tile; 257 and 1000 ragged.
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 257, 1000])
 def test_k1_kernel_matches_plain(dev, b):
     got, want = _k1(_params(dev), b)
     assert got.shape == (b, 778, 3) and bool(torch.isfinite(got).all())
     assert _err(got, want) <= TOL
 
 
-@pytest.mark.parametrize("n_joints", [7, 40])
-def test_k1_generic_tree(dev, n_joints):
-    params = _params(dev, n_joints=n_joints, n_verts=300)
-    got, want = _k1(params, 45, seed=n_joints)
-    assert got.shape == (45, 300, 3)
+# J = 64 takes the 16-row tile (B = 15, 16, 17 straddle it); V = 1 and 13
+# leave one ragged vertex tile; S != 10.
+@pytest.mark.parametrize("n_joints,n_verts,n_shape,b", [
+    (7, 300, 10, 45), (40, 300, 10, 45), (64, 778, 10, 15),
+    (64, 778, 10, 16), (64, 300, 10, 17), (16, 1, 10, 33),
+    (16, 13, 10, 33), (16, 778, 4, 33), (16, 300, 23, 70),
+])
+def test_k1_generic_tree(dev, n_joints, n_verts, n_shape, b):
+    params = _params(dev, n_joints=n_joints, n_verts=n_verts,
+                     n_shape=n_shape)
+    got, want = _k1(params, b, seed=n_joints)
+    assert got.shape == (b, n_verts, 3)
     assert _err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 7, 9])
+def test_k1_every_vertex_split_matches_plain(dev, split):
+    """Each vertex split (sub-tile spans per row tile; 7 sub-tiles of 128
+    for V = 778, so 2, 3 and 4 leave a short last span) gives the plain
+    forward; B = 45 is not a multiple of the row tile."""
+    params = _params(dev)
+    ops = fused_forward.fused_operands(params)
+    rng = np.random.default_rng(split)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(1, 45, 16, 3))
+                            .astype(np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(1, 45, 10)).astype(
+        np.float32)).to(dev)
+    got = fused_forward._launch_forward(ops, pose, shape, split=split)[0]
+    torch.cuda.synchronize()
+    want = fused_forward.forward_verts_plain(ops, pose[0], shape[0])
+    assert _err(got, want) <= TOL
+
+
+def test_k1_follows_an_in_place_template_update(dev):
+    """``v_template.add_`` between two launches repacks the tiled operands:
+    the second launch moves by the update (a translation of the mesh)."""
+    params = _params(dev)
+    params = dataclasses.replace(params, v_template=params.v_template.clone())
+    before, _ = _k1(params, 40)
+    with torch.no_grad():
+        params.v_template.add_(0.01)
+    after, want = _k1(params, 40)
+    assert _err(after, want) <= TOL
+    assert _err(after, before + 0.01) <= TOL
 
 
 def _table(params, c, seed=2):
@@ -130,7 +178,7 @@ def _pair(dev, n_joints=16, n_verts=778):
 
 
 @pytest.mark.parametrize("b,n_joints", [(1, 16), (33, 16), (1000, 16),
-                                        (45, 7)])
+                                        (45, 7), (17, 64)])
 def test_k5_kernel_matches_plain_and_k1(dev, b, n_joints):
     stacked = _pair(dev, n_joints, 778 if n_joints == 16 else 300)
     rng = np.random.default_rng(b)
@@ -412,3 +460,30 @@ def test_k3_wrapper_raises_on_a_strided_rotation(dev):
         fused_skin.skin_batched(w, rot.transpose(-1, -2), t, vp)
     with pytest.raises(ValueError, match="inference only"):
         fused_skin.skin_batched(w, rot.requires_grad_(True), t, vp)
+
+
+def test_plain_backward_ignores_the_callers_tf32_switch(dev):
+    """``loss.backward()`` through the plain ``core.forward_batched`` under
+    ``torch.set_float32_matmul_precision("high")``: the gradients in pose,
+    shape and the five parameter tensors stay within relative 1e-6
+    (max|a - b| / max|b|) of the same gradients under "highest". Autograd's
+    backward matmuls follow that switch unless ``ops/common.py:einsum``
+    pins them; TF32 would move them by about 1e-3 relative."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(23)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(256, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(256, 10)).astype(
+        np.float32)).to(dev)
+    want = _grads(params, None, pose, shape)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = _grads(params, None, pose, shape)
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    rel = {k: float((got[k] - w).abs().max()) / float(w.abs().max())
+           for k, w in want.items()}
+    print(rel)
+    assert all(r <= 1e-6 for r in rel.values()), rel

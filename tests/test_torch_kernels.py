@@ -99,6 +99,50 @@ def test_k1_operands_are_packed_once_per_params(assets):
     assert ops1.wt.shape == (16, 778) and ops1.jb.shape == (16, 3, 11)
 
 
+def _untile(tiles, n_verts):
+    """A plain reader of K1/K5's vertex-tiled layout: [nsub, ..., T] back
+    to [..., V]."""
+    return tiles.movedim(0, -2).flatten(-2)[..., :n_verts]
+
+
+@pytest.mark.parametrize("n_joints,n_verts", [(16, 778), (7, 13), (5, 128)])
+def test_k1_tiled_operands_read_back_to_the_plain_forward(n_joints, n_verts):
+    """The kernel's tiled basis and weights hold the packed operands, the
+    padding zero: read back plainly, they give ``forward_verts_plain``
+    exactly; after an in-place template update they repack with it."""
+    tp = synthetic_params(seed=3, n_joints=n_joints, n_verts=n_verts,
+                          n_faces=20, device="cpu").astype(torch.float32)
+    tp = dataclasses.replace(tp, v_template=tp.v_template.clone())
+    ops = fused_forward.fused_operands(tp)
+    t = fused_forward.VERT_TILE
+    nsub = -(-n_verts // t)
+    assert ops.basis_tiles.shape == (nsub, ops.kpad, 3, t)
+    assert ops.wt_tiles.shape == (nsub, n_joints, t)
+    assert ops.basis_tiles.is_contiguous() and ops.wt_tiles.is_contiguous()
+    pad = nsub * t - n_verts
+    if pad:
+        assert float(ops.basis_tiles[-1, ..., t - pad:].abs().max()) == 0.0
+        assert float(ops.wt_tiles[-1, :, t - pad:].abs().max()) == 0.0
+    rng = np.random.default_rng(n_verts)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(3, n_joints, 3))
+                            .astype(np.float32))
+    shape = torch.from_numpy(rng.normal(size=(3, 10)).astype(np.float32))
+
+    def read_back(o):
+        return dataclasses.replace(
+            o, basis=_untile(o.basis_tiles, n_verts),
+            wt=_untile(o.wt_tiles, n_verts))
+
+    want = fused_forward.forward_verts_plain(ops, pose, shape)
+    got = fused_forward.forward_verts_plain(read_back(ops), pose, shape)
+    assert torch.equal(got, want)
+    with torch.no_grad():
+        tp.v_template.add_(0.01)
+    moved = fused_forward.forward_verts_plain(
+        read_back(fused_forward.fused_operands(tp)), pose, shape)
+    assert _err(moved, want + 0.01) <= TOL
+
+
 def _posed_setup(jp, tp, c, seed):
     _, beta = _inputs(c, seed=seed)
     jtab = jcore.stack_shaped([jcore.specialize(jp, jnp.asarray(b))

@@ -274,3 +274,41 @@ def test_ieee_guard_pins_and_restores_the_callers_setting():
         assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+# Every contraction equation the port runs through ``common.einsum``.
+EINSUM_EQUATIONS = (
+    "bk,bvc->kcv", "bk,kcv->bvc", "bva,bja->vj", "bvac,bjac->vj",
+    "bvc,kcv->bk", "jab,jb->ja", "jcs,...s->...jc", "jcs,bs->bjc",
+    "jv,...vc->...jc", "jv,vc->jc", "jv,vcs->jcs", "rk,...k->...r",
+    "vab,vb->va", "vcp,...p->...vc", "vcs,...s->...vc", "vj,...jc->...vc",
+    "vj,...jr->...vr", "vj,bva->bja", "vj,bvac->bjac", "vj,jab->vab",
+)
+
+
+@pytest.mark.parametrize("equation", EINSUM_EQUATIONS)
+def test_einsum_gradients_are_torch_einsums_bit_for_bit(equation):
+    """The pinned ``einsum`` changes only the matmul setting its backward
+    runs under: on the CPU its gradients are ``torch.einsum``'s, bit for
+    bit, for every equation the port uses (``...`` as one batch axis)."""
+    sizes = dict(zip("abcjkprsv", (3, 2, 3, 5, 7, 4, 6, 9, 11)))
+    rng = np.random.default_rng(len(equation))
+    lhs = equation.split("->")[0].split(",")
+    arrays = [rng.normal(size=[2 if ch == "." else sizes[ch] for ch in
+                               term.replace("...", ".")]).astype(np.float32)
+              for term in lhs]
+
+    def grads(fn):
+        xs = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        out = fn(equation, *xs)
+        out.backward(torch.from_numpy(rng_out.normal(size=out.shape).astype(
+            np.float32)))
+        return out.detach(), [x.grad for x in xs]
+
+    rng_out = np.random.default_rng(1)
+    want_out, want = grads(torch.einsum)
+    rng_out = np.random.default_rng(1)
+    got_out, got = grads(common.einsum)
+    assert torch.equal(got_out, want_out)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
