@@ -18,47 +18,59 @@
 //
 // The design. The blend is a product, coef [rows, kpad] x basis
 // [kpad, 3V], whose epilogue is the skin; it runs as a tiled fp32-FFMA GEMM.
-//   * One prelude per row tile. A block owns kRows batch rows and a span
-//     of vertex sub-tiles (kVertTile vertices each) that it walks in turn,
-//     so Rodrigues, the shaped joints, FK and the inverse bind run once
-//     per row tile and vertex span, not once per 128 vertices. The span
-//     (the vertex split) is chosen per launch from B so that small batches
-//     still spread over every SM; the row tile is chosen from J (32 rows,
-//     or 16 when 32 would not leave room for two blocks an SM).
+//   * One prelude per row tile. A block owns a row tile and a span of
+//     vertex sub-tiles (kVertTile vertices each) that it walks in turn, so
+//     Rodrigues, the shaped joints, FK and the inverse bind run once per
+//     row tile and span, not once per 128 vertices. The span (the vertex
+//     split) is chosen per launch from B so that small batches still reach
+//     every SM; the row tile (64 rows, or 32, 16, 8) is the largest whose
+//     shared memory fits (J sets it: 8 rows at J = 64), or a smaller one
+//     a small batch still fills.
 //   * The basis streams through a ring of kStages shared-memory stages of
 //     kChunk k-rows x 3 x kVertTile floats, filled by 16-byte cp.async
-//     (cp.async.cg: L2 only) kStages - 1 chunks ahead of the product, so
+//     (cp.async.cg: L2 only) while the previous chunk is multiplied, so
 //     each basis element leaves L2 once per block and serves every row of
 //     the tile. The operand is pre-tiled by ops/fused_forward.py:_pack
 //     ([nsub, kpad, 3, kVertTile], V zero-padded), so a chunk is one
 //     contiguous run.
-//   * A register micro-tile: each thread accumulates kRows / 4 rows x 2
-//     adjacent vertices x 3 coordinates. Per k it reads the rows'
-//     coefficients as float4 broadcasts and the basis as float2 (a warp
-//     reads 256 contiguous bytes: no bank conflict).
+//   * A register micro-tile: each thread accumulates 8 rows (fewer for a
+//     small row tile) x kVpt = 4 adjacent vertices x 3 coordinates, 96
+//     accumulators at 255 registers and one block an SM. Per 4 k-rows it
+//     reads each row's coefficients as a float4 broadcast and the basis as
+//     float4 (a warp reads 512 contiguous bytes: no bank conflict).
 //   * The skin is the epilogue, in registers: per (row, vertex)
 //     M = sum_j w_j (R_j, t_j) from the row's transforms in shared memory
 //     (float4 broadcasts) and the sub-tile's weights, staged once per
-//     sub-tile; v_posed never leaves registers.
+//     sub-tile; v_posed never leaves registers. Each warp stages a row's
+//     output through shared memory and stores it as 128-byte runs.
 // Plain fp32 FFMA throughout (no tensor cores, no fast math); the prelude
 // is the fp32 (FMA) form of mano_common.cuh's phases A-C.
+//
+// What was measured (scripts/time_fused_forward.py, NVIDIA H100 80GB HBM3
+// at 700 W): about 0.31-0.33 ms for B = 8192, against the parent design's
+// 0.57-0.60 and a bound of 0.122; variants without the basis copies or
+// without the per-chunk barrier were only 3-6 % faster, and micro-tiles of
+// 8 x 2 and 8 x 4 vertices, 32 or 64 rows, 1 or 2 blocks an SM all land
+// within about 10 % of each other (PERF.md section 5).
 
 #include "mano_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 1;  // the occupancy the register budget is cut for
 constexpr int kVertTile = 128;   // ops/fused_forward.py VERT_TILE
-constexpr int kPairs = kVertTile / 2;       // a thread owns 2 adjacent vertices
-constexpr int kGroups = kThreads / kPairs;  // row groups of a block
-constexpr int kChunk = 4;                   // k-rows of one basis stage
-constexpr int kStages = 3;
+constexpr int kVpt = 4;          // adjacent vertices of a thread
+constexpr int kLanesV = kVertTile / kVpt;    // threads along a sub-tile
+constexpr int kGroups = kThreads / kLanesV;  // row groups of a block
+constexpr int kChunk = 32;                   // k-rows of one basis stage
+constexpr int kStages = 2;
 constexpr int kStageFloats = kChunk * 3 * kVertTile;
-constexpr bool kStagedStore = true;         // output through shared memory
-constexpr int kWarps = kThreads / 32;
-constexpr int kOutFloats = kWarps * 32 * 2 * 3;  // a row of each warp's vertices
-// Two blocks an SM: 228 KB of shared memory less 1 KB reserved per block.
-constexpr size_t kTwoBlockSmem = (228 * 1024) / 2 - 1024;
+constexpr int kOutFloats = kThreads * kVpt * 3;  // one row of every thread
+static_assert(kVpt == 4 && kLanesV % 32 == 0, "a warp holds one row group");
+// Shared memory of one block at kBlocksPerSm blocks an SM: 228 KB less
+// 1 KB reserved per block.
+constexpr size_t kSmemBudget = (228 * 1024) / kBlocksPerSm - 1024;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -73,6 +85,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// 4 contiguous floats of shared memory (16 bytes aligned) into x.
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
 // Shared-memory carve of one block (every part a multiple of 4 floats).
 struct Smem {
   float* coef;   // [kRows][kpad] blend coefficients [beta | 1 | R - I | 0]
@@ -80,13 +101,12 @@ struct Smem {
   float* jrest;  // [kRows][J][3] rest joints
   float* wt;     // [J][kVertTile] weights of the current sub-tile
   float* stage;  // [kStages][kChunk][3][kVertTile] basis ring
-  float* out;    // [kWarps][64 * 3] one output row of each warp's vertices
+  float* out;    // [warps][32 kVpt 3] a row of each warp's vertices
   int* parents;  // [J]
 };
 
-template <int kRows>
-__host__ __device__ inline size_t smem_bytes(int kpad, int J) {
-  return sizeof(float) * ((size_t)kRows * (kpad + J * 15) +
+inline size_t smem_bytes(int rows, int kpad, int J) {
+  return sizeof(float) * ((size_t)rows * (kpad + J * 15) +
                           (size_t)J * kVertTile + kStages * kStageFloats +
                           kOutFloats) +
          sizeof(int) * (size_t)J;
@@ -197,8 +217,42 @@ __device__ void prelude(const float* __restrict__ pose,
   __syncthreads();
 }
 
+// The blend over 4 k-rows: acc[i][a][c] += sum_kk coef[i][kk] basis[kk][c][a]
+// for the thread's kMr rows (coef rows kpad apart) and kVpt vertices (bs:
+// the stage at the thread's first vertex). Operands are loaded first, and
+// each accumulator's 4 updates are kMr kVpt 3 FFMAs apart.
+template <int kMr>
+__device__ __forceinline__ void blend4(const float* bs, const float* coef,
+                                       int kpad,
+                                       float (&acc)[kMr][kVpt][3]) {
+  float b[4][3][kVpt];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      load_vec(bs + (kk * 3 + c) * kVertTile, b[kk][c]);
+  float4 cf[kMr];
+#pragma unroll
+  for (int i = 0; i < kMr; ++i)
+    cf[i] = *reinterpret_cast<const float4*>(coef + i * kpad);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < kMr; ++i) {
+      const float x = kk == 0 ? cf[i].x
+                    : kk == 1 ? cf[i].y
+                    : kk == 2 ? cf[i].z
+                              : cf[i].w;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int a = 0; a < kVpt; ++a)
+          acc[i][a][c] = fmaf(x, b[kk][c][a], acc[i][a][c]);
+    }
+}
+
 template <int kRows>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
                      const float* __restrict__ shape,  // [H, B, S]
                      const float* __restrict__ basis,  // [H, nsub, kpad, 3, VT]
@@ -244,57 +298,47 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
   for (int q = 0; q < kStages - 1; ++q) issue(q);   // overlaps the prelude
   prelude<kRows>(pose, shape, jb, parents, B, row0, J, S, kpad, t);
 
-  const int g = threadIdx.x / kPairs, p = threadIdx.x - g * kPairs;
+  // Thread (g, p): rows g kMr .. + kMr of the tile, vertices kVpt p ..
+  // + kVpt of the sub-tile. A warp's lanes share g.
+  const int g = threadIdx.x / kLanesV, p = threadIdx.x - g * kLanesV;
+  const int lane = threadIdx.x & 31;
   const int rows_here = min(kRows, B - row0);
   const float* coef = t.coef + g * kMr * kpad;
-  float acc[kMr][2][3];
+  float acc[kMr][kVpt][3];
   for (int q = 0; q < total; ++q) {
     const int ch = q % nchunk;
+    const int sub = sub0 + q / nchunk;
+    // The warp's first vertex; a warp wholly past V skips the arithmetic.
+    const int vw = sub * kVertTile + kVpt * (p - lane % kLanesV);
+    const bool live = vw < V;
     if (ch == 0) {
 #pragma unroll
       for (int i = 0; i < kMr; ++i)
 #pragma unroll
-        for (int a = 0; a < 2; ++a)
+        for (int a = 0; a < kVpt; ++a)
 #pragma unroll
           for (int c = 0; c < 3; ++c) acc[i][a][c] = 0.0f;
     }
     cp_async_wait<kStages - 2>();   // this thread's copies of chunk q
     __syncthreads();                // everyone's; stage (q - 1) is free
     issue(q + kStages - 1);
-    const float2* bs = reinterpret_cast<const float2*>(
-        t.stage + (q % kStages) * kStageFloats);
+    if (live) {
+      const float* bs = t.stage + (q % kStages) * kStageFloats + kVpt * p;
+      const float* cf = coef + ch * kChunk;
+      const int nk = min(kChunk, kpad - ch * kChunk);   // a multiple of 4
+      if (nk == kChunk) {
 #pragma unroll
-    for (int u = 0; u < kChunk / 4; ++u) {
-      const int k0 = ch * kChunk + 4 * u;
-      if (k0 >= kpad) break;
-      float2 b[4][3];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          b[kk][c] = bs[((4 * u + kk) * 3 + c) * kPairs + p];
-#pragma unroll
-      for (int i = 0; i < kMr; ++i) {
-        const float4 cf =
-            *reinterpret_cast<const float4*>(coef + i * kpad + k0);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          acc[i][0][c] += cf.x * b[0][c].x;
-          acc[i][1][c] += cf.x * b[0][c].y;
-          acc[i][0][c] += cf.y * b[1][c].x;
-          acc[i][1][c] += cf.y * b[1][c].y;
-          acc[i][0][c] += cf.z * b[2][c].x;
-          acc[i][1][c] += cf.z * b[2][c].y;
-          acc[i][0][c] += cf.w * b[3][c].x;
-          acc[i][1][c] += cf.w * b[3][c].y;
-        }
+        for (int u = 0; u < kChunk / 4; ++u)
+          blend4(bs + 4 * u * 3 * kVertTile, cf + 4 * u, kpad, acc);
+      } else {
+        for (int u = 0; u < nk / 4; ++u)
+          blend4(bs + 4 * u * 3 * kVertTile, cf + 4 * u, kpad, acc);
       }
     }
     if (ch != nchunk - 1) continue;
 
     // Epilogue of the sub-tile: stage its weights (the last reader of the
     // buffer, the previous epilogue, passed a barrier since), then skin.
-    const int sub = sub0 + q / nchunk;
     {
       const float4* src = reinterpret_cast<const float4*>(
           wt + (size_t)sub * J * kVertTile);
@@ -303,67 +347,54 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
         dst[i] = __ldg(src + i);
     }
     __syncthreads();
-    const float2* w2 = reinterpret_cast<const float2*>(t.wt);
-    const int v = sub * kVertTile + 2 * p;
+    if (!live) continue;
 #pragma unroll
     for (int i = 0; i < kMr; ++i) {
       const int r = g * kMr + i;
       if (r >= rows_here) break;
-      float m[2][12];
+      float m[kVpt][12];
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+      for (int a = 0; a < kVpt; ++a)
 #pragma unroll
         for (int e = 0; e < 12; ++e) m[a][e] = 0.0f;
       const float4* s4 = reinterpret_cast<const float4*>(t.skin + r * J * 12);
       for (int j = 0; j < J; ++j) {
-        const float2 w = w2[j * kPairs + p];
+        float w[kVpt];
+        load_vec(t.wt + j * kVertTile + kVpt * p, w);
         const float4 s[3] = {s4[3 * j], s4[3 * j + 1], s4[3 * j + 2]};
 #pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          m[0][4 * e] += w.x * s[e].x;
-          m[0][4 * e + 1] += w.x * s[e].y;
-          m[0][4 * e + 2] += w.x * s[e].z;
-          m[0][4 * e + 3] += w.x * s[e].w;
-          m[1][4 * e] += w.y * s[e].x;
-          m[1][4 * e + 1] += w.y * s[e].y;
-          m[1][4 * e + 2] += w.y * s[e].z;
-          m[1][4 * e + 3] += w.y * s[e].w;
-        }
-      }
-      float o[2][3];
+        for (int a = 0; a < kVpt; ++a)
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+          for (int e = 0; e < 3; ++e) {
+            m[a][4 * e] += w[a] * s[e].x;
+            m[a][4 * e + 1] += w[a] * s[e].y;
+            m[a][4 * e + 2] += w[a] * s[e].z;
+            m[a][4 * e + 3] += w[a] * s[e].w;
+          }
+      }
+      float o[kVpt][3];
+#pragma unroll
+      for (int a = 0; a < kVpt; ++a)
 #pragma unroll
         for (int c = 0; c < 3; ++c)
           o[a][c] = m[a][3 * c] * acc[i][a][0] +
                     m[a][3 * c + 1] * acc[i][a][1] +
                     m[a][3 * c + 2] * acc[i][a][2] + m[a][9 + c];
-      if constexpr (kStagedStore) {
-        // The warp's 64 vertices of row r are 192 contiguous floats of
-        // out: stage them, then store them as 128-byte runs.
-        const int lane = threadIdx.x & 31;
-        float* buf = t.out + (threadIdx.x >> 5) * 192;
+      // The warp's 32 kVpt vertices of row r are contiguous floats of out:
+      // stage them, then store them as 128-byte runs.
+      constexpr int kWarpFloats = 32 * kVpt * 3;
+      float* buf = t.out + (threadIdx.x >> 5) * kWarpFloats;
 #pragma unroll
-        for (int a = 0; a < 2; ++a)
+      for (int a = 0; a < kVpt; ++a)
 #pragma unroll
-          for (int c = 0; c < 3; ++c) buf[lane * 6 + a * 3 + c] = o[a][c];
-        __syncwarp();
-        const int vw = v - 2 * lane;   // the warp's first vertex
-        const int n = min(64, V - vw) * 3;
-        float* dst = out + ((size_t)(row0 + r) * V + vw) * 3;
+        for (int c = 0; c < 3; ++c) buf[lane * kVpt * 3 + a * 3 + c] = o[a][c];
+      __syncwarp();
+      const int n = min(32 * kVpt, V - vw) * 3;
+      float* dst = out + ((size_t)(row0 + r) * V + vw) * 3;
 #pragma unroll
-        for (int e = 0; e < 6; ++e)
-          if (lane + 32 * e < n) dst[lane + 32 * e] = buf[lane + 32 * e];
-        __syncwarp();
-      } else {
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          if (v + a >= V) break;
-          float* dst = out + ((size_t)(row0 + r) * V + v + a) * 3;
-#pragma unroll
-          for (int c = 0; c < 3; ++c) dst[c] = o[a][c];
-        }
-      }
+      for (int e = 0; e < kVpt * 3; ++e)
+        if (lane + 32 * e < n) dst[lane + 32 * e] = buf[lane + 32 * e];
+      __syncwarp();
     }
   }
   cp_async_wait<0>();
@@ -375,13 +406,12 @@ int launch(const float* pose, const float* shape, const float* basis,
            int H, int B, int V, int J, int S, int kpad, int split,
            cudaStream_t stream) {
   const auto kernel = fused_forward_kernel<kRows>;
-  const size_t smem = smem_bytes<kRows>(kpad, J);
+  const size_t smem = smem_bytes(kRows, kpad, J);
   int err = mano::prepare_smem(kernel, smem);
   if (err != 0) return err;
   const int nsub = (V + kVertTile - 1) / kVertTile;
   const int tiles = (B + kRows - 1) / kRows;
   if (split <= 0) {
-    // Enough blocks to give every block slot of the card one.
     int dev = 0, sms = 0, per_sm = 0;
     if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
     if ((err = (int)cudaDeviceGetAttribute(
@@ -390,9 +420,10 @@ int launch(const float* pose, const float* shape, const float* basis,
     if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, kernel, kThreads, smem)) != 0)
       return err;
+    // As many vertex spans as keep every block slot of the card busy,
+    // without a second partial wave.
     const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
-    const long blocks = (long)tiles * H;
-    split = (int)((slots + blocks - 1) / blocks);
+    split = (int)(slots / ((long)tiles * H));
   }
   split = split < 1 ? 1 : (split > nsub ? nsub : split);
   const int per = (nsub + split - 1) / split;
@@ -422,8 +453,23 @@ extern "C" int mano_fused_forward(const void* pose, const void* shape,
                     H, B, V, J, S, kpad, split,
                     static_cast<cudaStream_t>(stream));
   };
-  if (smem_bytes<32>(kpad, J) <= kTwoBlockSmem) return args(launch<32>);
-  return args(launch<16>);
+  // The row tile: the largest whose shared memory leaves room for
+  // kBlocksPerSm blocks an SM, or a smaller one that the batch still fills
+  // (a small batch then computes fewer replayed rows).
+  constexpr int kR0 = kGroups * 8, kR1 = kGroups * 4, kR2 = kGroups * 2,
+                kR3 = kGroups;
+  const int rows[4] = {kR0, kR1, kR2, kR3};
+  int pick = -1;
+  for (int i = 0; i < 4; ++i)
+    if (smem_bytes(rows[i], kpad, J) <= kSmemBudget &&
+        (pick < 0 || B <= rows[i]))
+      pick = i;
+  switch (pick) {
+    case 0: return args(launch<kR0>);
+    case 1: return args(launch<kR1>);
+    case 2: return args(launch<kR2>);
+    default: return args(launch<kR3>);
+  }
 }
 
 extern "C" const char* mano_cuda_error_string(int err) {

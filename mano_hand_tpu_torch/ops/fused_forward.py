@@ -3,11 +3,14 @@ hand or for both at once, and the shared backward of the two fused routes.
 
 K1 replaces the TPU kernel ``mano_hand_tpu/ops/pallas_forward.py:
 forward_verts_fused_full`` (``pallas_call`` at line 723). The kernel
-(``csrc/fused_forward.cu``, device functions in ``csrc/mano_common.cuh``)
-computes, per (batch tile, vertex tile) block: Rodrigues, the shaped rest
-joints ``[beta | 1] . jb``, FK along ``parents``, the inverse bind, the
-blend ``[beta | 1 | (R - I)] . basis`` and linear blend skinning, writing
-``[B, V, 3]`` fp32.
+(``csrc/fused_forward.cu``) computes, per block of a row tile and a span
+of vertex tiles: Rodrigues, the shaped rest joints ``[beta | 1] . jb``,
+FK along ``parents`` and the inverse bind once, then for each vertex
+tile the blend ``[beta | 1 | (R - I)] . basis`` as a register-tiled
+product over basis chunks streamed into shared memory, with linear blend
+skinning as its epilogue, writing ``[B, V, 3]`` fp32. It reads the basis
+and weights in a vertex-tiled layout (``basis_tiles``, ``wt_tiles``:
+``tile_verts``), built beside the others by ``_pack``.
 
 K5 replaces ``pallas_forward.py:forward_verts_fused_full_hands``
 (``pallas_call`` at line 830): K1 for several hands of a
@@ -23,8 +26,8 @@ FK, inverse bind; ``pallas_forward.py:_pre_stage``).
 
 What bounds both on an H100: fp32 operations (about 1 MFLOP a row against
 9.3 KB written — see the source notes in the ``.cu`` files). Both keep
-v_posed on chip and use plain fp32 FFMA; making them fast (wider
-register tiles, tensor cores under a stated precision) is later work.
+v_posed on chip and use plain fp32 FFMA; K1/K5 use register tiles and a
+shared-memory basis ring (K4 still has the simple per-vertex form).
 
 Gradients: ``forward_verts_fused_ad`` (K4 forward) and
 ``forward_verts_fused_full_ad`` (K1 forward) are autograd Functions with

@@ -2,7 +2,7 @@
 """Time the port's whole-forward kernel (K1, and K5 on its hand axis) on
 one CUDA card, at the batch sizes the port's main paths use.
 
-    python3 scripts/time_fused_forward.py [--root DIR] [--splits 1,2,7]
+    python3 scripts/time_fused_forward.py [--root DIR]
 
 ``--root`` names the checkout whose ``mano_hand_tpu_torch`` is timed (by
 default this one), so two trees can be timed in turns in one session on
@@ -10,14 +10,12 @@ one card: run it for the parent, the change, the change, the parent.
 Each time is the median over 20 samples, after 3 warm-up calls, of 10
 back-to-back calls between two CUDA events, divided by 10. Each shape is
 also held against the kernel's plain PyTorch version (max abs error).
-``--splits`` additionally times K1 and K5 at each forced vertex split
-(trees whose launcher takes one). Prints one JSON line; needs a card.
+Prints one JSON line; needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import os
 import statistics
@@ -52,7 +50,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--splits", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_fused_forward: no CUDA card", file=sys.stderr)
@@ -88,10 +85,6 @@ def main() -> int:
 
     result = {"root": os.path.abspath(args.root), "nvidia_smi": smi,
               "ptxas": ptxas, "K1": {}, "K5": {}, "err": {}}
-    splits = [int(x) for x in args.splits.split(",") if x]
-    if "split" not in inspect.signature(
-            fused_forward._launch_forward).parameters:
-        splits = []
     with torch.no_grad():
         for b in K1_BATCHES:
             pose, shape = inputs(b)
@@ -101,10 +94,6 @@ def main() -> int:
             result["err"][f"K1 B={b}"] = err(
                 fused_forward.forward_verts_fused_full(params, pose, shape),
                 fused_forward.forward_verts_plain(ops1, pose, shape))
-            for sp in splits:
-                result["K1"][f"{b} split={sp}"] = cuda_ms(
-                    lambda: fused_forward._launch_forward(
-                        ops1, pose[None], shape[None], split=sp))
         for b in K5_BATCHES:
             pose, shape = inputs(2, b)
             result["K5"][b] = cuda_ms(
@@ -116,10 +105,6 @@ def main() -> int:
                     stacked, pose, shape)[:, rows],
                 fused_forward.forward_verts_hands_plain(
                     ops5, pose[:, rows], shape[:, rows]))
-            for sp in splits:
-                result["K5"][f"{b} split={sp}"] = cuda_ms(
-                    lambda: fused_forward._launch_forward(
-                        ops5, pose, shape, split=sp))
     print(json.dumps(result), flush=True)
     return 0
 

@@ -81,19 +81,21 @@ def _k1(params, b, seed=0):
     return got, want
 
 
-# B one below, at and one above the 32-row tile; 257 and 1000 ragged.
-@pytest.mark.parametrize("b", [1, 31, 32, 33, 257, 1000])
+# B one below, at and one above each row tile MANO takes (8 and 32 for
+# small batches, 64); 257 and 1000 ragged.
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 257,
+                               1000])
 def test_k1_kernel_matches_plain(dev, b):
     got, want = _k1(_params(dev), b)
     assert got.shape == (b, 778, 3) and bool(torch.isfinite(got).all())
     assert _err(got, want) <= TOL
 
 
-# J = 64 takes the 16-row tile (B = 15, 16, 17 straddle it); V = 1 and 13
-# leave one ragged vertex tile; S != 10.
+# J = 64 takes the 8-row tile (B = 7, 8, 9 straddle it), J = 40 the
+# 16-row one; V = 1 and 13 leave one ragged vertex tile; S != 10.
 @pytest.mark.parametrize("n_joints,n_verts,n_shape,b", [
-    (7, 300, 10, 45), (40, 300, 10, 45), (64, 778, 10, 15),
-    (64, 778, 10, 16), (64, 300, 10, 17), (16, 1, 10, 33),
+    (7, 300, 10, 45), (40, 300, 10, 45), (64, 778, 10, 7),
+    (64, 778, 10, 8), (64, 300, 10, 9), (16, 1, 10, 33),
     (16, 13, 10, 33), (16, 778, 4, 33), (16, 300, 23, 70),
 ])
 def test_k1_generic_tree(dev, n_joints, n_verts, n_shape, b):
