@@ -29,7 +29,11 @@ it; ``forward_chunked`` is held on every route against its default
 route, the tiered engine's results against direct calls of each
 family, a 120-frame two-hand clip
 (``models/anim.py``) against the oracle and K5, and the f32 family
-against its kernels under the caller's TF32 setting.
+against its kernels under the caller's TF32 setting. K1 and K5 are timed
+at every batch of their paths; ``blend_sgemm_ms`` times one cuBLAS fp32
+product of the blend alone as a yardstick (the port never calls it),
+and the K1/K5 entries carry the kernel's registers and spills from the
+``-Xptxas -v`` build log (a spill fails the run).
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
