@@ -282,7 +282,7 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
   // one group (empty past the end) so wait_group counts chunks.
   const int nchunk = (kpad + kChunk - 1) / kChunk;
   const int total = (sub1 - sub0) * nchunk;
-  const auto issue = [&](int q) {
+  const auto fetch = [&](int q) {
     if (q < total) {
       const int sub = sub0 + q / nchunk, k0 = (q % nchunk) * kChunk;
       const float4* src = reinterpret_cast<const float4*>(
@@ -295,7 +295,7 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
     }
     cp_async_commit();
   };
-  for (int q = 0; q < kStages - 1; ++q) issue(q);   // overlaps the prelude
+  for (int q = 0; q < kStages - 1; ++q) fetch(q);   // overlaps the prelude
   prelude<kRows>(pose, shape, jb, parents, B, row0, J, S, kpad, t);
 
   // Thread (g, p): rows g kMr .. + kMr of the tile, vertices kVpt p ..
@@ -321,7 +321,7 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
     }
     cp_async_wait<kStages - 2>();   // this thread's copies of chunk q
     __syncthreads();                // everyone's; stage (q - 1) is free
-    issue(q + kStages - 1);
+    fetch(q + kStages - 1);
     if (live) {
       const float* bs = t.stage + (q % kStages) * kStageFloats + kVpt * p;
       const float* cf = coef + ch * kChunk;

@@ -5,7 +5,7 @@ one CUDA card, at the batch sizes the port's main paths use.
     python3 scripts/time_fused_forward.py [--root DIR]
 
 ``--root`` names the checkout whose ``mano_hand_tpu_torch`` is timed (by
-default this one), so two trees can be timed in turns in one session on
+default this one), so two trees can be timed in turns in one run on
 one card: run it for the parent, the change, the change, the parent.
 Each time is the median over 20 samples, after 3 warm-up calls, of 10
 back-to-back calls between two CUDA events, divided by 10. Each shape is
