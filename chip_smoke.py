@@ -29,11 +29,16 @@ it; ``forward_chunked`` is held on every route against its default
 route, the tiered engine's results against direct calls of each
 family, a 120-frame two-hand clip
 (``models/anim.py``) against the oracle and K5, and the f32 family
-against its kernels under the caller's TF32 setting. K1 and K5 are timed
-at every batch of their paths; ``blend_sgemm_ms`` times one cuBLAS fp32
-product of the blend alone as a yardstick (the port never calls it),
-and the K1/K5 entries carry the kernel's registers and spills from the
-``-Xptxas -v`` build log (a spill fails the run).
+against its kernels under the caller's TF32 setting. K3 is held in both
+of its forms (the forward's, and the backward's R^T with no translation,
+also against the explicit transposed copy and zero translation it
+replaced) and K4 also against K1, whose phase D it shares. K1 and K5
+are timed at every batch of their paths, K3 at B = 8192 and the training
+batch 1024 in both forms, K4 at B = 8192 and 1000; ``blend_sgemm_ms``
+times one cuBLAS fp32 product of the blend alone as a yardstick (the
+port never calls it), and the K1/K5, K3 and K4 entries carry their
+kernels' registers and spills from the ``-Xptxas -v`` build log (a spill
+fails the run).
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
@@ -61,7 +66,9 @@ SEED = 0
 DEVICE = "cuda"                  # the card this run measures
 K1_BATCHES = (8192, 1000, 1)     # the timed batch, a ragged tile, one row
 K3_BATCH = 8192
+K3_TIMED = (8192, 1024)          # the timed batch and the training batch
 K4_BATCHES = K1_BATCHES
+K4_TIMED = (8192, 1000)
 CHUNK_BATCH, CHUNK_SIZE = 8192 + 37, 4096   # a ragged trailing chunk
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 5, 0.1
 TRAIN_TOL = 1e-3     # per-step loss, each route vs the plain path, relative
@@ -297,14 +304,22 @@ def main() -> int:
     _build.load()
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
-    k1_ptxas = ptxas_of(_build.build_log(), "fused_forward_kernel")
+    log = _build.build_log()
+    # Mangled names carry the identifier's length: "11skin_kernel" is K3's
+    # kernel and not K4's "17blend_skin_kernel".
+    k1_ptxas = ptxas_of(log, "fused_forward_kernel")
+    k3_ptxas = ptxas_of(log, "11skin_kernel")
+    k4_ptxas = ptxas_of(log, "17blend_skin_kernel")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "library": os.path.relpath(so, os.path.dirname(
               os.path.abspath(__file__))), "ptxas": ptxas,
-          "k1_ptxas": k1_ptxas})
-    require(len(k1_ptxas) >= 1 and all(
-        e.get("spill_stores") == 0 and e.get("spill_loads") == 0
-        for e in k1_ptxas.values()), f"K1/K5 build without spills {k1_ptxas}")
+          "k1_ptxas": k1_ptxas, "k3_ptxas": k3_ptxas, "k4_ptxas": k4_ptxas})
+    for name, entries in (("K1/K5", k1_ptxas), ("K3", k3_ptxas),
+                          ("K4", k4_ptxas)):
+        require(len(entries) >= 1 and all(
+            e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+            for e in entries.values()), f"{name} build without spills "
+                                        f"{entries}")
 
     # 3. Params: the synthetic MANO asset at full width, f32, on the card.
     params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
@@ -474,24 +489,34 @@ def main() -> int:
         torch.cuda.synchronize()
         require(bool(torch.isfinite(got).all()), "K3 finite")
         k3_err = max_err(got, fused_skin.skin_batched_plain(*k3_args))
-        # The backward's form: R^T and t = 0.
-        k3_bwd_args = (w3, rot3.transpose(-1, -2).contiguous(),
-                       t3.new_zeros(t3.shape), out.verts.contiguous())
-        k3_err = max(k3_err, max_err(fused_skin.skin_batched(*k3_bwd_args),
-                                     fused_skin.skin_batched_plain(
-                                         *k3_bwd_args)))
+        # The backward's form: R^T and no t, read in place (the flags),
+        # against the plain version with the same flags and against the
+        # explicit transposed copy and zero t it replaced.
+        g3 = out.verts.contiguous()
+        k3_bwd_args = (w3, rot3.contiguous(), None, g3)
+        got_bwd = fused_skin.skin_batched(*k3_bwd_args, transpose_r=True)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got_bwd).all()), "K3 backward form finite")
+        k3_err_bwd = max(
+            max_err(got_bwd, fused_skin.skin_batched_plain(
+                *k3_bwd_args, transpose_r=True)),
+            max_err(got_bwd, fused_skin.skin_batched_plain(
+                w3, rot3.transpose(-1, -2).contiguous(),
+                t3.new_zeros(t3.shape), g3)))
+        k3_err = max(k3_err, k3_err_bwd)
         n = ORACLE_ROWS
         k3_oracle = max_err(
             core.forward_batched_pallas(params, pose3[:n], shape3[:n]),
             oracle.forward_batch_verts(params, pose3[:n].cpu().numpy(),
                                        shape3[:n].cpu().numpy()))
     emit({"phase": "K3", "batch": K3_BATCH, "max_abs_err_plain": k3_err,
+          "max_abs_err_plain_bwd_form": k3_err_bwd,
           "max_abs_err_oracle": k3_oracle})
     require(k3_err <= KERNEL_TOL, f"K3 vs plain {k3_err} <= {KERNEL_TOL}")
     require(k3_oracle <= ORACLE_TOL, f"K3 route vs oracle {k3_oracle}")
 
     # 9. K4: through forward_batched_pallas_fused at B = 8192, 1000, 1.
-    k4_err = k4_oracle = 0.0
+    k4_err = k4_oracle = k4_k1 = 0.0
     with torch.no_grad():
         for b, (pose, shape) in k1_in.items():
             pose_t = torch.from_numpy(pose).to(dev)
@@ -502,12 +527,15 @@ def main() -> int:
             require(bool(torch.isfinite(got).all()), f"K4 finite at B={b}")
             plain = fused_forward.forward_verts_plain(ops1, pose_t, shape_t)
             k4_err = max(k4_err, max_err(got, plain))
+            k4_k1 = max(k4_k1, max_err(got, k1_out[b]))   # shared phase D
             n = min(b, ORACLE_ROWS)
             ref = oracle.forward_batch_verts(params, pose[:n], shape[:n])
             k4_oracle = max(k4_oracle, max_err(got[:n], ref))
     emit({"phase": "K4", "batches": list(K4_BATCHES),
-          "max_abs_err_plain": k4_err, "max_abs_err_oracle": k4_oracle})
+          "max_abs_err_plain": k4_err, "max_abs_err_k1": k4_k1,
+          "max_abs_err_oracle": k4_oracle})
     require(k4_err <= KERNEL_TOL, f"K4 vs plain {k4_err} <= {KERNEL_TOL}")
+    require(k4_k1 <= KERNEL_TOL, f"K4 vs K1 {k4_k1} <= {KERNEL_TOL}")
     require(k4_oracle <= ORACLE_TOL, f"K4 vs oracle {k4_oracle}")
 
     # 10. forward_chunked on every route vs its default route, counted.
@@ -835,8 +863,6 @@ def main() -> int:
                 lambda: fused_forward.forward_verts_hands_plain(
                     ops5, pose_t, shape_t))))
         del pose_t, shape_t
-    pose1 = torch.from_numpy(k1_in[b1][0]).to(dev)
-    shape1 = torch.from_numpy(k1_in[b1][1]).to(dev)
     k1_ms, k1_plain_ms = k1_by_batch[b1]["ms"], k1_by_batch[b1]["plain_ms"]
     with torch.no_grad():
         table, idx_t, pose_t, pb, wt, used = k2_case[K2_CAPACITIES[-1]]
@@ -846,15 +872,34 @@ def main() -> int:
             lambda: fused_posed.forward_posed_gather_plain(
                 table.v_shaped, table.joints, idx_t, pose_t, pb, wt,
                 table.parents))
-        k3_ms, k3_plain_ms = interleaved_ms(
-            lambda: fused_skin.skin_batched(*k3_args),
-            lambda: fused_skin.skin_batched_plain(*k3_args))
-        coef4, rot4, t4 = (x.contiguous() for x in fused_forward.pre_stage(
-            ops1.parents_tuple, ops1.jb[..., s], ops1.jb[..., :s], pose1,
-            shape1, ops1.kpad))
-        k4_ms, k4_plain_ms = interleaved_ms(
-            lambda: fused_forward.blend_skin_fused(ops1, coef4, rot4, t4),
-            lambda: fused_forward.blend_skin_plain(ops1, coef4, rot4, t4))
+        # K3 at the timed and the training batch, in both forms: the
+        # forward's (R, t) and the backward's (R^T in place, no t).
+        k3_by_batch = {}
+        for b in K3_TIMED:
+            a3 = [x[:b] if x.shape[0] == K3_BATCH else x for x in k3_args]
+            b3 = [w3, a3[1], None, a3[3]]
+            k3_by_batch[b] = dict(zip(("ms", "plain_ms"), interleaved_ms(
+                lambda: fused_skin.skin_batched(*a3),
+                lambda: fused_skin.skin_batched_plain(*a3))))
+            k3_by_batch[b]["bwd_form_ms"], k3_by_batch[b][
+                "bwd_form_plain_ms"] = interleaved_ms(
+                lambda: fused_skin.skin_batched(*b3, transpose_r=True),
+                lambda: fused_skin.skin_batched_plain(*b3, transpose_r=True))
+        k3_ms = k3_by_batch[K3_BATCH]["ms"]
+        k3_plain_ms = k3_by_batch[K3_BATCH]["plain_ms"]
+        k4_by_batch = {}
+        for b in K4_TIMED:
+            pose_b, shape_b = (torch.from_numpy(x).to(dev) for x in k1_in[b])
+            c4, r4, tt4 = (x.contiguous() for x in fused_forward.pre_stage(
+                ops1.parents_tuple, ops1.jb[..., s], ops1.jb[..., :s], pose_b,
+                shape_b, ops1.kpad))
+            k4_by_batch[b] = dict(zip(("ms", "plain_ms"), interleaved_ms(
+                lambda: fused_forward.blend_skin_fused(ops1, c4, r4, tt4),
+                lambda: fused_forward.blend_skin_plain(ops1, c4, r4, tt4))))
+            if b == b1:
+                coef4 = c4
+        k4_ms = k4_by_batch[b1]["ms"]
+        k4_plain_ms = k4_by_batch[b1]["plain_ms"]
         b5 = K5_BATCHES[0]
         pose5, shape5 = (torch.from_numpy(x).to(dev) for x in k5_in[b5])
         k5_ms, k5_plain_ms = (k5_by_batch[b5]["ms"],
@@ -923,6 +968,7 @@ def main() -> int:
                       "plain_ms": k2b_plain_ms, "bf16_flops": c2b,
                       "flops": r2b, "bytes": m2b},
           "K1_by_batch": k1_by_batch, "K5_by_batch": k5_by_batch,
+          "K3_by_batch": k3_by_batch, "K4_by_batch": k4_by_batch,
           "blend_sgemm_ms": blend_sgemm_ms,
           "repack_ms": repack_ms,
           "route_fwd_bwd": {"batch": TRAIN_BATCH, **route_ms}})
@@ -950,14 +996,16 @@ def main() -> int:
          "launches": train_launches["K3"], "max_abs_err": k3_err,
          "max_abs_err_oracle": k3_oracle, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None, "shape": f"B={K3_BATCH}", "path": "train"},
+         "library_ms": None, "shape": f"B={K3_BATCH}", "path": "train",
+         "ptxas": k3_ptxas},
         {"name": "K4 blend_skin", "route": "cuda",
-         "source": "mano_hand_tpu_torch/csrc/blend_skin.cu",
+         "source": "mano_hand_tpu_torch/csrc/fused_forward.cu",
          "replaces": "mano_hand_tpu/ops/pallas_forward.py:239",
          "launches": train_launches["K4"], "max_abs_err": k4_err,
          "max_abs_err_oracle": k4_oracle, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": None, "shape": f"B={b1}", "path": "train"},
+         "library_ms": None, "shape": f"B={b1}", "path": "train",
+         "max_abs_err_k1": k4_k1, "ptxas": k4_ptxas},
         {"name": "K5 fused_forward_hands", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_forward.cu",
          "replaces": "mano_hand_tpu/ops/pallas_forward.py:830",

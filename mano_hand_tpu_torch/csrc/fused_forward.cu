@@ -1,9 +1,11 @@
 // K1 and K5: the whole batched MANO forward in one launch, (pose, shape) ->
-// verts, for one hand (K1) or several hands at once (K5).
+// verts, for one hand (K1) or several hands at once (K5); and K4, blend +
+// skin from per-row coefficients and skinning transforms made outside.
 //
 // Replaces the TPU kernels mano_hand_tpu/ops/pallas_forward.py:
-// forward_verts_fused_full (its pallas_call at :723) and
-// forward_verts_fused_full_hands (its pallas_call at :830). The TPU pair
+// forward_verts_fused_full (its pallas_call at :723),
+// forward_verts_fused_full_hands (its pallas_call at :830) and
+// blend_skin_fused (its pallas_calls at :228 and :239). The TPU pair
 // mirrors its launch code line for line; here they are one kernel with a
 // hand axis: blockIdx.z picks the hand, whose operands (basis, weights,
 // joint basis, pose, shape, out) sit at a per-hand stride; the kinematic
@@ -46,6 +48,13 @@
 // Plain fp32 FFMA throughout (no tensor cores, no fast math); the prelude
 // is the fp32 (FMA) form of mano_common.cuh's phases A-C.
 //
+// K4 is the same phase D (tiled_blend_skin, one function both kernels
+// inline) behind a loader in place of the prelude: the block copies its
+// rows' coefficients [beta | 1 | R - I | 0] and skinning transforms (R, t),
+// made by the PyTorch pre-stage (ops/fused_forward.py:pre_stage, as
+// pallas_forward.py:_pre_stage makes them), into the slots the prelude
+// fills. Its row tile and vertex split are chosen as K1's.
+//
 // What was measured (scripts/time_fused_forward.py, NVIDIA H100 80GB HBM3
 // at 700 W): about 0.31-0.33 ms for B = 8192, against the parent design's
 // 0.57-0.60 and a bound of 0.122; variants without the basis copies or
@@ -53,6 +62,9 @@
 // 8 x 2 and 8 x 4 vertices, 32 or 64 rows, 1 or 2 blocks an SM all land
 // within about 10 % of each other (PERF.md section 5).
 
+#include <type_traits>
+
+#include "cp_async.cuh"
 #include "mano_common.cuh"
 
 namespace {
@@ -71,19 +83,6 @@ static_assert(kVpt == 4 && kLanesV % 32 == 0, "a warp holds one row group");
 // Shared memory of one block at kBlocksPerSm blocks an SM: 228 KB less
 // 1 KB reserved per block.
 constexpr size_t kSmemBudget = (228 * 1024) / kBlocksPerSm - 1024;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // 4 contiguous floats of shared memory (16 bytes aligned) into x.
 __device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
@@ -251,31 +250,17 @@ __device__ __forceinline__ void blend4(const float* bs, const float* coef,
     }
 }
 
-template <int kRows>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
-                     const float* __restrict__ shape,  // [H, B, S]
-                     const float* __restrict__ basis,  // [H, nsub, kpad, 3, VT]
-                     const float* __restrict__ wt,     // [H, nsub, J, VT]
-                     const float* __restrict__ jb,     // [H, J, 3, S + 1]
-                     const int* __restrict__ parents,  // [J] (shared)
-                     float* __restrict__ out,          // [H, B, V, 3]
-                     int B, int V, int J, int S, int kpad, int per) {
+// Phase D of the block's row tile over vertex sub-tiles [sub0, sub1) of
+// one hand's tiled operands (basis [nsub, kpad, 3, VT], wt [nsub, J, VT]),
+// into out [B, V, 3]. front() fills t.coef and t.skin of the tile's rows
+// (the prelude, or K4's loader) while the first basis chunks are in flight,
+// and ends with the block synchronised.
+template <int kRows, typename Front>
+__device__ __forceinline__ void tiled_blend_skin(
+    const Smem& t, const float* __restrict__ basis,
+    const float* __restrict__ wt, float* __restrict__ out, int B, int V,
+    int J, int kpad, int row0, int sub0, int sub1, const Front& front) {
   constexpr int kMr = kRows / kGroups;  // rows of a thread's micro-tile
-  extern __shared__ float4 smem4[];
-  const Smem t = carve<kRows>(reinterpret_cast<float*>(smem4), kpad, J);
-  const int row0 = blockIdx.x * kRows;
-  const int nsub = (V + kVertTile - 1) / kVertTile;
-  const int sub0 = blockIdx.y * per;
-  const int sub1 = min(nsub, sub0 + per);
-  const size_t h = blockIdx.z;
-  pose += h * B * J * 3;
-  shape += h * B * S;
-  basis += h * nsub * kpad * 3 * kVertTile;
-  wt += h * nsub * J * kVertTile;
-  jb += h * J * 3 * (S + 1);
-  out += h * B * V * 3;
-
   // The basis stream: chunk q is k-rows [kChunk (q % nchunk), +kChunk) of
   // sub-tile sub0 + q / nchunk (the last chunk of a sub-tile may be short:
   // kpad is a multiple of 4), into stage q % kStages. Every call commits
@@ -291,12 +276,12 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
           reinterpret_cast<float4*>(t.stage + (q % kStages) * kStageFloats);
       const int n = min(kChunk, kpad - k0) * 3 * kVertTile / 4;
       for (int i = threadIdx.x; i < n; i += kThreads)
-        cp_async16(dst + i, src + i);
+        mano::cp_async<16>(dst + i, src + i);
     }
-    cp_async_commit();
+    mano::cp_async_commit();
   };
-  for (int q = 0; q < kStages - 1; ++q) fetch(q);   // overlaps the prelude
-  prelude<kRows>(pose, shape, jb, parents, B, row0, J, S, kpad, t);
+  for (int q = 0; q < kStages - 1; ++q) fetch(q);   // overlaps the front
+  front();
 
   // Thread (g, p): rows g kMr .. + kMr of the tile, vertices kVpt p ..
   // + kVpt of the sub-tile. A warp's lanes share g.
@@ -319,7 +304,7 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
 #pragma unroll
           for (int c = 0; c < 3; ++c) acc[i][a][c] = 0.0f;
     }
-    cp_async_wait<kStages - 2>();   // this thread's copies of chunk q
+    mano::cp_async_wait<kStages - 2>();   // this thread's copies of chunk q
     __syncthreads();                // everyone's; stage (q - 1) is free
     fetch(q + kStages - 1);
     if (live) {
@@ -397,15 +382,94 @@ fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
       __syncwarp();
     }
   }
-  cp_async_wait<0>();
+  mano::cp_async_wait<0>();
 }
 
 template <int kRows>
-int launch(const float* pose, const float* shape, const float* basis,
-           const float* wt, const float* jb, const int* parents, float* out,
-           int H, int B, int V, int J, int S, int kpad, int split,
-           cudaStream_t stream) {
-  const auto kernel = fused_forward_kernel<kRows>;
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+fused_forward_kernel(const float* __restrict__ pose,   // [H, B, J, 3]
+                     const float* __restrict__ shape,  // [H, B, S]
+                     const float* __restrict__ basis,  // [H, nsub, kpad, 3, VT]
+                     const float* __restrict__ wt,     // [H, nsub, J, VT]
+                     const float* __restrict__ jb,     // [H, J, 3, S + 1]
+                     const int* __restrict__ parents,  // [J] (shared)
+                     float* __restrict__ out,          // [H, B, V, 3]
+                     int B, int V, int J, int S, int kpad, int per) {
+  extern __shared__ float4 smem4[];
+  const Smem t = carve<kRows>(reinterpret_cast<float*>(smem4), kpad, J);
+  const int row0 = blockIdx.x * kRows;
+  const int nsub = (V + kVertTile - 1) / kVertTile;
+  const int sub0 = blockIdx.y * per;
+  const int sub1 = min(nsub, sub0 + per);
+  const size_t h = blockIdx.z;
+  pose += h * B * J * 3;
+  shape += h * B * S;
+  basis += h * nsub * kpad * 3 * kVertTile;
+  wt += h * nsub * J * kVertTile;
+  jb += h * J * 3 * (S + 1);
+  out += h * B * V * 3;
+  tiled_blend_skin<kRows>(t, basis, wt, out, B, V, J, kpad, row0, sub0, sub1,
+                          [&] {
+                            prelude<kRows>(pose, shape, jb, parents, B, row0,
+                                           J, S, kpad, t);
+                          });
+}
+
+// K4's front: the tile's coefficient rows (float4: kpad % 4 == 0, coef
+// 16-byte aligned) and skin slots (R row-major, then t) from memory, one
+// row a warp; rows past the batch end replay the last row, as the prelude's
+// do. Ends with the block synchronised.
+template <int kRows>
+__device__ void load_rows(const float* __restrict__ coef,
+                          const float* __restrict__ rot,
+                          const float* __restrict__ tr, int B, int row0,
+                          int J, int kpad, const Smem& t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const size_t src = mano::tile_row(row0, r, B);
+    const float4* c4 = reinterpret_cast<const float4*>(coef + src * kpad);
+    float4* d4 = reinterpret_cast<float4*>(t.coef + r * kpad);
+    for (int e = lane; e < kpad / 4; e += 32) d4[e] = __ldg(c4 + e);
+    const float* R = rot + src * J * 9;
+    const float* T = tr + src * J * 3;
+    float* sk = t.skin + r * J * 12;
+    for (int e = lane; e < J * 9; e += 32) {
+      const int j = e / 9;
+      sk[j * 12 + (e - 9 * j)] = __ldg(R + e);
+    }
+    for (int e = lane; e < J * 3; e += 32) {
+      const int j = e / 3;
+      sk[j * 12 + 9 + (e - 3 * j)] = __ldg(T + e);
+    }
+  }
+  __syncthreads();
+}
+
+template <int kRows>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+blend_skin_kernel(const float* __restrict__ coef,   // [B, kpad]
+                  const float* __restrict__ rot,    // [B, J, 3, 3]
+                  const float* __restrict__ tr,     // [B, J, 3]
+                  const float* __restrict__ basis,  // [nsub, kpad, 3, VT]
+                  const float* __restrict__ wt,     // [nsub, J, VT]
+                  float* __restrict__ out,          // [B, V, 3]
+                  int B, int V, int J, int kpad, int per) {
+  extern __shared__ float4 smem4[];
+  const Smem t = carve<kRows>(reinterpret_cast<float*>(smem4), kpad, J);
+  const int row0 = blockIdx.x * kRows;
+  const int nsub = (V + kVertTile - 1) / kVertTile;
+  const int sub0 = blockIdx.y * per;
+  tiled_blend_skin<kRows>(
+      t, basis, wt, out, B, V, J, kpad, row0, sub0, min(nsub, sub0 + per),
+      [&] { load_rows<kRows>(coef, rot, tr, B, row0, J, kpad, t); });
+}
+
+// Launch kernel (K1/K5's or K4's at row tile kRows) over H hands with
+// `split` vertex spans per row tile (0: chosen from B and the card); the
+// kernel's last argument is the span length, appended here.
+template <int kRows, typename Kernel, typename... Args>
+int launch(Kernel kernel, int H, int B, int V, int J, int kpad, int split,
+           cudaStream_t stream, Args... args) {
   const size_t smem = smem_bytes(kRows, kpad, J);
   int err = mano::prepare_smem(kernel, smem);
   if (err != 0) return err;
@@ -428,9 +492,30 @@ int launch(const float* pose, const float* shape, const float* basis,
   split = split < 1 ? 1 : (split > nsub ? nsub : split);
   const int per = (nsub + split - 1) / split;
   split = (nsub + per - 1) / per;
-  kernel<<<dim3(tiles, split, H), kThreads, smem, stream>>>(
-      pose, shape, basis, wt, jb, parents, out, B, V, J, S, kpad, per);
+  kernel<<<dim3(tiles, split, H), kThreads, smem, stream>>>(args..., per);
   return (int)cudaGetLastError();
+}
+
+// f(std::integral_constant<int, rows>) for the row tile: the largest whose
+// shared memory leaves room for kBlocksPerSm blocks an SM, or a smaller one
+// that the batch still fills (a small batch then computes fewer replayed
+// rows).
+template <typename F>
+int with_row_tile(int B, int kpad, int J, const F& f) {
+  constexpr int kR0 = kGroups * 8, kR1 = kGroups * 4, kR2 = kGroups * 2,
+                kR3 = kGroups;
+  const int rows[4] = {kR0, kR1, kR2, kR3};
+  int pick = -1;
+  for (int i = 0; i < 4; ++i)
+    if (smem_bytes(rows[i], kpad, J) <= kSmemBudget &&
+        (pick < 0 || B <= rows[i]))
+      pick = i;
+  switch (pick) {
+    case 0: return f(std::integral_constant<int, kR0>{});
+    case 1: return f(std::integral_constant<int, kR1>{});
+    case 2: return f(std::integral_constant<int, kR2>{});
+    default: return f(std::integral_constant<int, kR3>{});
+  }
 }
 
 }  // namespace
@@ -443,33 +528,33 @@ extern "C" int mano_fused_forward(const void* pose, const void* shape,
                                   const void* jb, const void* parents,
                                   void* out, int H, int B, int V, int J,
                                   int S, int kpad, int split, void* stream) {
-  const auto args = [&](auto launcher) {
-    return launcher(static_cast<const float*>(pose),
-                    static_cast<const float*>(shape),
-                    static_cast<const float*>(basis),
-                    static_cast<const float*>(wt),
-                    static_cast<const float*>(jb),
-                    static_cast<const int*>(parents), static_cast<float*>(out),
-                    H, B, V, J, S, kpad, split,
-                    static_cast<cudaStream_t>(stream));
-  };
-  // The row tile: the largest whose shared memory leaves room for
-  // kBlocksPerSm blocks an SM, or a smaller one that the batch still fills
-  // (a small batch then computes fewer replayed rows).
-  constexpr int kR0 = kGroups * 8, kR1 = kGroups * 4, kR2 = kGroups * 2,
-                kR3 = kGroups;
-  const int rows[4] = {kR0, kR1, kR2, kR3};
-  int pick = -1;
-  for (int i = 0; i < 4; ++i)
-    if (smem_bytes(rows[i], kpad, J) <= kSmemBudget &&
-        (pick < 0 || B <= rows[i]))
-      pick = i;
-  switch (pick) {
-    case 0: return args(launch<kR0>);
-    case 1: return args(launch<kR1>);
-    case 2: return args(launch<kR2>);
-    default: return args(launch<kR3>);
-  }
+  return with_row_tile(B, kpad, J, [&](auto rows) {
+    constexpr int kRows = decltype(rows)::value;
+    return launch<kRows>(
+        fused_forward_kernel<kRows>, H, B, V, J, kpad, split,
+        static_cast<cudaStream_t>(stream), static_cast<const float*>(pose),
+        static_cast<const float*>(shape), static_cast<const float*>(basis),
+        static_cast<const float*>(wt), static_cast<const float*>(jb),
+        static_cast<const int*>(parents), static_cast<float*>(out), B, V, J,
+        S, kpad);
+  });
+}
+
+// K4: coef [B, kpad] (16-byte aligned), rot [B, J, 3, 3], t [B, J, 3]; basis
+// and wt the vertex-tiled operands; the vertex split as K1's automatic one.
+extern "C" int mano_blend_skin(const void* coef, const void* rot,
+                               const void* t, const void* basis,
+                               const void* wt, void* out, int B, int V, int J,
+                               int kpad, void* stream) {
+  return with_row_tile(B, kpad, J, [&](auto rows) {
+    constexpr int kRows = decltype(rows)::value;
+    return launch<kRows>(
+        blend_skin_kernel<kRows>, 1, B, V, J, kpad, 0,
+        static_cast<cudaStream_t>(stream), static_cast<const float*>(coef),
+        static_cast<const float*>(rot), static_cast<const float*>(t),
+        static_cast<const float*>(basis), static_cast<const float*>(wt),
+        static_cast<float*>(out), B, V, J, kpad);
+  });
 }
 
 extern "C" const char* mano_cuda_error_string(int err) {

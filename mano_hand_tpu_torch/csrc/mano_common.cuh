@@ -1,5 +1,6 @@
-// Device functions shared by the MANO kernels (fused_forward.cu K1 and K5,
-// fused_posed.cu K2, skin.cu K3, blend_skin.cu K4). Plain fp32 FFMA
+// Device functions shared by the MANO kernels: fused_posed.cu (K2) runs
+// phases A-D below; fused_forward.cu (K1, K4, K5) takes rodrigues, dot3
+// and tile_row, skin.cu (K3) prepare_smem. Plain fp32 FFMA
 // throughout: no tensor cores, no TF32, and the build uses no
 // --use_fast_math, so sinf/cosf/sqrtf and division are the accurate IEEE
 // versions. K2's bf16 tier reads a bf16 basis and bf16 weights and rounds
@@ -25,10 +26,6 @@
 // equal theirs bit for bit and the bf16 roundings of them agree; the fp32
 // kernels let the compiler fuse them into FMAs (the exact form made K1
 // measurably slower) and agree with the plain versions to fp32 rounding.
-// K3 and K4 take the
-// skinning transforms (and K4 the coefficients) from global memory instead
-// of phases A-C (load_skin_rows, load_coef_rows); K3 reads v_posed from
-// global memory and runs only skin_apply.
 
 #pragma once
 
@@ -232,31 +229,6 @@ __device__ inline void inverse_bind_rows(const Tile& t, int J) {
   }
 }
 
-// Tile loader (K3, K4), in place of phases A-C when the skinning transforms
-// come from outside: skin slots of every (tile row, joint) from global
-// rot [B][J][3][3] and t [B][J][3], in the layout phase C leaves (R
-// row-major, then t).
-__device__ inline void load_skin_rows(const float* __restrict__ rot,
-                                      const float* __restrict__ tr, int B,
-                                      int row0, int J, const Tile& t) {
-  for (int i = threadIdx.x; i < kTileRows * J * 12; i += blockDim.x) {
-    const int rj = i / 12, e = i - rj * 12;
-    const int r = rj / J, j = rj - r * J;
-    const size_t src = (size_t)tile_row(row0, r, B) * J + j;
-    t.skin[i] = e < 9 ? rot[src * 9 + e] : tr[src * 3 + (e - 9)];
-  }
-}
-
-// Tile loader (K4): the blend coefficients of every tile row from global
-// coef [B][kpad], in place of phase A's (R - I) and the shape coefficients.
-__device__ inline void load_coef_rows(const float* __restrict__ coef, int B,
-                                      int row0, int kpad, const Tile& t) {
-  for (int i = threadIdx.x; i < kTileRows * kpad; i += blockDim.x) {
-    const int r = i / kpad, k = i - r * kpad;
-    t.coef[i] = coef[(size_t)tile_row(row0, r, B) * kpad + k];
-  }
-}
-
 // Phase D, blend part: v_posed of vertex v for the kRowChunk tile rows from
 // r0, into acc. basis is [kpad][3][V] (loads coalesced across v). base, when
 // not null, is a [C][V][3] table whose row rowsrc[r] starts the sum (the
@@ -303,7 +275,7 @@ __device__ __forceinline__ void blend_rows(const Tile& t, int kpad,
 // and u = sum_j w_j t_j over the row's skin slots sk [J][12], writes
 // o = M p + u. weight(j) returns W[v, j]. JT > 0 unrolls the joint loop JT
 // times (guarded by J) so weights held in a register array stay in
-// registers (K3); JT == 0 loops J times (K1, K2, K4 read W from global).
+// registers; JT == 0 loops J times (K2 reads W from global).
 template <int JT, typename Weight>
 __device__ __forceinline__ void skin_apply(const float* __restrict__ sk, int J,
                                            const Weight& weight, float px,

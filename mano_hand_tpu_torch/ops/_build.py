@@ -132,7 +132,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mano_fused_forward.restype = i32
     lib.mano_fused_posed.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.mano_fused_posed.restype = i32
-    lib.mano_skin.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.mano_skin.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.mano_skin.restype = i32
     lib.mano_blend_skin.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.mano_blend_skin.restype = i32

@@ -9,8 +9,8 @@ FK along ``parents`` and the inverse bind once, then for each vertex
 tile the blend ``[beta | 1 | (R - I)] . basis`` as a register-tiled
 product over basis chunks streamed into shared memory, with linear blend
 skinning as its epilogue, writing ``[B, V, 3]`` fp32. It reads the basis
-and weights in a vertex-tiled layout (``basis_tiles``, ``wt_tiles``:
-``tile_verts``), built beside the others by ``_pack``.
+and weights in a vertex-tiled layout (``basis_tiles``, ``wt_tiles``),
+built by ``_pack``.
 
 K5 replaces ``pallas_forward.py:forward_verts_fused_full_hands``
 (``pallas_call`` at line 830): K1 for several hands of a
@@ -19,32 +19,37 @@ with a hand grid axis over per-hand operands (``forward_verts_fused_
 full_hands``); K1 is its one-hand launch. Inference only.
 
 K4 replaces ``pallas_forward.py:blend_skin_fused`` (``pallas_call`` at
-lines 228 and 239): the blend and the skinning in one launch
-(``csrc/blend_skin.cu``), fed the per-row coefficients and skinning
-transforms by the small PyTorch ``pre_stage`` (Rodrigues, shaped joints,
-FK, inverse bind; ``pallas_forward.py:_pre_stage``).
+lines 228 and 239): the blend and the skinning in one launch, fed the
+per-row coefficients and skinning transforms by the small PyTorch
+``pre_stage`` (Rodrigues, shaped joints, FK, inverse bind;
+``pallas_forward.py:_pre_stage``). It is K1's kernel with a loader of
+those rows in place of the prelude (``csrc/fused_forward.cu``: both
+inline one phase D), reading the same tiled operands.
 
-What bounds both on an H100: fp32 operations (about 1 MFLOP a row against
-9.3 KB written — see the source notes in the ``.cu`` files). Both keep
-v_posed on chip and use plain fp32 FFMA; K1/K5 use register tiles and a
-shared-memory basis ring (K4 still has the simple per-vertex form).
+What bounds all three on an H100: fp32 operations (about 1 MFLOP a row
+against 9.3 KB written — see the source notes in the ``.cu`` files).
+They keep v_posed on chip and use plain fp32 FFMA, register tiles and a
+shared-memory basis ring.
 
 Gradients: ``forward_verts_fused_ad`` (K4 forward) and
 ``forward_verts_fused_full_ad`` (K1 forward) are autograd Functions with
 one backward, ``pallas_forward.py:_bwd``: the pre-stage re-runs under
 autograd, the vertex cotangent comes from the skinning kernel K3
-(``ops/fused_skin.py``) with ``R^T`` and ``t = 0``, the coefficient
+(``ops/fused_skin.py``) with ``R^T`` and no translation, the coefficient
 cotangent from one product with the packed basis, and the parameter
 cotangents (``v_template``, ``shape_basis``, ``pose_basis``,
 ``j_regressor``, ``lbs_weights``) only where autograd asks for them.
 
 Operand prep is cached per ``ManoParams`` object and rebuilt on the
 params' device when one of its tensors changes in place: the packed
-basis ``[Kpad, 3, V]`` (rows: shape basis, template, pose basis in the
-reference's row-major (R - I) order, zero padding to a multiple of 4),
-the weights ``[J, V]`` and the joint basis ``[J, 3, S + 1]`` (last column
-the template joints). A repack moves about 1.4 MB on the card and never
-goes through the host.
+basis (rows: shape basis, template, pose basis in the reference's
+row-major (R - I) order, zero padding to a multiple of 4) and the weights
+in the kernels' vertex-tiled layout (``basis_tiles``, ``wt_tiles``), and
+the joint basis ``[J, 3, S + 1]`` (last column the template joints). A
+repack writes the tiled basis and weights once (0.53 MB at MANO width,
+read back once by the copy into tiles) and never goes through the host;
+the untiled ``basis`` [Kpad, 3, V] and ``wt`` [J, V] that the plain
+versions and the backward read are built from the tiles on first use.
 
 ``forward_verts_plain`` and ``blend_skin_plain`` are the same arithmetic
 in plain PyTorch over the same operands: the CPU path and the kernels'
@@ -77,29 +82,55 @@ hands_launches = 0
 _count_lock = threading.Lock()
 
 
+#: Vertices of one tile of the kernels' operands (``kVertTile`` in
+#: ``csrc/fused_forward.cu``).
+VERT_TILE = 128
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class FusedOperands:
     """The packed operands of one hand, or of several (K5) with a leading
-    hand axis on ``basis``, ``wt`` and ``jb``."""
+    hand axis on ``basis_tiles``, ``wt_tiles`` and ``jb``.
 
-    basis: torch.Tensor      # [(H,) Kpad, 3, V] f32
-    wt: torch.Tensor         # [(H,) J, V] f32
-    jb: torch.Tensor         # [(H,) J, 3, S + 1] f32
-    parents: torch.Tensor    # [J] int32 (shared by the hands)
+    The basis and the weights are kept once, in the kernels' vertex-tiled
+    layout (V zero-padded to whole tiles of ``VERT_TILE``, one contiguous
+    block per tile). ``basis`` [(H,) Kpad, 3, V] and ``wt`` [(H,) J, V],
+    which the plain versions and the backward's products read, are built
+    from the tiles on first use and kept with them."""
+
+    jb: torch.Tensor            # [(H,) J, 3, S + 1] f32
+    parents: torch.Tensor       # [J] int32 (shared by the hands)
     parents_tuple: Tuple[int, ...]
-    n_coef: int              # K = S + 1 + 9 (J - 1), before padding
-    # K1/K5's vertex-tiled copies (``tile_verts``): V zero-padded to whole
-    # tiles of VERT_TILE, one contiguous block per tile.
+    n_coef: int                 # K = S + 1 + 9 (J - 1), before padding
+    n_verts: int
     basis_tiles: torch.Tensor   # [(H,) nsub, Kpad, 3, VERT_TILE] f32
     wt_tiles: torch.Tensor      # [(H,) nsub, J, VERT_TILE] f32
+    _untiled: dict = dataclasses.field(init=False, default_factory=dict,
+                                       repr=False)
+
+    def _untile(self, name: str) -> torch.Tensor:
+        got = self._untiled.get(name)
+        if got is None:   # a race builds it twice, equal: harmless
+            lead = self.jb.ndim - 3
+            got = untile_verts(getattr(self, name + "_tiles"), self.n_verts,
+                               lead)
+            self._untiled[name] = got
+        return got
 
     @property
-    def n_verts(self) -> int:
-        return self.basis.shape[-1]
+    def basis(self) -> torch.Tensor:
+        """[(H,) Kpad, 3, V]: rows shape basis, template, pose basis in the
+        reference's row-major (R - I) order, zero padding."""
+        return self._untile("basis")
+
+    @property
+    def wt(self) -> torch.Tensor:
+        """[(H,) J, V]: the skinning weights, transposed."""
+        return self._untile("wt")
 
     @property
     def n_joints(self) -> int:
-        return self.wt.shape[-2]
+        return self.wt_tiles.shape[-2]
 
     @property
     def n_shape(self) -> int:
@@ -107,64 +138,61 @@ class FusedOperands:
 
     @property
     def kpad(self) -> int:
-        return self.basis.shape[-3]
+        return self.basis_tiles.shape[-3]
 
     def hand(self, h: int) -> "FusedOperands":
         """Hand ``h`` of stacked operands (views)."""
         return dataclasses.replace(
-            self, basis=self.basis[h], wt=self.wt[h], jb=self.jb[h],
-            basis_tiles=self.basis_tiles[h], wt_tiles=self.wt_tiles[h])
+            self, jb=self.jb[h], basis_tiles=self.basis_tiles[h],
+            wt_tiles=self.wt_tiles[h])
 
 
-#: Vertices of one tile of K1/K5's operands (``kVertTile`` in
-#: ``csrc/fused_forward.cu``).
-VERT_TILE = 128
-
-
-def tile_verts(x: torch.Tensor) -> torch.Tensor:
-    """``x`` [..., V] as [nsub, ..., VERT_TILE]: the vertex axis cut into
-    tiles of ``VERT_TILE``, the last one zero-padded, each tile contiguous
-    (the layout K1/K5 stream into shared memory)."""
-    v = x.shape[-1]
-    n = cdiv(v, VERT_TILE)
-    x = torch.nn.functional.pad(x, (0, n * VERT_TILE - v))
-    return x.reshape(*x.shape[:-1], n, VERT_TILE).movedim(-2, 0).contiguous()
+def untile_verts(tiles: torch.Tensor, n_verts: int,
+                 lead: int = 0) -> torch.Tensor:
+    """The kernels' vertex-tiled layout [*lead, nsub, ..., VERT_TILE]
+    (``lead`` leading axes, the hands; V zero-padded to whole tiles) back
+    to [*lead, ..., V], contiguous."""
+    x = tiles.movedim(lead, -2).flatten(-2)
+    return x[..., :n_verts].contiguous()
 
 
 def _pack(params) -> FusedOperands:
-    # Packed on the params' device, the joint products in float64 so the
-    # packing adds no rounding of its own. No library contraction of the
-    # kernels' own work runs here: these are per-asset constants.
-    def f64(t):
-        return t.detach().to(torch.float64)
-
-    shape_basis = f64(params.shape_basis)               # [V, 3, S]
-    pose_basis = f64(params.pose_basis)                 # [V, 3, P]
-    v_template = f64(params.v_template)                 # [V, 3]
-    j_reg = f64(params.j_regressor)                     # [J, V]
+    # Packed on the params' device straight into the tiled layout: one
+    # zeroed buffer [Kpad, 3, nsub VERT_TILE] whose parts are copied in
+    # (converted to float32 by the copy), then cut into tiles by one copy.
+    # The joint products are taken in float64 so the packing adds no
+    # rounding of its own. No library contraction of the kernels' own work
+    # runs here: these are per-asset constants.
+    shape_basis = params.shape_basis.detach()           # [V, 3, S]
+    pose_basis = params.pose_basis.detach()             # [V, 3, P]
     v, _, s = shape_basis.shape
     k = s + 1 + pose_basis.shape[-1]
     kpad = cdiv(k, 4) * 4
-    basis = torch.cat([
-        shape_basis.permute(2, 1, 0),
-        v_template.T[None],
-        pose_basis.permute(2, 1, 0),
-        shape_basis.new_zeros(kpad - k, 3, v),
-    ])
-    jt = j_reg @ v_template                              # [J, 3]
-    jsb = einsum("jv,vcs->jcs", j_reg, shape_basis)
+    nsub = cdiv(v, VERT_TILE)
+    f32, dev = torch.float32, params.device
+    flat = torch.zeros((kpad, 3, nsub * VERT_TILE), dtype=f32, device=dev)
+    flat[:s, :, :v] = shape_basis.permute(2, 1, 0)
+    flat[s, :, :v] = params.v_template.detach().T
+    flat[s + 1:k, :, :v] = pose_basis.permute(2, 1, 0)
+    basis_tiles = flat.unflatten(-1, (nsub, VERT_TILE)).permute(
+        2, 0, 1, 3).contiguous()
+    wflat = torch.zeros((params.n_joints, nsub * VERT_TILE), dtype=f32,
+                        device=dev)
+    wflat[:, :v] = params.lbs_weights.detach().T
+    wt_tiles = wflat.unflatten(-1, (nsub, VERT_TILE)).transpose(
+        0, 1).contiguous()
+    j_reg = params.j_regressor.detach().to(torch.float64)   # [J, V]
+    jt = j_reg @ params.v_template.detach().to(torch.float64)   # [J, 3]
+    jsb = einsum("jv,vcs->jcs", j_reg, shape_basis.to(torch.float64))
     jb = torch.cat([jsb, jt[..., None]], dim=-1)
-    basis = basis.float().contiguous()
-    wt = params.lbs_weights.detach().T.float().contiguous()
     return FusedOperands(
-        basis=basis,
-        wt=wt,
         jb=jb.float().contiguous(),
-        parents=parents_tensor(tuple(params.parents), params.device),
+        parents=parents_tensor(tuple(params.parents), dev),
         parents_tuple=tuple(params.parents),
         n_coef=k,
-        basis_tiles=tile_verts(basis),
-        wt_tiles=tile_verts(wt),
+        n_verts=v,
+        basis_tiles=basis_tiles,
+        wt_tiles=wt_tiles,
     )
 
 
@@ -181,7 +209,7 @@ def _pack_hands(stacked) -> FusedOperands:
     per = [_pack(hand) for hand in stacked.hands]
     return dataclasses.replace(per[0], **{
         f: torch.stack([getattr(o, f) for o in per])
-        for f in ("basis", "wt", "jb", "basis_tiles", "wt_tiles")})
+        for f in ("jb", "basis_tiles", "wt_tiles")})
 
 
 # Keyed on the stacked tensors' versions: the hands are views of them, so
@@ -258,10 +286,10 @@ def _check(ops: FusedOperands, pose: torch.Tensor, shape: torch.Tensor):
     for name, t in (("pose", pose), ("shape", shape)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.device != ops.basis.device:
+        if t.device != ops.basis_tiles.device:
             raise ValueError(
                 f"{name} is on {t.device} but the params are on "
-                f"{ops.basis.device}")
+                f"{ops.basis_tiles.device}")
     check_tree(ops.parents_tuple)
 
 
@@ -368,22 +396,25 @@ def blend_skin_fused(ops: FusedOperands, coef: torch.Tensor,
                      skin_rot: torch.Tensor,
                      skin_t: torch.Tensor) -> torch.Tensor:
     """Blend + skin in one launch (K4): [B, V, 3] from the coefficients
-    ``coef`` [B, Kpad] (``coefficients`` order) and the skinning
-    transforms ``skin_rot`` [B, J, 3, 3], ``skin_t`` [B, J, 3], float32
-    and contiguous on the operands' device. A CPU tensor runs
-    ``blend_skin_plain``; a CUDA tensor launches the kernel (or raises).
-    Records no gradient."""
+    ``coef`` [B, Kpad] (``coefficients`` order; 16-byte aligned on the
+    card, as a fresh tensor is) and the skinning transforms ``skin_rot``
+    [B, J, 3, 3], ``skin_t`` [B, J, 3], float32 and contiguous on the
+    operands' device. A CPU tensor runs ``blend_skin_plain``; a CUDA
+    tensor launches the kernel (or raises). Records no gradient."""
     refuse_grad("blend_skin_fused", "forward_verts_fused_ad", coef,
                 skin_rot, skin_t)
     b, j = coef.shape[0], ops.n_joints
     check_operands({"coef": (coef, (b, ops.kpad)),
                     "skin_rot": (skin_rot, (b, j, 3, 3)),
-                    "skin_t": (skin_t, (b, j, 3))}, ops.basis.device)
+                    "skin_t": (skin_t, (b, j, 3))}, ops.basis_tiles.device)
     dev = coef.device
     if dev.type == "cpu":
         return blend_skin_plain(ops, coef, skin_rot, skin_t)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if coef.data_ptr() % 16:
+        raise ValueError("coef must be 16-byte aligned (the kernel reads "
+                         "its rows as float4)")
     out = torch.empty((b, ops.n_verts, 3), dtype=torch.float32, device=dev)
     if b == 0:
         return out
@@ -392,8 +423,8 @@ def blend_skin_fused(ops: FusedOperands, coef: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_blend_skin(
             coef.data_ptr(), skin_rot.data_ptr(), skin_t.data_ptr(),
-            ops.basis.data_ptr(), ops.wt.data_ptr(), out.data_ptr(), b,
-            ops.n_verts, j, ops.kpad, stream)
+            ops.basis_tiles.data_ptr(), ops.wt_tiles.data_ptr(),
+            out.data_ptr(), b, ops.n_verts, j, ops.kpad, stream)
     _build.check(lib, rc, "blend_skin")
     global blend_skin_launches
     with _count_lock:
@@ -448,7 +479,7 @@ def _fused_backward(ctx, g):
     need_basis = any(need[n] for n in ("v_template", "shape_basis",
                                        "pose_basis"))
 
-    # Vertex cotangent dL/dv_posed from K3 (R^T, t = 0); then the
+    # Vertex cotangent dL/dv_posed from K3 (R^T, no t); then the
     # coefficient cotangent through the packed basis. v_posed is rebuilt
     # (one product) only for the rotation and weight cotangents.
     needs = (need["lbs_weights"], skin_rot.requires_grad,
@@ -456,7 +487,7 @@ def _fused_backward(ctx, g):
     v_posed = (einsum("bk,kcv->bvc", coef_d, ops.basis)
                if needs[0] or needs[1] else None)
     grad_w, grad_rot, grad_t, grad_vp = fused_skin.skin_vjp(
-        w, rot_d, t_d, v_posed, g, needs=needs)
+        w, rot_d.contiguous(), t_d, v_posed, g, needs=needs)
     pairs = [(skin_rot, grad_rot), (skin_t, grad_t)]
     if coef.requires_grad:
         pairs.append((coef, einsum("bvc,kcv->bk", grad_vp, ops.basis)))

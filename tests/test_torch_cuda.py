@@ -9,8 +9,9 @@ imports JAX), registering the marker on the command line:
         -o "markers=cuda: needs an NVIDIA card" tests/test_torch_cuda.py
 
 Shapes cover what ``chip_smoke.py`` does not: ragged and tiny batches,
-generic kinematic trees (J = 7 and J = 40), a one-row subject table and
-out-of-range subject indices. Tolerance: kernel vs plain version, both
+generic kinematic trees (J = 7 to 64), V from 1 to 778, rows that are
+not 16-byte aligned, a one-row subject table and out-of-range subject
+indices. Tolerance: kernel vs plain version, both
 fp32 FFMA with TF32 off, <= 1e-5 (summation order only; K2's bf16 tier
 too, whose roundings act on bit-equal values in both). K2-bf16 vs f32
 K2: nonzero and inside the policy's stated envelope (2e-3 m). Gradients
@@ -325,6 +326,49 @@ def test_k3_kernel_matches_plain(dev, b, v, j):
     assert _err(got, want) <= TOL
 
 
+# B one below and above K3's 32-row tile, one row, 1000; V = 1 and 13 (a
+# lone ragged vertex tile: several rows a warp pass), 300 (16-byte rows, a
+# 44-vertex tail), 778 (rows alternately 16- and 8-byte aligned, a
+# 10-vertex tail); J up to the kernel's 64.
+@pytest.mark.parametrize("b", [1, 31, 33, 1000])
+@pytest.mark.parametrize("v", [1, 13, 300, 778])
+@pytest.mark.parametrize("j", [7, 16, 40, 64])
+def test_k3_both_forms_match_plain(dev, b, v, j):
+    """K3's forward form (R, t) and its backward form (R^T read in place,
+    no t) against the plain version with the same options, and the
+    backward form against the explicit transposed copy and zero t."""
+    w, rot, t, vp = _skin_inputs(b, v, j, dev, seed=b * v + j)
+    before = fused_skin.launches
+    got = fused_skin.skin_batched(w, rot, t, vp)
+    got_t = fused_skin.skin_batched(w, rot, None, vp, transpose_r=True)
+    torch.cuda.synchronize()
+    assert fused_skin.launches == before + 2
+    assert got.shape == got_t.shape == (b, v, 3)
+    assert _err(got, fused_skin.skin_batched_plain(w, rot, t, vp)) <= TOL
+    assert _err(got_t, fused_skin.skin_batched_plain(
+        w, rot, None, vp, transpose_r=True)) <= TOL
+    assert _err(got_t, fused_skin.skin_batched_plain(
+        w, rot.transpose(-1, -2).contiguous(), torch.zeros_like(t),
+        vp)) <= TOL
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k3_unaligned_rows_match_plain(dev, offset):
+    """v_posed and out a whole number of floats but not 16 bytes from an
+    aligned address (views ``offset`` floats into their storage): the
+    kernel falls back to narrower copies and stores, same result."""
+    w, rot, t, vp = _skin_inputs(45, 777, 16, dev, seed=offset)
+    flat = torch.zeros(offset + vp.numel(), device=dev)
+    flat[offset:] = vp.flatten()
+    vp_off = flat[offset:].view(vp.shape)
+    got = fused_skin.skin_batched(w, rot, t, vp_off)
+    got_t = fused_skin.skin_batched(w, rot, None, vp_off, transpose_r=True)
+    torch.cuda.synchronize()
+    assert _err(got, fused_skin.skin_batched_plain(w, rot, t, vp)) <= TOL
+    assert _err(got_t, fused_skin.skin_batched_plain(
+        w, rot, None, vp, transpose_r=True)) <= TOL
+
+
 def _k4(params, b, seed=0):
     rng = np.random.default_rng(seed)
     pose = torch.from_numpy(rng.normal(
@@ -355,6 +399,22 @@ def test_k4_generic_tree(dev, n_joints):
     got, want = _k4(params, 45, seed=n_joints)
     assert got.shape == (45, 300, 3)
     assert _err(got, want) <= TOL
+
+
+# V edges (one ragged vertex tile at 1 and 13) and J edges (J = 40 takes
+# the 16-row tile, 64 the 8-row one); B = 33 straddles the small tiles.
+@pytest.mark.parametrize("n_joints", [7, 16, 40, 64])
+@pytest.mark.parametrize("n_verts", [1, 13, 300, 778])
+def test_k4_matches_plain_and_k1(dev, n_joints, n_verts):
+    """K4 against its plain version, and against K1 on the same (pose,
+    shape): the two share phase D, so they differ only by the transforms'
+    rounding (K1 computes them in the kernel, K4 takes PyTorch's)."""
+    params = _params(dev, n_joints=n_joints, n_verts=n_verts)
+    got, want = _k4(params, 33, seed=n_joints + n_verts)
+    k1, _ = _k1(params, 33, seed=n_joints + n_verts)
+    assert got.shape == (33, n_verts, 3) and bool(torch.isfinite(got).all())
+    assert _err(got, want) <= TOL
+    assert _err(got, k1) <= 1e-6
 
 
 ROUTES = ("forward_batched_pallas", "forward_batched_pallas_fused",

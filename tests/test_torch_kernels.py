@@ -107,9 +107,11 @@ def _untile(tiles, n_verts):
 
 @pytest.mark.parametrize("n_joints,n_verts", [(16, 778), (7, 13), (5, 128)])
 def test_k1_tiled_operands_read_back_to_the_plain_forward(n_joints, n_verts):
-    """The kernel's tiled basis and weights hold the packed operands, the
-    padding zero: read back plainly, they give ``forward_verts_plain``
-    exactly; after an in-place template update they repack with it."""
+    """The kernels' tiled basis and weights (the one packed copy) hold the
+    packed operands, the padding zero: read back plainly they equal a
+    direct packing of the params bit for bit, and ``basis``/``wt`` are that
+    read-back; the plain forward over them follows the port's core, and
+    after an in-place template update they repack with it."""
     tp = synthetic_params(seed=3, n_joints=n_joints, n_verts=n_verts,
                           n_faces=20, device="cpu").astype(torch.float32)
     tp = dataclasses.replace(tp, v_template=tp.v_template.clone())
@@ -123,23 +125,24 @@ def test_k1_tiled_operands_read_back_to_the_plain_forward(n_joints, n_verts):
     if pad:
         assert float(ops.basis_tiles[-1, ..., t - pad:].abs().max()) == 0.0
         assert float(ops.wt_tiles[-1, :, t - pad:].abs().max()) == 0.0
+    k = ops.n_coef
+    direct = torch.cat([tp.shape_basis.permute(2, 1, 0), tp.v_template.T[None],
+                        tp.pose_basis.permute(2, 1, 0),
+                        torch.zeros(ops.kpad - k, 3, n_verts)])
+    assert torch.equal(_untile(ops.basis_tiles, n_verts), direct)
+    assert torch.equal(_untile(ops.wt_tiles, n_verts), tp.lbs_weights.T)
+    assert torch.equal(ops.basis, direct) and ops.basis.is_contiguous()
+    assert torch.equal(ops.wt, tp.lbs_weights.T) and ops.wt.is_contiguous()
     rng = np.random.default_rng(n_verts)
     pose = torch.from_numpy(rng.normal(scale=0.5, size=(3, n_joints, 3))
                             .astype(np.float32))
     shape = torch.from_numpy(rng.normal(size=(3, 10)).astype(np.float32))
-
-    def read_back(o):
-        return dataclasses.replace(
-            o, basis=_untile(o.basis_tiles, n_verts),
-            wt=_untile(o.wt_tiles, n_verts))
-
     want = fused_forward.forward_verts_plain(ops, pose, shape)
-    got = fused_forward.forward_verts_plain(read_back(ops), pose, shape)
-    assert torch.equal(got, want)
+    assert _err(want, core.forward_batched(tp, pose, shape).verts) <= TOL
     with torch.no_grad():
         tp.v_template.add_(0.01)
     moved = fused_forward.forward_verts_plain(
-        read_back(fused_forward.fused_operands(tp)), pose, shape)
+        fused_forward.fused_operands(tp), pose, shape)
     assert _err(moved, want + 0.01) <= TOL
 
 
@@ -314,6 +317,66 @@ def test_k3_plain_matches_port_core(assets):
                                         torch.zeros(0, 10))
     assert empty.shape == (0, 778, 3)
     assert fused_skin.launches == 0
+
+
+def _skin_args(b=3, v=20, j=16, seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.random((v, j)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    return [torch.from_numpy(a) for a in (
+        w, rng.normal(size=(b, j, 3, 3)).astype(np.float32),
+        rng.normal(size=(b, j, 3)).astype(np.float32),
+        rng.normal(scale=0.1, size=(b, v, 3)).astype(np.float32))]
+
+
+@pytest.mark.parametrize("transpose_r", [False, True])
+@pytest.mark.parametrize("with_t", [True, False])
+def test_k3_plain_options_equal_the_explicit_call(transpose_r, with_t):
+    """``transpose_r`` and ``t=None`` compute bit for bit what the explicit
+    transposed copy and zero translations computed, in the plain version
+    and in the wrapper's CPU path (no launch)."""
+    w, rot, t, vp = _skin_args(seed=int(transpose_r) + 2 * int(with_t))
+    want = fused_skin.skin_batched_plain(
+        w, rot.transpose(-1, -2).contiguous() if transpose_r else rot,
+        t if with_t else torch.zeros_like(t), vp)
+    opt_t = t if with_t else None
+    got = fused_skin.skin_batched_plain(w, rot, opt_t, vp,
+                                        transpose_r=transpose_r)
+    assert torch.equal(got, want)
+    assert torch.equal(fused_skin.skin_batched(
+        w, rot, opt_t, vp, transpose_r=transpose_r), want)
+    assert fused_skin.launches == 0
+
+
+@pytest.mark.parametrize("route", ["K3", "K1"])
+def test_k3_backward_reads_the_rotations_in_place(assets, monkeypatch, route):
+    """The vertex cotangent of every route's backward is one K3 call on the
+    saved rotations themselves (``transpose_r``, no t): no transposed copy,
+    no zero translations."""
+    calls = []
+    real = fused_skin.skin_batched
+
+    def spy(weights, rot, t, v_posed, **kw):
+        calls.append((rot, t, kw))
+        return real(weights, rot, t, v_posed, **kw)
+
+    monkeypatch.setattr(fused_skin, "skin_batched", spy)
+    if route == "K3":
+        args = [a.requires_grad_(True) for a in _skin_args(seed=5)]
+        (fused_skin.skin_batched_ad(*args) ** 2).sum().backward()
+        fwd_rot, fwd_t, fwd_kw = calls[0]
+        assert fwd_t is not None and fwd_kw == {}
+        assert calls[1][0].data_ptr() == args[1].data_ptr()
+    else:
+        _, tp = assets
+        pose, beta = _inputs(3, seed=6)
+        pose = torch.from_numpy(pose).requires_grad_(True)
+        core.forward_batched_pallas_fused_full(
+            tp, pose, torch.from_numpy(beta)).sum().backward()
+        assert pose.grad is not None
+    rot, t, kw = calls[-1]
+    assert t is None and kw == {"transpose_r": True}
+    assert rot.is_contiguous()
 
 
 @pytest.mark.parametrize("case,match", [
