@@ -46,10 +46,11 @@ basis (rows: shape basis, template, pose basis in the reference's
 row-major (R - I) order, zero padding to a multiple of 4) and the weights
 in the kernels' vertex-tiled layout (``basis_tiles``, ``wt_tiles``), and
 the joint basis ``[J, 3, S + 1]`` (last column the template joints). A
-repack writes the tiled basis and weights once (0.53 MB at MANO width,
-read back once by the copy into tiles) and never goes through the host;
-the untiled ``basis`` [Kpad, 3, V] and ``wt`` [J, V] that the plain
-versions and the backward read are built from the tiles on first use.
+repack never goes through the host: at MANO width the tiled basis is
+1.59 MB, and zeroing its buffer, copying the parts in and cutting it
+into tiles moves about 8 MB on the card. The untiled ``basis`` [Kpad,
+3, V] and ``wt`` [J, V] that the plain versions and the backward read
+are built from the tiles on first use.
 
 ``forward_verts_plain`` and ``blend_skin_plain`` are the same arithmetic
 in plain PyTorch over the same operands: the CPU path and the kernels'
