@@ -24,21 +24,25 @@ each with every launch count zeroed just before it and read just after:
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
-against f32 K2 inside the policy's stated envelope) and timed beside
-it; ``forward_chunked`` is held on every route against its default
-route, the tiered engine's results against direct calls of each
-family, a 120-frame two-hand clip
+against f32 K2 inside the policy's stated envelope; both K2 variants at
+C = 64 and 1000, and on indices out of range, which map as the port's and
+JAX's gather maps them) and timed beside it; ``forward_chunked`` is held
+on every route against its default route, the tiered engine's results
+against direct calls of each family, a 120-frame two-hand clip
 (``models/anim.py``) against the oracle and K5, and the f32 family
 against its kernels under the caller's TF32 setting. K3 is held in both
 of its forms (the forward's, and the backward's R^T with no translation,
 also against the explicit transposed copy and zero translation it
-replaced) and K4 also against K1, whose phase D it shares. K1 and K5
-are timed at every batch of their paths, K3 at B = 8192 and the training
-batch 1024 in both forms, K4 at B = 8192 and 1000; ``blend_sgemm_ms``
-times one cuBLAS fp32 product of the blend alone as a yardstick (the
-port never calls it), and the K1/K5, K3 and K4 entries carry their
-kernels' registers and spills from the ``-Xptxas -v`` build log (a spill
-fails the run).
+replaced) and K4 also against K1, whose phase D it shares (so does f32
+K2). K1 and K5 are timed at every batch of their paths, K3 at B = 8192
+and the training batch 1024 in both forms, K4 at B = 8192 and 1000, K2
+and K2-bf16 at B = 1024 and the engine's largest bucket 256 (their
+``ms`` replayed from a CUDA graph: their wrappers' host time exceeds
+the kernels'; ``call_ms`` the back-to-back calls');
+``blend_sgemm_ms`` times one cuBLAS fp32 product of the blend alone as a
+yardstick (the port never calls it), and the K1/K5, K2, K2-bf16, K3 and
+K4 entries carry their kernels' registers and spills from the
+``-Xptxas -v`` build log (a spill fails the run).
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
@@ -75,6 +79,7 @@ TRAIN_TOL = 1e-3     # per-step loss, each route vs the plain path, relative
 GRAD_TOL = 1e-4      # gradients: max|a - b| / max(1, max|b|), the JAX bar
 K2_CAPACITIES = (64, 1000)       # 1000 is above the TPU kernel's 512 gate
 K2_BATCH = 1024
+K2_TIMED = (1024, 256)           # K2_BATCH and the engine's largest bucket
 ORACLE_ROWS = 64
 K5_BATCHES = (4096, 1000, 1)     # rows per hand: 8192 rows as K1's, ragged, 1
 K5_BIG, K5_BIG_CHECK = 32768, 1024   # BASELINE config 3: [2, 32768]
@@ -145,6 +150,21 @@ def cuda_ms(fn) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / PER_SAMPLE)
     return statistics.median(times)
+
+
+def graph_ms(fn) -> float:
+    """Device milliseconds per call of ``fn``: PER_SAMPLE calls captured
+    in one CUDA graph, replayed between two CUDA events (the median over
+    REPEATS samples after WARMUP replays), so the wrapper's host time is
+    not in it — the kernel's time where the call is host-bound."""
+    for _ in range(WARMUP):
+        fn()   # packs and builds outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(PER_SAMPLE):
+            fn()
+    return cuda_ms(graph.replay) / PER_SAMPLE
 
 
 def interleaved_ms(kernel, plain):
@@ -310,12 +330,16 @@ def main() -> int:
     k1_ptxas = ptxas_of(log, "fused_forward_kernel")
     k3_ptxas = ptxas_of(log, "11skin_kernel")
     k4_ptxas = ptxas_of(log, "17blend_skin_kernel")
+    k2_ptxas = ptxas_of(log, "12posed_kernel")
+    k2b_ptxas = ptxas_of(log, "17posed_bf16_kernel")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "library": os.path.relpath(so, os.path.dirname(
               os.path.abspath(__file__))), "ptxas": ptxas,
-          "k1_ptxas": k1_ptxas, "k3_ptxas": k3_ptxas, "k4_ptxas": k4_ptxas})
+          "k1_ptxas": k1_ptxas, "k3_ptxas": k3_ptxas, "k4_ptxas": k4_ptxas,
+          "k2_ptxas": k2_ptxas, "k2_bf16_ptxas": k2b_ptxas})
     for name, entries in (("K1/K5", k1_ptxas), ("K3", k3_ptxas),
-                          ("K4", k4_ptxas)):
+                          ("K4", k4_ptxas), ("K2", k2_ptxas),
+                          ("K2 bf16", k2b_ptxas)):
         require(len(entries) >= 1 and all(
             e.get("spill_stores") == 0 and e.get("spill_loads") == 0
             for e in entries.values()), f"{name} build without spills "
@@ -427,9 +451,9 @@ def main() -> int:
             pose_t = torch.from_numpy(pose).to(dev)
             got = core.forward_posed_gather_fused(table, idx_t, pose_t)
             torch.cuda.synchronize()
-            pb, wt, par = fused_posed.posed_operands(table)
+            ops2 = fused_posed.posed_operands(table)
             plain = fused_posed.forward_posed_gather_plain(
-                table.v_shaped, table.joints, idx_t, pose_t, pb, wt,
+                table.v_shaped, table.joints, idx_t, pose_t, ops2,
                 table.parents)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(got).all()), f"K2 finite at C={c}")
@@ -437,14 +461,16 @@ def main() -> int:
             ref = oracle.forward_batch_verts(
                 params, pose[:ORACLE_ROWS], betas[idx[:ORACLE_ROWS]])
             k2_oracle = max(k2_oracle, max_err(got[:ORACLE_ROWS], ref))
-            # Out-of-range rows clamp to [0, C - 1], like the plain gather.
+            # Out-of-range indices map as the port's (and JAX's) gather maps
+            # them: a negative i selects row i + C, then all are clamped.
             wild = idx_t.clone()
-            wild[:4] = torch.tensor([-3, c, c + 7, -1], dtype=torch.int32)
+            wild[:8] = torch.tensor([-c - 3, -c, -3, -1, 0, c - 1, c, c + 7],
+                                    dtype=torch.int32)
             got_w = core.forward_posed_gather_fused(table, wild, pose_t)
             torch.cuda.synchronize()
             want_w = core.forward_posed_gather(table, wild, pose_t).verts
             k2_err = max(k2_err, max_err(got_w, want_w))
-            k2_case[c] = (table, idx_t, pose_t, pb, wt, len(set(idx.tolist())))
+            k2_case[c] = (table, idx_t, pose_t, ops2, len(set(idx.tolist())))
     emit({"phase": "K2", "capacities": list(K2_CAPACITIES),
           "batch": K2_BATCH, "max_abs_err_plain": k2_err,
           "max_abs_err_oracle": k2_oracle})
@@ -755,23 +781,33 @@ def main() -> int:
     require(clip_oracle <= ORACLE_TOL, f"clip vs oracle {clip_oracle}")
     require(clip_k5 <= KERNEL_TOL, f"clip vs K5 {clip_k5}")
 
-    # 15. K2's bf16 variant at K2's shape (B = 1024 from C = 1000) vs its
-    #     plain bf16 version, and vs f32 K2: nonzero, inside the envelope.
-    table, idx_t, pose_t, pb, wt, used = k2_case[K2_CAPACITIES[-1]]
+    # 15. K2's bf16 variant at K2's shapes (B = 1024 from C = 64 and 1000,
+    #     the wild indices too) vs its plain bf16 version, and vs f32 K2:
+    #     nonzero, inside the envelope.
     bf16 = torch.bfloat16
-    pb16, wt16, _ = fused_posed.posed_operands(table, bf16)
+    k2b_err = k2b_f32 = 0.0
     with torch.no_grad():
-        got = fused_posed.forward_posed_gather_fused(table, idx_t, pose_t,
-                                                     compute_dtype=bf16)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(got).all()), "K2 bf16 finite")
-        k2b_err = max_err(got, fused_posed.forward_posed_gather_plain(
-            table.v_shaped, table.joints, idx_t, pose_t, pb16, wt16,
-            table.parents))
-        k2b_f32 = max_err(got, fused_posed.forward_posed_gather_fused(
-            table, idx_t, pose_t))
+        for c, (table, idx_t, pose_t, _, _) in k2_case.items():
+            ops16 = fused_posed.posed_operands(table, bf16)
+            wild = idx_t.clone()
+            wild[:8] = torch.tensor([-c - 3, -c, -3, -1, 0, c - 1, c, c + 7],
+                                    dtype=torch.int32)
+            for ix in (idx_t, wild):
+                got = fused_posed.forward_posed_gather_fused(
+                    table, ix, pose_t, compute_dtype=bf16)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(got).all()), "K2 bf16 finite")
+                k2b_err = max(k2b_err, max_err(
+                    got, fused_posed.forward_posed_gather_plain(
+                        table.v_shaped, table.joints, ix, pose_t, ops16,
+                        table.parents)))
+                k2b_f32 = max(k2b_f32, max_err(
+                    got, fused_posed.forward_posed_gather_fused(
+                        table, ix, pose_t)))
+    table, idx_t, pose_t, ops2, used = k2_case[K2_CAPACITIES[-1]]
+    ops16 = fused_posed.posed_operands(table, bf16)
     emit({"phase": "K2_bf16", "batch": K2_BATCH,
-          "capacity": K2_CAPACITIES[-1], "max_abs_err_plain": k2b_err,
+          "capacities": list(K2_CAPACITIES), "max_abs_err_plain": k2b_err,
           "max_abs_err_vs_f32": k2b_f32, "envelope": envelope})
     require(k2b_err <= KERNEL_TOL, f"K2 bf16 vs plain {k2b_err}")
     require(1e-6 < k2b_f32 <= envelope,
@@ -781,7 +817,7 @@ def main() -> int:
     #     equals the plain bf16 version on the engine's table and is nonzero
     #     and inside the envelope against f32 K2.
     tier_table = tier_eng.table
-    tpb16, twt16, _ = fused_posed.posed_operands(tier_table, bf16)
+    tops16 = fused_posed.posed_operands(tier_table, bf16)
     tier_err = {0: 0.0, 1: 0.0}
     tier_min0 = float("inf")
     tier0_plain = 0.0
@@ -801,7 +837,7 @@ def main() -> int:
                     tier0_plain = max(tier0_plain, max_err(
                         out, fused_posed.forward_posed_gather_plain(
                             tier_table.v_shaped, tier_table.joints, idx_s,
-                            pose_s, tpb16, twt16, tier_table.parents)))
+                            pose_s, tops16, tier_table.parents)))
     emit({"phase": "precision_engine",
           "requests": TIER_CLIENTS * TIER_REQUESTS,
           "tier1_max_abs_err_f32": tier_err[1],
@@ -865,13 +901,30 @@ def main() -> int:
         del pose_t, shape_t
     k1_ms, k1_plain_ms = k1_by_batch[b1]["ms"], k1_by_batch[b1]["plain_ms"]
     with torch.no_grad():
-        table, idx_t, pose_t, pb, wt, used = k2_case[K2_CAPACITIES[-1]]
-        k2_ms, k2_plain_ms = interleaved_ms(
-            lambda: fused_posed.forward_posed_gather_fused(
-                table, idx_t, pose_t),
-            lambda: fused_posed.forward_posed_gather_plain(
-                table.v_shaped, table.joints, idx_t, pose_t, pb, wt,
-                table.parents))
+        # K2 and its bf16 variant at K2_BATCH and the engine's largest
+        # bucket, from the C = 1000 table: ms is the kernel's device time
+        # (CUDA-graph replay: its wrapper's host time exceeds it), call_ms
+        # the back-to-back calls'.
+        table, idx_t, pose_t, ops2, used = k2_case[K2_CAPACITIES[-1]]
+        k2_by_batch, k2b_by_batch = {}, {}
+        for b in K2_TIMED:
+            ix, px = idx_t[:b], pose_t[:b]
+            for by, ops_b, dt in ((k2_by_batch, ops2, None),
+                                  (k2b_by_batch, ops16, bf16)):
+                def kernel():
+                    return fused_posed.forward_posed_gather_fused(
+                        table, ix, px, compute_dtype=dt)
+
+                by[b] = dict(zip(("call_ms", "plain_ms"), interleaved_ms(
+                    kernel, lambda: fused_posed.forward_posed_gather_plain(
+                        table.v_shaped, table.joints, ix, px, ops_b,
+                        table.parents))))
+                by[b]["ms"] = graph_ms(kernel)
+                by[b]["rows_used"] = len(set(ix.tolist()))
+        k2_ms = k2_by_batch[K2_BATCH]["ms"]
+        k2_plain_ms = k2_by_batch[K2_BATCH]["plain_ms"]
+        k2b_ms = k2b_by_batch[K2_BATCH]["ms"]
+        k2b_plain_ms = k2b_by_batch[K2_BATCH]["plain_ms"]
         # K3 at the timed and the training batch, in both forms: the
         # forward's (R, t) and the backward's (R^T in place, no t).
         k3_by_batch = {}
@@ -918,12 +971,6 @@ def main() -> int:
             lambda: [fused_forward.forward_verts_fused_full(
                 hand, pose5[h], shape5[h])
                 for h, hand in enumerate(stacked.hands)])
-        k2b_ms, k2b_plain_ms = interleaved_ms(
-            lambda: fused_posed.forward_posed_gather_fused(
-                table, idx_t, pose_t, compute_dtype=bf16),
-            lambda: fused_posed.forward_posed_gather_plain(
-                table.v_shaped, table.joints, idx_t, pose_t, pb16, wt16,
-                table.parents))
         # The repack a parameter step costs K1 and K4 (on the card).
         repack_ms = cuda_ms(lambda: fused_forward._pack(params))
     # Forward + backward of each route at the training batch, against the
@@ -950,6 +997,12 @@ def main() -> int:
     k5_bound, k5_by = bound(f5, m5, gpu_name)
     c2b, r2b, m2b = k2_bf16_work(K2_BATCH, used, v, j)
     k2b_bound, k2b_by = bound(r2b, m2b, gpu_name, bf16_flops=c2b)
+    for b in K2_TIMED:   # each batch's bound, from the rows it indexes
+        n = k2_by_batch[b]["rows_used"]
+        k2_by_batch[b]["bound_ms"], _ = bound(*k2_work(b, n, v, j), gpu_name)
+        cb, rb, mb = k2_bf16_work(b, n, v, j)
+        k2b_by_batch[b]["bound_ms"], _ = bound(rb, mb, gpu_name,
+                                               bf16_flops=cb)
     emit({"phase": "times", "nvidia_smi": smi,
           "K1": {"batch": b1, "ms": k1_ms, "plain_ms": k1_plain_ms,
                  "flops": f1, "bytes": m1},
@@ -969,6 +1022,7 @@ def main() -> int:
                       "flops": r2b, "bytes": m2b},
           "K1_by_batch": k1_by_batch, "K5_by_batch": k5_by_batch,
           "K3_by_batch": k3_by_batch, "K4_by_batch": k4_by_batch,
+          "K2_by_batch": k2_by_batch, "K2_bf16_by_batch": k2b_by_batch,
           "blend_sgemm_ms": blend_sgemm_ms,
           "repack_ms": repack_ms,
           "route_fwd_bwd": {"batch": TRAIN_BATCH, **route_ms}})
@@ -989,7 +1043,8 @@ def main() -> int:
          "max_abs_err_oracle": k2_oracle, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "path": "serving",
-         "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}"},
+         "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
+         "call_ms": k2_by_batch[K2_BATCH]["call_ms"], "ptxas": k2_ptxas},
         {"name": "K3 skin", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/skin.cu",
          "replaces": "mano_hand_tpu/ops/pallas_lbs.py:107",
@@ -1022,7 +1077,8 @@ def main() -> int:
          "ms": k2b_ms, "plain_ms": k2b_plain_ms, "bound_ms": k2b_bound,
          "bound_by": k2b_by, "library_ms": None,
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
-         "path": "bf16_tier"},
+         "path": "bf16_tier", "call_ms": k2b_by_batch[K2_BATCH]["call_ms"],
+         "ptxas": k2b_ptxas},
     ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": kernels})

@@ -38,7 +38,7 @@ from mano_hand_tpu_torch.assets.schema import (
 )
 from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 from mano_hand_tpu_torch.ops.common import (
-    IdentityCache, check_compute_dtype, einsum,
+    IdentityCache, check_compute_dtype, einsum, subject_rows,
 )
 
 
@@ -354,13 +354,14 @@ def forward_posed_gather(table: SubjectTable, subject_idx: torch.Tensor,
                          pose: torch.Tensor,
                          compute_dtype=None) -> ManoOutput:
     """Mixed-subject pose-only forward: row ``r`` runs the pose stage over
-    subject ``subject_idx[r]``'s baked constants. Indices are clamped to
-    ``[0, C - 1]`` (torch indexing would raise; the JAX path clamps).
-    The gather itself is f32 data movement under either compute dtype."""
+    subject ``subject_idx[r]``'s baked constants. A negative index ``i``
+    selects row ``i + C``, then every index is clamped to ``[0, C - 1]``:
+    the JAX package's gather (``table.v_shaped[idx]`` under XLA). The
+    gather itself is f32 data movement under either compute dtype."""
     check_compute_dtype(compute_dtype)
     dtype = table.v_shaped.dtype
-    rows = torch.as_tensor(subject_idx, device=table.v_shaped.device)
-    rows = rows.long().clamp(0, table.capacity - 1)
+    rows = subject_rows(torch.as_tensor(
+        subject_idx, device=table.v_shaped.device), table.capacity)
     rot = _pose_rotmats(pose, table.n_joints, dtype, lead=(pose.shape[0],))
     v_rows, j_rows = table.v_shaped[rows], table.joints[rows]
     v_posed = ops.pose_blend(v_rows, table.pose_basis, rot, compute_dtype)
@@ -477,10 +478,11 @@ def forward_posed_gather_fused(table: SubjectTable,
                                pose: torch.Tensor,
                                compute_dtype=None) -> torch.Tensor:
     """Mixed-subject pose-only vertices [B, V, 3] float32 in one kernel
-    launch (K2, ``ops/fused_posed.py``); inference only, out-of-range
-    indices clamped like ``forward_posed_gather``. ``compute_dtype=
-    torch.bfloat16`` launches K2's bf16 variant (the serving bf16 tier,
-    the same roundings as ``forward_posed_gather(compute_dtype=...)``)."""
+    launch (K2, ``ops/fused_posed.py``); inference only, indices mapped
+    to rows as ``forward_posed_gather`` maps them (negative ones wrap
+    once, then clamped). ``compute_dtype=torch.bfloat16`` launches K2's
+    bf16 variant (the serving bf16 tier, the same roundings as
+    ``forward_posed_gather(compute_dtype=...)``)."""
     b = pose.shape[0]
     pose = pose.reshape(b, table.n_joints, 3).to(torch.float32)
     idx = torch.as_tensor(subject_idx, device=table.v_shaped.device)

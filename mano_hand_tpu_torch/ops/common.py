@@ -1,9 +1,10 @@
 """Shared compute policy for the port's ops and kernels.
 
 Precision on Hopper: everything on a parity path computes in IEEE fp32.
-The hand-written kernels (``csrc/``) use plain fp32 FFMA, are built
-without ``--use_fast_math`` (so ``sinf``/``cosf``/division stay
-accurate) and never touch the tensor cores. The port's own float32
+The hand-written kernels (``csrc/``) are built without
+``--use_fast_math`` (so ``sinf``/``cosf``/division stay accurate) and
+run their f32 forms in plain fp32 FFMA, never on the tensor cores (only
+the bf16 tier's contractions use them, below). The port's own float32
 contractions go through ``einsum`` below, which pins IEEE fp32 for the
 call (``ieee_fp32``) whatever the caller chose with
 ``torch.set_float32_matmul_precision``: a TF32 product keeps about three
@@ -19,7 +20,8 @@ The one reduced-precision form is the bf16 serving tier
 (``compute_dtype=torch.bfloat16``): contraction operands rounded to bf16
 (``round_bf16``) and products accumulated in f32. A product of two bf16
 values is exact in f32, so "round, cast back, contract in f32" is that
-form exactly, on either device.
+form exactly, on either device; K2's bf16 kernel runs those contractions
+on bf16 tensor cores with f32 accumulation.
 """
 
 from __future__ import annotations
@@ -227,6 +229,14 @@ def check_operands(want: dict, device: torch.device) -> None:
             raise ValueError(f"{name} must be contiguous")
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
+
+
+def subject_rows(subject_idx: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Table rows of subject indices: ``i + capacity`` for a negative
+    ``i`` (Python-style), then clamped to ``[0, capacity - 1]`` — the
+    JAX package's XLA gather (``core.forward_posed_gather``). int64."""
+    rows = subject_idx.long()
+    return torch.where(rows < 0, rows + capacity, rows).clamp(0, capacity - 1)
 
 
 def cdiv(a: int, b: int) -> int:

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Time the port's whole-forward kernel (K1, and K5 on its hand axis), the
-skinning kernel K3 and the blend + skin kernel K4 on one CUDA card, at
-the batch sizes the port's main paths use.
+skinning kernel K3, the blend + skin kernel K4 and the gathered pose-only
+kernel K2 (f32 and bf16) on one CUDA card, at the batch sizes the port's
+main paths use.
 
-    python3 scripts/time_fused_forward.py [--root DIR] [--only K3,K4]
+    python3 scripts/time_fused_forward.py [--root DIR] [--only K2,K4]
 
 ``--root`` names the checkout whose ``mano_hand_tpu_torch`` is timed (by
 default this one), so two trees can be timed in turns in one run on
 one card: run it for the parent, the change, the change, the parent.
-``--only`` times a subset of K1, K5, K3 and K4.
+``--only`` times a subset of K1, K5, K3, K4 and K2.
 Each time is the median over 20 samples, after 3 warm-up calls, of 10
 back-to-back calls between two CUDA events, divided by 10. Each shape is
 also held against the kernel's plain PyTorch version (max abs error). K3
 runs in its forward form (R, t) and its backward form (R^T read in
 place, no t) on the plain pre-stage's transforms; K4 on the PyTorch
-pre-stage's coefficients and transforms.
+pre-stage's coefficients and transforms. K2 and K2-bf16 run at every
+batch of K2_BATCHES from subject tables of K2_CAPACITIES rows (random
+in-range indices), each held against ``core.forward_posed_gather`` in
+its dtype and timed twice: back-to-back calls (``call``, as above) and
+the same calls replayed from a CUDA graph (``graph``: the kernel's
+device time where the wrapper's host time exceeds it); beside them ``K2_blend_matmul`` times K2's blend alone as one
+``torch.matmul``, coef [B, Ppad] x basis [Ppad, 3V], in f32 (under the
+IEEE pin) and in bf16 — a yardstick of the blend's share, not a library
+time of K2 (no single PyTorch call computes K2's function).
 Prints one JSON line; needs a card.
 """
 
@@ -35,7 +44,24 @@ K1_BATCHES = (1, 1000, 8192)
 K5_BATCHES = (1, 1000, 4096, 32768)
 K3_BATCHES = (1024, 8192)
 K4_BATCHES = (1000, 8192)
+K2_BATCHES = (1, 256, 1024, 8192)
+K2_CAPACITIES = (64, 1000)
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
+
+
+def graph_ms(fn) -> float:
+    """Device milliseconds per call of ``fn``: PER_SAMPLE calls captured
+    in one CUDA graph, replayed between two CUDA events (the median over
+    REPEATS samples after WARMUP replays), so the wrapper's host time is
+    not in it — the kernel's time where the call is host-bound."""
+    for _ in range(WARMUP):
+        fn()   # packs and builds outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(PER_SAMPLE):
+            fn()
+    return cuda_ms(graph.replay) / PER_SAMPLE
 
 
 def cuda_ms(fn) -> float:
@@ -54,11 +80,58 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
+def time_k2(result, params, core, err) -> None:
+    """K2 and K2-bf16 at K2_BATCHES x K2_CAPACITIES, and the blend alone
+    as one matmul, into ``result``."""
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
+    dev = params.device
+    j, s, v = params.n_joints, params.n_shape, params.n_verts
+    rng = np.random.default_rng(1)
+    for c in K2_CAPACITIES:
+        betas = torch.from_numpy(rng.normal(size=(c, s)).astype(
+            np.float32)).to(dev)
+        shaped = core.specialize(params, betas)
+        table = core.SubjectTable(
+            shaped.v_shaped, shaped.joints, shaped.shape, params.pose_basis,
+            params.lbs_weights, params.parents)
+        for b in K2_BATCHES:
+            idx = torch.from_numpy(rng.integers(0, c, size=b).astype(
+                np.int32)).to(dev)
+            pose = torch.from_numpy(rng.normal(scale=0.5, size=(
+                b, j, 3)).astype(np.float32)).to(dev)
+            for name, dt in (("K2", None), ("K2_bf16", torch.bfloat16)):
+                key = f"B={b} C={c}"
+
+                def call():
+                    return core.forward_posed_gather_fused(
+                        table, idx, pose, compute_dtype=dt)
+
+                result[name][key] = {"call": cuda_ms(call),
+                                     "graph": graph_ms(call)}
+                result["err"][f"{name} {key}"] = err(
+                    core.forward_posed_gather_fused(table, idx, pose,
+                                                    compute_dtype=dt),
+                    core.forward_posed_gather(table, idx, pose,
+                                              compute_dtype=dt).verts)
+    p = params.pose_basis.shape[-1]
+    ppad = -(-p // 4) * 4
+    basis = torch.zeros((ppad, 3 * v), device=dev)
+    basis[:p] = params.pose_basis.permute(2, 1, 0).reshape(p, 3 * v)
+    for b in K2_BATCHES:
+        coef = torch.from_numpy(rng.normal(size=(b, ppad)).astype(
+            np.float32)).to(dev)
+        with ieee_fp32():
+            f32 = cuda_ms(lambda: torch.matmul(coef, basis))
+        c16, b16 = coef.to(torch.bfloat16), basis.to(torch.bfloat16)
+        result["K2_blend_matmul"][b] = {
+            "f32": f32, "bf16": cuda_ms(lambda: torch.matmul(c16, b16))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--only", default="K1,K5,K3,K4",
+    ap.add_argument("--only", default="K1,K5,K3,K4,K2",
                     help="comma-separated kernels to time")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -97,7 +170,8 @@ def main() -> int:
 
     result = {"root": os.path.abspath(args.root), "nvidia_smi": smi,
               "ptxas": ptxas, "K1": {}, "K5": {}, "K3": {}, "K3_bwd_form": {},
-              "K4": {}, "err": {}}
+              "K4": {}, "K2": {}, "K2_bf16": {}, "K2_blend_matmul": {},
+              "err": {}}
     with torch.no_grad():
         for b in K1_BATCHES if "K1" in only else ():
             pose, shape = inputs(b)
@@ -160,6 +234,8 @@ def main() -> int:
             result["err"][f"K4 B={b}"] = err(
                 fused_forward.blend_skin_fused(ops1, coef, rot, t),
                 fused_forward.blend_skin_plain(ops1, coef, rot, t))
+        if "K2" in only:
+            time_k2(result, params, core, err)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -145,22 +145,23 @@ def test_forward_posed_gather_matches_rows_and_jax(assets):
 
 
 def test_forward_posed_gather_clamps_out_of_range(assets):
-    """Indices outside [0, C - 1] clamp to the nearest row. Above the
-    table the JAX gather clamps too; below it JAX wraps negative indices
-    Python-style, the port clamps to row 0."""
+    """Indices map to rows as JAX's gather maps them: a negative index i
+    selects row i + C, then every index is clamped to [0, C - 1] (so
+    -C - 3 and -C give row 0, C and C + 7 row C - 1)."""
     jp, tp, _ = assets
-    pose, beta = _inputs(4, seed=6)
-    jtab, ttab = _tables(jp, tp, beta[:3])
-    wild = np.array([7, 3, -1, -9], np.int32)
-    clamped = np.clip(wild, 0, 2)
+    c = 3
+    wild = np.array([-c - 3, -c, -3, -1, 0, c - 1, c, c + 7], np.int32)
+    pose, beta = _inputs(len(wild), seed=6)
+    jtab, ttab = _tables(jp, tp, beta[:c])
     got = core.forward_posed_gather(ttab, torch.from_numpy(wild),
                                     torch.from_numpy(pose)).verts
-    want = core.forward_posed_gather(ttab, torch.from_numpy(clamped),
-                                     torch.from_numpy(pose)).verts
-    assert torch.equal(got, want)
-    high = jcore.forward_posed_gather(jtab, jnp.asarray(wild[:2]),
-                                      jnp.asarray(pose[:2])).verts
-    assert _err(got[:2], high) <= TOL
+    want = jcore.forward_posed_gather(jtab, jnp.asarray(wild),
+                                      jnp.asarray(pose)).verts
+    assert _err(got, want) <= TOL
+    rows = np.array([0, 0, 0, 2, 0, 2, 2, 2], np.int32)
+    direct = core.forward_posed_gather(ttab, torch.from_numpy(rows),
+                                       torch.from_numpy(pose)).verts
+    assert torch.equal(got, direct)
 
 
 def test_subject_table_ops_are_functional(assets):

@@ -10,13 +10,15 @@ imports JAX), registering the marker on the command line:
 
 Shapes cover what ``chip_smoke.py`` does not: ragged and tiny batches,
 generic kinematic trees (J = 7 to 64), V from 1 to 778, rows that are
-not 16-byte aligned, a one-row subject table and out-of-range subject
-indices. Tolerance: kernel vs plain version, both
-fp32 FFMA with TF32 off, <= 1e-5 (summation order only; K2's bf16 tier
-too, whose roundings act on bit-equal values in both). K2-bf16 vs f32
-K2: nonzero and inside the policy's stated envelope (2e-3 m). Gradients
-through the three kernel routes against autograd of the plain path: the
-JAX tests' relative bar, max|a - b| / max(1, max|b|) < 1e-4.
+not 16-byte aligned, subject tables of 1 to 1000 rows and out-of-range
+(negative: wrapped once) subject indices. Tolerance: kernel vs plain
+version, both fp32 with TF32 off, <= 1e-5 (summation order only; K2's
+bf16 tier too, whose roundings act on bit-equal values in both and whose
+bf16 products, exact in fp32, accumulate in fp32 on the tensor cores).
+K2-bf16 vs f32 K2: nonzero and inside the policy's stated envelope
+(2e-3 m). Gradients through the three kernel routes against autograd of
+the plain path: the JAX tests' relative bar, max|a - b| / max(1,
+max|b|) < 1e-4.
 """
 
 import dataclasses
@@ -147,10 +149,14 @@ def _table(params, c, seed=2):
 
 @pytest.mark.parametrize("c,b", [(1, 1), (3, 45), (700, 1024)])
 def test_k2_kernel_matches_plain_and_clamps(dev, c, b):
+    """Against the port's gather, which maps indices as JAX's does: a
+    negative index i selects row i + C, then all are clamped."""
     params = _params(dev)
     table = _table(params, c)
     rng = np.random.default_rng(c)
     idx = rng.integers(-2, c + 2, size=b).astype(np.int32)
+    wild = [-c - 3, -c, -3, -1, 0, c - 1, c, c + 7][:b]
+    idx[:len(wild)] = wild
     pose = torch.from_numpy(rng.normal(scale=0.5, size=(b, 16, 3)).astype(
         np.float32)).to(dev)
     idx_t = torch.from_numpy(idx).to(dev)
@@ -162,16 +168,57 @@ def test_k2_kernel_matches_plain_and_clamps(dev, c, b):
     assert _err(got, want) <= TOL
 
 
-def test_k2_generic_tree(dev):
-    params = _params(dev, n_joints=7, n_verts=300)
+@pytest.fixture(scope="module")
+def k2_tables(dev):
+    """A MANO-width subject table per capacity (built once)."""
+    params = _params(dev)
+    return {c: _table(params, c, seed=c) for c in (1, 64, 1000)}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c", [1, 64, 1000])
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 63, 65, 255, 256, 1024, 4099])
+def test_k2_both_variants_match_plain(dev, k2_tables, bf16, c, b):
+    """Each row tile and vertex split the launch picks, against the plain
+    version over the same packs: indices over [-C - 3, C + 8) (negative
+    ones wrap, every subject row is as likely odd as even — an odd row of
+    v_shaped is only 8-byte aligned)."""
+    table = k2_tables[c]
+    rng = np.random.default_rng(b * 7 + c)
+    idx = torch.from_numpy(rng.integers(-c - 3, c + 8, size=b).astype(
+        np.int32)).to(dev)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+        np.float32)).to(dev)
+    dt = torch.bfloat16 if bf16 else None
+    count = "bf16_launches" if bf16 else "launches"
+    before = getattr(fused_posed, count)
+    got = core.forward_posed_gather_fused(table, idx, pose, compute_dtype=dt)
+    torch.cuda.synchronize()
+    assert getattr(fused_posed, count) == before + 1
+    want = fused_posed.forward_posed_gather_plain(
+        table.v_shaped, table.joints, idx, pose,
+        fused_posed.posed_operands(table, dt), table.parents)
+    assert _err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n_joints", [7, 24, 64])
+def test_k2_generic_tree(dev, bf16, n_joints):
+    """Generic trees in both variants: J padded to whole 16-joint mma
+    steps in bf16 (24 -> 32), up to kMaxJoints = 64 (the smallest row
+    tile)."""
+    params = _params(dev, n_joints=n_joints, n_verts=300)
     table = _table(params, 5)
     rng = np.random.default_rng(7)
-    idx_t = torch.from_numpy(rng.integers(0, 5, size=40).astype(
+    idx_t = torch.from_numpy(rng.integers(-5, 5, size=40).astype(
         np.int32)).to(dev)
-    pose = torch.from_numpy(rng.normal(scale=0.5, size=(40, 7, 3)).astype(
-        np.float32)).to(dev)
-    got = core.forward_posed_gather_fused(table, idx_t, pose)
-    want = core.forward_posed_gather(table, idx_t, pose).verts
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(
+        40, n_joints, 3)).astype(np.float32)).to(dev)
+    dt = torch.bfloat16 if bf16 else None
+    got = core.forward_posed_gather_fused(table, idx_t, pose,
+                                          compute_dtype=dt)
+    want = core.forward_posed_gather(table, idx_t, pose,
+                                     compute_dtype=dt).verts
     assert _err(got, want) <= TOL
 
 

@@ -28,7 +28,11 @@ from mano_hand_tpu.ops import pallas_forward, pallas_posed
 from mano_hand_tpu_torch.assets import synthetic_params
 from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS
 from mano_hand_tpu_torch.models import core
-from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
+from mano_hand_tpu_torch.ops import (
+    fk, fused_forward, fused_posed, fused_skin, lbs,
+)
+from mano_hand_tpu_torch.ops.common import einsum, round_bf16
+from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
 TOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,6 +55,7 @@ def _zero_counts():
     fused_forward.launches = 0
     fused_forward.blend_skin_launches = 0
     fused_posed.launches = 0
+    fused_posed.bf16_launches = 0
     fused_skin.launches = 0
 
 
@@ -171,17 +176,19 @@ def test_k2_plain_matches_jax_interpret_kernel(assets):
 
 
 def test_k2_plain_matches_port_gather_and_clamps(assets):
+    """Out-of-range indices map to rows as JAX's XLA gather maps them
+    (negative ones wrap once, then every index is clamped), in the plain
+    K2 version as in the port's gather."""
     jp, tp = assets
-    _, ttab = _posed_setup(jp, tp, 3, seed=4)
-    pose, _ = _inputs(6, seed=5)
-    wild = np.array([0, 5, -2, 2, 1, 99], np.int32)
+    c = 3
+    jtab, ttab = _posed_setup(jp, tp, c, seed=4)
+    wild = np.array([-c - 3, -c, -3, -1, 0, c - 1, c, c + 7], np.int32)
+    pose, _ = _inputs(len(wild), seed=5)
     got = core.forward_posed_gather_fused(ttab, torch.from_numpy(wild),
                                           torch.from_numpy(pose))
-    want = core.forward_posed_gather(
-        ttab, torch.from_numpy(np.clip(wild, 0, 2)),
-        torch.from_numpy(pose)).verts
+    want = jcore.forward_posed_gather(jtab, jnp.asarray(wild),
+                                      jnp.asarray(pose)).verts
     assert _err(got, want) <= TOL
-    # The same clamp as the plain gather on the raw indices.
     plain = core.forward_posed_gather(ttab, torch.from_numpy(wild),
                                       torch.from_numpy(pose)).verts
     assert _err(got, plain) <= TOL
@@ -194,9 +201,141 @@ def test_k2_operands_cached_across_table_updates(assets):
     first = fused_posed.posed_operands(table)
     shaped = core.specialize(tp, torch.ones(10))
     later = core.table_grow(core.table_set_row(table, 0, shaped), 4)
-    again = fused_posed.posed_operands(later)
-    assert again[0] is first[0] and again[1] is first[1]
-    assert first[0].shape == (136, 3, 778)
+    assert fused_posed.posed_operands(later) is first
+    assert first.basis_tiles.shape == (7, 136, 3, 128)
+    assert first.basis.shape == (136, 3, 778)
+
+
+def _old_k2_plain(table, idx, pose, bf16):
+    """K2's plain version as it read its untiled operands before they were
+    tiled (the basis [cdiv(P, 4) 4, 3, V], the weights [J, V], each
+    rounded to bf16 for the bf16 tier), with the index mapping of
+    ``core.forward_posed_gather``."""
+    v, _, p = table.pose_basis.shape
+    basis = torch.cat([table.pose_basis.permute(2, 1, 0).float(),
+                       torch.zeros(-(-p // 4) * 4 - p, 3, v)])
+    wt = table.lbs_weights.T.float().contiguous()
+    if bf16:
+        basis, wt = basis.to(torch.bfloat16), wt.to(torch.bfloat16)
+    b = pose.shape[0]
+    r = idx.long()
+    r = torch.where(r < 0, r + table.capacity, r).clamp(0, table.capacity - 1)
+    rot = rotation_matrix(pose)
+    coef = (rot[:, 1:] - torch.eye(3)).flatten(1)
+    coef = torch.cat([coef, coef.new_zeros(b, basis.shape[0] - p)], 1)
+    if bf16:
+        coef = round_bf16(coef)
+    v_posed = table.v_shaped[r] + einsum("bk,kcv->bvc", coef, basis.float())
+    j_rows = table.joints[r]
+    world_rot, world_t = fk.forward_kinematics(tuple(table.parents), rot,
+                                               j_rows)
+    _, skin_t = fk.skinning_transforms(world_rot, world_t, j_rows)
+    if bf16:
+        world_rot, skin_t = round_bf16(world_rot), round_bf16(skin_t)
+    return lbs.skin(wt.T.float(), world_rot, skin_t, v_posed)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n_joints,n_verts", [(16, 778), (7, 13), (24, 128)])
+def test_k2_tiled_operands_read_back_to_the_plain_version(bf16, n_joints,
+                                                          n_verts):
+    """K2's packs in the kernels' tiled layouts (Ppad 136 in f32, 144 in
+    bf16 at MANO width; bf16 weights vertex-major, J padded to 16), the
+    padding zero; read back plainly they equal a direct packing of the
+    asset, and the plain version over them is bit for bit what it was over
+    the untiled packs."""
+    tp = synthetic_params(seed=3, n_joints=n_joints, n_verts=n_verts,
+                          n_faces=20, device="cpu").astype(torch.float32)
+    rng = np.random.default_rng(n_verts)
+    betas = torch.from_numpy(rng.normal(size=(3, 10)).astype(np.float32))
+    table = core.stack_shaped([core.specialize(tp, bt) for bt in betas])
+    dt = torch.bfloat16 if bf16 else None
+    ops = fused_posed.posed_operands(table, dt)
+    t = fused_forward.VERT_TILE
+    nsub, p = -(-n_verts // t), 9 * (n_joints - 1)
+    step = 16 if bf16 else 4
+    kpad = -(-p // step) * step
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    assert ops.basis_tiles.dtype == ops.wt_tiles.dtype == dtype
+    assert ops.basis_tiles.shape == (nsub, kpad, 3, t)
+    assert ops.basis_tiles.is_contiguous() and ops.wt_tiles.is_contiguous()
+    basis = _untile(ops.basis_tiles, n_verts)
+    want = table.pose_basis.permute(2, 1, 0).to(dtype)
+    assert torch.equal(basis[:p], want)
+    assert not basis[p:].any()
+    weights = table.lbs_weights.to(dtype)
+    if bf16:
+        jpad = -(-n_joints // 16) * 16
+        assert ops.wt_tiles.shape == (nsub, t, jpad)
+        flat = ops.wt_tiles.flatten(0, 1)
+        assert torch.equal(flat[:n_verts, :n_joints], weights)
+        assert not flat[:, n_joints:].any() and not flat[n_verts:].any()
+    else:
+        assert ops.wt_tiles.shape == (nsub, n_joints, t)
+        assert torch.equal(_untile(ops.wt_tiles, n_verts), weights.T)
+    assert torch.equal(ops.wt, weights.T) and ops.wt.is_contiguous()
+    assert ops.basis.shape == (-(-p // 4) * 4, 3, n_verts)
+    idx = torch.tensor([2, -1, 0, 5, 1], dtype=torch.int32)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(5, n_joints, 3))
+                            .astype(np.float32))
+    got = core.forward_posed_gather_fused(table, idx, pose,
+                                          compute_dtype=dt)
+    assert torch.equal(got, _old_k2_plain(table, idx, pose, bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,c", [(1, 1), (7, 1), (33, 1), (1, 3), (7, 3),
+                                 (33, 3)])
+def test_k2_tiled_plain_matches_jax(assets, bf16, b, c):
+    """Both plain versions over the tiled packs against JAX: f32 against
+    the interpret-mode Pallas K2, bf16 against JAX's XLA bf16 family (the
+    interpreter runs the kernel's bf16 dots in f32)."""
+    jp, tp = assets
+    jtab, ttab = _posed_setup(jp, tp, c, seed=20 + c)
+    pose, _ = _inputs(b, seed=b)
+    idx = np.random.default_rng(b + c).integers(0, c, size=b).astype(
+        np.int32)
+    if bf16:
+        want = jcore.forward_posed_gather(
+            jtab, jnp.asarray(idx), jnp.asarray(pose),
+            compute_dtype=jnp.bfloat16).verts
+    else:
+        want = pallas_posed.forward_posed_gather_fused(
+            jtab, jnp.asarray(idx), jnp.asarray(pose), block_b=8,
+            interpret=True)
+    got = core.forward_posed_gather_fused(
+        ttab, torch.from_numpy(idx), torch.from_numpy(pose),
+        compute_dtype=torch.bfloat16 if bf16 else None)
+    assert got.shape == (b, 778, 3)
+    assert _err(got, want) <= TOL
+    assert fused_posed.launches == fused_posed.bf16_launches == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("field", ["pose_basis", "lbs_weights"])
+def test_k2_packs_follow_in_place_asset_updates(assets, bf16, field):
+    """An in-place update of the table's pose basis or weights repacks
+    both forms: the plain version follows the port's gather."""
+    _, tp = assets
+    prm = dataclasses.replace(
+        tp, **{f: getattr(tp, f).clone() for f in FORWARD_FIELDS})
+    pose, beta = _inputs(4, seed=30)
+    pose, beta = torch.from_numpy(pose), torch.from_numpy(beta)
+    table = core.stack_shaped([core.specialize(prm, bt) for bt in beta[:3]])
+    idx = torch.tensor([2, 0, -1, 1], dtype=torch.int32)
+    dt = torch.bfloat16 if bf16 else None
+    first = fused_posed.posed_operands(table, dt)
+    before = core.forward_posed_gather_fused(table, idx, pose,
+                                             compute_dtype=dt)
+    delta = torch.from_numpy(np.random.default_rng(31).normal(
+        scale=0.01, size=tuple(getattr(prm, field).shape)).astype(np.float32))
+    with torch.no_grad():
+        getattr(prm, field).add_(delta)
+    assert fused_posed.posed_operands(table, dt) is not first
+    got = core.forward_posed_gather_fused(table, idx, pose, compute_dtype=dt)
+    want = core.forward_posed_gather(table, idx, pose, compute_dtype=dt).verts
+    assert _err(got, want) <= TOL
+    assert _err(got, before) > 1e-3                    # it really moved
 
 
 @pytest.mark.parametrize("case,exc,match", [

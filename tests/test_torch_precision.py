@@ -16,6 +16,7 @@ really running) and within the 2e-3 m envelope; the engine's tier-1
 results vs direct f32 calls <= 1e-6 (batch-size rounding only).
 """
 
+import dataclasses
 import threading
 
 import jax.numpy as jnp
@@ -148,14 +149,54 @@ def test_bf16_posed_forms_agree(assets, tables):
 
 
 def test_k2_bf16_operands_are_bf16_and_repack(tables):
+    """The bf16 pack: the f32 pack's values rounded to bf16, in the bf16
+    kernel's layouts (P padded to 144, the weights vertex-major); cached,
+    and rebuilt after an in-place update of the pose basis."""
     _, ttab, _ = tables
-    pb, wt, _ = fused_posed.posed_operands(ttab, BF16)
-    assert pb.dtype == wt.dtype == BF16
-    assert pb.shape == (136, 3, 778) and wt.shape == (16, 778)
-    assert fused_posed.posed_operands(ttab, BF16)[0] is pb
-    pb32, wt32, _ = fused_posed.posed_operands(ttab)
-    assert torch.equal(pb.float(), common.round_bf16(pb32))
-    assert torch.equal(wt.float(), common.round_bf16(wt32))
+    ops = fused_posed.posed_operands(ttab, BF16)
+    assert ops.basis_tiles.dtype == ops.wt_tiles.dtype == BF16
+    assert ops.basis_tiles.shape == (7, 144, 3, 128)
+    assert ops.wt_tiles.shape == (7, 128, 16)
+    assert ops.basis.shape == (136, 3, 778) and ops.wt.shape == (16, 778)
+    assert fused_posed.posed_operands(ttab, BF16) is ops
+    ops32 = fused_posed.posed_operands(ttab)
+    assert torch.equal(ops.basis.float(), common.round_bf16(ops32.basis))
+    assert torch.equal(ops.wt.float(), common.round_bf16(ops32.wt))
+    own = dataclasses.replace(ttab, pose_basis=ttab.pose_basis.clone())
+    first = fused_posed.posed_operands(own, BF16)
+    with torch.no_grad():
+        own.pose_basis.mul_(2.0)
+    again = fused_posed.posed_operands(own, BF16)
+    assert again is not first
+    assert torch.equal(again.basis.float(), 2.0 * first.basis.float())
+
+
+def test_bf16_gather_wraps_negative_indices_like_jax(tables):
+    """The bf16 family maps indices as JAX's XLA gather does: a negative
+    index i selects row i + C, then all are clamped to [0, C - 1] — in
+    the port's gather and in K2-bf16's plain version. (Pose seed 9 puts
+    one row's value on a bf16 rounding boundary that the two frameworks'
+    summation orders round apart, 1.3e-5 on every index form: the module
+    docstring's caveat; seed 10 does not.)"""
+    jtab, ttab, _ = tables
+    c = ttab.capacity
+    idx = np.array([-c - 3, -c, -3, -1, 0, c - 1, c, c + 7], np.int32)
+    rows = np.array([0, 0, c - 3, c - 1, 0, c - 1, c - 1, c - 1], np.int32)
+    pose, _ = _pose_idx(len(idx), 10)
+    mapped = core.forward_posed_gather(ttab, torch.from_numpy(rows),
+                                       torch.from_numpy(pose),
+                                       compute_dtype=BF16).verts
+    want = jcore.forward_posed_gather(jtab, jnp.asarray(idx),
+                                      jnp.asarray(pose),
+                                      compute_dtype=jnp.bfloat16).verts
+    pose_t, idx_t = torch.from_numpy(pose), torch.from_numpy(idx)
+    got = core.forward_posed_gather(ttab, idx_t, pose_t, compute_dtype=BF16)
+    assert _err(got.verts, want) <= 1e-5
+    assert torch.equal(got.verts, mapped)
+    plain = core.forward_posed_gather_fused(ttab, idx_t, pose_t,
+                                            compute_dtype=BF16)
+    assert _err(plain, want) <= 1e-5
+    assert fused_posed.bf16_launches == 0
 
 
 def _engine(tp, policy=None, posed_kernel="xla", **kw):
