@@ -36,9 +36,10 @@ also against the explicit transposed copy and zero translation it
 replaced) and K4 also against K1, whose phase D it shares (so does f32
 K2). K1 and K5 are timed at every batch of their paths, K3 at B = 8192
 and the training batch 1024 in both forms, K4 at B = 8192 and 1000, K2
-and K2-bf16 at B = 1024 and the engine's largest bucket 256 (their
-``ms`` replayed from a CUDA graph: their wrappers' host time exceeds
-the kernels'; ``call_ms`` the back-to-back calls');
+and K2-bf16 at B = 1024 and the engine's largest bucket 256 (``ms``
+by back-to-back calls as every row; ``graph_ms`` the same calls
+replayed from a CUDA graph, the kernel's device time, since the
+wrappers' host time exceeds the kernels' at these batches);
 ``blend_sgemm_ms`` times one cuBLAS fp32 product of the blend alone as a
 yardstick (the port never calls it), and the K1/K5, K2, K2-bf16, K3 and
 K4 entries carry their kernels' registers and spills from the
@@ -902,9 +903,9 @@ def main() -> int:
     k1_ms, k1_plain_ms = k1_by_batch[b1]["ms"], k1_by_batch[b1]["plain_ms"]
     with torch.no_grad():
         # K2 and its bf16 variant at K2_BATCH and the engine's largest
-        # bucket, from the C = 1000 table: ms is the kernel's device time
-        # (CUDA-graph replay: its wrapper's host time exceeds it), call_ms
-        # the back-to-back calls'.
+        # bucket, from the C = 1000 table: ms by back-to-back calls, as
+        # every row; graph_ms by CUDA-graph replay of the same calls (the
+        # kernel's device time: the wrapper's host time exceeds it).
         table, idx_t, pose_t, ops2, used = k2_case[K2_CAPACITIES[-1]]
         k2_by_batch, k2b_by_batch = {}, {}
         for b in K2_TIMED:
@@ -915,11 +916,11 @@ def main() -> int:
                     return fused_posed.forward_posed_gather_fused(
                         table, ix, px, compute_dtype=dt)
 
-                by[b] = dict(zip(("call_ms", "plain_ms"), interleaved_ms(
+                by[b] = dict(zip(("ms", "plain_ms"), interleaved_ms(
                     kernel, lambda: fused_posed.forward_posed_gather_plain(
                         table.v_shaped, table.joints, ix, px, ops_b,
                         table.parents))))
-                by[b]["ms"] = graph_ms(kernel)
+                by[b]["graph_ms"] = graph_ms(kernel)
                 by[b]["rows_used"] = len(set(ix.tolist()))
         k2_ms = k2_by_batch[K2_BATCH]["ms"]
         k2_plain_ms = k2_by_batch[K2_BATCH]["plain_ms"]
@@ -1044,7 +1045,7 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "path": "serving",
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
-         "call_ms": k2_by_batch[K2_BATCH]["call_ms"], "ptxas": k2_ptxas},
+         "graph_ms": k2_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2_ptxas},
         {"name": "K3 skin", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/skin.cu",
          "replaces": "mano_hand_tpu/ops/pallas_lbs.py:107",
@@ -1077,8 +1078,8 @@ def main() -> int:
          "ms": k2b_ms, "plain_ms": k2b_plain_ms, "bound_ms": k2b_bound,
          "bound_by": k2b_by, "library_ms": None,
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
-         "path": "bf16_tier", "call_ms": k2b_by_batch[K2_BATCH]["call_ms"],
-         "ptxas": k2b_ptxas},
+         "path": "bf16_tier",
+         "graph_ms": k2b_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2b_ptxas},
     ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": kernels})

@@ -39,7 +39,11 @@
 // 0.57-0.60 and a bound of 0.122; variants without the basis copies or
 // without the per-chunk barrier were only 3-6 % faster, and micro-tiles of
 // 8 x 2 and 8 x 4 vertices, 32 or 64 rows, 1 or 2 blocks an SM all land
-// within about 10 % of each other (PERF.md section 5).
+// within about 10 % of each other (PERF.md section 5). FK level by level
+// in place of one thread a row, and the row tile that fills the SMs,
+// then took K1 at B = 1000 from 0.075 to 0.053 ms of device time (0.060
+// with the FK alone) and at B = 256 from 0.075 to 0.031 (CUDA-graph
+// replay, both designs in one run).
 
 #include "tiled_phase_d.cuh"
 
@@ -71,6 +75,8 @@ __device__ void prelude(const float* __restrict__ pose,
   // A: local R into the skin slots, (R - I) of joints 1.. into coef.
   mano::rodrigues_rows<kRows, kThreads, false>(pose, B, row0, J, kpad,
                                                S + 1, t);
+  __syncthreads();  // parents are read below
+  if (threadIdx.x == 0) mano::tree_depths(t.parents, J, t.depth);
   // Shaped rest joints: J_rest[j][c] = jb[j][c][S] + sum_s jb[j][c][s] beta_s.
   for (int i = threadIdx.x; i < kRows * J * 3; i += kThreads) {
     const int r = i / (J * 3), jc = i - r * J * 3;
@@ -80,8 +86,8 @@ __device__ void prelude(const float* __restrict__ pose,
     for (int s = 0; s < S; ++s) acc += g[s] * beta[s];
     t.jrest[i] = acc + g[S];
   }
-  // B, C: forward kinematics and the inverse bind.
-  mano::kinematics_rows<kRows, kThreads, false>(t, J);
+  // B, C: forward kinematics level by level and the inverse bind.
+  mano::kinematics<kRows, kThreads, false>(t, J);
 }
 
 template <int kRows>
@@ -174,7 +180,7 @@ extern "C" int mano_fused_forward(const void* pose, const void* shape,
                                   void* out, int H, int B, int V, int J,
                                   int S, int kpad, int split, void* stream) {
   const auto bytes = [&](int rows) { return smem_bytes(rows, kpad, J); };
-  return with_row_tile(B, bytes, [&](auto rows) {
+  return with_row_tile(B, H, V, bytes, [&](auto rows) {
     constexpr int kRows = decltype(rows)::value;
     return launch<kRows>(
         fused_forward_kernel<kRows>, bytes(kRows), H, B, V, split,
@@ -193,7 +199,7 @@ extern "C" int mano_blend_skin(const void* coef, const void* rot,
                                const void* wt, void* out, int B, int V, int J,
                                int kpad, void* stream) {
   const auto bytes = [&](int rows) { return smem_bytes(rows, kpad, J); };
-  return with_row_tile(B, bytes, [&](auto rows) {
+  return with_row_tile(B, 1, V, bytes, [&](auto rows) {
     constexpr int kRows = decltype(rows)::value;
     return launch<kRows>(
         blend_skin_kernel<kRows>, bytes(kRows), 1, B, V, 0,

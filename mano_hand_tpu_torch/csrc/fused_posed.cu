@@ -58,21 +58,20 @@
 // Against the fp32 form the error is bounded by the stated 2e-3 m envelope
 // of serving/precision.py.
 //
-// Both fronts run FK level by level (mano_common.cuh:fk_levels: every
-// (row, joint) of one tree depth at once): one thread a row, as K1 runs it,
-// serialises the tile's FK and puts the rows, J * 12 floats apart, in one
-// shared-memory bank. Both pick the row tile whose blocks reach every SM
-// (with_filling_row_tile), so the engine's batches (B <= 256) fill the card.
-// What was measured (scripts/time_fused_forward.py, NVIDIA H100 80GB HBM3
-// at 700 W, device time by CUDA-graph replay, B = 1024 from C = 1000):
-// fp32 0.051 ms and bf16 0.034 ms against 0.110 and 0.112 for the parent
-// design (one vertex a thread, the prelude per 128 vertices; on a card
-// that ran every kernel about 20 % slower, 0.063 and 0.040 against 0.131
-// and 0.133); FK one thread a row cost 0.020 ms of that, K1's row tile
-// 0.004 at B = 1024 and half the time at B = 256; the front alone takes
-// 0.011 (fp32) and 0.015 (bf16). A swizzled ring in place of the padded
-// one and the bf16 skin on FFMA in place of the mmas (0.104 ms) were no
-// faster (PERF.md section 5).
+// Both fronts run FK level by level (mano_common.cuh:fk_levels), as K1's
+// prelude does, and take the row tile of tiled_phase_d.cuh:with_row_tile,
+// the largest that still fills the SMs, so the engine's batches (B <= 256)
+// reach the whole card. What was measured (scripts/time_fused_forward.py,
+// NVIDIA H100 80GB HBM3 at 700 W, B = 1024 from C = 1000, this design and
+// the parent design, one vertex a thread with the prelude per 128
+// vertices, in one run; device time by CUDA-graph replay, back-to-back
+// calls in brackets): fp32 0.051 (0.059-0.087) ms and bf16 0.033
+// (0.054-0.056) against 0.109 (0.119-0.120) and 0.112-0.113
+// (0.121-0.123). In an earlier run FK one thread a row cost 0.020 ms of
+// device time, K1's former row tile half the time at B = 256, and the
+// front alone took 0.011 (fp32) and 0.015 (bf16); a swizzled ring in
+// place of the padded one and the bf16 skin on FFMA in place of the mmas
+// (0.104 ms) were no faster (PERF.md section 5).
 
 #include <cstdint>
 
@@ -115,7 +114,7 @@ __device__ void gather_front(const float* __restrict__ joints,
     const int r = i / (J * 3), jc = i - r * J * 3;
     t.jrest[i] = __ldg(joints + (size_t)t.rowsrc[r] * J * 3 + jc);
   }
-  mano::kinematics_levels<kRows, kThreads, kBf16>(t, J, t.depth);
+  mano::kinematics<kRows, kThreads, kBf16>(t, J);
 }
 
 // ------------------------------------------------------------------ fp32 K2
@@ -432,38 +431,6 @@ posed_bf16_kernel(const float* __restrict__ v_shaped,  // [C, V, 3]
   mano::cp_async_wait<0>();
 }
 
-// f(std::integral_constant<int, rows>) for K2's row tile: of the tiles
-// whose shared memory (bytes(rows)) fits, the largest whose row tiles times
-// the vertex sub-tiles reach every SM, else the smallest. The engine's
-// batches (B <= 256) then still fill the card (with_row_tile, K1's choice,
-// keeps 64-row tiles down to B = 65: 28 blocks at B = 256); the vertex
-// split is then chosen by launch as K1's.
-template <typename Bytes, typename F>
-int with_filling_row_tile(int B, int V, const Bytes& bytes, const F& f) {
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err == 0)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
-  if (err != 0) return err;
-  const long nsub = (V + kVertTile - 1) / kVertTile;
-  constexpr int kR0 = kGroups * 8, kR1 = kGroups * 4, kR2 = kGroups * 2,
-                kR3 = kGroups;
-  const int rows[4] = {kR0, kR1, kR2, kR3};
-  int pick = 3;
-  for (int i = 0; i < 4; ++i) {
-    if (bytes(rows[i]) > kSmemBudget) continue;
-    pick = i;
-    if ((B + rows[i] - 1) / rows[i] * nsub >= sms) break;
-  }
-  switch (pick) {
-    case 0: return f(std::integral_constant<int, kR0>{});
-    case 1: return f(std::integral_constant<int, kR1>{});
-    case 2: return f(std::integral_constant<int, kR2>{});
-    default: return f(std::integral_constant<int, kR3>{});
-  }
-}
-
 }  // namespace
 
 // bf16 != 0 launches the bf16 tier: basis [nsub, kpad, 3, 128] and wt
@@ -482,7 +449,7 @@ extern "C" int mano_fused_posed(const void* v_shaped, const void* joints,
     const auto bytes = [&](int rows) {
       return smem_bytes_bf16(rows, kpad, J, jpad);
     };
-    return with_filling_row_tile(B, V, bytes, [&](auto rows) {
+    return with_row_tile(B, 1, V, bytes, [&](auto rows) {
       constexpr int kRows = decltype(rows)::value;
       return launch<kRows>(
           posed_bf16_kernel<kRows>, bytes(kRows), 1, B, V, 0, s,
@@ -495,10 +462,8 @@ extern "C" int mano_fused_posed(const void* v_shaped, const void* joints,
           J, kpad);
     });
   }
-  const auto bytes = [&](int rows) {
-    return smem_bytes(rows, kpad, J, /*gathered=*/true);
-  };
-  return with_filling_row_tile(B, V, bytes, [&](auto rows) {
+  const auto bytes = [&](int rows) { return smem_bytes(rows, kpad, J); };
+  return with_row_tile(B, 1, V, bytes, [&](auto rows) {
     constexpr int kRows = decltype(rows)::value;
     return launch<kRows>(
         posed_kernel<kRows>, bytes(kRows), 1, B, V, 0, s,

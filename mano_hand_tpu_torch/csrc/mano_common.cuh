@@ -6,12 +6,12 @@
 //
 // The prelude of a block's tile of kRows batch rows, in three phases over
 // the tile's shared memory (any struct with float* skin and jrest, int*
-// parents and a coef row pointer of float or __nv_bfloat16):
+// parents and depth, and a coef row pointer of float or __nv_bfloat16):
 //   A  per (row, joint): Rodrigues into the row's skin slots, (R - I) into
 //      the row's blend coefficients (rodrigues_rows);
 //   B  forward kinematics in place along the topologically ordered tree
-//      (parents[j] < j): one thread per row (fk_rows, K1), or every
-//      (row, joint) of a tree level at once (fk_levels, K2);
+//      (parents[j] < j), every (row, joint) of a tree level at once
+//      (fk_levels; the levels from tree_depths, into the tile's depth);
 //   C  per (row, joint): inverse bind, t <- world_t - world_R @ J_rest
 //      (inverse_bind_rows).
 // The rest joints (shaped by K1, gathered from the subject table by K2)
@@ -159,21 +159,6 @@ __device__ __forceinline__ void fk_joint(float* sk, const float* jr, int j,
   }
 }
 
-// Phase B: forward kinematics, one thread per row, in place over skin
-// along the topologically ordered tree (parents[j] < j, so p is final
-// before j).
-template <int kRows, int kThreads, bool kExact, typename Tile>
-__device__ __forceinline__ void fk_rows(const Tile& t, int J) {
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    float* sk = t.skin + r * J * 12;
-    const float* jr = t.jrest + r * J * 3;
-    sk[9] = jr[0];
-    sk[10] = jr[1];
-    sk[11] = jr[2];
-    for (int j = 1; j < J; ++j) fk_joint<kExact>(sk, jr, j, t.parents[j]);
-  }
-}
-
 // The depth of every joint (the root 0, a child one more than its parent)
 // into depth[0 .. J), and the number of levels into depth[J], by one
 // thread; parents must be in shared memory.
@@ -191,12 +176,12 @@ __device__ __forceinline__ void tree_depths(const int* parents, int J,
 // Phase B level by level: every (row, joint) of one depth at once, a
 // barrier between depths, each joint's arithmetic fk_joint's. Spreads the
 // rows' chains over the block (one thread a row serialises a row tile's
-// FK, and its rows J * 12 floats apart all fall in one bank). Starts and
-// ends with a barrier.
+// FK, and its rows J * 12 floats apart all fall in one bank: 0.020 ms of
+// K2 at B = 1024). Starts and ends with a barrier.
 template <int kRows, int kThreads, bool kExact, typename Tile>
-__device__ __forceinline__ void fk_levels(const Tile& t, int J,
-                                          const int* depth) {
+__device__ __forceinline__ void fk_levels(const Tile& t, int J) {
   __syncthreads();
+  const int* depth = t.depth;
   const int levels = depth[J];
   for (int r = threadIdx.x; r < kRows; r += kThreads) {
     float* sk = t.skin + r * J * 12;
@@ -240,23 +225,11 @@ __device__ __forceinline__ void inverse_bind_rows(const Tile& t, int J) {
   }
 }
 
-// Phases B (one thread a row) and C after A and the rest joints, each
-// behind a barrier; ends with the block synchronised.
+// Phases B and C after A, the rest joints and tree_depths (visible after
+// the first barrier); ends with the block synchronised.
 template <int kRows, int kThreads, bool kBf16, typename Tile>
-__device__ __forceinline__ void kinematics_rows(const Tile& t, int J) {
-  __syncthreads();
-  fk_rows<kRows, kThreads, kBf16>(t, J);
-  __syncthreads();
-  inverse_bind_rows<kRows, kThreads, kBf16>(t, J);
-  __syncthreads();
-}
-
-// The same with phase B level by level (fk_levels; depth from
-// tree_depths, visible after the first barrier).
-template <int kRows, int kThreads, bool kBf16, typename Tile>
-__device__ __forceinline__ void kinematics_levels(const Tile& t, int J,
-                                                  const int* depth) {
-  fk_levels<kRows, kThreads, kBf16>(t, J, depth);
+__device__ __forceinline__ void kinematics(const Tile& t, int J) {
+  fk_levels<kRows, kThreads, kBf16>(t, J);
   inverse_bind_rows<kRows, kThreads, kBf16>(t, J);
   __syncthreads();
 }

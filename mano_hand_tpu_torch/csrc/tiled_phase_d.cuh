@@ -10,10 +10,11 @@
 //   * One front per row tile. A block owns a row tile and a span of vertex
 //     sub-tiles (kVertTile vertices each) that it walks in turn, so the
 //     front runs once per row tile and span, not once per 128 vertices.
-//     The span (the vertex split) is chosen per launch from B so that small
-//     batches still reach every SM; the row tile (64 rows, or 32, 16, 8) is
-//     the largest whose shared memory fits (J sets it: 8 rows at J = 64),
-//     or a smaller one a small batch still fills (with_row_tile).
+//     The row tile (64 rows, or 32, 16, 8) is the largest whose shared
+//     memory fits (J sets it: 8 rows at J = 64) and whose row tiles times
+//     vertex sub-tiles still reach every SM, so that small batches (the
+//     serving engine's, B <= 256) fill the card (with_row_tile); the span
+//     (the vertex split) is then chosen per launch from B.
 //   * The basis streams through a ring of kStages shared-memory stages of
 //     kChunk k-rows x 3 x kVertTile floats, filled by 16-byte cp.async
 //     (cp.async.cg: L2 only) while the previous chunk is multiplied, so
@@ -77,15 +78,15 @@ struct Smem {
   float* out;    // [warps][32 kVpt 3] a row of each warp's vertices
   int* parents;  // [J]
   int* rowsrc;   // [kRows] subject-table row of each tile row (K2 only)
-  int* depth;    // [J + 1] tree depths, then the level count (K2 only)
+  int* depth;    // [J + 1] tree depths, then the level count (tree_depths)
 };
 
-// Bytes of a block's carve; `gathered` adds K2's rowsrc and depth.
-inline size_t smem_bytes(int rows, int kpad, int J, bool gathered = false) {
+// Bytes of a block's carve.
+inline size_t smem_bytes(int rows, int kpad, int J) {
   return sizeof(float) * ((size_t)rows * (kpad + J * 15) +
                           (size_t)J * kVertTile + kStages * kStageFloats +
                           kOutFloats) +
-         sizeof(int) * ((size_t)J + (gathered ? rows + J + 1 : 0));
+         sizeof(int) * ((size_t)2 * J + rows + 1);
 }
 
 template <int kRows>
@@ -312,19 +313,31 @@ int launch(Kernel kernel, size_t smem, int H, int B, int V, int split,
   return (int)cudaGetLastError();
 }
 
-// f(std::integral_constant<int, rows>) for the row tile: the largest whose
-// shared memory (bytes(rows)) leaves room for kBlocksPerSm blocks an SM,
-// or a smaller one that the batch still fills (a small batch then computes
-// fewer replayed rows).
+// f(std::integral_constant<int, rows>) for the row tile of H hands' B rows
+// over V vertices: of the tiles whose shared memory (bytes(rows)) leaves
+// room for kBlocksPerSm blocks an SM, the largest whose row tiles times
+// vertex sub-tiles reach every SM, else the smallest. Large batches take
+// 64-row tiles; a small one takes fewer rows a tile and more blocks (and
+// computes fewer replayed rows), which launch's vertex split alone cannot
+// give it: a 64-row tile has at most 7 sub-tiles at V = 778.
 template <typename Bytes, typename F>
-int with_row_tile(int B, const Bytes& bytes, const F& f) {
+int with_row_tile(int B, int H, int V, const Bytes& bytes, const F& f) {
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err != 0) return err;
+  const long subs = (long)H * ((V + kVertTile - 1) / kVertTile);
   constexpr int kR0 = kGroups * 8, kR1 = kGroups * 4, kR2 = kGroups * 2,
                 kR3 = kGroups;
   const int rows[4] = {kR0, kR1, kR2, kR3};
-  int pick = -1;
-  for (int i = 0; i < 4; ++i)
-    if (bytes(rows[i]) <= kSmemBudget && (pick < 0 || B <= rows[i]))
-      pick = i;
+  int pick = 3;
+  for (int i = 0; i < 4; ++i) {
+    if (bytes(rows[i]) > kSmemBudget) continue;
+    pick = i;
+    if ((B + rows[i] - 1) / rows[i] * subs >= sms) break;
+  }
   switch (pick) {
     case 0: return f(std::integral_constant<int, kR0>{});
     case 1: return f(std::integral_constant<int, kR1>{});

@@ -110,13 +110,8 @@ class FusedOperands:
                                        repr=False)
 
     def _untile(self, name: str) -> torch.Tensor:
-        got = self._untiled.get(name)
-        if got is None:   # a race builds it twice, equal: harmless
-            lead = self.jb.ndim - 3
-            got = untile_verts(getattr(self, name + "_tiles"), self.n_verts,
-                               lead)
-            self._untiled[name] = got
-        return got
+        return memo(self._untiled, name, lambda: untile_verts(
+            getattr(self, name + "_tiles"), self.n_verts, self.jb.ndim - 3))
 
     @property
     def basis(self) -> torch.Tensor:
@@ -148,6 +143,31 @@ class FusedOperands:
             wt_tiles=self.wt_tiles[h])
 
 
+def memo(cache: dict, name: str, build) -> torch.Tensor:
+    """``cache[name]``, built by ``build()`` on first use (the untiled
+    forms kept beside a pack's tiles)."""
+    got = cache.get(name)
+    if got is None:   # a race builds it twice, equal: harmless
+        got = cache[name] = build()
+    return got
+
+
+def vert_buffer(lead, n_verts: int, dtype, device) -> torch.Tensor:
+    """A zeroed [*lead, nsub VERT_TILE] buffer: V padded to whole tiles,
+    for an operand's parts to be copied into before ``tile_verts``."""
+    return torch.zeros((*lead, cdiv(n_verts, VERT_TILE) * VERT_TILE),
+                       dtype=dtype, device=device)
+
+
+def tile_verts(flat: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """[..., nsub VERT_TILE, ...] (the vertex axis ``dim``, V zero-padded
+    to whole tiles) into the kernels' vertex-tiled layout [nsub, ...,
+    VERT_TILE, ...]: one contiguous block per tile. ``untile_verts``
+    inverts it for ``dim = -1``."""
+    dim %= flat.ndim
+    return flat.unflatten(dim, (-1, VERT_TILE)).movedim(dim, 0).contiguous()
+
+
 def untile_verts(tiles: torch.Tensor, n_verts: int,
                  lead: int = 0) -> torch.Tensor:
     """The kernels' vertex-tiled layout [*lead, nsub, ..., VERT_TILE]
@@ -160,7 +180,7 @@ def untile_verts(tiles: torch.Tensor, n_verts: int,
 def _pack(params) -> FusedOperands:
     # Packed on the params' device straight into the tiled layout: one
     # zeroed buffer [Kpad, 3, nsub VERT_TILE] whose parts are copied in
-    # (converted to float32 by the copy), then cut into tiles by one copy.
+    # (converted to float32 by the copy), then cut into tiles.
     # The joint products are taken in float64 so the packing adds no
     # rounding of its own. No library contraction of the kernels' own work
     # runs here: these are per-asset constants.
@@ -169,19 +189,13 @@ def _pack(params) -> FusedOperands:
     v, _, s = shape_basis.shape
     k = s + 1 + pose_basis.shape[-1]
     kpad = cdiv(k, 4) * 4
-    nsub = cdiv(v, VERT_TILE)
     f32, dev = torch.float32, params.device
-    flat = torch.zeros((kpad, 3, nsub * VERT_TILE), dtype=f32, device=dev)
+    flat = vert_buffer((kpad, 3), v, f32, dev)
     flat[:s, :, :v] = shape_basis.permute(2, 1, 0)
     flat[s, :, :v] = params.v_template.detach().T
     flat[s + 1:k, :, :v] = pose_basis.permute(2, 1, 0)
-    basis_tiles = flat.unflatten(-1, (nsub, VERT_TILE)).permute(
-        2, 0, 1, 3).contiguous()
-    wflat = torch.zeros((params.n_joints, nsub * VERT_TILE), dtype=f32,
-                        device=dev)
+    wflat = vert_buffer((params.n_joints,), v, f32, dev)
     wflat[:, :v] = params.lbs_weights.detach().T
-    wt_tiles = wflat.unflatten(-1, (nsub, VERT_TILE)).transpose(
-        0, 1).contiguous()
     j_reg = params.j_regressor.detach().to(torch.float64)   # [J, V]
     jt = j_reg @ params.v_template.detach().to(torch.float64)   # [J, 3]
     jsb = einsum("jv,vcs->jcs", j_reg, shape_basis.to(torch.float64))
@@ -192,8 +206,8 @@ def _pack(params) -> FusedOperands:
         parents_tuple=tuple(params.parents),
         n_coef=k,
         n_verts=v,
-        basis_tiles=basis_tiles,
-        wt_tiles=wt_tiles,
+        basis_tiles=tile_verts(flat),
+        wt_tiles=tile_verts(wflat),
     )
 
 

@@ -58,7 +58,7 @@ from mano_hand_tpu_torch.ops.common import (
     round_bf16, subject_rows,
 )
 from mano_hand_tpu_torch.ops.fused_forward import (
-    VERT_TILE, check_tree, untile_verts,
+    check_tree, memo, tile_verts, untile_verts, vert_buffer,
 )
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
@@ -100,55 +100,41 @@ class PosedOperands:
     def basis(self) -> torch.Tensor:
         """[cdiv(P, 4) 4, 3, V], the storage dtype: the rows the plain
         version contracts (the bf16 pack's extra zero rows dropped)."""
-        got = self._untiled.get("basis")
-        if got is None:   # a race builds it twice, equal: harmless
-            k = cdiv(9 * (self.n_joints - 1), 4) * 4
-            got = untile_verts(self.basis_tiles[:, :k], self.n_verts)
-            self._untiled["basis"] = got
-        return got
+        k = cdiv(9 * (self.n_joints - 1), 4) * 4
+        return memo(self._untiled, "basis", lambda: untile_verts(
+            self.basis_tiles[:, :k], self.n_verts))
 
     @property
     def wt(self) -> torch.Tensor:
         """[J, V], the storage dtype: the skinning weights, transposed."""
-        got = self._untiled.get("wt")
-        if got is None:
-            if self.wt_tiles.dtype == torch.bfloat16:
-                got = self.wt_tiles.flatten(0, 1)[:self.n_verts,
-                                                  :self.n_joints]
-                got = got.T.contiguous()
-            else:
-                got = untile_verts(self.wt_tiles, self.n_verts)
-            self._untiled["wt"] = got
-        return got
+        tiles = self.wt_tiles
+        if tiles.dtype == torch.bfloat16:   # vertex-major
+            tiles = tiles.transpose(-1, -2)
+        return memo(self._untiled, "wt", lambda: untile_verts(
+            tiles, self.n_verts)[:self.n_joints])
 
 
 def _pack(assets, bf16: bool) -> PosedOperands:
     # Packed on the assets' device straight into the tiled layouts: zeroed
     # buffers whose parts are copied in (rounded to the storage dtype by
-    # the copy, from f32), cut into tiles by one copy.
+    # the copy, from f32), then cut into tiles.
     pose_basis, lbs_weights = (x.detach().float() for x in assets)
     v, _, p = pose_basis.shape
     j = lbs_weights.shape[1]
-    nsub = cdiv(v, VERT_TILE)
     dtype = torch.bfloat16 if bf16 else torch.float32
+    dev = pose_basis.device
     step = 16 if bf16 else 4
-    flat = torch.zeros((cdiv(p, step) * step, 3, nsub * VERT_TILE),
-                       dtype=dtype, device=pose_basis.device)
+    flat = vert_buffer((cdiv(p, step) * step, 3), v, dtype, dev)
     flat[:p, :, :v] = pose_basis.permute(2, 1, 0)
-    basis_tiles = flat.unflatten(-1, (nsub, VERT_TILE)).permute(
-        2, 0, 1, 3).contiguous()
-    if bf16:
-        wflat = torch.zeros((nsub * VERT_TILE, cdiv(j, 16) * 16),
-                            dtype=dtype, device=pose_basis.device)
-        wflat[:v, :j] = lbs_weights
-        wt_tiles = wflat.unflatten(0, (nsub, VERT_TILE))
+    if bf16:   # vertex-major, J padded to one mma step
+        wflat = vert_buffer((cdiv(j, 16) * 16,), v, dtype, dev)
+        wflat[:j, :v] = lbs_weights.T
+        wt_tiles = tile_verts(wflat.T, dim=0)
     else:
-        wflat = torch.zeros((j, nsub * VERT_TILE), dtype=dtype,
-                            device=pose_basis.device)
+        wflat = vert_buffer((j,), v, dtype, dev)
         wflat[:, :v] = lbs_weights.T
-        wt_tiles = wflat.unflatten(-1, (nsub, VERT_TILE)).transpose(
-            0, 1).contiguous()
-    return PosedOperands(basis_tiles=basis_tiles, wt_tiles=wt_tiles,
+        wt_tiles = tile_verts(wflat)
+    return PosedOperands(basis_tiles=tile_verts(flat), wt_tiles=wt_tiles,
                          n_verts=v, n_joints=j)
 
 

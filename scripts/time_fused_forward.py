@@ -11,16 +11,17 @@ default this one), so two trees can be timed in turns in one run on
 one card: run it for the parent, the change, the change, the parent.
 ``--only`` times a subset of K1, K5, K3, K4 and K2.
 Each time is the median over 20 samples, after 3 warm-up calls, of 10
-back-to-back calls between two CUDA events, divided by 10. Each shape is
-also held against the kernel's plain PyTorch version (max abs error). K3
-runs in its forward form (R, t) and its backward form (R^T read in
-place, no t) on the plain pre-stage's transforms; K4 on the PyTorch
-pre-stage's coefficients and transforms. K2 and K2-bf16 run at every
+back-to-back calls between two CUDA events, divided by 10. K1, K5, K4, K2
+and K2-bf16 also get the same calls replayed from a CUDA graph: each of
+their times is a pair, ``call`` and ``graph`` (the kernel's device time
+where the wrapper's host time exceeds it, as at small batches). Each
+shape is also held against the kernel's plain PyTorch version (max abs
+error). K3 runs in its forward form (R, t) and its backward form (R^T
+read in place, no t) on the plain pre-stage's transforms; K4 on the
+PyTorch pre-stage's coefficients and transforms. K2 and K2-bf16 run at every
 batch of K2_BATCHES from subject tables of K2_CAPACITIES rows (random
 in-range indices), each held against ``core.forward_posed_gather`` in
-its dtype and timed twice: back-to-back calls (``call``, as above) and
-the same calls replayed from a CUDA graph (``graph``: the kernel's
-device time where the wrapper's host time exceeds it); beside them ``K2_blend_matmul`` times K2's blend alone as one
+its dtype; beside them ``K2_blend_matmul`` times K2's blend alone as one
 ``torch.matmul``, coef [B, Ppad] x basis [Ppad, 3V], in f32 (under the
 IEEE pin) and in bf16 — a yardstick of the blend's share, not a library
 time of K2 (no single PyTorch call computes K2's function).
@@ -40,10 +41,10 @@ import sys
 import numpy as np
 import torch
 
-K1_BATCHES = (1, 1000, 8192)
+K1_BATCHES = (1, 256, 1000, 1024, 8192)
 K5_BATCHES = (1, 1000, 4096, 32768)
 K3_BATCHES = (1024, 8192)
-K4_BATCHES = (1000, 8192)
+K4_BATCHES = (1, 256, 1000, 1024, 8192)
 K2_BATCHES = (1, 256, 1024, 8192)
 K2_CAPACITIES = (64, 1000)
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
@@ -80,6 +81,10 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
+def both_ms(fn) -> dict:
+    return {"call": cuda_ms(fn), "graph": graph_ms(fn)}
+
+
 def time_k2(result, params, core, err) -> None:
     """K2 and K2-bf16 at K2_BATCHES x K2_CAPACITIES, and the blend alone
     as one matmul, into ``result``."""
@@ -106,8 +111,7 @@ def time_k2(result, params, core, err) -> None:
                     return core.forward_posed_gather_fused(
                         table, idx, pose, compute_dtype=dt)
 
-                result[name][key] = {"call": cuda_ms(call),
-                                     "graph": graph_ms(call)}
+                result[name][key] = both_ms(call)
                 result["err"][f"{name} {key}"] = err(
                     core.forward_posed_gather_fused(table, idx, pose,
                                                     compute_dtype=dt),
@@ -175,7 +179,7 @@ def main() -> int:
     with torch.no_grad():
         for b in K1_BATCHES if "K1" in only else ():
             pose, shape = inputs(b)
-            result["K1"][b] = cuda_ms(
+            result["K1"][b] = both_ms(
                 lambda: fused_forward.forward_verts_fused_full(
                     params, pose, shape))
             result["err"][f"K1 B={b}"] = err(
@@ -183,7 +187,7 @@ def main() -> int:
                 fused_forward.forward_verts_plain(ops1, pose, shape))
         for b in K5_BATCHES if "K5" in only else ():
             pose, shape = inputs(2, b)
-            result["K5"][b] = cuda_ms(
+            result["K5"][b] = both_ms(
                 lambda: fused_forward.forward_verts_fused_full_hands(
                     stacked, pose, shape))
             rows = slice(0, min(b, 4096))
@@ -229,7 +233,7 @@ def main() -> int:
             coef, rot, t = (x.contiguous() for x in fused_forward.pre_stage(
                 ops1.parents_tuple, ops1.jb[..., s_], ops1.jb[..., :s_], pose,
                 shape, ops1.kpad))
-            result["K4"][b] = cuda_ms(
+            result["K4"][b] = both_ms(
                 lambda: fused_forward.blend_skin_fused(ops1, coef, rot, t))
             result["err"][f"K4 B={b}"] = err(
                 fused_forward.blend_skin_fused(ops1, coef, rot, t),

@@ -84,10 +84,11 @@ def _k1(params, b, seed=0):
     return got, want
 
 
-# B one below, at and one above each row tile MANO takes (8 and 32 for
-# small batches, 64); 257 and 1000 ragged.
+# B one below, at and one above the 8-row tile and its multiples; on 132
+# SMs MANO takes 8-row tiles up to B = 288, then 16, 32 (577 to 1152) and
+# 64 rows (with_row_tile), each ragged here (300, 1000, 2000).
 @pytest.mark.parametrize("b", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 257,
-                               1000])
+                               300, 1000, 2000])
 def test_k1_kernel_matches_plain(dev, b):
     got, want = _k1(_params(dev), b)
     assert got.shape == (b, 778, 3) and bool(torch.isfinite(got).all())

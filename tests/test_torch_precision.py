@@ -10,7 +10,8 @@ Pallas interpreter runs that kernel's dots in f32.
 Tolerances: port bf16 vs JAX XLA bf16 <= 1e-5 (the roundings happen at
 the same points; what remains is f32 summation order, unless an input
 sits within that order's reach of a bf16 rounding boundary — the seeded
-inputs here do not); K2-bf16's plain version vs the port's XLA-form bf16
+inputs of the fixed-seed tests here do not; the index test runs 16 pose
+seeds, some of which do, and holds the envelope and the median); K2-bf16's plain version vs the port's XLA-form bf16
 <= 1e-6 (the same arithmetic); bf16 vs f32 above 1e-6 (the tier is
 really running) and within the 2e-3 m envelope; the engine's tier-1
 results vs direct f32 calls <= 1e-6 (batch-size rounding only).
@@ -174,28 +175,42 @@ def test_k2_bf16_operands_are_bf16_and_repack(tables):
 def test_bf16_gather_wraps_negative_indices_like_jax(tables):
     """The bf16 family maps indices as JAX's XLA gather does: a negative
     index i selects row i + C, then all are clamped to [0, C - 1] — in
-    the port's gather and in K2-bf16's plain version. (Pose seed 9 puts
-    one row's value on a bf16 rounding boundary that the two frameworks'
-    summation orders round apart, 1.3e-5 on every index form: the module
-    docstring's caveat; seed 10 does not.)"""
+    the port's gather and in K2-bf16's plain version. The mapping is held
+    bit for bit on both sides (each framework's result on the indices
+    equals its result on the mapped rows), on the pose seeds 0-15 alike.
+    Across the frameworks the rows agree to f32 summation order except
+    where an operand sits on a bf16 rounding boundary that the two
+    summation orders round apart (1 row in 64 here: seed 9 reads 1.3e-5,
+    seed 12 2.0e-4). One such flip moves one skinning entry by one bf16
+    ulp, at most 2^-7 of it, so a vertex by about 2^-7 of its distance
+    from the joint (at most 1.5e-3 m on assets 0.2 m across): inside the
+    tier's envelope, at which every row is held; the median row is held
+    at 1e-6."""
     jtab, ttab, _ = tables
     c = ttab.capacity
     idx = np.array([-c - 3, -c, -3, -1, 0, c - 1, c, c + 7], np.int32)
     rows = np.array([0, 0, c - 3, c - 1, 0, c - 1, c - 1, c - 1], np.int32)
-    pose, _ = _pose_idx(len(idx), 10)
-    mapped = core.forward_posed_gather(ttab, torch.from_numpy(rows),
-                                       torch.from_numpy(pose),
-                                       compute_dtype=BF16).verts
-    want = jcore.forward_posed_gather(jtab, jnp.asarray(idx),
-                                      jnp.asarray(pose),
-                                      compute_dtype=jnp.bfloat16).verts
-    pose_t, idx_t = torch.from_numpy(pose), torch.from_numpy(idx)
-    got = core.forward_posed_gather(ttab, idx_t, pose_t, compute_dtype=BF16)
-    assert _err(got.verts, want) <= 1e-5
-    assert torch.equal(got.verts, mapped)
-    plain = core.forward_posed_gather_fused(ttab, idx_t, pose_t,
-                                            compute_dtype=BF16)
-    assert _err(plain, want) <= 1e-5
+    row_errs = []
+    for seed in range(16):
+        pose, _ = _pose_idx(len(idx), seed)
+        want = jcore.forward_posed_gather(jtab, jnp.asarray(idx),
+                                          jnp.asarray(pose),
+                                          compute_dtype=jnp.bfloat16).verts
+        want_rows = jcore.forward_posed_gather(
+            jtab, jnp.asarray(rows), jnp.asarray(pose),
+            compute_dtype=jnp.bfloat16).verts
+        assert np.array_equal(np.asarray(want), np.asarray(want_rows))
+        pose_t = torch.from_numpy(pose)
+        for fn in (lambda i: core.forward_posed_gather(
+                       ttab, i, pose_t, compute_dtype=BF16).verts,
+                   lambda i: core.forward_posed_gather_fused(
+                       ttab, i, pose_t, compute_dtype=BF16)):
+            got = fn(torch.from_numpy(idx))
+            assert torch.equal(got, fn(torch.from_numpy(rows)))
+            assert _err(got, want) <= ENVELOPE, seed
+            row_errs += [_err(got[r], np.asarray(want)[r])
+                         for r in range(len(idx))]
+    assert float(np.median(row_errs)) <= 1e-6
     assert fused_posed.bf16_launches == 0
 
 
