@@ -20,7 +20,16 @@ each with every launch count zeroed just before it and read just after:
   (``forward_hands_pallas_fused_full``) at [2, 4096], [2, 1000], [2, 1]
   and [2, 32768], and a serving engine under a ``PrecisionPolicy`` whose
   interleaved tier-0 and tier-1 pose-only requests run through K2's bf16
-  variant and K2 respectively.
+  variant and K2 respectively;
+* the quick start (phase ``quick_start``, the plain core, no kernel): an
+  official chumpy-era pickle and a dumped pickle forged from the
+  synthetic asset, ``load_model`` onto the card, ``MANOModel(params,
+  backend="torch")`` driven with the reference demo's inputs and held
+  against the float64 oracle (verts, rest verts, joints, the 21 OpenPose
+  keypoints), a batch of 256 PCA poses on the card against the CPU,
+  ``forward_bucketed`` against ``__call__`` with its counters, OBJ and
+  binary PLY round trips, and 5 Adam steps through ``TorchManoLayer``
+  on (pose, shape, trans) at B = 256 against the same steps on the CPU.
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -88,6 +97,24 @@ CLIP_FRAMES, CLIP_KEYS = 120, 8      # BASELINE config 5: a two-hand clip
 TIER_SUBJECTS, TIER_CLIENTS, TIER_REQUESTS = 8, 4, 10
 KERNEL_TOL = 1e-5    # kernel vs its plain version, both fp32 on the card
 ORACLE_TOL = 1e-4    # vs the float64 oracle: the repo's vertex gate
+# The quick start (phase quick_start): the reference demo's inputs, a PCA
+# batch on the card vs the CPU, the bucketed forward vs the direct call,
+# and Adam steps through TorchManoLayer on the card vs the CPU.
+DEMO_POSE_PCA = np.array([
+    -0.32322194, 0.740878, -1.182191, 1.51246975, -1.89044963,
+    0.68187004, -0.33078079, 0.23475931, -1.43845225,
+])
+DEMO_SHAPE = np.array([
+    -0.33191198, 0.88129797, -1.9995425, -0.79066971, -1.41297644,
+    -1.63064562, -1.25495915, -0.61775709, -0.4129301, 0.15526694,
+])
+DEMO_GLOBAL_ROT = np.array([1.0, 0.0, 0.0])
+QS_BATCH = 256              # __call__ PCA batch and the layer's batch
+QS_BUCKETED = (5, 300, 5)   # forward_bucketed rows: buckets 8, 512, 8 again
+QS_STEPS, QS_LR = 5, 0.02   # Adam steps through TorchManoLayer
+QS_DEVICE_TOL = 1e-5        # card vs CPU, f32 both
+QS_BUCKET_TOL = 1e-6        # forward_bucketed vs __call__ on the card
+QS_REL_TOL = 1e-4           # the layer's losses and step-1 gradients
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -273,6 +300,250 @@ def bound(flops, moved, gpu_name, bf16_flops=0):
     t_bytes = moved / peak_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def forge_assets(directory: str) -> dict:
+    """Write the synthetic asset (seed SEED) as an official chumpy-era
+    MANO pickle (``MANO_RIGHT.pkl``: chumpy-wrapped arrays with chumpy
+    absent at load time, a sparse J_regressor, the uint32 root sentinel)
+    and as the reference's nine-key dumped pickle
+    (``dump_mano_right.pkl``, ``parents[0] = None``); returns
+    {"arrays": ..., "official": path, "dumped": path}."""
+    import pickle
+    import types
+
+    import scipy.sparse as sp
+
+    from mano_hand_tpu_torch.assets import synthetic_arrays
+
+    arrays = synthetic_arrays(seed=SEED)
+    fake = types.ModuleType("chumpy")
+
+    class Ch:
+        def __init__(self, x):
+            self.x = np.asarray(x)
+            self.dterms = ("x",)
+
+    Ch.__module__ = "chumpy"
+    Ch.__qualname__ = "Ch"
+    fake.Ch = Ch
+    require("chumpy" not in sys.modules, "no chumpy module before forging")
+    sys.modules["chumpy"] = fake
+    official = os.path.join(directory, "MANO_RIGHT.pkl")
+    parents = arrays["parents"]
+    try:
+        with open(official, "wb") as f:
+            pickle.dump({
+                "v_template": Ch(arrays["v_template"]),
+                "shapedirs": Ch(arrays["shape_basis"]),
+                "posedirs": arrays["pose_basis"],
+                "J_regressor": sp.csc_matrix(arrays["j_regressor"]),
+                "weights": Ch(arrays["lbs_weights"]),
+                "hands_components": arrays["pca_basis"],
+                "hands_mean": arrays["pca_mean"],
+                "f": arrays["faces"].astype(np.uint32),
+                "kintree_table": np.stack([
+                    np.asarray([4294967295] + list(parents[1:]), np.uint32),
+                    np.arange(len(parents), dtype=np.uint32)]),
+            }, f, protocol=2)
+    finally:
+        del sys.modules["chumpy"]
+    dumped = os.path.join(directory, "dump_mano_right.pkl")
+    with open(dumped, "wb") as f:
+        pickle.dump({
+            "pose_pca_basis": arrays["pca_basis"],
+            "pose_pca_mean": arrays["pca_mean"],
+            "J_regressor": arrays["j_regressor"],
+            "skinning_weights": arrays["lbs_weights"],
+            "mesh_pose_basis": arrays["pose_basis"],
+            "mesh_shape_basis": arrays["shape_basis"],
+            "mesh_template": arrays["v_template"],
+            "faces": arrays["faces"],
+            "parents": [None] + list(parents[1:]),
+        }, f)
+    return {"arrays": arrays, "official": official, "dumped": dumped}
+
+
+def quick_start(dev, counts, zero_counts) -> dict:
+    """The port's front door at full MANO width, as a user drives it:
+    load_model -> MANOModel(backend="torch") -> set_params(demo) ->
+    keypoints / __call__ / forward_bucketed -> export_obj / export_ply,
+    and TorchManoLayer in a training loop. Every step is held against
+    the float64 oracle or the same step on the CPU; any failure raises.
+    Returns the phase's JSON line."""
+    import tempfile
+
+    from mano_hand_tpu_torch import constants
+    from mano_hand_tpu_torch.assets import ARRAY_FIELDS, load_model
+    from mano_hand_tpu_torch.interop import TorchManoLayer
+    from mano_hand_tpu_torch.io import read_obj, read_ply
+    from mano_hand_tpu_torch.models import MANOModel, oracle
+
+    line = {"phase": "quick_start"}
+    seconds = {}
+    rng = np.random.default_rng(SEED + 8)
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1-2. Forge both pickle formats; load them onto the card.
+        t0 = time.perf_counter()
+        forged = forge_assets(tmp)
+        arrays = forged["arrays"]
+        params = load_model(forged["official"], device=dev)
+        dumped = load_model(forged["dumped"], device=dev)
+        for name in ARRAY_FIELDS:
+            for p in (params, dumped):
+                got = getattr(p, name).cpu().numpy()
+                require(np.array_equal(got, arrays[name].astype(got.dtype)),
+                        f"{name} loads equal to the forged array")
+        require(params.device.type == "cuda"
+                and params.dtype == torch.float64, "load_model to the card")
+        require(params.side == dumped.side == "right"
+                and params.parents == dumped.parents
+                == tuple(arrays["parents"]), "side and parents")
+        model = MANOModel(params, backend="torch")
+        require(model.device.type == "cuda", "MANOModel on the card")
+        torch.cuda.synchronize()
+        seconds["load"] = time.perf_counter() - t0
+
+        # 3-5. The demo inputs; verts, rest verts, joints and the 21
+        #      OpenPose keypoints against the float64 oracle.
+        t0 = time.perf_counter()
+        model.set_params(pose_pca=DEMO_POSE_PCA, shape=DEMO_SHAPE,
+                         global_rot=DEMO_GLOBAL_ROT)
+        pose64 = oracle.decode_pca_pose(params, DEMO_POSE_PCA,
+                                        DEMO_GLOBAL_ROT)
+        ref = oracle.forward(params, pose64, DEMO_SHAPE)
+        line["demo_err"] = {
+            "verts": float(np.abs(model.verts - ref.verts).max()),
+            "rest_verts": float(np.abs(model.rest_verts
+                                       - ref.rest_verts).max()),
+            "joints": float(np.abs(model.J - ref.joints).max())}
+        tips = list(constants.TIP_VERTEX_IDS["smplx"])
+        kp_ref = np.concatenate([ref.posed_joints, ref.verts[tips]])[
+            list(constants.MANO21_TO_OPENPOSE)]
+        kp = model.keypoints("smplx", order="openpose")
+        require(kp.shape == (21, 3), "21 keypoints")
+        line["keypoints_err"] = float(np.abs(kp - kp_ref).max())
+        seconds["demo"] = time.perf_counter() - t0
+        for what, err in line["demo_err"].items():
+            require(err <= ORACLE_TOL, f"demo {what} vs oracle {err}")
+        require(line["keypoints_err"] <= ORACLE_TOL,
+                f"keypoints vs oracle {line['keypoints_err']}")
+
+        # 6. __call__ on a batch of PCA poses: the card vs the CPU.
+        t0 = time.perf_counter()
+        pca = rng.normal(size=(QS_BATCH, 45))
+        grot = rng.normal(scale=0.5, size=(QS_BATCH, 3))
+        betas = rng.normal(size=(QS_BATCH, 10))
+        cpu_model = MANOModel(params, backend="torch", device="cpu")
+        v_card = model(pose_pca=pca, global_rot=grot, shape=betas)
+        v_cpu = cpu_model(pose_pca=pca, global_rot=grot, shape=betas)
+        require(v_card.shape == (QS_BATCH, params.n_verts, 3)
+                and bool(np.isfinite(v_card).all()), "batched call shape")
+        line["call_card_vs_cpu"] = float(np.abs(v_card - v_cpu).max())
+        v_orc = oracle.forward_batch_verts(
+            params, np.stack([oracle.decode_pca_pose(params, c, r)
+                              for c, r in zip(pca[:8], grot[:8])]),
+            betas[:8])
+        line["call_vs_oracle"] = float(np.abs(v_card[:8] - v_orc).max())
+        seconds["call"] = time.perf_counter() - t0
+        require(line["call_card_vs_cpu"] <= QS_DEVICE_TOL,
+                f"__call__ card vs CPU {line['call_card_vs_cpu']}")
+        require(line["call_vs_oracle"] <= ORACLE_TOL,
+                f"__call__ vs oracle {line['call_vs_oracle']}")
+
+        # 7. forward_bucketed vs __call__, with its counters.
+        t0 = time.perf_counter()
+        bucketed = {}
+        for n in QS_BUCKETED:
+            pose = rng.normal(scale=0.5, size=(n, params.n_joints, 3))
+            shape = rng.normal(size=(n, params.n_shape))
+            got = model.forward_bucketed(pose, shape)
+            require(got.shape == (n, params.n_verts, 3), "bucketed shape")
+            err = float(np.abs(got - model(pose=pose, shape=shape)).max())
+            bucketed[str(n)] = max(bucketed.get(str(n), 0.0), err)
+        snap = model.serving_counters.snapshot()
+        line["bucketed_vs_call"] = bucketed
+        line["bucketed_counters"] = {k: snap[k] for k in (
+            "compiles", "dispatches", "rows_live", "rows_padded")}
+        seconds["bucketed"] = time.perf_counter() - t0
+        require(max(bucketed.values()) <= QS_BUCKET_TOL,
+                f"forward_bucketed vs __call__ {bucketed}")
+        require(snap["compiles"] == 2 and snap["dispatches"] == 3,
+                f"two buckets built, three dispatches {snap}")
+        require(snap["rows_live"] == sum(QS_BUCKETED)
+                and snap["rows_padded"] == 3 + 212 + 3, f"rows {snap}")
+
+        # 8. OBJ pair and binary PLY round trips.
+        t0 = time.perf_counter()
+        obj_path = os.path.join(tmp, "hand.obj")
+        model.export_obj(obj_path)
+        mesh = read_obj(obj_path)
+        rest = read_obj(os.path.join(tmp, "hand_restpose.obj"))
+        ply_path = os.path.join(tmp, "hand.ply")
+        model.export_ply(ply_path, binary=True)
+        ply = read_ply(ply_path)
+        line["obj_err"] = float(max(np.abs(mesh.verts - model.verts).max(),
+                                    np.abs(rest.verts
+                                           - model.rest_verts).max()))
+        line["ply_err"] = float(np.abs(ply.verts - model.verts).max())
+        seconds["io"] = time.perf_counter() - t0
+        require(np.array_equal(mesh.faces, model.faces)
+                and np.array_equal(ply.faces, model.faces), "faces read back")
+        require(ply.normals is not None, "PLY normals written")
+        require(line["obj_err"] <= 1e-6, f"OBJ round trip {line['obj_err']}")
+        require(line["ply_err"] <= 1e-6, f"PLY round trip {line['ply_err']}")
+
+    # 9. TorchManoLayer: Adam steps on (pose, shape, trans) on the card and
+    #    on the CPU, from zeros towards a random target.
+    t0 = time.perf_counter()
+    true_pose = torch.from_numpy(rng.normal(
+        scale=0.3, size=(QS_BATCH, params.n_joints, 3)).astype(np.float32))
+    true_shape = torch.from_numpy(rng.normal(
+        size=(QS_BATCH, params.n_shape)).astype(np.float32))
+    true_trans = torch.from_numpy(rng.normal(
+        scale=0.05, size=(QS_BATCH, 3)).astype(np.float32))
+    target = TorchManoLayer(params, device="cpu")(
+        true_pose, true_shape, true_trans)[0].detach()
+
+    def train(device):
+        layer = TorchManoLayer(params, device=device)
+        leaves = [torch.zeros(x.shape, device=device, requires_grad=True)
+                  for x in (true_pose, true_shape, true_trans)]
+        opt = torch.optim.Adam(leaves, lr=QS_LR)
+        tgt = target.to(device)
+        losses, grads = [], None
+        for _ in range(QS_STEPS):
+            opt.zero_grad()
+            verts, _ = layer(*leaves)
+            loss = ((verts - tgt) ** 2).sum(-1).mean()
+            loss.backward()
+            if grads is None:
+                grads = [x.grad.detach().cpu().clone() for x in leaves]
+            opt.step()
+            losses.append(loss.item())
+        return losses, grads
+
+    card_losses, card_grads = train(dev)
+    cpu_losses, cpu_grads = train("cpu")
+    line["layer_losses"] = card_losses
+    line["layer_loss_rel"] = max(abs(a - b) / max(1e-30, abs(b))
+                                 for a, b in zip(card_losses, cpu_losses))
+    line["layer_grad_rel"] = {
+        name: rel_err(a, b) for name, a, b in zip(
+            ("pose", "shape", "trans"), card_grads, cpu_grads)}
+    seconds["layer"] = time.perf_counter() - t0
+    require(all(b < a for a, b in zip(card_losses, card_losses[1:])),
+            f"the layer's loss falls at every step {card_losses}")
+    require(line["layer_loss_rel"] <= QS_REL_TOL,
+            f"layer losses card vs CPU {line['layer_loss_rel']}")
+    require(max(line["layer_grad_rel"].values()) <= QS_REL_TOL,
+            f"layer step-1 gradients card vs CPU {line['layer_grad_rel']}")
+    line["kernel_launches"] = counts()
+    require(not any(line["kernel_launches"].values()),
+            "the quick-start path runs the plain core (no kernel launch)")
+    line["seconds"] = {k: round(v, 3) for k, v in seconds.items()}
+    return line
 
 
 def main() -> int:
@@ -877,7 +1148,12 @@ def main() -> int:
     require(max(tf32_full, tf32_gather) <= KERNEL_TOL,
             "the f32 family ignores the caller's TF32 switch")
 
-    # 18. Times, at the main paths' largest shapes, in turns with the plain
+    # 18. The quick start: asset loading, MANOModel, keypoints, the
+    #     bucketed forward, OBJ/PLY and TorchManoLayer (plain core, no
+    #     kernel; counts zeroed just before it and read just after).
+    emit(quick_start(dev, counts, zero_counts))
+
+    # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     #     K1 and K5 at every batch of their paths.
     b1 = K1_BATCHES[0]

@@ -9,23 +9,29 @@ with ``nvcc`` at their first launch. Gradients reach pose, shape and the
 parameters through the three differentiable kernel routes and
 ``forward_chunked``, the huge-batch entry point; ``forward_hands`` and
 K5 run both hands of a ``stack_params`` pair.
+
+The quick start: ``load_model`` (every asset format) ->
+``MANOModel(params, backend="torch")`` -> ``set_params`` ->
+``keypoints`` / ``export_obj``; ``TorchManoLayer`` is the
+differentiable ``nn.Module`` for torch training loops.
 """
 
 from mano_hand_tpu_torch import constants
 from mano_hand_tpu_torch.assets import (
-    ManoParams, params_from_numpy, synthetic_params, validate,
+    ManoParams, load_model, params_from_numpy, synthetic_params, validate,
 )
+from mano_hand_tpu_torch.interop import TorchManoLayer
 from mano_hand_tpu_torch.models import (
-    ManoOutput, forward, forward_batched, forward_batched_pallas,
+    MANOModel, ManoOutput, decode_pca, forward, forward_batched, forward_batched_pallas,
     forward_batched_pallas_fused, forward_batched_pallas_fused_full,
     forward_chunked, forward_hands, forward_hands_pallas_fused_full,
-    stack_params,
+    forward_pca, keypoints, stack_params,
 )
 
-__all__ = ["ManoOutput", "ManoParams", "constants", "forward",
-           "forward_batched", "forward_batched_pallas",
-           "forward_batched_pallas_fused",
+__all__ = ["MANOModel", "ManoOutput", "ManoParams", "TorchManoLayer",
+           "constants", "decode_pca", "forward", "forward_batched",
+           "forward_batched_pallas", "forward_batched_pallas_fused",
            "forward_batched_pallas_fused_full", "forward_chunked",
            "forward_hands", "forward_hands_pallas_fused_full",
-           "params_from_numpy", "stack_params", "synthetic_params",
-           "validate"]
+           "forward_pca", "keypoints", "load_model", "params_from_numpy",
+           "stack_params", "synthetic_params", "validate"]

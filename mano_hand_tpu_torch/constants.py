@@ -22,3 +22,31 @@ LEFT = "left"
 RIGHT = "right"
 # Body-family assets are unsided.
 NEUTRAL = "neutral"
+
+# ---------------------------------------------------------------- keypoints
+# The MANO skeleton regresses 16 joints and no fingertips (the tips are
+# mesh surface, not skeleton). Hand-pose datasets and detectors (FreiHAND,
+# HO-3D, InterHand2.6M, OpenPose/MediaPipe) use 21 keypoints: the 16
+# joints plus one fingertip per finger, each a fixed vertex of the
+# official 778-vertex mesh. Two vertex-id conventions circulate in the
+# torch ecosystem; both are provided. Order within each tuple: (thumb,
+# index, middle, ring, pinky).
+TIP_VERTEX_IDS = {
+    "smplx": (744, 320, 443, 554, 671),    # smplx VertexJointSelector
+    "manopth": (745, 317, 444, 556, 673),  # manopth ManoLayer tips
+}
+
+# MANO's 16 joints are ordered wrist, index(3), middle(3), pinky(3),
+# ring(3), thumb(3) — the kinematic-tree order of MANO_PARENTS above. With
+# the 5 tips appended (thumb..pinky, indices 16..20), this permutation
+# re-orders the 21 keypoints into the OpenPose/FreiHAND convention
+# (wrist, thumb CMC->tip, index MCP->tip, middle, ring, pinky):
+# openpose[i] = mano21[MANO21_TO_OPENPOSE[i]].
+MANO21_TO_OPENPOSE = (
+    0,
+    13, 14, 15, 16,   # thumb chain + tip
+    1, 2, 3, 17,      # index
+    4, 5, 6, 18,      # middle
+    10, 11, 12, 19,   # ring
+    7, 8, 9, 20,      # pinky
+)

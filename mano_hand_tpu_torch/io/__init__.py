@@ -1,0 +1,25 @@
+"""Mesh and array I/O: OBJ (with the native C++ writer, ``io/native.py``),
+PLY and ``.npz`` checkpoints (``io/checkpoints.py``, imported on demand).
+Host-side: tensors are copied to the host and written from NumPy."""
+
+from mano_hand_tpu_torch.io.obj import (
+    export_obj,
+    export_obj_pair,
+    export_obj_sequence,
+    format_obj,
+    read_obj,
+    restpose_path,
+)
+from mano_hand_tpu_torch.io.ply import PlyMesh, export_ply, read_ply
+
+__all__ = [
+    "PlyMesh",
+    "export_obj",
+    "export_obj_pair",
+    "export_obj_sequence",
+    "export_ply",
+    "format_obj",
+    "read_obj",
+    "read_ply",
+    "restpose_path",
+]

@@ -23,6 +23,10 @@ Rodrigues, FK, the residual adds and the output stay f32).
 The subject-table functions are functional: each returns a new table and
 leaves its input untouched, so a table captured by an in-flight batch
 stays valid while the serving engine installs subjects.
+Beside the forward: the pose PCA (``decode_pca``, ``forward_pca``,
+``sample_poses``), the rotation-matrix entry (``forward_batched_rotmats``)
+and the 21-keypoint set (``keypoints``, ``keypoints_chunked``), all plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -168,6 +172,148 @@ def forward_batched(params: ManoParams, pose: torch.Tensor,
                         lead=(pose.shape[0],))
     fwd = forward_fused_rotmats if fused else forward_rotmats
     return fwd(params, rot, shape)
+
+
+def forward_batched_rotmats(params: ManoParams, rot_mats: torch.Tensor,
+                            shape: torch.Tensor,
+                            fused: bool = True) -> ManoOutput:
+    """Batched forward from rotation matrices [B, J, 3, 3] (no Rodrigues),
+    shape [B, S]; like ``forward_batched``, the fused-basis path is the
+    default."""
+    fwd = forward_fused_rotmats if fused else forward_rotmats
+    return fwd(params, rot_mats, shape)
+
+
+# ----------------------------------------------------------------- pose PCA
+def decode_pca(params: ManoParams, pca_coeffs: torch.Tensor,
+               global_rot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """PCA pose coefficients [..., n <= (J-1)*3] -> full pose [..., J, 3].
+
+    Reference semantics: the truncated basis rows, plus the mean pose,
+    with the global-rotation row prepended (zeros when ``global_rot`` is
+    None; a single [3] rotation broadcasts over any coefficient batch).
+    The articulated joint count comes from the asset (15 for MANO, 23
+    for an SMPL body, whose identity basis makes this a pass-through).
+    """
+    dtype, dev = params.dtype, params.device
+    pca_coeffs = torch.as_tensor(pca_coeffs, device=dev).to(dtype)
+    n = pca_coeffs.shape[-1]
+    flat = einsum("...n,nf->...f", pca_coeffs,
+                  params.pca_basis[:n]) + params.pca_mean
+    n_arti = params.pca_mean.shape[-1] // 3
+    lead = pca_coeffs.shape[:-1]
+    fingers = flat.reshape(*lead, n_arti, 3)
+    if global_rot is None:
+        root = fingers.new_zeros((*lead, 1, 3))
+    else:
+        root = torch.as_tensor(global_rot, device=dev).to(dtype)
+        if root.dim() <= 1:
+            root = root.reshape(3).expand(*lead, 1, 3)
+        else:
+            root = root.reshape(*lead, 1, 3)
+    return torch.cat([root, fingers], dim=-2)
+
+
+def forward_pca(params: ManoParams, pca_coeffs: torch.Tensor,
+                global_rot: Optional[torch.Tensor] = None,
+                shape: Optional[torch.Tensor] = None) -> ManoOutput:
+    """Single-hand forward from PCA pose coefficients (the reference's
+    default input)."""
+    return forward(params, decode_pca(params, pca_coeffs, global_rot), shape)
+
+
+def sample_poses(params: ManoParams, generator: torch.Generator, n: int,
+                 pca_scale: float = 1.0, global_rot_scale: float = 0.0,
+                 component_vars=None) -> torch.Tensor:
+    """Draw ``n`` anatomically plausible random poses [n, J, 3].
+
+    PCA coefficients ``z ~ N(0, pca_scale^2 I)`` (optionally scaled per
+    component by ``component_vars``) decode through the asset's basis and
+    mean pose: samples bend joints along directions real hands use.
+    ``global_rot_scale > 0`` adds a random axis-angle global rotation
+    row. The draws come from ``generator`` on the generator's own device
+    (the JAX package takes a PRNG key), so a CPU generator gives the same
+    poses whatever device ``params`` live on.
+    """
+    n_pca = params.pca_mean.shape[-1]
+    dtype, gdev = params.dtype, generator.device
+    z = torch.randn((n, n_pca), generator=generator, dtype=dtype,
+                    device=gdev) * pca_scale
+    if component_vars is not None:
+        z = z * torch.sqrt(torch.as_tensor(component_vars, dtype=dtype,
+                                           device=gdev))
+    global_rot = None
+    if global_rot_scale:
+        global_rot = torch.randn((n, 3), generator=generator, dtype=dtype,
+                                 device=gdev) * global_rot_scale
+    return decode_pca(params, z.to(params.device), global_rot)
+
+
+# ---------------------------------------------------------------- keypoints
+def resolve_tip_ids(tip_vertex_ids, n_verts: int):
+    """Normalise a fingertip-vertex spec to a tuple of valid vertex ids.
+
+    ``tip_vertex_ids`` is None (no tips: the bare skeleton joints), a
+    convention name from ``constants.TIP_VERTEX_IDS`` (``"smplx"`` |
+    ``"manopth"``, vertex ids on the official 778-vertex mesh), or an
+    explicit sequence of vertex indices (any length).
+    """
+    if tip_vertex_ids is None:
+        return None
+    if isinstance(tip_vertex_ids, str):
+        try:
+            tip_vertex_ids = constants.TIP_VERTEX_IDS[tip_vertex_ids]
+        except KeyError:
+            raise ValueError(
+                f"unknown tip convention {tip_vertex_ids!r}; known: "
+                f"{sorted(constants.TIP_VERTEX_IDS)} (or pass explicit "
+                "vertex ids)"
+            ) from None
+    ids = tuple(int(i) for i in tip_vertex_ids)
+    if not ids:
+        return None  # () means the same as None: the bare skeleton
+    bad = [i for i in ids if not 0 <= i < n_verts]
+    if bad:
+        raise ValueError(
+            f"tip vertex ids {bad} out of range for a {n_verts}-vertex mesh"
+        )
+    return ids
+
+
+def select_keypoints(verts: torch.Tensor, posed_joints: torch.Tensor,
+                     tips=None, order: str = "mano",
+                     axis: int = -2) -> torch.Tensor:
+    """THE keypoint selection: append the tip rows (``tips`` pre-resolved
+    by ``resolve_tip_ids``, or None) to the posed joints along ``axis``,
+    then apply the dataset ordering."""
+    if order not in ("mano", "openpose"):
+        raise ValueError(f"order must be 'mano' or 'openpose', got {order!r}")
+    kp = posed_joints
+    if tips is not None:
+        idx = torch.tensor(tips, dtype=torch.long, device=verts.device)
+        kp = torch.cat([kp, torch.index_select(verts, axis, idx)], dim=axis)
+    if order == "openpose":
+        n = kp.shape[axis]
+        if n != len(constants.MANO21_TO_OPENPOSE):
+            raise ValueError(
+                "order='openpose' needs the 21-keypoint set (16 joints + "
+                f"5 tips), got {n} keypoints"
+            )
+        perm = torch.tensor(constants.MANO21_TO_OPENPOSE, dtype=torch.long,
+                            device=kp.device)
+        kp = torch.index_select(kp, axis, perm)
+    return kp
+
+
+def keypoints(out: ManoOutput, tip_vertex_ids=None,
+              order: str = "mano") -> torch.Tensor:
+    """Keypoints [..., 16(+T), 3]: the posed joints plus fingertip vertex
+    picks. With the standard 5 tips, ``order="openpose"`` re-orders into
+    the OpenPose/FreiHAND convention (``constants.MANO21_TO_OPENPOSE``);
+    ``order="mano"`` keeps [16 joints | tips as given]. Leading axes
+    broadcast."""
+    tips = resolve_tip_ids(tip_vertex_ids, out.verts.shape[-2])
+    return select_keypoints(out.verts, out.posed_joints, tips, order)
 
 
 # ------------------------------------------------------ shape specialization
@@ -471,6 +617,27 @@ def _pad_and_chunk(pose: torch.Tensor, shape: torch.Tensor, chunk_size: int):
     return (pose.reshape(n_chunks, chunk_size, *pose.shape[1:]),
             shape.reshape(n_chunks, chunk_size, *shape.shape[1:]),
             chunk_size)
+
+
+def keypoints_chunked(params: ManoParams, pose: torch.Tensor,
+                      shape: torch.Tensor, tip_vertex_ids=None,
+                      order: str = "mano",
+                      chunk_size: int = 8192) -> torch.Tensor:
+    """Huge-batch keypoints [B, 16(+T), 3] without a [B, V, 3] vertex slab:
+    each chunk runs ``forward_batched`` and reduces to its keypoints, so
+    full-mesh vertices never accumulate across the batch (the
+    synthetic-label path: 21 keypoints for millions of poses)."""
+    b = pose.shape[0]
+    tips = resolve_tip_ids(tip_vertex_ids, params.n_verts)
+
+    def chunk_fn(p, s):
+        out = forward_batched(params, p, s)
+        return select_keypoints(out.verts, out.posed_joints, tips, order)
+
+    if b == 0:
+        return chunk_fn(pose, shape)
+    pose_c, shape_c, _ = _pad_and_chunk(pose, shape, chunk_size)
+    return torch.cat([chunk_fn(p, s) for p, s in zip(pose_c, shape_c)])[:b]
 
 
 def forward_posed_gather_fused(table: SubjectTable,

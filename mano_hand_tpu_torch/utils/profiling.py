@@ -2,8 +2,10 @@
 
 A thread-safe subset of the JAX package's ``ServingCounters``: batch
 dispatches and the rows in them, the coalescing of requests (and of
-subjects) into batches, and the subject table's bakes, hits, growths and
-evictions. The dispatcher thread and submitters both write here.
+subjects) into batches, the subject table's bakes, hits, growths and
+evictions, and the per-bucket callables built (``compiles``, counted by
+``MANOModel.forward_bucketed``). The dispatcher thread and submitters
+both write here.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ class ServingCounters:
         self.shaped_hits = 0             # subject-cache hits (bake reused)
         self.table_growths = 0           # subject-table capacity doublings
         self.specializations_evicted = 0  # LRU table-row evictions
+        self.compiles = 0                # per-bucket callables built
 
     def count_dispatch(self, bucket: int, live_rows: int, requests: int = 1,
                        subjects: int = 1, bf16: bool = False) -> None:
@@ -55,6 +58,11 @@ class ServingCounters:
         with self._lock:
             self.specializations_evicted += n
 
+    def count_compile(self, n: int = 1) -> None:
+        """One bucket's callable built (a cache miss of its bucket)."""
+        with self._lock:
+            self.compiles += n
+
     @staticmethod
     def _width_mean(requests_dispatched: int, dispatches: int) -> float:
         return requests_dispatched / dispatches if dispatches else 0.0
@@ -80,6 +88,7 @@ class ServingCounters:
                 "shaped_hits": self.shaped_hits,
                 "table_growths": self.table_growths,
                 "specializations_evicted": self.specializations_evicted,
+                "compiles": self.compiles,
             }
             out["coalesce_width_mean"] = round(
                 self._width_mean(self.requests_dispatched, self.dispatches),

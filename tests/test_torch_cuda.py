@@ -64,7 +64,8 @@ def _params(dev, n_joints=16, n_verts=778, n_shape=10):
 
 
 def _err(a, b):
-    return float((a.double().cpu() - b.double().cpu()).abs().max())
+    a, b = (torch.as_tensor(x).detach().double().cpu() for x in (a, b))
+    return float((a - b).abs().max())
 
 
 def _k1(params, b, seed=0):
@@ -597,3 +598,143 @@ def test_plain_backward_ignores_the_callers_tf32_switch(dev):
            for k, w in want.items()}
     print(rel)
     assert all(r <= 1e-6 for r in rel.values()), rel
+
+
+# ---------------------------------------------------------------- quick start
+# The quick-start path (assets, MANOModel, keypoints, rotation forms and
+# normals, TorchManoLayer) runs the plain core: held on the card against
+# the same calls on the CPU (<= 1e-5; the layer's gradients within relative
+# 1e-4) and against the float64 oracle (<= 1e-4).
+def _demo_model(device):
+    from mano_hand_tpu_torch.models import MANOModel
+
+    params = synthetic_params(seed=0, device="cpu")
+    m = (MANOModel(params) if device is None
+         else MANOModel(params, device=device))
+    m.set_params(pose_pca=np.array([-0.32, 0.74, -1.18, 1.51, -1.89, 0.68,
+                                    -0.33, 0.23, -1.44]),
+                 shape=np.linspace(-1.0, 1.0, 10), global_rot=[1.0, 0, 0])
+    return m
+
+
+def test_quick_start_load_model_to_the_card(dev, tmp_path):
+    from mano_hand_tpu_torch.assets import (
+        load_model, save_dumped_pickle, save_npz,
+    )
+
+    params = synthetic_params(seed=0, device="cpu")
+    save_npz(params, tmp_path / "hand.npz")
+    save_dumped_pickle(params, tmp_path / "dump_mano_left.pkl")
+    for name, side in (("hand.npz", "right"), ("dump_mano_left.pkl", "left")):
+        card = load_model(tmp_path / name)        # cuda by default
+        assert card.device.type == "cuda" and card.side == side
+        assert card.dtype == torch.float64
+        cpu = load_model(tmp_path / name, device="cpu")
+        for f in ("v_template", "pose_basis", "j_regressor", "faces"):
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+
+
+def test_mano_model_on_the_card_matches_the_cpu(dev):
+    from mano_hand_tpu_torch.models import oracle
+
+    card, cpu = _demo_model(None), _demo_model("cpu")
+    assert card.device.type == "cuda"
+    for name in ("verts", "rest_verts", "J", "R", "posed_J"):
+        assert _err(getattr(card, name), getattr(cpu, name)) <= TOL, name
+    ref = oracle.forward(card.params, card.pose, card.shape)
+    assert _err(card.verts, ref.verts) <= 1e-4
+    assert _err(card.keypoints("smplx", "openpose"),
+                cpu.keypoints("smplx", "openpose")) <= TOL
+    rng = np.random.default_rng(1)
+    pca = rng.normal(size=(256, 45))
+    grot = rng.normal(scale=0.5, size=(256, 3))
+    assert _err(card(pose_pca=pca, global_rot=grot),
+                cpu(pose_pca=pca, global_rot=grot)) <= TOL
+
+
+@pytest.mark.parametrize("n", [1, 5, 300, 1024])
+def test_forward_bucketed_on_the_card(dev, n):
+    m = _demo_model(None)
+    rng = np.random.default_rng(n)
+    pose = rng.normal(scale=0.5, size=(n, 16, 3)).astype(np.float32)
+    shape = rng.normal(size=(n, 10)).astype(np.float32)
+    got = m.forward_bucketed(pose, shape)
+    assert got.shape == (n, 778, 3)
+    assert _err(got, m(pose=pose, shape=shape)) <= 1e-6
+    m.forward_bucketed(pose, shape)
+    snap = m.serving_counters.snapshot()
+    assert snap["compiles"] == 1 and snap["dispatches"] == 2
+
+
+def test_torch_layer_on_the_card_matches_the_cpu(dev):
+    from mano_hand_tpu_torch.interop import TorchManoLayer
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(41)
+    inputs = [rng.normal(scale=s, size=sz).astype(np.float32)
+              for s, sz in ((0.3, (256, 16, 3)), (0.5, (256, 10)),
+                            (0.05, (256, 3)))]
+    wv = torch.from_numpy(rng.normal(size=(256, 778, 3)).astype(np.float32))
+
+    def run(device):
+        layer = TorchManoLayer(params, device=device)
+        leaves = [torch.tensor(x, device=device, requires_grad=True)
+                  for x in inputs]
+        verts, joints = layer(*leaves)
+        loss = (verts * wv.to(device)).sum() + joints.sum()
+        loss.backward()
+        return loss.item(), [x.grad.cpu() for x in leaves]
+
+    loss, grads = run(dev)
+    cpu_loss, cpu_grads = run("cpu")
+    assert abs(loss - cpu_loss) <= 1e-4 * max(1.0, abs(cpu_loss))
+    for g, w in zip(grads, cpu_grads):
+        assert float((g - w).abs().max()) / max(
+            1.0, float(w.abs().max())) <= 1e-4
+
+
+def test_rotation_forms_and_normals_on_the_card_match_the_cpu(dev):
+    from mano_hand_tpu_torch import ops
+
+    rng = np.random.default_rng(7)
+    axes = rng.normal(size=(96, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    mags = np.concatenate([np.full(16, 1e-6), rng.uniform(0.01, 3.0, 64),
+                           np.full(16, np.pi - 1e-5)])
+    aa = torch.from_numpy((axes * mags[:, None]).astype(np.float32))
+    rot = ops.rotation_matrix(aa)
+    card = ops.axis_angle_from_matrix(rot.to(dev))
+    cpu = ops.axis_angle_from_matrix(rot)
+    assert _err(card[:80], cpu[:80]) <= 1e-6
+    assert _err(ops.rotation_matrix(card), ops.rotation_matrix(cpu)) <= 1e-5
+    six = torch.from_numpy(rng.normal(size=(64, 6)).astype(np.float32))
+    assert _err(ops.matrix_from_6d(six.to(dev)), ops.matrix_from_6d(six)) \
+        <= 1e-6
+    q = torch.from_numpy(rng.normal(size=(64, 4)).astype(np.float32))
+    assert _err(ops.matrix_from_quaternion(q.to(dev)),
+                ops.matrix_from_quaternion(q)) <= 1e-6
+    params = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    out = core.forward_batched(params, aa[:4, None].expand(4, 16, 3) * 0.2,
+                               torch.zeros(4, 10))
+    card_n = ops.batched_vertex_normals(out.verts.to(dev),
+                                        params.faces.to(dev))
+    assert _err(card_n, ops.batched_vertex_normals(out.verts, params.faces)) \
+        <= 1e-5
+
+
+def test_keypoints_chunked_and_sample_poses_on_the_card(dev):
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    cpu_params = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(3)      # a CPU generator
+    pose = core.sample_poses(params, gen, 1000, global_rot_scale=0.3)
+    cpu_pose = core.sample_poses(cpu_params, torch.Generator().manual_seed(3),
+                                 1000, global_rot_scale=0.3)
+    assert pose.device.type == "cuda"
+    assert _err(pose, cpu_pose) <= 1e-6
+    shape = torch.zeros(1000, 10)
+    kp = core.keypoints_chunked(params, pose, shape.to(dev), "smplx",
+                                "openpose", chunk_size=256)
+    want = core.keypoints_chunked(cpu_params, cpu_pose, shape, "smplx",
+                                  "openpose", chunk_size=256)
+    assert kp.shape == (1000, 21, 3)
+    assert _err(kp, want) <= TOL
