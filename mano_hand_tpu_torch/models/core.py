@@ -42,7 +42,7 @@ from mano_hand_tpu_torch.assets.schema import (
 )
 from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 from mano_hand_tpu_torch.ops.common import (
-    IdentityCache, check_compute_dtype, einsum, subject_rows,
+    IdentityCache, check_compute_dtype, einsum, index_tensor, subject_rows,
 )
 
 
@@ -290,7 +290,7 @@ def select_keypoints(verts: torch.Tensor, posed_joints: torch.Tensor,
         raise ValueError(f"order must be 'mano' or 'openpose', got {order!r}")
     kp = posed_joints
     if tips is not None:
-        idx = torch.tensor(tips, dtype=torch.long, device=verts.device)
+        idx = index_tensor(tuple(tips), verts.device)
         kp = torch.cat([kp, torch.index_select(verts, axis, idx)], dim=axis)
     if order == "openpose":
         n = kp.shape[axis]
@@ -299,8 +299,7 @@ def select_keypoints(verts: torch.Tensor, posed_joints: torch.Tensor,
                 "order='openpose' needs the 21-keypoint set (16 joints + "
                 f"5 tips), got {n} keypoints"
             )
-        perm = torch.tensor(constants.MANO21_TO_OPENPOSE, dtype=torch.long,
-                            device=kp.device)
+        perm = index_tensor(tuple(constants.MANO21_TO_OPENPOSE), kp.device)
         kp = torch.index_select(kp, axis, perm)
     return kp
 

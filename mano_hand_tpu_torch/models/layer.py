@@ -175,6 +175,63 @@ class MANOModel:
         export_ply(self.verts, self.faces, path, normals=normals,
                    binary=binary)
 
+    def fit(self, target, solver: str = "adam",
+            deadline_s: Optional[float] = None, retries: int = 0,
+            **solver_kw):
+        """Recover pose/shape from a target and ADOPT the solution.
+
+        The stateful counterpart of ``fitting.fit``/``fitting.fit_lm`` on
+        the torch backend's device: one call fits a SINGLE problem (the
+        wrapper holds one hand), writes the recovered pose and shape into
+        the float64 host state, runs ``update()`` and returns the solver
+        result. Any data term and option passes through ``solver_kw``.
+        ``fit_trans`` is refused: the wrapper, like the reference, keeps
+        the hand origin-centred and has no translation state.
+
+        ``deadline_s``/``retries`` run the solve under
+        ``runtime.supervise.supervised_call``, the device work inside the
+        supervised window: on a failure the model's state stays as it
+        was. Deterministic solver errors (bad shapes, bad options) are
+        never retried.
+        """
+        from mano_hand_tpu_torch import fitting
+        from mano_hand_tpu_torch.runtime.supervise import supervised_call
+
+        if solver not in ("adam", "lm"):
+            raise ValueError(f"solver must be 'adam' or 'lm', got {solver!r}")
+        if solver_kw.get("fit_trans"):
+            raise ValueError(
+                "MANOModel.fit has no translation state (the wrapper is "
+                "origin-centered like the reference); use fitting.fit("
+                "..., fit_trans=True) directly"
+            )
+        # An explicit fit_trans=False means "off": drop it.
+        solver_kw.pop("fit_trans", None)
+        fn = fitting.fit if solver == "adam" else fitting.fit_lm
+        params = self._params_dev
+
+        def solve():
+            res = fn(params, target, **solver_kw)
+            if res.pose.is_cuda:
+                torch.cuda.synchronize(res.pose.device)
+            return res
+
+        if deadline_s is not None or retries:
+            res = supervised_call(solve, deadline_s=deadline_s,
+                                  retries=retries, name=f"model-fit-{solver}")
+        else:
+            res = fn(params, target, **solver_kw)
+        if res.pose.dim() != 2:
+            raise ValueError(
+                "MANOModel.fit adopts ONE solution; batched targets "
+                f"produced pose shape {tuple(res.pose.shape)} — use "
+                "fitting.fit for batches"
+            )
+        self.pose = as_numpy(res.pose, np.float64)
+        self.shape = as_numpy(res.shape, np.float64)
+        self.update()
+        return res
+
     def keypoints(self, tip_vertex_ids=None, order: str = "mano"):
         """Current-state keypoints [16(+T), 3] (float64 NumPy): the posed
         skeleton joints, optionally extended with fingertip vertex picks

@@ -200,6 +200,14 @@ def parents_tensor(parents: Tuple[int, ...],
     return torch.tensor(parents, dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def index_tensor(ids: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A static index list as an int64 tensor on ``device``, made once per
+    list and device: a per-call host-to-device copy would make every call
+    wait for the device."""
+    return torch.tensor(ids, dtype=torch.long, device=device)
+
+
 #: The largest kinematic tree the kernels' shared-memory tiles hold
 #: (``kMaxJoints`` in ``csrc/mano_common.cuh``).
 MAX_JOINTS = 64

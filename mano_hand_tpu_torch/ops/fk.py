@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from mano_hand_tpu_torch.ops.common import index_tensor
+
 
 @functools.lru_cache(maxsize=None)
 def tree_levels(parents: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
@@ -53,9 +55,12 @@ def forward_kinematics(
     world_t = torch.empty_like(joints)
     world_rot[..., 0, :, :] = rot_local[..., 0, :, :]
     world_t[..., 0, :] = joints[..., 0, :]
+    dev = rot_local.device
     for level in tree_levels(parents):
-        idx = list(level)
-        par = [parents[i] for i in idx]
+        # Index tensors made once per level and device: a Python list
+        # would be copied to the device, and wait for it, at every call.
+        idx = index_tensor(level, dev)
+        par = index_tensor(tuple(parents[i] for i in level), dev)
         parent_rot = world_rot[..., par, :, :]                 # [..., k, 3, 3]
         local_t = joints[..., idx, :] - joints[..., par, :]    # [..., k, 3]
         world_rot[..., idx, :, :] = _dot3(

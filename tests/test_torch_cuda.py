@@ -738,3 +738,63 @@ def test_keypoints_chunked_and_sample_poses_on_the_card(dev):
                                   "openpose", chunk_size=256)
     assert kp.shape == (1000, 21, 3)
     assert _err(kp, want) <= TOL
+
+
+# ------------------------------------------------------------------ fitting
+def _fit_targets(params, b=8, seed=9):
+    rng = np.random.default_rng(seed)
+    pose = torch.tensor(rng.normal(scale=0.3, size=(b, 16, 3)),
+                        dtype=torch.float32)
+    beta = torch.tensor(rng.normal(scale=0.5, size=(b, 10)),
+                        dtype=torch.float32)
+    with torch.no_grad():
+        return pose, beta, core.forward_batched(params, pose, beta).verts
+
+
+def test_fit_on_the_card_matches_the_cpu(dev):
+    """Batched Adam (``fitting.fit``) on the card against the same fit on
+    the CPU: the first 20 steps' losses within 1e-3 relative; the steps
+    make the host wait for the card nowhere (sync debug mode "error")."""
+    from mano_hand_tpu_torch import fitting
+
+    cpu = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    card = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    _, _, target = _fit_targets(cpu)
+    want = fitting.fit(cpu, target, n_steps=20, lr=0.05)
+    target_card = target.to(dev)
+    fitting.fit(card, target_card, n_steps=2, lr=0.05)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fitting.fit(card, target_card, n_steps=20, lr=0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rel = ((got.loss_history.cpu() - want.loss_history).abs()
+           / want.loss_history.abs()).max()
+    assert float(rel) <= 1e-3
+    assert _err(got.pose, want.pose) <= 1e-3
+
+
+@pytest.mark.parametrize("normal_eq", ["high", "bf16"])
+def test_fit_lm_on_the_card_matches_the_cpu(dev, normal_eq):
+    """Batched LM (``fitting.fit_lm``) on the card: every problem at the
+    floor, the pose within 1e-4 of the CPU's and of the truth (the bf16
+    normal equations to their JAX test's bar), no host wait per step."""
+    from mano_hand_tpu_torch import fitting
+
+    cpu = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    card = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    pose, _, target = _fit_targets(cpu)
+    want = fitting.fit_lm(cpu, target, n_steps=20, normal_eq=normal_eq)
+    target_card = target.to(dev)
+    fitting.fit_lm(card, target_card, n_steps=1, normal_eq=normal_eq)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fitting.fit_lm(card, target_card, n_steps=20,
+                             normal_eq=normal_eq)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(got.final_loss.max()) < 1e-12
+    assert _err(got.pose, want.pose) <= 1e-4
+    assert _err(got.pose, pose) <= 1e-4
