@@ -40,7 +40,19 @@ each with every launch count zeroed just before it and read just after:
   tracker with both solvers over a 30-frame clip, ``fit_restarts`` on a
   joints target rotated far from rest, ``fit_hands`` on the mirrored pair
   and ``MANOModel.fit``. It prints ms per Adam and per LM step, problems
-  fitted per second and ms per tracked frame.
+  fitted per second and ms per tracked frame;
+* rendering (phase ``render``, plain PyTorch, no kernel): ``render_mesh``
+  at 256 x 256 on the card against the CPU under the edge-pixel rule
+  (``hold_render``), ``render_sequence`` over a 120-frame right-hand clip
+  (BASELINE config 5), the soft silhouette and soft depth at B = 16,
+  64 x 64 against the CPU (values and gradients) and ``"vmap"`` against
+  ``"map"``, 20 steady Adam steps of the silhouette and depth fit terms
+  at B = 16 under sync debug "error" against the CPU, the JAX tests'
+  silhouette and depth translation recoveries, a GLB round trip, and
+  ``python -m mano_hand_tpu_torch render`` (to AVI) and ``fit
+  --data-term silhouette`` as subprocesses. It prints ms per render, clip
+  frames per second, ms per soft render forward + backward and ms per
+  Adam step of each term.
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -137,6 +149,23 @@ TRACK_FRAMES, TRACK_LM_STEPS, TRACK_ADAM_STEPS = 30, 6, 25
 TRACK_SEED, TRACK_WARM_FRAMES = 7, 6   # the JAX warm-start test's clip
 FIT_SHARE_5MM = 0.98   # Adam: share of meshes within FIT_TOL (see below)
 FIT_WORST = 1e-2       # Adam: every mesh within 1 cm
+# Rendering (phase render): the hard rasteriser at its default 256 x 256,
+# BASELINE config 5's 120-frame clip (the right hand), the soft renders
+# and the rasterising fit terms at B = 16, 64 x 64, on the full mesh.
+RENDER_SIZE, RENDER_FLIPS = 256, 8   # flipped hit pixels allowed, each
+EDGE_TOL = 1e-5                      # ... within this of a face's edge
+SOFT_BATCH, SOFT_SIZE = 16, 64
+SOFT_CPU_ROWS = 2          # images whose values and gradients the CPU holds
+COLOUR_SIZE = 128          # the vertex-colour render's size
+SOFT_TOL, SOFT_GRAD_TOL = 1e-5, 1e-4
+RASTER_STEPS, RASTER_CPU_ROWS = 20, 2   # card vs CPU losses, relative 1e-3
+# The silhouette fit held against the CPU runs at 32 x 32 (its CPU side
+# is 4x cheaper), the depth fit at SOFT_SIZE: at 32 px a depth fit of the
+# full mesh parts from the CPU's past a few steps (a boundary pixel's
+# coverage flips on one side only), as from JAX's.
+HELD_SIZE = 32
+CPU_SIDE_THREADS = 6       # the CPU side's torch threads (of 8 cores)
+RECOVER_STEPS, RECOVER_TOL = 300, 0.01  # the JAX tests' recoveries, meters
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -822,6 +851,481 @@ def fitting(dev, counts, zero_counts, batch=FIT_BATCH, steps=FIT_STEPS,
     return line
 
 
+def _near_edge(x: float, y: float, corners: np.ndarray) -> bool:
+    """Whether the raster point (x, y) lies within EDGE_TOL (barycentric)
+    of an edge of some face: float64 barycentrics against every face
+    (corners [F, 3, 2] in raster space)."""
+    c = corners.astype(np.float64)
+    ax, ay, bx, by, cx, cy = (c[:, 0, 0], c[:, 0, 1], c[:, 1, 0],
+                              c[:, 1, 1], c[:, 2, 0], c[:, 2, 1])
+    d = (by - cy) * (ax - cx) + (cx - bx) * (ay - cy)
+    ok = np.abs(d) > 1e-12
+    d = np.where(ok, d, 1.0)
+    l0 = ((by - cy) * (x - cx) + (cx - bx) * (y - cy)) / d
+    l1 = ((cy - ay) * (x - cx) + (ax - cx) * (y - cy)) / d
+    lam = np.stack([l0, l1, 1.0 - l0 - l1], -1)
+    edge = (np.abs(lam).min(-1) <= EDGE_TOL) & (lam.min(-1) >= -EDGE_TOL)
+    return bool((edge & ok).any())
+
+
+def hold_render(got, want, bg, corners) -> dict:
+    """The edge-pixel rule for two hard renders [H, W, 3]: hit masks equal
+    except at most RENDER_FLIPS pixels, each within EDGE_TOL of an edge
+    (XLA-style FMA contraction against two roundings moves a barycentric
+    coordinate by an ulp); colours within SOFT_TOL where both hit."""
+    got, want = (x.detach().cpu().numpy() for x in (got, want))
+    bg = np.asarray(bg, np.float32)
+    hit_g = np.abs(got - bg).max(-1) > 0
+    hit_w = np.abs(want - bg).max(-1) > 0
+    flips = np.argwhere(hit_g != hit_w)
+    both = hit_g & hit_w
+    out = {"hit_pixels": int(hit_w.sum()), "flipped_pixels": len(flips),
+           "flips_near_edges": all(_near_edge(x + 0.5, y + 0.5, corners)
+                                   for y, x in flips),
+           "max_abs_err_colour": float(np.abs(got[both] - want[both]).max(
+               initial=0.0))}
+    require(out["hit_pixels"] > 0 and len(flips) <= RENDER_FLIPS
+            and out["flips_near_edges"]
+            and out["max_abs_err_colour"] <= SOFT_TOL,
+            f"render vs the CPU under the edge-pixel rule {out}")
+    return out
+
+
+def _events_ms(fn, n: int = 5) -> float:
+    """Milliseconds per call of ``fn`` (one warm-up call, then ``n`` calls
+    back to back between two CUDA events)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def render(dev, counts, zero_counts, size=RENDER_SIZE, frames=CLIP_FRAMES,
+           batch=SOFT_BATCH, soft=SOFT_SIZE, steps=RASTER_STEPS,
+           held=HELD_SIZE, recover_steps=RECOVER_STEPS, cli=True) -> dict:
+    """Rendering at full MANO width, as a user calls it, on plain PyTorch
+    (no kernel). The inputs are made first; then a process computes the
+    CPU's side (below, ``_render_cpu_side``) while the card runs:
+
+    * ``render_mesh`` at ``size`` x ``size``, and at COLOUR_SIZE with
+      vertex colours from ``error_colormap``; ms per render;
+    * ``render_sequence`` over a ``frames``-frame right-hand clip
+      (BASELINE config 5's construction), frames per second, its first
+      and last frames against ``render_mesh``;
+    * ``soft_silhouette``/``soft_depth`` at B = ``batch``, ``soft`` x
+      ``soft``, forward and gradient, ``"vmap"`` against ``"map"``; ms
+      per forward + backward;
+    * ``fit`` with the silhouette and depth terms at B = ``batch``:
+      ``steps`` steady Adam steps under
+      ``torch.cuda.set_sync_debug_mode("error")`` at ``soft`` x ``soft``
+      (ms per step; the depth fit held against the CPU), and the
+      silhouette fit at ``held`` x ``held`` (held against the CPU);
+    * (``cli``) ``python -m mano_hand_tpu_torch render ... --out
+      clip.avi`` and ``fit --data-term silhouette`` on a ``.npy`` mask as
+      subprocesses, the JAX tests' silhouette and depth translation
+      recoveries on their small asset (``recover_steps`` Adam steps each,
+      within RECOVER_TOL; 0 skips them) and a GLB round trip.
+
+    The CPU's side: the same renders, the soft renders and gradients of
+    SOFT_CPU_ROWS images of the batch, and the held fits of
+    RASTER_CPU_ROWS problems. Held: renders under the edge-pixel rule
+    (``hold_render``), soft values within SOFT_TOL and gradients at
+    SOFT_GRAD_TOL, fit losses within FIT_REL_TOL; the subprocesses exit 0.
+    The card's timed work is device-bound at these sizes, so the process
+    beside it moves its times little.
+
+    Counts zeroed just before and read after: the phase launches no
+    kernel. Returns the phase's JSON line."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from mano_hand_tpu_torch import fitting as fit_mod
+    from mano_hand_tpu_torch import viz
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import anim, core
+
+    line = {"phase": "render"}
+    seconds = {}
+    card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = t_mark = time.perf_counter()
+
+    def mark(name):
+        nonlocal t_mark
+        now = time.perf_counter()
+        seconds[name] = round(now - t_mark, 3)
+        t_mark = now
+
+    zero_counts()
+    # The CPU's side in a process of its own: in a thread it would share
+    # the interpreter lock with this one, which launches the card's work.
+    # It starts now, so its imports overlap the inputs.
+    pool = ProcessPoolExecutor(max_workers=1,
+                               mp_context=multiprocessing.get_context("spawn"))
+    pool.submit(_render_cpu_side, None)
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    params_cpu = synthetic_params(seed=SEED, dtype=torch.float32,
+                                  device="cpu")
+    rng = np.random.default_rng(SEED + 10)
+    black = (0.0, 0.0, 0.0)
+
+    # 0. The inputs: a posed mesh and its error colours, a batch of posed
+    #    meshes, and the fits' targets rendered on the card.
+    pose = torch.from_numpy(rng.normal(scale=0.3, size=(16, 3)
+                                       ).astype(np.float32))
+    with torch.no_grad():
+        verts = core.forward(params, pose.to(dev)).verts
+    colors = viz.error_colormap(torch.linalg.norm(verts - verts.mean(0),
+                                                  dim=-1))
+    poses = torch.from_numpy(rng.normal(scale=0.3, size=(batch, 16, 3))
+                             .astype(np.float32))
+    tr = torch.from_numpy(rng.uniform(-0.02, 0.02, size=(batch, 1, 3))
+                          .astype(np.float32))
+    with torch.no_grad():
+        bverts = core.forward_batched(params_cpu, poses,
+                                      torch.zeros(batch, 10)).verts + tr
+    weights = torch.from_numpy(rng.random((soft, soft)).astype(np.float32))
+    renders = (("soft_silhouette", viz.soft_silhouette),
+               ("soft_depth", viz.soft_depth))
+    # Cameras and targets on the card up front: a copy from the host
+    # inside a steady call would be a wait the sync check traps.
+    weak = viz.camera.WeakPerspectiveCamera(rot=torch.eye(3, device=dev),
+                                            scale=3.0)
+    pin = viz.camera.default_hand_camera(device=dev)
+    shifts = torch.from_numpy(rng.uniform(-0.03, 0.03, size=(batch, 1, 3))
+                              .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        rest = core.forward(params).verts + shifts
+        masks = {n: (viz.soft_silhouette(rest, params.faces, weak, height=n,
+                                         width=n, sigma=1.0) > 0.5).float()
+                 for n in (soft, held)}
+        depth = viz.soft_depth(rest, params.faces, pin, height=soft,
+                               width=soft, sigma=1.0)
+        depth = torch.where(depth > 5.0, torch.zeros_like(depth), depth)
+    timed = {"silhouette": (masks[soft], weak), "depth": (depth, pin)}
+    held_targets = {"silhouette": (masks[held], weak), "depth": (depth, pin)}
+    fit_kw = dict(lr=0.01, sil_sigma=1.0, fit_trans=True,
+                  pose_prior_weight=1.0, shape_prior_weight=1.0)
+    mark("inputs")
+
+    job = dict(
+        verts=verts.cpu(), colors=colors.cpu(), bverts=bverts,
+        weights=weights, size=size, steps=steps, fit_kw=fit_kw,
+        targets={term: (tgt[:RASTER_CPU_ROWS].cpu(), camera.to(cpu))
+                 for term, (tgt, camera) in held_targets.items()})
+    tmp = tempfile.TemporaryDirectory()
+    procs = {}
+    try:
+        cpu_job = pool.submit(_render_cpu_side, job)
+
+        # 1. render_mesh at size x size, plain and coloured.
+        img = viz.render_mesh(verts, params.faces, height=size, width=size)
+        img_c = viz.render_mesh(verts, params.faces, height=COLOUR_SIZE,
+                                width=COLOUR_SIZE, vertex_colors=colors,
+                                bg_color=black)
+        line["render_mesh"] = {"size": size}
+        if card:
+            line["render_mesh"]["ms"] = _events_ms(lambda: viz.render_mesh(
+                verts, params.faces, height=size, width=size))
+        mark("render_mesh")
+
+        # 2. render_sequence over a BASELINE config 5 clip, the right hand.
+        keys = rng.normal(scale=0.6, size=(CLIP_KEYS, 16, 3))
+        clip = torch.from_numpy(anim.resample_poses_slerp(keys, frames)
+                                .astype(np.float32)).to(dev)
+        with torch.no_grad():
+            clip_verts = core.forward_batched(
+                params, clip, torch.zeros((frames, 10), device=dev)).verts
+        _sync(dev)
+        t0 = time.perf_counter()
+        seq = viz.render_sequence(clip_verts, params.faces, height=size,
+                                  width=size)
+        t_seq = time.perf_counter() - t0
+        # Its first and last frames against render_mesh of the same
+        # meshes: equal to rounding, not bit for bit on a card, whose
+        # index_add (the vertex normals' scatter) sums in no fixed order.
+        ends = max(max_err(seq[t], viz.render_mesh(
+            clip_verts[t], params.faces, height=size, width=size))
+            for t in (0, -1))
+        line["render_sequence"] = {
+            "frames": frames, "size": size, "frames_per_s": frames / t_seq,
+            "ends_vs_render_mesh": ends}
+        require(seq.shape == (frames, size, size, 3) and ends <= SOFT_TOL,
+                f"render_sequence {line['render_sequence']}")
+        mark("render_sequence")
+
+        # 3. The soft renders at B = batch, soft x soft, full width.
+        soft_card, soft_line = {}, {"batch": batch, "size": soft}
+        for name, fn in renders:
+            v = bverts.to(dev).requires_grad_(True)
+            got = fn(v, params.faces, height=soft, width=soft)
+            g, = torch.autograd.grad((got * weights.to(dev)).sum(), v)
+            with torch.no_grad():
+                by_map = fn(v, params.faces, height=soft, width=soft,
+                            batch_mode="map")
+                by_vmap = fn(v, params.faces, height=soft, width=soft,
+                             batch_mode="vmap")
+            soft_card[name] = (got, g)
+            soft_line[name] = {"vmap_vs_map": max_err(by_vmap, by_map)}
+            if card:
+                def fwd_bwd(fn=fn):
+                    x = bverts.to(dev).requires_grad_(True)
+                    torch.autograd.grad(fn(x, params.faces, height=soft,
+                                           width=soft).sum(), x)
+                soft_line[name]["fwd_bwd_ms"] = _events_ms(fwd_bwd, n=3)
+        mark("soft")
+
+        # 4. The rasterising fit terms at B = batch: a warm-up, then
+        #    steady steps with no host sync, at soft x soft (timed), and
+        #    the silhouette's held run at held x held.
+        fits, fit_card = {}, {}
+        runs = [(term, tgt, camera, "ms_per_step")
+                for term, (tgt, camera) in timed.items()]
+        runs.append(("silhouette", *held_targets["silhouette"],
+                     "ms_per_step_held"))
+        for term, tgt, camera, key in runs:
+            kw = dict(fit_kw, data_term=term, camera=camera)
+            fit_mod.fit(params, tgt, n_steps=2, **kw)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with _NoHostSync(card):
+                res = fit_mod.fit(params, tgt, n_steps=steps, **kw)
+            _sync(dev)
+            fits.setdefault(term, {"steps": steps})[key] = (
+                1e3 * (time.perf_counter() - t0) / steps)
+            fits[term]["held_size"] = tgt.shape[-1]
+            fit_card[term] = res
+        mark("fit")
+
+        # 5. The command line, the JAX tests' recoveries, a GLB round trip.
+        if cli:
+            procs = _start_cli(tmp.name, rng, card)
+        _render_checks(line, dev, procs, tmp.name, recover_steps)
+        mark("recover_glb_cli")
+        ref = cpu_job.result()
+    finally:
+        pool.shutdown(wait=True)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    mark("cpu_side_wait")
+
+    # 6. The card against the CPU.
+    line["render_mesh"].update(hold_render(img, ref["img"],
+                                           (1.0, 1.0, 1.0), ref["corners"]))
+    line["render_mesh_colours"] = {"size": COLOUR_SIZE, **hold_render(
+        img_c, ref["img_c"], black, ref["corners_c"])}
+    for name, _ in renders:
+        (got, g), (want, g_cpu) = soft_card[name], ref[name]
+        entry = soft_line[name]
+        entry["cpu_rows"] = SOFT_CPU_ROWS
+        entry["max_abs_err_cpu"] = max_err(got[:SOFT_CPU_ROWS], want)
+        entry["grad_rel_err_cpu"] = (max_err(g[:SOFT_CPU_ROWS], g_cpu)
+                                     / max(1.0, float(g_cpu.abs().max())))
+        require(entry["max_abs_err_cpu"] <= SOFT_TOL
+                and entry["grad_rel_err_cpu"] <= SOFT_GRAD_TOL
+                and entry["vmap_vs_map"] <= SOFT_TOL,
+                f"{name} card vs CPU and vmap vs map {entry}")
+    line["soft"] = soft_line
+    for term, res in fit_card.items():
+        want = ref[term]
+        hist = res.loss_history[:RASTER_CPU_ROWS].cpu()
+        fits[term]["loss_rel_vs_cpu"] = float(((hist - want).abs()
+                                               / want.abs()).max())
+        fits[term]["loss_drop"] = float((res.loss_history[:, 0]
+                                         / res.final_loss).min())
+        require(fits[term]["loss_rel_vs_cpu"] <= FIT_REL_TOL
+                and bool(torch.isfinite(res.final_loss).all()),
+                f"fit {term}: card vs CPU {fits[term]}")
+    line["fit"] = {"batch": batch, "size": soft, **fits}
+
+    line["kernel_launches"] = counts()
+    require(not any(line["kernel_launches"].values()),
+            "the rendering path runs plain PyTorch (no kernel launch)")
+    line["seconds"] = {"total": round(time.perf_counter() - t_phase, 3),
+                       **seconds, "cpu_side": ref["seconds"]}
+    return line
+
+
+def _render_cpu_side(job: dict) -> dict:
+    """The render phase's CPU side, run in a process of its own (its torch
+    on CPU_SIDE_THREADS threads, leaving cores to the card's launches):
+    ``render_mesh`` of ``job["verts"]`` plain at ``size`` and coloured at
+    COLOUR_SIZE with their raster corners, the soft renders and
+    gradients of the first SOFT_CPU_ROWS meshes of ``bverts``, and the
+    held fits of ``targets``. Returns them with the seconds of each;
+    ``job=None`` only imports (the warm-up while the inputs are made)."""
+    from mano_hand_tpu_torch import fitting as fit_mod
+    from mano_hand_tpu_torch import viz
+    from mano_hand_tpu_torch.assets import synthetic_params
+
+    if job is None:
+        return {}
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device="cpu")
+    faces, size, verts = params.faces, job["size"], job["verts"]
+    out, t0 = {"seconds": {}}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = round(now - t0, 3)
+        t0 = now
+
+    out["img"] = viz.render_mesh(verts, faces, height=size, width=size)
+    out["img_c"] = viz.render_mesh(
+        verts, faces, height=COLOUR_SIZE, width=COLOUR_SIZE,
+        vertex_colors=job["colors"], bg_color=(0.0, 0.0, 0.0))
+    xy = viz.camera.default_hand_camera(device="cpu").project(verts)[:, :2]
+    out["corners"], out["corners_c"] = (
+        viz.render.ndc_to_pixels(xy, n, n)[faces.long()].numpy()
+        for n in (size, COLOUR_SIZE))
+    lap("render_mesh")
+    for name in ("soft_silhouette", "soft_depth"):
+        fn = getattr(viz, name)
+        vc = job["bverts"][:SOFT_CPU_ROWS].clone().requires_grad_(True)
+        want = fn(vc, faces, height=job["weights"].shape[0],
+                  width=job["weights"].shape[1])
+        g, = torch.autograd.grad((want * job["weights"]).sum(), vc)
+        out[name] = (want.detach(), g)
+    lap("soft")
+    for term, (tgt, camera) in job["targets"].items():
+        out[term] = fit_mod.fit(params, tgt, n_steps=job["steps"],
+                                data_term=term, camera=camera,
+                                **job["fit_kw"]).loss_history
+        lap(f"fit_{term}")
+    return out
+
+
+def _start_cli(tmp, rng, card) -> dict:
+    """Start ``python -m mano_hand_tpu_torch render ... --out clip.avi``
+    (8 frames at 128 x 128) and ``fit mask.npy --data-term silhouette``
+    (20 steps) in ``tmp``; returns the processes by name."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    np.save(os.path.join(tmp, "poses.npy"),
+            rng.normal(scale=0.3, size=(8, 16, 3)))
+    mask = np.zeros((48, 48), np.float32)
+    mask[14:34, 16:30] = 1.0
+    np.save(os.path.join(tmp, "mask.npy"), mask)
+    dev_arg = ["--device", "cuda" if card else "cpu"]
+    procs = {}
+    for name, args in (
+            ("render", ["render", "--poses", "poses.npy", "--size", "128",
+                        "--out", "clip.avi"]),
+            ("fit", ["fit", "mask.npy", "--data-term", "silhouette",
+                     "--steps", "20", "--out", "fit.npz"])):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "mano_hand_tpu_torch", *dev_arg, *args],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    return procs
+
+
+def _recoveries(line, small, gt, weak, pin, priors, t_sil, t_dep):
+    """The JAX tests' silhouette (weak perspective: x, y) and depth
+    (pinhole: x, y and z) translation recoveries; returns the depth
+    fit's mesh."""
+    from mano_hand_tpu_torch import fitting as fit_mod
+    from mano_hand_tpu_torch import viz
+    from mano_hand_tpu_torch.models import core
+
+    with torch.no_grad():
+        mask = (viz.soft_silhouette(gt + t_sil, small.faces, weak,
+                                    height=32, width=32, sigma=1.0)
+                > 0.5).float()
+    res = fit_mod.fit(small, mask, data_term="silhouette", camera=weak,
+                      **priors)
+    with torch.no_grad():
+        dimg = viz.soft_depth(gt + t_dep, small.faces, pin, height=32,
+                              width=32, sigma=1.0)
+        dimg = torch.where(dimg > 5.0, torch.zeros_like(dimg), dimg)
+    res_d = fit_mod.fit(small, dimg, data_term="depth", camera=pin,
+                        **priors)
+    line["recover"] = {
+        "silhouette_xy_err_m": float(torch.linalg.norm(
+            res.trans[:2] - t_sil[:2])),
+        "depth_err_m": float(torch.linalg.norm(res_d.trans - t_dep)),
+        "depth_z_err_m": float((res_d.trans[2] - t_dep[2]).abs())}
+    require(line["recover"]["silhouette_xy_err_m"] < RECOVER_TOL
+            and line["recover"]["depth_err_m"] < RECOVER_TOL
+            and line["recover"]["depth_z_err_m"] < RECOVER_TOL,
+            f"translation recoveries {line['recover']}")
+
+    with torch.no_grad():
+        return core.forward(small, res_d.pose, res_d.shape).verts \
+            + res_d.trans
+
+
+def _render_checks(line, dev, procs, tmp, recover_steps) -> None:
+    """The render phase's untimed checks: the JAX tests' recoveries, a GLB
+    round trip and the command line's subprocesses."""
+    from mano_hand_tpu_torch import viz
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.io import gltf
+    from mano_hand_tpu_torch.models import core
+
+    # 5. The JAX tests' translation recoveries on their small asset.
+    small = synthetic_params(seed=3, n_verts=64, n_faces=96,
+                             dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        gt = core.forward(small).verts
+    weak_d = viz.camera.WeakPerspectiveCamera(
+        rot=torch.eye(3, device=dev), scale=3.0)
+    pin_d = viz.camera.default_hand_camera(device=dev)
+    priors = dict(n_steps=recover_steps, lr=0.01, sil_sigma=1.0,
+                  fit_trans=True, pose_prior_weight=1.0,
+                  shape_prior_weight=1.0)
+    t_sil = torch.tensor([0.05, 0.04, 0.0], device=dev)
+    t_dep = torch.tensor([0.02, 0.015, 0.03], device=dev)
+    fitted = gt + t_dep
+    if recover_steps:
+        fitted = _recoveries(line, small, gt, weak_d, pin_d, priors, t_sil,
+                             t_dep)
+
+    # 6. A GLB round trip of a fitted mesh with its error colours.
+    path = os.path.join(tmp, "fit.glb")
+    gltf.export_glb(fitted, small.faces, path,
+                    vertex_colors=viz.error_colormap(
+                        torch.linalg.norm(fitted - gt - t_dep, dim=-1)))
+    glb = gltf.read_glb(path)
+    acc = glb["gltf"]["accessors"][glb["gltf"]["meshes"][0]["primitives"][0]
+                                   ["attributes"]["POSITION"]]
+    view = glb["gltf"]["bufferViews"][acc["bufferView"]]
+    back = np.frombuffer(glb["bin"][view["byteOffset"]:view["byteOffset"]
+                                    + view["byteLength"]], np.float32).copy()
+    line["glb"] = {"bytes": os.path.getsize(path),
+                   "max_abs_err": max_err(back.reshape(-1, 3), fitted)}
+    require(line["glb"]["max_abs_err"] == 0.0, f"GLB round trip "
+                                                f"{line['glb']}")
+
+    # 7. The command line's two subprocesses.
+    if not procs:
+        return
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        line[f"cli_{name}"] = {"rc": proc.returncode,
+                               "stdout": out.strip()[-200:]}
+        require(proc.returncode == 0, f"cli {name}: {proc.returncode} "
+                                      f"{err[-2000:]}")
+    info = viz.read_avi_info(os.path.join(tmp, "clip.avi"))
+    require(info["n_frames"] == 8 and info["width"] == 128,
+            f"cli render's AVI {info}")
+    with np.load(os.path.join(tmp, "fit.npz")) as ck:
+        require(ck["loss_history"].shape == (20,)
+                and np.isfinite(ck["final_loss"]).all(),
+                "cli fit checkpoint")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1432,6 +1936,10 @@ def main() -> int:
     # 18b. Fitting (BASELINE config 4 and its neighbours, plain core, no
     #      kernel; counts zeroed just before it and read just after).
     emit(fitting(dev, counts, zero_counts))
+
+    # 18c. Rendering: the rasterisers, the rasterising fit terms, the
+    #      writers and the command line (plain PyTorch, no kernel).
+    emit(render(dev, counts, zero_counts))
 
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.

@@ -5,7 +5,8 @@ the Kabsch initialisers, the Adam solvers (``fit``,
 ``fit_with_optimizer``, ``fit_sequence``, ``fit_bucketed``), the
 Levenberg-Marquardt solver with the analytic Jacobian (``fit_lm``,
 ``fit_lm_bucketed``), restarts, streaming trackers and two-hand fits, on
-the port's plain core. The rasterising data terms wait for rendering.
+the port's plain core; the silhouette and depth terms (and the auxiliary
+``target_mask``) render through ``viz/silhouette.py``.
 """
 
 from mano_hand_tpu_torch.fitting.objectives import (

@@ -6,10 +6,10 @@ through ``core.forward_hands`` over a ``core.stack_params`` pair,
 per-hand pose/shape/translation, one camera for 2D terms, and an optional
 inter-penetration repulsion (``objectives.inter_penetration``) that lets
 the surfaces touch but not overlap. The solve is one Adam loop
-(``solvers._run_adam``), as for one hand.
-
-The silhouette term waits for the soft rasteriser (rendering) and is
-refused with a ``NotImplementedError``.
+(``solvers._run_adam``), as for one hand. The silhouette term renders
+each hand with its own faces through the soft rasteriser and scores
+per-hand instance masks, or one combined mask against the soft union of
+the two renders.
 """
 
 from __future__ import annotations
@@ -20,6 +20,27 @@ import torch
 
 from mano_hand_tpu_torch.fitting import objectives, solvers
 from mano_hand_tpu_torch.models import core
+from mano_hand_tpu_torch.viz.silhouette import soft_silhouette
+
+
+def _hands_silhouette_loss(stacked, verts, targets, camera, sil_sigma,
+                           per_hand: bool):
+    """Mask loss of the two-hand solvers. ``verts`` carries the hand axis
+    at -3 ([2, V, 3] or [T, 2, V, 3]); each hand renders with its own
+    faces (the left and right windings differ). ``per_hand`` scores
+    [..., 2, H, W] instance masks hand by hand; otherwise the two renders
+    combine by the rasteriser's probabilistic union into one soft image
+    of both hands against one combined mask."""
+    h, w = targets.shape[-2], targets.shape[-1]
+    sil_l = soft_silhouette(verts[..., 0, :, :], stacked.faces[0], camera,
+                            height=h, width=w, sigma=sil_sigma)
+    sil_r = soft_silhouette(verts[..., 1, :, :], stacked.faces[1], camera,
+                            height=h, width=w, sigma=sil_sigma)
+    if per_hand:
+        sil = torch.stack([sil_l, sil_r], dim=-3)
+    else:
+        sil = 1.0 - (1.0 - sil_l) * (1.0 - sil_r)
+    return torch.mean(objectives.silhouette_iou_loss(sil, targets))
 
 
 class HandsFitResult(NamedTuple):
@@ -57,6 +78,17 @@ def _check_hands(stacked, data_term, camera, target_conf, fn_name, one):
     solvers._check_data_term(data_term, camera, target_conf)
 
 
+def _data(stacked, out, offset, targets, data_term, camera, conf, robust,
+          robust_scale, tips, keypoint_order, sil_sigma, per_hand_masks):
+    """The two-hand data term: the mask loss, or the single-hand dispatch
+    over the hand (and frame) axes."""
+    if data_term == "silhouette":
+        return _hands_silhouette_loss(stacked, out.verts + offset, targets,
+                                      camera, sil_sigma, per_hand_masks)
+    return solvers._data_loss(out, offset, targets, data_term, camera, conf,
+                              robust, robust_scale, tips, keypoint_order)
+
+
 def _reg(p, pose_prior_weight, shape_prior_weight, joint_limits,
          joint_limit_weight, verts, repulsion_weight, repulsion_radius,
          hand_axis):
@@ -77,6 +109,7 @@ def _reg(p, pose_prior_weight, shape_prior_weight, joint_limits,
     return reg
 
 
+@solvers.validate_mask_target
 @solvers.normalize_tips_kwarg
 def fit_hands(
     stacked,                    # core.stack_params(left, right)
@@ -98,6 +131,7 @@ def fit_hands(
     init: Optional[dict] = None,
     tip_vertex_ids=None,
     keypoint_order: str = "mano",
+    sil_sigma: float = 0.7,
 ) -> HandsFitResult:
     """Recover both hands' pose/shape (and translation) from one frame.
 
@@ -108,12 +142,23 @@ def fit_hands(
     ``repulsion_weight > 0`` adds ``objectives.inter_penetration`` between
     the two surfaces at ``repulsion_radius`` (meters): zero whenever the
     hands are apart, so it acts only in close interaction.
+
+    ``data_term="silhouette"`` fits per-hand ``[2, H, W]`` instance masks,
+    or ONE combined ``[H, W]`` mask against the soft union of both
+    renders. A combined mask cannot say which hand explains which region
+    (the swapped assignment is an equally good optimum from a cold
+    start), so warm-start ``init["trans"]``.
     """
     _check_hands(stacked, data_term, camera, target_conf, "fit_hands",
                  "fit")
     dtype, dev = stacked.dtype, stacked.device
     targets = solvers._as_target(stacked, targets)
-    if targets.dim() != 3 or targets.shape[0] != 2:
+    per_hand_masks = False
+    if data_term == "silhouette":
+        # [H, W]: one combined mask of both hands; [2, H, W]: per hand.
+        per_hand_masks = solvers.check_hands_silhouette(
+            camera, robust, targets, seq=False, fn_name="fit_hands")
+    elif targets.dim() != 3 or targets.shape[0] != 2:
         raise ValueError(
             f"targets must be [2, rows, coords] hand-major, got "
             f"{tuple(targets.shape)}"
@@ -153,9 +198,9 @@ def fit_hands(
         out = core.ManoOutput(*(x[:, 0] for x in core.forward_hands(
             stacked, p["pose"][:, None], p["shape"][:, None])))
         offset = p["trans"][:, None, :] if fit_trans else 0.0
-        data = solvers._data_loss(out, offset, targets, data_term, camera,
-                                  target_conf, robust, robust_scale, tips,
-                                  keypoint_order)
+        data = _data(stacked, out, offset, targets, data_term, camera,
+                     target_conf, robust, robust_scale, tips, keypoint_order,
+                     sil_sigma, per_hand_masks)
         reg = _reg(p, pose_prior_weight, shape_prior_weight, joint_limits,
                    joint_limit_weight, out.verts + offset, repulsion_weight,
                    repulsion_radius, hand_axis=0)
@@ -168,6 +213,7 @@ def fit_hands(
                           trans=p_final.get("trans"))
 
 
+@solvers.validate_mask_target
 @solvers.normalize_tips_kwarg
 def fit_hands_sequence(
     stacked,                    # core.stack_params(left, right)
@@ -190,17 +236,30 @@ def fit_hands_sequence(
     repulsion_radius: float = 0.004,
     tip_vertex_ids=None,
     keypoint_order: str = "mano",
+    sil_sigma: float = 0.7,
+    mask_layout: str = "auto",   # "combined" | "per_hand" | "auto"
 ) -> HandsSequenceFitResult:
     """Fit a two-hand clip as ONE problem: one shape per hand for the
     clip, per-frame pose (and translation) coupled by squared-velocity
     smoothness, and the repulsion applied per frame. Frame-major
     ``[T, 2, rows, coords]`` targets (``anim.evaluate_two_hand_sequence``'s
     layout)."""
+    if mask_layout != "auto" and data_term != "silhouette":
+        raise ValueError(
+            "mask_layout only applies to data_term='silhouette', got "
+            f"data_term={data_term!r}"
+        )
     _check_hands(stacked, data_term, camera, target_conf,
                  "fit_hands_sequence", "fit_sequence")
     dtype, dev = stacked.dtype, stacked.device
     targets = solvers._as_target(stacked, targets)
-    if targets.dim() != 4 or targets.shape[1] != 2:
+    per_hand_masks = False
+    if data_term == "silhouette":
+        # [T, H, W] combined per frame, or [T, 2, H, W] per hand.
+        per_hand_masks = solvers.check_hands_silhouette(
+            camera, robust, targets, seq=True, fn_name="fit_hands_sequence",
+            mask_layout=mask_layout)
+    elif targets.dim() != 4 or targets.shape[1] != 2:
         raise ValueError(
             "targets must be [T, 2, rows, coords] frame-major, got "
             f"{tuple(targets.shape)}; for one frame use fit_hands()"
@@ -233,9 +292,9 @@ def fit_hands_sequence(
             p["shape"][:, None, :].expand(2, t_frames, one.n_shape))
         out = core.ManoOutput(*(x.transpose(0, 1) for x in out_hm))
         offset = p["trans"][..., None, :] if fit_trans else 0.0
-        data = solvers._data_loss(out, offset, targets, data_term, camera,
-                                  target_conf, robust, robust_scale, tips,
-                                  keypoint_order)
+        data = _data(stacked, out, offset, targets, data_term, camera,
+                     target_conf, robust, robust_scale, tips, keypoint_order,
+                     sil_sigma, per_hand_masks)
         if t_frames > 1:
             vel = p["pose"][1:] - p["pose"][:-1]
             reg = smooth_pose_weight * torch.mean(vel ** 2)

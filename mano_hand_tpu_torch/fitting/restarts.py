@@ -63,9 +63,14 @@ def fit_restarts(
         )
     if n_restarts < 1:
         raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
-    solvers.refuse_rasterising(solver_kw.get("data_term"))
     target = solvers._as_target(params, target)
-    if target.dim() != 2:
+    want_ndim = 2
+    if solver_kw.get("data_term") == "silhouette":
+        # Masks are [H, W] per problem, or [n_views, H, W] with a camera
+        # list; outlines are the most multi-modal data of all.
+        want_ndim = solvers.check_silhouette_views(
+            solver_kw.get("camera"), target, "fit_restarts")
+    if target.dim() != want_ndim:
         raise ValueError(
             "fit_restarts solves ONE problem (target [rows, 2|3], or an "
             "[H, W] / [n_views, H, W] mask for the silhouette term); for "

@@ -22,8 +22,11 @@ global rotation (the reference's own), or the 6D continuous rotation
 representation (decoded back to axis-angle through the SO(3) log map).
 
 The rasterising data terms (``silhouette``, ``depth``, and the auxiliary
-``target_mask``) are refused with a ``NotImplementedError`` until the
-soft rasteriser is ported (rendering, ROADMAP.md Queue 1 item 7).
+``target_mask`` beside ``keypoints2d``) render the mesh through the soft
+rasterisers of ``viz/silhouette.py``. Their value checks (mask range,
+valid depth pixels, ``sil_sigma``, the camera's magnification and
+calibrated resolution) run once, at the entry (``validate_mask_target``),
+never inside a step.
 """
 
 from __future__ import annotations
@@ -39,30 +42,15 @@ import torch
 from mano_hand_tpu_torch import ops
 from mano_hand_tpu_torch.fitting import objectives
 from mano_hand_tpu_torch.models import core
+from mano_hand_tpu_torch.ops.common import IdentityCache
 from mano_hand_tpu_torch.serving import buckets as bucket_mod
+from mano_hand_tpu_torch.viz.silhouette import soft_depth, soft_silhouette
 
 
 def _id6d(dtype, device) -> torch.Tensor:
     """The identity rotation in the 6D representation (the first two
     columns of I), made on the device (no host copy)."""
     return ops.matrix_to_6d(torch.eye(3, dtype=dtype, device=device))
-
-
-# Data terms that rasterise the mesh; they wait for the rasteriser.
-RASTER_TERMS = ("silhouette", "depth")
-
-
-def refuse_rasterising(data_term, target_mask=None) -> None:
-    """Raise ``NotImplementedError`` for the data terms that need the soft
-    rasteriser (``viz/silhouette.py``), which the port does not have
-    yet."""
-    if data_term in RASTER_TERMS or target_mask is not None:
-        what = (f"data_term={data_term!r}" if data_term in RASTER_TERMS
-                else "target_mask")
-        raise NotImplementedError(
-            f"{what} rasterises the mesh through the soft rasteriser "
-            "(viz/silhouette.py), which the port does not have yet: it "
-            "comes with rendering (ROADMAP.md Queue 1 item 7)")
 
 
 # --- pose-space machinery shared by fit and fit_sequence -----------------
@@ -232,6 +220,99 @@ def is_multiview(camera) -> bool:
             and not hasattr(camera, "project"))
 
 
+def check_silhouette_views(camera, target, fn_name: str) -> int:
+    """Per-problem target rank for the silhouette term (2, or 3 when
+    multi-view), after checking the view axis against the camera list."""
+    if not is_multiview(camera):
+        return 2
+    if target.dim() < 3 or target.shape[-3] != len(camera):
+        # dim < 3 = a single [H, W] mask with a camera list: without this
+        # the batched dispatch would read mask rows as problems.
+        views = target.shape[-3] if target.dim() >= 3 else "no"
+        raise ValueError(
+            f"{fn_name}: {len(camera)} cameras but target has "
+            f"{views} views on axis -3 (shape {tuple(target.shape)}; "
+            "multi-view silhouette targets are [..., n_views, H, W])"
+        )
+    return 3
+
+
+def check_aux_mask(data_term, target_mask, params, n_frames=None):
+    """The one validation of the auxiliary keypoints2d mask (``fit`` and
+    ``fit_sequence``). Returns the mask as a tensor like the params."""
+    if data_term != "keypoints2d":
+        # The pure-mask problem is data_term='silhouette'; the aux mask
+        # exists to combine with the keypoint term.
+        raise ValueError(
+            "target_mask is the auxiliary mask for "
+            "data_term='keypoints2d' (for mask-only fitting use "
+            f"data_term='silhouette'); got data_term={data_term!r}"
+        )
+    target_mask = _as_target(params, target_mask)
+    shape = tuple(target_mask.shape)
+    if n_frames is None:
+        if target_mask.dim() not in (2, 3) or 0 in shape:
+            raise ValueError(
+                "target_mask must be a non-empty [H, W] (or batched "
+                f"[B, H, W]) mask, got {shape}"
+            )
+    elif (target_mask.dim() != 3 or shape[0] != n_frames or 0 in shape):
+        raise ValueError(
+            "fit_sequence target_mask must be [T, H, W] per-frame "
+            f"masks matching {n_frames} frames, got {shape}"
+        )
+    return target_mask
+
+
+def check_hands_silhouette(camera, robust, targets, seq: bool,
+                           fn_name: str,
+                           mask_layout: str = "auto") -> bool:
+    """Shared validation of the two-hand mask term; returns ``per_hand``
+    (instance masks against one combined mask). A [2, H, W] target at a
+    sequence entry point (a 2-frame combined clip, or one frame of
+    per-hand masks) is refused unless ``mask_layout`` names the reading."""
+    if is_multiview(camera):
+        raise ValueError(
+            f"{fn_name} takes ONE camera; multi-view silhouette is a "
+            "single-hand feature (fit with a camera tuple)"
+        )
+    if robust != "none":
+        raise ValueError("robust does not apply to data_term='silhouette'")
+    if mask_layout not in ("auto", "combined", "per_hand"):
+        raise ValueError(
+            "mask_layout must be 'auto', 'combined' or 'per_hand', got "
+            f"{mask_layout!r}"
+        )
+    combined_ndim = 3 if seq else 2          # [T, H, W] / [H, W]
+    hand_axis = 1 if seq else 0
+    per_hand_ok = (targets.dim() == combined_ndim + 1
+                   and targets.shape[hand_axis] == 2)
+    combined_ok = targets.dim() == combined_ndim
+    if mask_layout == "combined":
+        ok = combined_ok
+    elif mask_layout == "per_hand":
+        ok = per_hand_ok
+    else:
+        ok = combined_ok or per_hand_ok
+        if seq and combined_ok and targets.shape[0] == 2:
+            raise ValueError(
+                f"{fn_name}: a [2, H, W] mask target is ambiguous — a "
+                "2-frame combined clip or ONE frame of per-hand instance "
+                "masks. Pass mask_layout='combined' for the clip reading; "
+                "for one frame of per-hand masks use fit_hands()"
+            )
+    ok = ok and 0 not in tuple(targets.shape)
+    if not ok:
+        t = "[T, " if seq else "["
+        raise ValueError(
+            f"silhouette targets must be {t}H, W] combined masks or "
+            f"per-hand {t}2, H, W] instance masks "
+            f"(mask_layout={mask_layout!r}), got {tuple(targets.shape)}"
+            + ("; for one frame use fit_hands()" if seq else "")
+        )
+    return per_hand_ok and mask_layout != "combined"
+
+
 def _check_data_term(data_term: str, camera, conf) -> None:
     """One validation policy for every solver entry point."""
     if data_term not in ("verts", "joints", "keypoints2d", "points",
@@ -240,17 +321,37 @@ def _check_data_term(data_term: str, camera, conf) -> None:
             "data_term must be 'verts', 'joints', 'keypoints2d', "
             f"'points', 'silhouette' or 'depth', got {data_term!r}"
         )
-    refuse_rasterising(data_term)
-    if data_term == "keypoints2d":
+    if data_term in ("keypoints2d", "silhouette", "depth"):
         if camera is None:
             raise ValueError(
                 f"data_term={data_term!r} needs a viz.camera.Camera (or "
                 "WeakPerspectiveCamera)"
             )
-        if is_multiview(camera):
+        if data_term == "depth" and hasattr(camera, "scale"):
+            # Weak perspective's z column is rotation-only: a meters-scale
+            # depth target against it is a meaningless residual.
             raise ValueError(
-                "a camera list (multi-view) is only supported for "
-                f"data_term='silhouette'; {data_term} takes one camera"
+                "data_term='depth' needs a real projection (Camera or "
+                "IntrinsicsCamera); weak perspective has no depth axis"
+            )
+        if is_multiview(camera):
+            if data_term != "silhouette":
+                raise ValueError(
+                    "a camera list (multi-view) is only supported for "
+                    f"data_term='silhouette'; {data_term} takes one camera"
+                )
+            if len(camera) == 0:
+                raise ValueError("camera list is empty")
+        for c in (camera if is_multiview(camera) else (camera,)):
+            if not hasattr(c, "project"):
+                # JAX's jit refuses such an argument with a TypeError.
+                raise TypeError(
+                    "camera must be a viz camera (anything with "
+                    f"project(verts)), got {type(c).__name__}"
+                )
+        if conf is not None and data_term != "keypoints2d":
+            raise ValueError(
+                "target_conf only applies to data_term='keypoints2d'"
             )
     elif camera is not None or conf is not None:
         # Accepting these would silently fit unweighted/unprojected data.
@@ -280,12 +381,53 @@ def normalize_tips_kwarg(fn):
     return wrapper
 
 
+# Host summaries of image targets, read once per tensor and version: a
+# target on the card is read back (one wait) the first time it is
+# checked, not again when the same unchanged tensor is fitted again.
+_RANGE = IdentityCache()
+_DEPTH_VALID = IdentityCache()
+
+
+def _value_range(x):
+    """(min, max) of a mask target as floats, or None when it is empty."""
+    if not torch.is_tensor(x):
+        t = np.asarray(x)
+        return (float(t.min()), float(t.max())) if t.size else None
+
+    def build(t):
+        if t.numel() == 0:
+            return None
+        lo, hi = torch.stack([t.min(), t.max()]).double().cpu().tolist()
+        return lo, hi
+
+    return _RANGE.get(x, build)
+
+
+def _every_image_valid(x) -> bool:
+    """True when every [H, W] image of a depth target has a positive
+    (valid) pixel; an empty target is valid."""
+    if not torch.is_tensor(x):
+        t = np.asarray(x)
+        return not t.size or bool((t > 0).any(axis=(-2, -1)).all())
+    return _DEPTH_VALID.get(x, lambda t: t.numel() == 0 or bool(
+        (t > 0).flatten(-2).any(-1).all()))
+
+
 def validate_mask_target(fn):
-    """Refuse the rasterising data terms and the auxiliary mask before any
-    work (``refuse_rasterising``). The call is bound to the wrapped
-    function's signature, so keyword and positional ``data_term`` both
-    resolve."""
+    """Check the rasterising terms' targets and render parameters once, at
+    the entry, before any step.
+
+    Segmentation masks arrive as uint8 0/255; the soft-IoU loss's [0, 1]
+    precondition would otherwise fail silently (a negative, ~255x-scaled
+    loss). A depth image with no valid pixel fits to nothing; a zero
+    ``sil_sigma`` or camera magnification renders a constant image
+    (the init returned as a fit); an ``IntrinsicsCamera`` against a
+    mask of another resolution rescales the projection. The call is
+    bound to the wrapped function's signature, so keyword targets and a
+    positional ``data_term`` both resolve.
+    """
     sig = inspect.signature(fn)
+    target_name = list(sig.parameters)[1]   # fit: target_verts; seq: targets
 
     @functools.wraps(fn)
     def wrapper(*args, **kw):
@@ -294,8 +436,72 @@ def validate_mask_target(fn):
         except TypeError:
             # Malformed call: let the real function raise its own error.
             return fn(*args, **kw)
-        refuse_rasterising(bound.arguments.get("data_term"),
-                           bound.arguments.get("target_mask"))
+        data_term = bound.arguments.get("data_term")
+        is_sil = data_term == "silhouette"
+        is_depth = data_term == "depth"
+        target = bound.arguments.get(target_name)
+        masks = [target] if is_sil else []
+        masks.append(bound.arguments.get("target_mask"))  # aux (kp2d+mask)
+        for m in masks:
+            rng = None if m is None else _value_range(m)
+            if rng is not None and (rng[0] < 0.0 or rng[1] > 1.0):
+                raise ValueError(
+                    "silhouette target mask must be in [0, 1], got "
+                    f"range [{rng[0]:g}, {rng[1]:g}] "
+                    "— divide a 0/255 uint8 mask by 255"
+                )
+        if (is_sil or is_depth) and target is not None:
+            # Image targets need at least [H, W]: name the shape error here.
+            shape = (tuple(target.shape) if torch.is_tensor(target)
+                     else np.shape(target))
+            if len(shape) < 2:
+                raise ValueError(
+                    f"data_term='{data_term}' targets must be image-"
+                    f"shaped [..., H, W]; got shape {shape}"
+                )
+        if is_depth and target is not None:
+            # Per image: one all-invalid frame (sensor dropout) would get
+            # zero gradients and report its init as converged.
+            if not _every_image_valid(target):
+                raise ValueError(
+                    "depth target has image(s) with no valid "
+                    "(positive) pixels — drop dropped-out frames "
+                    "before fitting"
+                )
+            masks.append(target)   # joins the resolution check below
+        if is_sil or is_depth or bound.arguments.get("target_mask") is not None:
+            sigma = bound.arguments.get("sil_sigma", 1.0)
+            if float(sigma) <= 0:
+                raise ValueError(f"sil_sigma must be > 0 pixels, "
+                                 f"got {sigma}")
+            cam = bound.arguments.get("camera")
+            for c in (cam if is_multiview(cam) else (cam,)):
+                # Any projection's magnification: zero collapses every
+                # vertex to one point (constant mask, zero gradients).
+                for attr in ("scale", "focal", "fx", "fy"):
+                    val = getattr(c, attr, None)
+                    if val is not None and float(val) <= 0:
+                        raise ValueError(
+                            f"camera {attr} must be > 0 (a zero {attr} "
+                            "projects every vertex to one point — "
+                            f"constant mask, zero gradients), got {val}"
+                        )
+                # An IntrinsicsCamera bakes the resolution into its NDC.
+                cw, ch = getattr(c, "width", None), getattr(c, "height",
+                                                           None)
+                if cw is not None and ch is not None:
+                    for m in masks:
+                        if m is None:
+                            continue
+                        mh, mw = tuple(m.shape if torch.is_tensor(m)
+                                       else np.shape(m))[-2:]
+                        if (mh, mw) != (int(ch), int(cw)):
+                            raise ValueError(
+                                f"mask resolution {mh}x{mw} does not "
+                                "match the IntrinsicsCamera calibration "
+                                f"{int(ch)}x{int(cw)} — crop/resize "
+                                "masks AND adjust K together"
+                            )
         return fn(*args, **kw)
 
     return wrapper
@@ -385,21 +591,52 @@ def _check_robust(robust, robust_scale) -> None:
 
 def _data_loss(out, offset, target, data_term: str, camera, conf,
                robust: str = "none", robust_scale: float = 0.01,
-               tips=None, keypoint_order: str = "mano", lead: int = 0):
+               tips=None, keypoint_order: str = "mano", lead: int = 0,
+               faces=None, sil_sigma: float = 0.7):
     """The one data-term dispatch shared by every Adam solver, one loss
     per problem (``lead`` leading problem axes kept).
 
     - ``verts``: full-mesh L2 (known correspondence);
     - ``joints``: sparse 3D keypoints (16 joints, plus tips);
     - ``keypoints2d``: posed keypoints through the pinhole projection;
-    - ``points``: one-sided chamfer to an unstructured cloud.
+    - ``points``: one-sided chamfer to an unstructured cloud;
+    - ``silhouette``: soft IoU of the soft silhouette (``faces``, edge
+      softness ``sil_sigma`` pixels) against an [H, W] mask at its
+      resolution; a camera list with [..., C, H, W] targets fits every
+      view (mean per-view IoU);
+    - ``depth``: a sensor depth image [H, W] in view-space meters (<= 0
+      or NaN: no reading) against the soft depth render.
 
-    ``robust="huber"`` replaces the per-point squared distance with a
-    Huber penalty at scale ``robust_scale``.
+    ``robust="huber"`` replaces the per-point (per-pixel for depth)
+    squared distance with a Huber penalty at scale ``robust_scale``.
     """
     _check_robust(robust, robust_scale)
     penalty = ((lambda sq: objectives.huber(sq, robust_scale))
                if robust == "huber" else None)
+    if data_term == "depth":
+        pred = soft_depth(out.verts + offset, faces, camera,
+                          height=target.shape[-2], width=target.shape[-1],
+                          sigma=sil_sigma)
+        return objectives._mean(objectives.depth_loss(pred, target, penalty),
+                                lead)
+    if data_term == "silhouette":
+        if robust != "none":
+            # The IoU is bounded per image already: no per-point distance
+            # for Huber to act on.
+            raise ValueError("robust does not apply to data_term='silhouette'")
+        verts = out.verts + offset
+        h, w = target.shape[-2], target.shape[-1]
+        if is_multiview(camera):
+            # One render per camera, the view axis at -3 to line up with
+            # [..., C, H, W] targets.
+            sil = torch.stack(
+                [soft_silhouette(verts, faces, c, height=h, width=w,
+                                 sigma=sil_sigma) for c in camera], dim=-3)
+        else:
+            sil = soft_silhouette(verts, faces, camera, height=h, width=w,
+                                  sigma=sil_sigma)
+        return objectives._mean(objectives.silhouette_iou_loss(sil, target),
+                                lead)
     if data_term == "verts":
         return objectives.vertex_l2(out.verts + offset, target, penalty,
                                     lead=lead)
@@ -448,12 +685,49 @@ def _run_adam(loss_fn, theta0: dict, make_optimizer, n_steps: int):
     return p_final, final_loss, hist
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    """Adam in optax's ``adam(lr)`` arithmetic, op for op: moments
+    ``(1 - b) * g + b * m``, bias corrections ``1 - b ** count`` in the
+    parameters' dtype with the step count on the device (as optax keeps
+    it), the update ``m_hat / (sqrt(v_hat) + eps)`` scaled by ``-lr``.
+    ``torch.optim.Adam`` forms its corrections in float64 on the host and
+    its moments by ``lerp``: an f32 step then differs from optax's by
+    about 7e-6 relative, which a sharp loss (the soft depth) amplifies.
+    Nothing here reads the device."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2, eps, lr = (group[k] for k in ("b1", "b2", "eps", "lr"))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["count"] = torch.zeros((), dtype=p.dtype,
+                                                 device=p.device)
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                state["count"] += 1
+                mu = (1 - b1) * g + b1 * state["mu"]
+                nu = (1 - b2) * (g * g) + b2 * state["nu"]
+                state["mu"], state["nu"] = mu, nu
+                mu_hat = mu / (1 - torch.pow(b1, state["count"]))
+                nu_hat = nu / (1 - torch.pow(b2, state["count"]))
+                p.add_((mu_hat / (torch.sqrt(nu_hat) + eps)) * (-lr))
+        return None
+
+
 def adam(lr: float):
-    """The optimizer factory of ``fit``: ``torch.optim.Adam`` with optax's
-    ``adam(lr)`` arithmetic (b1 0.9, b2 0.999, eps 1e-8 outside the square
-    root, bias correction; its step count stays on the host)."""
+    """The optimizer factory of ``fit``: ``OptaxAdam`` (optax's ``adam(lr)``:
+    b1 0.9, b2 0.999, eps 1e-8 outside the square root)."""
     def make(leaves):
-        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return OptaxAdam(leaves, lr=lr)
     return make
 
 
@@ -468,8 +742,10 @@ def _prior_operands(params, pose_prior_vars, joint_limits):
 
 
 def _camera_on(camera, like: torch.Tensor):
-    """The camera with its tensors on ``like``'s device and dtype (moved
-    once, before the loop)."""
+    """The camera (or each camera of a multi-view list) with its tensors
+    on ``like``'s device and dtype (moved once, before the loop)."""
+    if is_multiview(camera):
+        return tuple(_camera_on(c, like) for c in camera)
     mover = getattr(camera, "to", None)
     return camera if mover is None else mover(like.device, like.dtype)
 
@@ -504,10 +780,12 @@ def _fit_batched(
     data_term, camera, fit_trans, robust, robust_scale, pose_prior,
     pose_prior_vars, joint_limits, joint_limit_weight, tips,
     keypoint_order, self_penetration_weight, self_penetration_radius,
-    self_pen_mask,
+    self_pen_mask, sil_sigma, target_mask, mask_weight,
 ) -> FitResult:
-    """B independent problems ([B, rows, coords] targets) as one batched
-    loss; ``init`` leaves are [B, ...], ``frozen_shape`` [S] or [B, S]."""
+    """B independent problems ([B, rows, coords] targets; [B, H, W] or
+    [B, C, H, W] images) as one batched loss; ``init`` leaves are
+    [B, ...], ``frozen_shape`` [S] or [B, S], ``target_mask`` [H, W]
+    (shared) or [B, H, W]."""
     _check_pose_prior(pose_prior, pose_space, joint_limits)
     pose_prior_vars, joint_limits = _prior_operands(params, pose_prior_vars,
                                                     joint_limits)
@@ -533,7 +811,15 @@ def _fit_batched(
         out = _model_out(pose_space, params, p, shape)
         offset = p["trans"][:, None, :] if fit_trans else 0.0
         data = _data_loss(out, offset, target, data_term, camera, conf,
-                          robust, robust_scale, tips, keypoint_order, lead=1)
+                          robust, robust_scale, tips, keypoint_order, lead=1,
+                          faces=params.faces, sil_sigma=sil_sigma)
+        if target_mask is not None:
+            # The tracking energy: sparse keypoints pin the skeleton, the
+            # mask refines the outline, both through the one camera.
+            data = data + mask_weight * _data_loss(
+                out, offset, target_mask, "silhouette", camera, None,
+                "none", robust_scale, None, "mano", lead=1,
+                faces=params.faces, sil_sigma=sil_sigma)
         reg = _pose_reg(pose_space, pose_prior, pose_prior_vars, params, p,
                         pose_prior_weight, joint_limits, joint_limit_weight,
                         lead=1)
@@ -586,7 +872,9 @@ def fit(
     self_penetration_weight: float = 0.0,
     self_penetration_radius: float = 0.004,
     _self_pen_mask=None,         # built by prepare_self_pen; do not pass
-    target_mask=None,            # refused until rendering is ported
+    sil_sigma: float = 0.7,      # silhouette/depth edge softness, pixels
+    target_mask=None,            # [H, W] / [B, H, W] aux mask (kp2d)
+    mask_weight: float = 0.1,
     frozen_shape=None,           # [S] or [B, S]
 ) -> FitResult:
     """Recover pose/shape for one target or a batch of them, by Adam.
@@ -606,9 +894,13 @@ def fit(
     OpenPose-ordered targets); ``self_penetration_weight > 0`` adds the
     self-collision hinge; ``frozen_shape`` pins beta ([B, S]: one subject
     per problem) and fits pose only (``init`` must not seed ``"shape"``).
-    For another optimizer use ``fit_with_optimizer``. The rasterising
-    terms (``silhouette``, ``depth``, ``target_mask``) raise
-    ``NotImplementedError`` until rendering is ported.
+    ``data_term='silhouette'`` fits a segmentation mask through the soft
+    rasteriser (edge softness ``sil_sigma`` pixels, scored by soft IoU at
+    the mask's resolution; a camera list fits [..., C, H, W] multi-view
+    masks); ``data_term='depth'`` a sensor depth image through the soft
+    depth render. With both a detector and a segmenter, fit
+    ``keypoints2d`` and pass the mask as ``target_mask`` (weighted by
+    ``mask_weight``). For another optimizer use ``fit_with_optimizer``.
     """
     return fit_with_optimizer(
         params, target_verts, adam(lr),
@@ -622,7 +914,8 @@ def fit(
         tip_vertex_ids=tip_vertex_ids, keypoint_order=keypoint_order,
         self_penetration_weight=self_penetration_weight,
         self_penetration_radius=self_penetration_radius,
-        _self_pen_mask=_self_pen_mask, target_mask=target_mask,
+        _self_pen_mask=_self_pen_mask, sil_sigma=sil_sigma,
+        target_mask=target_mask, mask_weight=mask_weight,
         frozen_shape=frozen_shape,
     )
 
@@ -654,7 +947,9 @@ def fit_with_optimizer(
     self_penetration_weight: float = 0.0,
     self_penetration_radius: float = 0.004,
     _self_pen_mask=None,
+    sil_sigma: float = 0.7,
     target_mask=None,
+    mask_weight: float = 0.1,
     frozen_shape=None,
 ) -> FitResult:
     """``fit`` with any optimizer. Where the JAX package takes an optax
@@ -663,6 +958,8 @@ def fit_with_optimizer(
     them (``fit`` passes ``adam(lr)``). The optimizer sees the summed
     loss's gradients, one problem's own per row."""
     _check_data_term(data_term, camera, target_conf)
+    if target_mask is not None:
+        target_mask = check_aux_mask(data_term, target_mask, params)
     target_verts = _as_target(params, target_verts)
     n_sh = params.n_shape
     if frozen_shape is not None:
@@ -691,8 +988,17 @@ def fit_with_optimizer(
         keypoint_order=keypoint_order,
         self_penetration_weight=self_penetration_weight,
         self_penetration_radius=self_penetration_radius,
-        self_pen_mask=_self_pen_mask)
-    if target_verts.dim() == 2:
+        self_pen_mask=_self_pen_mask, sil_sigma=sil_sigma,
+        mask_weight=mask_weight)
+    single_ndim = 2
+    if data_term == "silhouette":
+        single_ndim = check_silhouette_views(camera, target_verts, "fit")
+    if target_verts.dim() == single_ndim:
+        if target_mask is not None and target_mask.dim() != 2:
+            raise ValueError(
+                "single-problem fits take one [H, W] target_mask, got "
+                f"{tuple(target_mask.shape)}"
+            )
         if frozen_shape is not None and frozen_shape.dim() != 1:
             raise ValueError(
                 "single-problem fits take one frozen_shape [S], got "
@@ -708,7 +1014,7 @@ def fit_with_optimizer(
         res = run(target_verts[None], target_conf,
                   init={k: torch.as_tensor(v)[None]
                         for k, v in (init or {}).items()},
-                  frozen_shape=frozen_shape)
+                  frozen_shape=frozen_shape, target_mask=target_mask)
         return FitResult(*(None if x is None else x[0] for x in res))
     if init:
         validate_batched_init(
@@ -717,6 +1023,14 @@ def fit_with_optimizer(
                                  fit_trans,
                                  freeze_shape=frozen_shape is not None),
             target_verts.shape, "fit")
+    if (target_mask is not None and target_mask.dim() == 3
+            and target_mask.shape[0] != target_verts.shape[0]):
+        raise ValueError(
+            f"batched target_mask has {target_mask.shape[0]} masks for "
+            f"{target_verts.shape[0]} problems (shapes "
+            f"{tuple(target_mask.shape)} vs {tuple(target_verts.shape)}); "
+            "pass one [H, W] mask to share it"
+        )
     if (frozen_shape is not None and frozen_shape.dim() == 2
             and frozen_shape.shape[0] != target_verts.shape[0]):
         raise ValueError(
@@ -725,7 +1039,7 @@ def fit_with_optimizer(
             "share the subject"
         )
     return run(target_verts, target_conf, init=init,
-               frozen_shape=frozen_shape)
+               frozen_shape=frozen_shape, target_mask=target_mask)
 
 
 # ------------------------------------------------------------- sequences
@@ -765,7 +1079,9 @@ def fit_sequence(
     self_penetration_weight: float = 0.0,
     self_penetration_radius: float = 0.004,
     _self_pen_mask=None,
-    target_mask=None,
+    sil_sigma: float = 0.7,
+    target_mask=None,            # [T, H, W] aux masks
+    mask_weight: float = 0.1,
 ) -> SequenceFitResult:
     """Fit a whole motion clip as ONE optimisation problem: one shape for
     the clip, per-frame pose (axis-angle, or ``pose_space="6d"`` whose
@@ -779,7 +1095,11 @@ def fit_sequence(
                                                     joint_limits)
     dtype, dev = params.dtype, params.device
     targets = _as_target(params, targets)
-    if targets.dim() != 3:
+    want_ndim = 3
+    if data_term == "silhouette":
+        want_ndim = 1 + check_silhouette_views(camera, targets,
+                                               "fit_sequence")
+    if targets.dim() != want_ndim:
         # A [V, 3] single frame would otherwise read as V one-point frames.
         raise ValueError(
             "fit_sequence targets must be [T, rows, coords] ([T, H, W] "
@@ -789,6 +1109,9 @@ def fit_sequence(
         )
     if data_term == "points" and targets.shape[-2] == 0:
         raise ValueError("points target cloud is empty ([T, 0, 3])")
+    if target_mask is not None:
+        target_mask = check_aux_mask(data_term, target_mask, params,
+                                     n_frames=targets.shape[0])
     tips, n_kp = check_keypoint_spec(
         params, data_term, tip_vertex_ids, keypoint_order, targets,
         "fit_sequence")
@@ -812,7 +1135,14 @@ def fit_sequence(
         offset = p["trans"][:, None, :] if fit_trans else 0.0
         data = _data_loss(out, offset, targets, data_term, camera,
                           target_conf, robust, robust_scale, tips,
-                          keypoint_order)
+                          keypoint_order, faces=params.faces,
+                          sil_sigma=sil_sigma)
+        if target_mask is not None:
+            # Per-frame aux masks over the clip, one camera.
+            data = data + mask_weight * _data_loss(
+                out, offset, target_mask, "silhouette", camera, None,
+                "none", robust_scale, None, "mano", faces=params.faces,
+                sil_sigma=sil_sigma)
         if t_frames > 1:
             vel = p[pose_key][1:] - p[pose_key][:-1]
             reg = smooth_pose_weight * torch.mean(vel ** 2)
@@ -876,7 +1206,8 @@ def bucketed_fit_call(fit_fn, params, targets, *, min_bucket, max_bucket,
     problem axis up to a power-of-two bucket (pad problems repeat problem
     0), run, and slice the pad problems off every leaf of the result.
     ``init`` leaves and the per-problem auxiliary kwargs pad alike (by
-    rank: [B, J] conf, [B, S] frozen betas). ``counters`` (a
+    rank: [B, J] conf, [B, H, W] masks, [B, S] frozen betas; a shared
+    [H, W] mask whose height equals B stays unpadded). ``counters`` (a
     ``utils.profiling.ServingCounters``) counts one compile the first
     time the solver runs a bucket with these static options, and one
     dispatch per call."""
@@ -893,7 +1224,8 @@ def bucketed_fit_call(fit_fn, params, targets, *, min_bucket, max_bucket,
     if init is not None:
         init = {k: _pad_rows(_as_target(params, v), bucket)
                 for k, v in init.items()}
-    for aux, batched_ndim in (("target_conf", 2), ("frozen_shape", 2)):
+    for aux, batched_ndim in (("target_conf", 2), ("target_mask", 3),
+                              ("frozen_shape", 2)):
         v = kw.get(aux)
         if v is not None:
             v = _as_target(params, v)

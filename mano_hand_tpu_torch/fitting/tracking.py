@@ -108,7 +108,6 @@ def make_tracker(
             f"pose_space must stay 'aa', got "
             f"{solver_kw['pose_space']!r}"
         )
-    solvers.refuse_rasterising(data_term, solver_kw.get("target_mask"))
     if solver == "adam" and solver_kw.get("self_penetration_weight"):
         # The [V, V] mask once per stream, not once per frame.
         solver_kw.setdefault(
@@ -202,7 +201,6 @@ def make_hands_tracker(
             "set per frame; self_penetration_*/ICP options are single-hand "
             "fit/fit_lm features)"
         )
-    solvers.refuse_rasterising(data_term)
     dtype, dev = stacked.dtype, stacked.device
     state0 = TrackState(
         pose=torch.zeros((2, stacked.n_joints, 3), dtype=dtype, device=dev),
@@ -263,10 +261,16 @@ def _run_clip(state, step, targets):
 def track_hands_clip(stacked, targets, **tracker_kw):
     """Two-hand ``track_clip`` over a frame-major [T, 2, rows, coords]
     clip. Returns ``(poses [T, 2, J, 3], shapes [T, 2, S],
-    final_state)``."""
-    solvers.refuse_rasterising(tracker_kw.get("data_term"))
+    final_state)``. Mask clips are [T, H, W] combined or [T, 2, H, W]
+    per hand, ``mask_layout`` resolving a [2, H, W] clip as in
+    ``fit_hands_sequence``."""
     targets = solvers._as_target(stacked, targets)
-    if targets.dim() != 4 or targets.shape[1] != 2:
+    if tracker_kw.get("data_term") == "silhouette":
+        solvers.check_hands_silhouette(
+            tracker_kw.get("camera"), tracker_kw.get("robust", "none"),
+            targets, seq=True, fn_name="track_hands_clip",
+            mask_layout=tracker_kw.pop("mask_layout", "auto"))
+    elif targets.dim() != 4 or targets.shape[1] != 2:
         raise ValueError(
             f"targets must be [T, 2, rows, coords], got "
             f"{tuple(targets.shape)}"

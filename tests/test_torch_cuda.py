@@ -798,3 +798,121 @@ def test_fit_lm_on_the_card_matches_the_cpu(dev, normal_eq):
     assert float(got.final_loss.max()) < 1e-12
     assert _err(got.pose, want.pose) <= 1e-4
     assert _err(got.pose, pose) <= 1e-4
+
+
+# ---------------------------------------------------------------- rendering
+def _posed_verts(params, b, seed=11):
+    rng = np.random.default_rng(seed)
+    pose = torch.tensor(rng.normal(scale=0.3, size=(b, 16, 3)),
+                        dtype=torch.float32)
+    with torch.no_grad():
+        return core.forward_batched(params, pose, torch.zeros(b, 10)).verts
+
+
+@pytest.mark.parametrize("size", [(64, 64), (45, 32)])
+def test_render_mesh_on_the_card_matches_the_cpu(dev, size):
+    """The hard rasteriser on the card against the CPU under the
+    edge-pixel rule of ``chip_smoke.hold_render`` (hit masks equal but
+    for a few pixels on an edge, colours within 1e-5), and a clip's
+    frames against their single renders within 1e-5 (the card's
+    index_add, the vertex normals' scatter, sums in no fixed order)."""
+    import chip_smoke
+    from mano_hand_tpu_torch import viz
+
+    cpu = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    verts = _posed_verts(cpu, 3)
+    h, w = size
+    cam = viz.camera.default_hand_camera(device="cpu")
+    corners = viz.render.ndc_to_pixels(cam.project(verts[0])[:, :2], h,
+                                       w)[cpu.faces.long()].numpy()
+    got = viz.render_mesh(verts[0].to(dev), cpu.faces.to(dev), height=h,
+                          width=w)
+    assert got.device.type == "cuda"
+    want = viz.render_mesh(verts[0], cpu.faces, height=h, width=w)
+    chip_smoke.hold_render(got, want, (1.0, 1.0, 1.0), corners)
+    clip = viz.render_sequence(verts.to(dev), cpu.faces, height=h, width=w)
+    assert _err(clip[0], got) <= TOL
+
+
+@pytest.mark.parametrize("name", ["soft_silhouette", "soft_depth"])
+def test_soft_renders_on_the_card_match_the_cpu(dev, name):
+    """Soft renders of a batch on the card: values within 1e-5 of the
+    CPU, gradients at the JAX relative bar, ``"vmap"`` against ``"map"``
+    within 1e-5."""
+    from mano_hand_tpu_torch import viz
+
+    cpu = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    verts = _posed_verts(cpu, 4)
+    fn = getattr(viz, name)
+    wts = torch.rand(32, 32, generator=torch.Generator().manual_seed(0))
+
+    def run(v, faces, **kw):
+        v = v.clone().requires_grad_(True)
+        out = fn(v, faces, height=32, width=32, **kw)
+        g, = torch.autograd.grad((out * wts.to(v.device)).sum(), v)
+        return out.detach().cpu(), g.cpu()
+
+    want, g_want = run(verts, cpu.faces)
+    got, g_got = run(verts.to(dev), cpu.faces.to(dev))
+    assert _err(got, want) <= TOL
+    assert _err(g_got, g_want) / max(1.0, float(g_want.abs().max())) <= 1e-4
+    by_map, _ = run(verts.to(dev), cpu.faces.to(dev), batch_mode="map")
+    by_vmap, _ = run(verts.to(dev), cpu.faces.to(dev), batch_mode="vmap")
+    assert _err(by_map, by_vmap) <= TOL
+
+
+@pytest.mark.parametrize("term", ["silhouette", "depth"])
+def test_raster_fit_on_the_card_matches_the_cpu(dev, term):
+    """``fit`` with a rasterising term on the card against the CPU: the
+    first 20 losses within 1e-3 relative, and the steady steps make the
+    host wait for the card nowhere (sync debug mode "error")."""
+    from mano_hand_tpu_torch import fitting, viz
+
+    cpu = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    card = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        rest = core.forward(cpu).verts
+    shifts = torch.tensor([[[0.02, 0.01, 0.0]], [[-0.01, 0.02, 0.01]]])
+    if term == "silhouette":
+        camera = viz.WeakPerspectiveCamera(rot=torch.eye(3), scale=3.0)
+        target = (viz.soft_silhouette(rest + shifts, cpu.faces, camera,
+                                      height=32, width=32, sigma=1.0)
+                  > 0.5).float()
+    else:
+        camera = viz.camera.default_hand_camera(device="cpu")
+        target = viz.soft_depth(rest + shifts, cpu.faces, camera,
+                                height=32, width=32, sigma=1.0)
+        target = torch.where(target > 5.0, torch.zeros_like(target), target)
+    kw = dict(lr=0.01, data_term=term, sil_sigma=1.0, fit_trans=True,
+              pose_prior_weight=1.0, shape_prior_weight=1.0)
+    want = fitting.fit(cpu, target, n_steps=20, camera=camera, **kw)
+    target_card, cam_card = target.to(dev), camera.to(dev)
+    fitting.fit(card, target_card, n_steps=2, camera=cam_card, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fitting.fit(card, target_card, n_steps=20, camera=cam_card,
+                          **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rel = ((got.loss_history.cpu() - want.loss_history).abs()
+           / want.loss_history.abs()).max()
+    assert float(rel) <= 1e-3
+
+
+def test_cli_renders_and_fits_on_the_card(dev, tmp_path):
+    """``python -m mano_hand_tpu_torch`` on its default device: a clip to
+    AVI and a mask fit."""
+    from mano_hand_tpu_torch import cli, viz
+
+    np.save(tmp_path / "poses.npy", np.zeros((3, 16, 3)))
+    assert cli.main(["render", "--poses", str(tmp_path / "poses.npy"),
+                     "--size", "64", "--out", str(tmp_path / "c.avi")]) == 0
+    assert viz.read_avi_info(tmp_path / "c.avi")["n_frames"] == 3
+    mask = np.zeros((32, 32), np.float32)
+    mask[8:24, 10:22] = 1.0
+    np.save(tmp_path / "m.npy", mask)
+    assert cli.main(["fit", str(tmp_path / "m.npy"), "--data-term",
+                     "silhouette", "--steps", "5", "--out",
+                     str(tmp_path / "f.npz")]) == 0
+    assert np.load(tmp_path / "f.npz")["pose"].shape == (16, 3)

@@ -8,7 +8,8 @@ port's). Tolerances: cameras, objectives and initialisers 1e-5 absolute;
 Adam fits' ``loss_history`` within 1e-4 relative of JAX's over their
 first 20 steps, and the JAX tests' convergence bars (loss down 100x,
 every vertex within 5 mm); batched against single 1e-5, as in JAX. The
-rasterising terms are refused with an error that names rendering.
+rasterising calls the port once refused are held against JAX (more of
+them in ``test_torch_silhouette.py``).
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from mano_hand_tpu.assets.synthetic import synthetic_params as jax_synthetic
 from mano_hand_tpu.fitting import initialize as j_init
 from mano_hand_tpu.fitting import objectives as j_obj
 from mano_hand_tpu.fitting import fit as j_fit, fit_sequence as j_fit_sequence
+from mano_hand_tpu import fitting as j_fit_mod
 from mano_hand_tpu.models import core as j_core
 from mano_hand_tpu.viz import camera as j_cam
 from mano_hand_tpu_torch import fitting
@@ -498,24 +500,47 @@ def test_fit_bucketed_pads_slices_and_counts(tp):
 # ------------------------------------------------------ refusals and checks
 @pytest.mark.parametrize("call", ["fit", "fit_target_mask", "fit_sequence",
                                   "fit_with_optimizer", "fit_depth"])
-def test_rasterising_terms_name_rendering(tp, call):
-    target = torch.zeros(16, 16)
-    cam = camera.default_hand_camera(device=CPU)
-    with pytest.raises(NotImplementedError, match="rendering"):
+def test_rasterising_terms_name_rendering(jp, tp, call):
+    """The five rasterising calls the port refused before it had the soft
+    rasteriser, now held against JAX: the same call gives the same loss
+    history (first 20 steps within 1e-4 relative) and pose, or the same
+    exception (an all-invalid depth image)."""
+    import optax
+
+    target = np.zeros((16, 16), np.float32)
+    cams = (j_cam.default_hand_camera(),
+            camera.default_hand_camera(device=CPU))
+    kw = dict(n_steps=20)
+
+    def run(side):
+        mod, prm, cam = ((j_fit_mod, jp, cams[0]) if side == "jax"
+                         else (fitting, tp, cams[1]))
         if call == "fit":
-            fitting.fit(tp, target, data_term="silhouette", camera=cam)
-        elif call == "fit_depth":
-            fitting.fit(tp, target, n_steps=1, data_term="depth",
-                        camera=cam)
-        elif call == "fit_target_mask":
-            fitting.fit(tp, torch.zeros(16, 2), data_term="keypoints2d",
-                        camera=cam, target_mask=target)
-        elif call == "fit_sequence":
-            fitting.fit_sequence(tp, target[None], data_term="silhouette",
-                                 camera=cam)
-        else:
-            fitting.fit_with_optimizer(tp, target, fitting.solvers.adam(0.1),
-                                       data_term="silhouette", camera=cam)
+            return mod.fit(prm, target, data_term="silhouette", camera=cam,
+                           **kw)
+        if call == "fit_depth":
+            return mod.fit(prm, target, data_term="depth", camera=cam,
+                           **kw)
+        if call == "fit_target_mask":
+            return mod.fit(prm, np.zeros((16, 2), np.float32),
+                           data_term="keypoints2d", camera=cam,
+                           target_mask=target, **kw)
+        if call == "fit_sequence":
+            return mod.fit_sequence(prm, target[None], data_term="silhouette",
+                                    camera=cam, **kw)
+        opt = optax.adam(0.1) if side == "jax" else fitting.solvers.adam(0.1)
+        return mod.fit_with_optimizer(prm, target, opt,
+                                      data_term="silhouette", camera=cam,
+                                      **kw)
+
+    if call == "fit_depth":
+        for side in ("jax", "torch"):
+            with pytest.raises(ValueError, match="no valid"):
+                run(side)
+        return
+    want, got = run("jax"), run("torch")
+    assert _rel(got.loss_history, want.loss_history) <= HIST_RTOL
+    assert _err(got.pose, want.pose) <= 1e-3
 
 
 def test_fit_validation_messages(tp):

@@ -146,7 +146,7 @@ def test_restarts_adam_never_worse_and_seeded(jp, tp):
     assert _err(best.trans, tr) < 1e-3
 
 
-def test_restarts_validation(tp):
+def test_restarts_validation(jp, tp):
     target = core.forward(tp).verts
     for kw, match in ((dict(solver="bfgs"), "solver"),
                       (dict(init={}), "owns init"),
@@ -156,8 +156,10 @@ def test_restarts_validation(tp):
             fitting.fit_restarts(tp, target, n_steps=1, **kw)
     with pytest.raises(ValueError, match="ONE problem"):
         fitting.fit_restarts(tp, target[None], n_steps=1)
-    with pytest.raises(NotImplementedError, match="rendering"):
-        fitting.fit_restarts(tp, torch.zeros(8, 8), n_steps=1,
+    # A mask target without a camera: JAX's own ValueError, on both sides.
+    for mod, prm in ((j_fit, jp), (fitting, tp)):
+        with pytest.raises(ValueError, match="needs a viz.camera.Camera"):
+            mod.fit_restarts(prm, np.zeros((8, 8), np.float32), n_steps=1,
                              data_term="silhouette")
 
 
@@ -241,8 +243,16 @@ def test_tracker_modes(jp, tp):
                        "joint_limits")):
         with pytest.raises(ValueError, match=match):
             fitting.make_tracker(tp, **kw)
-    with pytest.raises(NotImplementedError, match="rendering"):
-        fitting.make_tracker(tp, data_term="silhouette")
+    # A mask tracker builds as JAX's does; its first frame without a
+    # camera raises JAX's ValueError on both sides.
+    jstate, jstep = j_fit.make_tracker(jp, data_term="silhouette")
+    state, step = fitting.make_tracker(tp, data_term="silhouette")
+    assert state.frame == jstate.frame == 0
+    assert tuple(state.pose.shape) == jstate.pose.shape
+    assert tuple(state.shape.shape) == jstate.shape.shape
+    for stepper, st in ((jstep, jstate), (step, state)):
+        with pytest.raises(ValueError, match="needs a viz.camera.Camera"):
+            stepper(st, np.zeros((8, 8), np.float32))
 
 
 def test_supervised_tracker_retries_transient_and_keeps_state(
@@ -367,8 +377,11 @@ def test_hands_trackers_and_validation(stacks, tp):
     with pytest.raises(ValueError, match="frame-major"):
         fitting.fit_hands_sequence(tstack, targets[0], n_steps=2,
                                    data_term="joints")
-    with pytest.raises(NotImplementedError, match="rendering"):
-        fitting.fit_hands(tstack, torch.zeros(8, 8), n_steps=2,
+    # A combined mask with something that is not a camera: JAX's jit
+    # refuses the argument with a TypeError, and so does the port.
+    for mod, stack in ((j_fit, jstack), (fitting, tstack)):
+        with pytest.raises(TypeError):
+            mod.fit_hands(stack, np.zeros((8, 8), np.float32), n_steps=2,
                           data_term="silhouette", camera=object())
 
 
