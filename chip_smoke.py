@@ -52,7 +52,21 @@ each with every launch count zeroed just before it and read just after:
   ``python -m mano_hand_tpu_torch render`` (to AVI) and ``fit
   --data-term silhouette`` as subprocesses. It prints ms per render, clip
   frames per second, ms per soft render forward + backward and ms per
-  Adam step of each term.
+  Adam step of each term;
+* engine resilience and admission (phase ``resilience``, the pose-only
+  family on K2 and K2-bf16 at ``max_bucket=256``): the recovery drill
+  under every fault class (every future resolved; a card engine has no
+  CPU tier, so its outage resolves to ``ServingError``s), an outage on
+  the card and failback through K2, a CPU engine's CPU tier under the
+  same outage (the direct CPU call bit for bit, the card's results within
+  1e-5), the overload drill (every future within its budget, tier-0
+  goodput >= 0.95 at >= 4x saturation against a chaos throttle, a shed
+  probe of no dispatch), healthy supervised traffic from 4 threads with f32 and bf16 tiers (no
+  retry, no failover, K2 launches equal to the gathered dispatches, the
+  unsupervised engine's bits), a device stall past a supervised deadline
+  and one ``device_probe``. It prints the failover overhead, the µs per
+  shed decision, ms per dispatch supervised and unsupervised, the killed
+  attempt's and the retry's seconds and the probe's.
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -88,6 +102,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -95,6 +110,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -166,6 +182,19 @@ RASTER_STEPS, RASTER_CPU_ROWS = 20, 2   # card vs CPU losses, relative 1e-3
 HELD_SIZE = 32
 CPU_SIDE_THREADS = 6       # the CPU side's torch threads (of 8 cores)
 RECOVER_STEPS, RECOVER_TOL = 300, 0.01  # the JAX tests' recoveries, meters
+# Engine resilience (phase resilience): the supervised envelope at full
+# width, the pose-only family on K2 and K2-bf16, the engine's largest
+# bucket 256 as in the main path's timings.
+RES_BUCKET = 256            # max_bucket of every engine in the phase
+RES_DRILL_ROWS = 64         # recovery drill: rows per request, at most
+RES_DRILL_DEADLINE_S = 2.0  # recovery drill: the per-batch deadline
+# Overload drill: the offered rate's target. The submitter's sleeps run
+# over, so the achieved rate comes in a little under the target; the gate
+# is tier-0 goodput at an achieved saturation of at least RES_MIN_SAT.
+RES_SATURATION, RES_MIN_SAT, RES_BURSTS = 4.5, 4.0, 40
+RES_THREADS, RES_REQUESTS = 4, 12   # healthy supervised traffic
+RES_TIMED = 200             # single dispatches timed per engine, in turns
+STALL_S, STALL_DEADLINE_S = 0.8, 0.5   # a device stall past the deadline
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -1326,6 +1355,421 @@ def _render_checks(line, dev, procs, tmp, recover_steps) -> None:
                 "cli fit checkpoint")
 
 
+
+def _cpu_direct(params_cpu, pose, shape, bucket) -> np.ndarray:
+    """The plain forward on the CPU at the padded bucket, its pad rows cut
+    off: what the engine's CPU tier must equal bit for bit."""
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.serving import buckets
+
+    n = len(pose)
+    pose, shape = (torch.from_numpy(np.array(
+        buckets.pad_rows(x, bucket), np.float32, order="C"))
+        for x in (pose, shape))
+    with torch.no_grad():
+        return core.forward_batched(params_cpu, pose, shape).verts.numpy()[:n]
+
+
+def resilience(dev, counts, zero_counts, bucket=RES_BUCKET,
+               drill_rows=RES_DRILL_ROWS,
+               drill_deadline_s=RES_DRILL_DEADLINE_S, threads=RES_THREADS,
+               requests=RES_REQUESTS, timed=RES_TIMED, bursts=RES_BURSTS,
+               saturation=RES_SATURATION) -> dict:
+    """The serving engine's resilience and admission layer at full MANO
+    width, its pose-only family on K2 (and K2-bf16 under a
+    ``PrecisionPolicy``), ``max_bucket=bucket``:
+
+    * the recovery drill (``serving.recovery_drill_run``): every future
+      resolves under a transient error, a latency spike, a hang and a
+      persistent outage. A card engine has no CPU tier: its outage
+      resolves every request to a ``ServingError`` and fails over
+      nothing (on the CPU the failover results, full and pose-only,
+      equal a direct CPU call at the bucket bit for bit);
+    * an outage on the card: the same requests served healthy (K2), then
+      under a persistent outage (every one a ``ServingError``, no K2
+      launch, no failover), then after failback (K2 again); and a CPU
+      engine under the same outage, whose CPU tier serves every request
+      bit for bit as the direct CPU call and within KERNEL_TOL of the
+      card, each failover counted and warned. A card engine given a
+      policy with ``cpu_fallback`` is refused;
+    * the overload drill (``serving.overload_drill_run``, JAX's protocol:
+      one-row full requests on the plain family at bucket 8, the service
+      rate set by a chaos throttle): every future resolved within its
+      budget, tier-0 goodput >= 0.95 at an achieved saturation >=
+      RES_MIN_SAT, a shed probe of no dispatch, the microseconds per
+      shed decision;
+    * healthy supervised traffic from ``threads`` threads, f32 and bf16
+      tiers mixed: no retry, no failover, the K2 and K2-bf16 launches
+      equal the gathered dispatches of each family; every request
+      replayed one at a time on the supervised and an unsupervised engine
+      gives the same bits; ms per dispatch at ``bucket`` rows supervised
+      against unsupervised, ``timed`` single dispatches each in turns
+      with no coalesce window (the worker thread's cost);
+    * a device stall: a primary that runs ``torch.cuda._sleep`` for
+      STALL_S before K2, under ``supervised_call`` with a STALL_DEADLINE_S
+      deadline (the killed attempt's time and the retry's, which waits
+      behind the abandoned work on the same stream); and one
+      ``device_probe`` timed.
+
+    Counts zeroed just before the phase and before each part that reads
+    them. Launch counts and the stall are checked where ``dev`` is a
+    card. Returns the phase's JSON line."""
+    from mano_hand_tpu_torch import runtime
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.runtime import health, supervise
+    from mano_hand_tpu_torch.serving import (
+        PrecisionPolicy, ServingEngine, ServingError, buckets,
+        overload_drill_run, recovery_drill_run,
+    )
+
+    line = {"phase": "resilience", "max_bucket": bucket}
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    params_cpu = synthetic_params(seed=SEED, dtype=torch.float32,
+                                  device="cpu")
+    rng = np.random.default_rng(SEED + 11)
+    s = params.n_shape
+    zero_counts()
+
+    # 1. The recovery drill. A card engine has no CPU tier: there the
+    #    persistent outage resolves every request to its ServingError.
+    t0 = time.perf_counter()
+    rec = recovery_drill_run(params, max_rows=drill_rows, max_bucket=bucket,
+                             deadline_s=drill_deadline_s, seed=SEED,
+                             device=dev, posed_kernel="fused")
+    rec["seconds"] = round(time.perf_counter() - t0, 3)
+    rec["launches"] = counts()
+    line["recovery"] = rec
+    outage = rec["classes"]["persistent"]
+    require(rec["futures_resolved_fraction"] == 1.0,
+            f"recovery drill: every future resolved ({rec['classes']})")
+    if card:
+        require(outage["failovers"] == 0 and outage["resolved_ok"] == 0
+                and outage["resolved_error"] == outage["submitted"],
+                f"recovery drill: the outage failed over nothing {outage}")
+        require(rec["failover_vs_cpu_direct_max_abs_err"] is None
+                and rec["failover_posed_vs_cpu_direct_max_abs_err"] is None,
+                "recovery drill: no failover result on the card")
+    else:
+        require(rec["failover_vs_cpu_direct_max_abs_err"] == 0.0,
+                "recovery drill: failover == the direct CPU call")
+        require(rec["failover_posed_vs_cpu_direct_max_abs_err"] == 0.0,
+                "recovery drill: pose-only failover == the direct CPU call")
+    require(rec["post_recovery_ok"] == rec["requests_per_class"]
+            and rec["breaker_state_final"] == "healthy",
+            "recovery drill: served healthy after the outage")
+    require(rec["post_recovery_steady_recompiles"] == 0,
+            "recovery drill: nothing built after recovery")
+    if card:
+        require(rec["launches"]["K2"] > 0, "K2 launched in the drill")
+
+    # 2. An outage on the card and failback through K2; the CPU tier, on a
+    #    CPU engine under the same outage, against the card's results.
+    betas = rng.normal(size=(3, s)).astype(np.float32)
+    sizes = [n for n in (1, 17, 64, 200, 256) if n <= bucket]
+    reqs = [(rng.normal(scale=0.5, size=(n, 16, 3)).astype(np.float32),
+             i % 3) for i, n in enumerate(sizes)]
+    full = (rng.normal(scale=0.5, size=(sizes[-1], 16, 3)).astype(
+        np.float32), rng.normal(size=(sizes[-1], s)).astype(np.float32))
+
+    def outage_engine(on, cpu_tier):
+        up = [True]
+        plan = runtime.ChaosPlan()
+        breaker = runtime.CircuitBreaker(
+            failure_threshold=2, probe=lambda: up[0],
+            probe_interval_s=0.0, respect_priority_claim=False)
+        eng = ServingEngine(
+            params if on == dev else params_cpu, device=on,
+            max_bucket=bucket, posed_kernel="fused",
+            policy=runtime.DispatchPolicy(
+                deadline_s=30.0, retries=1, backoff_s=0.001, jitter=0.0,
+                breaker=breaker, chaos=plan, cpu_fallback=cpu_tier))
+        return eng, plan, up
+
+    def serve_all(eng, keys):
+        """One request a batch, in turn: a ServingError is kept as the
+        request's outcome."""
+        out = []
+        for args, kw in [((p,), {"subject": keys[k]}) for p, k in reqs] \
+                + [(full, {})]:
+            try:
+                out.append(eng.submit(*args, **kw).result(timeout=300))
+            except ServingError as e:
+                out.append(e)
+        return out
+
+    if card:
+        try:
+            ServingEngine(params, device=dev, policy=runtime.DispatchPolicy(
+                cpu_fallback=True))
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, "a card engine refuses the CPU tier")
+    fo = {}
+    eng, plan, up = outage_engine(dev, cpu_tier=not card)
+    with eng:
+        keys = [eng.specialize(b) for b in betas]
+        eng.warmup()
+        eng.warmup_posed()
+        zero_counts()
+        card_out = serve_all(eng, keys)
+        k2_healthy = counts()["K2"]
+        plan.schedule("error@0-")
+        up[0] = False
+        out_outage = serve_all(eng, keys)
+        k2_outage = counts()["K2"] - k2_healthy
+        fo["outage_failovers"] = eng.counters.failovers
+        plan.clear()
+        up[0] = True
+        back = serve_all(eng, keys)
+        k2_back = counts()["K2"] - k2_healthy - k2_outage
+        fo["failovers_after_failback"] = (eng.counters.failovers
+                                          - fo["outage_failovers"])
+        fo["retries"] = eng.counters.retries
+    fo["outage_errors"] = sum(isinstance(o, ServingError)
+                              for o in out_outage)
+    fo["launches"] = {"K2_healthy": k2_healthy, "K2_outage": k2_outage,
+                      "K2_failback": k2_back}
+    require(not any(isinstance(o, ServingError) for o in card_out + back),
+            "healthy and failback requests served")
+    fo["failback_vs_card_max_abs_err"] = max(
+        max_err(a, b) for a, b in zip(back, card_out))
+    if card:
+        require(fo["outage_errors"] == len(reqs) + 1
+                and fo["outage_failovers"] == 0,
+                f"every outage request a ServingError, no failover {fo}")
+        require(k2_healthy == len(reqs) and k2_outage == 0
+                and k2_back == len(reqs),
+                f"K2 healthy, none in the outage, K2 after failback "
+                f"{fo['launches']}")
+        host, plan, up = outage_engine(torch.device("cpu"), cpu_tier=True)
+        with host:
+            keys = [host.specialize(b) for b in betas]
+            host.warmup()
+            plan.schedule("error@0-")
+            up[0] = False
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out_outage = serve_all(host, keys)
+            fo["cpu_tier_failovers"] = host.counters.failovers
+            fo["cpu_tier_warnings"] = sum("failed over" in str(w.message)
+                                          for w in caught)
+    else:
+        fo["cpu_tier_failovers"] = fo["outage_failovers"]
+        fo["cpu_tier_warnings"] = fo["cpu_tier_failovers"]
+    require(not any(isinstance(o, ServingError) for o in out_outage),
+            "the CPU tier served every outage request")
+    require(fo["cpu_tier_failovers"] == len(reqs) + 1
+            and fo["cpu_tier_warnings"] == fo["cpu_tier_failovers"],
+            f"every CPU-tier batch failed over, counted and warned {fo}")
+    fo["cpu_tier_vs_card_max_abs_err"] = max(
+        max_err(a, b) for a, b in zip(out_outage, card_out))
+    fo["cpu_tier_vs_cpu_direct_max_abs_err"] = max(
+        [max_err(got, _cpu_direct(
+            params_cpu, p, np.broadcast_to(betas[k][None], (len(p), s)),
+            buckets.bucket_for(len(p), eng.buckets)))
+         for got, (p, k) in zip(out_outage, reqs)]
+        + [max_err(out_outage[-1], _cpu_direct(
+            params_cpu, *full, buckets.bucket_for(len(full[0]),
+                                                  eng.buckets)))])
+    line["failover"] = fo
+    require(fo["failovers_after_failback"] == 0, "no failover after failback")
+    require(fo["cpu_tier_vs_cpu_direct_max_abs_err"] == 0.0,
+            "the CPU tier == the direct CPU call at the bucket, bit for bit")
+    require(fo["cpu_tier_vs_card_max_abs_err"] <= KERNEL_TOL,
+            f"the CPU tier vs the card {fo['cpu_tier_vs_card_max_abs_err']}")
+    require(fo["failback_vs_card_max_abs_err"] <= KERNEL_TOL,
+            "failback results vs the card's")
+
+    # 3. The overload drill: admission against a chaos throttle that sets
+    #    the service rate, one-row full requests on the plain family at
+    #    the drill's own bucket 8 (JAX's protocol; it launches no kernel).
+    t0 = time.perf_counter()
+    ov = overload_drill_run(params, saturation=saturation, bursts=bursts,
+                            seed=SEED, device=dev)
+    ov["seconds"] = round(time.perf_counter() - t0, 3)
+    line["overload"] = ov
+    require(ov["resolved_within_budget_fraction"] == 1.0
+            and ov["outcomes"]["error"] == 0
+            and ov["outcomes"]["unresolved"] == 0,
+            f"overload: every future within its budget {ov['outcomes']}")
+    require(ov["saturation_achieved"] >= RES_MIN_SAT,
+            f"overload: achieved saturation {ov['saturation_achieved']}")
+    require(ov["tier0_goodput"] is not None
+            and ov["tier0_goodput"] >= 0.95,
+            f"overload: tier-0 goodput {ov['tier0_goodput']}")
+    require(ov["shed_probe"]["dispatches"] == 0
+            and not ov["shed_probe"]["engine_started"],
+            "overload: the shed probe dispatched nothing")
+    require(ov["steady_recompiles"] == 0, "overload: nothing built")
+    # 4. Healthy supervised traffic, f32 and bf16 tiers mixed.
+    sup = ServingEngine(
+        params, device=dev, max_bucket=bucket, posed_kernel="fused",
+        precision_policy=PrecisionPolicy(),
+        policy=runtime.DispatchPolicy(
+            deadline_s=30.0, retries=2, cpu_fallback=False,
+            breaker=runtime.CircuitBreaker(probe=functools.partial(
+                health.device_probe, "" if card else "cpu",
+                index=dev.index or 0))))
+    bare = ServingEngine(params, device=dev, max_bucket=bucket,
+                         posed_kernel="fused",
+                         precision_policy=PrecisionPolicy())
+    subj = rng.normal(size=(8, s)).astype(np.float32)
+    most = min(64, bucket)
+    work = [[(rng.normal(scale=0.5, size=(int(rng.integers(1, most + 1)),
+                                          16, 3)).astype(np.float32),
+              int(rng.integers(0, 8)), (t + i) % 2)
+             for i in range(requests)] for t in range(threads)]
+    hl = {}
+    with sup, bare:
+        keys_s = [sup.specialize(b) for b in subj]
+        keys_b = [bare.specialize(b) for b in subj]
+        sup.warmup_posed()
+        bare.warmup_posed()
+        zero_counts()
+        before = sup.counters.snapshot()
+        outs = [[None] * requests for _ in range(threads)]
+        errors = []
+
+        def client(t):
+            try:
+                futs = [sup.submit(p, subject=keys_s[k], priority=tier)
+                        for p, k, tier in work[t]]
+                for i, f in enumerate(futs):
+                    outs[t][i] = f.result(timeout=300)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        ths = [threading.Thread(target=client, args=(t,))
+               for t in range(threads)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+            require(not th.is_alive(), "supervised client thread finished")
+        if errors:
+            raise errors[0]
+        c = counts()
+        after = sup.counters.snapshot()
+        bf16_disp = after["dispatches_bf16"] - before["dispatches_bf16"]
+        f32_disp = after["dispatches"] - before["dispatches"] - bf16_disp
+        hl["dispatches"] = {"f32": f32_disp, "bf16": bf16_disp}
+        hl["launches"] = {"K2": c["K2"], "K2_bf16": c["K2_bf16"]}
+        hl["retries"] = after["retries"] - before["retries"]
+        hl["failovers"] = after["failovers"] - before["failovers"]
+        hl["mixed_subject_batches"] = (after["mixed_subject_batches"]
+                                       - before["mixed_subject_batches"])
+        # Every request once more, one at a time, on both engines: the
+        # same batches, so the same bits.
+        replay = threaded = 0.0
+        for t in range(threads):
+            for (p, k, tier), got in zip(work[t], outs[t]):
+                a = sup.forward(p, subject=keys_s[k], priority=tier)
+                b = bare.forward(p, subject=keys_b[k], priority=tier)
+                replay = max(replay, max_err(a, b))
+                threaded = max(threaded, max_err(got, b))
+        hl["replay_vs_unsupervised_max_abs_err"] = replay
+        hl["threaded_vs_unsupervised_max_abs_err"] = threaded
+        # ms per dispatch at `bucket` rows (f32 tier), one dispatch at a
+        # time and the engines in turns, with no coalesce window: what
+        # differs is the supervised attempt's worker thread.
+        pose_b = rng.normal(scale=0.5, size=(bucket, 16, 3)).astype(
+            np.float32)
+        sup.max_delay_s = bare.max_delay_s = 0.0
+        per = {"supervised": [], "unsupervised": []}
+        turns = (("supervised", sup, keys_s), ("unsupervised", bare, keys_b))
+        for i in range(timed):
+            for name, e, ks in (turns if i % 2 == 0 else turns[::-1]):
+                t0 = time.perf_counter()
+                e.forward(pose_b, subject=ks[0], priority=1)
+                per[name].append((time.perf_counter() - t0) * 1e3)
+        hl["ms_per_dispatch"] = {
+            k: {"median": statistics.median(v),
+                "p10": float(np.percentile(v, 10)),
+                "p90": float(np.percentile(v, 90)), "n": len(v)}
+            for k, v in per.items()}
+        diffs = [a - b for a, b in zip(per["supervised"],
+                                       per["unsupervised"])]
+        hl["supervision_ms_per_dispatch"] = {
+            "median": statistics.median(diffs),
+            "p10": float(np.percentile(diffs, 10)),
+            "p90": float(np.percentile(diffs, 90))}
+    line["healthy"] = hl
+    require(hl["retries"] == 0 and hl["failovers"] == 0,
+            f"healthy supervised traffic: no retry, no failover {hl}")
+    require(hl["dispatches"]["f32"] >= 1 and hl["dispatches"]["bf16"] >= 1,
+            "both tiers dispatched")
+    require(replay == 0.0,
+            f"supervised == unsupervised, bit for bit ({replay})")
+    require(threaded <= KERNEL_TOL, f"threaded results {threaded}")
+    if card:
+        require(hl["launches"]["K2"] == hl["dispatches"]["f32"]
+                and hl["launches"]["K2_bf16"] == hl["dispatches"]["bf16"],
+                f"K2 launches == gathered dispatches per family {hl}")
+
+    # 5. A device stall past the deadline, and the probe.
+    if card:
+        table = core.stack_shaped([core.specialize(
+            params, torch.from_numpy(b).to(dev)) for b in subj])
+        idx = torch.from_numpy(rng.integers(0, 8, size=bucket).astype(
+            np.int32)).to(dev)
+        pose = torch.from_numpy(rng.normal(scale=0.5, size=(
+            bucket, 16, 3)).astype(np.float32)).to(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1 << 26)
+        stop.record()
+        stop.synchronize()
+        cycles = int((1 << 26) * STALL_S * 1e3 / start.elapsed_time(stop))
+        attempts = []
+        t_call = time.perf_counter()
+
+        def primary():
+            n = len(attempts)
+            attempts.append(None)
+            t0 = time.perf_counter()
+            with torch.cuda.device(dev), torch.no_grad():
+                if n == 0:
+                    torch.cuda._sleep(cycles)
+                out = core.forward_posed_gather_fused(
+                    table, idx, pose).cpu().numpy()
+            attempts[n] = time.perf_counter() - t0
+            return out
+
+        kills = []
+        out = supervise.supervised_call(
+            primary, deadline_s=STALL_DEADLINE_S, retries=1, backoff_s=0.0,
+            jitter=0.0,
+            on_deadline_kill=lambda: kills.append(
+                time.perf_counter() - t_call))
+        total = time.perf_counter() - t_call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        healthy = primary()
+        healthy_s = time.perf_counter() - t0
+        line["stall"] = {
+            "sleep_s": STALL_S, "deadline_s": STALL_DEADLINE_S,
+            "sleep_cycles": cycles, "killed_attempt_s": kills,
+            "retry_s": attempts[1], "abandoned_attempt_s": attempts[0],
+            "call_s": total, "healthy_call_s": healthy_s,
+            "retry_vs_healthy_max_abs_err": max_err(out, healthy)}
+        require(len(kills) == 1, f"the stalled attempt was killed {kills}")
+        require(line["stall"]["retry_vs_healthy_max_abs_err"] == 0.0,
+                "the retry's result == a healthy call's")
+    t0 = time.perf_counter()
+    alive = health.device_probe("" if card else "cpu", timeout_s=120.0,
+                                index=dev.index or 0)
+    line["probe"] = {"ok": alive, "seconds": time.perf_counter() - t0}
+    require(alive, "device_probe sees the card")
+    line["launches"] = counts()
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1940,6 +2384,12 @@ def main() -> int:
     # 18c. Rendering: the rasterisers, the rasterising fit terms, the
     #      writers and the command line (plain PyTorch, no kernel).
     emit(render(dev, counts, zero_counts))
+
+    # 18d. Engine resilience and admission: the drills, an outage on the
+    #      card and the CPU tier of a CPU engine, healthy supervised
+    #      traffic on K2 and K2-bf16, a device stall and the probe (counts
+    #      zeroed just before it).
+    emit(resilience(dev, counts, zero_counts))
 
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.

@@ -18,7 +18,8 @@ differentiable ``nn.Module`` for torch training loops.
 
 from mano_hand_tpu_torch import constants
 from mano_hand_tpu_torch.assets import (
-    ManoParams, load_model, params_from_numpy, synthetic_params, validate,
+    ManoParams, load_model, params_from_numpy, synthetic_pair,
+    synthetic_params, validate,
 )
 from mano_hand_tpu_torch.interop import TorchManoLayer
 from mano_hand_tpu_torch.models import (
@@ -34,4 +35,4 @@ __all__ = ["MANOModel", "ManoOutput", "ManoParams", "TorchManoLayer",
            "forward_batched_pallas_fused_full", "forward_chunked",
            "forward_hands", "forward_hands_pallas_fused_full",
            "forward_pca", "keypoints", "load_model", "params_from_numpy",
-           "stack_params", "synthetic_params", "validate"]
+           "stack_params", "synthetic_pair", "synthetic_params", "validate"]

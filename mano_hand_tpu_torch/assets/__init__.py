@@ -15,7 +15,9 @@ from mano_hand_tpu_torch.assets.scans import (
 from mano_hand_tpu_torch.assets.schema import (
     ARRAY_FIELDS, ManoParams, StackedParams, validate,
 )
-from mano_hand_tpu_torch.assets.synthetic import synthetic_arrays, synthetic_params
+from mano_hand_tpu_torch.assets.synthetic import (
+    synthetic_arrays, synthetic_pair, synthetic_params,
+)
 
 __all__ = [
     "ARRAY_FIELDS", "ManoParams", "StackedParams", "decode_scan_poses",
@@ -23,5 +25,5 @@ __all__ = [
     "load_official_pickle", "load_smpl_pickle", "mirror_params",
     "mirror_pose", "mirror_verts", "params_from_numpy",
     "save_dumped_pickle", "save_npz", "save_scan_poses", "synthetic_arrays",
-    "synthetic_params", "validate",
+    "synthetic_pair", "synthetic_params", "validate",
 ]

@@ -90,3 +90,14 @@ def synthetic_params(
     arrays = synthetic_arrays(seed, n_verts, n_joints, n_shape, n_faces)
     return params_from_numpy(dict(arrays, side=side), device=device,
                              dtype=dtype)
+
+
+def synthetic_pair(seed: int = 0, dtype=torch.float64, device=None):
+    """A (left, right) pair of synthetic hands, distinct but seeded (the
+    JAX package's draws: left from ``seed + 1``, right from ``seed``)."""
+    return (
+        synthetic_params(seed=seed + 1, side=C.LEFT, dtype=dtype,
+                         device=device),
+        synthetic_params(seed=seed, side=C.RIGHT, dtype=dtype,
+                         device=device),
+    )

@@ -23,6 +23,17 @@ RIGHT = "right"
 # Body-family assets are unsided.
 NEUTRAL = "neutral"
 
+# The SMPL-H kinematic tree: 22 body joints (SMPL order), then 15
+# left-hand joints rooted at the left wrist (20), then 15 right-hand
+# joints at the right wrist (21). The widest tree of the SMPL family, and
+# one whose levels do not align with index order.
+SMPLH_PARENTS = (
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
+    18, 19,
+    20, 22, 23, 20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35,
+    21, 37, 38, 21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50,
+)
+
 # ---------------------------------------------------------------- keypoints
 # The MANO skeleton regresses 16 joints and no fingertips (the tips are
 # mesh surface, not skeleton). Hand-pose datasets and detectors (FreiHAND,

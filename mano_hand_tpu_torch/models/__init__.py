@@ -15,6 +15,7 @@ from mano_hand_tpu_torch.models.core import (
     forward_batched_rotmats,
     forward_chunked,
     forward_fused,
+    fused_blend_bases,
     forward_hands,
     forward_hands_pallas_fused_full,
     forward_pca,
@@ -46,7 +47,8 @@ __all__ = [
     "forward_batched_rotmats", "forward_chunked", "forward_fused",
     "forward_hands", "forward_hands_pallas_fused_full", "forward_pca",
     "forward_posed", "forward_posed_batched", "forward_posed_gather",
-    "forward_posed_rotmats", "forward_rotmats", "keypoints",
+    "forward_posed_rotmats", "forward_rotmats", "fused_blend_bases",
+    "keypoints",
     "keypoints_chunked", "oracle", "resolve_tip_ids", "sample_poses",
     "select_keypoints", "specialize", "stack_params", "stack_shaped",
     "subject_table", "table_grow", "table_row", "table_set_row",

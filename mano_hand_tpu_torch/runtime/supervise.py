@@ -1,22 +1,37 @@
-"""Supervised execution of device calls: deadlines and bounded retries.
+"""Supervised execution of device calls: deadlines, retries, watchdogs.
 
-A port copy of the subset of the JAX package's ``runtime/supervise.py``
-that ``MANOModel.fit`` and the trackers use: ``supervised_call`` runs a
-call on a disposable worker thread under a per-attempt deadline and
-retries only the failures ``classify_failure`` deems transient, with
-exponential backoff and jitter. A thread blocked inside a C-level device
-call cannot be interrupted in-process, so a call that outlives its
-deadline is abandoned (``DeadlineExceeded``) and the caller keeps its
-state. The callers wait for the device inside the supervised window
-(``torch.cuda.synchronize`` on the result's device), since the hang being
-guarded against lives in the device work, not in the Python call.
+A port copy of the JAX package's ``runtime/supervise.py``, in plain
+Python. A thread blocked inside a C-level device call (a wedged kernel, a
+lost card) cannot be interrupted in-process: signal handlers run only on
+the main thread, between bytecodes. So the defences are:
+
+* run the risky call on a DISPOSABLE worker thread and bound the wait
+  (``call_with_deadline``): the wedged thread is abandoned (daemon), the
+  caller gets ``DeadlineExceeded`` and keeps its state;
+* keep a daemon WATCHDOG thread that still runs while the main thread is
+  wedged, and have it escalate (``Watchdog``);
+* run work that must be killable for real (a device probe that can hang
+  the whole process at init) in a SUBPROCESS and kill it
+  (``run_python``): SIGKILL from outside is the one signal a wedged call
+  cannot block.
+
+``supervised_call`` retries only what ``classify_failure`` deems
+transient, with exponential backoff and jitter under a cap: retrying a
+deterministic failure (a shape error, a sticky CUDA fault) only
+reproduces it. The callers wait for the device inside the supervised
+window (the serving engine reads its result back to the host there,
+``MANOModel.fit`` synchronizes), since the hang being guarded against
+lives in the device work, not in the Python call.
 """
 
 from __future__ import annotations
 
 import random
+import subprocess
+import sys
 import threading
 import time
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 TRANSIENT = "transient"
@@ -24,7 +39,9 @@ DETERMINISTIC = "deterministic"
 
 # Status markers of a lost connection to the device rather than of the
 # program: worth a bounded retry. INVALID_ARGUMENT et al. are absent on
-# purpose — those are compile/shape errors that reproduce every time.
+# purpose — those are compile/shape errors that reproduce every time, and
+# so is "CUDA error: ..." (a sticky fault poisons the context: every
+# later call fails the same way).
 _TRANSIENT_MARKERS = (
     "UNAVAILABLE", "DEADLINE_EXCEEDED", "ABORTED", "CANCELLED",
     "UNKNOWN: ", "INTERNAL: ", "connection reset", "connection refused",
@@ -120,6 +137,22 @@ def backoff_delay(attempt: int, base_s: float, cap_s: float,
     return max(0.0, delay)
 
 
+def batch_give_up_by(deadlines) -> Optional[float]:
+    """The end-to-end supervision bound for one coalesced batch: the
+    LATEST member deadline, or None when any member is deadline-less
+    (one unbounded consumer keeps the whole batch's budget unbounded).
+
+    The deadlines are absolute ``time.monotonic`` timestamps, so time a
+    batch already spent queued is charged against the same budget:
+    ``supervised_call`` clips each attempt to ``give_up_by - clock()`` at
+    the attempt's start.
+    """
+    deadlines = list(deadlines)
+    if not deadlines or any(d is None for d in deadlines):
+        return None
+    return max(deadlines)
+
+
 def supervised_call(
     fn: Callable,
     *,
@@ -209,3 +242,135 @@ def supervised_call(
     raise RetriesExhausted(
         f"{name} failed {attempts} attempt(s); last: "
         f"{type(last).__name__}: {last}", cause=last, attempts=attempts)
+
+
+@dataclass
+class DispatchPolicy:
+    """Supervision knobs for ``ServingEngine`` dispatch
+    (``serving/engine.py``).
+
+    ``deadline_s`` bounds each device call (None = unbounded). ``breaker``
+    is a ``runtime.health.CircuitBreaker`` (None = no health tracking);
+    ``chaos`` a ``runtime.chaos.ChaosPlan`` injected into the PRIMARY
+    callables only (the fallback stays clean, so failover is observable
+    recovery, not roulette). ``cpu_fallback`` enables graceful
+    degradation to the CPU tier when the primary path is exhausted or the
+    breaker is open; the serving engine takes it on ``device="cpu"``
+    only, and refuses it on a card.
+    """
+
+    deadline_s: Optional[float] = None
+    retries: int = 2
+    backoff_s: float = 0.05
+    backoff_cap_s: float = 2.0
+    jitter: float = 0.5
+    breaker: Optional[object] = None
+    chaos: Optional[object] = None
+    cpu_fallback: bool = True
+
+
+class Watchdog:
+    """A deadline/stall watchdog THREAD.
+
+    A daemon thread polls two triggers and fires ``on_trigger(cause)`` at
+    most once:
+
+    * **deadline**: ``now - t0 >= deadline_s`` — the artifact must be out
+      before an external killer cuts the process mid-line;
+    * **stall**: no progress (a caller-updated timestamp) for ``stall_s``
+      while ``armed()`` — the hung-device-call trigger, which a signal
+      handler cannot cover (see the module docstring).
+
+    ``on_trigger`` runs ON the watchdog thread and typically ends in
+    ``os._exit``; it must not assume the main thread is runnable.
+    """
+
+    def __init__(
+        self,
+        on_trigger: Callable[[str], None],
+        *,
+        deadline_s: Optional[float] = None,
+        stall_s: Optional[float] = None,
+        t0: Optional[float] = None,
+        progress: Optional[Callable[[], float]] = None,
+        armed: Optional[Callable[[], bool]] = None,
+        poll_s: float = 2.0,
+        name: str = "watchdog",
+        clock: Callable[[], float] = time.time,
+    ):
+        if stall_s and progress is None:
+            raise ValueError("a stall trigger needs a progress() source")
+        self.on_trigger = on_trigger
+        self.deadline_s = deadline_s or None
+        self.stall_s = stall_s or None
+        self.t0 = clock() if t0 is None else t0
+        self.progress = progress
+        self.armed = armed
+        self.poll_s = poll_s
+        self.name = name
+        self.clock = clock
+        self._disarmed = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "Watchdog":
+        if self.deadline_s is None and self.stall_s is None:
+            return self  # nothing to watch: spawn no thread at all
+        self._thread = threading.Thread(
+            target=self._loop, name=self.name, daemon=True)
+        self._thread.start()
+        return self
+
+    def disarm(self) -> None:
+        """Permanently stand the watchdog down (the guarded phase
+        finished, or the backend cannot hang)."""
+        self._disarmed.set()
+
+    def _loop(self) -> None:
+        while not self._disarmed.wait(self.poll_s):
+            now = self.clock()
+            if self.deadline_s and now - self.t0 >= self.deadline_s:
+                self.on_trigger(
+                    f"{self.name}: emit-by deadline "
+                    f"({self.deadline_s:.0f}s) hit")
+                return
+            if (self.stall_s and (self.armed is None or self.armed())
+                    and now - self.progress() >= self.stall_s):
+                self.on_trigger(
+                    f"{self.name}: no progress for {self.stall_s:.0f}s "
+                    "(hung device call?)")
+                return
+
+
+@dataclass
+class ProbeResult:
+    ok: bool
+    out: str = ""
+    err: str = ""
+    rc: Optional[int] = None
+    killed: bool = field(default=False)
+
+
+def run_python(code: str, timeout_s: float) -> ProbeResult:
+    """Run ``python -c code`` in a KILLABLE subprocess.
+
+    The in-process primitives above can only abandon a wedged call; this
+    is the escalation path that truly clears one — SIGKILL from outside
+    the process. A hang past ``timeout_s`` is killed and reported, never
+    waited out.
+    """
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except OSError as e:
+        return ProbeResult(ok=False, err=f"spawn failed: {e}")
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+        return ProbeResult(ok=proc.returncode == 0, out=out.strip(),
+                           err=err.strip(), rc=proc.returncode)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        return ProbeResult(ok=False, out=(out or "").strip(),
+                           err=f"probe hung > {timeout_s:.0f}s (killed)",
+                           rc=proc.returncode, killed=True)

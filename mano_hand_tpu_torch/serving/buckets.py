@@ -82,3 +82,9 @@ def subject_index_rows(slots: Sequence[int], rows: Sequence[int],
     if idx.size < 1:
         raise ValueError("a batch needs at least one row")
     return pad_rows(idx, bucket)
+
+
+def pad_tree_rows(tree: dict, bucket: int) -> dict:
+    """``pad_rows`` over every leaf of a flat {name: array} dict (warm-start
+    seeds for the bucketed fit wrappers)."""
+    return {k: pad_rows(np.asarray(v), bucket) for k, v in tree.items()}

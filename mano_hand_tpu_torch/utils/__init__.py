@@ -1,1 +1,1 @@
-"""Utilities: serving counters."""
+"""Utilities: serving counters and the cooperative device lock."""

@@ -916,3 +916,194 @@ def test_cli_renders_and_fits_on_the_card(dev, tmp_path):
                      "silhouette", "--steps", "5", "--out",
                      str(tmp_path / "f.npz")]) == 0
     assert np.load(tmp_path / "f.npz")["pose"].shape == (16, 3)
+
+
+# ------------------------------------------------ engine resilience (card)
+def _supervised(spec, probe, **kw):
+    """A supervised policy; a card engine's has no CPU tier."""
+    from mano_hand_tpu_torch import runtime
+
+    plan = runtime.ChaosPlan(spec)
+    breaker = runtime.CircuitBreaker(
+        failure_threshold=2, probe=probe, probe_interval_s=0.0,
+        respect_priority_claim=False)
+    kw.setdefault("deadline_s", 30.0)
+    kw.setdefault("cpu_fallback", False)
+    return runtime.DispatchPolicy(retries=1, backoff_s=0.001, jitter=0.0,
+                                  breaker=breaker, chaos=plan, **kw), plan
+
+
+def _cpu_direct(params_cpu, pose, shape, bucket):
+    from mano_hand_tpu_torch.serving import buckets
+
+    pose, shape = (torch.from_numpy(np.array(
+        buckets.pad_rows(x, bucket), np.float32, order="C"))
+        for x in (pose, shape))
+    with torch.no_grad():
+        return core.forward_batched(params_cpu, pose, shape).verts.numpy()
+
+
+def test_supervised_fused_engine_under_burst_and_outage(dev):
+    """A supervised ``posed_kernel="fused"`` engine on the card: an error
+    burst is retried through K2; a persistent outage resolves every
+    request to its ``ServingError`` with nothing run on the host (a card
+    engine refuses the CPU tier); failback serves through K2 again. A
+    CPU engine under the same outage fails over to its CPU tier: bit for
+    bit the direct CPU call at the bucket, within 1e-5 of the card."""
+    import warnings
+
+    from mano_hand_tpu_torch.serving import ServingError, buckets
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    params_cpu = synthetic_params(seed=0, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(12)
+    betas = rng.normal(size=(3, 10)).astype(np.float32)
+    poses = [rng.normal(scale=0.5, size=(n, 16, 3)).astype(np.float32)
+             for n in (3, 5, 2, 4)]
+    full = (poses[0], rng.normal(size=(3, 10)).astype(np.float32))
+    with pytest.raises(ValueError, match="cpu_fallback=False"):
+        ServingEngine(params, policy=_supervised(
+            "", lambda: True, cpu_fallback=True)[0])
+    device_up = [True]
+    policy, plan = _supervised("error@0,error@2", lambda: device_up[0])
+    eng = ServingEngine(params, max_bucket=8, posed_kernel="fused",
+                        policy=policy)
+    with eng, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        keys = [eng.specialize(b) for b in betas]
+        eng.warmup([4, 8])
+        eng.warmup_posed([4, 8])
+        k2 = fused_posed.launches
+        card = [eng.forward(p, subject=keys[i % 3])
+                for i, p in enumerate(poses[1:])]
+        card_full = eng.forward(*full)
+        assert eng.counters.retries == 2 and eng.counters.failovers == 0
+        assert fused_posed.launches == k2 + 3
+        plan.schedule("error@0-")
+        device_up[0] = False
+        futs = [eng.submit(p, subject=keys[i % 3])
+                for i, p in enumerate(poses[1:])] + [eng.submit(*full)]
+        for f in futs:
+            with pytest.raises(ServingError) as err:
+                f.result(timeout=120)
+            assert err.value.kind == "error"
+        assert eng.counters.failovers == 0 and not eng._cpu_exes
+        assert fused_posed.launches == k2 + 3   # chaos fails before K2
+        plan.clear()
+        device_up[0] = True
+        again = eng.forward(poses[1], subject=keys[0])
+        assert fused_posed.launches == k2 + 4   # failback: K2 again
+        assert eng.counters.failovers == 0
+    assert not any("failed over" in str(w.message) for w in caught)
+    assert _err(again, card[0]) <= TOL
+    # The CPU tier, on a CPU engine under the same outage.
+    device_up[0] = False
+    policy, plan = _supervised("error@0-", lambda: device_up[0],
+                               cpu_fallback=True)
+    host = ServingEngine(params_cpu, device="cpu", max_bucket=8,
+                         posed_kernel="fused", policy=policy)
+    with host, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        keys = [host.specialize(b) for b in betas]
+        failed = [host.forward(p, subject=keys[i % 3])
+                  for i, p in enumerate(poses[1:])]
+        failed_full = host.forward(*full)
+        assert host.counters.failovers == 4
+    assert sum("failed over" in str(w.message) for w in caught) == 4
+    for i, (p, c, f) in enumerate(zip(poses[1:], card, failed)):
+        rows = np.broadcast_to(betas[i % 3][None], (p.shape[0], 10))
+        bucket = buckets.bucket_for(p.shape[0], host.buckets)
+        want = _cpu_direct(params_cpu, p, rows, bucket)
+        np.testing.assert_array_equal(f, want[:p.shape[0]])
+        assert _err(f, c) <= TOL
+    np.testing.assert_array_equal(
+        failed_full, _cpu_direct(params_cpu, *full, 4)[:3])
+    assert _err(failed_full, card_full) <= TOL
+
+
+def test_smplh_52_joint_rig_kernels_on_the_card(dev):
+    """The SMPL-H tree (52 joints, levels not in index order): K1, K4 and
+    K2 within 1e-5 of their plain versions and 1e-4 of the oracle (JAX's
+    ``test_smplh_scale_52_joint_rig`` asset)."""
+    from mano_hand_tpu_torch.constants import SMPLH_PARENTS
+    from mano_hand_tpu_torch.models import oracle
+
+    rig64 = dataclasses.replace(
+        synthetic_params(seed=13, n_verts=389, n_joints=52, n_shape=16,
+                         n_faces=700, device="cpu"),
+        parents=SMPLH_PARENTS)
+    rig = rig64.astype(torch.float32).to(dev)
+    rng = np.random.default_rng(6)
+    pose = rng.normal(scale=0.3, size=(3, 52, 3)).astype(np.float32)
+    beta = rng.normal(size=(3, 16)).astype(np.float32)
+    pose_t, beta_t = (torch.from_numpy(x).to(dev) for x in (pose, beta))
+    want = oracle.forward_batch_verts(rig64, pose, beta)
+    plain = core.forward_batched(rig, pose_t, beta_t).verts
+    assert _err(plain, want) <= 1e-4
+    ops = fused_forward.fused_operands(rig)
+    k1_plain = fused_forward.forward_verts_plain(ops, pose_t, beta_t)
+    counts = (fused_forward.launches, fused_forward.blend_skin_launches,
+              fused_posed.launches)
+    k1 = core.forward_batched_pallas_fused_full(rig, pose_t, beta_t)
+    k4 = core.forward_batched_pallas_fused(rig, pose_t, beta_t)
+    table = core.stack_shaped([core.specialize(rig, b) for b in beta_t])
+    idx = torch.arange(3, dtype=torch.int32, device=dev)
+    k2 = core.forward_posed_gather_fused(table, idx, pose_t)
+    k2_plain = fused_posed.forward_posed_gather_plain(
+        table.v_shaped, table.joints, idx, pose_t,
+        fused_posed.posed_operands(table), table.parents)
+    torch.cuda.synchronize()
+    assert (fused_forward.launches, fused_forward.blend_skin_launches,
+            fused_posed.launches) == tuple(c + 1 for c in counts)
+    for got, ref in ((k1, k1_plain), (k4, k1_plain), (k2, k2_plain)):
+        assert got.shape == (3, 389, 3)
+        assert _err(got, ref) <= TOL
+        assert _err(got, want) <= 1e-4
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_cuda_failures_are_deterministic_on_the_card(dev):
+    """Out of memory and a CUDA error reproduce on retry: neither is
+    retried, and under a policy either stays engine-fatal (no failover).
+    Last in the file: the provoked errors touch no later test."""
+    from mano_hand_tpu_torch.runtime import supervise
+    from mano_hand_tpu_torch.serving import ServingError
+
+    caught = []
+    with pytest.raises(torch.cuda.OutOfMemoryError) as oom:
+        torch.empty(1 << 46, dtype=torch.uint8, device=dev)   # 64 TiB
+    caught.append(oom.value)
+    with pytest.raises(RuntimeError) as bad:   # no such card
+        torch.zeros(1, device=torch.device("cuda", 100))
+    caught.append(bad.value)
+    for exc in caught:
+        assert "CUDA" in str(exc), exc
+        assert supervise.classify_failure(exc) == supervise.DETERMINISTIC
+        calls = []
+
+        def boom(exc=exc):
+            calls.append(1)
+            raise exc
+
+        with pytest.raises(type(exc)):
+            supervise.supervised_call(boom, retries=3, backoff_s=0.0)
+        assert calls == [1]
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    policy, _ = _supervised("", lambda: True)
+    eng = ServingEngine(params, max_bucket=4, policy=policy)
+
+    def oom_primary(pose, shape):
+        raise caught[0]
+
+    eng._primary_full = oom_primary
+    with eng:
+        fut = eng.submit(np.zeros((2, 16, 3), np.float32))
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            fut.result(timeout=120)
+        eng._thread.join(timeout=120)
+        with pytest.raises(RuntimeError, match="dispatcher died"):
+            eng.submit(np.zeros((2, 16, 3), np.float32))
+    assert eng.counters.failovers == 0 and not eng._cpu_exes
+    assert not isinstance(caught[0], ServingError)
+    torch.cuda.synchronize()   # the context is healthy after both
