@@ -66,7 +66,21 @@ each with every launch count zeroed just before it and read just after:
   unsupervised engine's bits), a device stall past a supervised deadline
   and one ``device_probe``. It prints the failover overhead, the µs per
   shed decision, ms per dispatch supervised and unsupervised, the killed
-  attempt's and the retry's seconds and the probe's.
+  attempt's and the retry's seconds and the probe's;
+* the program cache and persistence (phase ``program_cache``,
+  ``max_bucket=256``, ``posed_kernel="fused"`` under a
+  ``PrecisionPolicy``): every program of the three families (full, K2,
+  K2-bf16) captured as a CUDA graph at warm-up and held against the eager
+  call of its function at every bucket (0.0), ms per dispatch eager
+  against graph replay at B = 1, 8, 64 and 256 in turns, GPU memory
+  reserved before and after the warm-up, traffic from 4 threads with no
+  capture and K2 / K2-bf16 launches equal to the gathered dispatches of
+  each precision, the lattice baked on the card and engines booted from
+  it (every full and gathered program loaded and bit for bit the live
+  one, under the caller's "high"; the fused boot capturing only the K2
+  families), restored subjects against fresh bakes, the cold-start drill,
+  and a cold boot in a fresh process with and without the lattice and
+  checkpoint (seconds from process start to the first result).
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -195,6 +209,16 @@ RES_SATURATION, RES_MIN_SAT, RES_BURSTS = 4.5, 4.0, 40
 RES_THREADS, RES_REQUESTS = 4, 12   # healthy supervised traffic
 RES_TIMED = 200             # single dispatches timed per engine, in turns
 STALL_S, STALL_DEADLINE_S = 0.8, 0.5   # a device stall past the deadline
+# The program cache (phase program_cache): the three families at full
+# width up to bucket 256, one table capacity; dispatches timed at four
+# buckets, eager against graph replay, in turns.
+PC_BUCKET = 256
+PC_SUBJECTS = 8             # max_subjects: the ladder's one capacity, 8
+PC_TIMED_BUCKETS = (1, 8, 64, 256)
+PC_TIMED = 60               # dispatches timed per family, bucket and mode
+PC_THREADS, PC_REQUESTS = 4, 12
+PC_DRILL = dict(subjects=6, requests=48, max_bucket=8, max_subjects=8,
+                p99_waves=4)
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -1770,6 +1794,375 @@ def resilience(dev, counts, zero_counts, bucket=RES_BUCKET,
     return line
 
 
+def _ms_stats(samples) -> dict:
+    return {"median": statistics.median(samples),
+            "p10": float(np.percentile(samples, 10)),
+            "p90": float(np.percentile(samples, 90)), "n": len(samples)}
+
+
+_COLD_BOOT = r"""
+import json, sys, time
+t_launch = float(sys.argv[1])
+t_main = time.time()
+import numpy as np, torch
+from mano_hand_tpu_torch.assets import synthetic_params
+from mano_hand_tpu_torch.serving import ServingEngine
+cfg = json.loads(sys.argv[2])
+dev = torch.device(cfg["device"])
+params = synthetic_params(seed=cfg["seed"], dtype=torch.float32, device=dev)
+t_imported = time.time()
+eng = ServingEngine(params, device=dev, max_bucket=cfg["bucket"],
+                    max_subjects=cfg["subjects"], aot_dir=cfg["aot_dir"])
+if cfg["aot_dir"]:
+    restored = eng.restore_subjects(cfg["aot_dir"] + "/subjects")["restored"]
+    keys = list(eng._subject_lru)
+else:
+    betas = np.asarray(cfg["betas"], np.float32)
+    keys, restored = [eng.specialize(b) for b in betas], 0
+warm = (eng.warmup(), eng.warmup_posed())
+with eng:
+    pose = np.zeros((cfg["rows"], 16, 3), np.float32)
+    eng.forward(pose, subject=keys[0])
+t_first = time.time()
+print(json.dumps({
+    "interpreter_s": t_main - t_launch, "import_s": t_imported - t_main,
+    "first_result_s": t_first - t_launch, "restored": restored,
+    "sources": sorted({*warm[0].values(), *warm[1].values()}),
+    "compiles": eng.counters.compiles, "aot_loads": eng.counters.aot_loads}))
+"""
+
+
+def program_cache(dev, counts, zero_counts, bucket=PC_BUCKET,
+                  timed_buckets=PC_TIMED_BUCKETS, timed=PC_TIMED,
+                  threads=PC_THREADS, requests=PC_REQUESTS,
+                  drill=PC_DRILL) -> dict:
+    """The engine's program cache and persistence at full MANO width,
+    ``max_bucket=bucket``, ``posed_kernel="fused"`` under a
+    ``PrecisionPolicy`` (three families: full, gathered f32 on K2 and
+    gathered bf16 on K2-bf16; one table capacity, PC_SUBJECTS):
+
+    * warm-up builds every program (a CUDA graph a program on the card)
+      and counts each in ``compiles``; GPU memory reserved before and
+      after;
+    * every family's program at every warmed bucket against the eager
+      call of its function on the same inputs (0.0), and ms per dispatch
+      of both (host in, compute, host out, a readback each) at
+      ``timed_buckets``, ``timed`` calls each in turns;
+    * mixed traffic (full, and pose-only tiers 0 and 1) from ``threads``
+      threads: no capture, K2 and K2-bf16 launches equal to the gathered
+      dispatches of each precision;
+    * the lattice baked on the card: an engine booted from it with its
+      subjects restored, under the caller's ``"high"``, loads every full
+      and gathered (plain) program (``aot_loads``) and builds none, and
+      serves bit for bit as an engine built live with freshly baked
+      subjects (rows and results); the fused engine's boot loads the full
+      family and captures only the K2 families;
+    * the cold-start drill (``serving.cold_start_drill_run``);
+    * a cold boot in a fresh process against the baked directory, and
+      one without it: seconds from process start to the first result.
+
+    Counts zeroed just before each part that reads them; launch counts
+    checked where ``dev`` is a card. Returns the phase's JSON line."""
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
+    from mano_hand_tpu_torch.serving import (
+        PrecisionPolicy, ServingEngine, cold_start_drill_run,
+    )
+
+    line = {"phase": "program_cache", "max_bucket": bucket,
+            "subjects": PC_SUBJECTS}
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(SEED + 12)
+    s = params.n_shape
+    subj = rng.normal(size=(PC_SUBJECTS, s)).astype(np.float32)
+    tmp = tempfile.mkdtemp(prefix="mano_program_cache_")
+    bf16 = torch.bfloat16
+
+    def reserved():
+        return torch.cuda.memory_reserved(dev) if card else None
+
+    try:
+        # 1. Warm-up: every program of the three families, counted.
+        mem0 = reserved()
+        eng = ServingEngine(params, device=dev, max_bucket=bucket,
+                            max_subjects=PC_SUBJECTS, posed_kernel="fused",
+                            precision_policy=PrecisionPolicy())
+        keys = [eng.specialize(b) for b in subj]
+        t0 = time.perf_counter()
+        warm = {"full": eng.warmup(), "gather": eng.warmup_posed()}
+        line["warmup_s"] = time.perf_counter() - t0
+        mem1 = reserved()
+        line["memory_reserved_bytes"] = {"before_warmup": mem0,
+                                         "after_warmup": mem1}
+        nb = len(eng.buckets)
+        line["captures"] = eng.counters.compiles
+        require(all(v == "jit" for w in warm.values() for v in w.values()),
+                f"warm-up built every program live {warm}")
+        require(eng.counters.compiles == 3 * nb,
+                f"3 families x {nb} buckets built {eng.counters.compiles}")
+
+        # 2. Each family's program against its eager function, and the
+        #    time of both per dispatch, in turns.
+        table = eng.table
+
+        def eager(fam, pose, other):
+            with torch.no_grad(), ieee_fp32():
+                pose_t = torch.from_numpy(pose).to(dev)
+                other_t = torch.from_numpy(other).to(dev)
+                if fam == "full":
+                    out = core.forward_batched(params, pose_t, other_t).verts
+                else:
+                    out = core.forward_posed_gather_fused(
+                        table, other_t, pose_t,
+                        compute_dtype=bf16 if fam == "gather_bf16" else None)
+                return out.cpu().numpy()
+
+        def program(fam, b):
+            if fam == "full":
+                return lambda pose, other: eng._exes[b].run(pose, other)
+            cache = (eng._gather_exes_bf16 if fam == "gather_bf16"
+                     else eng._gather_exes)
+            prog = cache[b][1]
+            return lambda pose, other: prog.run(other, pose, table=table)
+
+        fams = ("full", "gather_f32", "gather_bf16")
+        graph_err = {f: 0.0 for f in fams}
+        ms = {f: {} for f in fams}
+        for b in eng.buckets:
+            pose = rng.normal(scale=0.5, size=(b, 16, 3)).astype(np.float32)
+            inputs = {"full": rng.normal(size=(b, s)).astype(np.float32),
+                      "gather_f32": rng.integers(
+                          0, PC_SUBJECTS, size=b).astype(np.int32)}
+            inputs["gather_bf16"] = inputs["gather_f32"]
+            for fam in fams:
+                run = program(fam, b)
+                graph_err[fam] = max(graph_err[fam], max_err(
+                    run(pose, inputs[fam]), eager(fam, pose, inputs[fam])))
+                if b not in timed_buckets:
+                    continue
+                per = {"graph": [], "eager": []}
+                calls = (("graph", run),
+                         ("eager", functools.partial(eager, fam)))
+                for i in range(timed):
+                    for name, fn in (calls if i % 2 == 0 else calls[::-1]):
+                        t0 = time.perf_counter()
+                        fn(pose, inputs[fam])
+                        per[name].append((time.perf_counter() - t0) * 1e3)
+                ms[fam][str(b)] = {k: _ms_stats(v) for k, v in per.items()}
+                ms[fam][str(b)]["eager_over_graph"] = (
+                    ms[fam][str(b)]["eager"]["median"]
+                    / ms[fam][str(b)]["graph"]["median"])
+        line["graph_vs_eager_max_abs_err"] = graph_err
+        line["ms_per_dispatch"] = ms
+        require(all(e == 0.0 for e in graph_err.values()),
+                f"graph replay == eager at every warmed bucket {graph_err}")
+
+        # 3. Mixed traffic from `threads` threads: nothing captured, K2 and
+        #    K2-bf16 launches equal to the gathered dispatches of each.
+        most = min(64, bucket)
+        work = []
+        for t in range(threads):
+            mine = []
+            for i in range(requests):
+                n = int(rng.integers(1, most + 1))
+                mine.append((
+                    rng.normal(scale=0.5, size=(n, 16, 3)).astype(np.float32),
+                    rng.normal(size=(n, s)).astype(np.float32),
+                    int(rng.integers(0, PC_SUBJECTS)), (t + i) % 3))
+            work.append(mine)
+        full_calls = [0]
+        run_full = eng._run_full
+
+        def counted_full(pose, shape):
+            full_calls[0] += 1
+            return run_full(pose, shape)
+
+        eng._run_full = counted_full
+        errors = []
+        zero_counts()
+        before = eng.counters.snapshot()
+        with eng:
+            def client(t):
+                try:
+                    # kind 2: a full request; 0 and 1: pose-only tiers.
+                    futs = [eng.submit(p, sh) if kind == 2 else
+                            eng.submit(p, subject=keys[k], priority=kind)
+                            for p, sh, k, kind in work[t]]
+                    for f in futs:
+                        f.result(timeout=300)
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errors.append(e)
+
+            ths = [threading.Thread(target=client, args=(t,))
+                   for t in range(threads)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=600)
+                require(not th.is_alive(), "traffic client thread finished")
+        if errors:
+            raise errors[0]
+        del eng._run_full
+        c = counts()
+        after = eng.counters.snapshot()
+        disp_bf16 = after["dispatches_bf16"] - before["dispatches_bf16"]
+        disp_f32 = (after["dispatches"] - before["dispatches"] - disp_bf16
+                    - full_calls[0])
+        line["traffic"] = {
+            "requests": threads * requests,
+            "dispatches": {"full": full_calls[0], "gather_f32": disp_f32,
+                           "gather_bf16": disp_bf16},
+            "launches": {"K2": c["K2"], "K2_bf16": c["K2_bf16"]},
+            "steady_captures": after["compiles"] - before["compiles"]}
+        require(line["traffic"]["steady_captures"] == 0,
+                "no capture in steady traffic")
+        require(min(full_calls[0], disp_f32, disp_bf16) >= 1,
+                f"every family dispatched {line['traffic']}")
+        if card:
+            require(c["K2"] == disp_f32 and c["K2_bf16"] == disp_bf16,
+                    f"K2 launches == gathered dispatches per precision "
+                    f"{line['traffic']}")
+
+        # 4. The lattice baked on the card, and engines booted from it.
+        baker = ServingEngine(params, device=dev, max_bucket=bucket,
+                              max_subjects=PC_SUBJECTS, aot_dir=tmp)
+        t0 = time.perf_counter()
+        manifest = baker.bake_lattice()
+        lat = {"bake_s": time.perf_counter() - t0,
+               "entries": len(manifest["entries"]),
+               "platforms": sorted({p for e in manifest["entries"].values()
+                                    for p in e["platforms"]})}
+        eng.checkpoint_subjects(os.path.join(tmp, "subjects"))
+        require(lat["entries"] == 2 * nb and lat["platforms"] == [dev.type],
+                f"the lattice: full and gather per bucket {lat}")
+        live = ServingEngine(params, device=dev, max_bucket=bucket,
+                             max_subjects=PC_SUBJECTS)
+        for b in subj:
+            live.specialize(b)
+        live.warmup()
+        live.warmup_posed()
+        torch.set_float32_matmul_precision("high")
+        try:
+            boot = ServingEngine(params, device=dev, max_bucket=bucket,
+                                 max_subjects=PC_SUBJECTS, aot_dir=tmp)
+            t0 = time.perf_counter()
+            lat["restore"] = boot.restore_subjects(
+                os.path.join(tmp, "subjects"))
+            sources = {"full": boot.warmup(), "gather": boot.warmup_posed()}
+            lat["boot_warmup_s"] = time.perf_counter() - t0
+            lat_err = 0.0
+            with boot, live:
+                for b in eng.buckets:
+                    pose = rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+                        np.float32)
+                    shape = rng.normal(size=(b, s)).astype(np.float32)
+                    k = keys[b % PC_SUBJECTS]
+                    lat_err = max(lat_err,
+                                  max_err(boot.forward(pose, shape),
+                                          live.forward(pose, shape)),
+                                  max_err(boot.forward(pose, subject=k),
+                                          live.forward(pose, subject=k)))
+            lat["caller_precision"] = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        lat["sources"] = sorted({v for w in sources.values()
+                                 for v in w.values()})
+        lat["aot_loads"] = boot.counters.aot_loads
+        lat["compiles"] = boot.counters.compiles
+        lat["lattice_vs_live_max_abs_err"] = lat_err
+        row_err = 0.0
+        with torch.no_grad():
+            for k, b in zip(keys, subj):
+                fresh = core.specialize(params, torch.from_numpy(b).to(dev))
+                got = core.table_row(boot.table, boot._subject_slots[k])
+                row_err = max(row_err, max_err(got.v_shaped, fresh.v_shaped),
+                              max_err(got.joints, fresh.joints))
+        lat["restored_vs_fresh_max_abs_err"] = row_err
+        fboot = ServingEngine(params, device=dev, max_bucket=bucket,
+                              max_subjects=PC_SUBJECTS, aot_dir=tmp,
+                              posed_kernel="fused",
+                              precision_policy=PrecisionPolicy())
+        fboot.restore_subjects(os.path.join(tmp, "subjects"))
+        fboot.warmup()
+        fboot.warmup_posed()
+        lat["fused_boot"] = {"aot_loads": fboot.counters.aot_loads,
+                             "compiles": fboot.counters.compiles}
+        line["lattice"] = lat
+        require(lat["restore"]["restored"] == PC_SUBJECTS,
+                f"every subject restored {lat['restore']}")
+        require(lat["sources"] == ["aot"] and lat["aot_loads"] == 2 * nb
+                and lat["compiles"] == 0,
+                f"the boot loaded every full and gather program {lat}")
+        require(lat["fused_boot"] == {"aot_loads": nb, "compiles": 2 * nb},
+                f"the fused boot captured only K2's families {lat}")
+        require(lat_err == 0.0, f"lattice == live, under 'high' {lat_err}")
+        require(row_err == 0.0, f"restored rows == fresh bakes {row_err}")
+
+        # 5. The cold-start drill.
+        #    (None skips it: the CPU tests rehearse it on its own.)
+        if drill is not None:
+            t0 = time.perf_counter()
+            cs = cold_start_drill_run(params, device=dev, seed=SEED, **drill)
+            cs["seconds"] = time.perf_counter() - t0
+            line["cold_start_drill"] = cs
+            require(cs["compiles_after_restore"] == 0
+                    and cs["aot_loads"] == cs["expected_programs"],
+                    f"drill: the cold boot built nothing {cs['aot_loads']}")
+            require(cs["restored_vs_fresh_max_abs_err"] == 0.0
+                    and cs["restored_vs_warm_max_abs_err"] == 0.0,
+                    "drill: restored subjects bit for bit")
+            require(cs["killed_futures_resolved_fraction"] == 1.0
+                    and cs["phase_a"]["unresolved"] == 0,
+                    "drill: every future of the stopped engine resolved")
+            for name, leg in cs["injections"].items():
+                require(leg["futures_resolved_fraction"] == 1.0
+                        and (leg["aot_load_failures"] >= 1
+                             or "error" in leg["restore"]),
+                        f"drill: damage {name} counted and degraded {leg}")
+            hang = cs["hang_leg"]
+            require(hang["futures_resolved_fraction"] == 1.0
+                    and hang["deadline_kills"] >= 1
+                    and hang["compiles_after_restore"] == 0
+                    and hang["aot_loads"] == hang["expected_programs"],
+                    f"drill: the hang cleared by a deadline kill {hang}")
+
+        # 6. Cold boots in fresh processes, with and without the lattice
+        #    and checkpoint (started after the timed parts).
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        cfg = {"device": str(dev), "seed": SEED, "bucket": bucket,
+               "subjects": PC_SUBJECTS, "rows": 1,
+               "betas": subj.tolist()}
+        boots = {}
+        for name, d in (("live", None), ("lattice", tmp)):
+            out = subprocess.run(
+                [sys.executable, "-c", _COLD_BOOT, repr(time.time()),
+                 json.dumps({**cfg, "aot_dir": d})],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=600)
+            require(out.returncode == 0,
+                    f"cold boot ({name}) ran: {out.stderr[-2000:]}")
+            boots[name] = json.loads(out.stdout.strip().splitlines()[-1])
+        line["cold_boot"] = boots
+        require(boots["lattice"]["compiles"] == 0
+                and boots["lattice"]["sources"] == ["aot"]
+                and boots["lattice"]["restored"] == PC_SUBJECTS,
+                f"the cold boot loaded everything {boots['lattice']}")
+        require(boots["live"]["sources"] == ["jit"],
+                f"the live boot built everything {boots['live']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["launches"] = counts()
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2390,6 +2783,13 @@ def main() -> int:
     #      traffic on K2 and K2-bf16, a device stall and the probe (counts
     #      zeroed just before it).
     emit(resilience(dev, counts, zero_counts))
+
+    # 18e. The program cache and persistence: CUDA graphs per (family,
+    #      bucket, capacity) with K2 and K2-bf16 captured, the lattice
+    #      baked on the card, subject checkpoints, the cold-start drill and
+    #      cold boots in fresh processes (counts zeroed just before each
+    #      part that reads them).
+    emit(program_cache(dev, counts, zero_counts))
 
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.

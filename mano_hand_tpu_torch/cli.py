@@ -13,12 +13,15 @@ messages and exit codes, on the port:
            keypoints, scan points, a segmentation mask or a depth image
            (Adam or Levenberg-Marquardt); writes a .npz checkpoint and,
            with --heatmap, a per-vertex error render (PNG or GLB)
+  export-aot  export the forward (``torch.export``, params baked in) as
+           a self-contained artifact for ``io.export_aot.load_forward``
   info     print an asset's schema summary
   verify   audit an asset and print its canonical digests
 
 ``--device {cuda,cpu}`` (default ``cuda``) picks the device every
 subcommand runs on, where the JAX CLI takes ``--platform``; ``demo
---backend`` is ``np`` (the float64 oracle) or ``torch``.
+--backend`` is ``np`` (the float64 oracle) or ``torch``. ``export-aot``
+exports for its own ``--platforms`` (device types, default ``cpu``).
 """
 
 from __future__ import annotations
@@ -945,6 +948,26 @@ def cmd_verify(args) -> int:
     return rc
 
 
+def cmd_export_aot(args) -> int:
+    """Serialize the forward as a self-contained serving artifact."""
+    import os
+
+    from mano_hand_tpu_torch.io.export_aot import save_forward
+
+    params = _load_params(args.asset, args.side, "cpu").astype(torch.float32)
+    path = save_forward(
+        params, args.out,
+        batch=args.batch if args.batch else "b",
+        tip_vertex_ids=args.tips or None,
+        keypoint_order=args.keypoint_order,
+        platforms=tuple(args.platforms.split(",")),
+    )
+    print(f"exported AOT forward -> {path} ({os.path.getsize(path)} bytes; "
+          "params baked in; consumer needs only torch + "
+          "mano_hand_tpu_torch.io.export_aot.load_forward)")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mano_hand_tpu_torch",
                                 description=__doc__)
@@ -1165,6 +1188,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "COLOR_0 vertex colors any glTF viewer can orbit "
                         "(--data-term verts, single target)")
     f.set_defaults(fn=cmd_fit)
+
+    e = sub.add_parser(
+        "export-aot",
+        help="serialize the forward (torch.export) for serving",
+    )
+    e.add_argument("--asset", default="synthetic")
+    e.add_argument("--side", default=None, choices=SIDES)
+    e.add_argument("--out", default="mano_fwd.torchexp")
+    e.add_argument("--batch", type=int, default=0,
+                   help="pin the batch size; default 0 = symbolic (any B)")
+    e.add_argument("--tips", default="",
+                   help="fingertip convention for baked-in keypoints "
+                        "('smplx' | 'manopth'); default: 16 joints only")
+    e.add_argument("--keypoint-order", default="mano",
+                   choices=["mano", "openpose"])
+    e.add_argument("--platforms", default="cpu",
+                   help="comma-separated torch device types to export for "
+                        "(cpu, cuda; each traced on its device); default "
+                        "cpu")
+    e.set_defaults(fn=cmd_export_aot)
 
     i = sub.add_parser("info", help="print asset summary")
     i.add_argument("--asset", default="synthetic")

@@ -27,7 +27,6 @@ on bf16 tensor cores with f32 accumulation.
 from __future__ import annotations
 
 import contextlib
-import functools
 import threading
 import weakref
 from typing import Tuple
@@ -181,6 +180,8 @@ class IdentityCache:
                 and all(ref() is o for ref, o in zip(hit[0], objs))):
             return hit[2]
         value = build(obj)
+        if tracing():
+            return value
         entries = self._entries
 
         def drop(_ref, key=key):
@@ -192,20 +193,96 @@ class IdentityCache:
         return value
 
 
-@functools.lru_cache(maxsize=None)
+def tracing() -> bool:
+    """True while this thread traces under fake tensors (``torch.export``,
+    ``torch.compile``) or its stream captures a CUDA graph. A tensor made
+    then is a fake, or memory that only the graph's replays write: no
+    cache may keep it (an eager call would read it later). Both tests are
+    of this thread only (``torch.compiler.is_compiling`` is
+    process-wide)."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return True
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+class _CaptureLog(threading.local):
+    log = None
+
+
+_capture_log = _CaptureLog()
+_launch_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Collect, as a list of (module, counter name), the kernel launches
+    this thread's wrappers enqueue into a CUDA graph it captures in the
+    block. A capture runs no kernel: the wrappers note each launch there
+    instead of counting it (``count_launch``), and whoever replays the
+    graph adds them per replay (``add_launches``)."""
+    prev, _capture_log.log = _capture_log.log, []
+    try:
+        yield _capture_log.log
+    finally:
+        _capture_log.log = prev
+
+
+def count_launch(module, name: str) -> None:
+    """Add one to the launch counter ``module.name`` — unless this
+    thread is capturing under ``captured_launches``, which notes it."""
+    log = _capture_log.log
+    if log is not None and tracing():
+        log.append((module, name))
+        return
+    with _launch_lock:
+        setattr(module, name, getattr(module, name) + 1)
+
+
+def add_launches(log) -> None:
+    """Count the launches one replay of a captured graph made."""
+    with _launch_lock:
+        for module, name in log:
+            setattr(module, name, getattr(module, name) + 1)
+
+
+_constants: dict = {}
+_constants_lock = threading.Lock()
+
+
+def _constant(key, make) -> torch.Tensor:
+    """``make()``, kept under ``key`` unless it was made while tracing
+    or capturing (``tracing``), or is not a plain tensor."""
+    with _constants_lock:
+        t = _constants.get(key)
+    if t is not None:
+        return t
+    t = make()
+    if type(t) is not torch.Tensor or tracing():
+        return t
+    with _constants_lock:
+        return _constants.setdefault(key, t)
+
+
 def parents_tensor(parents: Tuple[int, ...],
                    device: torch.device) -> torch.Tensor:
     """The kinematic tree as an int32 ``[J]`` tensor on ``device`` (one
     host copy per tree and device, ever)."""
-    return torch.tensor(parents, dtype=torch.int32, device=device)
+    parents = tuple(parents)
+    return _constant(("parents", parents, torch.device(device)),
+                     lambda: torch.tensor(parents, dtype=torch.int32,
+                                          device=device))
 
 
-@functools.lru_cache(maxsize=None)
 def index_tensor(ids: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A static index list as an int64 tensor on ``device``, made once per
     list and device: a per-call host-to-device copy would make every call
     wait for the device."""
-    return torch.tensor(ids, dtype=torch.long, device=device)
+    ids = tuple(ids)
+    return _constant(("index", ids, torch.device(device)),
+                     lambda: torch.tensor(ids, dtype=torch.long,
+                                          device=device))
 
 
 #: The largest kinematic tree the kernels' shared-memory tiles hold

@@ -70,7 +70,7 @@ from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS, ManoParams
 from mano_hand_tpu_torch.ops import _build, fk, fused_skin, lbs
 from mano_hand_tpu_torch.ops.common import (
     MAX_JOINTS, IdentityCache, cdiv, check_operands, einsum, ieee_fp32,
-    parents_tensor, refuse_grad,
+    parents_tensor, refuse_grad, tracing,
 )
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
@@ -148,7 +148,9 @@ def memo(cache: dict, name: str, build) -> torch.Tensor:
     forms kept beside a pack's tiles)."""
     got = cache.get(name)
     if got is None:   # a race builds it twice, equal: harmless
-        got = cache[name] = build()
+        got = build()
+        if not tracing():
+            cache[name] = got
     return got
 
 

@@ -48,14 +48,14 @@ reads are built from the tiles on first use.
 from __future__ import annotations
 
 import dataclasses
-import threading
+import sys
 
 import torch
 
 from mano_hand_tpu_torch.ops import _build, fk, lbs
 from mano_hand_tpu_torch.ops.common import (
-    IdentityCache, cdiv, check_compute_dtype, einsum, parents_tensor,
-    round_bf16, subject_rows,
+    IdentityCache, cdiv, check_compute_dtype, count_launch, einsum,
+    parents_tensor, round_bf16, subject_rows,
 )
 from mano_hand_tpu_torch.ops.fused_forward import (
     check_tree, memo, tile_verts, untile_verts, vert_buffer,
@@ -66,7 +66,6 @@ from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 launches = 0
 #: bf16-tier kernel launches so far.
 bf16_launches = 0
-_count_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -243,10 +242,6 @@ def forward_posed_gather_fused(table, subject_idx: torch.Tensor,
             c, v, table.n_joints, ops.kpad, int(compute_dtype is not None),
             stream)
     _build.check(lib, rc, "fused_posed")
-    global launches, bf16_launches
-    with _count_lock:
-        if compute_dtype is None:
-            launches += 1
-        else:
-            bf16_launches += 1
+    count_launch(sys.modules[__name__],
+                 "launches" if compute_dtype is None else "bf16_launches")
     return out

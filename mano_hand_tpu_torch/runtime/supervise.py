@@ -93,8 +93,9 @@ def call_with_deadline(fn: Callable, deadline_s: Optional[float],
     ``deadline_s=None`` calls inline (no thread). Otherwise the call
     runs on a disposable daemon thread; if it has not finished inside
     the deadline the thread is ABANDONED (it cannot be killed — see the
-    module docstring) and ``DeadlineExceeded`` raises in the caller.
-    The abandoned thread's eventual result/exception is discarded.
+    module docstring; ``abandoned()`` is then True on it) and
+    ``DeadlineExceeded`` raises in the caller. The abandoned thread's
+    eventual result/exception is discarded.
     """
     if deadline_s is None:
         return fn()
@@ -110,6 +111,7 @@ def call_with_deadline(fn: Callable, deadline_s: Optional[float],
     t.start()
     t.join(deadline_s)
     if not box:
+        t.abandoned = True      # read by ``abandoned()`` on that thread
         # Still running (or died without reporting — impossible short of
         # interpreter teardown): the caller moves on, the thread is
         # leaked by design.
@@ -121,6 +123,14 @@ def call_with_deadline(fn: Callable, deadline_s: Optional[float],
     if ok:
         return payload
     raise payload
+
+
+def abandoned() -> bool:
+    """True on the worker thread of a ``call_with_deadline`` call whose
+    caller has given up on it. Work still running there must not touch
+    state that a retry now owns (the serving engine's static device
+    buffers): its result is discarded anyway."""
+    return getattr(threading.current_thread(), "abandoned", False)
 
 
 def backoff_delay(attempt: int, base_s: float, cap_s: float,

@@ -63,6 +63,40 @@ before the hard shed. ``stop(timeout_s=)`` resolves EVERY outstanding
 future with a structured ``ServingError(phase="shutdown")`` even when the
 dispatcher is wedged in a device call.
 
+**Programs.** Each batch runs one PROGRAM of its family at its bucket
+— full, gathered f32 (per table capacity) or gathered bf16 — built once
+and cached, the counterpart of JAX's per-(family, bucket, capacity)
+executables. On a card a program is a CUDA graph over static input and
+output buffers, captured after one eager warm call and inside
+``ieee_fp32()``; a replay copies the batch in, replays and reads the
+result back, under one engine-wide device lock that every device
+operation of the engine holds (captures, replays, subject installs). A
+gathered graph reads a static table buffer per capacity, refreshed by a
+stream-ordered copy whenever the batch's table snapshot differs from the
+last one copied, so it never serves a row from another snapshot. The
+kernels a graph captured are added to their launch counts at every
+replay. On the CPU a program is the family's function called eagerly.
+``compiles`` counts the programs built live, ``warmup``/``warmup_posed``
+build them up front. A capture failure raises: unsupervised it stops the
+dispatcher, supervised it resolves the batch to a ``ServingError``.
+
+**Persistence.** ``aot_dir`` names a directory for the engine's baked
+executable lattice (``bake_lattice``; ``io/export_aot.py``): every full
+and gathered f32 program of the reachable (bucket, capacity) ladder, and
+the CPU tier of a CPU engine, exported with ``torch.export`` with the
+params and the table as runtime arguments. A fresh engine on that
+directory loads each program from it (counted in ``aot_loads``; captured
+after the load on a card) instead of building it live, bit for bit the
+live program's output; a damaged, mismatched or foreign entry degrades
+to a counted live build (``aot_load_failures``), never a crash. The K2
+family and the bf16 family are never baked (a family swap across a
+restart would change the numbers), as in JAX. Without a lattice, live
+full programs also write the legacy per-bucket artifact there
+(``export_forward`` with the params baked in). ``checkpoint_subjects``
+/ ``restore_subjects`` carry the subject table's rows, betas and LRU
+order across a restart (``io/state_ckpt.py``, JAX's pickle layout), so a
+restored subject serves bit for bit without a shape-stage bake.
+
 Table updates are functional (``core.table_set_row`` returns a new
 table), so a batch's ``(table, slots)`` snapshot stays valid while
 submitters install subjects. The engine runs on ``cuda`` unless the
@@ -70,7 +104,8 @@ caller passes ``device="cpu"``.
 
 Typical use::
 
-    eng = ServingEngine(params, max_bucket=256, posed_kernel="fused")
+    eng = ServingEngine(params, max_bucket=256, posed_kernel="fused",
+                        aot_dir="serve_cache/")
     with eng:
         verts = eng.forward(pose_n16x3, shape_n10)      # [n, 778, 3]
         subj = eng.specialize(betas)                    # bake the shape stage
@@ -83,19 +118,24 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import hashlib
+import os
 import queue
 import threading
 import time
 import warnings
 from concurrent.futures import Future, InvalidStateError
+from pathlib import Path
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mano_hand_tpu_torch.models import core
-from mano_hand_tpu_torch.ops.common import resolve_device
+from mano_hand_tpu_torch.ops.common import (
+    add_launches, captured_launches, ieee_fp32, resolve_device,
+)
 from mano_hand_tpu_torch.runtime import supervise
 from mano_hand_tpu_torch.serving import buckets as bucket_mod
 from mano_hand_tpu_torch.serving.precision import BF16, F32, PrecisionPolicy
@@ -154,6 +194,131 @@ def build_cpu_fallback_executable(params_cpu, bucket: int, n_joints: int,
     run(np.zeros((bucket, n_joints, 3), np.float32),
         np.zeros((bucket, n_shape), np.float32))
     return run
+
+
+def _torch_dtype(x: np.ndarray) -> torch.dtype:
+    return torch.int32 if x.dtype == np.int32 else torch.float32
+
+
+class _EagerProgram:
+    """A CPU engine's program: its family's function called eagerly on
+    each batch. ``body(*tensors)`` (the gathered families take the batch's
+    table first) returns the verts; ``example`` are the host zeros of one
+    batch, run once at build so a program that cannot execute fails at
+    build time, not inside a dispatch."""
+
+    def __init__(self, body: Callable, example: tuple, table=None):
+        self._body = body
+        self.run(*example, table=table)
+
+    def run(self, *host, table=None) -> np.ndarray:
+        args = [torch.from_numpy(np.ascontiguousarray(x)) for x in host]
+        with torch.no_grad(), ieee_fp32():
+            out = self._body(*args) if table is None \
+                else self._body(table, *args)
+        return out.numpy()
+
+
+class _StaticTable:
+    """A card engine's subject table of one capacity at a fixed address,
+    the table its gathered graphs of that capacity read: ``refresh``
+    copies a snapshot in (on the stream, under the device lock) unless it
+    is the one copied last."""
+
+    def __init__(self, params, capacity: int):
+        self.table = core.subject_table(params, capacity)
+        self.source = None
+
+    def refresh(self, snapshot: core.SubjectTable) -> None:
+        if snapshot is self.source:
+            return
+        if snapshot.capacity != self.table.capacity:
+            raise ValueError(
+                f"a capacity-{snapshot.capacity} table on a "
+                f"capacity-{self.table.capacity} program")
+        for name in ("v_shaped", "joints", "shape"):
+            getattr(self.table, name).copy_(getattr(snapshot, name))
+        self.source = snapshot     # held: identity is never reused
+
+
+_gc_lock = threading.Lock()
+_gc_pauses = 0
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No cyclic garbage collection while a graph is captured. A
+    collection during the capture could destroy another program's graph
+    (an engine dropped in a reference cycle), whose teardown is a CUDA
+    call a capture does not allow: the capture would fail. Reference
+    counted across threads, like ``ieee_fp32``."""
+    global _gc_pauses
+    with _gc_lock:
+        if _gc_pauses == 0:
+            gc.disable()
+        _gc_pauses += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pauses -= 1
+            if _gc_pauses == 0:
+                gc.enable()
+
+
+class _GraphProgram:
+    """A card engine's program: ``body`` captured once into a CUDA graph
+    over static input buffers (and, for a gathered family, the engine's
+    static table of its capacity) and a static output.
+
+    Built under the engine's device lock: one eager warm call (kernel
+    builds, operand packs, index tensors: everything a capture must find
+    cached), then the capture, both inside ``ieee_fp32()`` so the graph's
+    matmuls are IEEE fp32 whatever the caller's TF32 setting at replay.
+    The kernel launches the capture noted are added to their counts at
+    every replay. ``run`` holds the device lock across copy-in, replay and
+    readback, so two batches never share the static buffers, and an
+    attempt its supervisor abandoned never touches them."""
+
+    def __init__(self, eng: "ServingEngine", body: Callable, example: tuple,
+                 capacity: Optional[int] = None):
+        # The engine's lock, card and static table, not the engine: a
+        # program in the engine's cache must not close a reference cycle.
+        self._lock, self._device = eng._device_lock, eng.device
+        dev = self._device
+        with self._lock, torch.cuda.device(dev), torch.no_grad(), \
+                ieee_fp32():
+            self._table = (None if capacity is None
+                           else eng._static_table(capacity))
+            self._static = [torch.zeros(x.shape, dtype=_torch_dtype(x),
+                                        device=dev) for x in example]
+            args = list(self._static)
+            if self._table is not None:
+                args.insert(0, self._table.table)
+            body(*args)
+            torch.cuda.synchronize(dev)
+            if eng._graph_pool is None:
+                eng._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph = torch.cuda.CUDAGraph()
+            with _gc_paused(), captured_launches() as log, torch.cuda.graph(
+                    self._graph, pool=eng._graph_pool,
+                    capture_error_mode="thread_local"):
+                self._out = body(*args)
+            self._launches = tuple(log)
+
+    def run(self, *host, table=None) -> np.ndarray:
+        with self._lock:
+            if supervise.abandoned():
+                raise supervise.DeadlineExceeded(
+                    "an abandoned attempt touches no device buffer")
+            with torch.cuda.device(self._device):
+                for buf, x in zip(self._static, host):
+                    buf.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+                if self._table is not None:
+                    self._table.refresh(table)
+                self._graph.replay()
+                add_launches(self._launches)
+                return self._out.cpu().numpy()
 
 
 class _CancellableFuture(Future):
@@ -246,6 +411,14 @@ class ServingEngine:
         ``max_queued``.
     busy_fraction: ``load()`` reports a tier "busy" once outstanding
         crosses this fraction of its quota, before hard shedding.
+    aot_dir: directory of persistent programs. When it holds a baked
+        executable LATTICE (``bake_lattice()``) every full and gathered
+        f32 program it covers — and a CPU engine's CPU tier — loads from
+        it (``aot_loads``) bit-identical to the live build, and a damaged
+        or mismatched entry degrades to a counted live build
+        (``aot_load_failures``). Otherwise the legacy per-bucket full
+        artifacts apply: a missing bucket is built live AND exported
+        there; a present one loads. None = in-memory cache only.
     """
 
     # Capacity the subject table starts at (clamped to max_subjects).
@@ -257,7 +430,7 @@ class ServingEngine:
                  precision_policy: Optional[PrecisionPolicy] = None,
                  policy=None, max_queued: Optional[int] = None,
                  tier_quotas: Optional[dict] = None,
-                 busy_fraction: float = 0.75):
+                 busy_fraction: float = 0.75, aot_dir=None):
         if posed_kernel not in ("xla", "fused"):
             raise ValueError(
                 f"posed_kernel must be 'xla' or 'fused', got "
@@ -320,10 +493,30 @@ class ServingEngine:
                 self._run_full, on_fault=self.counters.count_fault)
             self._primary_posed = policy.chaos.wrap(
                 self._run_posed, on_fault=self.counters.count_fault)
+        # The program cache (under _lock): bucket -> program, and bucket
+        # -> (capacity, program) for the gathered families.
+        self._exes: dict = {}
+        self._gather_exes: dict = {}
+        self._gather_exes_bf16: dict = {}
         self._cpu_exes: dict = {}          # bucket -> CPU-tier callable
-        # _lock guards the subject maps and the live table reference;
-        # _install_lock serializes table installs so the functional row
-        # write runs outside _lock (lock order: _install_lock -> _lock).
+        # On a card every device operation of the engine holds this lock:
+        # a capture never overlaps the engine's other device work, and the
+        # static buffers of a program serve one batch at a time.
+        self._device_lock = (threading.RLock() if self.device.type == "cuda"
+                             else contextlib.nullcontext())
+        self._graph_pool = None
+        self._static_tables: dict = {}     # capacity -> _StaticTable
+        # Persistence: the lattice is opened once (single-flight).
+        self.aot_dir = aot_dir
+        self._digest: Optional[str] = None
+        self._lattice = None
+        self._lattice_loaded = False
+        self._lattice_lock = threading.Lock()
+        self._lat_leaves = None
+        # _lock guards the subject maps, the live table reference and the
+        # program cache; _install_lock serializes table installs so the
+        # functional row write runs outside _lock (lock order:
+        # _install_lock -> _device_lock -> _lock).
         self._lock = threading.Lock()
         self._install_lock = threading.Lock()
         self._table: Optional[core.SubjectTable] = None
@@ -467,17 +660,25 @@ class ServingEngine:
         return key
 
     def _install_subject(self, key: str, betas: np.ndarray,
-                         protected=()) -> int:
+                         protected=(), shaped=None) -> int:
         """Bake ``betas`` and write them into a table row; returns the slot.
 
-        Takes the next fresh row, else grows the table (doubling) while
-        under ``max_subjects``, else evicts the least-recently-used
-        subject not in ``protected`` (the subjects of the batch being
-        resolved, so a batch never evicts its own members).
+        ``shaped`` supplies PRE-BAKED rows (the checkpoint-restore path):
+        the shape stage is not re-run, the persisted bytes are written as
+        they are (bit identity across the restart), and the install counts
+        ``subjects_restored`` instead of ``specializations``. Takes the
+        next fresh row, else grows the table (doubling) while under
+        ``max_subjects``, else evicts the least-recently-used subject not
+        in ``protected`` (the subjects of the batch being resolved, so a
+        batch never evicts its own members). A growth makes the warm
+        gathered programs stale: they are rebuilt here, counted, so the
+        rebuild never lands inside a dispatch.
         """
-        with torch.no_grad():
-            shaped = core.specialize(
-                self._params, torch.from_numpy(betas).to(self.device))
+        restored = shaped is not None
+        with self._device_lock, torch.no_grad():
+            if shaped is None:
+                shaped = core.specialize(
+                    self._params, torch.from_numpy(betas).to(self.device))
         with self._install_lock:
             grew = False
             with self._lock:
@@ -506,7 +707,7 @@ class ServingEngine:
                     slot = self._subject_slots.pop(victim)
                     del self._subject_lru[victim]
                     self.counters.count_evict()
-            with torch.no_grad():
+            with self._device_lock, torch.no_grad():
                 if table is None:
                     table = core.subject_table(self._params, cap)
                 elif grew:
@@ -517,7 +718,19 @@ class ServingEngine:
                 self._table = table
                 self._subject_slots[key] = slot
                 self._subject_lru[key] = None
-        self.counters.count_specialize(hit=False)
+                stale = ([b for b, (c, _) in self._gather_exes.items()
+                          if c != cap] if grew else [])
+                stale_bf16 = ([b for b, (c, _)
+                               in self._gather_exes_bf16.items()
+                               if c != cap] if grew else [])
+        if restored:
+            self.counters.count_restore()
+        else:
+            self.counters.count_specialize(hit=False)
+        for b in stale:
+            self._gather_executable(b)
+        for b in stale_bf16:
+            self._gather_executable(b, prec=BF16)
         return slot
 
     def _resolve_batch(self, reqs):
@@ -759,18 +972,24 @@ class ServingEngine:
                            deadline_s=deadline_s).result()
 
     def warmup(self, bucket_list: Optional[Sequence[int]] = None) -> dict:
-        """Run one zero batch of the full family per bucket (first-use
-        work: kernel builds, allocator growth) outside any request's
-        latency — and of the CPU tier too under a policy with
-        ``cpu_fallback``, so the first failover does not pay it during
-        the outage. Returns {bucket: seconds}."""
+        """Build (or load from the lattice) the full family's program of
+        each bucket up front — and the CPU tier's too under a policy with
+        ``cpu_fallback``, so the first failover does not build during the
+        outage. Returns {bucket: "jit" | "aot" | "cached"}: "jit" built
+        live in this process (a capture on a card), "aot" loaded from the
+        lattice or artifact, "cached" already built. After it, full
+        traffic over these buckets builds nothing."""
         out = {}
         bucket_list = self._check_buckets(bucket_list)
         for b in bucket_list:
-            t0 = time.perf_counter()
-            self._run_full(np.zeros((b, self._n_joints, 3), np.float32),
-                           np.zeros((b, self._n_shape), np.float32))
-            out[b] = time.perf_counter() - t0
+            with self._lock:
+                known = b in self._exes
+            if known:
+                out[b] = "cached"
+                continue
+            before = self.counters.aot_loads
+            self._executable(b)
+            out[b] = "aot" if self.counters.aot_loads > before else "jit"
         if self._policy is not None and self._policy.cpu_fallback:
             for b in bucket_list:
                 self._fallback_executable(b)
@@ -778,26 +997,35 @@ class ServingEngine:
 
     def warmup_posed(self, bucket_list: Optional[Sequence[int]] = None,
                      ) -> dict:
-        """``warmup`` for the pose-only family (needs one specialized
-        subject, so the table exists) — and for the bf16 family too when
-        the precision policy names a bf16 tier. Returns {bucket: seconds}
-        over the families warmed."""
-        table = self.table
+        """``warmup`` for the gathered pose-only family at the current
+        table capacity (needs one specialized subject, so the table
+        exists) — and for the bf16 family too when the precision policy
+        names a bf16 tier (always built live: it has no lattice tier).
+        Returns {bucket: "jit" | "aot" | "cached"} of the f32 family."""
+        bucket_list = self._check_buckets(bucket_list)
+        with self._lock:
+            table = self._table
         if table is None:
             raise RuntimeError(
                 "warmup_posed needs a subject table: specialize() first")
-        dtypes = [None]
-        if self._precision_policy is not None \
-                and self._precision_policy.bf16_tiers:
-            dtypes.append(torch.bfloat16)
         out = {}
-        for b in self._check_buckets(bucket_list):
-            t0 = time.perf_counter()
-            for dt in dtypes:
-                self._run_posed(table, np.zeros((b,), np.int32),
-                                np.zeros((b, self._n_joints, 3), np.float32),
-                                dt)
-            out[b] = time.perf_counter() - t0
+        for b in bucket_list:
+            with self._lock:
+                entry = self._gather_exes.get(b)
+                cap = self._table.capacity
+            if entry is not None and entry[0] == cap:
+                out[b] = "cached"
+                continue
+            before = self.counters.aot_loads
+            self._gather_executable(b)
+            out[b] = "aot" if self.counters.aot_loads > before else "jit"
+        if self._bf16_serving():
+            for b in bucket_list:
+                with self._lock:
+                    entry = self._gather_exes_bf16.get(b)
+                    cap = self._table.capacity
+                if entry is None or entry[0] != cap:
+                    self._gather_executable(b, prec=BF16)
         return out
 
     def _check_buckets(self, bucket_list):
@@ -805,6 +1033,419 @@ class ServingEngine:
             if b not in self.buckets:
                 raise ValueError(f"{b} is not one of {self.buckets}")
         return list(bucket_list or self.buckets)
+
+    def _bf16_serving(self) -> bool:
+        return (self._precision_policy is not None
+                and bool(self._precision_policy.bf16_tiers))
+
+    # ------------------------------------------------------------- programs
+    def _static_table(self, capacity: int) -> _StaticTable:
+        """The card's static table of one capacity (device lock held)."""
+        st = self._static_tables.get(capacity)
+        if st is None:
+            st = self._static_tables[capacity] = _StaticTable(
+                self._params, capacity)
+        return st
+
+    def _program(self, body: Callable, bucket: int, capacity=None,
+                 table=None):
+        """One program of a family at ``bucket`` (and table ``capacity``
+        for a gathered one): a CUDA graph on a card, the eager function on
+        the CPU. Built and warmed here; counting is the caller's."""
+        if capacity is None:
+            example = (np.zeros((bucket, self._n_joints, 3), np.float32),
+                       np.zeros((bucket, self._n_shape), np.float32))
+        else:
+            example = (np.zeros((bucket,), np.int32),
+                       np.zeros((bucket, self._n_joints, 3), np.float32))
+        if self.device.type == "cuda":
+            return _GraphProgram(self, body, example, capacity)
+        return _EagerProgram(body, example, table)
+
+    def _live_full(self, pose, shape):
+        return core.forward_batched(self._params, pose, shape).verts
+
+    def _executable(self, bucket: int):
+        """The full family's program of one bucket: in memory, then the
+        lattice, then the legacy artifact, then built live (counted in
+        ``compiles``; with ``aot_dir`` set the live build also writes the
+        legacy artifact the next process loads)."""
+        with self._lock:
+            prog = self._exes.get(bucket)
+        if prog is not None:
+            return prog
+        lat = self._get_lattice()
+        if lat is not None:
+            call = lat.get("full", bucket, platform=self.device.type)
+            if call is not None:
+                leaves = self._lattice_leaves()
+                prog = self._load_program(
+                    f"lattice full/b{bucket}",
+                    lambda pose, shape: call(leaves, pose, shape), bucket)
+        if prog is None and self.aot_dir is not None:
+            path = self._artifact_path(bucket)
+            if path.exists():
+                prog = self._load_artifact(path, bucket)
+        if prog is None:
+            prog = self._program(self._live_full, bucket)
+            self.counters.count_compile()
+            if self.aot_dir is not None:
+                self._write_artifact(bucket)
+        with self._lock:
+            # Two threads can race the build: first writer wins, so the
+            # cache never flips programs under steady traffic.
+            return self._exes.setdefault(bucket, prog)
+
+    def _load_program(self, what: str, body: Callable, bucket: int,
+                      capacity=None, table=None):
+        """A program over a loaded entry, or None when it fails to run
+        here: counted in ``aot_loads``, or in ``aot_load_failures`` with a
+        warning (the caller then builds it live)."""
+        try:
+            prog = self._program(body, bucket, capacity, table)
+        except Exception as e:  # noqa: BLE001 — degrade, never crash boot
+            self.counters.count_aot_load_failure()
+            warnings.warn(f"{what} failed at execution ({type(e).__name__}: "
+                          f"{e}); building it live (counted)")
+            return None
+        self.counters.count_aot_load()
+        return prog
+
+    def _load_artifact(self, path: Path, bucket: int):
+        """The legacy per-bucket artifact (params baked in), or None: a
+        truncated, corrupt or foreign file is counted, warned and rebuilt
+        (and rewritten) live."""
+        from mano_hand_tpu_torch.io.export_aot import load_forward
+
+        try:
+            fwd = load_forward(path)
+            have = fwd.meta.get("params_digest")
+            if have is not None and have != self._params_digest():
+                raise ValueError(
+                    f"artifact params_digest {have} does not match this "
+                    "engine's parameter set — serving it would return "
+                    "another asset's meshes")
+            if self.device.type not in fwd.platforms:
+                raise ValueError(f"artifact exported for {fwd.platforms}")
+        except Exception as e:  # noqa: BLE001 — self-heal
+            self.counters.count_aot_load_failure()
+            warnings.warn(f"invalid serving artifact {path} "
+                          f"({type(e).__name__}: {e}); building it live "
+                          "and rewriting it")
+            return None
+        return self._load_program(f"artifact {path.name}",
+                                  lambda pose, shape: fwd(pose, shape)["verts"],
+                                  bucket)
+
+    def _write_artifact(self, bucket: int) -> None:
+        """Atomic write (temp + rename) of one bucket's legacy artifact: a
+        process killed mid-export leaves no artifact or a whole one."""
+        from mano_hand_tpu_torch.io.export_aot import export_forward
+
+        Path(self.aot_dir).mkdir(parents=True, exist_ok=True)
+        path = self._artifact_path(bucket)
+        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+        tmp.write_bytes(export_forward(
+            self._params, batch=bucket, platforms=(self.device.type,)))
+        os.replace(tmp, path)
+
+    def _artifact_path(self, bucket: int) -> Path:
+        return Path(self.aot_dir) / (
+            f"serve_{self._params_digest()}_b{bucket}.torchexp")
+
+    def _gather_body(self, fused: bool, compute_dtype=None) -> Callable:
+        if fused:
+            return lambda table, idx, pose: core.forward_posed_gather_fused(
+                table, idx, pose, compute_dtype=compute_dtype)
+        return lambda table, idx, pose: core.forward_posed_gather(
+            table, idx, pose, compute_dtype=compute_dtype).verts
+
+    def _gather_executable(self, bucket: int, table=None, prec: str = F32):
+        """The gathered pose-only program of one bucket at ``table``'s
+        capacity (default: the live table's), of the f32 family (K2 under
+        ``posed_kernel="fused"``, else the plain gather: in memory, the
+        lattice, then built live) or the bf16 family (``prec="bf16"``:
+        always built live). Counted like every build; a growth makes the
+        cached entry stale. A program built for an older, smaller
+        snapshot serves that dispatch uncached, never replacing a newer
+        capacity's."""
+        if table is None:
+            with self._lock:
+                table = self._table
+        if table is None:
+            raise RuntimeError(
+                "no specialized subject to warm the pose-only path with; "
+                "call specialize(betas) first")
+        cap = table.capacity
+        cache = self._gather_exes_bf16 if prec == BF16 else \
+            self._gather_exes
+        with self._lock:
+            entry = cache.get(bucket)
+        if entry is not None and entry[0] == cap:
+            return entry[1]
+        fused = self._posed_kernel == "fused"
+        prog = None
+        if prec == F32 and not fused:
+            lat = self._get_lattice()
+            call = (None if lat is None else
+                    lat.get("gather", bucket, cap, platform=self.device.type))
+            if call is not None:
+                from mano_hand_tpu_torch.io.export_aot import table_leaves
+
+                prog = self._load_program(
+                    f"lattice gather/b{bucket}/c{cap}",
+                    lambda tab, idx, pose: call(table_leaves(tab), idx, pose),
+                    bucket, cap, table)
+        if prog is None:
+            prog = self._program(
+                self._gather_body(
+                    fused, torch.bfloat16 if prec == BF16 else None),
+                bucket, cap, table)
+            self.counters.count_compile()
+        with self._lock:
+            cur = cache.get(bucket)
+            if cur is not None and cur[0] == cap:
+                return cur[1]    # a racing build won at this capacity
+            if cur is None or cur[0] < cap:
+                cache[bucket] = (cap, prog)
+        return prog
+
+    def _fallback_executable(self, bucket: int) -> Callable:
+        """The CPU tier's callable of one bucket (CPU engines only): the
+        lattice's ``cpu`` entry, else built live — normally by
+        ``warmup()``, lazily at a failover on a bucket never warmed.
+        Counted either way."""
+        with self._lock:
+            exe = self._cpu_exes.get(bucket)
+        if exe is not None:
+            return exe
+        lat = self._get_lattice()
+        call = None if lat is None else lat.get("cpu", bucket, platform="cpu")
+        if call is not None:
+            leaves = self._lattice_leaves()
+
+            def run(pose, shape):
+                pose, shape = (torch.from_numpy(np.array(x, np.float32,
+                                                         order="C"))
+                               for x in (pose, shape))
+                with torch.no_grad(), ieee_fp32():
+                    return call(leaves, pose, shape).numpy()
+
+            try:
+                run(np.zeros((bucket, self._n_joints, 3), np.float32),
+                    np.zeros((bucket, self._n_shape), np.float32))
+                exe = run
+                self.counters.count_aot_load()
+            except Exception as e:  # noqa: BLE001 — degrade
+                self.counters.count_aot_load_failure()
+                warnings.warn(f"lattice cpu/b{bucket} entry failed at "
+                              f"execution ({type(e).__name__}: {e}); "
+                              "building it live (counted)")
+        if exe is None:
+            exe = build_cpu_fallback_executable(
+                self._params, bucket, self._n_joints, self._n_shape)
+            self.counters.count_compile()
+        with self._lock:
+            return self._cpu_exes.setdefault(bucket, exe)
+
+    # ------------------------------------------------------- persistence
+    def _params_digest(self) -> str:
+        if self._digest is None:
+            from mano_hand_tpu_torch.io.export_aot import params_digest
+
+            self._digest = params_digest(self._params)
+        return self._digest
+
+    def _lattice_leaves(self) -> tuple:
+        if self._lat_leaves is None:
+            from mano_hand_tpu_torch.io.export_aot import params_leaves
+
+            self._lat_leaves = params_leaves(self._params)
+        return self._lat_leaves
+
+    def _get_lattice(self):
+        """The aot_dir's lattice, opened once per engine. A manifest that
+        is unreadable, of another schema or baked for another parameter
+        set degrades to a counted boot without it
+        (``aot_load_failures``)."""
+        if self.aot_dir is None:
+            return None
+        with self._lock:
+            if self._lattice_loaded:
+                return self._lattice
+        with self._lattice_lock:
+            with self._lock:
+                if self._lattice_loaded:
+                    return self._lattice
+            from mano_hand_tpu_torch.io.export_aot import load_lattice
+
+            lat = load_lattice(
+                self.aot_dir, self._params_digest(),
+                on_failure=lambda key, reason:
+                    self.counters.count_aot_load_failure())
+            with self._lock:
+                self._lattice, self._lattice_loaded = lat, True
+                return lat
+
+    def _lattice_capacities(self) -> list:
+        """The table-capacity doubling ladder this engine can reach:
+        ``_TABLE_INIT_CAPACITY`` doubling up to ``max_subjects``."""
+        caps = []
+        c = min(self._TABLE_INIT_CAPACITY, self.max_subjects)
+        while True:
+            caps.append(c)
+            if c >= self.max_subjects:
+                return caps
+            c = min(c * 2, self.max_subjects)
+
+    def bake_lattice(self, *, capacities: Optional[Sequence[int]] = None,
+                     include_cpu_fallback: Optional[bool] = None) -> dict:
+        """Bake THIS engine's reachable lattice into ``aot_dir``
+        (``io/export_aot.py:bake_lattice``): every bucket's full program,
+        every (bucket x capacity ladder) gathered program and — when the
+        policy enables the CPU tier (or ``include_cpu_fallback=True``) —
+        the CPU tier, exported for the engine's device type. A card engine
+        has no CPU tier and bakes no ``cpu/`` entries. After
+        it, a fresh engine on the same directory loads every one of those
+        programs (``warmup``/``warmup_posed`` report "aot"). Returns the
+        manifest."""
+        if self.aot_dir is None:
+            raise ValueError("bake_lattice requires aot_dir")
+        from mano_hand_tpu_torch.io.export_aot import bake_lattice
+
+        if include_cpu_fallback is None:
+            include_cpu_fallback = bool(
+                self._policy is not None and self._policy.cpu_fallback)
+        if include_cpu_fallback and self.device.type != "cpu":
+            raise ValueError(
+                "a card engine has no CPU tier: it bakes no cpu/ entries")
+        caps = (self._lattice_capacities() if capacities is None
+                else list(capacities))
+        manifest = bake_lattice(
+            self._params, self.aot_dir, buckets=self.buckets,
+            capacities=caps, platforms=(self.device.type,),
+            cpu_fallback=include_cpu_fallback)
+        with self._lock:
+            # Re-open on the next fetch: the bake may have replaced a
+            # lattice this engine already gave up on.
+            self._lattice_loaded, self._lattice = False, None
+        return manifest
+
+    _CKPT_SCHEMA = 1
+
+    def checkpoint_subjects(self, path) -> str:
+        """Persist the warm subject table — baked rows, raw betas and LRU
+        order — so a restarted process serves every specialized subject
+        bit for bit WITHOUT a shape-stage bake (``io/state_ckpt.py``, the
+        JAX package's pickle layout: either package restores it).
+        Evicted-but-registered subjects ride along as betas only. Taken
+        under ``_install_lock``, so it never interleaves with an install.
+        """
+        from mano_hand_tpu_torch.io import state_ckpt
+
+        with self._install_lock:
+            with self._lock:
+                table = self._table
+                slots = dict(self._subject_slots)
+                lru = list(self._subject_lru)
+                betas = dict(self._subject_betas)
+        live = [k for k in lru if k in slots]       # LRU order, oldest first
+        evicted = [k for k in betas if k not in slots]
+        if table is not None and live:
+            rows = torch.tensor([slots[k] for k in live],
+                                device=table.v_shaped.device)
+            with self._device_lock:
+                v_shaped, joints, shape_rows = (
+                    getattr(table, n)[rows].cpu().numpy()
+                    for n in ("v_shaped", "joints", "shape"))
+        else:
+            v_shaped = np.zeros((0, self._params.n_verts, 3), np.float32)
+            joints = np.zeros((0, self._n_joints, 3), np.float32)
+            shape_rows = np.zeros((0, self._n_shape), np.float32)
+        none = np.zeros((0, self._n_shape), np.float32)
+        meta = {
+            "schema": self._CKPT_SCHEMA,
+            "params_digest": self._params_digest(),
+            "capacity": table.capacity if table is not None else 0,
+            "digests": live,
+            "evicted_digests": evicted,
+            "dtype": "float32",
+        }
+        arrays = {
+            "betas": np.stack([betas[k] for k in live]) if live else none,
+            "v_shaped": v_shaped,
+            "joints": joints,
+            "shape_rows": shape_rows,
+            "evicted_betas": (np.stack([betas[k] for k in evicted])
+                              if evicted else none),
+        }
+        return str(state_ckpt.save_state(meta, arrays, path))
+
+    def restore_subjects(self, path, *, strict: bool = False) -> dict:
+        """Revive a ``checkpoint_subjects`` snapshot into this engine.
+
+        Each live subject's BAKED rows are written straight into the table
+        (``subjects_restored``; no shape-stage bake), in checkpointed LRU
+        order, so eviction priority survives the restart; betas-only
+        (evicted) subjects re-register and re-bake on first use. Restores
+        go through the same serialized installer as ``specialize()``: a
+        subject a racing ``specialize`` already installed is skipped. A
+        missing, damaged, foreign or orbax-written checkpoint DEGRADES to
+        an empty restore with an ``"error"`` field and a warning (subjects
+        re-specialize on demand) unless ``strict=True``."""
+        from mano_hand_tpu_torch.io import state_ckpt
+
+        summary = {"restored": 0, "betas_only": 0, "skipped": 0}
+        try:
+            meta, arrays = state_ckpt.load_state(path)
+            if meta.get("schema") != self._CKPT_SCHEMA:
+                raise ValueError(
+                    f"checkpoint schema {meta.get('schema')} != supported "
+                    f"{self._CKPT_SCHEMA}")
+            if meta.get("params_digest") != self._params_digest():
+                raise ValueError(
+                    "checkpoint params_digest does not match this engine's "
+                    "parameter set — restoring would serve another asset's "
+                    "subjects")
+            digests = list(meta.get("digests") or ())
+            for name in ("betas", "v_shaped", "joints", "shape_rows"):
+                if len(arrays[name]) != len(digests):
+                    raise ValueError(
+                        f"checkpoint arrays[{name!r}] rows "
+                        f"{len(arrays[name])} != {len(digests)} digests")
+        except Exception as e:  # noqa: BLE001 — degrade, not crash
+            if strict:
+                raise
+            warnings.warn(
+                f"subject checkpoint {path}: {type(e).__name__}: {e}; "
+                "restoring nothing (subjects re-specialize on demand)")
+            summary["error"] = f"{type(e).__name__}: {e}"
+            return summary
+        for k, b in zip(meta.get("evicted_digests") or (),
+                        arrays["evicted_betas"]):
+            with self._lock:
+                self._subject_betas.setdefault(
+                    k, np.ascontiguousarray(b, np.float32))
+            summary["betas_only"] += 1
+        for i, key in enumerate(digests):
+            with self._lock:
+                present = key in self._subject_slots
+            if present:          # a racing specialize() already baked it
+                summary["skipped"] += 1
+                continue
+            with self._device_lock:
+                v_shaped, joints, shape = (
+                    torch.from_numpy(np.ascontiguousarray(
+                        arrays[n][i], np.float32)).to(self.device)
+                    for n in ("v_shaped", "joints", "shape_rows"))
+            shaped = core.ShapedHand(
+                v_shaped, joints, shape, self._params.pose_basis,
+                self._params.lbs_weights, tuple(self._params.parents))
+            self._install_subject(
+                key, np.ascontiguousarray(arrays["betas"][i], np.float32),
+                shaped=shaped)
+            summary["restored"] += 1
+        return summary
 
     # ------------------------------------------------------------- dispatch
     def _on_device(self):
@@ -815,37 +1456,16 @@ class ServingEngine:
         return contextlib.nullcontext()
 
     def _run_full(self, pose: np.ndarray, shape: np.ndarray) -> np.ndarray:
-        with self._on_device(), torch.no_grad():
-            verts = core.forward_batched(
-                self._params, torch.from_numpy(pose).to(self.device),
-                torch.from_numpy(shape).to(self.device)).verts
-            return verts.cpu().numpy()
+        prog = self._executable(pose.shape[0])
+        with self._on_device():
+            return prog.run(pose, shape)
 
     def _run_posed(self, table, idx: np.ndarray, pose: np.ndarray,
                    compute_dtype=None) -> np.ndarray:
-        with self._on_device(), torch.no_grad():
-            idx_t = torch.from_numpy(idx).to(self.device)
-            pose_t = torch.from_numpy(pose).to(self.device)
-            if self._posed_kernel == "fused":
-                verts = core.forward_posed_gather_fused(
-                    table, idx_t, pose_t, compute_dtype=compute_dtype)
-            else:
-                verts = core.forward_posed_gather(
-                    table, idx_t, pose_t, compute_dtype=compute_dtype).verts
-            return verts.cpu().numpy()
-
-    def _fallback_executable(self, bucket: int) -> Callable:
-        """The CPU tier's callable of one bucket, built (and warmed) once;
-        normally by ``warmup()``, lazily at a failover on a bucket never
-        warmed."""
-        with self._lock:
-            exe = self._cpu_exes.get(bucket)
-        if exe is None:
-            exe = build_cpu_fallback_executable(
-                self._params, bucket, self._n_joints, self._n_shape)
-            with self._lock:
-                exe = self._cpu_exes.setdefault(bucket, exe)
-        return exe
+        prog = self._gather_executable(
+            pose.shape[0], table, F32 if compute_dtype is None else BF16)
+        with self._on_device():
+            return prog.run(idx, pose, table=table)
 
     def _req_prec(self, req: _Request) -> str:
         """The precision family one request is served from: ``"bf16"``
@@ -1035,9 +1655,23 @@ class ServingEngine:
         ``ServingError``. Deterministic failures are neither retried nor
         failed over: they propagate and stay engine-fatal. The readback
         to the host is part of each attempt, so a wedged kernel is killed
-        at its deadline like a wedged call."""
+        at its deadline like a wedged call. The program is fetched (so
+        possibly built) before the attempts, outside their deadline: a
+        build is warm-up-class work, and each attempt finds it cached. A build that fails resolves the batch
+        to a ``ServingError`` and counts as a breaker failure."""
         pol = self._policy
         breaker = pol.breaker
+        try:
+            if table is None:
+                self._executable(bucket)
+            else:
+                self._gather_executable(bucket, table, prec)
+        except Exception as e:  # noqa: BLE001 — the batch's error, counted
+            if breaker is not None:
+                breaker.record_failure()
+            raise ServingError(
+                f"bucket {bucket}'s program failed to build "
+                f"({type(e).__name__}: {e})", cause=e) from e
         if table is not None:
             dt = torch.bfloat16 if prec == BF16 else None
 

@@ -1,8 +1,8 @@
-"""The serving engine's drills: fault recovery and overload.
+"""The serving engine's drills: fault recovery, overload and cold start.
 
-Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``
-and ``overload_drill_run`` — the same arguments, protocol and returned
-keys, less the tracer's flight record. Both drive a real
+Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``,
+``overload_drill_run`` and ``cold_start_drill_run`` — the same arguments,
+protocol and returned keys, less the tracer's flight record. Both drive a real
 ``ServingEngine`` on ``device`` (default ``cuda``; the CPU tests pass
 ``"cpu"``) and inject their faults in-process through ``runtime.chaos``,
 so no device is harmed. The recovery drill serves its pose-only half
@@ -530,4 +530,332 @@ def recovery_drill_run(
         "breaker_opens": breaker.opens,
         "breaker_probes": breaker.probes,
         "breaker_state_final": breaker.state,
+    }
+
+
+def cold_start_drill_run(
+    params,
+    *,
+    subjects: int = 6,
+    requests: int = 48,
+    max_rows: int = 4,
+    max_bucket: int = 8,
+    max_subjects: int = 8,
+    aot_dir=None,
+    p99_waves: int = 6,
+    hang_deadline_s: float = 2.0,
+    seed: int = 0,
+    device=None,
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The cold-start / restart drill: restart is a fault class with
+    measured criteria. JAX's protocol (``serving/measure.py:
+    cold_start_drill_run``), its arguments and returned keys less the
+    tracer's flight record, on ``device`` (default ``cuda``).
+
+    * **Phase A (the doomed process)**: a warm engine — ``subjects``
+      baked, every bucket warmed — bakes its lattice, checkpoints its
+      subject table, then is stopped with a burst of work in flight:
+      every outstanding future must still resolve.
+    * **Phase B (the cold start)**: a fresh engine on the same artifacts
+      restores the checkpoint and warms every program, measuring seconds
+      from its construction to the restore, the warm-up, the FIRST served
+      result and a stable p99 (wave p99s within 1.5x of the settled one).
+      Criteria: ``compiles_after_restore`` == 0 with ``aot_loads`` == the
+      reachable program count, and a restored subject's results bit for
+      bit a freshly baked one's.
+    * **Phase C (damage)**: a truncated lattice entry, a schema-bumped
+      manifest, a digest-mismatched manifest and a half-written
+      checkpoint each boot a fresh engine that must degrade to counted
+      live builds / re-specializations while resolving its whole stream.
+    * **Phase D (chaos composes)**: the boot runs supervised under a
+      ``hang`` fault on its first dispatch; the deadline kill must clear
+      it and the retry serve. A CPU engine bakes and loads its CPU tier
+      too; a card engine has none (its exhausted batch would resolve to a
+      ``ServingError``, never to a CPU run).
+
+    Restarts are simulated in-process (a fresh engine has cold program
+    caches).
+    """
+    import json
+    import shutil
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    from mano_hand_tpu_torch.io.export_aot import LATTICE_MANIFEST
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving import buckets as bucket_mod
+    from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
+
+    if subjects < 1:
+        raise ValueError(f"subjects must be >= 1, got {subjects}")
+    if requests < 1:
+        raise ValueError(f"requests must be >= 1, got {requests}")
+    log = _logger(log)
+    dev = resolve_device(device)
+    cpu_tier = dev.type == "cpu"
+    max_rows = min(max_rows, max_bucket)
+    n_joints, n_shape = params.n_joints, params.n_shape
+    params32 = params.astype(torch.float32).to(dev)
+    rng = np.random.default_rng(seed)
+    betas = [rng.normal(size=(n_shape,)).astype(np.float32)
+             for _ in range(subjects)]
+
+    tmp_root = None
+    if aot_dir is None:
+        tmp_root = tempfile.mkdtemp(prefix="mano_coldstart_")
+        aot_dir = Path(tmp_root)
+    else:
+        # The drill owns a subdirectory: a production lattice in aot_dir
+        # proper never shares a manifest with drill artifacts.
+        aot_dir = Path(aot_dir) / "coldstart_drill"
+        aot_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = aot_dir / "subjects_ckpt"
+
+    def make_stream(n, keys):
+        """Half full-path, half pose-only across the baked subjects, as
+        (pose, shape, subject) submit triples."""
+        sizes = rng.integers(1, max_rows + 1, size=n)
+        out = []
+        for i, s in enumerate(sizes):
+            pose = rng.normal(
+                scale=0.4, size=(int(s), n_joints, 3)).astype(np.float32)
+            if keys and i % 2 == 1:
+                out.append((pose, None, keys[i % len(keys)]))
+            else:
+                out.append((pose, rng.normal(
+                    size=(int(s), n_shape)).astype(np.float32), None))
+        return out
+
+    def run_stream(eng, stream, timeout_s=60.0):
+        """(resolved_ok, resolved_error, unresolved, wall_s)."""
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, s, subject=k) for p, s, k in stream]
+        ok = err = un = 0
+        for f in futs:
+            try:
+                f.result(timeout=timeout_s)
+                ok += 1
+            except ServingError:
+                err += 1
+            except Exception:   # noqa: BLE001 — a timeout IS the bug
+                un += 1
+        return ok, err, un, time.perf_counter() - t0
+
+    engine_kw = dict(device=dev, max_bucket=max_bucket, max_delay_s=0.001,
+                     max_subjects=max_subjects)
+
+    # ---- Phase A: the doomed process -----------------------------------
+    eng_a = ServingEngine(params32, aot_dir=aot_dir, **engine_kw)
+    probe_pose = rng.normal(
+        scale=0.4, size=(2, n_joints, 3)).astype(np.float32)
+    with eng_a:
+        keys = [eng_a.specialize(b) for b in betas]
+        eng_a.warmup()
+        eng_a.warmup_posed()
+        manifest = eng_a.bake_lattice(include_cpu_fallback=cpu_tier)
+        ok_a, err_a, un_a, _ = run_stream(eng_a, make_stream(requests, keys))
+        want_posed = [np.asarray(eng_a.forward(probe_pose, subject=k))
+                      for k in keys[:min(3, len(keys))]]
+        eng_a.checkpoint_subjects(ckpt)
+        kill_futs = [eng_a.submit(p, s, subject=k)
+                     for p, s, k in make_stream(min(requests, 16), keys)]
+    killed_resolved = sum(f.done() for f in kill_futs)
+    baked_compiles = eng_a.counters.compiles
+    log(f"cold-start A: {len(manifest['entries'])} lattice entries baked, "
+        f"checkpoint written, stopped with {killed_resolved}/"
+        f"{len(kill_futs)} in-flight futures resolved")
+
+    # ---- Phase B: the cold start ----------------------------------------
+    eng_b = ServingEngine(params32, aot_dir=aot_dir, **engine_kw)
+    t0 = time.perf_counter()
+    with eng_b:
+        restore = eng_b.restore_subjects(ckpt)
+        t_restore = time.perf_counter() - t0
+        warm_full = eng_b.warmup()
+        warm_posed = eng_b.warmup_posed()
+        t_warm = time.perf_counter() - t0
+        eng_b.forward(probe_pose, subject=keys[0])
+        t_first = time.perf_counter() - t0
+        restored_err = 0.0
+        for k, want in zip(keys, want_posed):
+            got = np.asarray(eng_b.forward(probe_pose, subject=k))
+            restored_err = max(restored_err, float(np.abs(got - want).max()))
+        # A freshly baked subject through the per-subject posed forward at
+        # the same padded size: the gather contract, across a restart.
+        b = bucket_mod.bucket_for(probe_pose.shape[0], eng_b.buckets)
+        with torch.no_grad():
+            fresh = core.specialize(params32, torch.from_numpy(betas[0]).to(dev))
+            fresh_out = core.forward_posed_batched(fresh, torch.from_numpy(
+                bucket_mod.pad_rows(probe_pose, b)).to(dev)).verts
+        fresh_out = fresh_out.cpu().numpy()[:probe_pose.shape[0]]
+        got0 = np.asarray(eng_b.forward(probe_pose, subject=keys[0]))
+        restored_vs_fresh = float(np.abs(got0 - fresh_out).max())
+        wave_p99, wave_t = [], []
+        for _ in range(max(1, p99_waves)):
+            stream = make_stream(requests, keys)
+            futs = [(eng_b.submit(p, s, subject=k), time.perf_counter())
+                    for p, s, k in stream]
+            lats = []
+            for f, t_sub in futs:
+                f.result(timeout=60.0)
+                lats.append(time.perf_counter() - t_sub)
+            wave_p99.append(float(np.percentile(lats, 99)))
+            wave_t.append(time.perf_counter() - t0)
+        settled = float(np.median(wave_p99[-min(3, len(wave_p99)):]))
+        t_p99 = wave_t[-1]
+        for i in range(len(wave_p99)):
+            if all(w <= 1.5 * settled for w in wave_p99[i:]):
+                t_p99 = wave_t[i]
+                break
+        compiles_after_restore = eng_b.counters.compiles
+        aot_loads = eng_b.counters.aot_loads
+        snap_b = eng_b.counters.snapshot()
+    expected_programs = 2 * len(eng_b.buckets)
+    log(f"cold-start B: restore {restore}, first result at "
+        f"{t_first * 1e3:.0f} ms, p99 stable at {t_p99 * 1e3:.0f} ms "
+        f"({compiles_after_restore} compiles, {aot_loads}/"
+        f"{expected_programs} programs from the lattice, restored-vs-fresh "
+        f"err {restored_vs_fresh:.1e})")
+
+    # ---- Phase C: damage -------------------------------------------------
+    injections = {}
+
+    def injection_leg(name: str, damage):
+        """Copy the artifacts, apply ``damage(dir)``, cold-boot against
+        them: the whole stream resolves, the damage degraded to counted
+        live builds / re-specializations."""
+        leg_dir = aot_dir.parent / f"{aot_dir.name}_{name}"
+        if leg_dir.exists():
+            shutil.rmtree(leg_dir)
+        shutil.copytree(aot_dir, leg_dir)
+        damage(leg_dir)
+        eng = ServingEngine(params32, aot_dir=leg_dir, **engine_kw)
+        with eng, warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rs = eng.restore_subjects(leg_dir / "subjects_ckpt")
+            eng.warmup()
+            leg_keys = [eng.specialize(b) for b in betas]
+            eng.warmup_posed()
+            ok, err, un, _ = run_stream(eng, make_stream(requests, leg_keys))
+        injections[name] = {
+            "submitted": requests,
+            "resolved_ok": ok,
+            "resolved_error": err,
+            "unresolved": un,
+            "futures_resolved_fraction": 1.0 - un / requests,
+            "aot_load_failures": eng.counters.aot_load_failures,
+            "recompiles": eng.counters.compiles,
+            "aot_loads": eng.counters.aot_loads,
+            "subjects_restored": eng.counters.subjects_restored,
+            "restore": rs,
+        }
+        shutil.rmtree(leg_dir, ignore_errors=True)
+        i = injections[name]
+        log(f"cold-start C [{name}]: {i['aot_load_failures']} load failures "
+            f"-> {i['recompiles']} recompiles, {i['resolved_ok']}/"
+            f"{i['submitted']} ok, {i['unresolved']} unresolved")
+
+    def truncate_entry(d):
+        # Keyed off the engine's REAL bucket ladder (a non-power-of-two
+        # max_bucket rounds up). The legacy artifacts go too: this leg
+        # pins the whole chain (lattice -> legacy -> live build).
+        ent = manifest["entries"][f"full/b{eng_b.buckets[-1]}"]
+        f = d / ent["file"]
+        f.write_bytes(f.read_bytes()[:64])
+        for legacy in d.glob("serve_*.torchexp"):
+            legacy.unlink()
+
+    def bump_schema(d):
+        man = json.loads((d / LATTICE_MANIFEST).read_text())
+        man["schema"] = man["schema"] + 1
+        (d / LATTICE_MANIFEST).write_text(json.dumps(man))
+
+    def mismatch_digest(d):
+        man = json.loads((d / LATTICE_MANIFEST).read_text())
+        man["params_digest"] = "0" * len(man["params_digest"])
+        (d / LATTICE_MANIFEST).write_text(json.dumps(man))
+
+    def damage_ckpt(d):
+        # Killed mid-checkpoint: the meta lands last, so cut it in half.
+        meta = d / "subjects_ckpt" / "state_meta.json"
+        meta.write_text(meta.read_text()[: max(1, meta.stat().st_size // 2)])
+
+    injection_leg("truncated_entry", truncate_entry)
+    injection_leg("schema_bump", bump_schema)
+    injection_leg("digest_mismatch", mismatch_digest)
+    injection_leg("damaged_checkpoint", damage_ckpt)
+
+    # ---- Phase D: restore under a hang fault ----------------------------
+    plan = ChaosPlan("hang@0")
+    policy = DispatchPolicy(
+        deadline_s=hang_deadline_s, retries=1, backoff_s=0.01,
+        backoff_cap_s=0.02, jitter=0.0, breaker=None, chaos=plan,
+        cpu_fallback=cpu_tier)
+    eng_d = ServingEngine(params32, aot_dir=aot_dir, policy=policy,
+                          **engine_kw)
+    try:
+        with eng_d:
+            rs_d = eng_d.restore_subjects(ckpt)
+            eng_d.warmup()          # the primary (and a CPU engine's tier)
+            eng_d.warmup_posed()    # the gathered family (restored capacity)
+            hang_stream = make_stream(min(requests, 12), keys)
+            ok_d, err_d, un_d, _ = run_stream(
+                eng_d, hang_stream, timeout_s=hang_deadline_s * 4 + 30.0)
+    finally:
+        plan.release.set()   # free the abandoned hung worker thread
+    hang_leg = {
+        "submitted": len(hang_stream),
+        "resolved_ok": ok_d,
+        "resolved_error": err_d,
+        "unresolved": un_d,
+        "futures_resolved_fraction": 1.0 - un_d / len(hang_stream),
+        "deadline_kills": eng_d.counters.deadline_kills,
+        "compiles_after_restore": eng_d.counters.compiles,
+        "aot_loads": eng_d.counters.aot_loads,
+        "expected_programs": (3 if cpu_tier else 2) * len(eng_d.buckets),
+        "subjects_restored": eng_d.counters.subjects_restored,
+        "restore": rs_d,
+    }
+    log(f"cold-start D [hang]: {hang_leg['deadline_kills']} deadline "
+        f"kill(s), {ok_d}/{len(hang_stream)} ok, {hang_leg['aot_loads']}/"
+        f"{hang_leg['expected_programs']} programs from the lattice, "
+        f"{hang_leg['compiles_after_restore']} compiles")
+
+    if tmp_root is not None:
+        shutil.rmtree(tmp_root, ignore_errors=True)
+
+    return {
+        "subjects": int(subjects),
+        "requests": int(requests),
+        "max_subjects": int(max_subjects),
+        "buckets": list(eng_b.buckets),
+        "lattice_entries": len(manifest["entries"]),
+        "baked_compiles": int(baked_compiles),
+        "killed_inflight": len(kill_futs),
+        "killed_futures_resolved_fraction": float(
+            f"{killed_resolved / len(kill_futs):.6g}"),
+        "restore": restore,
+        "warmup_sources": {str(b): s for b, s in warm_full.items()},
+        "warmup_posed_sources": {str(b): s for b, s in warm_posed.items()},
+        "compiles_after_restore": int(compiles_after_restore),
+        "aot_loads": int(aot_loads),
+        "aot_load_failures": int(snap_b["aot_load_failures"]),
+        "expected_programs": int(expected_programs),
+        "subjects_restored": int(snap_b["subjects_restored"]),
+        "restored_vs_warm_max_abs_err": float(restored_err),
+        "restored_vs_fresh_max_abs_err": float(restored_vs_fresh),
+        "t_restore_s": float(f"{t_restore:.5g}"),
+        "t_warm_s": float(f"{t_warm:.5g}"),
+        "t_first_result_s": float(f"{t_first:.5g}"),
+        "t_p99_stable_s": float(f"{t_p99:.5g}"),
+        "wave_p99_ms": [float(f"{w * 1e3:.4g}") for w in wave_p99],
+        "injections": injections,
+        "hang_leg": hang_leg,
+        "phase_a": {"submitted": requests, "resolved_ok": ok_a,
+                    "resolved_error": err_a, "unresolved": un_a},
     }

@@ -3,11 +3,22 @@
 A thread-safe subset of the JAX package's ``ServingCounters``: batch
 dispatches and the rows in them, the coalescing of requests (and of
 subjects) into batches, the subject table's bakes, hits, growths and
-evictions, the per-bucket callables built (``compiles``, counted by
-``MANOModel.forward_bucketed``), and the resilience and admission layer:
-supervised retries, injected faults, CPU failovers, deadline kills,
-sheds, expiries and cancellations, per priority tier. The dispatcher
-thread, supervision workers and submitters all write here.
+evictions, the program cache and its persistence, and the resilience
+and admission layer: supervised retries, injected faults, CPU failovers,
+deadline kills, sheds, expiries and cancellations, per priority tier.
+The dispatcher thread, supervision workers and submitters all write
+here.
+
+``compiles`` counts the programs built live in this process, the events
+JAX counts as a trace and compile: on a card engine each CUDA-graph
+capture of an engine program; on a CPU engine each per-(family, bucket[,
+capacity][, precision]) callable the engine builds (and
+``MANOModel.forward_bucketed``'s per-bucket callables). ``aot_loads``
+counts programs served from a baked lattice or artifact instead
+(``io/export_aot.py``; on a card, captured after the load),
+``aot_load_failures`` each damaged, mismatched or refused one (degraded
+to a counted live build, never a crash), and ``subjects_restored`` each
+subject-table row revived from a checkpoint without a shape-stage bake.
 """
 
 from __future__ import annotations
@@ -29,7 +40,10 @@ class ServingCounters:
         self.shaped_hits = 0             # subject-cache hits (bake reused)
         self.table_growths = 0           # subject-table capacity doublings
         self.specializations_evicted = 0  # LRU table-row evictions
-        self.compiles = 0                # per-bucket callables built
+        self.compiles = 0                # programs built live (see above)
+        self.aot_loads = 0               # programs served from the lattice
+        self.aot_load_failures = 0       # lattice entries degraded
+        self.subjects_restored = 0       # rows revived from a checkpoint
         self.coalesce_overflows = 0      # requests parked: bucket overflow
         self.queue_depth_peak = 0        # max queued + parked at a dispatch
         # Resilience: the recovery drill's done-criteria read these.
@@ -80,9 +94,28 @@ class ServingCounters:
             self.specializations_evicted += n
 
     def count_compile(self, n: int = 1) -> None:
-        """One bucket's callable built (a cache miss of its bucket)."""
+        """One program built live (a capture on a card, a callable on the
+        CPU)."""
         with self._lock:
             self.compiles += n
+
+    def count_aot_load(self, n: int = 1) -> None:
+        """One program served from a baked lattice entry or artifact."""
+        with self._lock:
+            self.aot_loads += n
+
+    def count_aot_load_failure(self, n: int = 1) -> None:
+        """One lattice entry, manifest or artifact that could NOT be
+        served (truncated, corrupted, checksum, schema, digest or platform
+        mismatch) and degraded to a live build."""
+        with self._lock:
+            self.aot_load_failures += n
+
+    def count_restore(self, n: int = 1) -> None:
+        """One subject revived from a checkpoint (its row written from
+        persisted bytes; no shape-stage bake ran)."""
+        with self._lock:
+            self.subjects_restored += n
 
     def count_overflow(self, n: int = 1) -> None:
         """A request parked because admitting it would overflow the
@@ -182,6 +215,9 @@ class ServingCounters:
                 "table_growths": self.table_growths,
                 "specializations_evicted": self.specializations_evicted,
                 "compiles": self.compiles,
+                "aot_loads": self.aot_loads,
+                "aot_load_failures": self.aot_load_failures,
+                "subjects_restored": self.subjects_restored,
                 "coalesce_overflows": self.coalesce_overflows,
                 "queue_depth_peak": self.queue_depth_peak,
                 "retries": self.retries,

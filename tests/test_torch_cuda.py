@@ -8,10 +8,13 @@ imports JAX), registering the marker on the command line:
     python -m pytest --noconftest -p no:cacheprovider \
         -o "markers=cuda: needs an NVIDIA card" tests/test_torch_cuda.py
 
-Shapes cover what ``chip_smoke.py`` does not: ragged and tiny batches,
-generic kinematic trees (J = 7 to 64), V from 1 to 778, rows that are
-not 16-byte aligned, subject tables of 1 to 1000 rows and out-of-range
-(negative: wrapped once) subject indices. Tolerance: kernel vs plain
+The serving engine's CUDA-graph programs are held against eager calls,
+across table installs between captures and replays, against a woken
+supervised attempt, under the caller's TF32 switch and against a
+CPU-baked lattice. Shapes cover what ``chip_smoke.py`` does not: ragged
+and tiny batches, generic kinematic trees (J = 7 to 64), V from 1 to
+778, rows that are not 16-byte aligned, subject tables of 1 to 1000
+rows and out-of-range (negative: wrapped once) subject indices. Tolerance: kernel vs plain
 version, both fp32 with TF32 off, <= 1e-5 (summation order only; K2's
 bf16 tier too, whose roundings act on bit-equal values in both and whose
 bf16 products, exact in fp32, accumulate in fp32 on the tensor cores).
@@ -22,7 +25,7 @@ max|b|) < 1e-4.
 """
 
 import dataclasses
-
+import time
 
 import numpy as np
 import pytest
@@ -972,7 +975,9 @@ def test_supervised_fused_engine_under_burst_and_outage(dev):
         warnings.simplefilter("always")
         keys = [eng.specialize(b) for b in betas]
         eng.warmup([4, 8])
-        eng.warmup_posed([4, 8])
+        # Every bucket the pose-only requests reach: a program built at
+        # dispatch launches K2 once more, in its eager warm call.
+        eng.warmup_posed([2, 4, 8])
         k2 = fused_posed.launches
         card = [eng.forward(p, subject=keys[i % 3])
                 for i, p in enumerate(poses[1:])]
@@ -1107,3 +1112,252 @@ def test_cuda_failures_are_deterministic_on_the_card(dev):
     assert eng.counters.failovers == 0 and not eng._cpu_exes
     assert not isinstance(caught[0], ServingError)
     torch.cuda.synchronize()   # the context is healthy after both
+
+
+# ------------------------------------------ the engine's program cache
+def _engine_inputs(b, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(scale=0.5, size=(b, 16, 3)).astype(np.float32),
+            rng.normal(size=(b, 10)).astype(np.float32))
+
+
+def _direct_k2(params, betas, pose, bucket, compute_dtype=None):
+    """K2 eagerly on a one-row table of a freshly specialized subject, at
+    the engine's padded bucket: what a graph must serve for that
+    subject."""
+    from mano_hand_tpu_torch.serving import buckets
+
+    dev = params.device
+    with torch.no_grad():
+        table = core.stack_shaped([core.specialize(
+            params, torch.from_numpy(betas).to(dev))])
+        padded = torch.from_numpy(buckets.pad_rows(pose, bucket)).to(dev)
+        out = core.forward_posed_gather_fused(
+            table, torch.zeros(bucket, dtype=torch.int32, device=dev),
+            padded, compute_dtype=compute_dtype)
+    return out[:len(pose)].cpu().numpy()
+
+
+def test_engine_graphs_equal_eager_and_count_their_launches(dev):
+    """Every family's graph replay gives the eager call's bits, the
+    warm-up captures every program once (``compiles``), steady traffic
+    captures nothing, and every replay adds the kernel launches it
+    captured: K2 and K2-bf16 launches equal the gathered dispatches of
+    each precision."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = ServingEngine(params, max_bucket=8, posed_kernel="fused",
+                        precision_policy=PrecisionPolicy())
+    betas = np.random.default_rng(3).normal(size=(3, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas]
+    assert eng.warmup() == {1: "jit", 2: "jit", 4: "jit", 8: "jit"}
+    assert eng.warmup_posed() == {1: "jit", 2: "jit", 4: "jit", 8: "jit"}
+    assert eng.counters.compiles == 12      # 4 full, 4 K2, 4 K2-bf16
+    table = eng.table
+    for b in eng.buckets:
+        pose, shape = _engine_inputs(b, b)
+        idx = np.arange(b, dtype=np.int32) % 3
+        with torch.no_grad():
+            want = core.forward_batched(
+                params, torch.from_numpy(pose).to(dev),
+                torch.from_numpy(shape).to(dev)).verts.cpu().numpy()
+            for dt in (None, torch.bfloat16):
+                got = eng._run_posed(table, idx, pose, dt)
+                ref = core.forward_posed_gather_fused(
+                    table, torch.from_numpy(idx).to(dev),
+                    torch.from_numpy(pose).to(dev),
+                    compute_dtype=dt).cpu().numpy()
+                np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(eng._run_full(pose, shape), want)
+    fused_posed.launches = fused_posed.bf16_launches = 0
+    with eng:
+        futs = [eng.submit(_engine_inputs(n, 20 + i)[0], subject=keys[i % 3],
+                           priority=i % 2)
+                for i, n in enumerate((1, 3, 8, 2, 5, 7))]
+        futs.append(eng.submit(*_engine_inputs(6, 30)))
+        for f in futs:
+            f.result(timeout=120)
+    snap = eng.counters.snapshot()
+    assert snap["compiles"] == 12
+    bf16 = snap["dispatches_bf16"]
+    assert fused_posed.bf16_launches == bf16 >= 1
+    assert fused_posed.launches == snap["dispatches"] - bf16 - 1 >= 1
+
+
+def test_graph_never_serves_a_stale_table(dev):
+    """K2 reads the table through pointers. Installs and evictions between
+    the capture and the replays replace the engine's table snapshot every
+    time: each replay must serve its batch's snapshot, never the one
+    captured (or copied) before."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = ServingEngine(params, max_bucket=4, max_subjects=4,
+                        posed_kernel="fused")
+    betas = np.random.default_rng(5).normal(size=(7, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas[:4]]
+    eng.warmup_posed([4])
+    captured = eng.counters.compiles
+    pose = _engine_inputs(3, 1)[0]
+    with eng:
+        for step, i in enumerate((0, 4, 1, 5, 2, 6, 4, 0)):
+            if i >= len(keys):
+                keys.append(eng.specialize(betas[i]))   # evicts the LRU
+            got = eng.forward(pose, subject=keys[i])
+            want = _direct_k2(params, betas[i], pose, 4)
+            assert _err(got, want) <= TOL, (step, i)
+            other = _direct_k2(params, betas[(i + 1) % 7], pose, 4)
+            assert _err(got, other) > 1e-3        # a wrong row would show
+    assert eng.counters.specializations_evicted >= 3
+    assert eng.counters.compiles == captured    # replays only, no capture
+
+
+def test_woken_attempt_never_touches_a_later_batchs_buffers(dev):
+    """An attempt killed at its deadline that wakes later (a latency fault
+    longer than the deadline, then the primary) must not copy its input
+    into the static buffers while the NEXT batch sits between its copy-in
+    and its replay. The engine holds the device lock across copy-in,
+    replay and readback, and an abandoned attempt touches nothing."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    # Batch 1's attempt 0 sleeps 0.65 s past its 0.5 s deadline and is
+    # killed; the retry serves batch 1 at ~0.5 s; batch 2 then sits 0.3 s
+    # (inside its own deadline) between its copy-in and its replay, and
+    # attempt 0 wakes inside that window and calls the primary.
+    policy, plan = _supervised("latency:0.65@0", lambda: True,
+                               deadline_s=0.5)
+    eng = ServingEngine(params, max_bucket=4, posed_kernel="fused",
+                        policy=policy, max_delay_s=0.0)
+    bare = ServingEngine(params, max_bucket=4, posed_kernel="fused")
+    betas = np.random.default_rng(9).normal(size=(2, 10)).astype(np.float32)
+    k = [eng.specialize(b) for b in betas]
+    kb = [bare.specialize(b) for b in betas]
+    eng.warmup_posed([4])
+    prog = eng._gather_exes[4][1]
+
+    class SlowReplay:
+        """Holds a batch between its copy-in and its replay."""
+
+        def __init__(self, graph):
+            self.graph, self.hold = graph, 0.0
+
+        def replay(self):
+            time.sleep(self.hold)
+            self.graph.replay()
+
+    prog._graph = slow = SlowReplay(prog._graph)
+    p1, p2 = _engine_inputs(4, 41)[0], _engine_inputs(4, 42)[0]
+    with eng:
+        t0 = time.perf_counter()
+        first = eng.forward(p1, subject=k[0])     # the retry serves it
+        fused_posed.launches = 0
+        slow.hold = 0.3                           # the woken attempt's window
+        t1 = time.perf_counter() - t0
+        second = eng.forward(p2, subject=k[1])
+        elapsed = time.perf_counter() - t0
+    assert eng.counters.deadline_kills == 1 and eng.counters.retries == 1
+    assert t1 < 0.65 < elapsed - 0.05             # it woke inside the window
+    time.sleep(0.3)
+    assert fused_posed.launches == 1              # the woken attempt: none
+    with bare:
+        np.testing.assert_array_equal(first, bare.forward(p1, subject=kb[0]))
+        np.testing.assert_array_equal(second,
+                                      bare.forward(p2, subject=kb[1]))
+
+
+def test_graphs_and_lattice_ignore_the_callers_tf32_switch(dev, tmp_path):
+    """Programs captured, and lattice programs loaded, under the caller's
+    ``set_float32_matmul_precision("high")`` give the bits of programs
+    built under "highest": each capture runs inside ``ieee_fp32()``, which
+    an exported program does not carry on its own."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    betas = np.random.default_rng(13).normal(size=(2, 10)).astype(np.float32)
+    base = ServingEngine(params, max_bucket=8, max_subjects=8,
+                         aot_dir=tmp_path)
+    keys = [base.specialize(b) for b in betas]
+    base.warmup([8])
+    base.warmup_posed([8])
+    base.bake_lattice(capacities=[8])
+    pose, shape = _engine_inputs(8, 2)
+    idx = np.arange(8, dtype=np.int32) % 2
+    want_full = base._run_full(pose, shape)
+    want_posed = base._run_posed(base.table, idx, pose)
+    torch.set_float32_matmul_precision("high")
+    try:
+        live = ServingEngine(params, max_bucket=8, max_subjects=8)
+        loaded = ServingEngine(params, max_bucket=8, max_subjects=8,
+                               aot_dir=tmp_path)
+        for eng in (live, loaded):
+            for b in betas:
+                eng.specialize(b)
+        assert live.warmup([8]) == {8: "jit"}
+        assert loaded.warmup([8]) == {8: "aot"}
+        assert loaded.warmup_posed([8]) == {8: "aot"}
+        live.warmup_posed([8])
+        for eng in (live, loaded):
+            np.testing.assert_array_equal(eng._run_full(pose, shape),
+                                          want_full)
+            np.testing.assert_array_equal(
+                eng._run_posed(eng.table, idx, pose), want_posed)
+        assert torch.get_float32_matmul_precision() == "high"
+        # The same lattice program run outside the pin: TF32, other bits.
+        from mano_hand_tpu_torch.io.export_aot import params_leaves
+
+        call = loaded._get_lattice().get("full", 8, platform="cuda")
+        with torch.no_grad():
+            unpinned = call(params_leaves(loaded._params),
+                            torch.from_numpy(pose).to(dev),
+                            torch.from_numpy(shape).to(dev))
+        assert _err(unpinned, want_full) > 0.0
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert loaded.counters.aot_loads == 2 and loaded.counters.compiles == 0
+    assert keys
+
+
+def test_cpu_baked_lattice_degrades_on_the_card(dev, tmp_path):
+    """An entry exported for the CPU and booted on the card is a counted
+    platform degrade (a live capture), not a device-mismatch crash."""
+    import warnings
+
+    from mano_hand_tpu_torch.io import export_aot
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    export_aot.bake_lattice(params.to("cpu"), tmp_path, buckets=[2],
+                            capacities=[], cpu_fallback=False)
+    eng = ServingEngine(params, max_bucket=2, aot_dir=tmp_path)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert eng.warmup([2]) == {2: "jit"}
+    assert eng.counters.aot_load_failures == 1
+    assert eng.counters.compiles == 1
+    assert any("not the running device type 'cuda'" in str(w.message)
+               for w in caught)
+    with pytest.raises(ValueError, match="no CPU tier"):
+        eng.bake_lattice(include_cpu_fallback=True)
+
+
+def test_capture_failure_raises_and_is_a_servingerror_supervised(dev):
+    """A program whose capture fails raises: unsupervised it stops the
+    dispatcher (no silent eager mode), supervised the batch resolves to a
+    ServingError; the card stays healthy."""
+    from mano_hand_tpu_torch.serving import ServingError
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+
+    def refuse_capture(pose, shape):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("capture refused")
+        return core.forward_batched(params, pose, shape).verts
+
+    pose = np.zeros((2, 16, 3), np.float32)
+    bare = ServingEngine(params, max_bucket=2)
+    bare._live_full = refuse_capture
+    with pytest.raises(RuntimeError, match="capture refused"):
+        bare.warmup([2])
+    assert bare.counters.compiles == 0 and not bare._exes
+    policy, _ = _supervised("", lambda: True)
+    sup = ServingEngine(params, max_bucket=2, policy=policy)
+    sup._live_full = refuse_capture
+    with sup:
+        with pytest.raises(ServingError, match="failed to build"):
+            sup.forward(pose)
+        del sup._live_full                     # the engine's own again
+        assert sup.forward(pose).shape == (2, 778, 3)
+    torch.cuda.synchronize()

@@ -1,7 +1,7 @@
-"""The port's engine drills (``serving/measure.py``) on the CPU, at small
-sizes: their done-criteria hold, and they return the JAX drills' keys
-(less the tracer's ``flight_record``, which the port's observability
-slice brings)."""
+"""The port's engine drills (``serving/measure.py``: recovery, overload
+and cold start) on the CPU, at small sizes: their done-criteria hold, and
+they return the JAX drills' keys (less the tracer's ``flight_record``,
+which the port's observability slice brings)."""
 
 import ast
 import pathlib
@@ -12,7 +12,9 @@ import torch
 
 from mano_hand_tpu_torch.assets import synthetic_params
 from mano_hand_tpu_torch.runtime import health
-from mano_hand_tpu_torch.serving import overload_drill_run, recovery_drill_run
+from mano_hand_tpu_torch.serving import (
+    cold_start_drill_run, overload_drill_run, recovery_drill_run,
+)
 
 JAX_MEASURE = (pathlib.Path(__file__).resolve().parent.parent
                / "mano_hand_tpu" / "serving" / "measure.py")
@@ -122,3 +124,36 @@ def test_chip_smoke_resilience_phase_rehearsed_on_the_cpu():
     assert line["healthy"]["replay_vs_unsupervised_max_abs_err"] == 0.0
     assert line["healthy"]["ms_per_dispatch"]["supervised"]["median"] > 0
     assert line["probe"]["ok"] and "stall" not in line
+
+
+def test_cold_start_drill_meets_its_criteria(params):
+    """The drill's criteria at a tiny size. max_bucket=3 is NOT a power of
+    two: the ladder rounds up, and the damage legs key off the real
+    ladder."""
+    out = cold_start_drill_run(params, subjects=3, requests=8,
+                               max_bucket=3, max_subjects=8, p99_waves=2,
+                               hang_deadline_s=1.0, seed=21, device="cpu")
+    keys, assigned = _jax_keys("cold_start_drill_run")
+    assert set(out) == keys - TRACER_KEYS
+    assert set(out["hang_leg"]) == assigned["hang_leg"]
+    assert out["buckets"] == [1, 2, 4]
+    assert out["compiles_after_restore"] == 0
+    assert out["aot_loads"] == out["expected_programs"] == 6
+    assert out["restored_vs_fresh_max_abs_err"] == 0.0
+    assert out["restored_vs_warm_max_abs_err"] == 0.0
+    assert out["killed_futures_resolved_fraction"] == 1.0
+    assert out["phase_a"]["unresolved"] == 0
+    assert set(out["injections"]) == {
+        "truncated_entry", "schema_bump", "digest_mismatch",
+        "damaged_checkpoint"}
+    for name, leg in out["injections"].items():
+        assert leg["futures_resolved_fraction"] == 1.0, name
+        assert (leg["aot_load_failures"] >= 1
+                or "error" in leg["restore"]), name
+    assert out["injections"]["truncated_entry"]["recompiles"] >= 1
+    hang = out["hang_leg"]
+    assert hang["futures_resolved_fraction"] == 1.0
+    assert hang["deadline_kills"] >= 1
+    assert hang["compiles_after_restore"] == 0
+    assert hang["aot_loads"] == hang["expected_programs"] == 9
+    assert out["t_first_result_s"] > 0
