@@ -219,6 +219,21 @@ PC_TIMED = 60               # dispatches timed per family, bucket and mode
 PC_THREADS, PC_REQUESTS = 4, 12
 PC_DRILL = dict(subjects=6, requests=48, max_bucket=8, max_subjects=8,
                 p99_waves=4)
+# Observability (phase observability): a traced supervised engine of the
+# program cache's families, the numerics sentinel over its captured
+# programs, the metrics registry, the two overhead drills at JAX's
+# defaults and a profiler trace of the engine.
+OB_BUCKET = 256
+OB_SUBJECTS = 8
+OB_THREADS, OB_REQUESTS = 4, 12      # 48 requests of 1-64 rows
+OB_DEADLINE_S = 1.0                  # the traced engine's batch deadline
+OB_RACE_BUCKET = 64                  # the race engine's one bucket
+OB_SENTINEL_INTERVAL_S = 0.05        # the background sentinel's period
+OB_TIMED_PROBES = 5                  # clean probes timed per family
+OB_TRACE_BUCKETS = (1, 256)
+OB_TRACE_DISPATCHES = 60             # per family and bucket, profiled
+OB_EAGER_CALLS = 20                  # direct calls per family, profiled
+OB_OVERHEAD_BOUND = 1.03             # JAX's bound on both paired ratios
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -2163,6 +2178,561 @@ def program_cache(dev, counts, zero_counts, bucket=PC_BUCKET,
     return line
 
 
+def _ob_work(rng, threads: int, requests: int, n_shape: int, most: int,
+             exact: bool = False):
+    """Per client thread: ``requests`` (pose, shape, subject, kind) of 1 to
+    ``most`` rows (``exact``: ``most`` each); kind 2 a full request, 0 and
+    1 pose-only tiers (bf16 and f32 under the default
+    ``PrecisionPolicy``)."""
+    work = []
+    for t in range(threads):
+        mine = []
+        for i in range(requests):
+            n = most if exact else int(rng.integers(1, most + 1))
+            mine.append((
+                rng.normal(scale=0.5, size=(n, 16, 3)).astype(np.float32),
+                rng.normal(size=(n, n_shape)).astype(np.float32),
+                int(rng.integers(0, OB_SUBJECTS)), (t + i) % 3))
+        work.append(mine)
+    return work
+
+
+def _ob_clients(eng, keys, work) -> list:
+    """``work`` from one thread per list; returns every (pose, shape,
+    subject, kind, result) once all resolved."""
+    out, errors = [], []
+    lock = threading.Lock()
+
+    def client(mine):
+        try:
+            futs = [eng.submit(p, sh) if kind == 2 else
+                    eng.submit(p, subject=keys[k], priority=kind)
+                    for p, sh, k, kind in mine]
+            got = [f.result(timeout=300) for f in futs]
+            with lock:
+                out.extend((*w, g) for w, g in zip(mine, got))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    ths = [threading.Thread(target=client, args=(w,)) for w in work]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+        require(not th.is_alive(), "traffic client thread finished")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _ob_balanced(acc: dict, what: str) -> None:
+    require(acc["spans_started"] == acc["spans_closed"]
+            and acc["spans_open"] == 0 and acc["spans_double_closed"] == 0,
+            f"{what}: every span closed exactly once {acc}")
+
+
+def _ob_parse_prometheus(text: str, snap: dict) -> int:
+    """Parse the exposition back line by line against its snapshot: every
+    line a HELP, a TYPE or one sample whose value equals the snapshot's.
+    Returns the sample lines read."""
+    import re
+
+    label = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:\\.|[^"\\])*"'
+    sample_re = re.compile(
+        rf'^(?P<name>[a-zA-Z_][a-zA-Z0-9_]*)(?:\{{{label}(?:,{label})*\}})?'
+        r' (?P<value>\S+)$')
+    want = []
+    ns = snap["namespace"]
+    for name in sorted(snap["metrics"]):
+        for _, value in snap["metrics"][name]["samples"]:
+            want.append((f"{ns}_{name}", float(value)))
+    got = []
+    for ln in text.splitlines():
+        if ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            require(len(ln.split(" ", 3)) >= 3, f"comment line {ln!r}")
+            continue
+        m = sample_re.match(ln)
+        require(m is not None, f"prometheus sample line {ln!r}")
+        got.append((m["name"], float(m["value"])))
+    require(len(got) == len(want) and all(
+        a[0] == b[0] and (a[1] == b[1] or (np.isnan(a[1]) and np.isnan(b[1])))
+        for a, b in zip(got, want)), "prometheus text parses back to "
+                                     "its snapshot")
+    return len(got)
+
+
+def _ob_capture(d: str) -> dict:
+    """One ``torch_trace`` capture, read back: the categories and the
+    device tracks it holds (``obs/trace_report.py``'s rules), its top
+    device ops, K2's and K2-bf16's launches by their kernel names, the
+    device-busy share of its window (the union of the device events over
+    the profiler's window) and the device events."""
+    import contextlib
+    import io
+
+    from mano_hand_tpu_torch.obs import trace_report
+    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE
+
+    cap = trace_report.load_capture(os.path.join(d, TORCH_TRACE))
+    events = [e for e in cap.get("traceEvents", []) if e.get("ph") == "X"]
+    dev = [e for e in events if trace_report.is_device_event(e)]
+    frame = [e for e in events if e.get("cat") == "Trace"] or events
+    t0 = min(float(e["ts"]) for e in frame)
+    t1 = max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in frame)
+    busy, end = 0.0, None
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in dev):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    k2 = {}
+    for e in dev:
+        for tag in ("posed_kernel", "posed_bf16_kernel"):
+            if tag in e.get("name", ""):
+                cell = k2.setdefault(tag, {"total_us": 0.0, "count": 0})
+                cell["total_us"] += float(e["dur"])
+                cell["count"] += 1
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_report.main([d, "--json", "--top", "6"])
+    require(rc == 0, f"trace-report over {d}")
+    report = json.loads(buf.getvalue())
+    tracks = trace_report.device_event_tracks(cap.get("traceEvents", []))
+    device_ops = {k: v for k, v in report["tracks"].items()
+                  if any(k.endswith(t) for t in tracks)}
+    return {
+        "categories": sorted({str(e.get("cat")) for e in events}),
+        "device_tracks": sorted(tracks),
+        "device_events": len(dev),
+        "window_ms": (t1 - t0) / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / (t1 - t0) if t1 > t0 else 0.0,
+        "top_device_ops": device_ops,
+        "k2_kernels": k2,
+        "engine_export": "engine" in report,
+    }
+
+
+def observability(dev, counts, zero_counts, bucket=OB_BUCKET,
+                  threads=OB_THREADS, requests=OB_REQUESTS,
+                  race_bucket=OB_RACE_BUCKET, timed_probes=OB_TIMED_PROBES,
+                  trace_buckets=OB_TRACE_BUCKETS,
+                  trace_dispatches=OB_TRACE_DISPATCHES,
+                  eager_calls=OB_EAGER_CALLS, tracing_kw=None,
+                  metrics_kw=None) -> dict:
+    """Observability at full MANO width, ``max_bucket=bucket``,
+    ``posed_kernel="fused"`` under a ``PrecisionPolicy`` (full, K2 and
+    K2-bf16 from captured programs):
+
+    * a traced supervised engine (chaos plan, no CPU tier): traffic from
+      ``threads`` threads (K2 / K2-bf16 launches equal to the gathered
+      dispatches), an error burst (exhausted: ``error``), one retried
+      error, one attempt killed at its deadline and retried, one ``wrong``
+      fault, an expired request: every span closed once, ``closed_by_kind``
+      and the runtime events counted (``compile`` == captures), one flight
+      capture per incident, the per-(bucket, tier) stage breakdown;
+    * the sentinel over the same engine: the committed goldens match, a
+      clean probe of full / gather (K2) / gather_bf16 (K2-bf16) at 0.0 and
+      inside the envelope with no capture, the ``wrong`` fault on exactly
+      the wrapped families (one ``numerics_drift`` incident, captured),
+      recovery; probe ms per family;
+    * a background sentinel racing threaded traffic on an engine of one
+      bucket, every request that bucket's rows (a batch is one request):
+      >= 2 probes, no error, then every served result equal to a direct
+      call of the same rows (0.0: no static buffer raced);
+    * the metrics registry's snapshot and Prometheus text, parsed back;
+    * ``tracing_overhead_run`` and ``metrics_overhead_run`` (JAX's
+      defaults unless ``tracing_kw``/``metrics_kw``): the paired ratios
+      beside JAX's 1.03 (measured, not gated), the sentinel drill's
+      detection (gated);
+    * ``torch_trace`` of a traced engine's dispatches per family at each
+      of ``trace_buckets`` (graph replays) and of direct eager calls:
+      the port's ``trace-report`` over each, top device ops, the
+      device-busy share of the window and the host stage breakdown.
+
+    Counts zeroed just before each part that reads them; launch counts
+    and kernel names checked where ``dev`` is a card. Returns the
+    phase's JSON line."""
+    import collections
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.obs import (
+        FlightRecorder, NumericsSentinel, Tracer, engine_registry,
+        prometheus_text,
+    )
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
+    from mano_hand_tpu_torch.runtime import ChaosPlan, DispatchPolicy
+    from mano_hand_tpu_torch.serving import (
+        PrecisionPolicy, ServingEngine, ServingError, metrics_overhead_run,
+        tracing_overhead_run,
+    )
+    from mano_hand_tpu_torch.utils.profiling import torch_trace
+
+    line = {"phase": "observability", "max_bucket": bucket,
+            "subjects": OB_SUBJECTS}
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(SEED + 13)
+    s = params.n_shape
+    subj = rng.normal(size=(OB_SUBJECTS, s)).astype(np.float32)
+    bf16 = torch.bfloat16
+    envelope = PrecisionPolicy().max_vertex_err_m
+    tmp = tempfile.mkdtemp(prefix="mano_observability_")
+
+    def engine(tracer, policy=None, **kw):
+        eng = ServingEngine(params, device=dev, max_subjects=OB_SUBJECTS,
+                            posed_kernel="fused",
+                            precision_policy=PrecisionPolicy(),
+                            policy=policy, tracer=tracer, **kw)
+        keys = [eng.specialize(b) for b in subj]
+        eng.warmup()
+        eng.warmup_posed()
+        return eng, keys
+
+    def runtime_names(tracer):
+        return collections.Counter(
+            name for _, sid, name, _ in tracer.snapshot()["events"]
+            if sid == 0)
+
+    def outcome(fut):
+        try:
+            fut.result(timeout=120)
+            return "ok"
+        except ServingError as e:
+            return e.kind
+
+    try:
+        # 1. The traced engine: warm-up, traffic, faults.
+        tr = Tracer()
+        rec = FlightRecorder(tr)
+        plan = ChaosPlan()
+        pol = DispatchPolicy(deadline_s=OB_DEADLINE_S, retries=2,
+                             backoff_s=0.001, backoff_cap_s=0.01, jitter=0.0,
+                             chaos=plan, cpu_fallback=False)
+        eng, keys = engine(tr, pol, max_bucket=bucket)
+        nb = len(eng.buckets)
+        captures = eng.counters.compiles
+        require(captures == 3 * nb and runtime_names(tr)["compile"]
+                == captures, f"one compile event a capture "
+                             f"{captures} {runtime_names(tr)}")
+        full_calls = [0]
+        primary_full = eng._primary_full
+
+        def counted_full(*a, **kw):
+            full_calls[0] += 1
+            return primary_full(*a, **kw)
+
+        eng._primary_full = counted_full
+        zero_counts()
+        before = eng.counters.snapshot()
+        with eng:
+            _ob_clients(eng, keys, _ob_work(rng, threads, requests, s,
+                                            min(64, bucket)))
+        eng._primary_full = primary_full
+        c = counts()
+        after = eng.counters.snapshot()
+        disp_bf16 = after["dispatches_bf16"] - before["dispatches_bf16"]
+        disp_f32 = (after["dispatches"] - before["dispatches"] - disp_bf16
+                    - full_calls[0])
+        line["traffic"] = {
+            "requests": threads * requests,
+            "dispatches": {"full": full_calls[0], "gather_f32": disp_f32,
+                           "gather_bf16": disp_bf16},
+            "launches": {"K2": c["K2"], "K2_bf16": c["K2_bf16"]},
+            "steady_captures": after["compiles"] - before["compiles"]}
+        require(line["traffic"]["steady_captures"] == 0
+                and min(full_calls[0], disp_f32, disp_bf16) >= 1,
+                f"traffic: every family, no capture {line['traffic']}")
+        if card:
+            require(c["K2"] == disp_f32 and c["K2_bf16"] == disp_bf16,
+                    f"K2 launches == gathered dispatches per precision "
+                    f"{line['traffic']}")
+        acc = tr.accounting()
+        _ob_balanced(acc, "traffic")
+        require(acc["closed_by_kind"] == {"ok": threads * requests},
+                f"traffic closed ok {acc['closed_by_kind']}")
+        pose1 = rng.normal(scale=0.5, size=(3, 16, 3)).astype(np.float32)
+        shape1 = rng.normal(size=(3, s)).astype(np.float32)
+        with eng:
+            faults = {}
+            plan.schedule("error@0-2")           # 3 attempts: exhausted
+            faults["error_burst"] = outcome(eng.submit(pose1, shape1))
+            plan.schedule("error@0")             # retried, served
+            faults["error_retried"] = outcome(eng.submit(pose1, shape1))
+            plan.schedule(f"latency:{1.5 * OB_DEADLINE_S}@0")
+            faults["deadline_killed"] = outcome(eng.submit(pose1, shape1))
+            plan.schedule("wrong:1.0@0")         # served, silently off
+            wrong = eng.submit(pose1, subject=keys[0], priority=1).result()
+            plan.clear()
+            right = eng.forward(pose1, subject=keys[0], priority=1)
+            faults["wrong_off_by"] = max_err(wrong, right)
+            faults["expired"] = outcome(eng.submit(pose1, deadline_s=0.0))
+        names = runtime_names(tr)
+        acc = tr.accounting()
+        line["faults"] = dict(faults)
+        line["runtime_events"] = dict(names)
+        line["span_accounting"] = acc
+        require(abs(faults.pop("wrong_off_by") - 1.0) < 1e-5
+                and faults == {"error_burst": "error", "error_retried": "ok",
+                               "deadline_killed": "ok", "expired": "expired"},
+                f"every fault resolved as designed {line['faults']}")
+        _ob_balanced(acc, "faults")
+        require(acc["closed_by_kind"] == {"ok": threads * requests + 4,
+                                          "error": 1, "expired": 1},
+                f"closed_by_kind {acc['closed_by_kind']}")
+        require(names["chaos_fault"] == 6 and names["retry"] == 4
+                and names["incident:deadline_kill"] == 1
+                and names["compile"] == eng.counters.compiles == captures,
+                f"runtime events by name {dict(names)}")
+        require([cap["reason"] for cap in rec.captures] == ["deadline_kill"]
+                and acc["incidents"] == 1, "one capture an incident")
+        line["stage_breakdown"] = {
+            cell: {k: v for k, v in st.items()
+                   if k == "n" or k.endswith("_p50_ms")}
+            for cell, st in tr.stage_breakdown()["by_bucket_tier"].items()}
+
+        # 2. The sentinel over the traced engine's captured programs.
+        sen = NumericsSentinel(eng, tracer=tr)
+        armed = sen.arm()
+        line["golden"] = {k: armed[k] for k in ("golden_status",
+                                                "golden_bf16_status", "key")}
+        require(armed["golden_status"] == "match"
+                and armed["golden_bf16_status"] == "match",
+                f"committed goldens match {armed}")
+        compiles0 = eng.counters.compiles
+        zero_counts()
+        clean = sen.probe()
+        c = counts()
+        fam = clean["families"]
+        line["clean_probe"] = {
+            f: {k: r[k] for k in ("bucket", "max_abs_err", "served_digest",
+                                  "want_digest", "drift", "ms")}
+            for f, r in fam.items()}
+        require(set(fam) == {"full", "gather", "gather_bf16"}
+                and not clean["drift"], f"clean probe {line['clean_probe']}")
+        require(fam["full"]["max_abs_err"] == 0.0
+                and fam["gather"]["max_abs_err"] == 0.0
+                and fam["gather"]["family"] == "gather_fused",
+                "f32 families served == their references (0.0)")
+        require(1e-6 < fam["gather_bf16"]["max_abs_err"] <= envelope
+                and fam["gather_bf16"]["served_digest"]
+                == fam["gather_bf16"]["want_digest"],
+                f"bf16 inside the envelope {fam['gather_bf16']}")
+        if card:
+            # The served replay's and the reference's launch each.
+            require(c["K2"] == 2 and c["K2_bf16"] == 2,
+                    f"the probe ran K2 and K2-bf16 {c}")
+        probe_ms = {f: [] for f in fam}
+        for _ in range(timed_probes):
+            for f, r in sen.probe()["families"].items():
+                probe_ms[f].append(r["ms"])
+        line["probe_ms"] = {f: _ms_stats(v) for f, v in probe_ms.items()}
+        plan.schedule("wrong:1.0@0-")
+        det = sen.probe()
+        plan.clear()
+        recovered = sen.probe()
+        require(eng.counters.compiles == compiles0,
+                "the probes captured nothing")
+        line["wrong_fault"] = {
+            "drifted_families": det["drifted_families"],
+            "max_abs_err": {f: det["families"][f]["max_abs_err"]
+                            for f in det["drifted_families"]},
+            "recovered": not recovered["drift"]}
+        require(det["drifted_families"] == ["full", "gather", "gather_bf16"]
+                and not recovered["drift"],
+                f"the wrong fault drifted exactly the wrapped families "
+                f"{line['wrong_fault']}")
+        require([cap["reason"] for cap in rec.captures]
+                == ["deadline_kill", "numerics_drift"]
+                and tr.accounting()["incidents"] == 2,
+                "one numerics_drift incident, captured")
+
+        # 3. A background sentinel racing threaded traffic on an engine of
+        #    one bucket, then every served result against a direct call.
+        #    Each request fills the bucket, so each batch holds the rows
+        #    of the direct call: on the card a row of the plain full
+        #    forward can round one ulp differently beside other rows
+        #    (K2's rows do not), which a coalesced batch would show.
+        race, rkeys = engine(tr, DispatchPolicy(deadline_s=30.0, retries=0,
+                                                cpu_fallback=False),
+                             min_bucket=race_bucket, max_bucket=race_bucket)
+        rsen = NumericsSentinel(race, tracer=tr,
+                                interval_s=OB_SENTINEL_INTERVAL_S)
+        served = []
+        t0 = time.perf_counter()
+        with race:
+            rsen.start()
+            rounds = 0
+            while rounds < 50 and (rounds == 0
+                                   or rsen.status()["probes"] < 2):
+                served += _ob_clients(race, rkeys, _ob_work(
+                    rng, threads, requests, s, race_bucket, exact=True))
+                rounds += 1
+            rsen.stop()
+        st = rsen.status()
+        race_err = {"full": 0.0, "gather_f32": 0.0, "gather_bf16": 0.0}
+        table = race.table
+        with torch.no_grad(), ieee_fp32():
+            for pose, shape, k, kind, out in served:
+                pose_t = torch.from_numpy(pose).to(dev)
+                if kind == 2:
+                    want = core.forward_batched(
+                        params, pose_t, torch.from_numpy(shape).to(dev)).verts
+                    name = "full"
+                else:
+                    idx = torch.full((race_bucket,),
+                                     race._subject_slots[rkeys[k]],
+                                     dtype=torch.int32, device=dev)
+                    want = core.forward_posed_gather_fused(
+                        table, idx, pose_t,
+                        compute_dtype=bf16 if kind == 0 else None)
+                    name = "gather_bf16" if kind == 0 else "gather_f32"
+                race_err[name] = max(race_err[name], max_err(out, want))
+        line["race"] = {"requests": len(served), "rounds": rounds,
+                        "seconds": time.perf_counter() - t0,
+                        "probes": st["probes"],
+                        "probe_errors": st["probe_errors"],
+                        "drifts": st["drifts"],
+                        "served_vs_direct_max_abs_err": race_err}
+        require(st["probes"] >= 2 and st["probe_errors"] == 0
+                and st["drifts"] == 0, f"the racing sentinel {line['race']}")
+        require(all(e == 0.0 for e in race_err.values()),
+                f"served == direct after the race {race_err}")
+
+        # 4. The metrics registry, its text parsed back.
+        reg = engine_registry(eng, tracer=tr, sentinel=sen)
+        snap = reg.snapshot()
+        text = prometheus_text(snap)
+        m = snap["metrics"]
+        line["metrics"] = {
+            "metrics": len(m), "errors": snap.get("errors"),
+            "samples_parsed": _ob_parse_prometheus(text, snap),
+            "serving_unexported_keys":
+                m["serving_unexported_keys"]["samples"][0][1],
+            "serving_dispatches_bf16":
+                m["serving_dispatches_bf16"]["samples"][0][1]}
+        require(not snap.get("errors")
+                and line["metrics"]["serving_unexported_keys"] == 0,
+                f"registry {line['metrics']}")
+        _ob_balanced(tr.accounting(), "engines and probes")
+
+        # 5. The overhead drills (JAX's defaults on the card).
+        t0 = time.perf_counter()
+        to = tracing_overhead_run(params, device=dev, **(tracing_kw or {}))
+        mo = metrics_overhead_run(params, device=dev, **(metrics_kw or {}))
+        drill = mo["sentinel_drill"]
+        line["drills"] = {
+            "seconds": time.perf_counter() - t0,
+            "bound": OB_OVERHEAD_BOUND,
+            "tracing": {k: to[k] for k in (
+                "requests", "trials", "tracing_overhead_ratio",
+                "ratio_best_window", "ratio_trials", "traced_evals_per_sec",
+                "untraced_evals_per_sec", "steady_recompiles")},
+            "metrics": {k: mo[k] for k in (
+                "requests", "trials", "reps_per_pass",
+                "metrics_overhead_ratio", "ratio_best_window",
+                "ratio_trials", "observed_evals_per_sec",
+                "bare_evals_per_sec", "steady_recompiles")},
+            "tracing_within_bound":
+                to["tracing_overhead_ratio"] <= OB_OVERHEAD_BOUND,
+            "metrics_within_bound":
+                mo["metrics_overhead_ratio"] <= OB_OVERHEAD_BOUND,
+            "golden": mo["golden"]["golden_status"],
+            "sentinel_drill": {k: drill[k] for k in (
+                "detected", "clean_probe_drift", "drifted_families",
+                "drift_max_abs_err", "cpu_family_clean", "recovered",
+                "futures_resolved_fraction", "flight_capture_reasons")}}
+        _ob_balanced(to["span_accounting"], "tracing drill")
+        _ob_balanced(mo["span_accounting"], "metrics drill")
+        require(to["steady_recompiles"] == 0 and mo["steady_recompiles"] == 0,
+                "the drills captured nothing in steady traffic")
+        require(drill["detected"] and not drill["clean_probe_drift"]
+                and drill["drifted_families"] == ["full"]
+                and drill["recovered"]
+                and drill["futures_resolved_fraction"] == 1.0
+                and "numerics_drift" in drill["flight_capture_reasons"],
+                f"the sentinel drill's detection criterion "
+                f"{line['drills']['sentinel_drill']}")
+
+        # 6. The profiler: the traced engine's dispatches per family at
+        #    each bucket (graph replays), then direct eager calls.
+        tr_p = Tracer()
+        # No coalesce window: a synchronous client's dispatch, host path
+        # and device, without the 2 ms wait for batchmates.
+        prof, pkeys = engine(tr_p, max_bucket=max(trace_buckets),
+                             max_delay_s=0.0)
+        tiers = {"full": 2, "gather_f32": 1, "gather_bf16": 0}
+        caps = {}
+        with prof:
+            for fam, tier in tiers.items():
+                for b in trace_buckets:
+                    pose = rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+                        np.float32)
+                    shape = rng.normal(size=(b, s)).astype(np.float32)
+
+                    def dispatch():
+                        if fam == "full":
+                            return prof.forward(pose, shape, priority=tier)
+                        return prof.forward(pose, subject=pkeys[0],
+                                            priority=tier)
+
+                    dispatch()
+                    d = os.path.join(tmp, "trace", f"{fam}_b{b}")
+                    with torch_trace(d, tracer=tr_p):
+                        for _ in range(trace_dispatches):
+                            dispatch()
+                    caps[f"{fam}_b{b}"] = _ob_capture(d)
+        b = max(trace_buckets)
+        pose_t = torch.from_numpy(rng.normal(
+            scale=0.5, size=(b, 16, 3)).astype(np.float32)).to(dev)
+        shape_t = torch.from_numpy(
+            rng.normal(size=(b, s)).astype(np.float32)).to(dev)
+        idx_t = torch.zeros((b,), dtype=torch.int32, device=dev)
+        ptable = prof.table
+        d = os.path.join(tmp, "trace", f"eager_b{b}")
+        with torch_trace(d), torch.no_grad(), ieee_fp32():
+            for _ in range(eager_calls):
+                core.forward_batched(params, pose_t, shape_t).verts.cpu()
+                core.forward_posed_gather_fused(ptable, idx_t, pose_t).cpu()
+                core.forward_posed_gather_fused(
+                    ptable, idx_t, pose_t, compute_dtype=bf16).cpu()
+        caps[f"eager_b{b}"] = _ob_capture(d)
+        line["profile"] = caps
+        line["profile_stage_breakdown"] = {
+            cell: {k: v for k, v in st.items()
+                   if k == "n" or k.endswith("_p50_ms")}
+            for cell, st in tr_p.stage_breakdown()["by_bucket_tier"].items()}
+        _ob_balanced(tr_p.accounting(), "profiled engine")
+        # The kernels a graph replay runs are on the capture's device
+        # tracks, K2's and K2-bf16's by name, one launch a replay.
+        line["graph_kernels_visible"] = {
+            f"{fam}_b{tb}": caps[f"{fam}_b{tb}"]["k2_kernels"].get(
+                tag, {}).get("count", 0)
+            for fam, tag in (("gather_f32", "posed_kernel"),
+                             ("gather_bf16", "posed_bf16_kernel"))
+            for tb in trace_buckets}
+        if card:
+            eager = caps[f"eager_b{b}"]["k2_kernels"]
+            require(all(eager.get(tag, {}).get("count") == eager_calls
+                        for tag in ("posed_kernel", "posed_bf16_kernel"))
+                    and all(n == trace_dispatches for n in
+                            line["graph_kernels_visible"].values()),
+                    f"K2 and K2-bf16 by name in the captures: eager "
+                    f"{eager}, graph {line['graph_kernels_visible']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["launches"] = counts()
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2790,6 +3360,13 @@ def main() -> int:
     #      cold boots in fresh processes (counts zeroed just before each
     #      part that reads them).
     emit(program_cache(dev, counts, zero_counts))
+
+    # 18f. Observability: a traced engine's spans and runtime events, the
+    #      numerics sentinel over the captured K2 and K2-bf16 programs, the
+    #      metrics registry, the overhead drills and a profiler trace of
+    #      the engine (counts zeroed just before each part that reads
+    #      them).
+    emit(observability(dev, counts, zero_counts))
 
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.

@@ -17,6 +17,9 @@ messages and exit codes, on the port:
            a self-contained artifact for ``io.export_aot.load_forward``
   info     print an asset's schema summary
   verify   audit an asset and print its canonical digests
+  trace-report  summarize a ``torch.profiler`` capture and/or an engine
+           span export into one host+device report
+           (``obs/trace_report.py``)
 
 ``--device {cuda,cpu}`` (default ``cuda``) picks the device every
 subcommand runs on, where the JAX CLI takes ``--platform``; ``demo
@@ -968,6 +971,21 @@ def cmd_export_aot(args) -> int:
     return 0
 
 
+def cmd_trace_report(args) -> int:
+    """One merged host+device timeline report over a ``torch.profiler``
+    capture (``utils.profiling.torch_trace``) and/or an engine span export
+    (``obs.write_trace_dir``): ``obs/trace_report.py``, with JAX's flags,
+    output and exit codes. It reads files only: ``--device`` is unused."""
+    from mano_hand_tpu_torch.obs import trace_report
+
+    argv = [str(args.path), "--top", str(args.top)]
+    if args.json:
+        argv.append("--json")
+    if args.all_tracks:
+        argv.append("--all-tracks")
+    return trace_report.run(argv)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mano_hand_tpu_torch",
                                 description=__doc__)
@@ -1230,6 +1248,22 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--json", action="store_true",
                    help="machine-readable report")
     v.set_defaults(fn=cmd_verify)
+
+    tr = sub.add_parser(
+        "trace-report",
+        help="summarize a torch.profiler capture and/or an engine span "
+             "export (torch_trace / write_trace_dir DIR) into one merged "
+             "host+device report: top device ops + per-bucket/tier "
+             "queue/dispatch/device/readback stage breakdown",
+    )
+    tr.add_argument("path", help="trace dir or one *.trace.json[.gz]")
+    tr.add_argument("--top", type=int, default=15)
+    tr.add_argument("--json", action="store_true",
+                    help="machine-readable JSON instead of the tables")
+    tr.add_argument("--all-tracks", action="store_true",
+                    help="include host tracks even when a device track "
+                         "exists")
+    tr.set_defaults(fn=cmd_trace_report)
     return p
 
 

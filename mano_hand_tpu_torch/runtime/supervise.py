@@ -293,6 +293,9 @@ class Watchdog:
 
     ``on_trigger`` runs ON the watchdog thread and typically ends in
     ``os._exit``; it must not assume the main thread is runnable.
+    ``tracer`` (an ``obs.Tracer``) gets a ``watchdog_kill`` incident
+    BEFORE ``on_trigger`` runs, so a subscribed flight recorder captures
+    the moment.
     """
 
     def __init__(
@@ -307,10 +310,12 @@ class Watchdog:
         poll_s: float = 2.0,
         name: str = "watchdog",
         clock: Callable[[], float] = time.time,
+        tracer=None,
     ):
         if stall_s and progress is None:
             raise ValueError("a stall trigger needs a progress() source")
         self.on_trigger = on_trigger
+        self.tracer = tracer
         self.deadline_s = deadline_s or None
         self.stall_s = stall_s or None
         self.t0 = clock() if t0 is None else t0
@@ -335,17 +340,25 @@ class Watchdog:
         finished, or the backend cannot hang)."""
         self._disarmed.set()
 
+    def _fire(self, cause: str) -> None:
+        if self.tracer is not None:
+            try:
+                self.tracer.incident("watchdog_kill", cause=cause)
+            except Exception:  # noqa: BLE001 — the kill must still land
+                pass
+        self.on_trigger(cause)
+
     def _loop(self) -> None:
         while not self._disarmed.wait(self.poll_s):
             now = self.clock()
             if self.deadline_s and now - self.t0 >= self.deadline_s:
-                self.on_trigger(
+                self._fire(
                     f"{self.name}: emit-by deadline "
                     f"({self.deadline_s:.0f}s) hit")
                 return
             if (self.stall_s and (self.armed is None or self.armed())
                     and now - self.progress() >= self.stall_s):
-                self.on_trigger(
+                self._fire(
                     f"{self.name}: no progress for {self.stall_s:.0f}s "
                     "(hung device call?)")
                 return

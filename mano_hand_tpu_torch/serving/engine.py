@@ -38,7 +38,9 @@ the CPU tier** on a ``device="cpu"`` engine: the plain
 primary. A pose-only batch fails over by re-running the full forward with
 each row's betas from the host registry. Failover results are bit for bit
 a direct CPU ``core.forward_batched`` call at the same padded bucket.
-Every failover is counted (``failovers``) and warned (``warnings.warn``).
+Every failover is counted (``failovers``) and warned (a ``RuntimeWarning``
+through ``obs/log.py``'s logger, which routes warnings through
+``warnings``).
 A card engine has no CPU tier: it refuses a policy with ``cpu_fallback``
 (pass ``DispatchPolicy(cpu_fallback=False)``), so its work never moves
 off the card, and a batch whose supervision is exhausted there resolves
@@ -97,6 +99,19 @@ full programs also write the legacy per-bucket artifact there
 order across a restart (``io/state_ckpt.py``, JAX's pickle layout), so a
 restored subject serves bit for bit without a shape-stage bake.
 
+**Tracing.** ``tracer=`` (an ``obs.Tracer``) opens a span per request in
+``submit`` and stamps the JAX engine's boundary events on it — ``coalesce``
+or ``park``, ``launch``, ``dispatched`` (when the batch's replay is
+enqueued), ``readback`` — then closes it exactly once with the future's
+terminal kind (``ok``, ``shed``, ``expired``, ``error``, ``shutdown``,
+``cancelled``). Runtime events share the timeline: ``chaos_fault``,
+``breaker``, ``retry``, ``evict``, ``compile`` (one per live program
+build), ``lattice_load`` and ``lattice_load_failed``, and the incidents
+``deadline_kill``, ``failover`` and ``shed_burst`` a flight recorder
+captures. ``tracer=None`` (the default) adds no call anywhere.
+``numerics_probe_targets`` hands ``obs.NumericsSentinel`` the live
+programs behind the same chaos wrap real dispatches take.
+
 Table updates are functional (``core.table_set_row`` returns a new
 table), so a batch's ``(table, slots)`` snapshot stays valid while
 submitters install subjects. The engine runs on ``cuda`` unless the
@@ -122,9 +137,9 @@ import gc
 import hashlib
 import os
 import queue
+import functools
 import threading
 import time
-import warnings
 from concurrent.futures import Future, InvalidStateError
 from pathlib import Path
 from typing import Callable, Optional, Sequence
@@ -133,6 +148,7 @@ import numpy as np
 import torch
 
 from mano_hand_tpu_torch.models import core
+from mano_hand_tpu_torch.obs import log as obs_log
 from mano_hand_tpu_torch.ops.common import (
     add_launches, captured_launches, ieee_fp32, resolve_device,
 )
@@ -142,6 +158,7 @@ from mano_hand_tpu_torch.serving.precision import BF16, F32, PrecisionPolicy
 from mano_hand_tpu_torch.utils.profiling import ServingCounters
 
 _SENTINEL = object()
+_LOG = obs_log.get_logger("serving.engine")
 
 
 class ServingError(RuntimeError):
@@ -173,27 +190,43 @@ class ServingError(RuntimeError):
         self.cause = cause
 
 
+def cpu_tier_forward(params_cpu, pose: np.ndarray,
+                     shape: np.ndarray) -> np.ndarray:
+    """The CPU tier's body: the plain ``core.forward_batched`` on a CPU
+    engine's float32 params, host arrays in and out."""
+    # C-ordered copies: a broadcast shape row (stride 0) would take
+    # another CPU matmul path and round differently.
+    pose, shape = (torch.from_numpy(np.array(x, np.float32, order="C"))
+                   for x in (pose, shape))
+    with torch.no_grad():
+        return core.forward_batched(params_cpu, pose, shape).verts.numpy()
+
+
 def build_cpu_fallback_executable(params_cpu, bucket: int, n_joints: int,
                                   n_shape: int) -> Callable:
-    """The graceful-degradation callable of one bucket: the plain
-    ``core.forward_batched`` on float32 params on the CPU (a CPU
-    engine's own), returning host verts. The same function as the full family's primary,
-    so failover results match a direct CPU ``core.forward_batched`` call
-    at the same padded bucket bit for bit. Never chaos-wrapped (the
-    fallback is the clean path failover is measured against); warmed once
-    with a zero batch."""
+    """The graceful-degradation callable of one bucket: ``cpu_tier_forward``
+    (the full family's primary function, on the CPU). So failover results
+    match a direct CPU ``core.forward_batched`` call at the same padded
+    bucket bit for bit. Never chaos-wrapped (the fallback is the clean
+    path failover is measured against); warmed once with a zero batch."""
 
     def run(pose: np.ndarray, shape: np.ndarray) -> np.ndarray:
-        # C-ordered copies: a broadcast shape row (stride 0) would take
-        # another CPU matmul path and round differently.
-        pose, shape = (torch.from_numpy(np.array(x, np.float32, order="C"))
-                       for x in (pose, shape))
-        with torch.no_grad():
-            return core.forward_batched(params_cpu, pose, shape).verts.numpy()
+        return cpu_tier_forward(params_cpu, pose, shape)
 
     run(np.zeros((bucket, n_joints, 3), np.float32),
         np.zeros((bucket, n_shape), np.float32))
     return run
+
+
+def gather_body(fused: bool, compute_dtype=None) -> Callable:
+    """A gathered family's function ``(table, idx, pose) -> verts``: K2
+    (or K2-bf16 under ``compute_dtype=torch.bfloat16``) under ``fused``,
+    else the plain ``core.forward_posed_gather``."""
+    if fused:
+        return lambda table, idx, pose: core.forward_posed_gather_fused(
+            table, idx, pose, compute_dtype=compute_dtype)
+    return lambda table, idx, pose: core.forward_posed_gather(
+        table, idx, pose, compute_dtype=compute_dtype).verts
 
 
 def _torch_dtype(x: np.ndarray) -> torch.dtype:
@@ -205,14 +238,18 @@ class _EagerProgram:
     each batch. ``body(*tensors)`` (the gathered families take the batch's
     table first) returns the verts; ``example`` are the host zeros of one
     batch, run once at build so a program that cannot execute fails at
-    build time, not inside a dispatch."""
+    build time, not inside a dispatch. ``on_enqueued`` (a tracing hook)
+    is called as the body starts: on the CPU the body IS the device
+    work."""
 
     def __init__(self, body: Callable, example: tuple, table=None):
         self._body = body
         self.run(*example, table=table)
 
-    def run(self, *host, table=None) -> np.ndarray:
+    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
         args = [torch.from_numpy(np.ascontiguousarray(x)) for x in host]
+        if on_enqueued is not None:
+            on_enqueued()
         with torch.no_grad(), ieee_fp32():
             out = self._body(*args) if table is None \
                 else self._body(table, *args)
@@ -278,7 +315,17 @@ class _GraphProgram:
     The kernel launches the capture noted are added to their counts at
     every replay. ``run`` holds the device lock across copy-in, replay and
     readback, so two batches never share the static buffers, and an
-    attempt its supervisor abandoned never touches them."""
+    attempt its supervisor abandoned never touches them.
+
+    ``run(..., on_enqueued=hook)`` calls ``hook()`` once the replay is
+    enqueued, before the readback waits for it: the engine stamps its
+    spans' ``dispatched`` there, so on the port the ``dispatch`` stage
+    (``obs/trace.py:Tracer._span_stages``) holds the batch assembly, the
+    program fetch, the wait for the engine's device lock (held by a
+    probe, an install or a capture) and the copy-in, and the ``device``
+    stage the replay's execution on the card and the readback to the
+    host — JAX's stage semantics, where ``device`` is execution plus
+    transfer."""
 
     def __init__(self, eng: "ServingEngine", body: Callable, example: tuple,
                  capacity: Optional[int] = None):
@@ -306,7 +353,7 @@ class _GraphProgram:
                 self._out = body(*args)
             self._launches = tuple(log)
 
-    def run(self, *host, table=None) -> np.ndarray:
+    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
         with self._lock:
             if supervise.abandoned():
                 raise supervise.DeadlineExceeded(
@@ -318,6 +365,8 @@ class _GraphProgram:
                     self._table.refresh(table)
                 self._graph.replay()
                 add_launches(self._launches)
+                if on_enqueued is not None:
+                    on_enqueued()
                 return self._out.cpu().numpy()
 
 
@@ -359,7 +408,7 @@ class _CancellableFuture(Future):
 
 class _Request:
     __slots__ = ("pose", "shape", "rows", "squeeze", "subject", "tier",
-                 "deadline", "future")
+                 "deadline", "future", "span")
 
     def __init__(self, pose, shape, rows, squeeze, subject, tier=0,
                  deadline=None):
@@ -371,6 +420,33 @@ class _Request:
         self.tier = tier            # admission tier (0 = interactive)
         self.deadline = deadline    # absolute time.monotonic() or None
         self.future: Future = Future()
+        self.span = None            # obs.Tracer span id, or None
+
+
+class _Dispatched:
+    """Stamps ``dispatched`` on one batch's spans exactly once: from the
+    program's ``on_enqueued`` hook when its replay is enqueued, else by
+    the dispatcher once the dispatch returned (a CPU-tier failover).
+    ``close()`` disarms it, so an attempt that wakes after its batch was
+    resolved stamps nothing."""
+
+    def __init__(self, tracer, reqs):
+        self._tracer, self._reqs = tracer, reqs
+        self._lock = threading.Lock()
+        self._done = False
+
+    def _take(self) -> bool:
+        with self._lock:
+            first, self._done = not self._done, True
+            return first
+
+    def __call__(self) -> None:
+        if self._take():
+            for r in self._reqs:
+                self._tracer.event(r.span, "dispatched")
+
+    def close(self) -> None:
+        self._take()
 
 
 class ServingEngine:
@@ -401,6 +477,11 @@ class ServingEngine:
         A breaker's default probe (``health.device_probe``) checks card 0;
         an engine on another card passes ``probe=lambda:
         device_probe(index=i)``.
+    tracer: an ``obs.Tracer``, or None (the default: no tracing call on
+        any path). With one, every request carries a span from submit to
+        its terminal resolution and runtime events share the timeline
+        (module docstring); an unclaimed breaker's ``on_transition`` is
+        wired to it.
     max_queued: bounded admission. None (the default) keeps the queue
         unbounded; an int caps OUTSTANDING requests (submitted, not yet
         resolved), and a submit past a tier's quota raises
@@ -430,7 +511,7 @@ class ServingEngine:
                  precision_policy: Optional[PrecisionPolicy] = None,
                  policy=None, max_queued: Optional[int] = None,
                  tier_quotas: Optional[dict] = None,
-                 busy_fraction: float = 0.75, aot_dir=None):
+                 busy_fraction: float = 0.75, aot_dir=None, tracer=None):
         if posed_kernel not in ("xla", "fused"):
             raise ValueError(
                 f"posed_kernel must be 'xla' or 'fused', got "
@@ -483,6 +564,15 @@ class ServingEngine:
         self._tier_quotas = dict(tier_quotas or {})
         self.busy_fraction = float(busy_fraction)
         self.counters = ServingCounters()
+        self._tracer = tracer
+        if tracer is not None and policy is not None:
+            breaker = policy.breaker
+            if breaker is not None and breaker.on_transition is None:
+                # Breaker changes belong on the request timeline; a
+                # caller-wired hook wins.
+                breaker.on_transition = (
+                    lambda old, new: tracer.runtime_event(
+                        "breaker", old=old, new=new))
         # The primary callables; under a chaos plan each consults it (one
         # plan-wide call index across both families). The CPU tier is
         # never wrapped.
@@ -490,9 +580,9 @@ class ServingEngine:
         self._primary_posed = self._run_posed
         if policy is not None and policy.chaos is not None:
             self._primary_full = policy.chaos.wrap(
-                self._run_full, on_fault=self.counters.count_fault)
+                self._run_full, on_fault=self._on_chaos_fault)
             self._primary_posed = policy.chaos.wrap(
-                self._run_posed, on_fault=self.counters.count_fault)
+                self._run_posed, on_fault=self._on_chaos_fault)
         # The program cache (under _lock): bucket -> program, and bucket
         # -> (capacity, program) for the gathered families.
         self._exes: dict = {}
@@ -539,6 +629,12 @@ class ServingEngine:
         # decision reads and writes it under _live_lock.
         self._live: dict = {}
         self._live_lock = threading.Lock()
+
+    @property
+    def tracer(self):
+        """The engine's ``obs.Tracer`` (or None): the wiring point for
+        ``obs.metrics.engine_registry`` and ``obs.NumericsSentinel``."""
+        return self._tracer
 
     @property
     def posed_kernel(self) -> str:
@@ -681,6 +777,7 @@ class ServingEngine:
                     self._params, torch.from_numpy(betas).to(self.device))
         with self._install_lock:
             grew = False
+            evicted = None
             with self._lock:
                 if key in self._subject_slots:      # a racing install won
                     self._subject_lru.move_to_end(key)
@@ -707,6 +804,10 @@ class ServingEngine:
                     slot = self._subject_slots.pop(victim)
                     del self._subject_lru[victim]
                     self.counters.count_evict()
+                    evicted = victim
+            if evicted is not None and self._tracer is not None:
+                self._tracer.runtime_event("evict", subject=evicted,
+                                           slot=slot)
             with self._device_lock, torch.no_grad():
                 if table is None:
                     table = core.subject_table(self._params, cap)
@@ -803,7 +904,8 @@ class ServingEngine:
         tier's quota — back off now) or ``"shed"`` (a submit now would
         raise ``ServingError(kind="shed")``); empty when admission is
         unbounded. ``precision`` (under a ``PrecisionPolicy``) names each
-        tier's family and the stated envelope."""
+        tier's family and the stated envelope; with a tracer,
+        ``latency_by_tier`` and ``backlog_age_s`` ride along."""
         # The tier states derive inside the SAME hold that reads the
         # outstanding count (and that set_admission swaps the quotas
         # under): they always describe one instant.
@@ -835,6 +937,10 @@ class ServingEngine:
                 "accumulate": pol.accumulate,
                 "tiers": pol.tiers_snapshot((0, 1, *self._tier_quotas)),
             }
+        if self._tracer is not None:
+            # Per-tier served latency quantiles and the backlog age, from
+            # ONE tracer lock hold (obs/trace.py:load_snapshot).
+            out.update(self._tracer.load_snapshot())
         return out
 
     # ------------------------------------------------------------ deadlines
@@ -854,6 +960,8 @@ class ServingEngine:
                 "result would not be read, so none was produced",
                 phase=phase, kind="expired")):
             self.counters.count_expired(req.tier)
+            if self._tracer is not None:
+                self._tracer.close(req.span, "expired", phase=phase)
         self._deregister(req)
 
     # ------------------------------------------------------------- requests
@@ -927,6 +1035,13 @@ class ServingEngine:
                     else time.monotonic() + float(deadline_s))
         req = _Request(pose, shape, n, squeeze, subject, tier, deadline)
         req.future = _CancellableFuture(lambda: self._on_cancel(req))
+        tr = self._tracer
+        if tr is not None:
+            # Opened after validation (a caller error is not a request),
+            # before any resolution path: every terminal kind below
+            # closes exactly this span.
+            req.span = tr.start("posed" if subject is not None else "full",
+                                tier=tier, rows=n)
         if deadline is not None and float(deadline_s) <= 0:
             # Born expired: no registration, no queue slot, no dispatch.
             self._expire(req, "admission")
@@ -944,6 +1059,9 @@ class ServingEngine:
                     outstanding += 1
             if not admitted:
                 self.counters.count_shed(tier)
+                if tr is not None:
+                    tr.close(req.span, "shed")
+                    tr.note_shed()      # a sustained burst: one incident
                 raise ServingError(
                     f"admission shed: {outstanding} outstanding >= "
                     f"tier-{tier} quota {quota} "
@@ -954,6 +1072,8 @@ class ServingEngine:
             self.counters.observe_backlog(outstanding)
         else:
             self.counters.observe_backlog(self._register(req))
+        if tr is not None:
+            tr.note_admit()             # resets the shed-burst streak
         self.start()
         self._queue.put(req)
         if self._failure is not None:
@@ -1081,14 +1201,15 @@ class ServingEngine:
                 leaves = self._lattice_leaves()
                 prog = self._load_program(
                     f"lattice full/b{bucket}",
-                    lambda pose, shape: call(leaves, pose, shape), bucket)
+                    lambda pose, shape: call(leaves, pose, shape), bucket,
+                    family="full")
         if prog is None and self.aot_dir is not None:
             path = self._artifact_path(bucket)
             if path.exists():
                 prog = self._load_artifact(path, bucket)
         if prog is None:
             prog = self._program(self._live_full, bucket)
-            self.counters.count_compile()
+            self._count_compile("full", bucket)
             if self.aot_dir is not None:
                 self._write_artifact(bucket)
         with self._lock:
@@ -1096,19 +1217,40 @@ class ServingEngine:
             # cache never flips programs under steady traffic.
             return self._exes.setdefault(bucket, prog)
 
+    def _count_compile(self, family: str, bucket: int, **fields) -> None:
+        """One live program build: counted, and a ``compile`` event."""
+        self.counters.count_compile()
+        if self._tracer is not None:
+            self._tracer.runtime_event("compile", family=family,
+                                       bucket=bucket, **fields)
+
+    def _lattice_event(self, ok: bool, family: str, bucket: int,
+                       **fields) -> None:
+        if self._tracer is not None:
+            self._tracer.runtime_event(
+                "lattice_load" if ok else "lattice_load_failed",
+                family=family, bucket=bucket, **fields)
+
     def _load_program(self, what: str, body: Callable, bucket: int,
-                      capacity=None, table=None):
+                      capacity=None, table=None, family=None):
         """A program over a loaded entry, or None when it fails to run
         here: counted in ``aot_loads``, or in ``aot_load_failures`` with a
-        warning (the caller then builds it live)."""
+        warning (the caller then builds it live). ``family`` names a
+        lattice entry's family for its ``lattice_load`` /
+        ``lattice_load_failed`` event (None: a legacy artifact)."""
+        cap = {} if capacity is None else {"capacity": capacity}
         try:
             prog = self._program(body, bucket, capacity, table)
         except Exception as e:  # noqa: BLE001 — degrade, never crash boot
             self.counters.count_aot_load_failure()
-            warnings.warn(f"{what} failed at execution ({type(e).__name__}: "
-                          f"{e}); building it live (counted)")
+            _LOG.warning(f"{what} failed at execution ({type(e).__name__}: "
+                         f"{e}); building it live (counted)")
+            if family is not None:
+                self._lattice_event(False, family, bucket, **cap)
             return None
         self.counters.count_aot_load()
+        if family is not None:
+            self._lattice_event(True, family, bucket, **cap)
         return prog
 
     def _load_artifact(self, path: Path, bucket: int):
@@ -1129,9 +1271,9 @@ class ServingEngine:
                 raise ValueError(f"artifact exported for {fwd.platforms}")
         except Exception as e:  # noqa: BLE001 — self-heal
             self.counters.count_aot_load_failure()
-            warnings.warn(f"invalid serving artifact {path} "
-                          f"({type(e).__name__}: {e}); building it live "
-                          "and rewriting it")
+            _LOG.warning(f"invalid serving artifact {path} "
+                         f"({type(e).__name__}: {e}); building it live "
+                         "and rewriting it")
             return None
         return self._load_program(f"artifact {path.name}",
                                   lambda pose, shape: fwd(pose, shape)["verts"],
@@ -1152,13 +1294,6 @@ class ServingEngine:
     def _artifact_path(self, bucket: int) -> Path:
         return Path(self.aot_dir) / (
             f"serve_{self._params_digest()}_b{bucket}.torchexp")
-
-    def _gather_body(self, fused: bool, compute_dtype=None) -> Callable:
-        if fused:
-            return lambda table, idx, pose: core.forward_posed_gather_fused(
-                table, idx, pose, compute_dtype=compute_dtype)
-        return lambda table, idx, pose: core.forward_posed_gather(
-            table, idx, pose, compute_dtype=compute_dtype).verts
 
     def _gather_executable(self, bucket: int, table=None, prec: str = F32):
         """The gathered pose-only program of one bucket at ``table``'s
@@ -1195,13 +1330,14 @@ class ServingEngine:
                 prog = self._load_program(
                     f"lattice gather/b{bucket}/c{cap}",
                     lambda tab, idx, pose: call(table_leaves(tab), idx, pose),
-                    bucket, cap, table)
+                    bucket, cap, table, family="gather")
         if prog is None:
             prog = self._program(
-                self._gather_body(
-                    fused, torch.bfloat16 if prec == BF16 else None),
+                gather_body(fused, torch.bfloat16 if prec == BF16 else None),
                 bucket, cap, table)
-            self.counters.count_compile()
+            self._count_compile(
+                ("gather_fused" if fused else "gather")
+                + ("_bf16" if prec == BF16 else ""), bucket, capacity=cap)
         with self._lock:
             cur = cache.get(bucket)
             if cur is not None and cur[0] == cap:
@@ -1236,15 +1372,17 @@ class ServingEngine:
                     np.zeros((bucket, self._n_shape), np.float32))
                 exe = run
                 self.counters.count_aot_load()
+                self._lattice_event(True, "cpu", bucket)
             except Exception as e:  # noqa: BLE001 — degrade
                 self.counters.count_aot_load_failure()
-                warnings.warn(f"lattice cpu/b{bucket} entry failed at "
-                              f"execution ({type(e).__name__}: {e}); "
-                              "building it live (counted)")
+                _LOG.warning(f"lattice cpu/b{bucket} entry failed at "
+                             f"execution ({type(e).__name__}: {e}); "
+                             "building it live (counted)")
+                self._lattice_event(False, "cpu", bucket)
         if exe is None:
             exe = build_cpu_fallback_executable(
                 self._params, bucket, self._n_joints, self._n_shape)
-            self.counters.count_compile()
+            self._count_compile("cpu", bucket)
         with self._lock:
             return self._cpu_exes.setdefault(bucket, exe)
 
@@ -1281,11 +1419,22 @@ class ServingEngine:
 
             lat = load_lattice(
                 self.aot_dir, self._params_digest(),
-                on_failure=lambda key, reason:
-                    self.counters.count_aot_load_failure())
+                on_failure=self._on_lattice_failure)
             with self._lock:
                 self._lattice, self._lattice_loaded = lat, True
                 return lat
+
+    def _on_lattice_failure(self, key: str, reason: str) -> None:
+        """A manifest or entry the lattice refused (damaged, foreign,
+        another schema): counted; a refused entry (``full/b8``,
+        ``gather/b8/c16``, ``cpu/b8``) is also a ``lattice_load_failed``
+        event. The caller then builds the program live."""
+        self.counters.count_aot_load_failure()
+        if key != "<manifest>":
+            family, *rest = key.split("/")
+            self._lattice_event(False, family, **{
+                ("bucket" if r[0] == "b" else "capacity"): int(r[1:])
+                for r in rest})
 
     def _lattice_capacities(self) -> list:
         """The table-capacity doubling ladder this engine can reach:
@@ -1416,7 +1565,7 @@ class ServingEngine:
         except Exception as e:  # noqa: BLE001 — degrade, not crash
             if strict:
                 raise
-            warnings.warn(
+            _LOG.warning(
                 f"subject checkpoint {path}: {type(e).__name__}: {e}; "
                 "restoring nothing (subjects re-specialize on demand)")
             summary["error"] = f"{type(e).__name__}: {e}"
@@ -1455,17 +1604,78 @@ class ServingEngine:
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
-    def _run_full(self, pose: np.ndarray, shape: np.ndarray) -> np.ndarray:
-        prog = self._executable(pose.shape[0])
+    def _run_full(self, pose: np.ndarray, shape: np.ndarray, *, prog=None,
+                  mark=None) -> np.ndarray:
+        """The full family's primary: ``prog`` (a cached program: the
+        sentinel's probes) or the bucket's program, fetched or built.
+        ``mark`` is the batch's ``_Dispatched`` (traced engines only)."""
+        if prog is None:
+            prog = self._executable(pose.shape[0])
         with self._on_device():
-            return prog.run(pose, shape)
+            return prog.run(pose, shape, on_enqueued=mark)
 
     def _run_posed(self, table, idx: np.ndarray, pose: np.ndarray,
-                   compute_dtype=None) -> np.ndarray:
-        prog = self._gather_executable(
-            pose.shape[0], table, F32 if compute_dtype is None else BF16)
+                   compute_dtype=None, *, prog=None, mark=None) -> np.ndarray:
+        if prog is None:
+            prog = self._gather_executable(
+                pose.shape[0], table, F32 if compute_dtype is None else BF16)
         with self._on_device():
-            return prog.run(idx, pose, table=table)
+            return prog.run(idx, pose, table=table, on_enqueued=mark)
+
+    def _on_chaos_fault(self, kind: Optional[str] = None,
+                        index: Optional[int] = None) -> None:
+        """The chaos plan's fault hook: the counter, and the fault on the
+        timeline (``ChaosPlan.wrap`` passes the kind and call index)."""
+        self.counters.count_fault()
+        if self._tracer is not None:
+            self._tracer.runtime_event("chaos_fault", kind=kind, index=index)
+
+    def numerics_probe_targets(self) -> dict:
+        """One consistent read, under one ``_lock`` hold, of every LIVE
+        program family: the raw material of ``obs.NumericsSentinel``.
+
+        ``full``, ``gather`` and ``gather_bf16`` map each bucket to a
+        callable of its CACHED program behind the same chaos wrap real
+        dispatches take (the gathered ones at the current table capacity
+        only); ``cpu`` maps a CPU engine's CPU-tier callables. A target
+        never builds a program, so a probe captures nothing and leaves
+        ``compiles`` as it was. With them: the table snapshot, the
+        params, dims and dtype, the precision envelope (when a tier
+        serves bf16), the gathered kernel (``posed_kernel``,
+        ``gather_fused``) and the engine's ``device`` and
+        ``device_lock``, which a probe's references hold on a card."""
+        with self._lock:
+            cap = self._table.capacity if self._table is not None else None
+            full = dict(self._exes)
+            gather = {b: p for b, (c, p) in self._gather_exes.items()
+                      if c == cap}
+            gather_bf16 = {b: p for b, (c, p)
+                           in self._gather_exes_bf16.items() if c == cap}
+            cpu = dict(self._cpu_exes)
+            table = self._table
+        posed = self._primary_posed
+        return {
+            "full": {b: functools.partial(self._primary_full, prog=p)
+                     for b, p in full.items()},
+            "gather": {b: functools.partial(posed, prog=p)
+                       for b, p in gather.items()},
+            "gather_bf16": {b: functools.partial(
+                posed, compute_dtype=torch.bfloat16, prog=p)
+                for b, p in gather_bf16.items()},
+            "cpu": cpu,
+            "table": table,
+            "params": self._params,
+            "n_joints": self._n_joints,
+            "n_shape": self._n_shape,
+            "dtype": "float32",
+            "precision_envelope": (
+                self._precision_policy.max_vertex_err_m
+                if self._bf16_serving() else None),
+            "posed_kernel": self._posed_kernel,
+            "gather_fused": self._posed_kernel == "fused",
+            "device": self.device,
+            "device_lock": self._device_lock,
+        }
 
     def _req_prec(self, req: _Request) -> str:
         """The precision family one request is served from: ``"bf16"``
@@ -1514,8 +1724,12 @@ class ServingEngine:
             if why is None:
                 reqs.append(nxt)
                 subjects.add(nxt.subject)
+                if self._tracer is not None:
+                    self._tracer.event(nxt.span, "coalesce")
                 return None
             self._pending.append(nxt)
+            if self._tracer is not None:
+                self._tracer.event(nxt.span, "park", why=why)
             if why == "overflow" and fresh:
                 # Counted at its first park from the live queue only.
                 self.counters.count_overflow()
@@ -1610,8 +1824,16 @@ class ServingEngine:
             if not alive:
                 return
             reqs, rows = alive, sum(r.rows for r in alive)
+        tr = self._tracer
+        mark = None
         try:
             bucket = bucket_mod.bucket_for(rows, self.buckets)
+            if tr is not None:
+                # The launch boundary: the queue and coalesce wait ends.
+                for r in reqs:
+                    tr.event(r.span, "launch", bucket=bucket)
+                mark = _Dispatched(tr, reqs)
+            kw = {} if mark is None else {"mark": mark}
             pose = bucket_mod.pad_rows(
                 np.concatenate([r.pose for r in reqs]), bucket)
             prec = self._req_prec(reqs[0])
@@ -1627,28 +1849,34 @@ class ServingEngine:
                 n_subjects = 1
             if self._policy is not None:
                 verts = self._supervised_dispatch(bucket, pose, shape, reqs,
-                                                  table, idx, prec)
+                                                  table, idx, prec, mark)
             elif table is not None:
                 verts = self._run_posed(
                     table, idx, pose,
-                    torch.bfloat16 if prec == BF16 else None)
+                    torch.bfloat16 if prec == BF16 else None, **kw)
             else:
-                verts = self._run_full(pose, shape)
+                verts = self._run_full(pose, shape, **kw)
             self.counters.count_dispatch(bucket, rows, requests=len(reqs),
                                          subjects=n_subjects,
                                          bf16=prec == BF16)
+            if mark is not None:
+                mark()          # unless the replay's enqueue stamped it
         except ServingError as e:
             # Supervision exhausted for THIS batch: a failed batch is
             # traffic, not a broken engine; later submits stay servable.
+            if mark is not None:
+                mark.close()
             self._poison(reqs, e)
             return
         except BaseException as e:
+            if mark is not None:
+                mark.close()
             self._poison(reqs, e)
             raise
-        self._deliver(reqs, verts)
+        self._deliver(reqs, verts, bucket)
 
     def _supervised_dispatch(self, bucket: int, pose, shape, reqs, table,
-                             idx, prec: str = F32) -> np.ndarray:
+                             idx, prec: str = F32, mark=None) -> np.ndarray:
         """One batch through the fault-tolerance envelope: supervised
         primary attempts (deadline + classified retries with backoff,
         breaker-gated), then the CPU tier, then a structured
@@ -1672,14 +1900,28 @@ class ServingEngine:
             raise ServingError(
                 f"bucket {bucket}'s program failed to build "
                 f"({type(e).__name__}: {e})", cause=e) from e
+        kw = {} if mark is None else {"mark": mark}
         if table is not None:
             dt = torch.bfloat16 if prec == BF16 else None
 
             def primary():
-                return self._primary_posed(table, idx, pose, dt)
+                return self._primary_posed(table, idx, pose, dt, **kw)
         else:
             def primary():
-                return self._primary_full(pose, shape)
+                return self._primary_full(pose, shape, **kw)
+        tr = self._tracer
+        if tr is None:
+            on_retry = self.counters.count_retry
+            on_kill = self.counters.count_deadline_kill
+        else:
+            def on_retry():
+                self.counters.count_retry()
+                tr.runtime_event("retry", bucket=bucket)
+
+            def on_kill():
+                # An abandoned worker: an incident, not just a counter.
+                self.counters.count_deadline_kill()
+                tr.incident("deadline_kill", bucket=bucket)
         # Supervision gives up once every member has expired: a retry or
         # failover past the LATEST member deadline produces a result
         # nobody reads.
@@ -1698,8 +1940,8 @@ class ServingEngine:
                     give_up_by=give_up_by,
                     keep_trying=(breaker.allow_primary
                                  if breaker is not None else None),
-                    on_retry=self.counters.count_retry,
-                    on_deadline_kill=self.counters.count_deadline_kill,
+                    on_retry=on_retry,
+                    on_deadline_kill=on_kill,
                     on_attempt_failure=(breaker.record_failure
                                         if breaker is not None else None),
                     name=f"serve-dispatch-b{bucket}",
@@ -1724,12 +1966,14 @@ class ServingEngine:
                 attempts=attempts, cause=last)
         if pol.cpu_fallback:
             self.counters.count_failover()
-            warnings.warn(
-                f"serving: bucket {bucket} failed over to the CPU tier "
+            if tr is not None:
+                tr.incident("failover", bucket=bucket, attempts=attempts)
+            _LOG.warning(
+                f"bucket {bucket} failed over to the CPU tier "
                 f"after {attempts} primary attempt(s)"
                 + ("" if last is None
                    else f" ({type(last).__name__}: {last})"),
-                RuntimeWarning, stacklevel=2)
+                RuntimeWarning, stacklevel=3)
             fb_shape = self._fallback_shape(reqs, bucket, shape,
                                             posed=table is not None)
             fb = self._fallback_executable(bucket)
@@ -1765,20 +2009,27 @@ class ServingEngine:
                             for b, r in zip(betas, reqs)]),
             bucket))
 
-    def _deliver(self, reqs, verts) -> None:
+    def _deliver(self, reqs, verts, bucket: int) -> None:
         """Slice one completed batch back into its requests' futures. A
         result past its request's deadline resolves as expired, and one
         whose future was cancelled or swept meanwhile is discarded."""
         now = time.monotonic()
+        tr = self._tracer
         lo = 0
         for r in reqs:
             piece = verts[lo:lo + r.rows]
             lo += r.rows
+            if tr is not None:
+                # The batch is on the host: what remains per request is
+                # the slice and the future (the "readback" stage).
+                tr.event(r.span, "readback")
             if self._is_expired(r, now):
                 self._expire(r, "readback")
                 continue
             if self._set_result_safe(r, piece[0] if r.squeeze else piece):
                 self.counters.count_served(r.tier)
+                if tr is not None:
+                    tr.close(r.span, "ok", bucket=bucket)
             self._deregister(r)
 
     # ------------------------------------------------ resolution guarantees
@@ -1801,6 +2052,8 @@ class ServingEngine:
         admission slot now and count it per tier. The request may still
         sit queued or parked; every dispatch boundary skips it."""
         self.counters.count_cancelled(req.tier)
+        if self._tracer is not None:
+            self._tracer.close(req.span, "cancelled", phase="cancel")
         self._deregister(req)
 
     def _skip_cancelled(self, req: _Request) -> bool:
@@ -1830,15 +2083,31 @@ class ServingEngine:
         except InvalidStateError:
             return False
 
+    @staticmethod
+    def _terminal_kind(exc: Optional[BaseException]) -> str:
+        """The span-close kind of an exception-resolved future: the
+        ``ServingError.kind`` the caller sees; any other exception is an
+        engine ``error``."""
+        if isinstance(exc, ServingError):
+            return exc.kind
+        return "shutdown" if exc is None else "error"
+
+    def _close_span(self, req: _Request, exc, phase: str) -> None:
+        if self._tracer is not None:
+            self._tracer.close(req.span, self._terminal_kind(exc),
+                               phase=phase)
+
     def _sweep_live(self, exc: BaseException) -> None:
         with self._live_lock:
             reqs, self._live = list(self._live.values()), {}
         for r in reqs:
-            self._set_exception_safe(r, exc)
+            if self._set_exception_safe(r, exc):
+                self._close_span(r, exc, "sweep")
 
     def _poison(self, reqs, exc: BaseException) -> None:
         for r in reqs:
-            self._set_exception_safe(r, exc)
+            if self._set_exception_safe(r, exc):
+                self._close_span(r, exc, "poison")
             self._deregister(r)
 
     def _drain(self, exc: Optional[BaseException] = None) -> None:
@@ -1850,9 +2119,9 @@ class ServingEngine:
                 return
             if req is _SENTINEL:
                 continue
-            self._set_exception_safe(req, exc if exc is not None else
-                                     ServingError(
-                                         "serving engine stopped before "
-                                         "this request was dispatched",
-                                         phase="shutdown"))
+            err = exc if exc is not None else ServingError(
+                "serving engine stopped before this request was "
+                "dispatched", phase="shutdown")
+            if self._set_exception_safe(req, err):
+                self._close_span(req, err, "drain")
             self._deregister(req)

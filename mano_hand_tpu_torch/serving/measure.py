@@ -1,13 +1,14 @@
-"""The serving engine's drills: fault recovery, overload and cold start.
+"""The serving engine's drills and the observability protocols.
 
 Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``,
-``overload_drill_run`` and ``cold_start_drill_run`` — the same arguments,
-protocol and returned keys, less the tracer's flight record. Both drive a real
-``ServingEngine`` on ``device`` (default ``cuda``; the CPU tests pass
-``"cpu"``) and inject their faults in-process through ``runtime.chaos``,
-so no device is harmed. The recovery drill serves its pose-only half
-through ``posed_kernel``; the overload drill, as JAX's, submits full
-requests only.
+``overload_drill_run``, ``cold_start_drill_run``, ``tracing_overhead_run``
+and ``metrics_overhead_run`` — the same arguments, protocol and returned
+keys (each drill attaches its tracer's ``flight_record``), plus
+``device=``. Each drives real ``ServingEngine``s on ``device`` (default
+``cuda``; the CPU tests pass ``"cpu"``) and injects its faults in-process
+through ``runtime.chaos``, so no device is harmed. The recovery drill
+serves its pose-only half through ``posed_kernel``; the overload drill,
+as JAX's, submits full requests only.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from mano_hand_tpu_torch.obs import Tracer, flight_record
 
 
 def _logger(log: Optional[Callable[[str], None]]):
@@ -38,6 +41,7 @@ def overload_drill_run(
     batch_deadline_s: float = 0.5,
     shed_probe_submits: int = 256,
     seed: int = 0,
+    tracer=None,
     device=None,
     log: Callable[[str], None] = None,
 ) -> dict:
@@ -70,6 +74,10 @@ def overload_drill_run(
       µs. ``params_device_put`` says whether the probe's params sit on a
       device other than the host (the port's constructor places them);
     * ``steady_recompiles`` == 0 — overload builds nothing new.
+
+    One tracer (``tracer``, else a fresh one) spans both engines, so the
+    ``flight_record``'s accounting covers every submit of the drill, and
+    a sustained shed run fires its ``shed_burst`` incident.
     """
     from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
     from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
@@ -88,6 +96,8 @@ def overload_drill_run(
             "at least one admitted request to calibrate (the shed-only "
             "path is the probe's job)")
     log = _logger(log)
+    if tracer is None:
+        tracer = Tracer()
     n_joints = params.n_joints
     rng = np.random.default_rng(seed)
 
@@ -97,7 +107,7 @@ def overload_drill_run(
 
     # ---- Phase A: the shed probe (no dispatcher, no dispatch) ----------
     probe = ServingEngine(params, device=device, max_bucket=max_bucket,
-                          max_queued=0)
+                          max_queued=0, tracer=tracer)
     probe_pose = one_pose()
     shed_us: List[float] = []
     for _ in range(max(1, shed_probe_submits)):
@@ -133,7 +143,8 @@ def overload_drill_run(
     )
     eng = ServingEngine(
         params, device=device, max_bucket=max_bucket, max_delay_s=0.001,
-        policy=policy, max_queued=max_queued, tier_quotas={1: tier1_quota})
+        policy=policy, max_queued=max_queued, tier_quotas={1: tier1_quota},
+        tracer=tracer)
 
     outcomes = {"ok": 0, "shed": 0, "expired": 0, "error": 0,
                 "unresolved": 0}
@@ -281,6 +292,8 @@ def overload_drill_run(
         "coalesce_width_mean": snap["coalesce_width_mean"],
         "tiers": snap["tiers"],
         "load_mid_drill": load_mid,
+        "flight_record": flight_record(
+            tracer, eng.counters, reason="overload_drill_complete"),
     }
 
 
@@ -293,6 +306,7 @@ def recovery_drill_run(
     deadline_s: float = 2.0,
     latency_spike_s: float = 0.05,
     seed: int = 0,
+    tracer=None,
     device=None,
     posed_kernel: str = "xla",
     log: Callable[[str], None] = None,
@@ -322,7 +336,9 @@ def recovery_drill_run(
       nothing.
 
     ``failover_overhead_ratio`` (failover vs healthy seconds per request,
-    one pass each) says what degraded mode costs.
+    one pass each) says what degraded mode costs. The ``flight_record``
+    carries every fault class's spans, the breaker transitions and the
+    chaos faults (``tracer``, else a fresh one).
     """
     from mano_hand_tpu_torch.models import core
     from mano_hand_tpu_torch.ops.common import resolve_device
@@ -333,6 +349,8 @@ def recovery_drill_run(
     from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
 
     log = _logger(log)
+    if tracer is None:
+        tracer = Tracer()
     n_joints, n_shape = params.n_joints, params.n_shape
     rng = np.random.default_rng(seed)
     subj_betas = [rng.normal(size=(n_shape,)).astype(np.float32)
@@ -371,7 +389,7 @@ def recovery_drill_run(
     params32 = params.astype(torch.float32)
     eng = ServingEngine(params32, device=device, max_bucket=max_bucket,
                         max_delay_s=0.001, policy=policy,
-                        posed_kernel=posed_kernel)
+                        posed_kernel=posed_kernel, tracer=tracer)
     resolve_timeout = deadline_s * (policy.retries + 2) + 30.0
 
     # The bit-identity reference: a direct CPU core.forward_batched call
@@ -530,6 +548,8 @@ def recovery_drill_run(
         "breaker_opens": breaker.opens,
         "breaker_probes": breaker.probes,
         "breaker_state_final": breaker.state,
+        "flight_record": flight_record(
+            tracer, eng.counters, reason="recovery_drill_complete"),
     }
 
 
@@ -545,13 +565,18 @@ def cold_start_drill_run(
     p99_waves: int = 6,
     hang_deadline_s: float = 2.0,
     seed: int = 0,
+    tracer=None,
     device=None,
     log: Callable[[str], None] = None,
 ) -> dict:
     """The cold-start / restart drill: restart is a fault class with
     measured criteria. JAX's protocol (``serving/measure.py:
-    cold_start_drill_run``), its arguments and returned keys less the
-    tracer's flight record, on ``device`` (default ``cuda``).
+    cold_start_drill_run``), its arguments and returned keys, on
+    ``device`` (default ``cuda``). One tracer (``tracer``, else a fresh
+    one) spans every engine of the drill, so the ``flight_record`` proves
+    every submit across every restart closed exactly once, and the
+    lattice loads, failed loads, live builds (``compile``) and deadline
+    kills land on one timeline.
 
     * **Phase A (the doomed process)**: a warm engine — ``subjects``
       baked, every bucket warmed — bakes its lattice, checkpoints its
@@ -596,6 +621,8 @@ def cold_start_drill_run(
     if requests < 1:
         raise ValueError(f"requests must be >= 1, got {requests}")
     log = _logger(log)
+    if tracer is None:
+        tracer = Tracer()
     dev = resolve_device(device)
     cpu_tier = dev.type == "cpu"
     max_rows = min(max_rows, max_bucket)
@@ -647,7 +674,7 @@ def cold_start_drill_run(
         return ok, err, un, time.perf_counter() - t0
 
     engine_kw = dict(device=dev, max_bucket=max_bucket, max_delay_s=0.001,
-                     max_subjects=max_subjects)
+                     max_subjects=max_subjects, tracer=tracer)
 
     # ---- Phase A: the doomed process -----------------------------------
     eng_a = ServingEngine(params32, aot_dir=aot_dir, **engine_kw)
@@ -858,4 +885,373 @@ def cold_start_drill_run(
         "hang_leg": hang_leg,
         "phase_a": {"submitted": requests, "resolved_ok": ok_a,
                     "resolved_error": err_a, "unresolved": un_a},
+        "flight_record": flight_record(
+            tracer, eng_b.counters, reason="coldstart_drill_complete"),
     }
+
+
+def _ragged_stream(params, requests, min_rows, max_rows, rng):
+    sizes = rng.integers(min_rows, max_rows + 1, size=requests)
+    stream = [
+        (rng.normal(scale=0.4, size=(n, params.n_joints, 3)).astype(
+            np.float32),
+         rng.normal(size=(n, params.n_shape)).astype(np.float32))
+        for n in (int(s) for s in sizes)
+    ]
+    return sizes, stream
+
+
+def tracing_overhead_run(
+    params,
+    *,
+    requests: int = 160,
+    min_rows: int = 1,
+    max_rows: int = 16,
+    max_bucket: int = 32,
+    max_delay_s: float = 0.002,
+    seed: int = 0,
+    trials: int = 9,
+    trace_dir=None,
+    device=None,
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The tracing-overhead protocol (JAX's ``tracing_overhead_run``).
+
+    Two engines on ``device`` serve the SAME ragged request stream — one
+    with a live ``obs.Tracer`` spanning every request, one untraced —
+    interleaved per trial with alternating order. The headline
+    ``tracing_overhead_ratio`` is the MEDIAN of the per-trial paired
+    ratios (each trial's quotient cancels the load drift common to its
+    pair; the median rejects spike trials); the min-time rates ride
+    along as the throughput record.
+
+    Criteria: ``tracing_overhead_ratio`` <= 1.03 (judged at >= 64
+    requests; a smaller run's ratio is noise and is recorded only);
+    ``steady_recompiles`` == 0 on the traced engine; ``span_accounting``
+    with every span closed exactly once. ``trace_dir`` also exports the
+    traced engine's Chrome-trace timeline and final flight record there
+    (``obs.write_trace_dir``).
+    """
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+
+    if requests < 1:
+        raise ValueError(f"requests must be >= 1, got {requests}")
+    log = _logger(log)
+    max_rows = min(max_rows, max_bucket)
+    min_rows = max(1, min(min_rows, max_rows))
+    rng = np.random.default_rng(seed)
+    sizes, stream = _ragged_stream(params, requests, min_rows, max_rows, rng)
+    rows_total = int(sizes.sum())
+
+    tracer = Tracer()
+    eng_off = ServingEngine(params, device=device, max_bucket=max_bucket,
+                            max_delay_s=max_delay_s)
+    eng_on = ServingEngine(params, device=device, max_bucket=max_bucket,
+                           max_delay_s=max_delay_s, tracer=tracer)
+
+    def run(eng):
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, s) for p, s in stream]
+        for f in futs:
+            f.result()
+        return time.perf_counter() - t0
+
+    ratios: List[float] = []
+    dt_on_best = dt_off_best = float("inf")
+    with eng_off, eng_on:
+        eng_off.warmup()
+        eng_on.warmup()
+        run(eng_off)                 # settle both engines
+        run(eng_on)
+        compiles_warm = eng_on.counters.compiles
+        for t in range(max(1, trials)):
+            # Alternate which engine goes first: a monotone load drift
+            # would otherwise land on the same side every trial.
+            if t % 2 == 0:
+                dt_on, dt_off = run(eng_on), run(eng_off)
+            else:
+                dt_off, dt_on = run(eng_off), run(eng_on)
+            ratios.append(dt_on / dt_off)
+            dt_on_best = min(dt_on_best, dt_on)
+            dt_off_best = min(dt_off_best, dt_off)
+        steady_recompiles = eng_on.counters.compiles - compiles_warm
+    # Both engines are STOPPED here: anything still open is a leak.
+    accounting = tracer.accounting()
+    stages = tracer.stage_breakdown()
+    ratio = float(np.median(ratios))
+    log(f"tracing: traced {rows_total / dt_on_best:,.0f} vs untraced "
+        f"{rows_total / dt_off_best:,.0f} evals/s (median paired ratio "
+        f"{ratio:.3f}), {steady_recompiles} steady recompiles, spans "
+        f"{accounting['spans_closed']}/{accounting['spans_started']} "
+        f"closed")
+    out = {
+        "requests": int(requests),
+        "trials": int(max(1, trials)),
+        "rows": [int(sizes.min()), int(sizes.max())],
+        "buckets": list(eng_on.buckets),
+        "traced_evals_per_sec": float(f"{rows_total / dt_on_best:.5g}"),
+        "untraced_evals_per_sec": float(
+            f"{rows_total / dt_off_best:.5g}"),
+        "tracing_overhead_ratio": float(f"{ratio:.4g}"),
+        "ratio_best_window": float(f"{dt_on_best / dt_off_best:.4g}"),
+        "ratio_trials": [float(f"{r:.3g}") for r in ratios],
+        "steady_recompiles": int(steady_recompiles),
+        "span_accounting": accounting,
+        "stage_breakdown": stages,
+        "flight_record": flight_record(
+            tracer, eng_on.counters, reason="tracing_overhead_complete"),
+    }
+    if trace_dir is not None:
+        from mano_hand_tpu_torch.obs import write_trace_dir
+
+        out["trace_export"] = write_trace_dir(
+            tracer, trace_dir, counters=eng_on.counters,
+            reason="tracing_overhead_complete")
+    return out
+
+
+def metrics_overhead_run(
+    params,
+    *,
+    requests: int = 160,
+    min_rows: int = 1,
+    max_rows: int = 16,
+    max_bucket: int = 32,
+    max_delay_s: float = 0.002,
+    seed: int = 0,
+    trials: int = 13,
+    reps: int = 3,
+    metrics_dir=None,
+    device=None,
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The metrics + sentinel protocol (JAX's ``metrics_overhead_run``).
+
+    (1) **What does the health surface cost?** An OBSERVED engine
+    (tracer + metrics registry + numerics sentinel) serves the same
+    ragged stream as a bare engine, interleaved per trial with
+    alternating order; the headline is the MEDIAN paired ratio. Each
+    timed pass is ``reps`` stream repetitions ending in ONE registry
+    scrape (snapshot + Prometheus render) and ONE sentinel probe, all
+    inside the window. (2) **Does the sentinel catch silent
+    corruption?** The chaos ``wrong``-output fault is composed into a
+    live supervised engine: traffic keeps resolving with corrupt floats,
+    and the sentinel's next probe MUST flag the primary family drifted
+    (a CPU engine's un-wrapped CPU tier probing clean), then recover once
+    the fault clears.
+
+    Criteria: ``metrics_overhead_ratio`` <= 1.03 at >= 64 requests;
+    ``steady_recompiles`` == 0 on the observed engine; ``sentinel_drill``
+    detected, recovered, every future resolved, probe spans closed
+    exactly once; ``slo`` burn rates from the same counters snapshot the
+    export serves. On a card the drill's engine has no CPU tier
+    (``cpu_family_clean`` reads None). ``metrics_dir`` persists the final
+    registry snapshot as ``metrics.json`` + ``metrics.prom`` (+
+    ``slo.json``).
+    """
+    import concurrent.futures as cf
+
+    from mano_hand_tpu_torch.obs.metrics import (
+        engine_registry, prometheus_text, slo_report,
+    )
+    from mano_hand_tpu_torch.obs.recorder import FlightRecorder
+    from mano_hand_tpu_torch.obs.sentinel import NumericsSentinel
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+
+    if requests < 1:
+        raise ValueError(f"requests must be >= 1, got {requests}")
+    log = _logger(log)
+    cpu_tier = resolve_device(device).type == "cpu"
+    max_rows = min(max_rows, max_bucket)
+    min_rows = max(1, min(min_rows, max_rows))
+    n_joints, n_shape = params.n_joints, params.n_shape
+    rng = np.random.default_rng(seed)
+    sizes, stream = _ragged_stream(params, requests, min_rows, max_rows, rng)
+    rows_total = int(sizes.sum())
+
+    tracer = Tracer()
+    eng_bare = ServingEngine(params, device=device, max_bucket=max_bucket,
+                             max_delay_s=max_delay_s)
+    eng_obs = ServingEngine(params, device=device, max_bucket=max_bucket,
+                            max_delay_s=max_delay_s, tracer=tracer)
+    sentinel = NumericsSentinel(eng_obs, tracer=tracer, interval_s=3600.0)
+    reg = engine_registry(eng_obs, tracer=tracer, sentinel=sentinel)
+    reps = max(1, int(reps))
+
+    def run_bare():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            futs = [eng_bare.submit(p, s) for p, s in stream]
+            for f in futs:
+                f.result()
+        return time.perf_counter() - t0
+
+    def run_obs():
+        # The full health surface: the traced engine serves the stream,
+        # then ONE scrape and ONE probe land inside the window, at the
+        # pass boundary (never inside the submit loop).
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            futs = [eng_obs.submit(p, s) for p, s in stream]
+            for f in futs:
+                f.result()
+        prometheus_text(reg.snapshot())
+        sentinel.probe()
+        return time.perf_counter() - t0
+
+    ratios: List[float] = []
+    dt_obs_best = dt_bare_best = float("inf")
+    with eng_bare, eng_obs:
+        eng_bare.warmup()
+        eng_obs.warmup()
+        golden = sentinel.arm()     # goldens check
+        sentinel.probe()            # the references' first use
+        run_bare()                  # settle both engines
+        run_obs()
+        compiles_warm = eng_obs.counters.compiles
+        for t in range(max(1, trials)):
+            if t % 2 == 0:
+                dt_obs, dt_bare = run_obs(), run_bare()
+            else:
+                dt_bare, dt_obs = run_bare(), run_obs()
+            ratios.append(dt_obs / dt_bare)
+            dt_obs_best = min(dt_obs_best, dt_obs)
+            dt_bare_best = min(dt_bare_best, dt_bare)
+        steady_recompiles = eng_obs.counters.compiles - compiles_warm
+        # The background loop fires on its own (bounded wait).
+        before = sentinel.status()["probes"]
+        sentinel.interval_s = 0.02
+        sentinel.start()
+        deadline = time.monotonic() + 10.0
+        while (sentinel.status()["probes"] <= before
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        sentinel.stop()
+        background_probes = sentinel.status()["probes"] - before
+        slo = slo_report(eng_obs.counters.snapshot())
+        final_snapshot = reg.snapshot()
+    accounting = tracer.accounting()
+    ratio = float(np.median(ratios))
+    rows_total *= reps              # rows served per timed pass
+    log(f"metrics: observed {rows_total / dt_obs_best:,.0f} vs bare "
+        f"{rows_total / dt_bare_best:,.0f} evals/s (median paired "
+        f"ratio {ratio:.3f}), {steady_recompiles} steady recompiles, "
+        f"{sentinel.status()['probes']} probes "
+        f"({background_probes} background), golden "
+        f"{golden['golden_status']}")
+
+    # ---- the sentinel drill: injected silent corruption MUST be seen.
+    plan = ChaosPlan()
+    pol = DispatchPolicy(deadline_s=20.0, retries=0, chaos=plan,
+                         cpu_fallback=cpu_tier)
+    tr3 = Tracer()
+    eng3 = ServingEngine(params, device=device, min_bucket=8, max_bucket=8,
+                         max_delay_s=max_delay_s, policy=pol, tracer=tr3)
+    rec3 = FlightRecorder(tr3, eng3.counters)
+    s3 = NumericsSentinel(eng3, tracer=tr3, interval_s=3600.0)
+    wave = [
+        (rng.normal(scale=0.4, size=(int(n), n_joints, 3)).astype(
+            np.float32),
+         rng.normal(size=(int(n), n_shape)).astype(np.float32))
+        for n in rng.integers(1, 5, size=12)
+    ]
+
+    def submit_wave():
+        # "Resolved" = a RESULT or a structured error, never a hang (the
+        # wrong-output fault resolves every future with a result; that it
+        # is the WRONG one is what only the sentinel can see).
+        futs = [eng3.submit(p, s) for p, s in wave]
+        resolved = 0
+        for f in futs:
+            try:
+                f.result(timeout=60.0)
+                resolved += 1
+            except cf.TimeoutError:
+                pass
+            except Exception:  # noqa: BLE001 — structured error resolves
+                resolved += 1
+        return resolved, len(futs)
+
+    with eng3:
+        eng3.warmup()               # primary (+ a CPU engine's CPU tier)
+        s3.arm()
+        ok0, n0 = submit_wave()     # clean traffic
+        clean = s3.probe()
+        drill_compiles_warm = eng3.counters.compiles
+        # Every wrapped (primary) call from here returns verts + 1.0 — no
+        # exception, so supervision never fires and every future still
+        # resolves "ok". Only the sentinel can see this.
+        plan.schedule("wrong:1.0@0-")
+        ok1, n1 = submit_wave()
+        detected = s3.probe()
+        plan.clear()                # the fault clears
+        recovered = s3.probe()
+        drill_recompiles = eng3.counters.compiles - drill_compiles_warm
+    drill_acc = tr3.accounting()
+    fam = detected["families"]
+    drill = {
+        "submitted": n0 + n1,
+        "futures_resolved_fraction": (ok0 + ok1) / (n0 + n1),
+        "clean_probe_drift": bool(clean["drift"]),
+        "detected": bool(detected["drift"]),
+        "drifted_families": detected["drifted_families"],
+        "drift_max_abs_err": max(
+            (fam[f]["max_abs_err"] for f in
+             detected["drifted_families"]), default=None),
+        "cpu_family_clean": (("cpu" in fam and not fam["cpu"]["drift"])
+                             if cpu_tier else None),
+        "recovered": not recovered["drift"],
+        "incidents": drill_acc["incidents"],
+        "flight_capture_reasons": [c.get("reason")
+                                   for c in rec3.captures],
+        "faults_injected": int(eng3.counters.faults_injected),
+        "steady_recompiles": int(drill_recompiles),
+        "span_accounting": drill_acc,
+    }
+    log(f"sentinel drill: detected={drill['detected']} "
+        f"(families {drill['drifted_families']}, max err "
+        f"{drill['drift_max_abs_err']}), cpu clean "
+        f"{drill['cpu_family_clean']}, recovered "
+        f"{drill['recovered']}, {drill['futures_resolved_fraction']:.0%}"
+        f" of {drill['submitted']} futures resolved, "
+        f"{drill['incidents']} incident(s)")
+
+    out = {
+        "requests": int(requests),
+        "trials": int(max(1, trials)),
+        "reps_per_pass": int(reps),
+        "scrapes_per_pass": 1,
+        "probes_per_pass": 1,
+        "rows": [int(sizes.min()), int(sizes.max())],
+        "buckets": list(eng_obs.buckets),
+        "observed_evals_per_sec": float(
+            f"{rows_total / dt_obs_best:.5g}"),
+        "bare_evals_per_sec": float(
+            f"{rows_total / dt_bare_best:.5g}"),
+        "metrics_overhead_ratio": float(f"{ratio:.4g}"),
+        "ratio_best_window": float(
+            f"{dt_obs_best / dt_bare_best:.4g}"),
+        "ratio_trials": [float(f"{r:.3g}") for r in ratios],
+        "steady_recompiles": int(steady_recompiles),
+        "span_accounting": accounting,
+        "registry_metrics": len(final_snapshot.get("metrics", {})),
+        "registry_errors": final_snapshot.get("errors"),
+        "sentinel": {k: v for k, v in sentinel.status().items()
+                     if k != "last"},
+        "sentinel_background_probes": int(background_probes),
+        "golden": golden,
+        "slo": slo,
+        "sentinel_drill": drill,
+        "flight_record": flight_record(
+            tracer, eng_obs.counters,
+            reason="metrics_overhead_complete"),
+    }
+    if metrics_dir is not None:
+        from mano_hand_tpu_torch.obs.metrics import export_metrics_dir
+
+        out["metrics_export"] = export_metrics_dir(
+            final_snapshot, metrics_dir, slo=slo)
+    return out

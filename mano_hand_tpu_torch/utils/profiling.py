@@ -1,4 +1,5 @@
-"""Serving counters: what the engine did, as numbers.
+"""Serving counters (what the engine did, as numbers) and ``torch_trace``
+(a ``torch.profiler`` capture with the engine's span timeline beside it).
 
 A thread-safe subset of the JAX package's ``ServingCounters``: batch
 dispatches and the rows in them, the coalescing of requests (and of
@@ -23,8 +24,58 @@ subject-table row revived from a checkpoint without a shape-stage bake.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import threading
+import warnings
+from pathlib import Path
 from typing import Dict
+
+#: File name of ``torch_trace``'s capture (``*.trace.json``: what
+#: ``obs/trace_report.py`` globs).
+TORCH_TRACE = "torch.trace.json"
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir, tracer=None):
+    """Capture a ``torch.profiler`` trace of the body: CPU activity, and
+    CUDA activity where a card is present. Its Chrome trace lands in
+    ``<log_dir>/torch.trace.json``; yields the profiler (``key_averages``
+    and friends).
+
+    ``tracer`` (an ``obs.Tracer``) additionally drops the engine's
+    host-span timeline as ``<log_dir>/engine.trace.json`` when the capture
+    closes, so ``python -m mano_hand_tpu_torch trace-report <log_dir>``
+    reads the host and device halves of the SAME window as one report —
+    the counterpart of the JAX package's ``utils/profiling.py:xla_trace``.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out / TORCH_TRACE))
+        if tracer is not None:
+            # Best-effort inside a finally: a raise here would mask an
+            # exception of the body, and a failed co-export must not cost
+            # the capture that already landed.
+            try:
+                (out / "engine.trace.json").write_text(
+                    json.dumps(tracer.chrome_trace()))
+            except Exception as e:  # noqa: BLE001 — degrade, not crash
+                warnings.warn(
+                    f"engine-trace co-export into {log_dir} failed "
+                    f"({type(e).__name__}: {e}); the profiler capture is "
+                    "unaffected")
 
 
 class ServingCounters:

@@ -347,4 +347,5 @@ def test_module_entry_point_runs_and_refuses_a_missing_card(tmp_path):
         assert bad.returncode == 1 and "CUDA is not available" in bad.stderr
     subs = cli.build_parser()._subparsers._group_actions[0].choices
     assert sorted(subs) == ["animate", "convert", "demo", "export-aot",
-                            "fit", "info", "render", "verify"]
+                            "fit", "info", "render", "trace-report",
+                            "verify"]

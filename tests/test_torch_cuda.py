@@ -1361,3 +1361,228 @@ def test_capture_failure_raises_and_is_a_servingerror_supervised(dev):
         del sup._live_full                     # the engine's own again
         assert sup.forward(pose).shape == (2, 778, 3)
     torch.cuda.synchronize()
+
+
+def _traced_engine(dev, tracer, policy=None, **kw):
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    kw.setdefault("max_bucket", 8)
+    eng = ServingEngine(params, posed_kernel="fused", tracer=tracer,
+                        precision_policy=PrecisionPolicy(), policy=policy,
+                        **kw)
+    betas = np.random.default_rng(5).normal(size=(3, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas]
+    eng.warmup()
+    eng.warmup_posed()
+    return params, eng, keys
+
+
+def test_traced_fused_engine_spans_and_events(dev):
+    """A traced supervised engine on the card: one ``compile`` event a
+    capture, every span closed once with JAX's event sequence (the graph
+    replay's enqueue stamping ``dispatched``), K2 launches equal to the
+    gathered dispatches, and a retried error on the timeline."""
+    from mano_hand_tpu_torch.obs import Tracer
+    from mano_hand_tpu_torch.runtime import ChaosPlan, DispatchPolicy
+
+    tr = Tracer()
+    plan = ChaosPlan()
+    pol = DispatchPolicy(deadline_s=10.0, retries=1, backoff_s=0.0,
+                         jitter=0.0, chaos=plan, cpu_fallback=False)
+    _, eng, keys = _traced_engine(dev, tr, pol)
+    names = [e[2] for e in tr.snapshot()["events"] if e[1] == 0]
+    assert names.count("compile") == eng.counters.compiles == 12
+    fused_posed.launches = fused_posed.bf16_launches = 0
+    with eng:
+        futs = [eng.submit(_engine_inputs(n, 40 + i)[0], subject=keys[i % 3],
+                           priority=i % 2)
+                for i, n in enumerate((1, 3, 8, 2))]
+        futs.append(eng.submit(*_engine_inputs(5, 50)))
+        for f in futs:
+            f.result(timeout=120)
+        plan.schedule("error@0")
+        eng.forward(*_engine_inputs(2, 51))
+    snap = eng.counters.snapshot()
+    bf16 = snap["dispatches_bf16"]
+    assert fused_posed.bf16_launches == bf16 >= 1
+    assert fused_posed.launches == snap["dispatches"] - bf16 - 2 >= 1
+    acc = tr.accounting()
+    assert acc["spans_started"] == acc["spans_closed"] == 6
+    assert acc["spans_open"] == acc["spans_double_closed"] == 0
+    assert acc["closed_by_kind"] == {"ok": 6}
+    for span in tr.spans():
+        assert [e[1] for e in span["events"]][-4:] == [
+            "launch", "dispatched", "readback", "resolve"]
+    names = [e[2] for e in tr.snapshot()["events"] if e[1] == 0]
+    assert names.count("chaos_fault") == names.count("retry") == 1
+    assert names.count("compile") == 12        # none in steady traffic
+    stages = tr.stage_breakdown()
+    assert stages["complete_spans"] == 6
+    for cell in stages["by_bucket_tier"].values():
+        assert cell["device_p50_ms"] > 0
+
+
+def test_sentinel_over_graph_programs(dev):
+    """The sentinel probes the captured programs: full and K2 equal their
+    eager references (0.0), K2-bf16 inside the envelope and nonzero; the
+    probe captures nothing and launches K2 and K2-bf16 once each for the
+    replay and once for the reference; a ``wrong`` fault drifts exactly
+    the three wrapped families and clears."""
+    from mano_hand_tpu_torch.obs import FlightRecorder, NumericsSentinel, Tracer
+    from mano_hand_tpu_torch.runtime import ChaosPlan, DispatchPolicy
+
+    tr = Tracer()
+    rec = FlightRecorder(tr)
+    plan = ChaosPlan()
+    pol = DispatchPolicy(deadline_s=10.0, retries=0, chaos=plan,
+                         cpu_fallback=False)
+    _, eng, _ = _traced_engine(dev, tr, pol)
+    s = NumericsSentinel(eng, tracer=tr)
+    compiles = eng.counters.compiles
+    fused_posed.launches = fused_posed.bf16_launches = 0
+    res = s.probe()
+    assert (fused_posed.launches, fused_posed.bf16_launches) == (2, 2)
+    fam = res["families"]
+    assert set(fam) == {"full", "gather", "gather_bf16"}
+    assert not res["drift"]
+    assert fam["full"]["max_abs_err"] == fam["gather"]["max_abs_err"] == 0.0
+    assert 1e-6 < fam["gather_bf16"]["max_abs_err"] <= DEFAULT_ENVELOPE_M
+    plan.schedule("wrong:1.0@0-")
+    det = s.probe()
+    plan.clear()
+    assert det["drifted_families"] == ["full", "gather", "gather_bf16"]
+    assert not s.probe()["drift"]
+    assert eng.counters.compiles == compiles
+    assert [c["reason"] for c in rec.captures] == ["numerics_drift"]
+    acc = tr.accounting()
+    assert acc["closed_by_kind"] == {"probe": 2, "drift": 1}
+
+
+def test_background_probe_races_threaded_traffic(dev):
+    """A background sentinel at a short interval probes while four threads
+    dispatch on an engine of one bucket: no probe error, and afterwards
+    every served result equals a direct eager call at that bucket (0.0):
+    no probe touched a program's static buffers outside its lock. Each
+    request fills the bucket, so each batch holds the rows of the direct
+    call (a row of the plain full forward can round one ulp differently
+    beside other rows; K2's rows do not)."""
+    import threading
+
+    from mano_hand_tpu_torch.obs import NumericsSentinel, Tracer
+    from mano_hand_tpu_torch.serving import buckets
+
+    tr = Tracer()
+    params, eng, keys = _traced_engine(dev, tr, min_bucket=16,
+                                       max_bucket=16)
+    s = NumericsSentinel(eng, tracer=tr, interval_s=0.01)
+    served, errors = [], []
+
+    def client(t):
+        try:
+            for i in range(12):
+                pose, shape = _engine_inputs(16, 100 * t + i)
+                kind = (t + i) % 3
+                out = (eng.forward(pose, shape) if kind == 2 else
+                       eng.forward(pose, subject=keys[i % 3], priority=kind))
+                served.append((pose, shape, i % 3, kind, out))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    with eng, s:
+        ths = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+        deadline = time.monotonic() + 10
+        while s.status()["probes"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+    assert not errors and not any(th.is_alive() for th in ths)
+    st = s.status()
+    assert st["probes"] >= 2 and st["probe_errors"] == st["drifts"] == 0
+    table = eng.table
+    with torch.no_grad():
+        for pose, shape, k, kind, out in served:
+            p16 = torch.from_numpy(buckets.pad_rows(pose, 16)).to(dev)
+            if kind == 2:
+                want = core.forward_batched(params, p16, torch.from_numpy(
+                    buckets.pad_rows(shape, 16)).to(dev)).verts
+            else:
+                idx = torch.full((16,), eng._subject_slots[keys[k]],
+                                 dtype=torch.int32, device=dev)
+                want = core.forward_posed_gather_fused(
+                    table, idx, p16,
+                    compute_dtype=torch.bfloat16 if kind == 0 else None)
+            np.testing.assert_array_equal(out, want[:len(pose)].cpu().numpy())
+    acc = tr.accounting()
+    assert acc["spans_started"] == acc["spans_closed"]
+
+
+def test_probe_thread_pins_the_engines_card(dev, monkeypatch):
+    """A probe runs on the engine's card whatever the calling thread's
+    current device: with two cards the engine sits on the second while
+    the caller stays on the first; with one, the probe is seen entering
+    its engine's card."""
+    from mano_hand_tpu_torch.obs import NumericsSentinel
+    from mano_hand_tpu_torch.obs import sentinel as sentinel_mod
+
+    n = torch.cuda.device_count()
+    card = torch.device("cuda", n - 1)
+    torch.cuda.set_device(0)
+    _, eng, _ = _traced_engine(card, None)
+    seen = []
+    entered = sentinel_mod._on_card
+
+    def spy(device):
+        seen.append(device)
+        return entered(device)
+
+    monkeypatch.setattr(sentinel_mod, "_on_card", spy)
+    s = NumericsSentinel(eng, interval_s=0.01)
+    probe_family = s._probe_families
+
+    def record(t):
+        seen.append(("current", torch.cuda.current_device()))
+        return probe_family(t)
+
+    s._probe_families = record
+    with s:
+        deadline = time.monotonic() + 10
+        while s.status()["probes"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+    assert torch.cuda.current_device() == 0
+    assert s.status()["probe_errors"] == 0 and s.status()["probes"] >= 1
+    assert seen[0] == card and seen[1] == ("current", card.index)
+
+
+def test_k2_rows_ignore_their_batchmates(dev):
+    """K2's and K2-bf16's rows give the same bits wherever a request sits
+    in its batch and whatever rows sit beside it (0.0), so a coalesced
+    gathered batch serves each request as a lone direct call of the
+    same bucket would."""
+    from mano_hand_tpu_torch.serving import buckets
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(7)
+    with torch.no_grad():
+        table = core.stack_shaped([core.specialize(params, torch.from_numpy(
+            rng.normal(size=10).astype(np.float32)).to(dev))
+            for _ in range(3)])
+    for dt in (None, torch.bfloat16):
+        for n in (1, 3, 5):
+            pose, _ = _engine_inputs(n, 10 + n)
+            slot = n % 3
+            with torch.no_grad():
+                alone = core.forward_posed_gather_fused(
+                    table, torch.full((16,), slot, dtype=torch.int32,
+                                      device=dev),
+                    torch.from_numpy(buckets.pad_rows(pose, 16)).to(dev),
+                    compute_dtype=dt)[:n]
+                for off in range(16 - n + 1):
+                    batch, _ = _engine_inputs(16, 100 + off)
+                    batch[off:off + n] = pose
+                    idx = rng.integers(0, 3, size=16).astype(np.int32)
+                    idx[off:off + n] = slot
+                    got = core.forward_posed_gather_fused(
+                        table, torch.from_numpy(idx).to(dev),
+                        torch.from_numpy(batch).to(dev), compute_dtype=dt)
+                    assert torch.equal(got[off:off + n], alone), (dt, n, off)

@@ -1,7 +1,8 @@
 """The port's engine drills (``serving/measure.py``: recovery, overload
-and cold start) on the CPU, at small sizes: their done-criteria hold, and
-they return the JAX drills' keys (less the tracer's ``flight_record``,
-which the port's observability slice brings)."""
+and cold start, and the tracing-overhead protocol) on the CPU, at small
+sizes: their done-criteria hold, and they return all of the JAX drills'
+keys, the tracer's ``flight_record`` included, with every span closed
+exactly once."""
 
 import ast
 import pathlib
@@ -11,14 +12,25 @@ import pytest
 import torch
 
 from mano_hand_tpu_torch.assets import synthetic_params
+from mano_hand_tpu_torch.obs import Tracer
 from mano_hand_tpu_torch.runtime import health
 from mano_hand_tpu_torch.serving import (
     cold_start_drill_run, overload_drill_run, recovery_drill_run,
+    tracing_overhead_run,
 )
 
 JAX_MEASURE = (pathlib.Path(__file__).resolve().parent.parent
                / "mano_hand_tpu" / "serving" / "measure.py")
-TRACER_KEYS = {"flight_record"}
+
+
+def _balanced(flight: dict, reason: str) -> dict:
+    """A drill's flight record: its reason, and every span it opened
+    closed exactly once."""
+    assert flight["schema"] == 1 and flight["reason"] == reason
+    acc = flight["accounting"]
+    assert acc["spans_started"] == acc["spans_closed"] > 0, acc
+    assert acc["spans_open"] == 0 and acc["spans_double_closed"] == 0, acc
+    return acc
 
 
 def _dict_keys(node):
@@ -37,7 +49,8 @@ def _jax_keys(fn_name):
     assigned = {n.targets[0].id: _dict_keys(n.value) for n in ast.walk(fn)
                 if isinstance(n, ast.Assign) and isinstance(n.value, ast.Dict)
                 and isinstance(n.targets[0], ast.Name)}
-    return _dict_keys(returns[-1]), assigned
+    # A drill that builds ``out`` and returns it: the keys of ``out``.
+    return (_dict_keys(returns[-1]) if returns else assigned["out"]), assigned
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +66,9 @@ def test_recovery_drill_meets_its_criteria(params, posed_kernel):
                                  max_bucket=4, deadline_s=0.5, seed=2,
                                  device="cpu", posed_kernel=posed_kernel)
     keys, _ = _jax_keys("recovery_drill_run")
-    assert set(out) == keys - TRACER_KEYS
+    assert set(out) == keys
+    acc = _balanced(out["flight_record"], "recovery_drill_complete")
+    assert acc["incidents"] >= 1         # deadline kills, failovers
     assert set(out["classes"]) == {"transient", "latency", "hang",
                                    "persistent"}
     for name, cls in out["classes"].items():
@@ -78,7 +93,12 @@ def test_recovery_drill_meets_its_criteria(params, posed_kernel):
 def test_overload_drill_meets_its_criteria(params):
     out = overload_drill_run(params, bursts=10, seed=5, device="cpu")
     keys, assigned = _jax_keys("overload_drill_run")
-    assert set(out) == keys - TRACER_KEYS
+    assert set(out) == keys
+    acc = _balanced(out["flight_record"], "overload_drill_complete")
+    # The probe's sheds and the drill's submits, all span-accounted.
+    assert acc["spans_started"] >= out["submitted"] + \
+        out["shed_probe"]["sheds"]
+    assert acc["closed_by_kind"]["shed"] >= out["shed_probe"]["sheds"]
     assert set(out["shed_probe"]) == assigned["shed_probe"]
     assert out["resolved_within_budget_fraction"] == 1.0
     assert out["outcomes"]["unresolved"] == 0
@@ -91,8 +111,10 @@ def test_overload_drill_meets_its_criteria(params):
     assert out["saturation_achieved"] > 1.0
     assert out["outcomes"]["shed"] > 0
     assert out["tier0_goodput"] >= 0.95
+    # load() with the drill's tracer: its latency quantiles and backlog age
     assert set(out["load_mid_drill"]) == {
-        "outstanding", "queued", "max_queued", "admission", "backlog_peak"}
+        "outstanding", "queued", "max_queued", "admission", "backlog_peak",
+        "latency_by_tier", "backlog_age_s"}
 
 
 def test_overload_drill_small_max_queued_calibrates(params):
@@ -130,11 +152,21 @@ def test_cold_start_drill_meets_its_criteria(params):
     """The drill's criteria at a tiny size. max_bucket=3 is NOT a power of
     two: the ladder rounds up, and the damage legs key off the real
     ladder."""
+    tracer = Tracer()
     out = cold_start_drill_run(params, subjects=3, requests=8,
                                max_bucket=3, max_subjects=8, p99_waves=2,
-                               hang_deadline_s=1.0, seed=21, device="cpu")
+                               hang_deadline_s=1.0, seed=21, device="cpu",
+                               tracer=tracer)
     keys, assigned = _jax_keys("cold_start_drill_run")
-    assert set(out) == keys - TRACER_KEYS
+    assert set(out) == keys
+    _balanced(out["flight_record"], "coldstart_drill_complete")
+    # Every restart phase on one timeline: the live builds, the lattice
+    # loads of the cold boots and the truncated entry's failed load.
+    names = [e[2] for e in tracer.snapshot()["events"] if e[1] == 0]
+    for name in ("compile", "lattice_load", "lattice_load_failed",
+                 "incident:deadline_kill"):
+        assert name in names, name
+    assert names.count("lattice_load_failed") == 1
     assert set(out["hang_leg"]) == assigned["hang_leg"]
     assert out["buckets"] == [1, 2, 4]
     assert out["compiles_after_restore"] == 0
@@ -157,3 +189,22 @@ def test_cold_start_drill_meets_its_criteria(params):
     assert hang["compiles_after_restore"] == 0
     assert hang["aot_loads"] == hang["expected_programs"] == 9
     assert out["t_first_result_s"] > 0
+
+
+def test_tracing_overhead_run_accounts_every_span(params, tmp_path):
+    """The tracing-overhead protocol small: JAX's keys, every request's
+    span closed once ((trials + 1) passes of the stream), no build in the
+    steady passes, the stage table and the exported timeline."""
+    out = tracing_overhead_run(params, requests=12, max_rows=4,
+                               max_bucket=8, trials=3, device="cpu",
+                               trace_dir=tmp_path / "tr")
+    keys, _ = _jax_keys("tracing_overhead_run")
+    assert set(out) == keys | {"trace_export"}
+    acc = out["span_accounting"]
+    assert acc["spans_started"] == acc["spans_closed"] == 12 * (3 + 1)
+    assert acc["spans_open"] == 0
+    assert out["steady_recompiles"] == 0
+    assert out["tracing_overhead_ratio"] > 0
+    assert out["stage_breakdown"]["complete_spans"] > 0
+    _balanced(out["flight_record"], "tracing_overhead_complete")
+    assert (tmp_path / "tr" / "engine.trace.json").exists()
