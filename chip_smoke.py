@@ -234,6 +234,22 @@ OB_TRACE_BUCKETS = (1, 256)
 OB_TRACE_DISPATCHES = 60             # per family and bucket, profiled
 OB_EAGER_CALLS = 20                  # direct calls per family, profiled
 OB_OVERHEAD_BOUND = 1.03             # JAX's bound on both paired ratios
+# The pipelined dispatch, streams and the subject store (phase
+# pipeline_streams): K2 and K2-bf16 from captured programs.
+PS_BUCKET = 256
+PS_SUBJECTS = 8
+PS_DRILL = dict(requests_steady=240, requests_chaos=48,
+                calibrate_requests=128, trials=3, max_rows=2)
+PS_THREADS, PS_DEPTH_REQUESTS = 4, 24   # across depths: 96 requests
+PS_FULL_TOL = 1e-5                      # the full family across buckets
+PS_TRACE_BUCKETS = (1, 256)
+PS_TRACE_DISPATCHES = 60                # back-to-back, per side and bucket
+PS_STREAMS = dict(streams=32, frames_per_stream=4, subjects=8, workers=8,
+                  warm_steps=4, cold_steps_candidates=(8, 16),
+                  calib_probes=4, fit_trials=2, min_bucket=1, max_bucket=64)
+PS_STREAM_BUCKET = 16                   # the sessions' one bucket
+PS_STORE = dict(subjects=512, requests=1536, zipf=1.2, max_subjects=32,
+                warm_capacity=64, bucket=32)
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -2733,6 +2749,684 @@ def observability(dev, counts, zero_counts, bucket=OB_BUCKET,
     return line
 
 
+def _ps_work(rng, threads: int, requests: int, n_shape: int, most: int):
+    """Per client thread: ``requests`` (pose, shape, subject, kind) of 1 to
+    ``most`` rows; kind 2 a full request, 0 and 1 pose-only tiers (bf16
+    and f32 under the default ``PrecisionPolicy``)."""
+    return [[(rng.normal(scale=0.5, size=(n, 16, 3)).astype(np.float32),
+              rng.normal(size=(n, n_shape)).astype(np.float32),
+              int(rng.integers(0, PS_SUBJECTS)), (t + i) % 3)
+             for i, n in enumerate(rng.integers(1, most + 1, size=requests))]
+            for t in range(threads)]
+
+
+def _ps_bucketed(eng, keys, work, one_by_one=False) -> list:
+    """``_ob_clients`` with each request's dispatch bucket: the engine's
+    ``_deliver`` sees every batch's bucket and requests. ``one_by_one``:
+    one client submitting each request after the last resolved (every
+    request its own batch). Returns (index, kind, result, bucket) in work
+    order."""
+    buckets = {}
+    deliver = eng._deliver
+
+    def recording(reqs, verts, bucket):
+        for r in reqs:
+            buckets[id(r.future)] = bucket
+        return deliver(reqs, verts, bucket)
+
+    eng._deliver = recording
+    futs = [None] * sum(len(w) for w in work)
+    errors = []
+
+    def client(t, mine):
+        try:
+            base = t * len(mine)
+            for i, (p, sh, k, kind) in enumerate(mine):
+                futs[base + i] = (eng.submit(p, sh) if kind == 2 else
+                                  eng.submit(p, subject=keys[k],
+                                             priority=kind))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    if one_by_one:
+        for i, (p, sh, k, kind) in enumerate(w for mine in work
+                                             for w in mine):
+            futs[i] = (eng.submit(p, sh) if kind == 2 else
+                       eng.submit(p, subject=keys[k], priority=kind))
+            futs[i].result(timeout=300)
+    else:
+        ths = [threading.Thread(target=client, args=(t, w))
+               for t, w in enumerate(work)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+            require(not th.is_alive(), "traffic client thread finished")
+    if errors:
+        raise errors[0]
+    got = [f.result(timeout=300) for f in futs]
+    del eng._deliver
+    kinds = [w[3] for mine in work for w in mine]
+    return [(i, kinds[i], g, buckets[id(f)])
+            for i, (g, f) in enumerate(zip(got, futs))]
+
+
+def _ps_memcpy(d: str) -> dict:
+    """The capture's device copies to the host: count and mean µs."""
+    from mano_hand_tpu_torch.obs import trace_report
+    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE
+
+    cap = trace_report.load_capture(os.path.join(d, TORCH_TRACE))
+    durs = [float(e.get("dur", 0.0)) for e in cap.get("traceEvents", [])
+            if e.get("ph") == "X" and trace_report.is_device_event(e)
+            and "DtoH" in str(e.get("name", ""))]
+    return {"count": len(durs),
+            "mean_us": statistics.fmean(durs) if durs else None,
+            "names": sorted({str(e.get("name")) for e in cap.get(
+                "traceEvents", []) if e.get("ph") == "X"
+                and trace_report.is_device_event(e)
+                and "DtoH" in str(e.get("name", ""))})}
+
+
+def _ps_stage_rounding(params, dev, rng, batches) -> dict:
+    """Which op of the plain full forward rounds a row differently beside
+    other rows: row 0 (the same pose and betas) computed in batches of
+    each size in ``batches`` (other rows random), each stage's value of
+    row 0 against its value in a batch of one. Stages: Rodrigues, the
+    vertex blend (one matmul, [B, S+P] x [S+P, 3V]), the joints' shape
+    blend (one matmul, [B, S] x [S, 3J]), FK's world translations, the
+    skinning transforms and the verts."""
+    from mano_hand_tpu_torch import ops as mops
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.ops.common import einsum, ieee_fp32
+
+    b_max = max(batches)
+    pose = rng.normal(scale=0.5, size=(b_max, 16, 3)).astype(np.float32)
+    shape = rng.normal(size=(b_max, params.n_shape)).astype(np.float32)
+
+    def stages(b):
+        p, s = (torch.from_numpy(x[:b].copy()).to(dev) for x in (pose, shape))
+        with torch.no_grad(), ieee_fp32():
+            rot = core._pose_rotmats(p, params.n_joints, params.dtype,
+                                     lead=(b,))
+            vb, jt, jsb = core.fused_blend_bases(params)
+            eye = torch.eye(3, dtype=rot.dtype, device=dev)
+            coeff = torch.cat([s, (rot[:, 1:] - eye).flatten(-3)], dim=-1)
+            blend = einsum("rk,...k->...r", vb, coeff)
+            jshape = einsum("jcs,...s->...jc", jsb, s)
+            joints = jt + jshape
+            world_rot, world_t = mops.forward_kinematics(params.parents, rot,
+                                                         joints)
+            skin_rot, skin_t = mops.skinning_transforms(world_rot, world_t,
+                                                        joints)
+            verts = core.forward_batched(params, p, s).verts
+        return {"rodrigues": rot[0], "vertex_blend_matmul": blend[0],
+                "joint_shape_matmul": jshape[0], "fk_world_t": world_t[0],
+                "skin_t": skin_t[0], "verts": verts[0]}
+
+    one = stages(1)
+    return {str(b): {k: max_err(v, one[k]) for k, v in stages(b).items()}
+            for b in batches if b > 1}
+
+
+def _ps_readback(dev, b: int, reps: int) -> dict:
+    """ms per readback of a [b, 778, 3] f32 output until the host holds
+    it, median of ``reps`` in turns: pageable (``.cpu().numpy()``, the
+    programs' readback before they read back into pinned memory), pinned
+    as the graph programs read back (a block of torch's pinned host
+    cache, an event, no host copy), and pinned with a private host copy
+    of the slab."""
+    out = torch.randn((b, 778, 3), device=dev)
+
+    def pageable():
+        return out.cpu().numpy()
+
+    def pinned(copy=False):
+        slab = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        slab.copy_(out, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        return slab.numpy().copy() if copy else slab.numpy()
+
+    fns = (("pageable_ms", pageable), ("pinned_ms", pinned),
+           ("pinned_host_copy_ms", lambda: pinned(True)))
+    times = {k: [] for k, _ in fns}
+    for _, f in fns:
+        f()
+    for i in range(reps):
+        for k, f in (fns if i % 2 == 0 else fns[::-1]):
+            t0 = time.perf_counter()
+            f()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def pipeline_streams(dev, counts, zero_counts, bucket=PS_BUCKET,
+                     drill_kw=None, threads=PS_THREADS,
+                     depth_requests=PS_DEPTH_REQUESTS,
+                     trace_buckets=PS_TRACE_BUCKETS,
+                     trace_dispatches=PS_TRACE_DISPATCHES, stream_kw=None,
+                     stream_bucket=PS_STREAM_BUCKET, store_kw=None) -> dict:
+    """The pipelined dispatch, streaming sessions and the tiered subject
+    store at full MANO width on K2 and K2-bf16 (``posed_kernel="fused"``,
+    captured programs):
+
+    * ``dispatch_pipeline_drill_run`` at ``max_bucket=bucket``, 8
+      subjects, no simulated device throttle: serial (depth 1, fixed
+      window) against pipelined (depth 2, adaptive) — drain and steady
+      rates, queue p50/p99, the stage's in-flight peak and presweeps,
+      every result against the reference (0.0) and across the sides;
+    * results across depths from ``threads`` client threads at depth 1
+      and depth 3 under a ``PrecisionPolicy``, each request's bucket
+      recorded: K2 and K2-bf16 0.0 everywhere, the full family 0.0 where
+      the buckets match and within 1e-5 where they do not; K2 and
+      K2-bf16 launches equal to their replays (one captured launch each);
+    * ``torch_trace`` captures of ``trace_dispatches`` back-to-back K2
+      dispatches at each of ``trace_buckets`` on each side: the port's
+      trace-report, the device-busy share, the readback's copies;
+    * ``stream_drill_run`` (a retried fault in its chaos round, no CPU
+      tier on the card); sessions on a one-bucket engine against the
+      per-subject posed program through K2 (0.0); one K2-bf16 session
+      under ``PrecisionPolicy()`` against the f32 program (inside the
+      envelope) and the plain bf16 version (1e-5);
+    * an unsharded ``SubjectStore`` under Zipf traffic over registered
+      subjects: hits and misses per tier, promotion p50/p99, every result
+      and every table row against fresh bakes (0.0), one damaged cold
+      page a counted re-bake.
+
+    Counts zeroed just before each part that reads them. Returns the
+    phase's JSON line."""
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.obs import Tracer
+    from mano_hand_tpu_torch.ops import fused_posed
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
+    from mano_hand_tpu_torch.serving import (
+        PrecisionPolicy, ServingEngine, dispatch_pipeline_drill_run,
+        stream_drill_run,
+    )
+    from mano_hand_tpu_torch.serving.subject_store import SubjectStore
+    from mano_hand_tpu_torch.utils.profiling import torch_trace
+
+    line = {"phase": "pipeline_streams", "max_bucket": bucket,
+            "subjects": PS_SUBJECTS}
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(SEED + 14)
+    s = params.n_shape
+    subj = rng.normal(size=(PS_SUBJECTS, s)).astype(np.float32)
+    bf16 = torch.bfloat16
+    envelope = PrecisionPolicy().max_vertex_err_m
+    tmp = tempfile.mkdtemp(prefix="mano_pipeline_streams_")
+
+    def k2_rows(betas, pose, b, compute_dtype=None):
+        """The per-subject posed program through K2: a one-row table of a
+        fresh bake, the pose padded to bucket ``b``."""
+        from mano_hand_tpu_torch.serving import buckets
+
+        with torch.no_grad(), ieee_fp32():
+            table = core.stack_shaped([core.specialize(
+                params, torch.from_numpy(betas).to(dev))])
+            out = core.forward_posed_gather_fused(
+                table, torch.zeros(b, dtype=torch.int32, device=dev),
+                torch.from_numpy(buckets.pad_rows(pose, b)).to(dev),
+                compute_dtype=compute_dtype)
+        return out[:len(pose)].cpu().numpy(), table
+
+    try:
+        # 1. The paired drill, serial against pipelined.
+        t0 = time.perf_counter()
+        zero_counts()
+        dr = dispatch_pipeline_drill_run(
+            params, device=dev, posed_kernel="fused", max_bucket=bucket,
+            subjects=PS_SUBJECTS, device_rtt_s=0.0, seed=SEED,
+            **(drill_kw or PS_DRILL))
+        c = counts()
+        sides = ("serial", "pipelined")
+        line["drill"] = {
+            "seconds": time.perf_counter() - t0,
+            **{k: dr[k] for k in (
+                "requests_steady", "calibrate_requests", "trials",
+                "serial_capacity_per_sec", "pipelined_capacity_per_sec",
+                "paced_rate_per_sec", "throughput_speedup",
+                "queue_p50_speedup", "cross_engine_bit_identical",
+                "futures_resolved_fraction",
+                "serial_telemetry_serial_shape",
+                "pipelined_overlap_observed")},
+            **{f"{n}_{k}": dr[f"{n}_{k}"] for n in sides for k in (
+                "throughput_per_sec", "paced_throughput_per_sec",
+                "queue_p50_ms", "queue_p99_ms", "pipeline_inflight_peak",
+                "pipeline_completions", "steady_recompiles", "outcomes",
+                "drain_vs_reference_max_abs_err",
+                "steady_vs_reference_max_abs_err",
+                "chaos_vs_reference_max_abs_err", "chaos_retries")},
+            "pipelined_presweeps": dr["flight_record"]["counters"][
+                "pipeline_presweeps"],
+            "launches": c}
+        # The chaos leg's faults land by call index: concurrent workers
+        # can put a retry on the next fault's index, exhausting a batch
+        # (an ``error`` outcome, a None error bar) — resolved, not lost.
+        chaos_errors = sum(dr[f"{n}_outcomes"]["error"] for n in sides)
+        for n in sides:
+            sp = dr[f"{n}_spans"]
+            require(sp["started"] == sp["closed"] and sp["open"] == 0,
+                    f"drill {n} spans balanced {sp}")
+            require(dr[f"{n}_steady_recompiles"] == 0
+                    and dr[f"{n}_outcomes"]["stranded"] == 0,
+                    f"drill {n}: every future resolved {line['drill']}")
+        require(dr["futures_resolved_fraction"] == 1.0
+                and dr["serial_telemetry_serial_shape"]
+                and dr["pipelined_overlap_observed"]
+                and dr["pipelined_pipeline_inflight_peak"] >= 2
+                and dr["serial_pipeline_completions"] == 0,
+                f"the drill's pipeline shape {line['drill']}")
+        if card:
+            # K2's rows ignore their batchmates: 0.0 across the sides and
+            # against the one-request reference.
+            require((dr["cross_engine_bit_identical"] or chaos_errors)
+                    and all(dr[f"{n}_{leg}_vs_reference_max_abs_err"] == 0.0
+                            for n in sides for leg in ("drain", "steady"))
+                    and all(dr[f"{n}_chaos_vs_reference_max_abs_err"]
+                            in ((0.0, None) if chaos_errors else (0.0,))
+                            for n in sides),
+                    f"K2 across depths and against the reference "
+                    f"{line['drill']}")
+            require(c["K2"] > 0 and c["K2_bf16"] == 0,
+                    f"the drill ran K2 {c}")
+
+        # 2. Results across depths, every family, each request's bucket:
+        #    depth 3 from ``threads`` clients at once (coalesced) against
+        #    depth 1 from the same clients (mostly the same batches) and
+        #    depth 1 one request at a time (each alone, its own bucket).
+        work = _ps_work(rng, threads, depth_requests, s, min(64, bucket))
+        runs, disp = {}, {}
+        for run, depth, adaptive in (("depth1", 1, False),
+                                     ("depth1_alone", 1, False),
+                                     ("depth3", 3, True)):
+            eng = ServingEngine(params, device=dev, max_bucket=bucket,
+                                max_subjects=PS_SUBJECTS,
+                                posed_kernel="fused",
+                                precision_policy=PrecisionPolicy(),
+                                inflight_depth=depth,
+                                adaptive_coalesce=adaptive)
+            keys = [eng.specialize(b) for b in subj]
+            eng.warmup()
+            eng.warmup_posed()
+            full_calls = [0]
+            run_full = eng._run_full
+
+            def counted_full(*a, **kw):
+                full_calls[0] += 1
+                return run_full(*a, **kw)
+
+            eng._run_full = counted_full
+            before = eng.counters.snapshot()
+            zero_counts()
+            with eng:
+                runs[run] = _ps_bucketed(eng, keys, work,
+                                         one_by_one=run == "depth1_alone")
+            c = counts()
+            del eng._run_full
+            after = eng.counters.snapshot()
+            bf = after["dispatches_bf16"] - before["dispatches_bf16"]
+            total = after["dispatches"] - before["dispatches"]
+            disp[run] = {
+                "dispatches": total, "full": full_calls[0],
+                "gather_f32": total - bf - full_calls[0],
+                "gather_bf16": bf, "launches": c,
+                "captures": after["compiles"] - before["compiles"],
+                "pipeline_completions": after["pipeline_completions"]}
+            require(disp[run]["captures"] == 0
+                    and min(full_calls[0], bf,
+                            disp[run]["gather_f32"]) >= 1,
+                    f"{run}: every family, no capture {disp[run]}")
+            if card:
+                # One captured launch a program: launches == replays.
+                require(c["K2"] == disp[run]["gather_f32"]
+                        and c["K2_bf16"] == bf,
+                        f"{run}: K2 and K2-bf16 launches == their replays "
+                        f"{disp[run]}")
+        err = {"gather_f32": 0.0, "gather_bf16": 0.0,
+               "full_same_bucket": None, "full_other_bucket": None}
+        names = {0: "gather_bf16", 1: "gather_f32"}
+        same = other = 0
+        for ref in ("depth1", "depth1_alone"):
+            for (i, kind, a, ba), (_, _, b, bb) in zip(runs[ref],
+                                                       runs["depth3"]):
+                e = max_err(a, b)
+                if kind != 2:
+                    err[names[kind]] = max(err[names[kind]], e)
+                elif ba == bb:
+                    same += 1
+                    err["full_same_bucket"] = max(
+                        err["full_same_bucket"] or 0.0, e)
+                else:
+                    other += 1
+                    err["full_other_bucket"] = max(
+                        err["full_other_bucket"] or 0.0, e)
+        line["across_depths"] = {
+            "requests": len(runs["depth3"]), "full_same_bucket": same,
+            "full_other_bucket": other, "max_abs_err": err, **disp}
+        require(err["full_other_bucket"] is None
+                or err["full_other_bucket"] <= PS_FULL_TOL,
+                f"full family across buckets {err}")
+        require(err["full_same_bucket"] in (None, 0.0),
+                f"full family at matching buckets {err}")
+        if card:
+            require(err["gather_f32"] == 0.0 and err["gather_bf16"] == 0.0,
+                    f"K2 and K2-bf16 across depths {err}")
+        require(disp["depth1"]["pipeline_completions"] == 0
+                and disp["depth3"]["pipeline_completions"]
+                == disp["depth3"]["dispatches"], f"stage shape {disp}")
+        # The op behind the full family's one-ulp rows.
+        line["full_row_rounding_by_stage"] = _ps_stage_rounding(
+            params, dev, rng, sorted({1, 2, 8, 64, bucket}))
+
+        # 3. Back-to-back K2 dispatches, serial and pipelined: timed, then
+        #    profiled; and the readback alone, pageable against pinned.
+        caps = {}
+        for name, depth, adaptive in (("serial", 1, False),
+                                      ("pipelined", 2, True)):
+            for b in trace_buckets:
+                tr_p = Tracer()
+                prof = ServingEngine(params, device=dev, min_bucket=b,
+                                     max_bucket=b, posed_kernel="fused",
+                                     inflight_depth=depth,
+                                     adaptive_coalesce=adaptive,
+                                     tracer=tr_p)
+                key = prof.specialize(subj[0])
+                prof.warmup_posed([b])
+                poses = [rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+                    np.float32) for _ in range(trace_dispatches)]
+                walls = []
+                with prof:
+                    prof.forward(poses[0], subject=key)
+                    for _ in range(3):
+                        t1 = time.perf_counter()
+                        futs = [prof.submit(p, subject=key) for p in poses]
+                        for f in futs:
+                            f.result(timeout=300)
+                        walls.append(time.perf_counter() - t1)
+                    d = os.path.join(tmp, "trace", f"{name}_b{b}")
+                    with torch_trace(d, tracer=tr_p):
+                        futs = [prof.submit(p, subject=key) for p in poses]
+                        for f in futs:
+                            f.result(timeout=300)
+                cap = _ob_capture(d)
+                caps[f"{name}_b{b}"] = {
+                    "dispatches": trace_dispatches,
+                    "ms_per_dispatch": min(walls) * 1e3 / trace_dispatches,
+                    "ms_per_dispatch_trials": [
+                        w * 1e3 / trace_dispatches for w in walls],
+                    "window_ms": cap["window_ms"],
+                    "device_busy_ms": cap["device_busy_ms"],
+                    "device_busy_share": cap["device_busy_share"],
+                    "k2_kernels": cap["k2_kernels"],
+                    "readback": _ps_memcpy(d),
+                    "top_device_ops": cap["top_device_ops"],
+                    "stage_breakdown": {
+                        cell: {k: v for k, v in st.items()
+                               if k == "n" or k.endswith("_p50_ms")}
+                        for cell, st in tr_p.stage_breakdown()[
+                            "by_bucket_tier"].items()}}
+                _ob_balanced(tr_p.accounting(), f"profiled {name} b{b}")
+                if card:
+                    require(cap["k2_kernels"].get("posed_kernel", {}).get(
+                        "count") == trace_dispatches,
+                        f"{name} b{b}: K2 by name in the capture "
+                        f"{cap['k2_kernels']}")
+        line["profile"] = caps
+        line["pr13_device_busy_share"] = {"b1": 0.074, "b256": 0.255}
+        if card:
+            line["readback_ms"] = {
+                str(b): _ps_readback(dev, b, trace_dispatches)
+                for b in trace_buckets}
+
+        # 4. Streams: the drill, then sessions against the posed program.
+        t0 = time.perf_counter()
+        zero_counts()
+        sd = stream_drill_run(params, device=dev, posed_kernel="fused",
+                              chaos_spec="error@0", seed=SEED,
+                              **(stream_kw or PS_STREAMS))
+        c = counts()
+        acc = sd["flight_record"]["accounting"]
+        line["stream_drill"] = {
+            "seconds": time.perf_counter() - t0,
+            **{k: sd[k] for k in (
+                "streams", "frames_per_stream", "subjects", "workers",
+                "buckets", "frames_submitted", "frames_resolved_fraction",
+                "outcomes", "chaos_outcomes", "failovers",
+                "failover_vs_cpu_direct_max_abs_err",
+                "warm_start_after_failover_consistent", "frames_per_sec",
+                "frame_p50_ms", "frame_p99_ms", "fit_p50_ms", "fit_p99_ms",
+                "dispatch_p50_ms", "dispatch_p99_ms", "warm_fit_steps",
+                "cold_fit_steps", "warm_loss_matched",
+                "warm_fit_ms_per_frame", "cold_fit_ms_per_frame",
+                "warm_vs_cold_fit_ratio", "steady_recompiles",
+                "mixed_subject_batches", "coalesce_width_mean",
+                "dispatches", "stream_spans")},
+            "slo_tier0": sd["slo"]["tiers"].get("0"),
+            "span_accounting": acc, "launches": c}
+        frames = sd["frames_submitted"]
+        sp = sd["stream_spans"]
+        require(sd["frames_resolved_fraction"] == 1.0
+                and sd["outcomes"]["ok"] == frames
+                and sd["steady_recompiles"] == 0
+                and sd["warm_start_after_failover_consistent"] is True
+                and sd["chaos_outcomes"]["ok"] == sd["streams"],
+                f"every frame resolved ok, the fault retried "
+                f"{line['stream_drill']}")
+        require(sp["opened"] == sd["streams"]
+                and sum(sp["closed_by_kind"].values()) == sd["streams"]
+                and sp["closed_by_kind"].get("shutdown") == 2
+                and sp["active_after_stop"] == 0,
+                f"each session closed exactly once {sp}")
+        _ob_balanced(acc, "stream drill")
+        if card:
+            require(c["K2"] >= 1, f"stream frames ran K2 {c}")
+
+        # Sessions on a one-bucket engine: each frame's verts against the
+        # per-subject posed program through K2 at that bucket.
+        from mano_hand_tpu_torch.serving import buckets as bucket_mod
+
+        stream_targets = []
+        for k in range(4):
+            track = rng.normal(scale=0.2, size=(16, 3)).astype(np.float32)
+            poses = np.stack([track * a for a in (0.25, 0.5, 0.75)])
+            with torch.no_grad(), ieee_fp32():
+                out = core.forward_batched(
+                    params, torch.from_numpy(poses).to(dev),
+                    torch.from_numpy(np.repeat(subj[k][None], 3, 0)).to(dev))
+            stream_targets.append(out.posed_joints.cpu().numpy())
+        sess_err, bf16_err = 0.0, {"vs_f32": 0.0, "vs_plain_bf16": 0.0,
+                                   "min_vs_f32": float("inf")}
+        for prec in ("f32", "bf16"):
+            eng = ServingEngine(params, device=dev, min_bucket=stream_bucket,
+                                max_bucket=stream_bucket,
+                                posed_kernel="fused",
+                                precision_policy=(PrecisionPolicy()
+                                                  if prec == "bf16"
+                                                  else None))
+            zero_counts()
+            with eng:
+                sessions = [eng.open_stream(subj[k], n_steps=4,
+                                            data_term="joints")
+                            for k in range(len(stream_targets))]
+                if prec == "bf16":
+                    sessions = sessions[:1]
+                results = []
+
+                def feed(k, sess):
+                    results.extend((k, sess.step(t))
+                                   for t in stream_targets[k])
+
+                ths = [threading.Thread(target=feed, args=(k, ss))
+                       for k, ss in enumerate(sessions)]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join(timeout=300)
+                    require(not th.is_alive(), "stream client finished")
+                for ss in sessions:
+                    ss.close()
+            c = counts()
+            require(len(results) == 3 * len(sessions),
+                    f"{prec} session frames {len(results)}")
+            for k, res in results:
+                want, table = k2_rows(subj[k], res.pose[None],
+                                      stream_bucket)
+                if prec == "f32":
+                    sess_err = max(sess_err, max_err(res.verts, want[0]))
+                    continue
+                e = max_err(res.verts, want[0])
+                bf16_err["vs_f32"] = max(bf16_err["vs_f32"], e)
+                bf16_err["min_vs_f32"] = min(bf16_err["min_vs_f32"], e)
+                with torch.no_grad():
+                    plain = fused_posed.forward_posed_gather_plain(
+                        table.v_shaped, table.joints,
+                        torch.zeros(stream_bucket, dtype=torch.int32,
+                                    device=dev),
+                        torch.from_numpy(bucket_mod.pad_rows(
+                            res.pose[None], stream_bucket)).to(dev),
+                        fused_posed.posed_operands(table, bf16),
+                        table.parents)[0]
+                bf16_err["vs_plain_bf16"] = max(bf16_err["vs_plain_bf16"],
+                                                max_err(res.verts, plain))
+            if card:
+                key = "K2" if prec == "f32" else "K2_bf16"
+                require(c[key] >= len(results),
+                        f"{prec} session frames ran {key} {c}")
+        line["sessions"] = {"streams": len(stream_targets),
+                            "frames_each": 3, "bucket": stream_bucket,
+                            "f32_vs_posed_program_max_abs_err": sess_err,
+                            "bf16_session": bf16_err,
+                            "envelope_m": envelope}
+        require(sess_err == 0.0,
+                f"stream verts == the posed program {line['sessions']}")
+        require(1e-6 < bf16_err["min_vs_f32"]
+                and bf16_err["vs_f32"] <= envelope
+                and bf16_err["vs_plain_bf16"] <= KERNEL_TOL,
+                f"the bf16 session {bf16_err}")
+
+        # 5. The tiered subject store under Zipf traffic.
+        skw = dict(PS_STORE, **(store_kw or {}))
+        store = SubjectStore(warm_capacity=skw["warm_capacity"],
+                             cold_dir=os.path.join(tmp, "cold"))
+        b_store = skw["bucket"]
+        eng = ServingEngine(params, device=dev, min_bucket=b_store,
+                            max_bucket=b_store,
+                            max_subjects=skw["max_subjects"],
+                            posed_kernel="fused", subject_store=store)
+        universe = rng.normal(size=(skw["subjects"], s)).astype(np.float32)
+        keys = eng.register_subjects(universe)
+        ranks = (rng.zipf(skw["zipf"], size=skw["requests"]) - 1) \
+            % skw["subjects"]
+        order = rng.permutation(skw["subjects"])[ranks]
+        poses = rng.normal(scale=0.5, size=(skw["requests"], 16, 3)).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        zero_counts()
+        with eng:
+            futs = [eng.submit(poses[i], subject=keys[order[i]])
+                    for i in range(skw["requests"])]
+            got = np.stack([f.result(timeout=600) for f in futs])
+            store_seconds = time.perf_counter() - t0
+            cold = [k for k in store.cold_digests()
+                    if k not in store.warm_digests()
+                    and k not in eng._subject_slots]
+            require(bool(cold), "a paged-out subject to damage")
+            victim = cold[0]
+            page = os.path.join(str(store.cold_page_path(victim)),
+                                "state.pkl")
+            with open(page, "r+b") as f:
+                f.truncate(64)
+            before = eng.counters.snapshot()
+            vpose = poses[:1]
+            damaged = eng.forward(vpose, subject=victim)
+            after = eng.counters.snapshot()
+            with torch.no_grad(), ieee_fp32():
+                rows = {k: eng._subject_slots[k] for k in keys
+                        if k in eng._subject_slots}
+                table = eng.table
+                row_err = 0.0
+                for k, slot in rows.items():
+                    fresh = core.specialize(params, torch.from_numpy(
+                        universe[keys.index(k)]).to(dev))
+                    for name in ("v_shaped", "joints", "shape"):
+                        row_err = max(row_err, max_err(
+                            getattr(table, name)[slot],
+                            getattr(fresh, name)))
+        c = counts()
+        # Every result against K2 over a table of fresh bakes at the
+        # engine's one bucket (K2's rows ignore their batchmates).
+        with torch.no_grad(), ieee_fp32():
+            ref_table = core.stack_shaped([core.specialize(
+                params, torch.from_numpy(b).to(dev)) for b in universe])
+            want = []
+            for lo in range(0, skw["requests"], b_store):
+                idx = np.zeros(b_store, np.int32)
+                pose = np.zeros((b_store, 16, 3), np.float32)
+                n = min(b_store, skw["requests"] - lo)
+                idx[:n] = order[lo:lo + n]
+                pose[:n] = poses[lo:lo + n]
+                idx[n:], pose[n:] = idx[0], pose[0]
+                want.append(core.forward_posed_gather_fused(
+                    ref_table, torch.from_numpy(idx).to(dev),
+                    torch.from_numpy(pose).to(dev))[:n].cpu().numpy())
+            want = np.concatenate(want)
+            vwant, _ = k2_rows(universe[keys.index(victim)], vpose, b_store)
+        snap = eng.counters.snapshot()
+        line["store"] = {
+            "subjects": skw["subjects"], "requests": skw["requests"],
+            "zipf": skw["zipf"], "max_subjects": skw["max_subjects"],
+            "warm_capacity": skw["warm_capacity"], "bucket": b_store,
+            "distinct_requested": int(len(set(order.tolist()))),
+            "seconds": store_seconds,
+            "requests_per_sec": skw["requests"] / store_seconds,
+            **{k: snap[k] for k in (
+                "subject_store_hot_hits", "subject_store_warm_hits",
+                "subject_store_cold_hits", "subject_store_misses",
+                "subject_store_prefetches", "subject_store_promotions",
+                "subject_store_demotions_warm",
+                "subject_store_demotions_cold", "subject_store_cold_damage",
+                "specializations", "specializations_evicted",
+                "table_growths", "dispatches", "compiles")},
+            "promotion_ms": snap["subject_store_promotion_ms"],
+            "results_vs_fresh_bake_max_abs_err": max_err(got, want),
+            "table_rows_vs_fresh_bake_max_abs_err": row_err,
+            "damaged_page": {
+                "damage_counted": after["subject_store_cold_damage"]
+                - before["subject_store_cold_damage"],
+                "rebaked": after["subject_store_misses"]
+                - before["subject_store_misses"],
+                "result_vs_fresh_bake_max_abs_err": max_err(damaged,
+                                                            vwant)},
+            "load": eng.load()["subject_store"], "launches": c}
+        st = line["store"]
+        require(min(st["subject_store_hot_hits"],
+                    st["subject_store_warm_hits"],
+                    st["subject_store_cold_hits"],
+                    st["subject_store_misses"]) >= 1,
+                f"every tier exercised {st}")
+        require(st["results_vs_fresh_bake_max_abs_err"] == 0.0
+                and st["table_rows_vs_fresh_bake_max_abs_err"] == 0.0,
+                f"promoted and paged-in rows == fresh bakes {st}")
+        require(st["damaged_page"] == {
+            "damage_counted": 1, "rebaked": 1,
+            "result_vs_fresh_bake_max_abs_err": 0.0},
+            f"a damaged cold page is a counted re-bake {st['damaged_page']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["launches"] = counts()
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3367,6 +4061,13 @@ def main() -> int:
     #      the engine (counts zeroed just before each part that reads
     #      them).
     emit(observability(dev, counts, zero_counts))
+
+    # 18g. The pipelined dispatch, streaming sessions and the tiered
+    #      subject store: the serial/pipelined drill, results across
+    #      depths, profiles of back-to-back dispatches, the stream drill
+    #      and sessions against the posed program, the store under Zipf
+    #      traffic (counts zeroed just before each part that reads them).
+    emit(pipeline_streams(dev, counts, zero_counts))
 
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.

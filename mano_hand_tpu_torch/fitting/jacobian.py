@@ -24,6 +24,7 @@ grad mode, which ``torch.func`` transforms cannot enter.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -31,6 +32,12 @@ import torch
 from mano_hand_tpu_torch import ops
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.ops.common import einsum
+
+
+# Forward-mode AD levels are process-wide in PyTorch, not per thread: two
+# threads inside jacfwd at once (concurrent stream sessions' fits) exit
+# each other's level. One jacfwd at a time.
+_JACFWD_LOCK = threading.Lock()
 
 
 class ForwardJacobian(NamedTuple):
@@ -102,9 +109,10 @@ def forward_with_jacobian(params, unravel, flat: torch.Tensor, const=None,
     # The values come from the batched chain, as in forward_values (the
     # same bits); jacfwd gives only the derivatives.
     skin_rot, skin_t, world_t, rot, shape = small(flat, const)
-    d_skin_rot, d_skin_t, d_world_t, d_rot, d_shape = torch.func.vmap(
-        torch.func.jacfwd(small), in_dims=(0, None if const is None else 0),
-    )(flat, const)
+    with _JACFWD_LOCK:
+        d_skin_rot, d_skin_t, d_world_t, d_rot, d_shape = torch.func.vmap(
+            torch.func.jacfwd(small),
+            in_dims=(0, None if const is None else 0))(flat, const)
 
     # v_posed is linear in beta (shape basis) and in vec(R[1:]) (the
     # pose-corrective basis); d_rot carries rot's dependence on theta.

@@ -243,8 +243,9 @@ def _fit_batched(
     def ad_jacobian(flat, corr):
         dims = (0, None if const is None else 0, 0,
                 None if corr is None else 0)
-        return torch.func.vmap(torch.func.jacfwd(residual), in_dims=dims)(
-            flat, const, target, corr)
+        with jacobian_mod._JACFWD_LOCK:   # AD levels are process-wide
+            return torch.func.vmap(torch.func.jacfwd(residual),
+                                   in_dims=dims)(flat, const, target, corr)
 
     reg = 1e-9 * torch.eye(n_params, dtype=dtype, device=dev)
     flat = flat0

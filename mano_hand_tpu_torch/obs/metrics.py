@@ -67,6 +67,9 @@ _NAME_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
 _SERVING_GAUGE_KEYS = frozenset({
     "queue_depth_peak", "backlog_peak", "padding_waste",
     "coalesce_width_mean",
+    # Dispatch-pipeline occupancy high-water: how much of
+    # ``inflight_depth`` the completion stage actually used.
+    "pipeline_inflight_peak",
 })
 
 
@@ -416,6 +419,21 @@ def serving_samples(snap: dict) -> dict:
                 out["serving_latency_samples"] = metric(
                     "gauge", help="per-bucket latency sample count",
                     samples=counts)
+        elif key == "subject_store_promotion_ms" and isinstance(val, dict):
+            # The tiered store's promotion-stall summary: one {p50_ms,
+            # p99_ms, n} dict — the quantiles export as gauges, the
+            # sample count as its own gauge (the latency_by_bucket
+            # convention without the bucket label).
+            out["serving_subject_store_promotion_p50_ms"] = metric(
+                "gauge", val.get("p50_ms", 0.0),
+                help="subject-store promotion stall p50 (install-path "
+                     "wait for a warm/cold row to be device-ready)")
+            out["serving_subject_store_promotion_p99_ms"] = metric(
+                "gauge", val.get("p99_ms", 0.0),
+                help="subject-store promotion stall p99")
+            out["serving_subject_store_promotion_samples"] = metric(
+                "gauge", val.get("n", 0),
+                help="promotion stall sample count")
         elif isinstance(val, bool) or not isinstance(val, (int, float)):
             unexported += 1
         else:
@@ -433,9 +451,9 @@ def serving_samples(snap: dict) -> dict:
 def load_samples(load: dict) -> dict:
     """``ServingEngine.load()`` -> metric structs: the backpressure
     snapshot as scrapeable gauges (admission state encoded
-    ok=0/busy=1/shed=2 per tier). The blocks of the JAX engine's stream
-    sessions, lanes, subject store and controller, which the port's
-    engine has not yet, are not mapped."""
+    ok=0/busy=1/shed=2 per tier). The blocks of the JAX engine's lanes
+    and controller, which the port's engine has not yet, are not
+    mapped."""
     out: Dict[str, dict] = {}
     for key in ("outstanding", "queued", "backlog_peak"):
         if load.get(key) is not None:
@@ -469,6 +487,26 @@ def load_samples(load: dict) -> dict:
         out["load_backlog_age_s"] = metric(
             "gauge", load["backlog_age_s"],
             help="age of the oldest still-open request span")
+    streams = load.get("streams") or {}
+    for key, help_txt in (
+            ("active", "open stream sessions"),
+            ("frames_in_flight", "stream frames submitted, unresolved"),
+            ("backlog_age_s", "age of the oldest in-flight stream "
+                              "frame across sessions"),
+            ("opened", "stream sessions ever opened"),
+            ("frames_submitted", "stream frames ever submitted"),
+            ("frames_resolved", "stream frames resolved (any kind)")):
+        if streams.get(key) is not None:
+            out[f"load_streams_{key}"] = metric(
+                "gauge" if key in ("active", "frames_in_flight",
+                                   "backlog_age_s") else "counter",
+                streams[key], help=help_txt)
+    closed = [sample(v, {"kind": k})
+              for k, v in (streams.get("closed_by_kind") or {}).items()]
+    if closed:
+        out["load_streams_closed_by_kind"] = metric(
+            "counter", help="stream-session terminals by kind",
+            samples=closed)
     # Precision tiers: which tier serves which precision
     # family (0=f32, 1=bf16 per tier label) and the policy's stated
     # vertex-error envelope — the scrape-side record an operator (or
@@ -487,6 +525,19 @@ def load_samples(load: dict) -> dict:
         out["load_precision_envelope_m"] = metric(
             "gauge", prec["envelope_m"],
             help="stated bf16-tier max vertex error envelope (m)")
+    # Tiered subject store: warm/cold occupancy — the hit/miss COUNTERS
+    # ride the generic serving_samples mapper; these are the set-point
+    # gauges only load() knows.
+    store = load.get("subject_store") or {}
+    for key, help_txt in (
+            ("warm_rows", "host-RAM warm-tier rows resident"),
+            ("warm_capacity", "warm-tier LRU bound"),
+            ("promotions_pending", "async host->device promotions "
+                                   "in flight"),
+            ("cold_pages", "cold-tier row pages on disk")):
+        if store.get(key) is not None:
+            out[f"load_subject_store_{key}"] = metric(
+                "gauge", store[key], help=help_txt)
     return out
 
 

@@ -44,7 +44,7 @@ through ``obs/log.py``'s logger, which routes warnings through
 A card engine has no CPU tier: it refuses a policy with ``cpu_fallback``
 (pass ``DispatchPolicy(cpu_fallback=False)``), so its work never moves
 off the card, and a batch whose supervision is exhausted there resolves
-to its ``ServingError``. The readback (``.cpu().numpy()``) runs inside the supervised window, so
+to its ``ServingError``. The readback runs inside the supervised window, so
 a wedged kernel cannot outlive its deadline. A batch whose supervision is
 exhausted resolves to a ``ServingError`` and the dispatcher lives on; a
 deterministic failure (a shape bug, a sticky CUDA fault) stays
@@ -81,6 +81,33 @@ replay. On the CPU a program is the family's function called eagerly.
 ``compiles`` counts the programs built live, ``warmup``/``warmup_posed``
 build them up front. A capture failure raises: unsupervised it stops the
 dispatcher, supervised it resolves the batch to a ``ServingError``.
+
+**Pipelined dispatch.** At ``inflight_depth > 1`` (2 by default) the
+dispatcher hands each launched batch to a bounded FIFO completion stage
+(``_CompletionStage``: ``depth`` workers run the dispatch and its
+readback, the deadline re-check, the futures and the spans, delivering
+in launch order) and assembles batch N+1 while batch N runs. A graph
+program's dispatch is ``launch`` under the device lock (copy-in from
+PINNED staging slabs the coalesce loop fills at admit time, the replay,
+a ``non_blocking`` copy into a pinned output slab, an event) and
+``wait`` outside it, so one worker's replay overlaps another's readback;
+every device operation of the engine goes to the card's default stream,
+whichever thread issues it, so stream order keeps each batch's readback
+ahead of the next replay of the same static output. The coalesce window
+adapts to the backlog (``_coalesce_window``, JAX's formula).
+``inflight_depth=1`` is the serial cycle, byte for byte in telemetry
+shape (no stage, no ``staged`` or ``pipeline`` event). Under a policy
+the whole supervised dispatch, readback included, runs on the stage's
+worker.
+
+**Streams and the subject store.** ``open_stream`` opens a per-user
+tracking session (``serving/streams.py``): each frame a frozen-shape LM
+fit on the engine's device, then ``submit(pose, subject=key)`` at tier
+0. ``subject_store=`` (``serving/subject_store.py``) puts warm (pinned
+host) and cold (row pages on disk) tiers under the table: an evicted
+row demotes, a later dispatch promotes it (prefetched at coalesce admit
+on a side stream whose event the install's stream waits on) instead of
+re-baking, and ``register_subjects`` registers betas without baking.
 
 **Persistence.** ``aot_dir`` names a directory for the engine's baked
 executable lattice (``bake_lattice``; ``io/export_aot.py``): every full
@@ -240,13 +267,15 @@ class _EagerProgram:
     batch, run once at build so a program that cannot execute fails at
     build time, not inside a dispatch. ``on_enqueued`` (a tracing hook)
     is called as the body starts: on the CPU the body IS the device
-    work."""
+    work. The card program's two calls: ``launch`` does the work and
+    returns the host result as its handle, ``wait`` hands it back;
+    ``run`` is ``wait(launch(...))``."""
 
     def __init__(self, body: Callable, example: tuple, table=None):
         self._body = body
         self.run(*example, table=table)
 
-    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
+    def launch(self, *host, table=None, on_enqueued=None) -> np.ndarray:
         args = [torch.from_numpy(np.ascontiguousarray(x)) for x in host]
         if on_enqueued is not None:
             on_enqueued()
@@ -254,6 +283,14 @@ class _EagerProgram:
             out = self._body(*args) if table is None \
                 else self._body(table, *args)
         return out.numpy()
+
+    @staticmethod
+    def wait(handle: np.ndarray) -> np.ndarray:
+        return handle
+
+    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
+        return self.wait(self.launch(*host, table=table,
+                                     on_enqueued=on_enqueued))
 
 
 class _StaticTable:
@@ -276,6 +313,14 @@ class _StaticTable:
         for name in ("v_shaped", "joints", "shape"):
             getattr(self.table, name).copy_(getattr(snapshot, name))
         self.source = snapshot     # held: identity is never reused
+
+
+@contextlib.contextmanager
+def _on_card(dev: torch.device):
+    """``dev`` as the current device, its default stream current."""
+    with torch.cuda.device(dev), \
+            torch.cuda.stream(torch.cuda.default_stream(dev)):
+        yield
 
 
 _gc_lock = threading.Lock()
@@ -313,11 +358,28 @@ class _GraphProgram:
     cached), then the capture, both inside ``ieee_fp32()`` so the graph's
     matmuls are IEEE fp32 whatever the caller's TF32 setting at replay.
     The kernel launches the capture noted are added to their counts at
-    every replay. ``run`` holds the device lock across copy-in, replay and
-    readback, so two batches never share the static buffers, and an
-    attempt its supervisor abandoned never touches them.
+    every replay.
 
-    ``run(..., on_enqueued=hook)`` calls ``hook()`` once the replay is
+    A dispatch is two calls. ``launch`` runs under the device lock: the
+    copy-in from the host arrays (``non_blocking``: from pinned staging
+    slabs it is asynchronous), the static-table refresh, the replay, and
+    a ``non_blocking`` copy of the static output into a fresh PINNED
+    output slab (torch's pinned host cache), then an event recorded
+    behind it; it returns a handle. ``wait(handle)`` synchronises on that
+    event OUTSIDE the lock and returns the slab as the host array, so
+    another batch's launch queues behind this one's replay and readback
+    on the card while this thread waits. Every copy and replay goes to
+    the device's default stream, whichever thread calls (the dispatcher,
+    a completion worker, a supervised attempt's fresh thread, the
+    sentinel): stream order alone keeps batch N+1's copy-in and replay
+    behind batch N's readback of the one static output. The pinned cache
+    hands a slab out again only after the copy recorded on it has
+    landed, so an attempt abandoned after its launch can never have its
+    late readback land in a slab another batch reads. An attempt its
+    supervisor abandoned before its launch touches no buffer. ``run`` is
+    ``wait(launch(...))``.
+
+    ``launch(..., on_enqueued=hook)`` calls ``hook()`` once the replay is
     enqueued, before the readback waits for it: the engine stamps its
     spans' ``dispatched`` there, so on the port the ``dispatch`` stage
     (``obs/trace.py:Tracer._span_stages``) holds the batch assembly, the
@@ -328,12 +390,19 @@ class _GraphProgram:
     transfer."""
 
     def __init__(self, eng: "ServingEngine", body: Callable, example: tuple,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None, keep=None):
         # The engine's lock, card and static table, not the engine: a
         # program in the engine's cache must not close a reference cycle.
         self._lock, self._device = eng._device_lock, eng.device
+        # What the graph reads but does not own: a loaded program's
+        # module, whose constants (FK's index tensors among them) the
+        # replays read in place. Freed, its memory would be reused under
+        # the graph.
+        self._keep = keep
         dev = self._device
-        with self._lock, torch.cuda.device(dev), torch.no_grad(), \
+        self._stream = torch.cuda.default_stream(dev)
+        with self._lock, torch.cuda.device(dev), \
+                torch.cuda.stream(self._stream), torch.no_grad(), \
                 ieee_fp32():
             self._table = (None if capacity is None
                            else eng._static_table(capacity))
@@ -353,21 +422,55 @@ class _GraphProgram:
                 self._out = body(*args)
             self._launches = tuple(log)
 
-    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
+    def launch(self, *host, table=None, on_enqueued=None) -> "_Launched":
         with self._lock:
             if supervise.abandoned():
                 raise supervise.DeadlineExceeded(
                     "an abandoned attempt touches no device buffer")
-            with torch.cuda.device(self._device):
+            # From torch's pinned host cache: the copy below records its
+            # event on the block, so a block freed before that copy lands
+            # (an abandoned attempt's) is not handed out again until it
+            # has.
+            slab = torch.empty(self._out.shape, dtype=self._out.dtype,
+                               pin_memory=True)
+            with torch.cuda.device(self._device), \
+                    torch.cuda.stream(self._stream):
                 for buf, x in zip(self._static, host):
-                    buf.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+                    buf.copy_(torch.from_numpy(np.ascontiguousarray(x)),
+                              non_blocking=True)
                 if self._table is not None:
                     self._table.refresh(table)
                 self._graph.replay()
                 add_launches(self._launches)
                 if on_enqueued is not None:
                     on_enqueued()
-                return self._out.cpu().numpy()
+                slab.copy_(self._out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        return _Launched(slab, done)
+
+    def wait(self, handle: "_Launched") -> np.ndarray:
+        slab, handle._slab = handle._slab, None
+        if slab is None:
+            raise RuntimeError("this launch was already waited for")
+        handle._event.synchronize()
+        # The slab itself, no host copy (~0.3 ms at 2.4 MB): the array
+        # keeps the block, which rejoins the cache once the result dies.
+        return slab.numpy()
+
+    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
+        return self.wait(self.launch(*host, table=table,
+                                     on_enqueued=on_enqueued))
+
+
+class _Launched:
+    """The handle of one launched graph replay: its pinned output slab
+    and the event recorded behind the slab's copy."""
+
+    __slots__ = ("_slab", "_event")
+
+    def __init__(self, slab, event):
+        self._slab, self._event = slab, event
 
 
 class _CancellableFuture(Future):
@@ -408,7 +511,7 @@ class _CancellableFuture(Future):
 
 class _Request:
     __slots__ = ("pose", "shape", "rows", "squeeze", "subject", "tier",
-                 "deadline", "future", "span")
+                 "deadline", "future", "span", "t_submit")
 
     def __init__(self, pose, shape, rows, squeeze, subject, tier=0,
                  deadline=None):
@@ -421,6 +524,7 @@ class _Request:
         self.deadline = deadline    # absolute time.monotonic() or None
         self.future: Future = Future()
         self.span = None            # obs.Tracer span id, or None
+        self.t_submit = time.perf_counter()   # the coalesce window's age
 
 
 class _Dispatched:
@@ -449,6 +553,277 @@ class _Dispatched:
         self._take()
 
 
+class _Staging:
+    """One batch-assembly slab set: ``pose`` [max_bucket, J, 3],
+    ``shape`` [max_bucket, S] and ``idx`` [max_bucket] host arrays — on a
+    card engine numpy views of PINNED tensors, so a graph program's
+    copy-in from them is asynchronous.
+
+    The coalesce loop writes each admitted request's rows at admit time
+    (``append``), so the launch hands the program contiguous
+    ``slab[:bucket]`` views instead of re-stacking every member on the
+    critical path; ``finish`` pads by repeating row 0, the
+    ``buckets.pad_rows`` rule, so a staged batch is bit for bit the
+    concatenate-and-pad assembly. A slab belongs to its batch until the
+    batch's copy-in has completed on the device (its readback finishing
+    implies it, by stream order), then returns to the engine's pool."""
+
+    __slots__ = ("pose", "shape", "idx", "rows", "full")
+
+    def __init__(self, pose, shape, idx):
+        self.pose = pose
+        self.shape = shape
+        self.idx = idx
+        self.rows = 0               # write cursor (== batch rows)
+        self.full = False           # full path: shape rows staged too
+
+    def append(self, req: _Request) -> None:
+        n = req.rows
+        self.pose[self.rows:self.rows + n] = req.pose
+        if self.full:
+            self.shape[self.rows:self.rows + n] = req.shape
+        self.rows += n
+
+    def finish(self, bucket: int):
+        """Pad to ``bucket`` (repeat row 0) and return the batch's
+        ``(pose, shape)`` views; ``shape`` is None on the pose-only
+        path."""
+        if self.rows < bucket:
+            self.pose[self.rows:bucket] = self.pose[:1]
+            if self.full:
+                self.shape[self.rows:bucket] = self.shape[:1]
+        return (self.pose[:bucket],
+                self.shape[:bucket] if self.full else None)
+
+    def put_idx(self, idx: np.ndarray) -> np.ndarray:
+        """The batch's subject index rows, staged into the slab."""
+        out = self.idx[:idx.shape[0]]
+        out[:] = idx
+        return out
+
+
+class _StageItem:
+    """One launched batch in the completion stage."""
+
+    __slots__ = ("seq", "fn", "reqs", "rows", "bucket", "n_subjects",
+                 "staging", "bf16", "mark")
+
+    def __init__(self, seq, fn, reqs, rows, bucket, n_subjects, staging,
+                 bf16, mark):
+        self.seq, self.fn, self.reqs, self.rows = seq, fn, reqs, rows
+        self.bucket, self.n_subjects = bucket, n_subjects
+        self.staging, self.bf16, self.mark = staging, bf16, mark
+
+
+class _CompletionStage:
+    """The bounded completion stage of the pipelined dispatch: ``depth``
+    daemon workers that finish launched batches — the dispatch (launch
+    and readback, or the whole supervised envelope), the deadline
+    re-check, the futures, the spans — while the dispatcher assembles
+    the next batch.
+
+    ``depth`` bounds launched-but-unresolved batches: ``submit`` blocks
+    once ``depth`` are in flight (the pipeline's backpressure), and with
+    one worker a slot, up to ``depth`` dispatches overlap: one worker's
+    batch replays while another's waits on its readback, outside the
+    device lock. Delivery is STRICT FIFO: each batch takes a launch-order
+    sequence number at submit and ``_finish_in_order`` holds a completed
+    batch at a reorder barrier until every predecessor has resolved.
+
+    Failure contract (``_launch``'s): a ``ServingError`` poisons ONLY its
+    batch and the stage keeps completing; any other exception is
+    engine-fatal — the failing worker poisons its batch and everything
+    still queued, records the failure, retires and wakes the dispatcher,
+    and ``check``/``submit``/``drain`` re-raise it on the dispatcher,
+    whose crash path owns the shutdown: the engine dies at once, as the
+    serial cycle's does.
+
+    ``_completion_lock`` is a Condition and the stage's one lock, a leaf:
+    nothing else is taken under it, and device work and future
+    resolution run outside it.
+    """
+
+    def __init__(self, eng: "ServingEngine", depth: int):
+        self._eng = eng
+        self.depth = int(depth)
+        self._completion_lock = threading.Condition()
+        self._items: collections.deque = collections.deque()
+        self._inflight = 0          # submitted, not yet delivered
+        self._next_seq = 0          # launch order, assigned at submit
+        self._deliver_seq = 0       # next seq allowed to resolve
+        self._closed = False
+        self._failure: Optional[BaseException] = None
+        self._threads = [
+            threading.Thread(
+                target=self._worker,
+                name=f"mano-serving-completion-{i}", daemon=True)
+            for i in range(max(1, self.depth))]
+        for t in self._threads:
+            t.start()
+
+    def inflight(self) -> int:
+        with self._completion_lock:
+            return self._inflight
+
+    def submit(self, fn, reqs, rows: int, bucket: int, n_subjects: int,
+               staging, bf16: bool = False, mark=None) -> int:
+        """Hand one launched batch to the stage; blocks at ``depth``.
+        Returns the in-flight count after the enqueue. Re-raises a
+        worker's engine-fatal failure on the dispatcher; the batch is
+        then not enqueued (``_launch`` poisons it)."""
+        with self._completion_lock:
+            while (self._failure is None and not self._closed
+                   and self._inflight >= self.depth):
+                self._completion_lock.wait()
+            if self._failure is not None:
+                raise self._failure
+            if self._closed:
+                raise ServingError(
+                    "completion stage closed during submit (engine "
+                    "stopping)", phase="shutdown")
+            seq = self._next_seq
+            self._next_seq += 1
+            self._inflight += 1
+            self._items.append(_StageItem(seq, fn, reqs, rows, bucket,
+                                          n_subjects, staging, bf16, mark))
+            self._completion_lock.notify_all()
+            return self._inflight
+
+    def check(self) -> None:
+        """Re-raise a worker's engine-fatal failure, if any."""
+        with self._completion_lock:
+            if self._failure is not None:
+                raise self._failure
+
+    def drain(self) -> None:
+        """Block until every submitted batch has resolved (the
+        dispatcher's clean-exit barrier). Re-raises a worker's
+        engine-fatal failure; returns at once once closed."""
+        with self._completion_lock:
+            while (self._failure is None and not self._closed
+                   and self._inflight > 0):
+                self._completion_lock.wait()
+            if self._failure is not None:
+                raise self._failure
+
+    def close(self, exc: Optional[BaseException] = None) -> None:
+        """Retire the pool (idempotent). Queued, never-dispatched batches
+        are poisoned — with ``exc`` on a dispatcher crash, else with the
+        shutdown ``ServingError``. A worker wedged inside a batch stays
+        abandoned (daemon); its batch, and any batch behind it at the
+        reorder barrier, falls to ``stop()``'s sweep."""
+        with self._completion_lock:
+            self._closed = True
+            leftovers = list(self._items)
+            self._items.clear()
+            self._completion_lock.notify_all()
+        err = exc if exc is not None else ServingError(
+            "serving engine stopped before this launched batch "
+            "completed", phase="shutdown")
+        for it in leftovers:
+            self._eng._poison(it.reqs, err)
+            self._eng._staging_release(it.staging)
+
+    # Worker side ------------------------------------------------------
+    def _worker(self) -> None:
+        eng = self._eng
+        item = None
+        try:
+            while True:
+                with self._completion_lock:
+                    while (not self._items and not self._closed
+                           and self._failure is None):
+                        self._completion_lock.wait()
+                    if self._failure is not None or not self._items:
+                        return      # failed, or closed and drained
+                    item = self._items.popleft()
+                outcome = None
+                try:
+                    outcome = self._run_call(item)
+                finally:
+                    # A batch that did not end in a completed readback (a
+                    # supervised batch exhausted with an attempt still
+                    # queued on the card) returns its slab behind a fence.
+                    eng._staging_release(
+                        item.staging,
+                        fence=outcome is None or outcome[0] == "poison")
+                self._finish_in_order(item, outcome)
+                item = None
+        except BaseException as e:  # noqa: BLE001 — engine-fatal class
+            if item is not None:
+                if item.mark is not None:
+                    item.mark.close()
+                eng._poison(item.reqs, e)
+            with self._completion_lock:
+                if self._failure is None:
+                    self._failure = e
+                leftovers = list(self._items)
+                self._items.clear()
+                self._completion_lock.notify_all()
+            for it in leftovers:
+                eng._poison(it.reqs, e)
+                eng._staging_release(it.staging)
+            eng._queue.put(_SENTINEL)     # the dispatcher re-raises it
+
+    def _run_call(self, item: _StageItem):
+        """The parallel phase: the deadline re-check, the dispatch and
+        its readback. Runs concurrently across workers; returns an
+        outcome tag for the in-order delivery phase."""
+        eng = self._eng
+        reqs = item.reqs
+        # The batch waited in the stage queue after its launch-boundary
+        # sweep: re-check now, the last instant a sweep costs no device
+        # time. Only a WHOLLY expired or cancelled batch skips its
+        # dispatch; a live member keeps it, and stragglers expire at
+        # readback.
+        if any(r.deadline is not None or r.future.cancelled()
+               for r in reqs):
+            now = time.monotonic()
+            if all(r.future.cancelled() or eng._is_expired(r, now)
+                   for r in reqs):
+                return ("presweep", None)
+        try:
+            verts = item.fn()      # a host array: launch, then wait
+        except ServingError as e:
+            return ("poison", e)
+        eng.counters.count_dispatch(item.bucket, item.rows,
+                                    requests=len(reqs),
+                                    subjects=item.n_subjects,
+                                    bf16=item.bf16)
+        if item.mark is not None:
+            item.mark()            # unless the replay's enqueue stamped it
+        return ("ok", verts)
+
+    def _finish_in_order(self, item: _StageItem, outcome) -> None:
+        """The serial phase: hold this completed batch at the reorder
+        barrier until every earlier launch has resolved, then resolve
+        its futures and close its spans."""
+        eng = self._eng
+        with self._completion_lock:
+            while self._deliver_seq != item.seq and self._failure is None:
+                self._completion_lock.wait()
+        kind, payload = outcome
+        reqs = item.reqs
+        if kind == "presweep":
+            if item.mark is not None:
+                item.mark.close()
+            for r in reqs:
+                if not eng._skip_cancelled(r):
+                    eng._expire(r, "dispatch")
+            eng.counters.count_pipeline_presweep()
+        elif kind == "poison":
+            if item.mark is not None:
+                item.mark.close()
+            eng._poison(reqs, payload)
+        else:
+            eng.counters.count_pipeline_completion()
+            eng._deliver(reqs, payload, item.bucket)
+        with self._completion_lock:
+            self._deliver_seq = item.seq + 1
+            self._inflight -= 1
+            self._completion_lock.notify_all()
+
+
 class ServingEngine:
     """Micro-batching forward server over one parameter set.
 
@@ -462,6 +837,18 @@ class ServingEngine:
         than ``max_bucket`` rows is rejected at ``submit``.
     max_delay_s: how long the dispatcher waits for more requests once it
         holds one (the latency/throughput knob).
+    adaptive_coalesce: shrink that wait as the backlog and the head
+        request's age rise (``_coalesce_window``): once the queue could
+        fill a batch the wait buys nothing. False pins the fixed window.
+        Never changes which requests may share a batch.
+    inflight_depth: how many launched, unresolved batches the completion
+        stage holds (2, the default: batch N+1 assembles and launches
+        while batch N executes and reads back; resolution stays strictly
+        in launch order). 1 is the serial assemble -> launch -> read back
+        -> resolve cycle on the dispatcher, byte for byte in telemetry
+        shape: no stage, no ``staged`` event, no ``pipeline`` event.
+        Under a ``policy`` the whole supervised dispatch runs on the
+        stage's worker, its readback inside the supervised window.
     max_subjects: subject-table capacity ceiling (growth by doubling
         below it, LRU eviction at it).
     posed_kernel: ``"xla"`` (plain ``core.forward_posed_gather``) or
@@ -500,6 +887,15 @@ class ServingEngine:
         (``aot_load_failures``). Otherwise the legacy per-bucket full
         artifacts apply: a missing bucket is built live AND exported
         there; a present one loads. None = in-memory cache only.
+    subject_store: a ``serving.subject_store.SubjectStore``, the warm
+        (pinned host rows) and cold (row pages on disk) tiers under the
+        device table: an evicted row demotes to warm, a later dispatch
+        promotes it back (prefetched at coalesce admit) instead of
+        re-running the shape stage. None (the default): the table alone.
+        A sharded store needs lanes, which this engine has not: it
+        raises.
+    store_warm_capacity: retarget the store's warm-tier row budget
+        (requires ``subject_store``).
     """
 
     # Capacity the subject table starts at (clamped to max_subjects).
@@ -511,7 +907,13 @@ class ServingEngine:
                  precision_policy: Optional[PrecisionPolicy] = None,
                  policy=None, max_queued: Optional[int] = None,
                  tier_quotas: Optional[dict] = None,
-                 busy_fraction: float = 0.75, aot_dir=None, tracer=None):
+                 busy_fraction: float = 0.75, aot_dir=None, tracer=None,
+                 adaptive_coalesce: bool = True, inflight_depth: int = 2,
+                 subject_store=None,
+                 store_warm_capacity: Optional[int] = None):
+        if inflight_depth < 1:
+            raise ValueError(
+                f"inflight_depth must be >= 1, got {inflight_depth}")
         if posed_kernel not in ("xla", "fused"):
             raise ValueError(
                 f"posed_kernel must be 'xla' or 'fused', got "
@@ -557,6 +959,8 @@ class ServingEngine:
         self._n_shape = params.n_shape
         self.buckets = bucket_mod.bucket_sizes(min_bucket, max_bucket)
         self.max_delay_s = float(max_delay_s)
+        self.adaptive_coalesce = bool(adaptive_coalesce)
+        self.inflight_depth = int(inflight_depth)
         self.max_subjects = int(max_subjects)
         self._posed_kernel = posed_kernel
         self._precision_policy = precision_policy
@@ -629,6 +1033,43 @@ class ServingEngine:
         # decision reads and writes it under _live_lock.
         self._live: dict = {}
         self._live_lock = threading.Lock()
+        # The pipelined dispatch: the completion stage (built by the
+        # dispatcher at depth > 1; stop()'s wedged branch closes it) and
+        # the staging slab pool (recycled once a batch's copy-in has
+        # completed; a slab whose batch may still have a copy queued on
+        # the card waits behind a fence event first).
+        self._completion: Optional[_CompletionStage] = None
+        self._slab_pool: collections.deque = collections.deque()
+        self._slab_fenced: collections.deque = collections.deque()
+        self._slab_lock = threading.Lock()
+        # Streaming sessions: the manager is built on the first
+        # open_stream; _streams_stopped mirrors stop()/start() so a
+        # manager built after (or racing) a stop refuses registrations.
+        self._streams = None
+        self._streams_stopped = False
+        # The tiered subject store, bound to this engine's counters and
+        # device; it touches no device at construction.
+        if subject_store is not None:
+            from mano_hand_tpu_torch.serving.subject_store import (
+                SubjectStore,
+            )
+
+            if not isinstance(subject_store, SubjectStore):
+                raise TypeError(
+                    f"subject_store must be a serving.subject_store."
+                    f"SubjectStore, got {type(subject_store).__name__}")
+            if subject_store.config.sharded:
+                raise ValueError(
+                    "a sharded subject_store requires lanes (the shards "
+                    "are the per-lane tables; pass lanes=N)")
+            subject_store.bind(self.counters, device=self.device)
+        if store_warm_capacity is not None:
+            if subject_store is None:
+                raise ValueError(
+                    "store_warm_capacity requires subject_store (it "
+                    "retargets the warm tier's row budget)")
+            subject_store.resize_warm(int(store_warm_capacity))
+        self._subject_store = subject_store
 
     @property
     def tracer(self):
@@ -645,6 +1086,12 @@ class ServingEngine:
         return self._precision_policy
 
     @property
+    def subject_store(self):
+        """The engine's ``serving.subject_store.SubjectStore``, or None
+        (the device table alone)."""
+        return self._subject_store
+
+    @property
     def table(self) -> Optional[core.SubjectTable]:
         """The current subject table (a snapshot: updates replace it)."""
         with self._lock:
@@ -657,6 +1104,12 @@ class ServingEngine:
                 # A fresh dispatcher is a fresh chance: a previous crash
                 # no longer refuses work.
                 self._failure = None
+                with self._live_lock:
+                    # A restarted engine accepts new streams again.
+                    self._streams_stopped = False
+                    mgr = self._streams
+                if mgr is not None:
+                    mgr.reopen()
                 self._running = True
                 self._thread = threading.Thread(
                     target=self._dispatch_loop, name="mano-serving",
@@ -675,8 +1128,17 @@ class ServingEngine:
         a supervised engine with a deadline waits progress-aware — one
         per-batch window (deadline x attempts + grace) at a time, for as
         long as outstanding futures keep resolving; any other engine
-        joins without a bound.
+        joins without a bound. Every open stream session reaches its
+        ``shutdown`` terminal first.
         """
+        with self._live_lock:
+            # Marked under the lock the lazy manager build publishes
+            # under: an open_stream racing this stop sees a swept manager
+            # or builds one born stopped.
+            self._streams_stopped = True
+            streams_mgr = self._streams
+        if streams_mgr is not None:
+            streams_mgr.shutdown()
         with self._thread_lock:
             thread = self._thread
             if thread is not None:
@@ -712,6 +1174,14 @@ class ServingEngine:
                 self._failure = err
                 with self._thread_lock:
                     self._thread = None
+                stage = self._completion
+                if stage is not None:
+                    # A batch wedged in the completion stage wedges the
+                    # dispatcher behind it by backpressure: close the
+                    # stage so queued batches poison and a blocked submit
+                    # wakes; the sweep resolves what a stuck worker holds.
+                    stage.close(err)
+                    self._completion = None
                 self._sweep_live(err)
                 self._drain(err)
                 # Parked requests were resolved by the sweep; drop the
@@ -755,6 +1225,41 @@ class ServingEngine:
         self._install_subject(key, shape)
         return key
 
+    def register_subjects(self, betas_batch) -> list:
+        """Register many subjects' betas WITHOUT baking a table row — the
+        on-ramp of the tiered store: raw betas cost ~40 bytes a subject,
+        a baked row ~10 KB of device memory. A registered subject is
+        submittable at once; its row bakes, or promotes from a warm or
+        cold tier, on its first dispatch (``_resolve_batch``). Returns the
+        subject keys in input order (duplicates collapse to one key)."""
+        betas_batch = np.ascontiguousarray(
+            np.asarray(betas_batch, np.float32).reshape(-1, self._n_shape))
+        keys = []
+        rows = {}
+        for b in betas_batch:
+            b = np.ascontiguousarray(b)
+            key = hashlib.sha256(b.tobytes()).hexdigest()[:16]
+            keys.append(key)
+            rows[key] = b
+        with self._lock:
+            for key, b in rows.items():
+                self._subject_betas.setdefault(key, b)
+        return keys
+
+    def _prefetch_subject(self, key: Optional[str]) -> None:
+        """Start an asynchronous warm -> device promotion the moment a
+        subject is known to dispatch soon (coalesce admit, open_stream):
+        the copy overlaps the coalesce window instead of stalling the
+        install. A hot or unknown key is a dict lookup."""
+        store = self._subject_store
+        if store is None or key is None:
+            return
+        with self._lock:
+            hot = key in self._subject_slots
+        if not hot:
+            with self._on_device():
+                store.prefetch(key)
+
     def _install_subject(self, key: str, betas: np.ndarray,
                          protected=(), shaped=None) -> int:
         """Bake ``betas`` and write them into a table row; returns the slot.
@@ -769,12 +1274,35 @@ class ServingEngine:
         batch never evicts its own members). A growth makes the warm
         gathered programs stale: they are rebuilt here, counted, so the
         rebuild never lands inside a dispatch.
+
+        Under a subject store a row the warm or cold tier holds is
+        promoted instead of baked (its persisted bytes, as a restore: bit
+        for bit the bake; counted in the store's hits, not in
+        ``specializations``), a row no tier holds is a counted miss, and
+        the row an eviction displaces demotes to the warm tier after the
+        locks are released.
         """
         restored = shaped is not None
-        with self._device_lock, torch.no_grad():
+        store = self._subject_store
+        tier = None
+        if not restored and store is not None:
+            # Before the install lock: a promotion's stall never
+            # serializes other installers.
+            with self._on_device():
+                fetched = store.fetch_row(key)
+            if fetched is not None:
+                rows, tier = fetched
+                shaped = core.ShapedHand(
+                    rows["v_shaped"], rows["joints"], rows["shape"],
+                    self._params.pose_basis, self._params.lbs_weights,
+                    tuple(self._params.parents))
+            else:
+                self.counters.count_store_miss()
+        with self._device_lock, self._on_device(), torch.no_grad():
             if shaped is None:
                 shaped = core.specialize(
                     self._params, torch.from_numpy(betas).to(self.device))
+        victim_table = None
         with self._install_lock:
             grew = False
             evicted = None
@@ -805,10 +1333,13 @@ class ServingEngine:
                     del self._subject_lru[victim]
                     self.counters.count_evict()
                     evicted = victim
+                    # The victim's row lives on in THIS snapshot (updates
+                    # are functional): the demotion below reads it.
+                    victim_table = table
             if evicted is not None and self._tracer is not None:
                 self._tracer.runtime_event("evict", subject=evicted,
                                            slot=slot)
-            with self._device_lock, torch.no_grad():
+            with self._device_lock, self._on_device(), torch.no_grad():
                 if table is None:
                     table = core.subject_table(self._params, cap)
                 elif grew:
@@ -824,9 +1355,19 @@ class ServingEngine:
                 stale_bf16 = ([b for b, (c, _)
                                in self._gather_exes_bf16.items()
                                if c != cap] if grew else [])
+        if evicted is not None and store is not None:
+            # Outside every lock: the device-to-host copy happens in the
+            # store, on the engine's stream (behind the writes that made
+            # the snapshot) and synchronously, so the row is on the host
+            # before anything can reuse its memory.
+            row = core.table_row(victim_table, slot)
+            with self._on_device():
+                store.demote(evicted, {"v_shaped": row.v_shaped,
+                                       "joints": row.joints,
+                                       "shape": row.shape})
         if restored:
             self.counters.count_restore()
-        else:
+        elif tier is None:
             self.counters.count_specialize(hit=False)
         for b in stale:
             self._gather_executable(b)
@@ -838,9 +1379,17 @@ class ServingEngine:
         """(table snapshot, per-request slots) of a pose-only batch, from
         one locked read; re-bakes any subject evicted while queued."""
         keys = {r.subject for r in reqs}
+        counted_hot = self._subject_store is None
         for _ in range(len(keys) + 2):
             with self._lock:
                 missing = [k for k in keys if k not in self._subject_slots]
+                if not counted_hot:
+                    # The store's hot hits: the batch's subjects already
+                    # in the table at its first resolution, once a batch.
+                    counted_hot = True
+                    if len(keys) > len(missing):
+                        self.counters.count_store_hot(
+                            len(keys) - len(missing))
                 if not missing:
                     for k in keys:
                         self._subject_lru.move_to_end(k)
@@ -937,11 +1486,77 @@ class ServingEngine:
                 "accumulate": pol.accumulate,
                 "tiers": pol.tiers_snapshot((0, 1, *self._tier_quotas)),
             }
+        # Streaming sessions: the active count and the per-frame backlog
+        # age from one manager-lock hold; the empty block keeps the
+        # surface's shape when no stream was ever opened.
+        mgr = self._streams
+        if mgr is not None:
+            out["streams"] = mgr.snapshot()
+        else:
+            from mano_hand_tpu_torch.serving import streams as streams_mod
+
+            out["streams"] = streams_mod.empty_snapshot()
+        if self._subject_store is not None:
+            # Tier occupancy and in-flight promotions, one store-lock hold.
+            out["subject_store"] = self._subject_store.snapshot()
         if self._tracer is not None:
             # Per-tier served latency quantiles and the backlog age, from
             # ONE tracer lock hold (obs/trace.py:load_snapshot).
             out.update(self._tracer.load_snapshot())
         return out
+
+    # ------------------------------------------------------ stream sessions
+    def _stream_manager(self):
+        """The engine's ``StreamManager``, built on first use (a losing
+        racer's is discarded). Published under ``_live_lock``, the hold
+        ``stop()``/``start()`` flip ``_streams_stopped`` under, so a
+        manager built after or racing a stop is born refusing
+        registrations."""
+        mgr = self._streams
+        if mgr is None:
+            from mano_hand_tpu_torch.serving.streams import StreamManager
+
+            mgr = StreamManager(self)
+            with self._live_lock:
+                if self._streams is None:
+                    # Not yet published: no other thread holds its lock.
+                    mgr._stopped = self._streams_stopped
+                    self._streams = mgr
+                mgr = self._streams
+        return mgr
+
+    def open_stream(self, subject, *, n_steps: int = 4,
+                    data_term: str = "joints", solver: str = "lm",
+                    frame_deadline_s: Optional[float] = None,
+                    idle_timeout_s: Optional[float] = None,
+                    resume_pose=None, **tracker_kw):
+        """Open one per-user tracking session; returns a
+        ``serving.streams.StreamSession``.
+
+        ``subject`` is the user's betas (baked through ``specialize``: an
+        unknown subject is a first bake, not an error) or a
+        ``specialize()`` key (an evicted key stays valid: its row re-bakes
+        or promotes on the next dispatch). Each ``submit_frame(target)``
+        runs a frozen-shape LM solve on the engine's device, warm-started
+        from the last converged pose (``fitting/tracking.py:make_tracker``),
+        then serves the posed verts through ``submit(pose, subject=key)``
+        at tier 0 — K2 on a ``posed_kernel="fused"`` card engine — so
+        concurrent streams' frames coalesce into mixed-subject batches.
+        ``frame_deadline_s`` is each frame's default time to live (fit and
+        dispatch; swept before the fit), ``idle_timeout_s`` expires a
+        session nobody feeds, ``resume_pose`` seeds the warm start.
+        ``n_steps``/``data_term``/``solver``/``tracker_kw`` pass to
+        ``make_tracker`` with ``frozen_shape`` pinned to the subject's
+        betas. The terminals ``closed``/``expired``/``shed``/``shutdown``
+        (``stop()`` sweeps open sessions) each close the session's span
+        exactly once."""
+        from mano_hand_tpu_torch.serving import streams as streams_mod
+
+        return streams_mod.open_stream(
+            self, subject, n_steps=n_steps, data_term=data_term,
+            solver=solver, frame_deadline_s=frame_deadline_s,
+            idle_timeout_s=idle_timeout_s, resume_pose=resume_pose,
+            **tracker_kw)
 
     # ------------------------------------------------------------ deadlines
     def _is_expired(self, req: _Request, now: Optional[float] = None,
@@ -1168,10 +1783,11 @@ class ServingEngine:
         return st
 
     def _program(self, body: Callable, bucket: int, capacity=None,
-                 table=None):
+                 table=None, keep=None):
         """One program of a family at ``bucket`` (and table ``capacity``
         for a gathered one): a CUDA graph on a card, the eager function on
-        the CPU. Built and warmed here; counting is the caller's."""
+        the CPU. Built and warmed here; counting is the caller's. ``keep``
+        lives as long as the program (a loaded entry's body)."""
         if capacity is None:
             example = (np.zeros((bucket, self._n_joints, 3), np.float32),
                        np.zeros((bucket, self._n_shape), np.float32))
@@ -1179,7 +1795,7 @@ class ServingEngine:
             example = (np.zeros((bucket,), np.int32),
                        np.zeros((bucket, self._n_joints, 3), np.float32))
         if self.device.type == "cuda":
-            return _GraphProgram(self, body, example, capacity)
+            return _GraphProgram(self, body, example, capacity, keep)
         return _EagerProgram(body, example, table)
 
     def _live_full(self, pose, shape):
@@ -1240,7 +1856,7 @@ class ServingEngine:
         ``lattice_load_failed`` event (None: a legacy artifact)."""
         cap = {} if capacity is None else {"capacity": capacity}
         try:
-            prog = self._program(body, bucket, capacity, table)
+            prog = self._program(body, bucket, capacity, table, keep=body)
         except Exception as e:  # noqa: BLE001 — degrade, never crash boot
             self.counters.count_aot_load_failure()
             _LOG.warning(f"{what} failed at execution ({type(e).__name__}: "
@@ -1598,10 +2214,14 @@ class ServingEngine:
 
     # ------------------------------------------------------------- dispatch
     def _on_device(self):
-        """The engine's card as the current device: a supervised attempt
-        runs on a fresh thread, whose current device is not ours."""
+        """The engine's card as the current device and its default stream
+        as the current stream: a supervised attempt or a completion
+        worker runs on a thread whose current device is not ours, and a
+        caller's thread may have made another stream current. Every
+        device operation of the engine goes to that one stream, so stream
+        order alone orders its copies, installs and replays."""
         if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
+            return _on_card(self.device)
         return contextlib.nullcontext()
 
     def _run_full(self, pose: np.ndarray, shape: np.ndarray, *, prog=None,
@@ -1705,14 +2325,22 @@ class ServingEngine:
 
     def _coalesce(self, first: _Request):
         """Gather requests behind ``first`` until the largest bucket fills
-        or ``max_delay_s`` elapses; parked requests are tried first. A
-        cancelled or expired request is dropped here, never batched or
-        parked. Returns (requests, rows)."""
+        or the coalesce window (``_coalesce_window``) elapses; parked
+        requests are tried first. A cancelled or expired request is
+        dropped here, never batched or parked. Each admitted request's
+        rows are written into a staging slab at admit time, and a
+        pose-only request's subject is prefetched from the store's warm
+        tier, so both overlap the window. Returns (requests, rows,
+        staging)."""
         reqs, rows = [first], first.rows
         posed = first.subject is not None
         prec = self._req_prec(first)
         subjects = {first.subject}
         top = self.buckets[-1]
+        staging = self._staging_acquire(posed)
+        staging.append(first)
+        if posed:
+            self._prefetch_subject(first.subject)
 
         def admit(nxt, fresh=True) -> Optional[str]:
             if self._skip_cancelled(nxt):
@@ -1723,7 +2351,10 @@ class ServingEngine:
             why = self._admit(nxt, posed, subjects, rows, prec)
             if why is None:
                 reqs.append(nxt)
+                staging.append(nxt)
                 subjects.add(nxt.subject)
+                if posed:
+                    self._prefetch_subject(nxt.subject)
                 if self._tracer is not None:
                     self._tracer.event(nxt.span, "coalesce")
                 return None
@@ -1741,7 +2372,7 @@ class ServingEngine:
             nxt = self._pending.popleft()
             if admit(nxt, fresh=False) is None:
                 rows += nxt.rows
-        deadline = time.perf_counter() + self.max_delay_s
+        deadline = time.perf_counter() + self._coalesce_window(first)
         while rows < top:
             timeout = deadline - time.perf_counter()
             try:
@@ -1757,7 +2388,28 @@ class ServingEngine:
                 rows += nxt.rows
             elif why == "overflow":
                 break
-        return reqs, rows
+        return reqs, rows, staging
+
+    def _coalesce_window(self, first: _Request) -> float:
+        """How long ``_coalesce`` may wait for stragglers this batch: the
+        base ``max_delay_s`` when traffic is sparse; zero once the waiting
+        backlog could fill the largest bucket; scaled down linearly with
+        the backlog below that; and decayed as the head request's age
+        climbs to many multiples of the base (a head one dispatch cycle
+        old barely charges: charging it would thin every batch under
+        paced load). ``adaptive_coalesce=False`` pins the fixed window.
+        The window only shapes how long assembly waits, never which
+        requests may share a batch."""
+        base = self.max_delay_s
+        if not self.adaptive_coalesce or base <= 0.0:
+            return base
+        backlog = self._queue.qsize() + len(self._pending)
+        cap = self.buckets[-1]
+        if backlog + 1 >= cap:
+            return 0.0
+        age = time.perf_counter() - first.t_submit
+        pressure = max(backlog / cap, min(1.0, age / (8.0 * base)))
+        return base * (1.0 - pressure)
 
     def _pop_parked(self) -> _Request:
         """Take the highest-priority parked request: lowest tier first,
@@ -1777,11 +2429,27 @@ class ServingEngine:
         return req
 
     def _dispatch_loop(self) -> None:
+        # At inflight_depth > 1 launched batches go to a bounded
+        # completion stage (dispatch and readback, the deadline re-check,
+        # the futures and the spans on its workers, delivered in launch
+        # order), so batch N+1 assembles while batch N executes. Depth 1
+        # keeps the serial assemble -> launch -> read back -> resolve
+        # cycle on this thread: no stage, no "staged" stamps, no pipeline
+        # event.
+        stage = None
+        if self.inflight_depth > 1:
+            stage = _CompletionStage(self, self.inflight_depth)
+            self._completion = stage
+            if self._tracer is not None:
+                self._tracer.runtime_event("pipeline",
+                                           depth=self.inflight_depth)
         try:
             while True:
                 first = (self._pop_parked() if self._pending
                          else self._queue.get())
                 if first is _SENTINEL:
+                    if stage is not None:
+                        stage.check()       # a worker's engine-fatal fault
                     if not self._running:
                         break
                     continue
@@ -1792,21 +2460,85 @@ class ServingEngine:
                     continue
                 self.counters.observe_queue_depth(
                     self._queue.qsize() + len(self._pending) + 1)
-                reqs, rows = self._coalesce(first)
-                self._launch(reqs, rows)
+                reqs, rows, staging = self._coalesce(first)
+                item = self._launch(reqs, rows, staging)
+                if item is not None:
+                    self._resolve(item)     # the serial cycle
+            if stage is not None:
+                # Clean exit: every launched batch resolves before the
+                # queue drains (a stage failure re-raises here).
+                stage.drain()
+                stage.close()
+                self._completion = None
             self._drain()
         except BaseException as e:  # noqa: BLE001 — futures must not hang
             self._failure = e
+            if stage is not None:
+                stage.close(e)
+                self._completion = None
             self._poison(list(self._pending), e)
             self._pending.clear()
             self._drain(e)
             raise
 
-    def _launch(self, reqs, rows: int) -> None:
-        """Sweep, pad, dispatch and deliver one batch. Without a policy a
-        failure resolves the batch's futures with the exception and stops
-        the dispatcher; with one, an exhausted batch resolves to its
-        ``ServingError`` and the dispatcher goes on."""
+    def _staging_acquire(self, posed: bool) -> _Staging:
+        """One assembly slab set from the pool (allocated when the pool is
+        dry): pinned host memory on a card engine. Fenced slabs whose
+        event has completed rejoin the pool first."""
+        with self._slab_lock:
+            while self._slab_fenced and self._slab_fenced[0][0].query():
+                self._slab_pool.append(self._slab_fenced.popleft()[1])
+            st = self._slab_pool.pop() if self._slab_pool else None
+        if st is None:
+            cap = self.buckets[-1]
+            st = _Staging(*(self._host_slab(shape, dtype) for shape, dtype
+                            in (((cap, self._n_joints, 3), np.float32),
+                                ((cap, self._n_shape), np.float32),
+                                ((cap,), np.int32))))
+        st.rows = 0
+        st.full = not posed
+        return st
+
+    def _host_slab(self, shape, dtype) -> np.ndarray:
+        """A host array for staging: a numpy view of a pinned tensor on a
+        card engine (the view keeps the tensor alive)."""
+        if self.device.type != "cuda":
+            return np.empty(shape, dtype)
+        return torch.empty(shape, dtype=_torch_dtype(np.empty(0, dtype)),
+                           pin_memory=True).numpy()
+
+    def _staging_release(self, st: Optional[_Staging],
+                         fence: bool = False) -> None:
+        """Recycle a batch's slab once its copy-in has completed on the
+        card (bounded pool: the in-flight depth, one assembling, one
+        spare; a surplus slab goes to the allocator). ``fence``: the
+        batch did not end in a completed readback — a supervised attempt
+        abandoned after its launch may still have a copy from this slab
+        queued — so the slab waits behind an event recorded on the
+        engine's stream under the device lock (every launch so far has
+        enqueued its copies) until the card passes it."""
+        if st is None:
+            return
+        if fence and self.device.type == "cuda":
+            done = torch.cuda.Event()
+            with self._device_lock, self._on_device():
+                done.record()
+            with self._slab_lock:
+                # Never dropped here: freeing a slab a queued copy still
+                # reads would hand its memory to the allocator early.
+                self._slab_fenced.append((done, st))
+            return
+        with self._slab_lock:
+            if len(self._slab_pool) < self.inflight_depth + 2:
+                self._slab_pool.append(st)
+
+    def _launch(self, reqs, rows: int, staging: Optional[_Staging] = None):
+        """Sweep, pad and dispatch one batch. Pipelined, hand it to the
+        completion stage and return None; serial, return the item
+        ``_resolve`` delivers. Without a policy a failure resolves the
+        batch's futures with the exception and stops the dispatcher; with
+        one, an exhausted batch resolves to its ``ServingError`` and the
+        dispatcher goes on."""
         # The last deadline sweep that still costs no device time: the
         # coalesce window (and the batch before) can hold a member past
         # its deadline. An all-expired batch dispatches nothing.
@@ -1822,8 +2554,14 @@ class ServingEngine:
                 else:
                     alive.append(r)
             if not alive:
-                return
-            reqs, rows = alive, sum(r.rows for r in alive)
+                self._staging_release(staging)
+                return None
+            if len(alive) != len(reqs):
+                # The staged slab has holes where swept members sat: this
+                # (rare) batch re-stacks its rows instead.
+                self._staging_release(staging)
+                staging = None
+                reqs, rows = alive, sum(r.rows for r in alive)
         tr = self._tracer
         mark = None
         try:
@@ -1834,45 +2572,95 @@ class ServingEngine:
                     tr.event(r.span, "launch", bucket=bucket)
                 mark = _Dispatched(tr, reqs)
             kw = {} if mark is None else {"mark": mark}
-            pose = bucket_mod.pad_rows(
-                np.concatenate([r.pose for r in reqs]), bucket)
+            posed = reqs[0].subject is not None
+            if staging is not None:
+                # The rows were written at admit time; what remains is the
+                # pad fill, pad_rows' bytes.
+                pose, shape = staging.finish(bucket)
+            else:
+                pose = bucket_mod.pad_rows(
+                    np.concatenate([r.pose for r in reqs]), bucket)
+                shape = None if posed else bucket_mod.pad_rows(
+                    np.concatenate([r.shape for r in reqs]), bucket)
             prec = self._req_prec(reqs[0])
-            table = idx = shape = None
-            if reqs[0].subject is not None:
+            bf16 = prec == BF16
+            dt = torch.bfloat16 if bf16 else None
+            table = idx = None
+            n_subjects = 1
+            if posed:
+                # Resolved here, not on the stage's worker: the (table,
+                # slots) pair is a functional snapshot, valid however
+                # installs move the live table while the batch waits.
                 table, slots = self._resolve_batch(reqs)
                 idx = bucket_mod.subject_index_rows(
                     slots, [r.rows for r in reqs], bucket)
+                if staging is not None:
+                    idx = staging.put_idx(idx)
                 n_subjects = len(set(slots))
-            else:
-                shape = bucket_mod.pad_rows(
-                    np.concatenate([r.shape for r in reqs]), bucket)
-                n_subjects = 1
+            stage = self._completion
+            if stage is not None:
+                # Pipelined: the dispatch, its readback and the futures
+                # run on the stage's worker, in launch order. An
+                # unsupervised batch's program is fetched HERE, so a
+                # build stays on the dispatcher.
+                if self._policy is not None:
+                    def fn():
+                        return self._supervised_dispatch(
+                            bucket, pose, shape, reqs, table, idx, prec,
+                            mark)
+                elif posed:
+                    self._gather_executable(bucket, table, prec)
+
+                    def fn():
+                        return self._run_posed(table, idx, pose, dt, **kw)
+                else:
+                    self._executable(bucket)
+
+                    def fn():
+                        return self._run_full(pose, shape, **kw)
+                if tr is not None:
+                    # Stamped before the submit: a submit blocked on the
+                    # stage's backpressure is stage wait. Counts this
+                    # batch in.
+                    depth_now = stage.inflight() + 1
+                    for r in reqs:
+                        tr.event(r.span, "staged", inflight=depth_now)
+                n = stage.submit(fn, reqs, rows, bucket, n_subjects,
+                                 staging, bf16, mark)
+                self.counters.observe_pipeline_inflight(n)
+                return None
             if self._policy is not None:
                 verts = self._supervised_dispatch(bucket, pose, shape, reqs,
                                                   table, idx, prec, mark)
-            elif table is not None:
-                verts = self._run_posed(
-                    table, idx, pose,
-                    torch.bfloat16 if prec == BF16 else None, **kw)
+            elif posed:
+                verts = self._run_posed(table, idx, pose, dt, **kw)
             else:
                 verts = self._run_full(pose, shape, **kw)
             self.counters.count_dispatch(bucket, rows, requests=len(reqs),
-                                         subjects=n_subjects,
-                                         bf16=prec == BF16)
+                                         subjects=n_subjects, bf16=bf16)
             if mark is not None:
                 mark()          # unless the replay's enqueue stamped it
+            return verts, reqs, bucket, staging
         except ServingError as e:
             # Supervision exhausted for THIS batch: a failed batch is
             # traffic, not a broken engine; later submits stay servable.
             if mark is not None:
                 mark.close()
             self._poison(reqs, e)
-            return
+            self._staging_release(staging, fence=True)
+            return None
         except BaseException as e:
             if mark is not None:
                 mark.close()
             self._poison(reqs, e)
+            self._staging_release(staging, fence=True)
             raise
+
+    def _resolve(self, item) -> None:
+        """The serial cycle's delivery: the batch's readback has run (the
+        program's ``run`` waited for it), so its slab is free again."""
+        verts, reqs, bucket, staging = item
+        self._staging_release(staging)
         self._deliver(reqs, verts, bucket)
 
     def _supervised_dispatch(self, bucket: int, pose, shape, reqs, table,

@@ -1,9 +1,10 @@
 """The serving engine's drills and the observability protocols.
 
 Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``,
-``overload_drill_run``, ``cold_start_drill_run``, ``tracing_overhead_run``
-and ``metrics_overhead_run`` — the same arguments, protocol and returned
-keys (each drill attaches its tracer's ``flight_record``), plus
+``overload_drill_run``, ``cold_start_drill_run``, ``tracing_overhead_run``,
+``metrics_overhead_run``, ``stream_drill_run`` and
+``dispatch_pipeline_drill_run`` — the same arguments, protocol and
+returned keys (each drill attaches its tracer's ``flight_record``), plus
 ``device=``. Each drives real ``ServingEngine``s on ``device`` (default
 ``cuda``; the CPU tests pass ``"cpu"``) and injects its faults in-process
 through ``runtime.chaos``, so no device is harmed. The recovery drill
@@ -14,7 +15,7 @@ as JAX's, submits full requests only.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -387,9 +388,13 @@ def recovery_drill_run(
         cpu_fallback=cpu_tier,
     )
     params32 = params.astype(torch.float32)
+    # The serial dispatch: the fault schedules count primary attempts in
+    # call order, which concurrent completion workers would interleave
+    # (a transient fault could land on another batch's retry).
     eng = ServingEngine(params32, device=device, max_bucket=max_bucket,
                         max_delay_s=0.001, policy=policy,
-                        posed_kernel=posed_kernel, tracer=tracer)
+                        posed_kernel=posed_kernel, tracer=tracer,
+                        inflight_depth=1)
     resolve_timeout = deadline_s * (policy.retries + 2) + 30.0
 
     # The bit-identity reference: a direct CPU core.forward_batched call
@@ -1254,4 +1259,861 @@ def metrics_overhead_run(
 
         out["metrics_export"] = export_metrics_dir(
             final_snapshot, metrics_dir, slo=slo)
+    return out
+
+
+def stream_drill_run(
+    params,
+    *,
+    streams: int = 208,
+    frames_per_stream: int = 4,
+    subjects: Optional[int] = None,
+    workers: int = 16,
+    warm_steps: int = 4,
+    cold_steps_candidates: Sequence[int] = (8, 16, 32),
+    target_loss: float = 1e-9,
+    frame_deadline_s: float = 5.0,
+    batch_deadline_s: float = 10.0,
+    min_bucket: int = 8,
+    max_bucket: int = 64,
+    max_delay_s: float = 0.002,
+    chaos_spec: str = "error@0-",
+    calib_probes: int = 12,
+    fit_trials: int = 5,
+    seed: int = 0,
+    tracer=None,
+    device=None,
+    posed_kernel: str = "xla",
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The streaming-session drill: many per-user tracking sessions, each
+    a stream of correlated frames.
+
+    Every stream gets a synthetic subject (``subjects`` distinct betas,
+    shared round-robin) and a smooth pose track
+    (``models/anim.py:resample_poses`` over seeded keyframes); each frame
+    runs the whole session step — a frozen-shape LM fit warm-started
+    from the last converged pose, then the posed verts through the
+    gathered dispatch at tier 0 with a per-frame deadline — from a
+    ``workers``-wide pool, so frames coalesce into mixed-subject batches.
+
+    Phases: bake every subject, warm every program (and, on a CPU engine,
+    the CPU tier the chaos round needs), open every stream, a settle
+    round (un-deadlined), TIMED steady rounds, the warm-vs-cold fit
+    calibration (``_stream_fit_calibration``), then a CHAOS round under
+    ``chaos_spec``, then close. A card engine has no CPU tier: there the
+    chaos round's faults are retried on the card (one retry a batch) and
+    a frame whose retries are exhausted resolves to its ``ServingError``
+    — pass a spec the retries absorb to keep every frame ``ok``.
+
+    Returned criteria (JAX's keys):
+
+    * ``frames_resolved_fraction`` == 1.0 with ``outcomes.stranded`` == 0:
+      every frame of every stream, chaos round included, resolves;
+    * ``failover_vs_cpu_direct_max_abs_err`` == 0.0 on a CPU engine: the
+      probe stream's chaos-round frame, served by the CPU tier, is a
+      direct CPU ``core.forward_batched`` call of its pose and betas, bit
+      for bit, at one of the engine's buckets (a frame does not see its
+      batch's bucket; a row of the plain CPU forward rounds by the batch
+      size). None on a card engine;
+    * ``warm_start_after_failover_consistent``: the probe session's warm
+      start after the chaos round is the fit's own pose — the frame's
+      pose when it resolved, else the same fit re-run from the state
+      before the round: a serving fault never touches the solver;
+    * ``steady_recompiles`` == 0: the sessions share one program family;
+    * ``slo.tiers["0"]`` carries the frame-latency p99 burn rate
+      (``p99_target_ms`` = the frame deadline);
+    * ``stream_spans``: every opened session reaches exactly one terminal
+      (``closed`` for the explicit closes, ``shutdown`` for the two
+      ``stop()`` sweeps), and the flight record's accounting balances.
+
+    ``frame_p50_ms``/``frame_p99_ms`` are end-to-end frame latencies (fit
+    and dispatch); ``fit_p50_ms``/``dispatch_p50_ms`` split them (port
+    keys beside JAX's).
+    """
+    import concurrent.futures as cf
+
+    from mano_hand_tpu_torch.fitting import lm as lm_mod
+    from mano_hand_tpu_torch.models import anim, core
+    from mano_hand_tpu_torch.obs.metrics import (
+        DEFAULT_SLO_OBJECTIVES, slo_report,
+    )
+    from mano_hand_tpu_torch.ops.common import ieee_fp32, resolve_device
+    from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving import buckets as bucket_mod
+    from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
+
+    if streams < 1:
+        raise ValueError(f"streams must be >= 1, got {streams}")
+    min_frames = 3 if chaos_spec else 2
+    if frames_per_stream < min_frames:
+        # With a chaos spec the LAST round is the chaos round: settle, at
+        # least one timed steady round, chaos.
+        raise ValueError(
+            f"frames_per_stream must be >= {min_frames} (a settle "
+            f"round, at least one timed steady round"
+            f"{', and the chaos round' if chaos_spec else ''}), got "
+            f"{frames_per_stream}")
+    if workers < 1:
+        raise ValueError(f"workers must be >= 1, got {workers}")
+    log = _logger(log)
+    if tracer is None:
+        tracer = Tracer()
+    dev = resolve_device(device)
+    cpu_tier = dev.type == "cpu"
+    subjects = streams if subjects is None else max(1, int(subjects))
+    calib_probes = max(1, min(calib_probes, streams))
+    n_joints, n_shape = params.n_joints, params.n_shape
+    rng = np.random.default_rng(seed)
+    prm32 = params.astype(torch.float32).to(dev)
+
+    # ---- Synthetic per-user tracks (the correlated-frames premise) ----
+    betas = [rng.normal(size=(n_shape,)).astype(np.float32)
+             for _ in range(subjects)]
+    subj_of = [s % subjects for s in range(streams)]
+    keys = np.zeros((streams, 3, n_joints, 3), np.float32)
+    keys[:, 1] = rng.normal(scale=0.2, size=(streams, n_joints, 3))
+    keys[:, 2] = keys[:, 1] + rng.normal(
+        scale=0.1, size=(streams, n_joints, 3))
+    tracks = np.stack([
+        anim.resample_poses(keys[s], frames_per_stream)
+        for s in range(streams)]).astype(np.float32)   # [S, T, J, 3]
+    flat_pose = tracks.reshape(streams * frames_per_stream, n_joints, 3)
+    flat_beta = np.stack([betas[subj_of[s]]
+                          for s in range(streams)
+                          for _ in range(frames_per_stream)])
+    with torch.no_grad(), ieee_fp32():
+        gt = core.forward_batched(prm32, torch.from_numpy(flat_pose).to(dev),
+                                  torch.from_numpy(flat_beta).to(dev))
+    targets = gt.posed_joints.cpu().numpy().reshape(
+        streams, frames_per_stream, n_joints, 3)
+
+    # ---- Engine: supervised and chaos-wrappable; the CPU tier on a CPU
+    #      engine only ---------------------------------------------------
+    plan = ChaosPlan()
+    policy = DispatchPolicy(
+        deadline_s=batch_deadline_s, retries=1, backoff_s=0.01,
+        backoff_cap_s=0.02, jitter=0.0, breaker=None, chaos=plan,
+        cpu_fallback=cpu_tier,
+    )
+    eng = ServingEngine(prm32, device=dev, min_bucket=min_bucket,
+                        max_bucket=max_bucket, max_delay_s=max_delay_s,
+                        policy=policy, posed_kernel=posed_kernel,
+                        tracer=tracer)
+    prm_cpu = prm32.to("cpu")
+
+    def cpu_direct(pose, beta):
+        """The failover reference: a direct CPU call of the row, padded
+        (repeating it) to each of the engine's buckets."""
+        out = []
+        with torch.no_grad(), ieee_fp32():
+            for b in eng.buckets:
+                p = torch.from_numpy(np.array(bucket_mod.pad_rows(
+                    pose[None], b), np.float32, order="C"))
+                s = torch.from_numpy(np.array(bucket_mod.pad_rows(
+                    beta[None], b), np.float32, order="C"))
+                out.append(core.forward_batched(prm_cpu, p, s).verts[0]
+                           .numpy())
+        return out
+
+    outcomes = {"ok": 0, "shed": 0, "expired": 0, "error": 0,
+                "stranded": 0}
+    chaos_outcomes = dict(outcomes)
+    frame_lat: List[float] = []
+    fit_lat: List[float] = []
+    round_times: List[float] = []
+    failover_err = None
+
+    pool = cf.ThreadPoolExecutor(max_workers=workers,
+                                 thread_name_prefix="stream-drill")
+    try:
+        with eng:
+            keys_subj = [eng.specialize(b) for b in betas]
+            growths = eng.counters.table_growths
+            log(f"streams: {subjects} subjects baked ({growths} table "
+                f"growths), warming buckets {eng.buckets}")
+            eng.warmup()          # the full family (and a CPU tier)
+            eng.warmup_posed()    # the gathered family at final capacity
+            sessions = [
+                eng.open_stream(keys_subj[subj_of[s]],
+                                n_steps=warm_steps, data_term="joints",
+                                frame_deadline_s=frame_deadline_s)
+                for s in range(streams)]
+
+            resolve_timeout = (frame_deadline_s
+                               + batch_deadline_s * (policy.retries + 2)
+                               + 30.0)
+
+            def tally_frame(ff, tally):
+                """THE classification of one frame future; returns the
+                FrameResult on ``ok``, else None."""
+                try:
+                    res = ff.result(timeout=resolve_timeout)
+                    tally["ok"] += 1
+                    return res
+                except ServingError as e:
+                    tally[e.kind if e.kind in tally else "error"] += 1
+                except Exception:  # noqa: BLE001 — a timeout IS the bug
+                    tally["stranded"] += 1
+                return None
+
+            def run_round(r, tally, deadline=True):
+                """Frame r of every stream from the pool; every future
+                waited for and tallied. Returns (seconds, results)."""
+                t0 = time.perf_counter()
+                outer = [pool.submit(
+                    sessions[s].submit_frame, targets[s, r],
+                    deadline_s=frame_deadline_s if deadline else None)
+                         for s in range(streams)]
+                inner = []
+                for of in outer:
+                    try:
+                        inner.append(of.result(timeout=120.0))
+                    except Exception:  # noqa: BLE001 — a refused frame
+                        inner.append(None)   # counts as stranded below
+                results_r = []
+                for ff in inner:
+                    if ff is None:
+                        tally["stranded"] += 1
+                        results_r.append(None)
+                        continue
+                    results_r.append(tally_frame(ff, tally))
+                return time.perf_counter() - t0, results_r
+
+            def run_round_timed(r, tally):
+                """A steady round, each frame's latency stamped by its own
+                submit/resolve pair (fit and dispatch), the fit's share by
+                the submit's return."""
+                t0 = time.perf_counter()
+                boxes = []
+
+                def one(s):
+                    t_sub = time.perf_counter()
+                    ff = sessions[s].submit_frame(targets[s, r])
+                    fit_lat.append(time.perf_counter() - t_sub)
+                    box = []
+                    ff.add_done_callback(
+                        lambda f, b=box, t=t_sub:
+                            b.append(time.perf_counter() - t))
+                    return ff, box
+
+                outer = [pool.submit(one, s) for s in range(streams)]
+                pairs = [of.result(timeout=120.0) for of in outer]
+                for ff, box in pairs:
+                    tally_frame(ff, tally)
+                    boxes.append(box)
+                dt = time.perf_counter() - t0
+                frame_lat.extend(b[0] for b in boxes if b)
+                return dt
+
+            # Round 0: settle, un-deadlined (first-use work and every
+            # stream's frame-0 seed land here, outside timing).
+            dt0, _ = run_round(0, outcomes, deadline=False)
+            compiles_settled = eng.counters.compiles
+            log(f"streams: settle round {dt0:.2f}s "
+                f"({eng.counters.compiles} warm-up builds); "
+                f"{streams} streams x {frames_per_stream} frames")
+            chaos_round = frames_per_stream - 1 if chaos_spec else None
+            steady = [r for r in range(1, frames_per_stream)
+                      if r != chaos_round]
+            for r in steady:
+                round_times.append(run_round_timed(r, outcomes))
+
+            # ---- Warm-vs-cold calibration (slope-timed) --------------
+            calib = _stream_fit_calibration(
+                prm32, sessions[:calib_probes],
+                [betas[subj_of[s]] for s in range(calib_probes)],
+                [targets[s, chaos_round if chaos_round is not None
+                         else frames_per_stream - 1]
+                 for s in range(calib_probes)],
+                lm_mod, warm_steps=warm_steps,
+                cold_steps_candidates=tuple(cold_steps_candidates),
+                target_loss=target_loss, trials=fit_trials, log=log)
+
+            # ---- Chaos round -----------------------------------------
+            failovers_before = eng.counters.failovers
+            warm_start_consistent = None
+            if chaos_round is not None:
+                probe_s = 0
+                probe = sessions[probe_s]
+                state_before = probe._state
+                plan.schedule(chaos_spec)
+                try:
+                    _, results_c = run_round(chaos_round, chaos_outcomes)
+                finally:
+                    plan.clear()
+                res = results_c[probe_s]
+                if res is not None:
+                    # The frame's verts against direct CPU calls of the
+                    # same (pose, betas) (a CPU engine's failover); the
+                    # warm start is the fit's own pose.
+                    if cpu_tier and eng.counters.failovers > \
+                            failovers_before:
+                        failover_err = min(
+                            float(np.abs(res.verts - want).max())
+                            for want in cpu_direct(
+                                res.pose, betas[subj_of[probe_s]]))
+                    warm_start_consistent = bool(np.array_equal(
+                        probe.pose, res.pose))
+                else:
+                    # The frame failed in serving: the warm start is still
+                    # what the fit made of the same target.
+                    _, refit = probe._step(state_before,
+                                           targets[probe_s, chaos_round])
+                    warm_start_consistent = bool(np.array_equal(
+                        probe.pose, refit.pose.detach().cpu().numpy()))
+                for k, v in chaos_outcomes.items():
+                    outcomes[k] += v
+            failovers = eng.counters.failovers - failovers_before
+
+            steady_recompiles = (eng.counters.compiles
+                                 - compiles_settled)
+            # Close all but two sessions; stop() sweeps the stragglers
+            # to the ``shutdown`` terminal.
+            for sess in sessions[:-2]:
+                sess.close()
+            load_final = eng.load()
+            snap = eng.counters.snapshot()
+    finally:
+        pool.shutdown(wait=False)
+        plan.release.set()
+
+    # After stop(): the sweep moved the stragglers to ``shutdown``.
+    streams_snap = eng.load()["streams"]
+    submitted = sum(outcomes.values())
+    resolved_fraction = (1.0 - outcomes["stranded"] / submitted
+                         if submitted else 0.0)
+
+    def pct(xs, q):
+        return (float(np.percentile(np.asarray(xs) * 1e3, q))
+                if xs else None)
+
+    p50, p99 = pct(frame_lat, 50), pct(frame_lat, 99)
+    fit50, fit99 = pct(fit_lat, 50), pct(fit_lat, 99)
+    disp = [f - g for f, g in zip(frame_lat, fit_lat)] \
+        if len(frame_lat) == len(fit_lat) else []
+    fps = (max(streams / t for t in round_times)
+           if round_times else None)
+    objectives = {
+        "0": {**DEFAULT_SLO_OBJECTIVES["0"],
+              "p99_target_ms": frame_deadline_s * 1e3},
+        "default": DEFAULT_SLO_OBJECTIVES["default"],
+    }
+    slo = slo_report(
+        snap, objectives,
+        latency_by_tier={"0": {"p50_ms": p50, "p99_ms": p99,
+                               "n": len(frame_lat)}}
+        if frame_lat else None)
+    log(f"streams: {submitted} frames -> {outcomes['ok']} ok / "
+        f"{outcomes['shed']} shed / {outcomes['expired']} expired / "
+        f"{outcomes['error']} error / {outcomes['stranded']} "
+        f"stranded; {fps and f'{fps:,.0f}'} frames/s steady, p99 "
+        f"{p99 and f'{p99:.1f}'} ms, {failovers} failover(s), "
+        f"{steady_recompiles} steady recompiles")
+    g4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
+    return {
+        "streams": int(streams),
+        "frames_per_stream": int(frames_per_stream),
+        "subjects": int(subjects),
+        "workers": int(workers),
+        "buckets": list(eng.buckets),
+        "frame_deadline_s": frame_deadline_s,
+        "frames_submitted": int(submitted),
+        "frames_resolved_fraction": float(f"{resolved_fraction:.6g}"),
+        "outcomes": outcomes,
+        "chaos_spec": chaos_spec or None,
+        "chaos_outcomes": chaos_outcomes if chaos_spec else None,
+        "failovers": int(failovers),
+        "failover_vs_cpu_direct_max_abs_err": failover_err,
+        "warm_start_after_failover_consistent": warm_start_consistent,
+        "frames_per_sec": (None if fps is None
+                           else float(f"{fps:.5g}")),
+        "frame_p50_ms": g4(p50),
+        "frame_p99_ms": g4(p99),
+        "fit_p50_ms": g4(fit50),
+        "fit_p99_ms": g4(fit99),
+        "dispatch_p50_ms": g4(pct(disp, 50)),
+        "dispatch_p99_ms": g4(pct(disp, 99)),
+        **calib,
+        "steady_recompiles": int(steady_recompiles),
+        "table_growths": snap["table_growths"],
+        "mixed_subject_batches": snap["mixed_subject_batches"],
+        "coalesce_width_mean": snap["coalesce_width_mean"],
+        "dispatches": snap["dispatches"],
+        "stream_spans": {
+            "opened": streams_snap["opened"],
+            "closed_by_kind": streams_snap["closed_by_kind"],
+            "active_after_stop": streams_snap["active"],
+        },
+        "slo": slo,
+        "load_final": {k: load_final[k]
+                       for k in ("outstanding", "queued", "streams",
+                                 "backlog_age_s")
+                       if k in load_final},
+        "flight_record": flight_record(
+            tracer, eng.counters, reason="stream_drill_complete"),
+    }
+
+
+def _stream_fit_calibration(prm32, sessions, betas, next_targets,
+                            lm_mod, *, warm_steps, cold_steps_candidates,
+                            target_loss, trials, log) -> dict:
+    """The warm-start measurement of ``stream_drill_run``: warm-started
+    frozen-shape fits at ``warm_steps`` against the cheapest COLD fit
+    (rest-pose start) reaching the same bar, both slope-timed.
+
+    Loss parity first: the warm side must sit under ``target_loss``
+    (``warm_loss_matched``) and the cold side's step count is the
+    smallest candidate whose median loss does too. Then the slope: the
+    per-fit marginal cost over two in-pass repeat counts (m and 2m fits),
+    warm and cold interleaved per trial, the minimum over trials per
+    point. Each fit's device work is waited for before the clock reads.
+    """
+    def settle(x):
+        if torch.is_tensor(x) and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        return x
+
+    probes = []
+    for sess, beta, target in zip(sessions, betas, next_targets):
+        probes.append((sess.pose, beta, target))
+
+    def warm_fit(i, n_steps=warm_steps):
+        pose, beta, target = probes[i % len(probes)]
+        return lm_mod.fit_lm(prm32, target, n_steps=n_steps,
+                             data_term="joints", init={"pose": pose},
+                             frozen_shape=beta)
+
+    def cold_fit(i, n_steps):
+        _, beta, target = probes[i % len(probes)]
+        return lm_mod.fit_lm(prm32, target, n_steps=n_steps,
+                             data_term="joints", frozen_shape=beta)
+
+    warm_losses = [float(settle(warm_fit(i).final_loss))
+                   for i in range(len(probes))]
+    warm_median = float(np.median(warm_losses))
+    warm_ok = warm_median <= target_loss
+
+    cold_steps = None
+    cold_median = None
+    for k in sorted(cold_steps_candidates):
+        losses = [float(settle(cold_fit(i, k).final_loss))
+                  for i in range(len(probes))]
+        med = float(np.median(losses))
+        cold_steps, cold_median = int(k), med   # the best so far
+        if med <= target_loss:
+            break
+    matched = bool(warm_ok and cold_median is not None
+                   and cold_median <= target_loss)
+
+    m1 = len(probes)
+    m2 = 2 * m1
+
+    def run_m(fit, m, n_steps):
+        t0 = time.perf_counter()
+        last = None
+        for i in range(m):
+            last = fit(i, n_steps)
+        settle(last.pose)
+        return time.perf_counter() - t0
+
+    thunks = {
+        "w1": lambda: run_m(warm_fit, m1, warm_steps),
+        "w2": lambda: run_m(warm_fit, m2, warm_steps),
+        "c1": lambda: run_m(cold_fit, m1, cold_steps),
+        "c2": lambda: run_m(cold_fit, m2, cold_steps),
+    }
+    for k in thunks:
+        thunks[k]()     # settle: every path warm before timing
+    best = {k: float("inf") for k in thunks}
+    for t in range(max(1, trials)):
+        order = sorted(thunks) if t % 2 == 0 \
+            else sorted(thunks, reverse=True)
+        for k in order:
+            best[k] = min(best[k], thunks[k]())
+    s_warm = (best["w2"] - best["w1"]) / (m2 - m1)
+    s_cold = (best["c2"] - best["c1"]) / (m2 - m1)
+    ratio = s_cold / s_warm if s_warm > 0 and s_cold > 0 else None
+    log(f"streams calib: warm {warm_steps} steps (median loss "
+        f"{warm_median:.2e}) vs cold {cold_steps} steps (median "
+        f"{cold_median:.2e}, bar {target_loss:.0e}, matched="
+        f"{matched}); slope {s_warm * 1e3:.2f} vs "
+        f"{s_cold * 1e3:.2f} ms/fit -> ratio "
+        f"{ratio and f'{ratio:.2f}'}x")
+    return {
+        "warm_fit_steps": int(warm_steps),
+        "cold_fit_steps": cold_steps,
+        "fit_target_loss": target_loss,
+        "warm_fit_loss_median": float(f"{warm_median:.5g}"),
+        "cold_fit_loss_median": (None if cold_median is None
+                                 else float(f"{cold_median:.5g}")),
+        "warm_loss_matched": matched,
+        "warm_fit_ms_per_frame": float(f"{s_warm * 1e3:.5g}"),
+        "cold_fit_ms_per_frame": float(f"{s_cold * 1e3:.5g}"),
+        "warm_fit_frames_per_sec": (
+            None if s_warm <= 0 else float(f"{1.0 / s_warm:.5g}")),
+        "cold_fit_frames_per_sec": (
+            None if s_cold <= 0 else float(f"{1.0 / s_cold:.5g}")),
+        "warm_vs_cold_fit_ratio": (
+            None if ratio is None else float(f"{ratio:.4g}")),
+    }
+
+
+def dispatch_pipeline_drill_run(
+    params,
+    *,
+    requests_steady: int = 240,
+    requests_chaos: int = 48,
+    calibrate_requests: int = 128,
+    trials: int = 5,
+    subjects: int = 6,
+    max_rows: int = 2,
+    max_bucket: int = 16,
+    deadline_s: float = 6.0,
+    inflight_depth: int = 2,
+    device_rtt_s: float = 0.0015,
+    max_delay_s: float = 0.002,
+    pace_factor: float = 0.9,
+    seed: int = 0,
+    device=None,
+    posed_kernel: str = "xla",
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The paired pipelined-vs-serial dispatch drill.
+
+    Two supervised engines on ``device`` over the same params, subjects
+    and deterministic request streams (pose-only, 1-``max_rows`` rows,
+    ``subjects`` subjects), differing only in the dispatch pipeline:
+    ``serial`` (``inflight_depth=1``, the fixed coalesce window) and
+    ``pipelined`` (``inflight_depth``, the adaptive window). The timed
+    legs run ``trials`` times, interleaved per trial in alternating side
+    order on the same stream; rates come from each side's fastest trial,
+    queue waits pool every trial's spans:
+
+    * **drain** — ``calibrate_requests`` submitted at once (a saturated
+      backlog): each side's capacity;
+    * **steady** — ``requests_steady`` arriving open-loop at
+      ``pace_factor`` x the pipelined capacity, with a mid-leg
+      ``future.cancel()`` probe at the same index on both sides; queue
+      p50/p99 from each side's spans;
+    * **chaos** — transient ``error@`` faults on launched batches (on the
+      pipelined side the supervised envelope runs on the completion
+      worker), absorbed by the retry.
+
+    Every leg's results are compared with a plain reference engine's
+    one-request dispatches of the same family (``posed_kernel``) and
+    across the two sides (``cross_engine_bit_identical``): pipelining
+    reorders work, never results where a row's result is independent of
+    its batchmates (K2's on a card; on the CPU a row of the plain gather
+    can round one ulp differently at another batch size, and the errors
+    read ~1e-8). ``device_rtt_s`` > 0 adds the chaos module's
+    ``sat:{device_rtt_s}@*`` throttle to every dispatch of both sides (a
+    slow-device model); 0 measures the device as it is. A card engine
+    has no CPU tier: its policy has ``cpu_fallback=False``, and the chaos
+    leg's faults are retried on the card.
+    """
+    import concurrent.futures as cf
+
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
+
+    log = _logger(log)
+    dev = resolve_device(device)
+    n_joints, n_shape = params.n_joints, params.n_shape
+    prm32 = params.astype(torch.float32).to(dev)
+    rng = np.random.default_rng(seed)
+    subj_betas = [rng.normal(size=(n_shape,)).astype(np.float32)
+                  for _ in range(subjects)]
+
+    def make_stream(n, pass_seed):
+        r = np.random.default_rng(pass_seed)
+        sizes = r.integers(1, max_rows + 1, size=n)
+        return [(r.normal(scale=0.4,
+                          size=(int(s), n_joints, 3)).astype(np.float32),
+                 int(r.integers(0, subjects)))
+                for s in sizes]
+
+    streams = {
+        "drain": make_stream(calibrate_requests, seed + 300),
+        "steady": make_stream(requests_steady, seed + 301),
+        "chaos": make_stream(requests_chaos, seed + 302),
+    }
+
+    # The reference: a plain engine of the same family, one request a
+    # dispatch.
+    ref_eng = ServingEngine(prm32, device=dev, max_bucket=max_bucket,
+                            max_delay_s=0.001, posed_kernel=posed_kernel)
+    reference = {}
+    with ref_eng:
+        ref_keys = [ref_eng.specialize(b) for b in subj_betas]
+        for name, stream in streams.items():
+            reference[name] = [
+                ref_eng.forward(p, subject=ref_keys[si])
+                for p, si in stream]
+
+    sat_spec = (f"sat:{device_rtt_s}@*" if device_rtt_s > 0 else "")
+
+    def build(depth, adaptive):
+        plan = ChaosPlan()
+        policy = DispatchPolicy(
+            deadline_s=deadline_s, retries=1, backoff_s=0.005,
+            backoff_cap_s=0.01, jitter=0.0, chaos=plan,
+            cpu_fallback=dev.type == "cpu")
+        tracer = Tracer(capacity=65536)
+        eng = ServingEngine(
+            prm32, device=dev, max_bucket=max_bucket,
+            max_delay_s=max_delay_s, adaptive_coalesce=adaptive,
+            inflight_depth=depth, policy=policy, tracer=tracer,
+            posed_kernel=posed_kernel)
+        return {"eng": eng, "plan": plan, "tracer": tracer}
+
+    sides = {"serial": build(1, False),
+             "pipelined": build(int(inflight_depth), True)}
+    resolve_timeout = deadline_s * 3 + 60.0
+
+    def queue_seconds(side, n0):
+        tr = side["tracer"]
+        spans = tr.spans()[n0:]
+        out = []
+        for sp in spans:
+            st = tr._span_stages(sp)
+            if st is not None:
+                out.append(st["queue_s"])
+        return out, spans
+
+    def run_leg(side, stream, keys, *, rate=None, cancel_idx=-1):
+        """Submit one leg (open-loop at ``rate``/s, or all at once when
+        None), resolve everything, classify the outcomes."""
+        eng = sides[side]["eng"]
+        outcomes = {"ok": 0, "error": 0, "expired": 0, "stranded": 0,
+                    "cancelled": 0}
+        results = [None] * len(stream)
+        futs = [None] * len(stream)
+        t0 = time.perf_counter()
+        for i, (p, si) in enumerate(stream):
+            if rate is not None:
+                wait = t0 + i / rate - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+            futs[i] = eng.submit(p, subject=keys[si])
+            if i == cancel_idx:
+                futs[i].cancel()
+        for i, f in enumerate(futs):
+            try:
+                results[i] = f.result(timeout=resolve_timeout)
+                k = "ok"
+            except cf.CancelledError:
+                k = "cancelled"
+            except ServingError as e:
+                k = "expired" if e.kind == "expired" else "error"
+            except Exception:   # noqa: BLE001 — a timeout IS the bug
+                k = "stranded"
+            outcomes[k] += 1
+        return outcomes, results, time.perf_counter() - t0
+
+    def max_err(results, refs, skip=()):
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(results, refs)):
+            if got is None:
+                if i in skip:
+                    continue
+                return None              # an unresolved result: no bar
+            worst = max(worst, float(np.abs(got - want).max()))
+        return worst
+
+    pct = lambda xs, q: float(   # noqa: E731
+        f"{np.percentile(np.asarray(xs), q) * 1e3:.4g}") if xs else None
+    g4 = lambda x: float(f"{x:.4g}")     # noqa: E731
+
+    legs = {"serial": {}, "pipelined": {}}
+    cancel_idx = len(streams["steady"]) // 2
+    try:
+        for name, side in sides.items():
+            eng = side["eng"]
+            eng.__enter__()
+            side["keys"] = [eng.specialize(b) for b in subj_betas]
+            buckets = [b for b in eng.buckets if b <= max_bucket]
+            eng.warmup(buckets)
+            eng.warmup_posed(buckets)
+            side["warm_compiles"] = eng.counters.compiles
+            if sat_spec:
+                side["plan"].schedule(sat_spec)
+
+        def order(t):
+            return (("serial", "pipelined") if t % 2 == 0
+                    else ("pipelined", "serial"))
+
+        def werr(a, b):
+            return None if a is None or b is None else max(a, b)
+
+        def merge(leg, name, oc, err, res, dt):
+            st = legs[name].setdefault(leg, {
+                "outcomes": {k: 0 for k in oc}, "dts": [], "err": 0.0})
+            for k, v in oc.items():
+                st["outcomes"][k] += v
+            st["dts"].append(dt)
+            st["err"] = werr(st["err"], err)
+            st["results"] = res
+
+        # -- leg 1: drain (saturated-backlog capacity) ----------------
+        for t in range(trials):
+            for name in order(t):
+                oc, res, dt = run_leg(name, streams["drain"],
+                                      sides[name]["keys"])
+                merge("drain", name, oc,
+                      max_err(res, reference["drain"]), res, dt)
+        serial_rate = calibrate_requests / min(
+            legs["serial"]["drain"]["dts"])
+        pipelined_rate = calibrate_requests / min(
+            legs["pipelined"]["drain"]["dts"])
+        # The steady pace: pace_factor of the PIPELINED capacity, above
+        # the serial plateau when the pipeline buys headroom.
+        paced_rate = pace_factor * pipelined_rate
+        log(f"dispatch pipeline drill: capacities serial "
+            f"{serial_rate:.1f} / pipelined {pipelined_rate:.1f} "
+            f"req/s, pacing steady leg at {paced_rate:.1f} req/s")
+
+        # -- leg 2: steady (matched saturated open-loop load) ---------
+        for name, side in sides.items():
+            side["steady_n0"] = len(side["tracer"].spans())
+            side["compiles_before_steady"] = side["eng"].counters.compiles
+        for t in range(trials):
+            for name in order(t):
+                oc, res, dt = run_leg(
+                    name, streams["steady"], sides[name]["keys"],
+                    rate=paced_rate, cancel_idx=cancel_idx)
+                merge("steady", name, oc,
+                      max_err(res, reference["steady"],
+                              skip={cancel_idx}), res, dt)
+        for name, side in sides.items():
+            qs, spans = queue_seconds(side, side["steady_n0"])
+            legs[name]["steady"].update({
+                "queue_s": qs,
+                "stage_table": side["tracer"].stage_breakdown(spans),
+                "recompiles": (side["eng"].counters.compiles
+                               - side["compiles_before_steady"]),
+            })
+
+        # -- leg 3: chaos (transient faults on launched batches) ------
+        for name, side in sides.items():
+            c0 = {k: getattr(side["eng"].counters, k)
+                  for k in ("retries", "faults_injected", "failovers")}
+            side["plan"].schedule(
+                "error@1,error@4" + ("," + sat_spec if sat_spec else ""))
+            oc, res, dt = run_leg(name, streams["chaos"], side["keys"])
+            side["plan"].clear()
+            merge("chaos", name, oc,
+                  max_err(res, reference["chaos"]), res, dt)
+            legs[name]["chaos"].update(
+                {k: getattr(side["eng"].counters, k) - c0[k]
+                 for k in c0})
+    finally:
+        for side in sides.values():
+            side["plan"].release.set()
+            side["eng"].__exit__(None, None, None)
+
+    # Cross-engine bit identity, leg by leg (the cancel probe's index is
+    # skipped on steady: both sides cancelled the same request).
+    cross = True
+    for leg_name in ("drain", "steady", "chaos"):
+        for i, (a, b) in enumerate(zip(
+                legs["serial"][leg_name]["results"],
+                legs["pipelined"][leg_name]["results"])):
+            if leg_name == "steady" and i == cancel_idx:
+                continue
+            if a is None or b is None or not np.array_equal(a, b):
+                cross = False
+
+    n_legs_total = (trials * (calibrate_requests + requests_steady)
+                    + requests_chaos)
+    out = {
+        "requests_steady": requests_steady,
+        "requests_chaos": requests_chaos,
+        "calibrate_requests": calibrate_requests,
+        "trials": trials,
+        "subjects": subjects,
+        "max_bucket": max_bucket,
+        "pipeline_depth": int(inflight_depth),
+        "device_rtt_s": device_rtt_s,
+        "pace_factor": pace_factor,
+        "serial_capacity_per_sec": g4(serial_rate),
+        "pipelined_capacity_per_sec": g4(pipelined_rate),
+        "paced_rate_per_sec": g4(paced_rate),
+    }
+    for name in ("serial", "pipelined"):
+        side, lg = sides[name], legs[name]
+        qs = lg["steady"]["queue_s"]
+        acc = side["tracer"].accounting()
+        resolved = n_legs_total - sum(
+            lg[leg]["outcomes"]["stranded"]
+            for leg in ("drain", "steady", "chaos"))
+        outcomes = {k: sum(lg[leg]["outcomes"][k]
+                           for leg in ("drain", "steady", "chaos"))
+                    for k in lg["steady"]["outcomes"]}
+        csnap = side["eng"].counters.snapshot()
+        out[f"{name}_queue_p50_ms"] = pct(qs, 50)
+        out[f"{name}_queue_p99_ms"] = pct(qs, 99)
+        out.update({
+            f"{name}_throughput_per_sec": g4(
+                calibrate_requests / min(lg["drain"]["dts"])),
+            f"{name}_drain_leg_seconds": [
+                g4(dt) for dt in lg["drain"]["dts"]],
+            f"{name}_paced_throughput_per_sec": g4(
+                requests_steady / min(lg["steady"]["dts"])),
+            f"{name}_steady_recompiles": int(lg["steady"]["recompiles"]),
+            f"{name}_warmup_compiles": int(side["warm_compiles"]),
+            f"{name}_futures_resolved_fraction": float(
+                f"{resolved / n_legs_total:.6g}"),
+            f"{name}_outcomes": outcomes,
+            f"{name}_drain_vs_reference_max_abs_err":
+                lg["drain"]["err"],
+            f"{name}_steady_vs_reference_max_abs_err":
+                lg["steady"]["err"],
+            f"{name}_chaos_vs_reference_max_abs_err":
+                lg["chaos"]["err"],
+            f"{name}_chaos_retries": int(lg["chaos"]["retries"]),
+            f"{name}_chaos_faults_injected": int(
+                lg["chaos"]["faults_injected"]),
+            f"{name}_stage_table": lg["steady"]["stage_table"],
+            f"{name}_spans": {
+                "started": acc["spans_started"],
+                "closed": acc["spans_closed"],
+                "open": acc["spans_open"],
+                "closed_by_kind": acc["closed_by_kind"],
+            },
+            f"{name}_pipeline_inflight_peak": int(
+                csnap["pipeline_inflight_peak"]),
+            f"{name}_pipeline_completions": int(
+                csnap["pipeline_completions"]),
+        })
+    out["queue_p50_speedup"] = (
+        g4(out["serial_queue_p50_ms"] / out["pipelined_queue_p50_ms"])
+        if out["serial_queue_p50_ms"] and out["pipelined_queue_p50_ms"]
+        else None)
+    out["throughput_speedup"] = g4(
+        out["pipelined_throughput_per_sec"]
+        / out["serial_throughput_per_sec"])
+    out["cross_engine_bit_identical"] = bool(cross)
+    frac = (out["serial_futures_resolved_fraction"]
+            + out["pipelined_futures_resolved_fraction"]) / 2
+    out["futures_resolved_fraction"] = float(f"{frac:.6g}")
+
+    # The depth-1 contract, observed: a serial span never carries the
+    # "staged" stage, a pipelined one does.
+    def _has_pipeline_stage(table):
+        return any("pipeline_p50_ms" in cell
+                   for cell in table["by_bucket_tier"].values())
+    out["serial_telemetry_serial_shape"] = (
+        not _has_pipeline_stage(out["serial_stage_table"]))
+    out["pipelined_overlap_observed"] = _has_pipeline_stage(
+        out["pipelined_stage_table"])
+    out["serial_flight_record"] = flight_record(
+        sides["serial"]["tracer"], sides["serial"]["eng"].counters,
+        reason="dispatch_pipeline_serial_leg")
+    out["flight_record"] = flight_record(
+        sides["pipelined"]["tracer"], sides["pipelined"]["eng"].counters,
+        reason="dispatch_pipeline_drill_complete")
     return out

@@ -6,9 +6,11 @@ dispatches and the rows in them, the coalescing of requests (and of
 subjects) into batches, the subject table's bakes, hits, growths and
 evictions, the program cache and its persistence, and the resilience
 and admission layer: supervised retries, injected faults, CPU failovers,
-deadline kills, sheds, expiries and cancellations, per priority tier.
-The dispatcher thread, supervision workers and submitters all write
-here.
+deadline kills, sheds, expiries and cancellations, per priority tier;
+the pipelined dispatch's completion stage, and the tiered subject
+store's hits, misses, movements and promotion stalls. The dispatcher
+thread, completion workers, supervision workers and submitters all
+write here.
 
 ``compiles`` counts the programs built live in this process, the events
 JAX counts as a trace and compile: on a card engine each CUDA-graph
@@ -31,9 +33,15 @@ import warnings
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
+
 #: File name of ``torch_trace``'s capture (``*.trace.json``: what
 #: ``obs/trace_report.py`` globs).
 TORCH_TRACE = "torch.trace.json"
+
+#: Samples kept in a bounded reservoir (the promotion stalls): a ring
+#: past this many, as JAX's latency reservoirs.
+_LATENCY_RESERVOIR = 8192
 
 
 @contextlib.contextmanager
@@ -113,6 +121,28 @@ class ServingCounters:
         self.tier_shed: Dict[int, int] = {}        # tier -> sheds
         self.tier_expired: Dict[int, int] = {}     # tier -> expiries
         self.tier_cancelled: Dict[int, int] = {}   # tier -> cancellations
+        # The pipelined dispatch: batches the completion stage resolved
+        # (0 at inflight_depth=1), its in-flight high-water, and batches
+        # its deadline re-check expired whole without a dispatch.
+        self.pipeline_completions = 0
+        self.pipeline_inflight_peak = 0
+        self.pipeline_presweeps = 0
+        # The tiered subject store: per-tier resolutions (hot: already in
+        # the table; warm: a host row promoted; cold: a disk page
+        # promoted; miss: the shape stage re-ran), the movements, and a
+        # damaged cold page degraded to a counted re-bake.
+        self.subject_store_hot_hits = 0
+        self.subject_store_warm_hits = 0
+        self.subject_store_cold_hits = 0
+        self.subject_store_misses = 0
+        self.subject_store_prefetches = 0
+        self.subject_store_promotions = 0
+        self.subject_store_demotions_warm = 0
+        self.subject_store_demotions_cold = 0
+        self.subject_store_cold_damage = 0
+        self.subject_store_resize_evictions = 0
+        self._promotion_stalls: list = []   # seconds; bounded ring
+        self._promotion_writes = 0
 
     def count_dispatch(self, bucket: int, live_rows: int, requests: int = 1,
                        subjects: int = 1, bf16: bool = False) -> None:
@@ -238,6 +268,92 @@ class ServingCounters:
             if depth > self.queue_depth_peak:
                 self.queue_depth_peak = depth
 
+    # -- pipelined dispatch ----------------------------------------------
+    def count_pipeline_completion(self, n: int = 1) -> None:
+        """One batch resolved by the completion stage (a pipelined
+        dispatch)."""
+        with self._lock:
+            self.pipeline_completions += n
+
+    def observe_pipeline_inflight(self, inflight: int) -> None:
+        """The completion stage's in-flight count after a submit
+        (launched, not yet resolved batches)."""
+        with self._lock:
+            if inflight > self.pipeline_inflight_peak:
+                self.pipeline_inflight_peak = inflight
+
+    def count_pipeline_presweep(self, n: int = 1) -> None:
+        """One batch the stage's deadline re-check expired whole, before
+        any dispatch."""
+        with self._lock:
+            self.pipeline_presweeps += n
+
+    # -- tiered subject store --------------------------------------------
+    def count_store_hot(self, n: int = 1) -> None:
+        """N batch subjects resolved straight from the device table."""
+        with self._lock:
+            self.subject_store_hot_hits += n
+
+    def count_store_warm(self, n: int = 1) -> None:
+        """One install served from a host warm row (no re-bake)."""
+        with self._lock:
+            self.subject_store_warm_hits += n
+
+    def count_store_cold(self, n: int = 1) -> None:
+        """One install served from a verified cold page (no re-bake)."""
+        with self._lock:
+            self.subject_store_cold_hits += n
+
+    def count_store_miss(self, n: int = 1) -> None:
+        """One install no tier could serve: the shape stage re-ran."""
+        with self._lock:
+            self.subject_store_misses += n
+
+    def count_store_prefetch(self, n: int = 1) -> None:
+        """One asynchronous host-to-device promotion started ahead of
+        its dispatch (coalesce admit, ``open_stream``)."""
+        with self._lock:
+            self.subject_store_prefetches += n
+
+    def count_store_promotion(self, n: int = 1) -> None:
+        """One row made device-resident from a lower tier."""
+        with self._lock:
+            self.subject_store_promotions += n
+
+    def count_store_demotion_warm(self, n: int = 1) -> None:
+        """One evicted row captured into the warm tier."""
+        with self._lock:
+            self.subject_store_demotions_warm += n
+
+    def count_store_demotion_cold(self, n: int = 1) -> None:
+        """One warm-LRU victim paged to the cold tier."""
+        with self._lock:
+            self.subject_store_demotions_cold += n
+
+    def count_store_cold_damage(self, n: int = 1) -> None:
+        """One cold page that failed verification (missing, unreadable,
+        or a content or digest mismatch), degraded to a counted
+        re-bake."""
+        with self._lock:
+            self.subject_store_cold_damage += n
+
+    def count_store_resize_eviction(self, n: int = 1) -> None:
+        """One warm row evicted, oldest first, by a runtime shrink of
+        the warm capacity (``SubjectStore.resize_warm``)."""
+        with self._lock:
+            self.subject_store_resize_evictions += n
+
+    def record_promotion_stall(self, seconds: float) -> None:
+        """What one install waited on a warm promotion (the residual
+        after any prefetch overlap), into a bounded ring."""
+        with self._lock:
+            if len(self._promotion_stalls) >= _LATENCY_RESERVOIR:
+                self._promotion_stalls[
+                    self._promotion_writes % _LATENCY_RESERVOIR] = seconds
+            else:
+                self._promotion_stalls.append(seconds)
+            self._promotion_writes += 1
+
     @staticmethod
     def _width_mean(requests_dispatched: int, dispatches: int) -> float:
         return requests_dispatched / dispatches if dispatches else 0.0
@@ -279,6 +395,22 @@ class ServingCounters:
                 "expired": self.expired,
                 "cancelled": self.cancelled,
                 "backlog_peak": self.backlog_peak,
+                "pipeline_completions": self.pipeline_completions,
+                "pipeline_inflight_peak": self.pipeline_inflight_peak,
+                "pipeline_presweeps": self.pipeline_presweeps,
+                "subject_store_hot_hits": self.subject_store_hot_hits,
+                "subject_store_warm_hits": self.subject_store_warm_hits,
+                "subject_store_cold_hits": self.subject_store_cold_hits,
+                "subject_store_misses": self.subject_store_misses,
+                "subject_store_prefetches": self.subject_store_prefetches,
+                "subject_store_promotions": self.subject_store_promotions,
+                "subject_store_demotions_warm":
+                    self.subject_store_demotions_warm,
+                "subject_store_demotions_cold":
+                    self.subject_store_demotions_cold,
+                "subject_store_cold_damage": self.subject_store_cold_damage,
+                "subject_store_resize_evictions":
+                    self.subject_store_resize_evictions,
             }
             out["coalesce_width_mean"] = round(
                 self._width_mean(self.requests_dispatched, self.dispatches),
@@ -296,4 +428,18 @@ class ServingCounters:
                 }
                 for t in tiers
             }
+            stalls = list(self._promotion_stalls)
+        # Percentiles outside the lock (reads of the copied samples).
+        out["subject_store_promotion_ms"] = _quantiles(stalls)
         return out
+
+
+def _quantiles(seconds: list) -> dict:
+    """JAX's ``{"p50_ms", "p99_ms", "n"}`` summary of a sample list
+    (zeros when empty)."""
+    if not seconds:
+        return {"p50_ms": 0.0, "p99_ms": 0.0, "n": 0}
+    arr = np.asarray(seconds)
+    return {"p50_ms": float(np.percentile(arr, 50) * 1e3),
+            "p99_ms": float(np.percentile(arr, 99) * 1e3),
+            "n": int(arr.size)}

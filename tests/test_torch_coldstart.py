@@ -528,13 +528,9 @@ def test_port_checkpoint_restores_into_jax(params32, jax_params, tmp_path):
         np.testing.assert_array_equal(got[n], want[n])
 
 
-def test_counters_match_the_jax_engine_compiles_included(params32,
-                                                         jax_params):
-    """The same traffic through both engines — warm-ups, both request
-    kinds, a table growth (whose stale gathered programs rebuild), LRU
-    evictions and the CPU tier's build under a policy: every counter the
-    port keeps equals JAX's, ``compiles`` included (the port's one extra
-    key, ``dispatches_bf16``, aside)."""
+def _counters_twin(params32, jax_params, pipe):
+    """The same traffic through both engines at the dispatch settings
+    ``pipe``; the port's counters must equal JAX's."""
     rng = np.random.default_rng(5)
     betas = _betas(12, seed=23)
     traffic = [(rng.normal(scale=0.4, size=(int(n), 16, 3)).astype(
@@ -561,10 +557,10 @@ def test_counters_match_the_jax_engine_compiles_included(params32,
         return outs, eng.counters.snapshot()
 
     po, ps = run(lambda pol: ServingEngine(
-        params32, device="cpu", max_bucket=4, max_subjects=9, policy=pol))
+        params32, device="cpu", max_bucket=4, max_subjects=9, policy=pol,
+        **pipe))
     jo, js = run(lambda pol: JaxEngine(
-        jax_params, max_bucket=4, max_subjects=9, policy=pol,
-        inflight_depth=1, adaptive_coalesce=False))
+        jax_params, max_bucket=4, max_subjects=9, policy=pol, **pipe))
     assert ps["table_growths"] >= 1 and ps["specializations_evicted"] >= 1
     assert ps["compiles"] > 0
     shared = set(ps) - {"dispatches_bf16"}
@@ -572,4 +568,26 @@ def test_counters_match_the_jax_engine_compiles_included(params32,
     assert {k: ps[k] for k in shared} == {k: js[k] for k in shared}
     for a, b in zip(po, jo):
         assert float(np.abs(a - np.asarray(b)).max()) <= 1e-6
+    return ps
+
+
+def test_counters_match_the_jax_engine_compiles_included(params32,
+                                                         jax_params):
+    """The same traffic through both engines — warm-ups, both request
+    kinds, a table growth (whose stale gathered programs rebuild), LRU
+    evictions and the CPU tier's build under a policy — at serial
+    dispatch: every counter the port keeps equals JAX's, ``compiles``
+    included (the port's one extra key, ``dispatches_bf16``, aside)."""
+    ps = _counters_twin(params32, jax_params, {
+        "inflight_depth": 1, "adaptive_coalesce": False})
+    assert ps["pipeline_completions"] == 0
+
+
+def test_counters_match_the_jax_engine_at_the_jax_defaults(params32,
+                                                           jax_params):
+    """The same traffic with both engines pipelined (JAX's defaults):
+    the counters still agree, the completion stage's included."""
+    ps = _counters_twin(params32, jax_params, {
+        "inflight_depth": 2, "adaptive_coalesce": True})
+    assert ps["pipeline_completions"] == ps["dispatches"] > 0
 

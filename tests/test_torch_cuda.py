@@ -11,7 +11,9 @@ imports JAX), registering the marker on the command line:
 The serving engine's CUDA-graph programs are held against eager calls,
 across table installs between captures and replays, against a woken
 supervised attempt, under the caller's TF32 switch and against a
-CPU-baked lattice. Shapes cover what ``chip_smoke.py`` does not: ragged
+CPU-baked lattice; the pipelined dispatch against its direct calls with
+a side stream current in another thread, an attempt abandoned after its
+launch, and a warm promotion prefetched on a stalled side stream. Shapes cover what ``chip_smoke.py`` does not: ragged
 and tiny batches, generic kinematic trees (J = 7 to 64), V from 1 to
 778, rows that are not 16-byte aligned, subject tables of 1 to 1000
 rows and out-of-range (negative: wrapped once) subject indices. Tolerance: kernel vs plain
@@ -1410,10 +1412,13 @@ def test_traced_fused_engine_spans_and_events(dev):
     assert acc["spans_open"] == acc["spans_double_closed"] == 0
     assert acc["closed_by_kind"] == {"ok": 6}
     for span in tr.spans():
-        assert [e[1] for e in span["events"]][-4:] == [
-            "launch", "dispatched", "readback", "resolve"]
+        # Pipelined (the default depth 2): "staged" between the launch
+        # boundary and the replay's enqueue.
+        assert [e[1] for e in span["events"]][-5:] == [
+            "launch", "staged", "dispatched", "readback", "resolve"]
     names = [e[2] for e in tr.snapshot()["events"] if e[1] == 0]
     assert names.count("chaos_fault") == names.count("retry") == 1
+    assert names.count("pipeline") == 1
     assert names.count("compile") == 12        # none in steady traffic
     stages = tr.stage_breakdown()
     assert stages["complete_spans"] == 6
@@ -1586,3 +1591,189 @@ def test_k2_rows_ignore_their_batchmates(dev):
                         table, torch.from_numpy(idx).to(dev),
                         torch.from_numpy(batch).to(dev), compute_dtype=dt)
                     assert torch.equal(got[off:off + n], alone), (dt, n, off)
+
+
+def _stall_cycles(seconds):
+    """``torch.cuda._sleep`` cycles for at least ``seconds`` on a card
+    clocked at or below 2 GHz."""
+    return int(seconds * 2e9)
+
+
+def test_pipelined_batches_keep_stream_order(dev):
+    """Depth 2: two completion workers launch and read back concurrently
+    from one static output, while another thread with a side stream
+    current calls the same program directly. Every copy and replay goes
+    to the device's default stream, so each batch's readback completes
+    before the next replay overwrites the output: every result equals its
+    direct call. Alternating subjects make a result read from the wrong
+    batch show (the subjects differ by centimetres)."""
+    import threading
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = ServingEngine(params, min_bucket=64, max_bucket=64,
+                        posed_kernel="fused", max_delay_s=0.0,
+                        inflight_depth=2)
+    betas = np.random.default_rng(17).normal(size=(2, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas]
+    eng.warmup_posed([64])
+    poses = [_engine_inputs(64, 300 + i)[0] for i in range(24)]
+    table = eng.table
+    side_out = []
+
+    def side_caller():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for i in range(24):
+                idx = np.full(64, eng._subject_slots[keys[i % 2]],
+                              dtype=np.int32)
+                side_out.append((i, eng._run_posed(table, idx, poses[i])))
+
+    th = threading.Thread(target=side_caller)
+    with eng:
+        th.start()
+        futs = [eng.submit(p, subject=keys[i % 2])
+                for i, p in enumerate(poses)]
+        got = [f.result(timeout=120) for f in futs]
+        th.join(120)
+    assert eng.counters.pipeline_completions == 24
+    assert eng.counters.pipeline_inflight_peak == 2
+    for i, out in enumerate(got):
+        want = _direct_k2(params, betas[i % 2], poses[i], 64)
+        np.testing.assert_array_equal(out, want)
+        assert _err(out, _direct_k2(params, betas[(i + 1) % 2],
+                                    poses[i], 64)) > 1e-3
+    for i, out in side_out:
+        np.testing.assert_array_equal(
+            out, _direct_k2(params, betas[i % 2], poses[i], 64))
+
+
+def test_abandoned_attempt_keeps_its_output_slab(dev):
+    """An attempt abandoned after its launch (the card stalled behind it
+    past the deadline) still has its readback in flight into its pinned
+    output slab: the retry reads back into another slab (the abandoned
+    one is still held, and the pinned cache would not hand it out before
+    its copy lands anyway), and every later batch, from two threads at
+    depth 2, serves its own bits."""
+    import threading
+
+    from mano_hand_tpu_torch.serving import buckets
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    policy, plan = _supervised("", lambda: True, deadline_s=0.3)
+    eng = ServingEngine(params, max_bucket=8, posed_kernel="fused",
+                        policy=policy, max_delay_s=0.0, inflight_depth=2)
+    betas = np.random.default_rng(23).normal(size=(2, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas]
+    eng.warmup_posed([8])
+    prog = eng._gather_exes[8][1]
+    slabs = []
+    launch = prog.launch
+
+    def recording_launch(*a, **kw):
+        h = launch(*a, **kw)
+        slabs.append(h._slab.data_ptr())
+        return h
+
+    class StalledReplay:
+        """The first replay runs behind a device stall past the
+        deadline."""
+
+        def __init__(self, graph):
+            self.graph, self.stall = graph, _stall_cycles(0.45)
+
+        def replay(self):
+            if self.stall:
+                torch.cuda._sleep(self.stall)
+                self.stall = 0
+            self.graph.replay()
+
+    prog.launch = recording_launch
+    prog._graph = StalledReplay(prog._graph)
+    p1 = _engine_inputs(8, 51)[0]
+    with eng:
+        first = eng.forward(p1, subject=keys[0])
+        assert eng.counters.deadline_kills == 1
+        assert len(slabs) == 2 and slabs[1] != slabs[0]
+        more = []
+
+        def client(t):
+            for i in range(8):
+                p = _engine_inputs(8, 400 + 10 * t + i)[0]
+                more.append((t, i, p, eng.forward(p, subject=keys[t])))
+
+        ths = [threading.Thread(target=client, args=(t,)) for t in (0, 1)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(120)
+    torch.cuda.synchronize(dev)
+    np.testing.assert_array_equal(
+        first, _direct_k2(params, betas[0], p1, 8))
+    assert len(more) == 16
+    for t, i, p, out in more:
+        np.testing.assert_array_equal(out, _direct_k2(
+            params, betas[t], p, buckets.bucket_for(8, eng.buckets)))
+
+
+def test_prefetched_promotion_waits_for_its_copy(dev):
+    """A warm row prefetched on the store's side stream, with that stream
+    stalled behind the copy: the install's stream waits on the copy's
+    event before the table write reads the rows, so the promoted subject
+    serves the fresh bake's bits. A demoted row's copy to the host is on
+    the host before its slot is reused."""
+    from mano_hand_tpu_torch.serving.subject_store import (
+        ROW_KEYS, SubjectStore,
+    )
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    store = SubjectStore(warm_capacity=8)
+    eng = ServingEngine(params, max_bucket=4, max_subjects=2,
+                        posed_kernel="fused", subject_store=store,
+                        max_delay_s=0.0)
+    betas = np.random.default_rng(29).normal(size=(3, 10)).astype(np.float32)
+    keys = eng.register_subjects(betas)
+    pose = _engine_inputs(4, 61)[0]
+    with eng:
+        first = [eng.forward(pose, subject=k) for k in keys]  # k0 demotes
+        assert keys[0] in store.warm_digests()
+        for k in ROW_KEYS:
+            assert store._warm[keys[0]][k].is_pinned()
+        store._side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(store._side):
+            torch.cuda._sleep(_stall_cycles(0.2))
+        assert store.prefetch(keys[0])
+        again = eng.forward(pose, subject=keys[0])
+    c = eng.counters.snapshot()
+    assert c["subject_store_warm_hits"] == 1
+    assert c["subject_store_prefetches"] >= 1
+    assert c["subject_store_promotion_ms"]["p99_ms"] > 50.0   # it waited
+    want = _direct_k2(params, betas[0], pose, 4)
+    np.testing.assert_array_equal(first[0], want)
+    np.testing.assert_array_equal(again, want)
+
+
+def test_loaded_artifact_graph_keeps_its_module(dev, tmp_path):
+    """A program loaded from a legacy artifact is captured into a graph
+    that reads the loaded module's constants (FK's index tensors) in
+    place: the program keeps the module, so after a collection and
+    device-memory churn its replays still serve the live bits."""
+    import gc
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    live = ServingEngine(params, max_bucket=4, aot_dir=tmp_path)
+    assert live.warmup([4]) == {4: "jit"}          # writes the artifact
+    loaded = ServingEngine(params, max_bucket=4, aot_dir=tmp_path)
+    assert loaded.warmup([4]) == {4: "aot"}
+    prog = loaded._exes[4]
+    assert prog._keep is not None
+    pose, shape = _engine_inputs(4, 71)
+    want = live._run_full(pose, shape)
+    gc.collect()
+    junk = [torch.full((n,), 10 ** 9, dtype=torch.long, device=dev)
+            for n in (1, 2, 3, 4, 8, 16, 64) for _ in range(64)]
+    del junk
+    junk = [torch.full((n,), 10 ** 9, dtype=torch.long, device=dev)
+            for n in (1, 2, 3, 4, 8, 16, 64) for _ in range(64)]
+    for _ in range(3):
+        np.testing.assert_array_equal(loaded._run_full(pose, shape), want)
+    del junk
+    torch.cuda.synchronize(dev)

@@ -114,7 +114,7 @@ def test_overload_drill_meets_its_criteria(params):
     # load() with the drill's tracer: its latency quantiles and backlog age
     assert set(out["load_mid_drill"]) == {
         "outstanding", "queued", "max_queued", "admission", "backlog_peak",
-        "latency_by_tier", "backlog_age_s"}
+        "latency_by_tier", "backlog_age_s", "streams"}
 
 
 def test_overload_drill_small_max_queued_calibrates(params):

@@ -161,9 +161,11 @@ def test_counter_drift_guard_every_field_exported():
     for field in (k for k in vars(c) if not k.startswith("_")):
         assert folded.get(field, field) in snap, field
     out = pmetrics.serving_samples(snap)
+    renamed = {"tiers": "serving_tier_submitted",
+               "subject_store_promotion_ms":
+                   "serving_subject_store_promotion_p50_ms"}
     for key in snap:
-        want = "serving_tier_submitted" if key == "tiers" \
-            else f"serving_{key}"
+        want = renamed.get(key, f"serving_{key}")
         assert want in out, key
     assert out["serving_dispatches_bf16"]["type"] == "counter"
     assert out["serving_dispatches_bf16"]["samples"] == [[None, 1.0]]
@@ -298,7 +300,9 @@ def test_sentinel_verdicts_equal_to_jax(params, params32, tmp_path):
     JAX sentinel over the JAX engine, and no build caused by a probe."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        port = _drill(ServingEngine, pobs, prt, params32, {"device": "cpu"},
+        port = _drill(ServingEngine, pobs, prt, params32,
+                      {"device": "cpu", "inflight_depth": 1,
+                       "adaptive_coalesce": False},
                       tmp_path, "wrong:1.0@0-")
         jax_ = _drill(JaxEngine, jobs, jrt, params.astype(np.float32),
                       {"inflight_depth": 1, "adaptive_coalesce": False},

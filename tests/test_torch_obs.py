@@ -5,11 +5,11 @@ against the JAX package's, on the CPU.
 The pure tracer and recorder run the same call sequences on both
 packages under one fake clock, so their accounting, spans, stage tables
 and Chrome traces must be EQUAL, not just alike. The engine scenarios
-mirror ``tests/test_obs.py``: the port's CPU engine and the JAX engine
-(serial dispatch, ``inflight_depth=1``, the fixed coalesce window, as the
-port has them) take the same traffic under the same chaos specs, and
-their per-span event names, ``closed_by_kind``, incidents and runtime
-event counts must be equal.
+mirror ``tests/test_obs.py``: the port's CPU engine and the JAX engine,
+both at serial dispatch (``inflight_depth=1``, the fixed coalesce window)
+and again both at JAX's defaults (the pipelined dispatch), take the same
+traffic under the same chaos specs, and their per-span event names,
+``closed_by_kind``, incidents and runtime event counts must be equal.
 """
 
 import collections
@@ -250,13 +250,26 @@ class Side:
                                       cpu_fallback=fallback, **kw), plan
 
 
-@pytest.fixture(scope="module")
-def sides(params):
+SERIAL = {"inflight_depth": 1, "adaptive_coalesce": False}
+JAX_DEFAULTS = {"inflight_depth": 2, "adaptive_coalesce": True}
+
+
+def _sides(params, pipe):
     port = synthetic_params(seed=0, device="cpu").astype(torch.float32)
     return (Side("port", port, prt, ServingEngine, ServingError, pobs,
-                 device="cpu"),
+                 device="cpu", **pipe),
             Side("jax", params.astype(np.float32), jrt, JaxEngine, JaxError,
-                 jobs, inflight_depth=1, adaptive_coalesce=False))
+                 jobs, **pipe))
+
+
+@pytest.fixture(scope="module")
+def sides(params):
+    return _sides(params, SERIAL)
+
+
+@pytest.fixture(scope="module")
+def sides_pipelined(params):
+    return _sides(params, JAX_DEFAULTS)
 
 
 def _pose(n=1, seed=0):
@@ -320,48 +333,51 @@ def _outcome(side, fut):
         return e.kind
 
 
-def test_spans_ok_shed_expired(sides):
-    def run(side, tr):
-        eng = side.engine(tr, max_bucket=8, max_queued=1)
-        with eng:
-            ok = eng.forward(_pose(2)).shape
-            expired = _outcome(side, eng.submit(_pose(), deadline_s=0.0))
-        eng2 = side.engine(tr, max_bucket=8, max_queued=0)
-        with pytest.raises(side.Error) as ei:
-            eng2.submit(_pose())
-        return ok, expired, ei.value.kind
+def _ok_shed_expired(side, tr):
+    eng = side.engine(tr, max_bucket=8, max_queued=1)
+    with eng:
+        ok = eng.forward(_pose(2)).shape
+        expired = _outcome(side, eng.submit(_pose(), deadline_s=0.0))
+    eng2 = side.engine(tr, max_bucket=8, max_queued=0)
+    with pytest.raises(side.Error) as ei:
+        eng2.submit(_pose())
+    return ok, expired, ei.value.kind
 
-    t = _twin(sides, run)
+
+def test_spans_ok_shed_expired(sides):
+    t = _twin(sides, _ok_shed_expired)
     assert t["closed_by_kind"] == {"ok": 1, "expired": 1, "shed": 1}
     assert t["extra"] == ((2, 778, 3), "expired", "shed")
     assert ["submit", "launch", "dispatched", "readback", "resolve"] in \
         t["spans"]
 
 
-def test_spans_error_kind_under_persistent_fault(sides):
-    def run(side, tr):
-        pol, _ = side.policy("error@0-")
-        eng = side.engine(tr, pol)
-        with eng:
-            eng.warmup([4])
-            return _outcome(side, eng.submit(_pose(2)))
+def _error_kind(side, tr):
+    pol, _ = side.policy("error@0-")
+    eng = side.engine(tr, pol)
+    with eng:
+        eng.warmup([4])
+        return _outcome(side, eng.submit(_pose(2)))
 
-    t = _twin(sides, run)
+
+def test_spans_error_kind_under_persistent_fault(sides):
+    t = _twin(sides, _error_kind)
     assert t["extra"] == "error" and t["closed_by_kind"] == {"error": 1}
     assert t["runtime"]["chaos_fault"] == 1
 
 
-def test_spans_ok_through_failover_with_incident(sides):
-    def run(side, tr):
-        pol, _ = side.policy("error@0-", fallback=True)
-        rec = side.obs.FlightRecorder(tr)
-        eng = side.engine(tr, pol)
-        with eng:
-            eng.warmup([4])
-            out = eng.forward(_pose(2)).shape
-        return out, [c["reason"] for c in rec.captures]
+def _failover_incident(side, tr):
+    pol, _ = side.policy("error@0-", fallback=True)
+    rec = side.obs.FlightRecorder(tr)
+    eng = side.engine(tr, pol)
+    with eng:
+        eng.warmup([4])
+        out = eng.forward(_pose(2)).shape
+    return out, [c["reason"] for c in rec.captures]
 
-    t = _twin(sides, run)
+
+def test_spans_ok_through_failover_with_incident(sides):
+    t = _twin(sides, _failover_incident)
     assert t["extra"] == ((2, 778, 3), ["failover"])
     assert t["closed_by_kind"] == {"ok": 1} and t["incidents"] == 1
     assert t["runtime"]["incident:failover"] == 1
@@ -369,51 +385,53 @@ def test_spans_ok_through_failover_with_incident(sides):
     assert t["runtime"]["compile"] == 4
 
 
+def _retries_kill_breaker(side, tr):
+    breaker = side.rt.CircuitBreaker(
+        failure_threshold=1, probe=lambda: True, probe_interval_s=0.0,
+        respect_priority_claim=False)
+    pol, plan = side.policy("hang@0,error@1-2", breaker=breaker,
+                            fallback=True, retries=1, deadline_s=1.0)
+    eng = side.engine(tr, pol)
+    wired = breaker.on_transition is not None
+    try:
+        with eng:
+            eng.warmup([4])
+            outs = [_outcome(side, eng.submit(_pose(2, seed=i)))
+                    for i in range(2)]
+    finally:
+        plan.release.set()
+    trans = [f["new"] for _, sid, name, f in tr.snapshot()["events"]
+             if name == "breaker"]
+    return wired, outs, trans
+
+
 def test_retries_deadline_kill_and_breaker_ride_the_timeline(sides):
     """A hang killed at its deadline and retried, then two errors that
     open a breaker: the retries, the kill (an incident) and the breaker
     transitions are on the timeline, equal between the engines."""
-    def run(side, tr):
-        breaker = side.rt.CircuitBreaker(
-            failure_threshold=1, probe=lambda: True, probe_interval_s=0.0,
-            respect_priority_claim=False)
-        pol, plan = side.policy("hang@0,error@1-2", breaker=breaker,
-                                fallback=True, retries=1, deadline_s=1.0)
-        eng = side.engine(tr, pol)
-        wired = breaker.on_transition is not None
-        try:
-            with eng:
-                eng.warmup([4])
-                outs = [_outcome(side, eng.submit(_pose(2, seed=i)))
-                        for i in range(2)]
-        finally:
-            plan.release.set()
-        trans = [f["new"] for _, sid, name, f in tr.snapshot()["events"]
-                 if name == "breaker"]
-        return wired, outs, trans
-
-    t = _twin(sides, run)
+    t = _twin(sides, _retries_kill_breaker)
     wired, outs, trans = t["extra"]
     assert wired and outs == ["ok", "ok"] and "down" in trans
     assert t["runtime"]["retry"] >= 1
     assert t["runtime"]["incident:deadline_kill"] == 1
 
 
+def _coalesce_park(side, tr):
+    eng = side.engine(tr)
+    subj = eng.specialize(np.zeros(10, np.float32))
+    with held(eng):
+        futs = [eng.submit(_pose(1, seed=i)) for i in range(2)]
+        futs.append(eng.submit(_pose(1, seed=3), subject=subj))
+        futs.append(eng.submit(_pose(1, seed=4)))
+    outs = [_outcome(side, f) for f in futs]
+    eng.stop()
+    return outs
+
+
 def test_coalesce_and_park_events(sides):
     """A held dispatcher: three full requests coalesce into one batch; a
     pose-only request parks (kind) and leads the next batch."""
-    def run(side, tr):
-        eng = side.engine(tr)
-        subj = eng.specialize(np.zeros(10, np.float32))
-        with held(eng):
-            futs = [eng.submit(_pose(1, seed=i)) for i in range(2)]
-            futs.append(eng.submit(_pose(1, seed=3), subject=subj))
-            futs.append(eng.submit(_pose(1, seed=4)))
-        outs = [_outcome(side, f) for f in futs]
-        eng.stop()
-        return outs
-
-    t = _twin(sides, run)
+    t = _twin(sides, _coalesce_park)
     assert t["extra"] == ["ok"] * 4
     assert ["submit", "coalesce", "launch", "dispatched", "readback",
             "resolve"] in t["spans"]
@@ -443,50 +461,71 @@ def test_stop_timeout_sweep_closes_spans_as_shutdown(sides):
     assert t["closed_by_kind"] == {"shutdown": 3}
 
 
-def test_cancel_closes_the_span_once(sides):
-    def run(side, tr):
-        eng = side.engine(tr)
-        with held(eng):
-            fut = eng.submit(_pose())
-            cancelled = fut.cancel()
-            keep = eng.submit(_pose(1, seed=1))
-        out = _outcome(side, keep)
-        eng.stop()
-        return cancelled, out
+def _cancel_span(side, tr):
+    eng = side.engine(tr)
+    with held(eng):
+        fut = eng.submit(_pose())
+        cancelled = fut.cancel()
+        keep = eng.submit(_pose(1, seed=1))
+    out = _outcome(side, keep)
+    eng.stop()
+    return cancelled, out
 
-    t = _twin(sides, run)
+
+def test_cancel_closes_the_span_once(sides):
+    t = _twin(sides, _cancel_span)
     assert t["extra"] == (True, "ok")
     assert t["closed_by_kind"] == {"cancelled": 1, "ok": 1}
+
+
+def _evict_compile(side, tr):
+    eng = side.engine(tr, max_subjects=2)
+    keys = [eng.specialize(np.full(10, 0.1 * i, np.float32))
+            for i in range(3)]
+    with eng:
+        outs = [eng.forward(_pose(1, seed=i), subject=k).shape
+                for i, k in enumerate(keys)]
+    return outs
 
 
 def test_evict_and_compile_events(sides):
     """A table of 2 rows, 3 subjects: an eviction and the gathered
     family's builds land on the timeline."""
-    def run(side, tr):
-        eng = side.engine(tr, max_subjects=2)
-        keys = [eng.specialize(np.full(10, 0.1 * i, np.float32))
-                for i in range(3)]
-        with eng:
-            outs = [eng.forward(_pose(1, seed=i), subject=k).shape
-                    for i, k in enumerate(keys)]
-        return outs
-
-    t = _twin(sides, run)
+    t = _twin(sides, _evict_compile)
     assert t["runtime"]["evict"] >= 1
     assert t["runtime"]["compile"] >= 1
 
 
-def test_load_gains_quantiles_and_backlog_age(sides):
-    def run(side, tr):
-        eng = side.engine(tr, max_bucket=8)
-        with eng:
-            for i in range(4):
-                eng.forward(_pose(2, seed=i))
-            ld = eng.load()
-        return ld["latency_by_tier"]["0"]["n"], ld["backlog_age_s"]
+def _load_quantiles(side, tr):
+    eng = side.engine(tr, max_bucket=8)
+    with eng:
+        for i in range(4):
+            eng.forward(_pose(2, seed=i))
+        ld = eng.load()
+    return ld["latency_by_tier"]["0"]["n"], ld["backlog_age_s"]
 
-    t = _twin(sides, run)
+
+def test_load_gains_quantiles_and_backlog_age(sides):
+    t = _twin(sides, _load_quantiles)
     assert t["extra"] == (4, 0.0)
+
+
+@pytest.mark.parametrize("scenario", [
+    _ok_shed_expired, _error_kind, _failover_incident,
+    _retries_kill_breaker, _coalesce_park, _cancel_span, _evict_compile,
+    _load_quantiles,
+], ids=["ok_shed_expired", "error_kind", "failover_incident",
+        "retries_kill_breaker", "coalesce_park", "cancel", "evict_compile",
+        "load_quantiles"])
+def test_timelines_agree_at_the_jax_defaults(sides_pipelined, scenario):
+    """Both engines pipelined: the same span timelines — each batch's
+    spans carry ``staged`` between ``launch`` and ``dispatched`` — the
+    same runtime events (one ``pipeline`` an engine start) and
+    incidents, every span closed once."""
+    t = _twin(sides_pipelined, scenario)
+    assert t["runtime"]["pipeline"] >= 1
+    assert all("staged" in s for s in t["spans"]
+               if "dispatched" in s)
 
 
 def test_untraced_engine_unchanged(sides):

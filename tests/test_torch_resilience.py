@@ -2,9 +2,11 @@
 engine's, on the CPU.
 
 Each scenario runs twice — once on the port's ``ServingEngine(device=
-"cpu")``, once on the JAX engine (serial dispatch, ``inflight_depth=1``,
-and the fixed coalesce window, as the port has them) — with the same
-traffic under the same ``ChaosPlan`` spec. Every future must resolve the
+"cpu")``, once on the JAX engine, both at serial dispatch
+(``inflight_depth=1``) and the fixed coalesce window; the scenarios whose
+batches do not depend on timing run again with both engines at JAX's
+defaults (the pipelined dispatch, ``inflight_depth=2``, and the adaptive
+window) — with the same traffic under the same ``ChaosPlan`` spec. Every future must resolve the
 same way (result, or the same ``ServingError`` kind, phase and attempts),
 results must agree within 1e-6 m, and the resilience and admission
 counters must be equal. The port's CPU tier is also held bit for bit
@@ -29,11 +31,13 @@ from mano_hand_tpu_torch.assets import synthetic_params
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.serving import ServingEngine, ServingError, buckets
 from mano_hand_tpu_torch.serving.engine import _Request
+from mano_hand_tpu_torch.serving.streams import empty_snapshot
 
 TOL = 1e-6
 COUNTERS = ("retries", "faults_injected", "failovers", "deadline_kills",
             "shed", "expired", "cancelled", "dispatches",
-            "coalesce_overflows", "backlog_peak", "tiers")
+            "coalesce_overflows", "backlog_peak", "tiers",
+            "pipeline_completions", "pipeline_presweeps")
 
 
 class Side:
@@ -70,13 +74,26 @@ class Side:
             return (type(e).__name__, str(e))
 
 
-@pytest.fixture(scope="module")
-def sides(params):
+SERIAL = {"inflight_depth": 1, "adaptive_coalesce": False}
+JAX_DEFAULTS = {"inflight_depth": 2, "adaptive_coalesce": True}
+
+
+def _sides(params, pipe):
     port = synthetic_params(seed=0, device="cpu").astype(torch.float32)
     return (Side("port", port, prt, ServingEngine, ServingError,
-                 device="cpu"),
+                 device="cpu", **pipe),
             Side("jax", params.astype(np.float32), jrt, JaxEngine, JaxError,
-                 inflight_depth=1, adaptive_coalesce=False))
+                 **pipe))
+
+
+@pytest.fixture(scope="module")
+def sides(params):
+    return _sides(params, SERIAL)
+
+
+@pytest.fixture(scope="module")
+def sides_pipelined(params):
+    return _sides(params, JAX_DEFAULTS)
 
 
 def _pose(n=1, seed=0):
@@ -149,38 +166,64 @@ def _cpu_direct(params, pose, shape, bucket):
 
 
 # ------------------------------------------------------ supervised faults
-def test_error_burst_is_retried(sides):
-    def run(side):
-        pol, plan, br = side.policy("error@0,error@2-3", probe=lambda: True,
-                                    threshold=3)
-        with side.engine(pol) as eng:
-            keys = [eng.specialize(b) for b in BETAS]
-            outs = [side.outcome(eng.submit(_pose(3, 1), _shape(3, 1))),
-                    side.outcome(eng.submit(_pose(2, 2), subject=keys[0])),
-                    side.outcome(eng.submit(_pose(1, 3), _shape(1, 3)))]
-        return outs, eng, (br.state, br.opens, plan.calls)
+def _error_burst(side):
+    pol, plan, br = side.policy("error@0,error@2-3", probe=lambda: True,
+                                threshold=3)
+    with side.engine(pol) as eng:
+        keys = [eng.specialize(b) for b in BETAS]
+        outs = [side.outcome(eng.submit(_pose(3, 1), _shape(3, 1))),
+                side.outcome(eng.submit(_pose(2, 2), subject=keys[0])),
+                side.outcome(eng.submit(_pose(1, 3), _shape(1, 3)))]
+    return outs, eng, (br.state, br.opens, plan.calls)
 
-    outs, eng, _, _ = _twin(sides, run)
+
+def test_error_burst_is_retried(sides):
+    outs, eng, _, _ = _twin(sides, _error_burst)
     assert [o[0] for o in outs] == ["ok"] * 3
     assert eng.counters.retries == 3 and eng.counters.failovers == 0
 
 
-def test_hang_is_deadline_killed_and_retried(sides):
-    def run(side):
-        pol, plan, _ = side.policy("hang@0", deadline_s=0.5, retries=1)
-        try:
-            with side.engine(pol) as eng:
-                eng.warmup([4])
-                t0 = time.perf_counter()
-                outs = [side.outcome(eng.submit(_pose(3, 4), _shape(3, 4)))]
-                waited = time.perf_counter() - t0 >= 0.5
-        finally:
-            plan.release.set()      # free the abandoned worker
-        return outs, eng, waited
+def _hang_killed(side):
+    pol, plan, _ = side.policy("hang@0", deadline_s=0.5, retries=1)
+    try:
+        with side.engine(pol) as eng:
+            eng.warmup([4])
+            t0 = time.perf_counter()
+            outs = [side.outcome(eng.submit(_pose(3, 4), _shape(3, 4)))]
+            waited = time.perf_counter() - t0 >= 0.5
+    finally:
+        plan.release.set()      # free the abandoned worker
+    return outs, eng, waited
 
-    outs, eng, waited, _ = _twin(sides, run)
+
+def test_hang_is_deadline_killed_and_retried(sides):
+    outs, eng, waited, _ = _twin(sides, _hang_killed)
     assert waited and outs[0][0] == "ok"
     assert eng.counters.deadline_kills == 1 and eng.counters.retries == 1
+
+
+def _outage(side):
+    device_up = [False]
+    pol, plan, br = side.policy("error@0-", probe=lambda: device_up[0],
+                                retries=1)
+    outs = []
+    with side.engine(pol, max_bucket=8) as eng:
+        keys = [eng.specialize(b) for b in BETAS]
+        for s in range(2):
+            outs.append(side.outcome(eng.submit(_pose(3, 10 + s),
+                                                _shape(3, 10 + s))))
+        with held(eng):
+            futs = [eng.submit(_pose(n, 20 + i), subject=keys[i])
+                    for i, n in enumerate((1, 2, 2))]
+        outs += [side.outcome(f) for f in futs]
+        states = [br.state]
+        plan.clear()
+        device_up[0] = True
+        outs.append(side.outcome(eng.submit(_pose(2, 30), _shape(2, 30))))
+        outs.append(side.outcome(eng.submit(_pose(2, 31),
+                                            subject=keys[1])))
+        states.append(br.state)
+    return outs, eng, (states, br.opens, br.probes)
 
 
 def test_persistent_outage_fails_over_then_back(sides):
@@ -188,30 +231,7 @@ def test_persistent_outage_fails_over_then_back(sides):
     a mixed-subject pose-only batch — fails over to the CPU tier; when
     the fault clears the probe closes the breaker and the primary serves
     again with no further failover."""
-    def run(side):
-        device_up = [False]
-        pol, plan, br = side.policy("error@0-", probe=lambda: device_up[0],
-                                    retries=1)
-        outs = []
-        with side.engine(pol, max_bucket=8) as eng:
-            keys = [eng.specialize(b) for b in BETAS]
-            for s in range(2):
-                outs.append(side.outcome(eng.submit(_pose(3, 10 + s),
-                                                    _shape(3, 10 + s))))
-            with held(eng):
-                futs = [eng.submit(_pose(n, 20 + i), subject=keys[i])
-                        for i, n in enumerate((1, 2, 2))]
-            outs += [side.outcome(f) for f in futs]
-            states = [br.state]
-            plan.clear()
-            device_up[0] = True
-            outs.append(side.outcome(eng.submit(_pose(2, 30), _shape(2, 30))))
-            outs.append(side.outcome(eng.submit(_pose(2, 31),
-                                                subject=keys[1])))
-            states.append(br.state)
-        return outs, eng, (states, br.opens, br.probes)
-
-    outs, eng, extra, warned = _twin(sides, run)
+    outs, eng, extra, warned = _twin(sides, _outage)
     assert extra[0] == ["down", "healthy"]
     assert eng.counters.failovers == 3 and warned == 3
     assert eng.counters.mixed_subject_batches == 1
@@ -229,30 +249,32 @@ def test_persistent_outage_fails_over_then_back(sides):
         np.concatenate([o[1] for o in outs[2:5]]), want[:5])
 
 
-def test_wrong_output_is_served_as_is(sides):
-    def run(side):
-        pol, _, _ = side.policy("wrong:0.5@1", retries=0)
-        with side.engine(pol) as eng:
-            outs = [side.outcome(eng.submit(_pose(2, s), _shape(2, s)))
-                    for s in range(3)]
-        return outs, eng, None
+def _wrong_output(side):
+    pol, _, _ = side.policy("wrong:0.5@1", retries=0)
+    with side.engine(pol) as eng:
+        outs = [side.outcome(eng.submit(_pose(2, s), _shape(2, s)))
+                for s in range(3)]
+    return outs, eng, None
 
-    outs, eng, _, _ = _twin(sides, run)
+
+def test_wrong_output_is_served_as_is(sides):
+    outs, eng, _, _ = _twin(sides, _wrong_output)
     want = _cpu_direct(eng._params, _pose(2, 1), _shape(2, 1), 2)
     np.testing.assert_allclose(outs[1][1], want + 0.5, rtol=0, atol=TOL)
     assert eng.counters.faults_injected == 1
 
 
-def test_no_fallback_resolves_to_serving_error(sides):
-    def run(side):
-        pol, plan, _ = side.policy("error@0-", retries=1, cpu_fallback=False)
-        with side.engine(pol) as eng:
-            outs = [side.outcome(eng.submit(_pose(3, 5), _shape(3, 5)))]
-            plan.clear()     # a failed batch is traffic: serve again
-            outs.append(side.outcome(eng.submit(_pose(3, 5), _shape(3, 5))))
-        return outs, eng, None
+def _no_fallback(side):
+    pol, plan, _ = side.policy("error@0-", retries=1, cpu_fallback=False)
+    with side.engine(pol) as eng:
+        outs = [side.outcome(eng.submit(_pose(3, 5), _shape(3, 5)))]
+        plan.clear()     # a failed batch is traffic: serve again
+        outs.append(side.outcome(eng.submit(_pose(3, 5), _shape(3, 5))))
+    return outs, eng, None
 
-    outs, eng, _, _ = _twin(sides, run)
+
+def test_no_fallback_resolves_to_serving_error(sides):
+    outs, eng, _, _ = _twin(sides, _no_fallback)
     assert outs[0] == ("ServingError", "error", "dispatch", 2,
                        "InjectedFault")
     assert outs[1][0] == "ok" and eng.counters.failovers == 0
@@ -309,29 +331,30 @@ def test_no_policy_never_runs_on_the_cpu_tier(sides):
     assert eng.counters.coalesce_overflows == 1
 
 
-def test_stop_resolves_every_future_when_the_dispatcher_is_wedged(sides):
-    def run(side):
-        pol, plan, _ = side.policy("hang@0", retries=0, cpu_fallback=False)
-        eng = side.engine(pol)
+def _stop_wedged(side):
+    pol, plan, _ = side.policy("hang@0", retries=0, cpu_fallback=False)
+    eng = side.engine(pol)
+    try:
+        eng.warmup([4])
+        f1 = eng.submit(_pose(3, 6), _shape(3, 6))   # wedges
+        time.sleep(0.2)
+        f2 = eng.submit(_pose(3, 7), _shape(3, 7))   # queued behind
+        t0 = time.perf_counter()
+        eng.stop(timeout_s=0.5)
+        bounded = time.perf_counter() - t0 < 5.0
+        outs = [side.outcome(f, timeout=5.0) for f in (f1, f2)]
         try:
-            eng.warmup([4])
-            f1 = eng.submit(_pose(3, 6), _shape(3, 6))   # wedges
-            time.sleep(0.2)
-            f2 = eng.submit(_pose(3, 7), _shape(3, 7))   # queued behind
-            t0 = time.perf_counter()
-            eng.stop(timeout_s=0.5)
-            bounded = time.perf_counter() - t0 < 5.0
-            outs = [side.outcome(f, timeout=5.0) for f in (f1, f2)]
-            try:
-                eng.submit(_pose(2, 8), _shape(2, 8))
-                outs.append(("accepted",))
-            except RuntimeError:
-                outs.append(("refused",))
-        finally:
-            plan.release.set()
-        return outs, eng, bounded
+            eng.submit(_pose(2, 8), _shape(2, 8))
+            outs.append(("accepted",))
+        except RuntimeError:
+            outs.append(("refused",))
+    finally:
+        plan.release.set()
+    return outs, eng, bounded
 
-    outs, _, bounded, _ = _twin(sides, run)
+
+def test_stop_resolves_every_future_when_the_dispatcher_is_wedged(sides):
+    outs, _, bounded, _ = _twin(sides, _stop_wedged)
     assert bounded
     assert outs[:2] == [("ServingError", "shutdown", "shutdown", 0,
                          None)] * 2
@@ -339,37 +362,38 @@ def test_stop_resolves_every_future_when_the_dispatcher_is_wedged(sides):
 
 
 # ------------------------------------------------------------- admission
-def test_shed_tier_quotas_and_load_states(sides):
-    def run(side):
-        eng = side.engine(max_bucket=8, max_queued=4, busy_fraction=0.5)
-        loads, outs = [], []
-        keep = ("outstanding", "queued", "max_queued", "admission",
-                "backlog_peak")
+def _shed_quotas(side):
+    eng = side.engine(max_bucket=8, max_queued=4, busy_fraction=0.5)
+    loads, outs = [], []
+    keep = ("outstanding", "queued", "max_queued", "admission",
+            "backlog_peak")
 
-        def load():
-            ld = eng.load()
-            loads.append({k: ld[k] for k in keep})
+    def load():
+        ld = eng.load()
+        loads.append({k: ld[k] for k in keep})
 
-        def sub(**kw):
-            try:
-                return eng.submit(_pose(1, len(outs)), **kw)
-            except side.Error as e:
-                outs.append(("ServingError", e.kind, e.phase))
+    def sub(**kw):
+        try:
+            return eng.submit(_pose(1, len(outs)), **kw)
+        except side.Error as e:
+            outs.append(("ServingError", e.kind, e.phase))
 
-        with held(eng):
-            load()
-            futs = [sub(priority=1), sub(priority=1)]
-            load()
-            sub(priority=1)                 # tier 1 at its quota: shed
-            futs += [sub(priority=0), sub(priority=0)]
-            load()
-            sub(priority=0)                 # the queue is full: shed
-        outs += [side.outcome(f) for f in futs]
-        eng.stop()
+    with held(eng):
         load()
-        return outs, eng, loads
+        futs = [sub(priority=1), sub(priority=1)]
+        load()
+        sub(priority=1)                 # tier 1 at its quota: shed
+        futs += [sub(priority=0), sub(priority=0)]
+        load()
+        sub(priority=0)                 # the queue is full: shed
+    outs += [side.outcome(f) for f in futs]
+    eng.stop()
+    load()
+    return outs, eng, loads
 
-    outs, eng, loads, _ = _twin(sides, run)
+
+def test_shed_tier_quotas_and_load_states(sides):
+    outs, eng, loads, _ = _twin(sides, _shed_quotas)
     assert outs[:2] == [("ServingError", "shed", "admission")] * 2
     assert [ld["admission"] for ld in loads] == [
         {"0": "ok", "1": "ok"}, {"0": "busy", "1": "shed"},
@@ -398,7 +422,7 @@ def test_set_admission_and_validation(sides):
         port.engine().set_admission(max_queued=4)
     assert port.engine().load() == {
         "outstanding": 0, "queued": 0, "max_queued": None, "admission": {},
-        "backlog_peak": 0}
+        "backlog_peak": 0, "streams": empty_snapshot()}
 
 
 def test_pop_parked_is_tier_first_then_earliest_deadline(sides):
@@ -488,28 +512,48 @@ def test_deadlines_expire_at_every_boundary(sides, scenario, phase):
 
 
 # ---------------------------------------------------------- cancellation
-def test_cancel_frees_the_slot_and_is_counted_once(sides):
-    def run(side):
-        eng = side.engine(max_queued=2)
-        outs = []
-        with held(eng):
-            f1 = eng.submit(_pose(), deadline_s=60.0)
-            f2 = eng.submit(_pose(seed=1))
-            try:
-                eng.submit(_pose(seed=2))
-            except side.Error as e:
-                outs.append(("ServingError", e.kind))
-            outs += [f1.cancel(), f1.cancel()]      # counted once
-            f3 = eng.submit(_pose(seed=3))          # the freed slot
-        outs += [side.outcome(f) for f in (f1, f2, f3)]
-        eng.stop()
-        outs.append(f2.cancel())                    # too late
-        return outs, eng, eng.counters.snapshot()["requests_dispatched"]
+def _cancel(side):
+    eng = side.engine(max_queued=2)
+    outs = []
+    with held(eng):
+        f1 = eng.submit(_pose(), deadline_s=60.0)
+        f2 = eng.submit(_pose(seed=1))
+        try:
+            eng.submit(_pose(seed=2))
+        except side.Error as e:
+            outs.append(("ServingError", e.kind))
+        outs += [f1.cancel(), f1.cancel()]      # counted once
+        f3 = eng.submit(_pose(seed=3))          # the freed slot
+    outs += [side.outcome(f) for f in (f1, f2, f3)]
+    eng.stop()
+    outs.append(f2.cancel())                    # too late
+    return outs, eng, eng.counters.snapshot()["requests_dispatched"]
 
-    outs, eng, dispatched, _ = _twin(sides, run)
+
+def test_cancel_frees_the_slot_and_is_counted_once(sides):
+    outs, eng, dispatched, _ = _twin(sides, _cancel)
     assert outs[:3] == [("ServingError", "shed"), True, True]
     assert outs[3] == ("cancelled",) and outs[-1] is False
     assert dispatched == 2 and eng.counters.cancelled == 1
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+@pytest.mark.parametrize("scenario", [
+    _error_burst, _hang_killed, _outage, _wrong_output, _no_fallback,
+    _shed_quotas, _cancel, _deadline_expired_at_submit, _deadline_queued,
+    _deadline_at_failover(True), _deadline_readback,
+], ids=["error_burst", "hang", "outage", "wrong_output", "no_fallback",
+        "shed_quotas", "cancel", "deadline_submit", "deadline_queued",
+        "deadline_failover", "deadline_readback"])
+def test_scenarios_agree_at_the_jax_defaults(sides_pipelined, scenario):
+    """Both engines pipelined (a completion stage of depth 2, the
+    adaptive window): every future resolves the same way, results within
+    1e-6 m, the resilience and admission counters equal, and no future
+    strands."""
+    outs, _, _, _ = _twin(sides_pipelined, scenario)
+    assert outs and all(o != ("TimeoutError", "") for o in outs
+                        if isinstance(o, tuple))
 
 
 def test_submit_racing_stop_never_strands_a_future(sides):
