@@ -81,6 +81,15 @@ each with every launch count zeroed just before it and read just after:
   families), restored subjects against fresh bakes, the cold-start drill,
   and a cold boot in a fresh process with and without the lattice and
   checkpoint (seconds from process start to the first result).
+* dispatch lanes and the sharded subject store (phase ``lanes_store``,
+  ``posed_kernel="fused"``: K2 and K2-bf16 from every lane's captured
+  programs): the lane-loss drill at JAX's defaults (4 lanes, 4 streams
+  of the one card, lane 1 killed and failed back; every result 0.0
+  against the single context), what 1, 2 and 4 lanes buy against none
+  (drain rate, back-to-back dispatches, a profile of each: busy share,
+  streams running K2 and their overlap), the sharded store drill at
+  JAX's defaults (100,000 subjects, 2 lanes) and a lane lost under the
+  sharded store (rerouted, rebalanced, restored; 0.0).
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -250,6 +259,17 @@ PS_STREAMS = dict(streams=32, frames_per_stream=4, subjects=8, workers=8,
 PS_STREAM_BUCKET = 16                   # the sessions' one bucket
 PS_STORE = dict(subjects=512, requests=1536, zipf=1.2, max_subjects=32,
                 warm_capacity=64, bucket=32)
+# Dispatch lanes on one card and the sharded subject store (phase
+# lanes_store): K2 and K2-bf16 from every lane's captured programs.
+LS_DRILL = dict(lanes=4, requests_per_pass=96, subjects=6, workers=8,
+                max_rows=4, max_bucket=16, kill_lane=1)    # JAX's defaults
+LS_LANES = (None, 1, 2, 4)          # what lanes buy: the engines, in turns
+LS_BUY = dict(min_bucket=8, max_bucket=64, subjects=8, threads=8,
+              requests=1024, most=4, trials=3, b2b=60)
+LS_STORE = dict(subjects=100_000, requests_per_leg=120, lanes=2,
+                max_subjects=32, warm_capacity=64, max_rows=2, max_bucket=8,
+                zipf_a=1.2)                                # JAX's defaults
+LS_LOSS = dict(subjects=6, requests=12, max_bucket=8)      # per stage
 WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
@@ -3427,6 +3447,476 @@ def pipeline_streams(dev, counts, zero_counts, bucket=PS_BUCKET,
     return line
 
 
+def _ls_work(rng, threads: int, requests: int, most: int, subjects: int):
+    """Per client thread: ``requests`` pose-only (pose, subject, tier) of 1
+    to ``most`` rows, tiers 0 and 1 in turn (K2-bf16 and f32 K2 under the
+    default ``PrecisionPolicy``)."""
+    return [[(rng.normal(scale=0.5, size=(int(rng.integers(1, most + 1)),
+                                          16, 3)).astype(np.float32),
+              int(rng.integers(0, subjects)), (t + i) % 2)
+             for i in range(requests)] for t in range(threads)]
+
+
+def _ls_drain(eng, keys, work):
+    """Every thread submits its requests at once, then waits for them;
+    returns the seconds until the last resolved and each result by
+    (thread, request)."""
+    out = [[None] * len(w) for w in work]
+    errors = []
+
+    def client(t):
+        try:
+            futs = [eng.submit(p, subject=keys[k], priority=tier)
+                    for p, k, tier in work[t]]
+            for i, f in enumerate(futs):
+                out[t][i] = f.result(timeout=300)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    ths = [threading.Thread(target=client, args=(t,))
+           for t in range(len(work))]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+        require(not th.is_alive(), "drain client thread finished")
+    seconds = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return seconds, out
+
+
+def _ls_streams(d: str) -> dict:
+    """K2's kernels in one capture, by the CUDA stream that ran them: how
+    many streams, and how far their executions overlapped (the most K2
+    kernels running at one instant, and the time two or more did)."""
+    from mano_hand_tpu_torch.obs import trace_report
+    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE
+
+    cap = trace_report.load_capture(os.path.join(d, TORCH_TRACE))
+    spans = []
+    for e in cap.get("traceEvents", []):
+        if (e.get("ph") == "X" and trace_report.is_device_event(e)
+                and "posed" in e.get("name", "")
+                and "kernel" in e.get("name", "")):
+            stream = (e.get("args") or {}).get("stream", e.get("tid"))
+            t = float(e["ts"])
+            spans.append((t, t + float(e["dur"]), str(stream)))
+    edges = sorted([(a, 1) for a, _, _ in spans]
+                   + [(b, -1) for _, b, _ in spans],
+                   key=lambda x: (x[0], x[1]))
+    running = peak = 0
+    overlap_us, last = 0.0, None
+    for t, step in edges:
+        if last is not None and running >= 2:
+            overlap_us += t - last
+        running += step
+        peak = max(peak, running)
+        last = t
+    per = {}
+    for _, _, s in spans:
+        per[s] = per.get(s, 0) + 1
+    return {"k2_kernels": len(spans), "streams": len(per),
+            "kernels_by_stream": per, "max_concurrent": peak,
+            "overlap_ms": overlap_us / 1e3}
+
+
+def lanes_store(dev, counts, zero_counts, drill_kw=None, lanes=LS_LANES,
+                buy_kw=None, store_kw=None, loss_kw=None) -> dict:
+    """Dispatch lanes on one card and the sharded subject store, at full
+    MANO width on K2 and K2-bf16 (``posed_kernel="fused"``, captured
+    programs on every lane):
+
+    * ``lane_drill_run`` at JAX's defaults: 4 lanes on the card (4
+      streams), lane 1 killed by ``%LANE`` chaos mid-stream and failed
+      back; JAX's criteria (every future resolved, 0.0 against the
+      single-context engine, no CPU failover, no steady capture, spans
+      closed once, the killed lane's probe backoff grown);
+    * what lanes buy on one card: engines at ``lanes`` (None, 1, 2, 4)
+      under a ``PrecisionPolicy``, warmed (programs, then one untimed
+      drain and back-to-back run each), each draining ``requests``
+      one-to-four-row pose-only requests from ``threads`` threads (tiers
+      0 and 1: K2-bf16 and K2) in turns, ``trials`` times, then ``b2b``
+      back-to-back 64-row K2 dispatches, timed in turns and profiled once
+      an engine: the device-busy share and the streams that ran K2 and
+      their overlap; K2 and K2-bf16 launches equal to the gathered
+      dispatches; every result equal to the lane-less engine's (0.0);
+    * ``subject_store_drill_run`` at JAX's defaults (100,000 registered
+      subjects, 2 lanes, a 32-row table, 64 warm rows, 120 Zipf(1.2)
+      requests a leg, bucket 8), sharded against replicated;
+    * a lane lost under the sharded store: the owner lane of a subject
+      killed, its batches rerouted, its shard rebalanced onto the
+      survivor and restored after failback, every result 0.0 against the
+      single-context engine.
+
+    Counts zeroed just before each part that reads them. Returns the
+    phase's JSON line."""
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.obs import Tracer
+    from mano_hand_tpu_torch.runtime import ChaosPlan, CircuitBreaker, DOWN
+    from mano_hand_tpu_torch.runtime import DispatchPolicy
+    from mano_hand_tpu_torch.serving import (
+        PrecisionPolicy, ServingEngine, lane_drill_run,
+        subject_store_drill_run,
+    )
+    from mano_hand_tpu_torch.serving.subject_store import SubjectStore
+    from mano_hand_tpu_torch.utils.profiling import torch_trace
+
+    # What this phase cuts: only the bucket floor of the lanes
+    # comparison (its engines capture buckets 8-64, four a family and
+    # context); JAX's drills run at their defaults.
+    line = {"phase": "lanes_store",
+            "cuts": {"what_lanes_buy": "min_bucket=8 (buckets 8-64)",
+                     "lane_drill": None, "store_drill": None}}
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(SEED + 15)
+    s = params.n_shape
+    tmp = tempfile.mkdtemp(prefix="mano_lanes_store_")
+    try:
+        # 1. The lane-loss drill.
+        dkw = dict(LS_DRILL, **(drill_kw or {}))
+        t0 = time.perf_counter()
+        zero_counts()
+        dr = lane_drill_run(params, device=dev, posed_kernel="fused",
+                            seed=SEED, **dkw)
+        c = counts()
+        line["lane_drill"] = {
+            "seconds": time.perf_counter() - t0,
+            **{k: dr[k] for k in (
+                "lanes", "distinct_devices", "kill_lane",
+                "requests_per_pass", "workers", "subjects",
+                "futures_resolved_fraction", "outcomes",
+                "pre_vs_reference_max_abs_err",
+                "loss_vs_reference_max_abs_err",
+                "post_vs_reference_max_abs_err", "steady_recompiles_pre",
+                "steady_recompiles_post", "warmup_compiles",
+                "lane_failovers", "cpu_failovers",
+                "killed_lane_assigned_during_loss",
+                "survivor_balance_ratio", "throughput_pre_per_sec",
+                "throughput_loss_per_sec", "throughput_post_per_sec",
+                "surviving_throughput_ratio", "breaker_probes_while_down",
+                "breaker_probe_backoff_grew", "breaker_probe_wait_down_s",
+                "failback_served", "cancelled", "lane_slo", "spans")},
+            "launches": c}
+        oc = dr["outcomes"]
+        require(dr["futures_resolved_fraction"] == 1.0
+                and oc["error"] == 0 and oc["stranded"] == 0,
+                f"lane drill: every future resolved {line['lane_drill']}")
+        require(dr["cpu_failovers"] == 0 and dr["lane_failovers"] >= 1,
+                f"lane drill: the siblings absorbed the loss "
+                f"{line['lane_drill']}")
+        require(dr["steady_recompiles_pre"] == 0
+                and dr["steady_recompiles_post"] == 0
+                and dr["failback_served"],
+                f"lane drill: no steady capture, failback served "
+                f"{line['lane_drill']}")
+        sp = dr["spans"]
+        require(sp["started"] == sp["closed"] and sp["open"] == 0,
+                f"lane drill: every span closed once {sp}")
+        require(dr["breaker_probe_backoff_grew"],
+                f"lane drill: the killed lane's backoff grew "
+                f"{line['lane_drill']}")
+        if card:
+            require(all(dr[f"{leg}_vs_reference_max_abs_err"] == 0.0
+                        for leg in ("pre", "loss", "post")),
+                    f"lane drill: 0.0 against the single context "
+                    f"{line['lane_drill']}")
+            require(c["K2"] > 0, f"the lane drill ran K2 {c}")
+
+        # 2. What lanes buy on one card: the drain, back-to-back
+        #    dispatches and a profile of them, each engine in turns.
+        bkw = dict(LS_BUY, **(buy_kw or {}))
+        subj = rng.normal(size=(bkw["subjects"], s)).astype(np.float32)
+        work = _ls_work(rng, bkw["threads"],
+                        bkw["requests"] // bkw["threads"], bkw["most"],
+                        bkw["subjects"])
+        b2b = [rng.normal(scale=0.5, size=(bkw["max_bucket"], 16, 3)).astype(
+            np.float32) for _ in range(bkw["b2b"])]
+        engines, keys = {}, {}
+        t0 = time.perf_counter()
+        for n in lanes:
+            name = f"lanes_{n}"
+            eng = ServingEngine(
+                params, device=dev, min_bucket=bkw["min_bucket"],
+                max_bucket=bkw["max_bucket"], max_subjects=bkw["subjects"],
+                posed_kernel="fused", precision_policy=PrecisionPolicy(),
+                lanes=n)
+            keys[name] = [eng.specialize(b) for b in subj]
+            eng.warmup_posed()
+            engines[name] = eng.start()
+        warm_s = time.perf_counter() - t0
+        for name, eng in engines.items():
+            # Untimed: the pinned host caches and the threads warm up.
+            _ls_drain(eng, keys[name], work)
+            for f in [eng.submit(p, subject=keys[name][0], priority=1)
+                      for p in b2b]:
+                f.result(timeout=300)
+        names = list(engines)
+        drains = {n: [] for n in names}
+        b2b_ms = {n: [] for n in names}
+        first = {}
+        disp = {}
+        for trial in range(bkw["trials"]):
+            order = names if trial % 2 == 0 else names[::-1]
+            for name in order:
+                eng = engines[name]
+                before = eng.counters.snapshot()
+                zero_counts()
+                dt, got = _ls_drain(eng, keys[name], work)
+                c = counts()
+                after = eng.counters.snapshot()
+                drains[name].append(bkw["requests"] / dt)
+                bf = after["dispatches_bf16"] - before["dispatches_bf16"]
+                total = after["dispatches"] - before["dispatches"]
+                disp[name] = {"dispatches": total, "gather_bf16": bf,
+                              "launches": c, "captures": after["compiles"]
+                              - before["compiles"]}
+                require(disp[name]["captures"] == 0,
+                        f"{name}: no capture in traffic {disp[name]}")
+                if card:
+                    require(c["K2"] == total - bf and c["K2_bf16"] == bf,
+                            f"{name}: K2 and K2-bf16 launches == gathered "
+                            f"dispatches {disp[name]}")
+                first.setdefault(name, got)
+            for name in order:
+                eng = engines[name]
+                t1 = time.perf_counter()
+                futs = [eng.submit(p, subject=keys[name][0], priority=1)
+                        for p in b2b]
+                for f in futs:
+                    f.result(timeout=300)
+                b2b_ms[name].append((time.perf_counter() - t1) * 1e3
+                                    / len(b2b))
+        err = {"f32": 0.0, "bf16": 0.0}
+        ref = first[names[0]]
+        for name in names[1:]:
+            for t, mine in enumerate(work):
+                for i, (_, _, tier) in enumerate(mine):
+                    key = "bf16" if tier == 0 else "f32"
+                    err[key] = max(err[key], max_err(first[name][t][i],
+                                                     ref[t][i]))
+        profiles = {}
+        for name in names:
+            eng = engines[name]
+            d = os.path.join(tmp, "trace", name)
+            with torch_trace(d):
+                futs = [eng.submit(p, subject=keys[name][0], priority=1)
+                        for p in b2b]
+                for f in futs:
+                    f.result(timeout=300)
+            cap = _ob_capture(d)
+            profiles[name] = {
+                "window_ms": cap["window_ms"],
+                "device_busy_ms": cap["device_busy_ms"],
+                "device_busy_share": cap["device_busy_share"],
+                **_ls_streams(d)}
+        lane_loads = {}
+        for name in names:
+            eng = engines[name]
+            ld = eng.load().get("lanes")
+            if ld is not None:
+                lane_loads[name] = [p["dispatched"]
+                                    for p in ld["per_lane"]]
+            eng.stop()
+        line["what_lanes_buy"] = {
+            **bkw, "warm_seconds": warm_s,
+            "drain_req_per_sec": drains,
+            "drain_req_per_sec_median": {
+                n: statistics.median(v) for n, v in drains.items()},
+            "b2b_ms_per_dispatch": b2b_ms,
+            "b2b_ms_per_dispatch_median": {
+                n: statistics.median(v) for n, v in b2b_ms.items()},
+            "vs_lane_less_max_abs_err": err, "dispatches": disp,
+            "profile": profiles, "dispatched_by_lane": lane_loads}
+        if card:
+            require(err == {"f32": 0.0, "bf16": 0.0},
+                    f"every lane engine's results == the lane-less "
+                    f"engine's {err}")
+            four = profiles.get("lanes_4")
+            require(four is None or four["streams"] >= 2,
+                    f"4 lanes ran K2 on their own streams {four}")
+
+        # 3. The sharded store drill, sharded against replicated.
+        skw = dict(LS_STORE, **(store_kw or {}))
+        t0 = time.perf_counter()
+        zero_counts()
+        sd = subject_store_drill_run(
+            params, device=dev, posed_kernel="fused", seed=SEED,
+            cold_dir=os.path.join(tmp, "cold"), **skw)
+        c = counts()
+        prom = sd["promotion_stall_ms"]
+        line["store_drill"] = {
+            "seconds": time.perf_counter() - t0,
+            **{k: sd[k] for k in (
+                "subjects_registered", "register_seconds", "lanes",
+                "workers", "hot_capacity", "warm_capacity", "zipf_a",
+                "requests_total", "futures_resolved_fraction", "outcomes",
+                "outcomes_replicated", "legs", "damage_probe",
+                "hot_tier_hit_rate", "store_counters",
+                "promotion_stall_ms", "promotion_p99_within_window",
+                "steady_recompiles", "steady_recompiles_replicated",
+                "per_lane_device_rows_sharded",
+                "per_lane_device_rows_replicated", "device_rows_ratio",
+                "throughput_sharded_per_sec",
+                "throughput_replicated_per_sec", "paired_throughput_ratio",
+                "paired_dispatches", "spans")},
+            "launches": c}
+        st = line["store_drill"]
+        oc, ocr = sd["outcomes"], sd["outcomes_replicated"]
+        require(sd["futures_resolved_fraction"] == 1.0
+                and oc["error"] == oc["stranded"] == 0
+                and ocr["error"] == ocr["stranded"] == 0,
+                f"store drill: every future resolved {st}")
+        require(sd["steady_recompiles"] == 0
+                and sd["steady_recompiles_replicated"] == 0,
+                f"store drill: no steady capture {st}")
+        rows_s = sd["per_lane_device_rows_sharded"]
+        rows_r = sd["per_lane_device_rows_replicated"]
+        require(max(rows_s) < min(rows_r),
+                f"store drill: per-lane rows below the replicated twin's "
+                f"{rows_s} {rows_r}")
+        dmg = sd["damage_probe"]
+        require(dmg.get("injected") and dmg.get("damage_counted") == 1,
+                f"store drill: the damaged page one counted re-bake {dmg}")
+        sp = sd["spans"]
+        require(sp["started"] == sp["closed"] and sp["open"] == 0,
+                f"store drill: every span closed once {sp}")
+        require(sd["hot_tier_hit_rate"] >= 0.5
+                and sd["store_counters"]["subject_store_cold_hits"] >= 1,
+                f"store drill: the hot tier serves, the cold tier serves "
+                f"{sd['store_counters']}")
+        if card:
+            # A time, so the card's only (a CPU rehearsal's host stalls
+            # are the host's).
+            require(sd["promotion_p99_within_window"],
+                    f"store drill: promotion p99 {prom} inside the "
+                    f"{skw.get('max_delay_s', 0.003) * 1e3} ms window")
+            require(dmg.get("request_max_abs_err") == 0.0 and all(
+                v == 0.0 for leg in sd["legs"].values()
+                for k, v in leg.items() if k.endswith("_max_abs_err")),
+                f"store drill: every leg 0.0 against the single context "
+                f"{st['legs']}")
+            require(c["K2"] > 0, f"the store drill ran K2 {c}")
+
+        # 4. A lane lost under the sharded store.
+        lkw = dict(LS_LOSS, **(loss_kw or {}))
+        betas = rng.normal(size=(lkw["subjects"], s)).astype(np.float32)
+        n_req = 4 * lkw["requests"]
+        poses = [rng.normal(scale=0.5, size=(int(rng.integers(1, 3)), 16,
+                                              3)).astype(np.float32)
+                 for _ in range(n_req)]
+        order = [i % lkw["subjects"] for i in range(n_req)]
+        ref = ServingEngine(params, device=dev, max_bucket=lkw["max_bucket"],
+                            max_delay_s=0.001, posed_kernel="fused")
+        with ref:
+            rkeys = [ref.specialize(b) for b in betas]
+            want = [ref.forward(p, subject=rkeys[order[i]])
+                    for i, p in enumerate(poses)]
+        lane_ok = [True, True]
+        plan = ChaosPlan()
+        policy = DispatchPolicy(
+            deadline_s=5.0, retries=1, backoff_s=0.005, backoff_cap_s=0.01,
+            jitter=0.0, chaos=plan, cpu_fallback=not card,
+            breaker=CircuitBreaker(failure_threshold=2,
+                                   probe_interval_s=0.001,
+                                   respect_priority_claim=False))
+        store = SubjectStore(warm_capacity=16, sharded=True)
+        tr = Tracer()
+        eng = ServingEngine(params, device=dev, max_bucket=lkw["max_bucket"],
+                            max_delay_s=0.001, lanes=2, subject_store=store,
+                            posed_kernel="fused", policy=policy, tracer=tr,
+                            lane_probe=lambda i: lane_ok[i])
+        keys_l = [eng.specialize(b) for b in betas]
+        dead = store.shard_for(keys_l[0])
+        pairs, stages = [], {}
+        k = lkw["requests"]
+
+        def serve(*idx):
+            pairs.extend((eng.forward(poses[i], subject=keys_l[order[i]]),
+                          want[i]) for i in idx)
+
+        t0 = time.perf_counter()
+        try:
+            with eng:
+                eng.warmup_posed()
+                warm = eng.counters.compiles
+                ls = eng._get_lanes()
+                zero_counts()
+                serve(*range(k))
+                lane_ok[dead] = False
+                plan.schedule(f"error@0-%{dead}")
+                serve(*range(k, 2 * k))
+                stages["down"] = ls.lanes[dead].breaker.state == DOWN
+                # The next batch of the dead shard rebalances it.
+                for _ in range(200):
+                    if eng.counters.shard_rebalances:
+                        break
+                    serve(0)
+                stages["rebalanced"] = store.reassigned_shards() == (dead,)
+                serve(*range(2 * k, 3 * k))
+                plan.clear()
+                lane_ok[dead] = True
+                # The lane re-probes healthy; the next placement restores.
+                for _ in range(400):
+                    if not store.reassigned_shards():
+                        break
+                    serve(1)
+                stages["restored"] = store.reassigned_shards() == ()
+                serve(*range(3 * k, 4 * k))
+                c = counts()
+                snap = eng.load()["lanes"]
+                counters_l = eng.counters.snapshot()
+        finally:
+            plan.release.set()
+        loss_err = max(max_err(g, w) for g, w in pairs)
+        acc = tr.accounting()
+        events = [name for _, sid, name, _ in tr.snapshot()["events"]
+                  if not sid]
+        line["lane_loss_sharded"] = {
+            **lkw, "seconds": time.perf_counter() - t0,
+            "requests_served": len(pairs), "dead_lane": dead,
+            "stages": stages, "vs_single_context_max_abs_err": loss_err,
+            "shard_rebalances": counters_l["shard_rebalances"],
+            "shard_rebalance_rows": counters_l["shard_rebalance_rows"],
+            "shard_restores": events.count("shard_restore"),
+            "captures_in_traffic": counters_l["compiles"] - warm,
+            "failovers": counters_l["failovers"],
+            "per_lane": [{k2: p[k2] for k2 in (
+                "assigned", "dispatched", "failovers_out", "failovers_in",
+                "cpu_failovers", "state", "table_capacity",
+                "resident_rows")} for p in snap["per_lane"]],
+            "spans": {k2: acc[k2] for k2 in ("spans_started",
+                                              "spans_closed", "spans_open")},
+            "launches": c}
+        ll = line["lane_loss_sharded"]
+        require(all(stages.values()) and ll["shard_rebalances"] == 1
+                and ll["shard_restores"] == 1,
+                f"lane loss: rerouted, rebalanced, restored {ll}")
+        require(ll["captures_in_traffic"] == 0 and ll["failovers"] == 0
+                and all(p["cpu_failovers"] == 0 for p in ll["per_lane"])
+                and ll["per_lane"][dead]["failovers_out"] >= 1,
+                f"lane loss: no capture, no CPU failover, the ladder hopped "
+                f"{ll}")
+        require(acc["spans_started"] == acc["spans_closed"]
+                and acc["spans_open"] == 0,
+                f"lane loss: every span closed once {acc}")
+        if card:
+            require(loss_err == 0.0,
+                    f"lane loss: 0.0 against the single context {ll}")
+            require(c["K2"] > 0, f"the lane loss ran K2 {c}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["launches"] = counts()
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4068,6 +4558,13 @@ def main() -> int:
     #      and sessions against the posed program, the store under Zipf
     #      traffic (counts zeroed just before each part that reads them).
     emit(pipeline_streams(dev, counts, zero_counts))
+
+    # 18h. Dispatch lanes on the one card and the sharded subject store:
+    #      the lane-loss drill, what 1, 2 and 4 lanes buy (drain, back-to-
+    #      back dispatches, profiles), the sharded store drill and a lane
+    #      lost under it (counts zeroed just before each part that reads
+    #      them).
+    emit(lanes_store(dev, counts, zero_counts))
 
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.

@@ -451,9 +451,10 @@ def serving_samples(snap: dict) -> dict:
 def load_samples(load: dict) -> dict:
     """``ServingEngine.load()`` -> metric structs: the backpressure
     snapshot as scrapeable gauges (admission state encoded
-    ok=0/busy=1/shed=2 per tier). The blocks of the JAX engine's lanes
-    and controller, which the port's engine has not yet, are not
-    mapped."""
+    ok=0/busy=1/shed=2 per tier; the lanes block as fleet gauges and
+    per-lane samples labelled by lane, ``load_lane_backlog_batches``
+    beside JAX's names). The JAX engine's controller block, which the
+    port's engine has not yet, is not mapped."""
     out: Dict[str, dict] = {}
     for key in ("outstanding", "queued", "backlog_peak"):
         if load.get(key) is not None:
@@ -525,6 +526,50 @@ def load_samples(load: dict) -> dict:
         out["load_precision_envelope_m"] = metric(
             "gauge", prec["envelope_m"],
             help="stated bf16-tier max vertex error envelope (m)")
+    # Dispatch lanes: fleet-level gauges plus the per-lane backlog,
+    # state and ladder counters, labelled by lane index.
+    lanes = load.get("lanes") or {}
+    for key, help_txt in (
+            ("n_lanes", "configured per-device dispatch lanes"),
+            ("n_devices", "distinct devices behind the lanes"),
+            ("healthy", "lanes whose breaker is not DOWN"),
+            ("backlog_rows_total", "queued+in-flight rows fleet-wide")):
+        if lanes.get(key) is not None:
+            out[f"load_lanes_{key}"] = metric(
+                "gauge", lanes[key], help=help_txt)
+    per = lanes.get("per_lane") or []
+    if per:
+        states = {"healthy": 0, "degraded": 1, "down": 2}
+        for key, kind, help_txt in (
+                ("table_capacity", "gauge", "allocated device table "
+                                            "rows"),
+                ("resident_rows", "gauge", "device rows actually "
+                                           "holding a subject"),
+                ("backlog_batches", "gauge", "queued+in-flight batches"),
+                ("backlog_rows", "gauge", "queued+in-flight rows"),
+                ("inflight", "gauge", "batches executing now"),
+                ("assigned", "counter", "batches ever placed here"),
+                ("dispatched", "counter", "batches that reached a "
+                                          "device"),
+                ("served_requests", "counter", "requests resolved ok"),
+                ("failovers_out", "counter", "batches handed "
+                                             "up-ladder"),
+                ("failovers_in", "counter", "sibling batches absorbed"),
+                ("cpu_failovers", "counter", "batches that fell "
+                                             "through to CPU"),
+                ("errors", "counter", "batches resolved as "
+                                      "ServingError")):
+            out[f"load_lane_{key}"] = metric(
+                kind, help=f"per-lane {help_txt}",
+                samples=[sample(p.get(key, 0),
+                                {"lane": str(p.get("lane"))})
+                         for p in per])
+        out["load_lane_state"] = metric(
+            "gauge", help="per-lane breaker state "
+                          "(0=healthy 1=degraded 2=down)",
+            samples=[sample(states.get(p.get("state"), -1),
+                            {"lane": str(p.get("lane"))})
+                     for p in per])
     # Tiered subject store: warm/cold occupancy — the hit/miss COUNTERS
     # ride the generic serving_samples mapper; these are the set-point
     # gauges only load() knows.

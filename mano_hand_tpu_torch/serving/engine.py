@@ -71,8 +71,9 @@ and cached, the counterpart of JAX's per-(family, bucket, capacity)
 executables. On a card a program is a CUDA graph over static input and
 output buffers, captured after one eager warm call and inside
 ``ieee_fp32()``; a replay copies the batch in, replays and reads the
-result back, under one engine-wide device lock that every device
-operation of the engine holds (captures, replays, subject installs). A
+result back, under its dispatch context's device lock, which every
+device operation of that context holds (captures, replays, subject
+installs; the engine's own context is the one without lanes). A
 gathered graph reads a static table buffer per capacity, refreshed by a
 stream-ordered copy whenever the batch's table snapshot differs from the
 last one copied, so it never serves a row from another snapshot. The
@@ -108,6 +109,18 @@ host) and cold (row pages on disk) tiers under the table: an evicted
 row demotes, a later dispatch promotes it (prefetched at coalesce admit
 on a side stream whose event the install's stream waits on) instead of
 re-baking, and ``register_subjects`` registers betas without baking.
+
+**Lanes.** ``lanes=N`` (``serving/lanes.py``) hands each assembled batch
+to one of N dispatch lanes instead of the completion stage. Every
+program runs in a DISPATCH CONTEXT (``_DispatchContext``: device, stream,
+lock, graph pool, static tables): the engine's own is the card's default
+stream; each lane has its own, on a stream of its own, so the lanes'
+replays run concurrently on the card without sharing a buffer or a
+graph pool. A lane reads the tables and rows the engine makes on its
+stream only after waiting on it. Program builds, on any context, run
+one at a time in the process (``_BUILD_LOCK``). Under a sharded subject
+store each lane holds a shard of the table and ``_admit`` splits batches
+by owner lane.
 
 **Persistence.** ``aot_dir`` names a directory for the engine's baked
 executable lattice (``bake_lattice``; ``io/export_aot.py``): every full
@@ -154,6 +167,10 @@ Typical use::
         fut = eng.submit(pose_n16x3, subject=subj)      # pose-only, async
         verts = fut.result()
     print(eng.counters.snapshot())
+
+On one card with four lanes: ``ServingEngine(params, lanes=4,
+posed_kernel="fused")`` — the same calls; ``load()["lanes"]`` reads the
+lanes' backlog, breakers and ladder hops.
 """
 
 from __future__ import annotations
@@ -260,66 +277,110 @@ def _torch_dtype(x: np.ndarray) -> torch.dtype:
     return torch.int32 if x.dtype == np.int32 else torch.float32
 
 
-class _EagerProgram:
-    """A CPU engine's program: its family's function called eagerly on
-    each batch. ``body(*tensors)`` (the gathered families take the batch's
-    table first) returns the verts; ``example`` are the host zeros of one
-    batch, run once at build so a program that cannot execute fails at
-    build time, not inside a dispatch. ``on_enqueued`` (a tracing hook)
-    is called as the body starts: on the CPU the body IS the device
-    work. The card program's two calls: ``launch`` does the work and
-    returns the host result as its handle, ``wait`` hands it back;
-    ``run`` is ``wait(launch(...))``."""
+class _DispatchContext:
+    """Where a program runs, and what its programs share.
 
-    def __init__(self, body: Callable, example: tuple, table=None):
-        self._body = body
-        self.run(*example, table=table)
+    ``device``; ``stream``, the CUDA stream every copy and replay of the
+    context goes to (None on the CPU); ``lock``, held over a program's
+    static buffers from its copy-in to the enqueue of its readback, over
+    a capture, and over every write into a static table; ``pool``, the
+    CUDA-graph memory pool its programs are captured into (graphs that
+    share a pool must not replay at once: one pool a stream, whose order
+    serialises them); ``static_tables``, a subject table of each
+    capacity at a fixed address, the table its gathered graphs of that
+    capacity read.
 
-    def launch(self, *host, table=None, on_enqueued=None) -> np.ndarray:
-        args = [torch.from_numpy(np.ascontiguousarray(x)) for x in host]
-        if on_enqueued is not None:
-            on_enqueued()
-        with torch.no_grad(), ieee_fp32():
-            out = self._body(*args) if table is None \
-                else self._body(table, *args)
-        return out.numpy()
+    The engine has one context, on the card's default stream. Each
+    dispatch lane (``serving/lanes.py``) has its own, on a stream of its
+    own, whose ``upstream`` is the engine's stream: the subject tables
+    and baked rows a lane reads are made there. Torch's pool streams do
+    not wait for the default stream, so ``wait_upstream`` orders a read
+    of them after everything enqueued upstream so far and marks their
+    memory as in use by this stream (it is not handed out again before
+    this stream is done with it)."""
 
-    @staticmethod
-    def wait(handle: np.ndarray) -> np.ndarray:
-        return handle
+    def __init__(self, params, device: torch.device, stream=None,
+                 upstream=None, lock=None):
+        self.params = params
+        self.device = device
+        if device.type == "cuda" and stream is None:
+            stream = torch.cuda.default_stream(device)
+        self.stream = stream
+        self.upstream = upstream
+        if lock is None:
+            lock = (threading.RLock() if device.type == "cuda"
+                    else contextlib.nullcontext())
+        self.lock = lock
+        self.pool = None
+        self.static_tables: dict = {}
 
-    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
-        return self.wait(self.launch(*host, table=table,
-                                     on_enqueued=on_enqueued))
+    def on(self):
+        """This context's device and stream as the current ones."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return _on_stream(self.device, self.stream)
+
+    def static_table(self, capacity: int) -> "_StaticTable":
+        """The static table of one capacity (lock held)."""
+        st = self.static_tables.get(capacity)
+        if st is None:
+            with self.on(), torch.no_grad():
+                st = self.static_tables[capacity] = _StaticTable(
+                    self.params, capacity)
+        return st
+
+    def wait_upstream(self, *tensors) -> None:
+        """Order this stream's later work after the upstream stream's work
+        so far, and keep ``tensors`` (made upstream) from being reused
+        before this stream is done reading them."""
+        if self.upstream is None:
+            return
+        self.stream.wait_stream(self.upstream)
+        for t in tensors:
+            t.record_stream(self.stream)
+
+
+_ROW_LEAVES = ("v_shaped", "joints", "shape")
 
 
 class _StaticTable:
-    """A card engine's subject table of one capacity at a fixed address,
-    the table its gathered graphs of that capacity read: ``refresh``
-    copies a snapshot in (on the stream, under the device lock) unless it
-    is the one copied last."""
+    """A subject table of one capacity at a fixed address: the table a
+    context's gathered graphs of that capacity read. ``refresh`` copies a
+    snapshot in (on the context's stream, under its lock) unless it is the
+    one copied last; ``put_rows`` writes rows in place."""
 
     def __init__(self, params, capacity: int):
         self.table = core.subject_table(params, capacity)
         self.source = None
 
-    def refresh(self, snapshot: core.SubjectTable) -> None:
+    def refresh(self, snapshot: core.SubjectTable, wait=None) -> None:
         if snapshot is self.source:
             return
         if snapshot.capacity != self.table.capacity:
             raise ValueError(
                 f"a capacity-{snapshot.capacity} table on a "
                 f"capacity-{self.table.capacity} program")
-        for name in ("v_shaped", "joints", "shape"):
-            getattr(self.table, name).copy_(getattr(snapshot, name))
+        leaves = [getattr(snapshot, n) for n in _ROW_LEAVES]
+        if wait is not None:
+            wait(*leaves)
+        for name, leaf in zip(_ROW_LEAVES, leaves):
+            getattr(self.table, name).copy_(leaf)
         self.source = snapshot     # held: identity is never reused
+
+    def put_rows(self, rows: dict, wait=None) -> None:
+        """Write ``rows`` (slot -> ``ShapedHand``) in place."""
+        for slot, shaped in rows.items():
+            leaves = [getattr(shaped, n) for n in _ROW_LEAVES]
+            if wait is not None:
+                wait(*leaves)
+            for name, leaf in zip(_ROW_LEAVES, leaves):
+                getattr(self.table, name)[slot].copy_(leaf)
 
 
 @contextlib.contextmanager
-def _on_card(dev: torch.device):
-    """``dev`` as the current device, its default stream current."""
-    with torch.cuda.device(dev), \
-            torch.cuda.stream(torch.cuda.default_stream(dev)):
+def _on_stream(dev: torch.device, stream):
+    """``dev`` as the current device, ``stream`` as its current stream."""
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
         yield
 
 
@@ -348,64 +409,165 @@ def _gc_paused():
                 gc.enable()
 
 
+# One program build at a time in the process. A build synchronises the
+# device and ``torch.cuda.graph`` empties the allocator's cache before it
+# captures, which must not happen while another thread captures; and
+# every capture goes to torch's one shared capture stream. Held outside
+# any context's lock; replays on other streams go on meanwhile.
+_BUILD_LOCK = threading.RLock()
+
+
+class _Launched:
+    """The handle of one launched dispatch on a card: its pinned output
+    slab and the event recorded behind the slab's copy."""
+
+    __slots__ = ("_slab", "_event")
+
+    def __init__(self, slab, event):
+        self._slab, self._event = slab, event
+
+    def result(self) -> np.ndarray:
+        slab, self._slab = self._slab, None
+        if slab is None:
+            raise RuntimeError("this launch was already waited for")
+        self._event.synchronize()
+        # The slab itself, no host copy (~0.3 ms at 2.4 MB): the array
+        # keeps the block, which rejoins the cache once the result dies.
+        return slab.numpy()
+
+
+def _readback(ctx: _DispatchContext, out: torch.Tensor) -> _Launched:
+    """A ``non_blocking`` copy of ``out`` into a fresh PINNED slab of
+    torch's host cache, and an event behind it, on ``ctx``'s stream. The
+    copy records its event on the block, so a block freed before the copy
+    lands (an abandoned attempt's) is not handed out again until it has."""
+    slab = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    slab.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(ctx.stream)
+    return _Launched(slab, done)
+
+
+class _EagerProgram:
+    """A program that runs its family's function eagerly on each batch:
+    every program of a CPU context, and on a card the engine-snapshot
+    fallback of a lane with a shard table (``serving/lanes.py``), which
+    keeps no static table of the engine's size. ``body(*tensors)`` (the
+    gathered families take the batch's table first) returns the verts;
+    ``example`` are the host zeros of one batch, run once at build so a
+    program that cannot execute fails at build time, not inside a
+    dispatch. ``on_enqueued`` (a tracing hook) is called once the body's
+    work is enqueued (on the CPU: as the body starts; the body IS the
+    device work). The card program's two calls: ``launch`` does the work
+    and returns a handle (on the CPU the host result itself), ``wait``
+    hands the result back; ``run`` is ``wait(launch(...))``."""
+
+    def __init__(self, ctx: _DispatchContext, body: Callable,
+                 example: tuple, table=None):
+        self._ctx = ctx
+        self._body = body
+        if ctx.stream is None:
+            self.run(*example, table=table)
+            return
+        # On a card a build as a graph's: one at a time, and what the
+        # warm call cached (index tensors, operand packs) lands before
+        # another stream reads it.
+        with _BUILD_LOCK:
+            torch.cuda.synchronize(ctx.device)
+            self.run(*example, table=table)
+            torch.cuda.synchronize(ctx.device)
+
+    def launch(self, *host, table=None, on_enqueued=None):
+        ctx = self._ctx
+        if ctx.stream is None:
+            args = [torch.from_numpy(np.ascontiguousarray(x)) for x in host]
+            with ctx.lock:
+                if on_enqueued is not None:
+                    on_enqueued()
+                with torch.no_grad(), ieee_fp32():
+                    out = self._body(*args) if table is None \
+                        else self._body(table, *args)
+            return out.numpy()
+        with ctx.lock:
+            if supervise.abandoned():
+                raise supervise.DeadlineExceeded(
+                    "an abandoned attempt touches no device buffer")
+            with ctx.on(), torch.no_grad(), ieee_fp32():
+                args = [torch.from_numpy(np.ascontiguousarray(x)).to(
+                    ctx.device, non_blocking=True) for x in host]
+                if table is not None:
+                    ctx.wait_upstream(*(getattr(table, n)
+                                        for n in _ROW_LEAVES))
+                    args.insert(0, table)
+                out = self._body(*args)
+                if on_enqueued is not None:
+                    on_enqueued()
+                return _readback(ctx, out)
+
+    @staticmethod
+    def wait(handle) -> np.ndarray:
+        return handle.result() if isinstance(handle, _Launched) else handle
+
+    def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
+        return self.wait(self.launch(*host, table=table,
+                                     on_enqueued=on_enqueued))
+
+
 class _GraphProgram:
-    """A card engine's program: ``body`` captured once into a CUDA graph
-    over static input buffers (and, for a gathered family, the engine's
+    """A card program: ``body`` captured once into a CUDA graph over
+    static input buffers (and, for a gathered family, its context's
     static table of its capacity) and a static output.
 
-    Built under the engine's device lock: one eager warm call (kernel
+    Built under ``_BUILD_LOCK`` and its context's lock, after a device
+    synchronisation (whatever a sibling context's build cached, and the
+    tables and params it reads, has landed): one eager warm call (kernel
     builds, operand packs, index tensors: everything a capture must find
-    cached), then the capture, both inside ``ieee_fp32()`` so the graph's
-    matmuls are IEEE fp32 whatever the caller's TF32 setting at replay.
-    The kernel launches the capture noted are added to their counts at
-    every replay.
+    cached), then the capture into the context's pool, both inside
+    ``ieee_fp32()`` so the graph's matmuls are IEEE fp32 whatever the
+    caller's TF32 setting at replay. The kernel launches the capture noted
+    are added to their counts at every replay.
 
-    A dispatch is two calls. ``launch`` runs under the device lock: the
-    copy-in from the host arrays (``non_blocking``: from pinned staging
-    slabs it is asynchronous), the static-table refresh, the replay, and
-    a ``non_blocking`` copy of the static output into a fresh PINNED
-    output slab (torch's pinned host cache), then an event recorded
-    behind it; it returns a handle. ``wait(handle)`` synchronises on that
-    event OUTSIDE the lock and returns the slab as the host array, so
-    another batch's launch queues behind this one's replay and readback
-    on the card while this thread waits. Every copy and replay goes to
-    the device's default stream, whichever thread calls (the dispatcher,
-    a completion worker, a supervised attempt's fresh thread, the
-    sentinel): stream order alone keeps batch N+1's copy-in and replay
-    behind batch N's readback of the one static output. The pinned cache
-    hands a slab out again only after the copy recorded on it has
-    landed, so an attempt abandoned after its launch can never have its
-    late readback land in a slab another batch reads. An attempt its
-    supervisor abandoned before its launch touches no buffer. ``run`` is
+    A dispatch is two calls. ``launch`` runs under the context's lock:
+    the copy-in from the host arrays (``non_blocking``: from pinned
+    staging slabs it is asynchronous), the static-table refresh, the
+    replay, and a ``non_blocking`` copy of the static output into a fresh
+    PINNED output slab, then an event recorded behind it; it returns a
+    handle. ``wait(handle)`` synchronises on that event OUTSIDE the lock
+    and returns the slab as the host array, so another batch's launch
+    queues behind this one's replay and readback on the card while this
+    thread waits. Every copy and replay goes to the context's stream,
+    whichever thread calls (the dispatcher, a completion worker or lane
+    worker, a supervised attempt's fresh thread, the sentinel): stream
+    order alone keeps batch N+1's copy-in and replay behind batch N's
+    readback of the one static output. An attempt its supervisor
+    abandoned before its launch touches no buffer. ``run`` is
     ``wait(launch(...))``.
 
     ``launch(..., on_enqueued=hook)`` calls ``hook()`` once the replay is
     enqueued, before the readback waits for it: the engine stamps its
     spans' ``dispatched`` there, so on the port the ``dispatch`` stage
     (``obs/trace.py:Tracer._span_stages``) holds the batch assembly, the
-    program fetch, the wait for the engine's device lock (held by a
-    probe, an install or a capture) and the copy-in, and the ``device``
-    stage the replay's execution on the card and the readback to the
-    host — JAX's stage semantics, where ``device`` is execution plus
-    transfer."""
+    program fetch, the wait for the context's lock (held by a probe, an
+    install or a capture) and the copy-in, and the ``device`` stage the
+    replay's execution on the card and the readback to the host — JAX's
+    stage semantics, where ``device`` is execution plus transfer."""
 
-    def __init__(self, eng: "ServingEngine", body: Callable, example: tuple,
-                 capacity: Optional[int] = None, keep=None):
-        # The engine's lock, card and static table, not the engine: a
-        # program in the engine's cache must not close a reference cycle.
-        self._lock, self._device = eng._device_lock, eng.device
+    def __init__(self, ctx: _DispatchContext, body: Callable,
+                 example: tuple, capacity: Optional[int] = None, keep=None):
+        # The context, not the engine: a program in the engine's cache
+        # must not close a reference cycle.
+        self._ctx = ctx
         # What the graph reads but does not own: a loaded program's
         # module, whose constants (FK's index tensors among them) the
         # replays read in place. Freed, its memory would be reused under
         # the graph.
         self._keep = keep
-        dev = self._device
-        self._stream = torch.cuda.default_stream(dev)
-        with self._lock, torch.cuda.device(dev), \
-                torch.cuda.stream(self._stream), torch.no_grad(), \
+        dev = ctx.device
+        with _BUILD_LOCK, ctx.lock, ctx.on(), torch.no_grad(), \
                 ieee_fp32():
+            torch.cuda.synchronize(dev)
             self._table = (None if capacity is None
-                           else eng._static_table(capacity))
+                           else ctx.static_table(capacity))
             self._static = [torch.zeros(x.shape, dtype=_torch_dtype(x),
                                         device=dev) for x in example]
             args = list(self._static)
@@ -413,64 +575,40 @@ class _GraphProgram:
                 args.insert(0, self._table.table)
             body(*args)
             torch.cuda.synchronize(dev)
-            if eng._graph_pool is None:
-                eng._graph_pool = torch.cuda.graph_pool_handle()
+            if ctx.pool is None:
+                ctx.pool = torch.cuda.graph_pool_handle()
             self._graph = torch.cuda.CUDAGraph()
             with _gc_paused(), captured_launches() as log, torch.cuda.graph(
-                    self._graph, pool=eng._graph_pool,
+                    self._graph, pool=ctx.pool,
                     capture_error_mode="thread_local"):
                 self._out = body(*args)
             self._launches = tuple(log)
 
-    def launch(self, *host, table=None, on_enqueued=None) -> "_Launched":
-        with self._lock:
+    def launch(self, *host, table=None, on_enqueued=None) -> _Launched:
+        ctx = self._ctx
+        with ctx.lock:
             if supervise.abandoned():
                 raise supervise.DeadlineExceeded(
                     "an abandoned attempt touches no device buffer")
-            # From torch's pinned host cache: the copy below records its
-            # event on the block, so a block freed before that copy lands
-            # (an abandoned attempt's) is not handed out again until it
-            # has.
-            slab = torch.empty(self._out.shape, dtype=self._out.dtype,
-                               pin_memory=True)
-            with torch.cuda.device(self._device), \
-                    torch.cuda.stream(self._stream):
+            with ctx.on():
                 for buf, x in zip(self._static, host):
                     buf.copy_(torch.from_numpy(np.ascontiguousarray(x)),
                               non_blocking=True)
                 if self._table is not None:
-                    self._table.refresh(table)
+                    self._table.refresh(table, ctx.wait_upstream)
                 self._graph.replay()
                 add_launches(self._launches)
                 if on_enqueued is not None:
                     on_enqueued()
-                slab.copy_(self._out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._stream)
-        return _Launched(slab, done)
+                return _readback(ctx, self._out)
 
-    def wait(self, handle: "_Launched") -> np.ndarray:
-        slab, handle._slab = handle._slab, None
-        if slab is None:
-            raise RuntimeError("this launch was already waited for")
-        handle._event.synchronize()
-        # The slab itself, no host copy (~0.3 ms at 2.4 MB): the array
-        # keeps the block, which rejoins the cache once the result dies.
-        return slab.numpy()
+    @staticmethod
+    def wait(handle: _Launched) -> np.ndarray:
+        return handle.result()
 
     def run(self, *host, table=None, on_enqueued=None) -> np.ndarray:
         return self.wait(self.launch(*host, table=table,
                                      on_enqueued=on_enqueued))
-
-
-class _Launched:
-    """The handle of one launched graph replay: its pinned output slab
-    and the event recorded behind the slab's copy."""
-
-    __slots__ = ("_slab", "_event")
-
-    def __init__(self, slab, event):
-        self._slab, self._event = slab, event
 
 
 class _CancellableFuture(Future):
@@ -532,10 +670,11 @@ class _Dispatched:
     program's ``on_enqueued`` hook when its replay is enqueued, else by
     the dispatcher once the dispatch returned (a CPU-tier failover).
     ``close()`` disarms it, so an attempt that wakes after its batch was
-    resolved stamps nothing."""
+    resolved stamps nothing. ``fields`` ride on the event (a lane's
+    index)."""
 
-    def __init__(self, tracer, reqs):
-        self._tracer, self._reqs = tracer, reqs
+    def __init__(self, tracer, reqs, **fields):
+        self._tracer, self._reqs, self._fields = tracer, reqs, fields
         self._lock = threading.Lock()
         self._done = False
 
@@ -547,7 +686,7 @@ class _Dispatched:
     def __call__(self) -> None:
         if self._take():
             for r in self._reqs:
-                self._tracer.event(r.span, "dispatched")
+                self._tracer.event(r.span, "dispatched", **self._fields)
 
     def close(self) -> None:
         self._take()
@@ -892,10 +1031,28 @@ class ServingEngine:
         device table: an evicted row demotes to warm, a later dispatch
         promotes it back (prefetched at coalesce admit) instead of
         re-running the shape stage. None (the default): the table alone.
-        A sharded store needs lanes, which this engine has not: it
-        raises.
+        A sharded store needs ``lanes``: its N shards are the lanes'
+        tables.
     store_warm_capacity: retarget the store's warm-tier row budget
         (requires ``subject_store``).
+    lanes: dispatch lanes (``serving/lanes.py``). None (the default): the
+        single-context dispatch above, no lane thread anywhere. An int N
+        builds N lanes over ``parallel.lane_devices`` at the first warm-up
+        or dispatch (round-robin over the engine's device type: on one
+        card, N CUDA streams of that card), each with its own stream,
+        lock, graph pool, static tables, programs, worker thread and,
+        under a ``policy``, circuit breaker. The dispatcher hands each
+        assembled batch to the least-backlogged healthy lane (a sharded
+        store's batch to its owner lane); the subject table is mirrored
+        into each lane (row writes, never a capture) or, under a sharded
+        store, split over them; an exhausted batch walks the failover
+        ladder: its lane, the healthy siblings, then the CPU tier of a
+        ``device="cpu"`` engine. Results are bit for bit the single
+        context's on the same batches. ``load()`` gains a ``"lanes"``
+        block. The completion stage is bypassed: the lanes are the
+        overlap.
+    lane_probe: per-lane breaker probe, ``lane_probe(index) -> bool``
+        (requires ``lanes``); default: the policy breaker's probe.
     """
 
     # Capacity the subject table starts at (clamped to max_subjects).
@@ -910,7 +1067,9 @@ class ServingEngine:
                  busy_fraction: float = 0.75, aot_dir=None, tracer=None,
                  adaptive_coalesce: bool = True, inflight_depth: int = 2,
                  subject_store=None,
-                 store_warm_capacity: Optional[int] = None):
+                 store_warm_capacity: Optional[int] = None,
+                 lanes: Optional[int] = None,
+                 lane_probe: Optional[Callable[[int], bool]] = None):
         if inflight_depth < 1:
             raise ValueError(
                 f"inflight_depth must be >= 1, got {inflight_depth}")
@@ -941,6 +1100,10 @@ class ServingEngine:
         if not 0.0 < busy_fraction <= 1.0:
             raise ValueError(
                 f"busy_fraction must be in (0, 1], got {busy_fraction}")
+        if lanes is not None and lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        if lane_probe is not None and lanes is None:
+            raise ValueError("lane_probe requires lanes")
         self.device = resolve_device(device)
         if (self.device.type != "cpu" and policy is not None
                 and policy.cpu_fallback):
@@ -993,13 +1156,12 @@ class ServingEngine:
         self._gather_exes: dict = {}
         self._gather_exes_bf16: dict = {}
         self._cpu_exes: dict = {}          # bucket -> CPU-tier callable
-        # On a card every device operation of the engine holds this lock:
-        # a capture never overlaps the engine's other device work, and the
-        # static buffers of a program serve one batch at a time.
-        self._device_lock = (threading.RLock() if self.device.type == "cuda"
-                             else contextlib.nullcontext())
-        self._graph_pool = None
-        self._static_tables: dict = {}     # capacity -> _StaticTable
+        # The engine's dispatch context: its card's default stream, the
+        # graph pool, the static tables. On a card every device operation
+        # of the engine holds its lock: the static buffers of a program
+        # serve one batch at a time.
+        self._ctx = _DispatchContext(self._params, self.device)
+        self._device_lock = self._ctx.lock
         # Persistence: the lattice is opened once (single-flight).
         self.aot_dir = aot_dir
         self._digest: Optional[str] = None
@@ -1014,6 +1176,7 @@ class ServingEngine:
         self._lock = threading.Lock()
         self._install_lock = threading.Lock()
         self._table: Optional[core.SubjectTable] = None
+        self._table_version = 0            # bumped at every table swap
         self._subject_slots: dict = {}     # subject key -> table row
         self._subject_lru = collections.OrderedDict()  # key -> None
         self._subject_betas: dict = {}     # key -> host [S] betas, never evicted
@@ -1047,8 +1210,14 @@ class ServingEngine:
         # manager built after (or racing) a stop refuses registrations.
         self._streams = None
         self._streams_stopped = False
+        # Dispatch lanes (serving/lanes.py): built at the first warm-up or
+        # dispatch, never here.
+        self._lane_count = None if lanes is None else int(lanes)
+        self._lane_probe = lane_probe
+        self._laneset = None
         # The tiered subject store, bound to this engine's counters and
-        # device; it touches no device at construction.
+        # device (and lane count: its shards are the lanes' tables); it
+        # touches no device at construction.
         if subject_store is not None:
             from mano_hand_tpu_torch.serving.subject_store import (
                 SubjectStore,
@@ -1058,11 +1227,12 @@ class ServingEngine:
                 raise TypeError(
                     f"subject_store must be a serving.subject_store."
                     f"SubjectStore, got {type(subject_store).__name__}")
-            if subject_store.config.sharded:
+            if subject_store.config.sharded and self._lane_count is None:
                 raise ValueError(
                     "a sharded subject_store requires lanes (the shards "
                     "are the per-lane tables; pass lanes=N)")
-            subject_store.bind(self.counters, device=self.device)
+            subject_store.bind(self.counters, device=self.device,
+                               n_shards=self._lane_count)
         if store_warm_capacity is not None:
             if subject_store is None:
                 raise ValueError(
@@ -1182,6 +1352,10 @@ class ServingEngine:
                     # wakes; the sweep resolves what a stuck worker holds.
                     stage.close(err)
                     self._completion = None
+                if self._laneset is not None:
+                    # A short lane drain: the sweep below resolves what a
+                    # wedged lane worker holds.
+                    self._laneset.stop(timeout_s=1.0)
                 self._sweep_live(err)
                 self._drain(err)
                 # Parked requests were resolved by the sweep; drop the
@@ -1193,6 +1367,11 @@ class ServingEngine:
                 return
             with self._thread_lock:
                 self._thread = None
+        if self._laneset is not None:
+            # The dispatcher is drained: every lane finishes its queued
+            # batches, then whatever a wedged lane worker left is
+            # poisoned; the sweep below backstops an abandoned worker.
+            self._laneset.stop(timeout_s=timeout_s)
         # A submit racing the shutdown can enqueue after the dispatcher's
         # own drain: nothing reads the queue now, so sweep it again, then
         # the registry (empty unless a crash path missed one).
@@ -1339,6 +1518,7 @@ class ServingEngine:
             if evicted is not None and self._tracer is not None:
                 self._tracer.runtime_event("evict", subject=evicted,
                                            slot=slot)
+            prev = table
             with self._device_lock, self._on_device(), torch.no_grad():
                 if table is None:
                     table = core.subject_table(self._params, cap)
@@ -1348,6 +1528,8 @@ class ServingEngine:
                 table = core.table_set_row(table, slot, shaped)
             with self._lock:
                 self._table = table
+                self._table_version += 1
+                version = self._table_version
                 self._subject_slots[key] = slot
                 self._subject_lru[key] = None
                 stale = ([b for b, (c, _) in self._gather_exes.items()
@@ -1355,6 +1537,15 @@ class ServingEngine:
                 stale_bf16 = ([b for b, (c, _)
                                in self._gather_exes_bf16.items()
                                if c != cap] if grew else [])
+            lanes = self._laneset
+            if lanes is not None:
+                # The new row into every lane's replica (or, sharded, its
+                # owner's shard table): a row of data movement a lane,
+                # never a capture. Still under _install_lock, the table's
+                # one mutator, so broadcasts are serialized.
+                lanes.broadcast_row(slot, shaped, grew=grew, prev=prev,
+                                    table=table, version=version,
+                                    digest=key)
         if evicted is not None and store is not None:
             # Outside every lock: the device-to-host copy happens in the
             # store, on the engine's stream (behind the writes that made
@@ -1496,6 +1687,11 @@ class ServingEngine:
             from mano_hand_tpu_torch.serving import streams as streams_mod
 
             out["streams"] = streams_mod.empty_snapshot()
+        ls = self._laneset
+        if ls is not None:
+            # Per-lane backlog, breaker and ladder counters, one LaneSet
+            # lock hold.
+            out["lanes"] = ls.snapshot()
         if self._subject_store is not None:
             # Tier occupancy and in-flight promotions, one store-lock hold.
             out["subject_store"] = self._subject_store.snapshot()
@@ -1728,6 +1924,11 @@ class ServingEngine:
         if self._policy is not None and self._policy.cpu_fallback:
             for b in bucket_list:
                 self._fallback_executable(b)
+        if self._lane_count is not None:
+            # Lanes serve full traffic from programs of their own: warm
+            # every lane's too, so steady traffic and a ladder hop onto
+            # any sibling build nothing.
+            self._get_lanes().warm(bucket_list, posed=False)
         return out
 
     def warmup_posed(self, bucket_list: Optional[Sequence[int]] = None,
@@ -1761,7 +1962,41 @@ class ServingEngine:
                     cap = self._table.capacity
                 if entry is None or entry[0] != cap:
                     self._gather_executable(b, prec=BF16)
+        if self._lane_count is not None:
+            self._get_lanes().warm(bucket_list, posed=True)
         return out
+
+    # --------------------------------------------------------- dispatch lanes
+    @property
+    def lane_count(self) -> Optional[int]:
+        """Configured dispatch lanes (None: the single-context dispatch)."""
+        return self._lane_count
+
+    def _get_lanes(self):
+        """The engine's ``LaneSet``, built on first use (never in the
+        constructor). A losing racer's set is discarded: it holds no
+        thread before its first batch."""
+        if self._lane_count is None:
+            return None
+        ls = self._laneset
+        if ls is None:
+            from mano_hand_tpu_torch.serving.lanes import LaneSet
+
+            ls = LaneSet(self, self._lane_count, probe=self._lane_probe)
+            with self._lock:
+                if self._laneset is None:
+                    self._laneset = ls
+                ls = self._laneset
+        return ls
+
+    def _shard_of(self, digest: Optional[str]) -> Optional[int]:
+        """The owner lane of one subject under a sharded store (None on an
+        unsharded or storeless engine): content-based, so placement holds
+        across restarts and registration order."""
+        store = self._subject_store
+        if store is None or digest is None:
+            return None
+        return store.shard_for(digest)
 
     def _check_buckets(self, bucket_list):
         for b in bucket_list or self.buckets:
@@ -1774,29 +2009,24 @@ class ServingEngine:
                 and bool(self._precision_policy.bf16_tiers))
 
     # ------------------------------------------------------------- programs
-    def _static_table(self, capacity: int) -> _StaticTable:
-        """The card's static table of one capacity (device lock held)."""
-        st = self._static_tables.get(capacity)
-        if st is None:
-            st = self._static_tables[capacity] = _StaticTable(
-                self._params, capacity)
-        return st
-
     def _program(self, body: Callable, bucket: int, capacity=None,
-                 table=None, keep=None):
+                 table=None, keep=None, ctx=None, eager=False):
         """One program of a family at ``bucket`` (and table ``capacity``
-        for a gathered one): a CUDA graph on a card, the eager function on
-        the CPU. Built and warmed here; counting is the caller's. ``keep``
-        lives as long as the program (a loaded entry's body)."""
+        for a gathered one) in dispatch context ``ctx`` (default: the
+        engine's): a CUDA graph on a card, the eager function on the CPU
+        or under ``eager``. Built and warmed here; counting is the
+        caller's. ``keep`` lives as long as the program (a loaded entry's
+        body)."""
+        ctx = self._ctx if ctx is None else ctx
         if capacity is None:
             example = (np.zeros((bucket, self._n_joints, 3), np.float32),
                        np.zeros((bucket, self._n_shape), np.float32))
         else:
             example = (np.zeros((bucket,), np.int32),
                        np.zeros((bucket, self._n_joints, 3), np.float32))
-        if self.device.type == "cuda":
-            return _GraphProgram(self, body, example, capacity, keep)
-        return _EagerProgram(body, example, table)
+        if ctx.stream is not None and not eager:
+            return _GraphProgram(ctx, body, example, capacity, keep)
+        return _EagerProgram(ctx, body, example, table)
 
     def _live_full(self, pose, shape):
         return core.forward_batched(self._params, pose, shape).verts
@@ -1848,15 +2078,19 @@ class ServingEngine:
                 family=family, bucket=bucket, **fields)
 
     def _load_program(self, what: str, body: Callable, bucket: int,
-                      capacity=None, table=None, family=None):
-        """A program over a loaded entry, or None when it fails to run
-        here: counted in ``aot_loads``, or in ``aot_load_failures`` with a
-        warning (the caller then builds it live). ``family`` names a
-        lattice entry's family for its ``lattice_load`` /
-        ``lattice_load_failed`` event (None: a legacy artifact)."""
+                      capacity=None, table=None, family=None, ctx=None,
+                      **fields):
+        """A program over a loaded entry (in context ``ctx``, default the
+        engine's), or None when it fails to run here: counted in
+        ``aot_loads``, or in ``aot_load_failures`` with a warning (the
+        caller then builds it live). ``family`` names a lattice entry's
+        family for its ``lattice_load`` / ``lattice_load_failed`` event
+        (None: a legacy artifact); ``fields`` ride along on it."""
         cap = {} if capacity is None else {"capacity": capacity}
+        cap.update(fields)
         try:
-            prog = self._program(body, bucket, capacity, table, keep=body)
+            prog = self._program(body, bucket, capacity, table, keep=body,
+                                 ctx=ctx)
         except Exception as e:  # noqa: BLE001 — degrade, never crash boot
             self.counters.count_aot_load_failure()
             _LOG.warning(f"{what} failed at execution ({type(e).__name__}: "
@@ -2067,7 +2301,8 @@ class ServingEngine:
                      include_cpu_fallback: Optional[bool] = None) -> dict:
         """Bake THIS engine's reachable lattice into ``aot_dir``
         (``io/export_aot.py:bake_lattice``): every bucket's full program,
-        every (bucket x capacity ladder) gathered program and — when the
+        every (bucket x capacity ladder) gathered program (and, with
+        sharded lanes, at the shard tables' capacity) and — when the
         policy enables the CPU tier (or ``include_cpu_fallback=True``) —
         the CPU tier, exported for the engine's device type. A card engine
         has no CPU tier and bakes no ``cpu/`` entries. After
@@ -2084,8 +2319,19 @@ class ServingEngine:
         if include_cpu_fallback and self.device.type != "cpu":
             raise ValueError(
                 "a card engine has no CPU tier: it bakes no cpu/ entries")
-        caps = (self._lattice_capacities() if capacities is None
-                else list(capacities))
+        if capacities is None:
+            caps = self._lattice_capacities()
+            store = self._subject_store
+            if self._lane_count and store is not None and store.sharded:
+                # Sharded lanes serve shard tables of a fixed capacity,
+                # max_subjects split over the lanes, generally off the
+                # doubling ladder: bake it too, or every lane builds its
+                # shard programs live at boot.
+                shard_cap = max(1, -(-self.max_subjects // self._lane_count))
+                if shard_cap not in caps:
+                    caps.append(shard_cap)
+        else:
+            caps = list(capacities)
         manifest = bake_lattice(
             self._params, self.aot_dir, buckets=self.buckets,
             capacities=caps, platforms=(self.device.type,),
@@ -2218,11 +2464,10 @@ class ServingEngine:
         as the current stream: a supervised attempt or a completion
         worker runs on a thread whose current device is not ours, and a
         caller's thread may have made another stream current. Every
-        device operation of the engine goes to that one stream, so stream
-        order alone orders its copies, installs and replays."""
-        if self.device.type == "cuda":
-            return _on_card(self.device)
-        return contextlib.nullcontext()
+        device operation of the engine's own context goes to that one
+        stream, so stream order alone orders its copies, installs and
+        replays (a lane's reads of them wait on it: ``wait_upstream``)."""
+        return self._ctx.on()
 
     def _run_full(self, pose: np.ndarray, shape: np.ndarray, *, prog=None,
                   mark=None) -> np.ndarray:
@@ -2306,16 +2551,25 @@ class ServingEngine:
         return self._precision_policy.dtype_for_tier(req.tier)
 
     def _admit(self, nxt: _Request, posed: bool, subjects: set,
-               rows: int, prec: str = F32) -> Optional[str]:
+               rows: int, prec: str = F32,
+               shard: Optional[int] = None) -> Optional[str]:
         """Why ``nxt`` cannot join the batch being built, or None:
         ``"kind"`` (full and pose-only never share a batch),
         ``"precision"`` (a batch serves one precision family),
-        ``"overflow"`` (past the largest bucket) or ``"subjects"`` (one
-        more distinct subject than the table can hold)."""
+        ``"shard"`` (under a sharded store a batch serves from ONE lane's
+        shard table: a request another lane owns waits for a batch bound
+        for its lane), ``"overflow"`` (past the largest bucket) or
+        ``"subjects"`` (one more distinct subject than the table can
+        hold)."""
         if (nxt.subject is not None) != posed:
             return "kind"
         if posed and self._req_prec(nxt) != prec:
             return "precision"
+        if posed and shard is not None \
+                and self._shard_of(nxt.subject) != shard:
+            # Checked before overflow: a cross-shard request keeps the
+            # overflow counter honest.
+            return "shard"
         if rows + nxt.rows > self.buckets[-1]:
             return "overflow"
         if (posed and nxt.subject not in subjects
@@ -2335,6 +2589,7 @@ class ServingEngine:
         reqs, rows = [first], first.rows
         posed = first.subject is not None
         prec = self._req_prec(first)
+        shard = self._shard_of(first.subject) if posed else None
         subjects = {first.subject}
         top = self.buckets[-1]
         staging = self._staging_acquire(posed)
@@ -2348,7 +2603,7 @@ class ServingEngine:
             if self._is_expired(nxt):
                 self._expire(nxt, "coalesce")
                 return "expired"
-            why = self._admit(nxt, posed, subjects, rows, prec)
+            why = self._admit(nxt, posed, subjects, rows, prec, shard)
             if why is None:
                 reqs.append(nxt)
                 staging.append(nxt)
@@ -2437,7 +2692,9 @@ class ServingEngine:
         # cycle on this thread: no stage, no "staged" stamps, no pipeline
         # event.
         stage = None
-        if self.inflight_depth > 1:
+        if self.inflight_depth > 1 and self._lane_count is None:
+            # (Lane mode bypasses the stage: each lane worker is its own
+            # FIFO, and the lanes are the overlap.)
             stage = _CompletionStage(self, self.inflight_depth)
             self._completion = stage
             if self._tracer is not None:
@@ -2486,7 +2743,8 @@ class ServingEngine:
         dry): pinned host memory on a card engine. Fenced slabs whose
         event has completed rejoin the pool first."""
         with self._slab_lock:
-            while self._slab_fenced and self._slab_fenced[0][0].query():
+            while self._slab_fenced and all(
+                    e.query() for e in self._slab_fenced[0][0]):
                 self._slab_pool.append(self._slab_fenced.popleft()[1])
             st = self._slab_pool.pop() if self._slab_pool else None
         if st is None:
@@ -2508,28 +2766,34 @@ class ServingEngine:
                            pin_memory=True).numpy()
 
     def _staging_release(self, st: Optional[_Staging],
-                         fence: bool = False) -> None:
+                         fence: bool = False, contexts=None) -> None:
         """Recycle a batch's slab once its copy-in has completed on the
-        card (bounded pool: the in-flight depth, one assembling, one
-        spare; a surplus slab goes to the allocator). ``fence``: the
-        batch did not end in a completed readback — a supervised attempt
-        abandoned after its launch may still have a copy from this slab
-        queued — so the slab waits behind an event recorded on the
-        engine's stream under the device lock (every launch so far has
-        enqueued its copies) until the card passes it."""
+        card (bounded pool: the in-flight depth or the lane count, one
+        assembling, one spare; a surplus slab goes to the allocator).
+        ``fence``: the batch did not end in a completed readback — a
+        supervised attempt abandoned after its launch may still have a
+        copy from this slab queued — so the slab waits behind an event
+        recorded on the stream of each context that may have copied from
+        it (``contexts``; default the engine's), each under its lock
+        (every launch there so far has enqueued its copies), until the
+        card has passed them all."""
         if st is None:
             return
         if fence and self.device.type == "cuda":
-            done = torch.cuda.Event()
-            with self._device_lock, self._on_device():
-                done.record()
+            events = []
+            for ctx in (contexts or (self._ctx,)):
+                done = torch.cuda.Event()
+                with ctx.lock, ctx.on():
+                    done.record(ctx.stream)
+                events.append(done)
             with self._slab_lock:
                 # Never dropped here: freeing a slab a queued copy still
                 # reads would hand its memory to the allocator early.
-                self._slab_fenced.append((done, st))
+                self._slab_fenced.append((events, st))
             return
         with self._slab_lock:
-            if len(self._slab_pool) < self.inflight_depth + 2:
+            if len(self._slab_pool) < max(self.inflight_depth,
+                                          self._lane_count or 0) + 2:
                 self._slab_pool.append(st)
 
     def _launch(self, reqs, rows: int, staging: Optional[_Staging] = None):
@@ -2582,6 +2846,20 @@ class ServingEngine:
                     np.concatenate([r.pose for r in reqs]), bucket)
                 shape = None if posed else bucket_mod.pad_rows(
                     np.concatenate([r.shape for r in reqs]), bucket)
+            if self._lane_count is not None:
+                # Lane mode: the least-backlogged healthy lane (a sharded
+                # store's batch: its owner lane) runs the dispatch, the
+                # ladder and the futures; the slab goes with the batch and
+                # its lane returns it. A pose-only batch resolves its
+                # subjects in the lane's worker, against the table that
+                # lane serves from.
+                if mark is not None:
+                    mark.close()     # the lane stamps its own
+                self._get_lanes().submit_batch(
+                    bucket, pose, shape, posed, reqs, rows, staging=staging,
+                    shard=(self._shard_of(reqs[0].subject) if posed
+                           else None))
+                return None
             prec = self._req_prec(reqs[0])
             bf16 = prec == BF16
             dt = torch.bfloat16 if bf16 else None

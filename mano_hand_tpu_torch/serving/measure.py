@@ -2,8 +2,9 @@
 
 Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``,
 ``overload_drill_run``, ``cold_start_drill_run``, ``tracing_overhead_run``,
-``metrics_overhead_run``, ``stream_drill_run`` and
-``dispatch_pipeline_drill_run`` — the same arguments, protocol and
+``metrics_overhead_run``, ``stream_drill_run``,
+``dispatch_pipeline_drill_run``, ``lane_drill_run`` and
+``subject_store_drill_run`` — the same arguments, protocol and
 returned keys (each drill attaches its tracer's ``flight_record``), plus
 ``device=``. Each drives real ``ServingEngine``s on ``device`` (default
 ``cuda``; the CPU tests pass ``"cpu"``) and injects its faults in-process
@@ -2117,3 +2118,685 @@ def dispatch_pipeline_drill_run(
         sides["pipelined"]["tracer"], sides["pipelined"]["eng"].counters,
         reason="dispatch_pipeline_drill_complete")
     return out
+
+
+def lane_drill_run(
+    params,
+    *,
+    lanes: int = 4,
+    requests_per_pass: int = 96,
+    subjects: int = 6,
+    workers: int = 8,
+    max_rows: int = 4,
+    max_bucket: int = 16,
+    deadline_s: float = 5.0,
+    kill_lane: int = 1,
+    lane_failover_budget: float = 0.05,
+    seed: int = 0,
+    tracer=None,
+    device=None,
+    posed_kernel: str = "xla",
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The lane-loss chaos drill.
+
+    One ``ServingEngine(lanes=N)`` on ``device`` (on one card the lanes
+    are N streams of it: ``distinct_devices`` says so) is driven by
+    ``workers`` concurrent submitters of pose-only requests through
+    three passes: a healthy pass, a LOSS pass during which a
+    ``%LANE``-tagged chaos plan kills ``kill_lane`` (a persistent error
+    on that lane's own call index, and its breaker probe forced false)
+    while requests are in flight, and a pass after the fault clears and
+    the lane fails back. JAX's criteria (``scripts/bench_report.py:
+    judge_lanes``) read the returned numbers:
+
+    * ``futures_resolved_fraction`` == 1.0 with no ``error`` or
+      ``stranded`` outcomes: losing a lane cost capacity, not service;
+    * ``loss_vs_reference_max_abs_err`` == 0.0: the lanes' results are
+      the single-context engine's (same program families; on a card the
+      rows of K2 ignore their batchmates, on the CPU the plain forward's
+      rows round by batch size, so there a drill holds 0.0 only with
+      batches of one request, ``workers=1``);
+    * ``cpu_failovers`` == 0: the siblings absorbed the loss (the CPU
+      tier is armed on a CPU engine only: a card engine has none);
+    * ``steady_recompiles_pre`` == ``steady_recompiles_post`` == 0;
+    * every request span closed exactly once (``spans``);
+    * the killed lane's re-probe wait grew while it was down
+      (``breaker_probe_backoff_grew``).
+
+    Throughput per pass and ``survivor_balance_ratio`` (max/min batches
+    placed among the surviving lanes during the loss) are recorded. A
+    ``future.cancel()`` probe rides the loss pass. The ``flight_record``
+    carries the spans, the breaker transitions and the ladder hops.
+    """
+    import concurrent.futures as cf
+    import threading
+
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
+    from mano_hand_tpu_torch.runtime.health import CircuitBreaker
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
+
+    log = _logger(log)
+    if tracer is None:
+        tracer = Tracer(capacity=65536)
+    if kill_lane >= lanes:
+        raise ValueError(
+            f"kill_lane {kill_lane} out of range for {lanes} lanes")
+    dev = resolve_device(device)
+    n_joints, n_shape = params.n_joints, params.n_shape
+    prm32 = params.astype(torch.float32).to(dev)
+    rng = np.random.default_rng(seed)
+    subj_betas = [rng.normal(size=(n_shape,)).astype(np.float32)
+                  for _ in range(subjects)]
+
+    # One request universe per pass, shared with the reference engine so
+    # results compare request for request.
+    def make_stream(n, pass_seed):
+        r = np.random.default_rng(pass_seed)
+        sizes = r.integers(1, max_rows + 1, size=n)
+        return [(r.normal(scale=0.4,
+                          size=(int(s), n_joints, 3)).astype(np.float32),
+                 int(r.integers(0, subjects)))
+                for s in sizes]
+
+    streams = {name: make_stream(requests_per_pass, seed + 100 + i)
+               for i, name in enumerate(("pre", "loss", "post"))}
+
+    # Reference: the single-context engine (no lanes, no policy) over the
+    # same subjects, one request at a time.
+    ref_eng = ServingEngine(prm32, device=dev, max_bucket=max_bucket,
+                            max_delay_s=0.001, posed_kernel=posed_kernel)
+    reference = {}
+    with ref_eng:
+        ref_keys = [ref_eng.specialize(b) for b in subj_betas]
+        for name, stream in streams.items():
+            reference[name] = [ref_eng.forward(p, subject=ref_keys[si])
+                               for p, si in stream]
+
+    lane_ok = [True] * lanes
+    plan = ChaosPlan()
+    breaker_proto = CircuitBreaker(
+        failure_threshold=2,
+        # Tiny but nonzero: re-probes stay fast and the exponential
+        # backoff shows in probe_wait_s.
+        probe_interval_s=0.001,
+        respect_priority_claim=False)
+    policy = DispatchPolicy(
+        deadline_s=deadline_s, retries=1, backoff_s=0.005,
+        backoff_cap_s=0.01, jitter=0.0, breaker=breaker_proto,
+        chaos=plan, cpu_fallback=dev.type == "cpu")
+    eng = ServingEngine(
+        prm32, device=dev, max_bucket=max_bucket, max_delay_s=0.002,
+        policy=policy, tracer=tracer, lanes=lanes,
+        posed_kernel=posed_kernel, lane_probe=lambda i: lane_ok[i])
+    resolve_timeout = deadline_s * (policy.retries + 2) * (lanes + 1) + 60.0
+
+    def run_pass(stream, keys, cancel_probe=False):
+        """Submit from a worker pool, resolve everything, classify the
+        outcomes."""
+        outcomes = {"ok": 0, "error": 0, "expired": 0, "stranded": 0,
+                    "cancelled": 0}
+        results = [None] * len(stream)
+        t0 = time.perf_counter()
+        lock = threading.Lock()
+        cancelled_idx = len(stream) // 2 if cancel_probe else -1
+
+        def submit_one(i):
+            p, si = stream[i]
+            fut = eng.submit(p, subject=keys[si])
+            if i == cancelled_idx:
+                fut.cancel()
+            try:
+                results[i] = fut.result(timeout=resolve_timeout)
+                k = "ok"
+            except cf.CancelledError:
+                k = "cancelled"
+            except ServingError as e:
+                k = "expired" if e.kind == "expired" else "error"
+            except Exception:   # noqa: BLE001 — a timeout IS the bug
+                k = "stranded"
+            with lock:
+                outcomes[k] += 1
+
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(submit_one, range(len(stream))))
+        return outcomes, results, time.perf_counter() - t0
+
+    def max_err(results, refs, skip=()):
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(results, refs)):
+            if got is None:
+                if i in skip:
+                    continue
+                return None              # an unresolved result: no bar
+            worst = max(worst, float(np.abs(got - want).max()))
+        return worst
+
+    def lane_block():
+        return eng.load()["lanes"]
+
+    try:
+        with eng:
+            keys = [eng.specialize(b) for b in subj_betas]
+            buckets = [b for b in eng.buckets if b <= max_bucket]
+            eng.warmup(buckets)
+            eng.warmup_posed(buckets)
+            warm_compiles = eng.counters.compiles
+            log(f"lane drill: {lanes} lanes over "
+                f"{eng._get_lanes().n_devices} device(s), "
+                f"{warm_compiles} warm-up builds")
+
+            # -- pass 1: healthy steady state ---------------------------
+            oc_pre, res_pre, dt_pre = run_pass(streams["pre"], keys)
+            recompiles_pre = eng.counters.compiles - warm_compiles
+            err_pre = max_err(res_pre, reference["pre"])
+            assigned_before_loss = {
+                p["lane"]: p["assigned"] for p in lane_block()["per_lane"]}
+
+            # -- pass 2: kill one lane mid-stream ------------------------
+            lane_ok[kill_lane] = False
+            plan.schedule(f"error@0-%{kill_lane}")
+            killed = eng._get_lanes().lanes[kill_lane]
+            oc_loss, res_loss, dt_loss = run_pass(
+                streams["loss"], keys, cancel_probe=True)
+            probes_down = killed.breaker.probes
+            backoff_grew = killed.breaker.consecutive_failed_probes >= 1
+            probe_wait_down_s = killed.breaker.probe_wait_s()
+            snap_loss = lane_block()
+            cancelled_i = len(streams["loss"]) // 2
+            err_loss = max_err(res_loss, reference["loss"],
+                               skip={cancelled_i})
+
+            # -- pass 3: failback ---------------------------------------
+            plan.clear()
+            lane_ok[kill_lane] = True
+            # Settle: the next placements kick the killed lane's re-probe,
+            # its breaker closes, traffic returns to it.
+            oc_settle, _, _ = run_pass(streams["pre"], keys)
+            compiles_settled = eng.counters.compiles
+            killed_assigned_settled = lane_block()[
+                "per_lane"][kill_lane]["assigned"]
+            oc_post, res_post, dt_post = run_pass(streams["post"], keys)
+            recompiles_post = eng.counters.compiles - compiles_settled
+            err_post = max_err(res_post, reference["post"])
+            snap_final = lane_block()
+            failback_served = (snap_final["per_lane"][kill_lane]
+                               ["assigned"] > killed_assigned_settled)
+            counters_snap = eng.counters.snapshot()
+    finally:
+        plan.release.set()
+
+    per_loss = {p["lane"]: p for p in snap_loss["per_lane"]}
+    survivors = [i for i in range(lanes) if i != kill_lane]
+    surv_assigned = [per_loss[i]["assigned"] - assigned_before_loss.get(i, 0)
+                     for i in survivors]
+    balance = (max(surv_assigned) / max(1, min(surv_assigned))
+               if surv_assigned else None)
+    lane_failovers = sum(p["failovers_out"] for p in snap_final["per_lane"])
+    cpu_failovers = sum(p["cpu_failovers"] for p in snap_final["per_lane"])
+    # Per-lane availability burn: the share of a lane's batches it could
+    # not serve itself, over the failover budget.
+    lane_slo = {}
+    for p in snap_final["per_lane"]:
+        assigned = p["assigned"]
+        frac = p["failovers_out"] / assigned if assigned else 0.0
+        lane_slo[str(p["lane"])] = {
+            "assigned": assigned,
+            "failover_fraction": round(frac, 6),
+            "burn": round(frac / lane_failover_budget, 4),
+            "ok": frac <= lane_failover_budget,
+        }
+
+    n_total = 4 * requests_per_pass          # pre + loss + settle + post
+    outcomes = {k: oc_pre[k] + oc_loss[k] + oc_settle[k] + oc_post[k]
+                for k in oc_pre}
+    resolved = n_total - outcomes["stranded"]
+    acc = tracer.accounting()
+
+    def rate(oc, dt):
+        return float(f"{(requests_per_pass - oc.get('stranded', 0)) / dt:.5g}")
+
+    return {
+        "lanes": lanes,
+        "distinct_devices": snap_final["n_devices"],
+        "device": str(dev),
+        "posed_kernel": posed_kernel,
+        "kill_lane": kill_lane,
+        "requests_per_pass": requests_per_pass,
+        "workers": workers,
+        "subjects": subjects,
+        "futures_resolved_fraction": float(f"{resolved / n_total:.6g}"),
+        "outcomes": outcomes,
+        "pre_vs_reference_max_abs_err": err_pre,
+        "loss_vs_reference_max_abs_err": err_loss,
+        "post_vs_reference_max_abs_err": err_post,
+        "steady_recompiles_pre": int(recompiles_pre),
+        "steady_recompiles_post": int(recompiles_post),
+        "warmup_compiles": int(warm_compiles),
+        "lane_failovers": int(lane_failovers),
+        "cpu_failovers": int(cpu_failovers),
+        "killed_lane_assigned_during_loss": int(
+            per_loss[kill_lane]["assigned"]
+            - assigned_before_loss.get(kill_lane, 0)),
+        "survivor_balance_ratio": (float(f"{balance:.4g}")
+                                   if balance is not None else None),
+        "throughput_pre_per_sec": rate(oc_pre, dt_pre),
+        "throughput_loss_per_sec": rate(oc_loss, dt_loss),
+        "throughput_post_per_sec": rate(oc_post, dt_post),
+        "surviving_throughput_ratio": (float(f"{dt_pre / dt_loss:.4g}")
+                                       if dt_loss else None),
+        "breaker_probes_while_down": int(probes_down),
+        "breaker_probe_backoff_grew": bool(backoff_grew),
+        "breaker_probe_wait_down_s": float(f"{probe_wait_down_s:.4g}"),
+        "failback_served": bool(failback_served),
+        "cancelled": int(counters_snap["cancelled"]),
+        "lane_slo": lane_slo,
+        "lanes_detail": snap_final,
+        "spans": {
+            "started": acc["spans_started"],
+            "closed": acc["spans_closed"],
+            "open": acc["spans_open"],
+            "closed_by_kind": acc["closed_by_kind"],
+        },
+        "flight_record": flight_record(
+            tracer, eng.counters, reason="lane_drill_complete"),
+    }
+
+
+_STORE_DELTAS = ("subject_store_hot_hits", "subject_store_warm_hits",
+                 "subject_store_cold_hits", "subject_store_misses",
+                 "subject_store_prefetches", "subject_store_demotions_warm",
+                 "subject_store_demotions_cold")
+
+
+def subject_store_drill_run(
+    params,
+    *,
+    subjects: int = 100_000,
+    requests_per_leg: int = 120,
+    lanes: int = 2,
+    max_subjects: int = 32,
+    warm_capacity: int = 64,
+    max_rows: int = 2,
+    max_bucket: int = 8,
+    zipf_a: float = 1.2,
+    max_delay_s: float = 0.003,
+    workers: int = 8,
+    pair_slice: int = 20,
+    seed: int = 0,
+    cold_dir: Optional[str] = None,
+    backend: Optional[str] = None,
+    tracer=None,
+    device=None,
+    posed_kernel: str = "xla",
+    log: Callable[[str], None] = None,
+) -> dict:
+    """The tiered subject store's capacity drill, sharded against
+    replicated.
+
+    ``subjects`` identities (100k by default) are REGISTERED (betas only,
+    never bulk-baked) on two lane engines on ``device`` and driven
+    through the capacity ladder under Zipf traffic: **hot_only** (the
+    working set fits the device table, pre-filled to capacity before the
+    warm-up, so nothing builds or promotes in traffic), **warm_spill**
+    (evictions demote rows to pinned host memory and later dispatches
+    promote them back, prefetched at coalesce admit) and **cold_spill**
+    (Zipf over the whole universe: warm overflow pages rows to disk and
+    deep-tail requests page them back, or re-bake on a miss, counted).
+    Each leg's stream is cut into slices run in turns on the SHARDED
+    engine (N lanes holding N disjoint shard tables through the store)
+    and a REPLICATED twin (the same lanes, no store), so the throughput
+    ratio and the per-lane device rows are paired. A cold-revisit leg
+    pulls evicted-everywhere subjects back through the cold tier, and a
+    DAMAGE PROBE rewrites one cold page as a self-consistent page of the
+    wrong subject: its load must degrade to a counted re-bake
+    (``subject_store_cold_damage``) with a correct result.
+
+    JAX's criteria (``scripts/bench_report.py:judge_subject_store``) read
+    the returned numbers: every leg equal to a single-context reference
+    (0.0) on both engines — on the CPU with batches of one request
+    (``workers=1``), since the plain forward's rows round by batch size
+    there —, every future resolved, the hot tier's hit rate, the
+    promotion stall inside the coalesce window, zero steady builds on
+    either engine, the damaged page counted and re-baked, per-lane device
+    rows strictly below the replicated twin's, every span closed once.
+    """
+    import concurrent.futures as cf
+    import tempfile
+    import threading
+
+    from mano_hand_tpu_torch.io import state_ckpt
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
+    from mano_hand_tpu_torch.serving.subject_store import (
+        SubjectStore, SubjectStoreConfig,
+    )
+
+    log = _logger(log)
+    if tracer is None:
+        tracer = Tracer(capacity=65536)
+    dev = resolve_device(device)
+    n_joints, n_shape = params.n_joints, params.n_shape
+    prm32 = params.astype(torch.float32).to(dev)
+    rng = np.random.default_rng(seed)
+    universe = rng.normal(size=(subjects, n_shape)).astype(np.float32)
+
+    tmp = None
+    if cold_dir is None:
+        tmp = tempfile.TemporaryDirectory(prefix="mano_subject_store_")
+        cold_dir = tmp.name
+
+    # The ladder's working sets (universe index ranges).
+    hot_n = max_subjects
+    warm_n = min(subjects, max_subjects + max(8, warm_capacity // 2))
+
+    def make_stream(n, leg_universe, pass_seed):
+        r = np.random.default_rng(pass_seed)
+        idx = (r.zipf(zipf_a, size=n).astype(np.int64) - 1) % leg_universe
+        sizes = r.integers(1, max_rows + 1, size=n)
+        return [(r.normal(scale=0.4,
+                          size=(int(s), n_joints, 3)).astype(np.float32),
+                 int(i))
+                for s, i in zip(sizes, idx)]
+
+    legs = ("hot_only", "warm_spill", "cold_spill")
+    streams = {
+        "hot_only": make_stream(requests_per_leg, hot_n, seed + 101),
+        "warm_spill": make_stream(requests_per_leg, warm_n, seed + 102),
+        "cold_spill": make_stream(requests_per_leg, subjects, seed + 103),
+    }
+
+    # Reference first: the single-context engine, subjects baked on
+    # demand.
+    reference = {}
+    ref_eng = ServingEngine(prm32, device=dev, max_bucket=max_bucket,
+                            max_delay_s=0.001, posed_kernel=posed_kernel)
+    with ref_eng:
+        ref_keys = {}
+
+        def ref_forward(pose, si):
+            if si not in ref_keys:
+                ref_keys[si] = ref_eng.specialize(universe[si])
+            return ref_eng.forward(pose, subject=ref_keys[si])
+
+        for name in legs:
+            reference[name] = [ref_forward(p, si)
+                               for p, si in streams[name]]
+
+    store = SubjectStore(SubjectStoreConfig(
+        warm_capacity=warm_capacity, cold_dir=cold_dir,
+        sharded=True, backend=backend))
+    eng_s = ServingEngine(
+        prm32, device=dev, max_bucket=max_bucket, max_subjects=max_subjects,
+        max_delay_s=max_delay_s, lanes=lanes, tracer=tracer,
+        posed_kernel=posed_kernel, subject_store=store)
+    eng_r = ServingEngine(
+        prm32, device=dev, max_bucket=max_bucket, max_subjects=max_subjects,
+        max_delay_s=max_delay_s, lanes=lanes, posed_kernel=posed_kernel)
+    resolve_timeout = 120.0
+
+    def run_slice(eng, keys, stream, outcomes, results, base):
+        lock = threading.Lock()
+
+        def submit_one(j):
+            p, si = stream[j]
+            fut = eng.submit(p, subject=keys[si])
+            try:
+                results[base + j] = fut.result(timeout=resolve_timeout)
+                k = "ok"
+            except ServingError as e:
+                k = "expired" if e.kind == "expired" else "error"
+            except Exception:   # noqa: BLE001 — a timeout IS the bug
+                k = "stranded"
+            with lock:
+                outcomes[k] += 1
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(submit_one, range(len(stream))))
+        return time.perf_counter() - t0
+
+    def max_err(results, refs):
+        worst = 0.0
+        for got, want in zip(results, refs):
+            if got is None:
+                return None          # an unresolved result: no bar
+            worst = max(worst, float(np.abs(got - want).max()))
+        return worst
+
+    leg_out = {}
+    damage = {}
+    revisit = []
+    try:
+        with eng_s, eng_r:
+            t_reg = time.perf_counter()
+            keys_s = eng_s.register_subjects(universe)
+            keys_r = eng_r.register_subjects(universe)
+            register_s = time.perf_counter() - t_reg
+            if keys_s != keys_r:
+                raise RuntimeError("content-addressed keys differ")
+            # Fill the hot tier to capacity, then warm: every table (and
+            # every shard table) has its final shape before any program
+            # is built, so the ladder runs with zero steady builds.
+            for i in range(hot_n):
+                eng_s.specialize(universe[i])
+                eng_r.specialize(universe[i])
+            buckets = [b for b in eng_s.buckets if b <= max_bucket]
+            for e in (eng_s, eng_r):
+                e.warmup(buckets)
+                e.warmup_posed(buckets)
+            warm_compiles_s = eng_s.counters.compiles
+            warm_compiles_r = eng_r.counters.compiles
+            log(f"subject-store drill: {subjects} registered subjects, "
+                f"hot={max_subjects} warm={warm_capacity} lanes={lanes} "
+                f"sharded vs replicated, {warm_compiles_s} warm-up builds "
+                "(sharded)")
+
+            dt_s_total = dt_r_total = 0.0
+            oc_s = {"ok": 0, "error": 0, "expired": 0, "stranded": 0}
+            oc_r = dict(oc_s)
+            paired0 = [e.counters.snapshot() for e in (eng_s, eng_r)]
+            for name in legs:
+                stream = streams[name]
+                res_s = [None] * len(stream)
+                res_r = [None] * len(stream)
+                dt_s = dt_r = 0.0
+                before = eng_s.counters.snapshot()
+                for base in range(0, len(stream), pair_slice):
+                    sl = stream[base:base + pair_slice]
+                    dt_s += run_slice(eng_s, keys_s, sl, oc_s, res_s, base)
+                    dt_r += run_slice(eng_r, keys_r, sl, oc_r, res_r, base)
+                dt_s_total += dt_s
+                dt_r_total += dt_r
+                after = eng_s.counters.snapshot()
+                leg_out[name] = {
+                    "requests": len(stream),
+                    "distinct_subjects": len({si for _, si in stream}),
+                    "sharded_vs_reference_max_abs_err": max_err(
+                        res_s, reference[name]),
+                    "replicated_vs_reference_max_abs_err": max_err(
+                        res_r, reference[name]),
+                    "throughput_sharded_per_sec": (
+                        float(f"{len(stream) / dt_s:.5g}") if dt_s
+                        else None),
+                    "throughput_replicated_per_sec": (
+                        float(f"{len(stream) / dt_r:.5g}") if dt_r
+                        else None),
+                    "store_deltas": {k: after[k] - before[k]
+                                     for k in _STORE_DELTAS},
+                }
+                log(f"  leg {name}: {leg_out[name]['distinct_subjects']} "
+                    f"subjects, err_s="
+                    f"{leg_out[name]['sharded_vs_reference_max_abs_err']}")
+
+            # What the paired legs cost each engine in dispatches: a
+            # sharded engine splits coalesced windows by owner lane.
+            paired = {
+                side: {k: e.counters.snapshot()[k] - before[k]
+                       for k in ("dispatches", "requests_dispatched")}
+                for side, e, before in zip(("sharded", "replicated"),
+                                           (eng_s, eng_r), paired0)}
+            for side in paired.values():
+                side["coalesce_width_mean"] = round(
+                    side["requests_dispatched"] / max(1, side["dispatches"]),
+                    3)
+
+            # -- cold revisit: organic cold hits --------------------------
+            # The inclusive tiers can serve every paired leg out of hot
+            # and warm; pull a few evicted-everywhere digests back through
+            # the live engine so the cold tier serves real requests.
+            with eng_s._lock:
+                hot_now = set(eng_s._subject_slots)
+            warm_now = set(store.warm_digests())
+            cold_only = [d for d in store.cold_digests()
+                         if d not in hot_now and d not in warm_now]
+            revisit = cold_only[:max(1, requests_per_leg // 4)]
+            ref2 = ServingEngine(prm32, device=dev, max_bucket=max_bucket,
+                                 max_delay_s=0.001,
+                                 posed_kernel=posed_kernel)
+            with ref2:
+                if revisit:
+                    rv_before = eng_s.counters.snapshot()
+                    pose_rv = rng.normal(
+                        scale=0.4, size=(1, n_joints, 3)).astype(np.float32)
+                    rv_err = 0.0
+                    t0_rv = time.perf_counter()
+                    for d in revisit:
+                        got = eng_s.submit(
+                            pose_rv, subject=d).result(
+                                timeout=resolve_timeout)
+                        oc_s["ok"] += 1
+                        want = ref2.forward(pose_rv, subject=ref2.specialize(
+                            universe[keys_s.index(d)]))
+                        rv_err = max(rv_err, float(
+                            np.abs(np.asarray(got) - want).max()))
+                    dt_rv = time.perf_counter() - t0_rv
+                    rv_after = eng_s.counters.snapshot()
+                    leg_out["cold_revisit"] = {
+                        "requests": len(revisit),
+                        "distinct_subjects": len(revisit),
+                        "sharded_vs_reference_max_abs_err": rv_err,
+                        "throughput_sharded_per_sec": (
+                            float(f"{len(revisit) / dt_rv:.5g}") if dt_rv
+                            else None),
+                        "store_deltas": {k: rv_after[k] - rv_before[k]
+                                         for k in _STORE_DELTAS},
+                    }
+
+                # -- damage probe: one cold page rewritten in place --------
+                # From the cold remainder not revisited (a revisited digest
+                # is served again without its page).
+                with eng_s._lock:
+                    hot_now = set(eng_s._subject_slots)
+                warm_now = set(store.warm_digests())
+                rv_set = set(revisit)
+                victims = [d for d in store.cold_digests()
+                           if d not in hot_now and d not in warm_now
+                           and d not in rv_set]
+                if victims:
+                    vd = victims[0]
+                    vi = keys_s.index(vd)
+                    _, arrays = state_ckpt.load_row_page(vd, cold_dir)
+                    # A self-consistent page of the WRONG subject: its row
+                    # hashes verify, its digest preimage does not.
+                    arrays["shape"] = np.asarray(arrays["shape"]) + 1.0
+                    state_ckpt.save_row_page(vd, arrays, cold_dir)
+                    dmg_before = eng_s.counters.snapshot()[
+                        "subject_store_cold_damage"]
+                    pose = rng.normal(
+                        scale=0.4, size=(1, n_joints, 3)).astype(np.float32)
+                    want = ref2.forward(
+                        pose, subject=ref2.specialize(universe[vi]))
+                    got = eng_s.submit(pose, subject=vd).result(
+                        timeout=resolve_timeout)
+                    oc_s["ok"] += 1
+                    dmg_after = eng_s.counters.snapshot()[
+                        "subject_store_cold_damage"]
+                    damage = {
+                        "injected": True,
+                        "damage_counted": int(dmg_after - dmg_before),
+                        "request_max_abs_err": float(
+                            np.abs(np.asarray(got) - want).max()),
+                    }
+                else:
+                    damage = {"injected": False}
+
+            steady_recompiles_s = eng_s.counters.compiles - warm_compiles_s
+            steady_recompiles_r = eng_r.counters.compiles - warm_compiles_r
+            counters_snap = eng_s.counters.snapshot()
+            load_s = eng_s.load()
+            load_r = eng_r.load()
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+    lookups = sum(counters_snap[k] for k in (
+        "subject_store_hot_hits", "subject_store_warm_hits",
+        "subject_store_cold_hits", "subject_store_misses"))
+    hot_rate = (counters_snap["subject_store_hot_hits"] / lookups
+                if lookups else None)
+    prom = counters_snap["subject_store_promotion_ms"]
+    rows_s = [p["table_capacity"] for p in load_s["lanes"]["per_lane"]]
+    rows_r = [p["table_capacity"] for p in load_r["lanes"]["per_lane"]]
+    n_paired = len(legs) * requests_per_leg
+    n_total = n_paired + len(revisit) + (1 if damage.get("injected") else 0)
+    resolved = n_total - oc_s["stranded"]
+    acc = tracer.accounting()
+    return {
+        "subjects_registered": int(subjects),
+        "register_seconds": register_s,
+        "lanes": int(lanes),
+        "device": str(dev),
+        "posed_kernel": posed_kernel,
+        "workers": int(workers),
+        "hot_capacity": int(max_subjects),
+        "warm_capacity": int(warm_capacity),
+        "zipf_a": float(zipf_a),
+        "coalesce_window_ms": float(max_delay_s * 1e3),
+        "requests_total": int(n_total),
+        "futures_resolved_fraction": float(f"{resolved / n_total:.6g}"),
+        "outcomes": oc_s,
+        "outcomes_replicated": oc_r,
+        "legs": leg_out,
+        "damage_probe": damage,
+        "hot_tier_hit_rate": (None if hot_rate is None
+                              else float(f"{hot_rate:.6g}")),
+        "store_counters": {
+            k: counters_snap[k] for k in (
+                "subject_store_hot_hits", "subject_store_warm_hits",
+                "subject_store_cold_hits", "subject_store_misses",
+                "subject_store_prefetches", "subject_store_promotions",
+                "subject_store_demotions_warm",
+                "subject_store_demotions_cold",
+                "subject_store_cold_damage")},
+        "promotion_stall_ms": prom,
+        "promotion_p99_within_window": bool(
+            prom["n"] == 0 or prom["p99_ms"] <= max_delay_s * 1e3),
+        "steady_recompiles": int(steady_recompiles_s),
+        "steady_recompiles_replicated": int(steady_recompiles_r),
+        "per_lane_device_rows_sharded": rows_s,
+        "per_lane_device_rows_replicated": rows_r,
+        "device_rows_ratio": (float(f"{max(rows_s) / max(rows_r):.4g}")
+                              if rows_r and max(rows_r) else None),
+        "throughput_sharded_per_sec": (
+            float(f"{n_paired / dt_s_total:.5g}") if dt_s_total else None),
+        "throughput_replicated_per_sec": (
+            float(f"{n_paired / dt_r_total:.5g}") if dt_r_total else None),
+        "paired_throughput_ratio": (
+            float(f"{dt_r_total / dt_s_total:.4g}")
+            if dt_s_total and dt_r_total else None),
+        "paired_dispatches": paired,
+        "subject_store": load_s["subject_store"],
+        "lanes_sharded": bool(load_s["lanes"].get("sharded")),
+        "platform": dev.type,
+        "spans": {
+            "started": acc["spans_started"],
+            "closed": acc["spans_closed"],
+            "open": acc["spans_open"],
+            "closed_by_kind": acc["closed_by_kind"],
+        },
+        "flight_record": flight_record(
+            tracer, eng_s.counters, reason="subject_store_drill_complete"),
+    }

@@ -1,9 +1,9 @@
 """Tiered subject store: page many subjects through device, host and disk.
 
-The port of the JAX package's ``serving/subject_store.py`` without its
-lanes (no sharded tables, no shard rebalance). The engine's device
-``SubjectTable`` is the HOT tier and stays the one source of what a
-dispatch gathers from; this module adds the two tiers under it:
+The port of the JAX package's ``serving/subject_store.py``. The engine's
+device ``SubjectTable`` is the HOT tier and stays the one source of what
+a dispatch gathers from; this module adds the two tiers under it and the
+shard map of a lane fleet:
 
 * **warm** — an evicted row lands as PINNED host tensors in a bounded LRU
   (``warm_capacity``); a later dispatch PROMOTES the row back instead of
@@ -19,10 +19,16 @@ dispatch gathers from; this module adds the two tiers under it:
   the load degrades to a counted re-bake (``subject_store_cold_damage``).
   JAX's ``backend`` knob ("orbax" | "pickle") maps to this one layout.
 
+* **shards** — under ``sharded=True`` (an engine with ``lanes=N``) lane
+  *k* holds rows only for the subjects of shard *k* in a shard table of
+  its own (``serving/lanes.py``), so N lanes hold N disjoint slices
+  instead of N replicas. ``shard_for`` is the owner lane, and
+  ``reassign_shard`` spreads a dead lane's subjects over the survivors
+  until ``restore_shard`` hands them back.
+
 ``subject_digest`` and ``shard_of`` are JAX's, bit for bit: the digest is
-``ServingEngine.specialize``'s key, the shard map the placement a lane
-fleet would use. A ``sharded`` config is accepted here and refused by the
-engine, which has no lanes, so a store here is never sharded.
+``ServingEngine.specialize``'s key, the shard map the placement of a lane
+fleet. A sharded store needs an engine with lanes.
 
 Locking: the store's ``_lock`` is a leaf — taken with no engine lock held
 by the store, nothing taken under it, and no device work inside it.
@@ -72,8 +78,9 @@ class SubjectStoreConfig:
     ``warm_capacity``: most rows held on the host (past it the LRU row
     pages to ``cold_dir`` when set, else it is dropped and its next
     dispatch re-bakes). ``cold_dir``: the row-page directory (None: no
-    cold tier). ``sharded``: lanes would hold disjoint shard tables (the
-    engine refuses it without lanes). ``backend``: JAX's cold-page
+    cold tier). ``sharded``: lanes hold disjoint shard tables instead of
+    replicas (the engine refuses it without lanes). ``backend``: JAX's
+    cold-page
     serialization knob, accepted for parity; every page is the pickle
     layout."""
 
@@ -125,6 +132,12 @@ class SubjectStore:
         self._counters = None
         self._device = torch.device("cpu")
         self._side = None               # the card's promotion stream
+        self._n_shards: Optional[int] = None
+        # Dead shard -> the surviving shards adopting its subjects.
+        # ``shard_for`` remaps through it, so admission, placement and
+        # the lanes' shard tables agree on the new owner the moment it
+        # lands. Values are tuples swapped whole: readers take no lock.
+        self._reassigned: dict = {}
         if self.config.cold_dir is not None:
             # Adopt the pages a previous process left: paging is a
             # persistence layer, not per-process scratch.
@@ -134,9 +147,11 @@ class SubjectStore:
                 state_ckpt.list_row_pages(self.config.cold_dir))
 
     # ------------------------------------------------------------- attach
-    def bind(self, counters, device=None) -> None:
-        """Attach to an engine's counters and device. Binding to a second
-        engine is a wiring bug."""
+    def bind(self, counters, device=None,
+             n_shards: Optional[int] = None) -> None:
+        """Attach to an engine's counters and device, and to its lane
+        count when sharded. Binding to a second engine is a wiring
+        bug."""
         with self._lock:
             if self._counters is not None and self._counters is not counters:
                 raise RuntimeError(
@@ -144,10 +159,67 @@ class SubjectStore:
             self._counters = counters
             if device is not None:
                 self._device = torch.device(device)
+            if n_shards is not None:
+                self._n_shards = int(n_shards)
 
     @property
     def sharded(self) -> bool:
         return self.config.sharded
+
+    @property
+    def n_shards(self) -> Optional[int]:
+        return self._n_shards
+
+    def shard_for(self, digest: str) -> Optional[int]:
+        """The owning shard (lane) of one subject digest, or None when the
+        store is unsharded or not bound to a lane count. A shard
+        reassigned on a lane's loss (``reassign_shard``) maps its subjects
+        onto the survivors by a second content hash, so the dead shard's
+        load spreads deterministically."""
+        n = self._n_shards
+        if not self.config.sharded or not n:
+            return None
+        s = shard_of(digest, n)
+        survivors = self._reassigned.get(s)
+        if survivors is None:
+            return s
+        return survivors[int(digest[:8], 16) % len(survivors)]
+
+    def reassign_shard(self, dead: int, survivors) -> bool:
+        """Route a dead shard's subjects onto ``survivors``. Idempotent: a
+        shard already reassigned is left alone (False). Survivors must be
+        live shards: in range, not the dead one and not reassigned
+        themselves (a chain would make ownership depend on the order the
+        overlays landed in)."""
+        n = self._n_shards
+        if not self.config.sharded or not n:
+            raise RuntimeError("reassign_shard on an unsharded store")
+        if not 0 <= dead < n:
+            raise ValueError(f"dead shard {dead} out of range [0, {n})")
+        surv = tuple(sorted(set(int(s) for s in survivors)))
+        if not surv:
+            raise ValueError("reassign_shard needs >= 1 survivor")
+        with self._lock:
+            if dead in self._reassigned:
+                return False
+            for s in surv:
+                if not 0 <= s < n or s == dead or s in self._reassigned:
+                    raise ValueError(
+                        f"survivor shard {s} is not live (range [0, {n}), "
+                        f"dead={dead}, reassigned="
+                        f"{sorted(self._reassigned)})")
+            self._reassigned[dead] = surv
+        return True
+
+    def reassigned_shards(self) -> tuple:
+        """The dead shards whose subjects the survivors serve now."""
+        return tuple(self._reassigned)
+
+    def restore_shard(self, dead: int) -> bool:
+        """Undo ``reassign_shard`` once the lane is back; returns whether
+        an overlay was removed."""
+        with self._lock:
+            return self._reassigned.pop(dead, None) is not None
 
     @property
     def _card(self) -> bool:
@@ -395,5 +467,8 @@ class SubjectStore:
                 "cold_dir": (None if self.config.cold_dir is None
                              else str(self.config.cold_dir)),
                 "sharded": self.config.sharded,
-                "shards": None,          # no lanes: never split
+                "shards": self._n_shards,
+                "reassigned_shards": {
+                    str(d): list(s)
+                    for d, s in sorted(self._reassigned.items())},
             }

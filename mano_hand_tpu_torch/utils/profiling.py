@@ -141,6 +141,10 @@ class ServingCounters:
         self.subject_store_demotions_cold = 0
         self.subject_store_cold_damage = 0
         self.subject_store_resize_evictions = 0
+        # Shard rebalance on a lane's loss: one per dead shard the
+        # surviving lanes adopted, and the hot rows they took over then.
+        self.shard_rebalances = 0
+        self.shard_rebalance_rows = 0
         self._promotion_stalls: list = []   # seconds; bounded ring
         self._promotion_writes = 0
 
@@ -343,6 +347,14 @@ class ServingCounters:
         with self._lock:
             self.subject_store_resize_evictions += n
 
+    def count_shard_rebalance(self, rows: int = 0) -> None:
+        """One dead shard's subjects adopted by the surviving lanes;
+        ``rows`` is how many engine-hot rows the adopters took over at
+        once (the rest re-enter through the warm tier on first use)."""
+        with self._lock:
+            self.shard_rebalances += 1
+            self.shard_rebalance_rows += int(rows)
+
     def record_promotion_stall(self, seconds: float) -> None:
         """What one install waited on a warm promotion (the residual
         after any prefetch overlap), into a bounded ring."""
@@ -411,6 +423,8 @@ class ServingCounters:
                 "subject_store_cold_damage": self.subject_store_cold_damage,
                 "subject_store_resize_evictions":
                     self.subject_store_resize_evictions,
+                "shard_rebalances": self.shard_rebalances,
+                "shard_rebalance_rows": self.shard_rebalance_rows,
             }
             out["coalesce_width_mean"] = round(
                 self._width_mean(self.requests_dispatched, self.dispatches),

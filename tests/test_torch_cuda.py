@@ -13,7 +13,10 @@ across table installs between captures and replays, against a woken
 supervised attempt, under the caller's TF32 switch and against a
 CPU-baked lattice; the pipelined dispatch against its direct calls with
 a side stream current in another thread, an attempt abandoned after its
-launch, and a warm promotion prefetched on a stalled side stream. Shapes cover what ``chip_smoke.py`` does not: ragged
+launch, and a warm promotion prefetched on a stalled side stream; the
+dispatch lanes (two lanes replaying concurrently against one, a row
+installed on a stalled engine stream, a staging slab fenced behind a
+stalled lane, captures while lanes serve, every lane down). Shapes cover what ``chip_smoke.py`` does not: ragged
 and tiny batches, generic kinematic trees (J = 7 to 64), V from 1 to
 778, rows that are not 16-byte aligned, subject tables of 1 to 1000
 rows and out-of-range (negative: wrapped once) subject indices. Tolerance: kernel vs plain
@@ -1777,3 +1780,183 @@ def test_loaded_artifact_graph_keeps_its_module(dev, tmp_path):
         np.testing.assert_array_equal(loaded._run_full(pose, shape), want)
     del junk
     torch.cuda.synchronize(dev)
+
+
+def _lane_engine(params, lanes, **kw):
+    kw.setdefault("posed_kernel", "fused")
+    kw.setdefault("max_delay_s", 0.0)
+    return ServingEngine(params, lanes=lanes, **kw)
+
+
+def test_two_lanes_replay_concurrently_with_single_lane_bits(dev):
+    """Two lanes, each on its own stream with its own graph pool, replay
+    concurrently for 200 batches from four client threads: every result
+    is the single-context engine's bits (a shared pool would let one
+    lane's replay overwrite the other's intermediates), and K2 launches
+    equal the lanes' gathered dispatches."""
+    import threading
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = _lane_engine(params, 2, min_bucket=16, max_bucket=16)
+    betas = np.random.default_rng(71).normal(size=(4, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas]
+    eng.warmup_posed([16])
+    lanes = eng._get_lanes().lanes
+    assert lanes[0].ctx.pool is not None
+    assert lanes[0].ctx.pool != lanes[1].ctx.pool
+    assert lanes[0].ctx.stream != lanes[1].ctx.stream
+    poses = [_engine_inputs(16, 700 + i)[0] for i in range(200)]
+    got = [None] * len(poses)
+
+    def client(t):
+        for i in range(t, len(poses), 4):
+            got[i] = eng.forward(poses[i], subject=keys[i % 4])
+
+    fused_posed.launches = 0
+    with eng:
+        ths = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(300)
+            assert not th.is_alive()
+        snap = eng.load()["lanes"]
+    assert fused_posed.launches == eng.counters.dispatches == 200
+    assert all(p["dispatched"] >= 50 for p in snap["per_lane"])
+    for i, out in enumerate(got):
+        np.testing.assert_array_equal(
+            out, _direct_k2(params, betas[i % 4], poses[i], 16))
+
+
+def test_row_installed_on_the_engine_stream_reaches_every_lane(dev):
+    """A subject installed while the engine's stream is stalled: the row
+    is written there behind the stall, and every lane's next batch of
+    that subject waits for it (the lanes' streams do not wait for the
+    default stream on their own) and serves the fresh bake's bits."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = _lane_engine(params, 4, max_bucket=4)
+    betas = np.random.default_rng(73).normal(size=(2, 10)).astype(np.float32)
+    k0 = eng.specialize(betas[0])
+    eng.warmup_posed([4])
+    pose = _engine_inputs(4, 81)[0]
+    with eng:
+        for _ in range(4):
+            eng.forward(pose, subject=k0)     # every lane holds the table
+        with eng._on_device():
+            torch.cuda._sleep(_stall_cycles(0.3))
+        k1 = eng.specialize(betas[1])         # written behind the stall
+        got = [eng.forward(pose, subject=k1) for _ in range(8)]
+        per = eng.load()["lanes"]["per_lane"]
+    assert all(p["assigned"] >= 3 for p in per)
+    want = _direct_k2(params, betas[1], pose, 4)
+    for out in got:
+        np.testing.assert_array_equal(out, want)
+
+
+def test_staging_slab_waits_for_its_lanes_copy_in(dev):
+    """A batch whose attempt on lane 0 was abandoned behind a stalled lane
+    stream and served by lane 1: its pinned staging slab still has lane
+    0's copy-in queued, so it is fenced on lane 0's stream and not handed
+    out again until that stream has passed the copy."""
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    policy, plan = _supervised("", lambda: True, deadline_s=0.3)
+    policy.breaker.failure_threshold = 100    # lane 0 stays placeable
+    eng = _lane_engine(params, 2, min_bucket=8, max_bucket=8,
+                       policy=policy, lane_probe=lambda i: True)
+    beta = np.random.default_rng(79).normal(size=(10,)).astype(np.float32)
+    key = eng.specialize(beta)
+    eng.warmup_posed([8])
+    ls = eng._get_lanes()
+    pose = _engine_inputs(8, 83)[0]
+    with eng:
+        eng.forward(pose, subject=key)
+        with ls._lock:
+            ls._rr = 0                        # the next batch: lane 0
+        with torch.cuda.stream(ls.lanes[0].ctx.stream):
+            torch.cuda._sleep(_stall_cycles(1.0))
+        got = eng.forward(pose, subject=key)   # lane 0 twice, then lane 1
+        assert eng.counters.deadline_kills == 2
+        per = eng.load()["lanes"]["per_lane"]
+        assert per[0]["failovers_out"] == 1 and per[1]["failovers_in"] == 1
+        assert len(eng._slab_fenced) == 1
+        events, fenced = eng._slab_fenced[0]
+        assert not all(e.query() for e in events)   # lane 0 still stalled
+        st = eng._staging_acquire(True)
+        assert st is not fenced
+        torch.cuda.synchronize(dev)
+        eng._staging_release(st)
+        st2 = eng._staging_acquire(True)
+        assert not eng._slab_fenced
+        eng._staging_release(st2)
+    np.testing.assert_array_equal(got, _direct_k2(params, beta, pose, 8))
+
+
+def test_capture_on_one_lane_while_another_serves(dev):
+    """Captures of new buckets on every lane (and the engine) while four
+    client threads keep the lanes serving: the captures succeed, the
+    traffic serves its bits throughout, and the new programs serve
+    theirs."""
+    import threading
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = _lane_engine(params, 2, max_bucket=32)
+    betas = np.random.default_rng(89).normal(size=(2, 10)).astype(np.float32)
+    keys = [eng.specialize(b) for b in betas]
+    eng.warmup_posed([8])
+    stop = threading.Event()
+    served = []
+
+    def client(t):
+        i = 0
+        while not stop.is_set():
+            p = _engine_inputs(8, 900 + 100 * t + i)[0]
+            served.append((t, p, eng.forward(p, subject=keys[t % 2])))
+            i += 1
+
+    with eng:
+        ths = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for th in ths:
+            th.start()
+        before = len(served)
+        eng.warmup_posed([16, 32])            # captures while serving
+        during = len(served) - before
+        stop.set()
+        for th in ths:
+            th.join(120)
+            assert not th.is_alive()
+        p16 = _engine_inputs(16, 991)[0]
+        got16 = eng.forward(p16, subject=keys[0])
+    assert during >= 1
+    for t, p, out in served:
+        np.testing.assert_array_equal(
+            out, _direct_k2(params, betas[t % 2], p, 8))
+    np.testing.assert_array_equal(got16,
+                                  _direct_k2(params, betas[0], p16, 16))
+
+
+def test_card_lane_engine_with_every_lane_down_is_a_servingerror(dev):
+    """A card engine has no CPU tier: with every lane down the ladder ends
+    at the siblings and the batch resolves to its ServingError, nothing
+    fails over to the CPU."""
+    from mano_hand_tpu_torch.serving import ServingError
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    policy, plan = _supervised("error@0-", lambda: False)
+    eng = _lane_engine(params, 2, max_bucket=4, policy=policy,
+                       lane_probe=lambda i: False)
+    key = eng.specialize(np.zeros(10, np.float32))
+    eng.warmup_posed([4])
+    pose = _engine_inputs(4, 97)[0]
+    try:
+        with eng:
+            for _ in range(2):
+                with pytest.raises(ServingError) as e:
+                    eng.forward(pose, subject=key)
+                assert e.value.kind == "error"
+                assert "cpu_fallback is disabled" in str(e.value)
+            snap = eng.load()["lanes"]
+    finally:
+        plan.release.set()
+    assert eng.counters.failovers == 0
+    assert all(p["cpu_failovers"] == 0 for p in snap["per_lane"])
+    assert sum(p["errors"] for p in snap["per_lane"]) == 2

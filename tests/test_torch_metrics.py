@@ -173,6 +173,38 @@ def test_counter_drift_guard_every_field_exported():
     assert pmetrics.serving_samples(snap) == jmetrics.serving_samples(snap)
 
 
+def test_counter_drift_guard_covers_the_lane_keys(params32):
+    """The shard-rebalance counters export like every counter; every key
+    of a live engine's lanes block reaches ``load_samples`` (fleet keys as
+    ``load_lanes_*``, per-lane keys as ``load_lane_*`` labelled by lane)
+    and the structs equal JAX's mapper's on the same block, which drops
+    ``backlog_batches``."""
+    c = ServingCounters()
+    c.count_shard_rebalance(rows=3)
+    out = pmetrics.serving_samples(c.snapshot())
+    assert out["serving_shard_rebalances"]["samples"] == [[None, 1.0]]
+    assert out["serving_shard_rebalance_rows"]["samples"] == [[None, 3.0]]
+    assert out["serving_unexported_keys"]["samples"][0][1] == 0
+    eng = ServingEngine(params32, device="cpu", max_bucket=2, lanes=2)
+    with eng:
+        eng.warmup([2])
+        eng.forward(_pose(2))
+        load = eng.load()
+    lanes = load["lanes"]
+    got = pmetrics.load_samples(load)
+    want = jmetrics.load_samples(load)
+    # JAX's structs, and one more: its mapper drops backlog_batches.
+    assert {k: got[k] for k in want} == want
+    assert set(got) - set(want) == {"load_lane_backlog_batches"}
+    fleet_only = {"per_lane", "sharded", "assigned_total"}
+    for key in set(lanes) - fleet_only:
+        assert f"load_lanes_{key}" in got, key
+    for key in set(lanes["per_lane"][0]) - {"lane", "device", "state"}:
+        samples = got[f"load_lane_{key}"]["samples"]
+        assert [lb["lane"] for lb, _ in samples] == ["0", "1"], key
+    assert [v for _, v in got["load_lane_state"]["samples"]] == [0, 0]
+
+
 def test_counter_drift_guard_flags_unclassifiable_key():
     out = pmetrics.serving_samples({"compiles": 1, "mystery": {"n": True}})
     assert out["serving_unexported_keys"]["samples"][0][1] == 1

@@ -383,9 +383,12 @@ def test_load_subject_store_untorn(params32):
                 blk = eng.load()["subject_store"]
                 assert set(blk) == {"warm_rows", "warm_capacity",
                                     "promotions_pending", "cold_pages",
-                                    "cold_dir", "sharded", "shards"}
+                                    "cold_dir", "sharded", "shards",
+                                    "reassigned_shards"}
                 assert 0 <= blk["warm_rows"] <= blk["warm_capacity"]
                 assert blk["sharded"] is False
+                assert blk["shards"] is None
+                assert blk["reassigned_shards"] == {}
         finally:
             stop.set()
             t.join()
