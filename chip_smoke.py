@@ -90,6 +90,16 @@ each with every launch count zeroed just before it and read just after:
   streams running K2 and their overlap), the sharded store drill at
   JAX's defaults (100,000 subjects, 2 lanes) and a lane lost under the
   sharded store (rerouted, rebalanced, restored; 0.0).
+* the serving front (phase ``serve_edge``, ``posed_kernel="fused"``: K2
+  and K2-bf16 behind the engine's benchmark protocols and a socket):
+  ``serve_bench_run``, ``coalesce_bench_run``, ``posed_kernel_bench_run``
+  (K2 against the plain gathered program through the engine) and
+  ``precision_bench_run``, each held to its parity bar and to launches
+  equal to its gathered dispatches; the loopback edge drill at JAX's
+  defaults under JAX's criteria; ``serve`` as a subprocess (requests
+  through ``EdgeClient`` against an in-process K2 call, ``status
+  --server``, the wire's one-row latency against an in-process submit,
+  the SIGTERM drain) and ``status --platforms cpu,cuda``.
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -128,6 +138,7 @@ import dataclasses
 import functools
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -275,6 +286,18 @@ WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
 # on the tensor cores and device-memory bandwidth, by the name nvidia-smi
 # gives the card.
+# The serving front (phase serve_edge): the benchmark protocols at JAX's
+# defaults (posed_kernel="fused" where the gathered family serves), the
+# edge drill at JAX's defaults, `serve` behind a socket at bucket 64.
+SE_BUCKET = 64
+SE_SERVE_BENCH = dict(requests=192, min_rows=1, max_rows=32, max_bucket=64,
+                      max_delay_s=0.002)
+SE_COALESCE = dict(subjects=8)
+SE_PRECISION = dict()
+SE_WIRE_REQUESTS = 64               # one-to-four-row pose-only requests
+SE_TIMED = 200                      # one-row requests a side, in turns
+SE_READY_TIMEOUT_S = 300.0          # serve's cold start: import, warm-up
+SE_DRAIN_TIMEOUT_S = 15.0           # serve's --drain-timeout-s
 PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
     ("H100 PCIe", 51e12, 756e12, 2.0e12),
     ("H100 NVL", 60e12, 835e12, 3.9e12),
@@ -3917,6 +3940,447 @@ def lanes_store(dev, counts, zero_counts, drill_kw=None, lanes=LS_LANES,
     return line
 
 
+def _se_readline(proc, timeout_s: float) -> str:
+    """One stdout line of ``proc`` within ``timeout_s`` (a reader thread:
+    a wedged child must fail the phase, not hang it)."""
+    box = []
+    t = threading.Thread(target=lambda: box.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if not box:
+        raise RuntimeError(f"no line from pid {proc.pid} in {timeout_s} s")
+    return box[0]
+
+
+def _se_compiles(text: str) -> float:
+    for ln in text.splitlines():
+        if ln.startswith("mano_serving_compiles "):
+            return float(ln.split()[1])
+    raise RuntimeError("no mano_serving_compiles in the /metrics text")
+
+
+def _se_launch_check(name, c, expected, card) -> dict:
+    out = {"launches": c, "expected": expected}
+    if card:
+        for k, v in expected.items():
+            require(c[k] == v, f"{name}: {k} launches == gathered "
+                               f"dispatches + one eager warm call a "
+                               f"captured program {out}")
+    return out
+
+
+def serve_edge(dev, counts, zero_counts, bucket=SE_BUCKET, sb_kw=None,
+               co_kw=None, pk_kw=None, pr_kw=None, ed_kw=None,
+               wire_requests=SE_WIRE_REQUESTS, timed=SE_TIMED,
+               ready_timeout_s=SE_READY_TIMEOUT_S,
+               drain_timeout_s=SE_DRAIN_TIMEOUT_S) -> dict:
+    """The serving front on the card: the engine's benchmark protocols,
+    the edge drill, and ``serve`` behind a real socket, K2 and K2-bf16
+    serving requests that crossed it (``posed_kernel="fused"``):
+
+    * ``serve_bench_run`` at JAX's defaults (192 requests of 1-32 rows,
+      ``max_bucket=64``), its probe within 1e-5 of the direct call, no
+      steady capture, ``engine_vs_direct_ratio`` with its trials; and
+      the same stream through an engine of that size, EVERY result held
+      against the direct call (1e-5);
+    * ``coalesce_bench_run`` on K2 (8 subjects): within 1e-5 of the split
+      baseline;
+    * ``posed_kernel_bench_run`` at JAX's defaults: K2 against the plain
+      gathered program through the engine (``fused_vs_xla_ratio`` with
+      every trial — the first engine-level K2 number), parity 1e-5 and
+      0.0, no steady capture;
+    * ``precision_bench_run`` on K2: tier 0 (K2-bf16) above 1e-6 and
+      within 2e-3 m of f32, tier 1 (K2) within 1e-5 (its sentinel drill
+      off here: its engine's probes and references also launch the
+      kernels, which would blur the launch count; the CPU tests run it);
+    * every protocol's K2/K2-bf16 launches equal its gathered dispatches
+      plus one eager warm call a captured program (the protocols warm
+      their own engines), counts zeroed just before each;
+    * ``edge_drill_run`` on K2 at JAX's defaults, held to JAX's criteria
+      (tier-0 goodput >= 0.95 at whatever saturation the storm
+      achieved, where JAX's judge holds it only at >= 3x);
+    * ``python -m mano_hand_tpu_torch serve --posed-kernel fused --port
+      0`` as a subprocess (the shared ``server`` device lock, warm-up
+      before its ready line): ``wire_requests`` one-to-four-row pose-only
+      requests through ``EdgeClient`` against an in-process K2 call
+      (1e-5), ``status --server``, the wire's one-row latency against an
+      in-process ``submit`` at the same bucket (``timed`` each, in turns),
+      SIGTERM: rc 0 and an ``edge_exit`` line with no steady capture
+      inside ``--drain-timeout-s`` plus a margin;
+    * ``status --platforms cpu,cuda`` in a subprocess: the card answers,
+      not degraded.
+
+    Returns the phase's JSON line."""
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.edge import EdgeClient
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
+    from mano_hand_tpu_torch.serving import (
+        ServingEngine, coalesce_bench_run, edge_drill_run,
+        posed_kernel_bench_run, precision_bench_run, serve_bench_run,
+    )
+
+    line = {"phase": "serve_edge"}
+    card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    j, s = params.n_joints, params.n_shape
+    rng = np.random.default_rng(SEED + 16)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    tmp = tempfile.mkdtemp(prefix="mano_serve_edge_")
+    proc = None
+    try:
+        # 1. serve_bench_run, and every result of its stream.
+        kw = dict(SE_SERVE_BENCH, **(sb_kw or {}))
+        t0 = time.perf_counter()
+        zero_counts()
+        sb = serve_bench_run(params, device=dev, seed=SEED, **kw)
+        line["serve_bench"] = {
+            "seconds": time.perf_counter() - t0, **{k: sb[k] for k in (
+                "requests", "rows", "buckets", "warm_bucket",
+                "engine_evals_per_sec", "engine_fixed_evals_per_sec",
+                "direct_evals_per_sec", "engine_vs_direct_ratio",
+                "ratio_median", "ratio_trials",
+                "engine_vs_direct_max_abs_err", "steady_recompiles",
+                "dispatches", "compiles", "padding_waste",
+                "coalesce_width_mean", "latency_by_bucket")},
+            "launches": counts()}
+        require(sb["engine_vs_direct_max_abs_err"] <= KERNEL_TOL
+                and sb["steady_recompiles"] == 0,
+                f"serve_bench: probe vs direct, no steady capture "
+                f"{line['serve_bench']}")
+        srng = np.random.default_rng(SEED)
+        sizes = srng.integers(kw["min_rows"], kw["max_rows"] + 1,
+                              size=kw["requests"])
+        stream = [(srng.normal(scale=0.4, size=(int(n), j, 3))
+                   .astype(np.float32),
+                   srng.normal(size=(int(n), s)).astype(np.float32))
+                  for n in sizes]
+        eng = ServingEngine(params, device=dev,
+                            max_bucket=kw["max_bucket"],
+                            max_delay_s=kw["max_delay_s"])
+        with eng:
+            eng.warmup()
+            futs = [eng.submit(p, sh) for p, sh in stream]
+            got = [f.result(timeout=120) for f in futs]
+        every = 0.0
+        with torch.no_grad(), ieee_fp32():
+            for (p, sh), g in zip(stream, got):
+                want = core.forward_batched(
+                    params, torch.from_numpy(p).to(dev),
+                    torch.from_numpy(sh).to(dev)).verts
+                every = max(every, max_err(g, want))
+        line["serve_bench"]["every_result_vs_direct_max_abs_err"] = every
+        require(every <= KERNEL_TOL,
+                f"serve_bench: every result vs the direct call {every}")
+
+        # 2. coalesce_bench_run on K2.
+        kw = dict(SE_COALESCE, **(co_kw or {}))
+        t0 = time.perf_counter()
+        zero_counts()
+        co = coalesce_bench_run(params, device=dev, posed_kernel="fused",
+                                seed=SEED, **kw)
+        fr = co["flight_record"]["counters"]
+        line["coalesce"] = {
+            "seconds": time.perf_counter() - t0, **{k: co[k] for k in (
+                "subjects", "requests", "rows", "buckets",
+                "engine_evals_per_sec", "split_evals_per_sec",
+                "engine_vs_split_ratio", "ratio_trials",
+                "gather_vs_posed_max_abs_err", "steady_recompiles",
+                "mixed_subject_batches", "coalesce_width_mean",
+                "dispatches")},
+            **_se_launch_check("coalesce", counts(), {
+                "K2": fr["dispatches"] + fr["compiles"]}, card)}
+        require(co["gather_vs_posed_max_abs_err"] <= KERNEL_TOL
+                and co["steady_recompiles"] == 0,
+                f"coalesce: K2 vs the split baseline {line['coalesce']}")
+
+        # 3. posed_kernel_bench_run: K2 against the plain gathered
+        #    program through the engine.
+        kw = dict(pk_kw or {})
+        t0 = time.perf_counter()
+        zero_counts()
+        pk = posed_kernel_bench_run(params, device=dev, seed=SEED, **kw)
+        fr = pk["flight_record"]["counters"]
+        line["posed_kernel"] = {
+            "seconds": time.perf_counter() - t0, **{k: pk.get(k) for k in (
+                "subjects", "requests", "rows", "buckets", "platform",
+                "interpret", "gather_fused_active", "capacity",
+                "slope_points", "fused_evals_per_sec", "xla_evals_per_sec",
+                "fused_vs_xla_ratio", "ratio_trials",
+                "fused_vs_gather_max_abs_err", "xla_vs_gather_max_abs_err",
+                "xla_vs_gather_matched_max_abs_err",
+                "steady_recompiles_fused", "steady_recompiles_xla",
+                "mixed_subject_batches", "coalesce_width_mean",
+                "dispatches", "lm_e2e_steps_per_sec", "lm_e2e_batch",
+                "lm_e2e_steps")},
+            **_se_launch_check("posed_kernel", counts(), {
+                "K2": fr["dispatches"] + fr["compiles"]}, card)}
+        pkl = line["posed_kernel"]
+        require(pk["fused_vs_gather_max_abs_err"] <= KERNEL_TOL
+                and pk["steady_recompiles_fused"] == 0
+                and pk["steady_recompiles_xla"] == 0
+                and pk["gather_fused_active"],
+                f"posed_kernel: parity and no steady capture {pkl}")
+        # The plain side: 0.0 at matched padded size (one request a
+        # batch); across the coalesced burst its rows round by the batch
+        # they ride in (the reference runs at each request's own bucket).
+        require(pk["xla_vs_gather_matched_max_abs_err"] == 0.0
+                and pk["xla_vs_gather_max_abs_err"] <= 1e-6,
+                f"posed_kernel: the plain side 0.0 at matched size {pkl}")
+        if card:
+            require(pk["interpret"] is False, f"posed_kernel: K2 ran {pkl}")
+
+        # 4. precision_bench_run on K2 and K2-bf16.
+        kw = dict(SE_PRECISION, **(pr_kw or {}))
+        t0 = time.perf_counter()
+        zero_counts()
+        pr = precision_bench_run(params, device=dev, posed_kernel="fused",
+                                 seed=SEED, drill=False, **kw)
+        c = counts()
+        fb = pr["flight_record"]["counters"]
+        nb = len(pr["buckets"])     # one f32 and one bf16 program a bucket
+        f32_b = fb["dispatches"] - fb["dispatches_bf16"]
+        line["precision"] = {
+            "seconds": time.perf_counter() - t0, **{k: pr[k] for k in (
+                "subjects", "requests", "rows", "buckets", "posed_kernel",
+                "gather_fused_active", "precision_tiers",
+                "bf16_evals_per_sec", "f32_evals_per_sec",
+                "bf16_vs_f32_ratio", "bf16_max_abs_err",
+                "bf16_err_envelope", "f32_control_max_abs_err",
+                "steady_recompiles_bf16", "steady_recompiles_f32",
+                "dispatches")},
+            "policy_engine": {k: fb[k] for k in (
+                "dispatches", "dispatches_bf16", "compiles")}}
+        require(1e-6 < pr["bf16_max_abs_err"] <= pr["bf16_err_envelope"]
+                and pr["f32_control_max_abs_err"] <= KERNEL_TOL
+                and pr["steady_recompiles_bf16"] == 0
+                and pr["steady_recompiles_f32"] == 0
+                and fb["compiles"] == 2 * nb,
+                f"precision: tier 0 inside the envelope, tier 1 1e-5 "
+                f"{line['precision']}")
+        # K2-bf16 runs on the policy engine only; K2 also serves the
+        # control engine, whose counters the protocol does not return.
+        line["precision"].update(_se_launch_check("precision", c, {
+            "K2_bf16": fb["dispatches_bf16"] + nb}, card))
+        if card:
+            require(c["K2"] >= f32_b + nb,
+                    f"precision: K2 served tier 1 {line['precision']}")
+
+        # 5. The edge drill on K2, at JAX's defaults.
+        kw = dict(ed_kw or {})
+        t0 = time.perf_counter()
+        zero_counts()
+        ed = edge_drill_run(params, device=dev, posed_kernel="fused",
+                            seed=SEED, **kw)
+        c = counts()
+        acc = ed["span_accounting"]
+        line["edge_drill"] = {
+            "seconds": time.perf_counter() - t0, **{k: ed[k] for k in (
+                "saturation_target", "saturation_achieved",
+                "service_rate_req_per_s", "offered_rate_req_per_s",
+                "submitted", "outcomes", "by_tier", "tier0_goodput",
+                "wire_resolved_within_budget_fraction", "wire_p50_ms",
+                "wire_p99_ms", "shed_probe", "steady_recompiles",
+                "dispatches", "coalesce_width_mean", "scrape", "stream",
+                "disconnect", "drain", "incident_captures",
+                "incident_captures_pre_drain")},
+            "spans": {k: acc[k] for k in ("spans_started", "spans_closed",
+                                          "spans_open",
+                                          "spans_double_closed")},
+            "launches": c}
+        edl = line["edge_drill"]
+        oc = ed["outcomes"]
+        require(oc["error"] == 0 and oc["unresolved"] == 0
+                and ed["wire_resolved_within_budget_fraction"] == 1.0,
+                f"edge drill: an HTTP terminal for every request {edl}")
+        # JAX's judge holds tier-0 goodput >= 0.95 where the storm
+        # achieved >= 3x and leaves it unjudged below; here it is held at
+        # whatever the loopback achieved (on the card host its Python
+        # clients and server, one interpreter lock, offer ~2-3x).
+        edl["goodput_judged_at_3x"] = ed["saturation_achieved"] >= 3.0
+        require(ed["tier0_goodput"] is not None
+                and ed["tier0_goodput"] >= 0.95,
+                f"edge drill: tier-0 goodput {edl}")
+        require(ed["steady_recompiles"] == 0,
+                f"edge drill: the storm captures nothing {edl}")
+        st = ed["stream"]
+        require(st["frames_ok"] == st["frames_expected"]
+                and st["wire_vs_inprocess_max_abs_err"] == 0.0
+                and st["wire_vs_inprocess_pose_max_abs_err"] == 0.0,
+                f"edge drill: stream frames over the wire == in process "
+                f"{edl}")
+        d = ed["disconnect"]
+        require(d["oneshot_cancelled"] >= 1 and d["stream_frame_aborted"]
+                and (d["stream_frames_by_kind"].get("cancelled") or 0) >= 1,
+                f"edge drill: a disconnect lands as cancelled {edl}")
+        dr = ed["drain"]
+        require(dr["within_timeout"] and dr["inflight_all_ok"]
+                and dr["new_connection_refused"] and dr["engine_stopped"]
+                and dr["recorder_quiet_during_drain"],
+                f"edge drill: the drain {edl}")
+        sp = ed["shed_probe"]
+        require(sp["dispatches"] == 0 and sp["wire_429"] == sp["sheds"]
+                and sp["wire_retry_after_present"],
+                f"edge drill: the shed probe {edl}")
+        require(acc["spans_started"] == acc["spans_closed"]
+                and acc["spans_open"] == 0
+                and acc["spans_double_closed"] == 0,
+                f"edge drill: every span closed once {edl}")
+        if card:
+            require(c["K2"] > 0, f"edge drill: the streams ran K2 {c}")
+
+        # 6. `serve` behind a real socket.
+        t0 = time.perf_counter()
+        err_path = os.path.join(tmp, "serve.stderr")
+        err_file = open(err_path, "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mano_hand_tpu_torch", "--device",
+             dev.type, "serve", "--posed-kernel", "fused", "--port", "0",
+             "--max-bucket", str(bucket), "--drain-timeout-s",
+             str(drain_timeout_s)],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err_file,
+            text=True)
+        ready_line = _se_readline(proc, ready_timeout_s)
+        if not ready_line.strip():
+            proc.wait(timeout=30)
+            err_file.close()
+            with open(err_path) as f:
+                raise RuntimeError(
+                    f"serve exited {proc.returncode} before its ready "
+                    f"line: {f.read()[-2000:]}")
+        ready = json.loads(ready_line)["edge"]
+        sv = {"ready_s": time.perf_counter() - t0,
+              "device_lock": ready["device_lock"]}
+        port = ready["port"]
+        betas = rng.normal(size=(s,)).astype(np.float32)
+        with torch.no_grad():
+            table = core.stack_shaped([core.specialize(
+                params, torch.from_numpy(betas).to(dev))])
+        wire_err = 0.0
+        with EdgeClient("127.0.0.1", port, timeout_s=120.0) as cli:
+            key = cli.specialize(betas)
+            for _ in range(wire_requests):
+                n = int(rng.integers(1, 5))
+                pose = rng.normal(scale=0.4, size=(n, j, 3)).astype(
+                    np.float32)
+                got = cli.forward(pose, subject=key)
+                with torch.no_grad():
+                    want = core.forward_posed_gather_fused(
+                        table, torch.zeros(n, dtype=torch.int32,
+                                           device=dev),
+                        torch.from_numpy(pose).to(dev))
+                wire_err = max(wire_err, max_err(got, want))
+            settled = _se_compiles(cli.metrics_text())
+        sv["wire_requests"] = wire_requests
+        sv["wire_vs_k2_max_abs_err"] = wire_err
+        require(wire_err <= KERNEL_TOL,
+                f"serve: wire results vs an in-process K2 call {wire_err}")
+        st = subprocess.run(
+            [sys.executable, "-m", "mano_hand_tpu_torch", "status",
+             "--platforms", "", "--server", f"127.0.0.1:{port}",
+             "--server-timeout", "10"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+        server = json.loads(st.stdout)["server"]
+        sv["status_server"] = {"rc": st.returncode, "ok": server["ok"],
+                               "has_serving": (server.get("metrics") or {})
+                               .get("has_serving"),
+                               "healthz": server.get("healthz")}
+        require(st.returncode == 0 and server["ok"]
+                and sv["status_server"]["has_serving"],
+                f"status --server against serve {sv['status_server']}")
+        # One-row requests through the wire against an in-process submit
+        # at the same bucket (1), in turns.
+        local = ServingEngine(params, device=dev, max_bucket=bucket,
+                              posed_kernel="fused")
+        wire_ms, local_ms = [], []
+        with local, EdgeClient("127.0.0.1", port, timeout_s=60.0) as cli:
+            lkey = local.specialize(betas)
+            local.warmup_posed([1])
+            one = rng.normal(scale=0.4, size=(1, j, 3)).astype(np.float32)
+            for _ in range(5):              # settle both sides
+                cli.forward(one, subject=key)
+                local.forward(one, subject=lkey)
+            for i in range(timed):
+                for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+                    t1 = time.perf_counter()
+                    if side == 0:
+                        cli.forward(one, subject=key)
+                        wire_ms.append((time.perf_counter() - t1) * 1e3)
+                    else:
+                        local.submit(one, subject=lkey).result(timeout=60)
+                        local_ms.append((time.perf_counter() - t1) * 1e3)
+        sv["one_row_ms"] = {
+            "requests_each": timed,
+            "wire": {"p50": float(np.percentile(wire_ms, 50)),
+                     "p99": float(np.percentile(wire_ms, 99))},
+            "in_process_submit": {"p50": float(np.percentile(local_ms, 50)),
+                                  "p99": float(np.percentile(local_ms,
+                                                             99))}}
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=drain_timeout_s + 60.0)
+        sv["sigterm_to_exit_s"] = time.perf_counter() - t1
+        err_file.close()
+        rc, proc = proc.returncode, None
+        exit_line = json.loads(out.strip().splitlines()[-1])["edge_exit"]
+        sv["rc"] = rc
+        sv["edge_exit"] = exit_line
+        sv["steady_captures"] = exit_line["counters"]["compiles"] - settled
+        require(rc == 0 and exit_line["drained"]
+                and exit_line["within_timeout"]
+                and sv["sigterm_to_exit_s"] <= drain_timeout_s + 10.0,
+                f"serve: SIGTERM drains inside its timeout {sv}")
+        require(sv["steady_captures"] == 0
+                and exit_line["accounting"]["spans_open"] == 0,
+                f"serve: no steady capture, every span closed {sv}")
+        if card:
+            require(sv["device_lock"] == "server",
+                    f"serve took the shared device lock {sv}")
+        sv["seconds"] = time.perf_counter() - t0
+        line["serve"] = sv
+
+        # 7. `status --platforms cpu,cuda`.
+        t0 = time.perf_counter()
+        st = subprocess.run(
+            [sys.executable, "-m", "mano_hand_tpu_torch", "status",
+             "--platforms", "cpu,cuda", "--probe-timeout", "60"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=180)
+        report = json.loads(st.stdout)
+        line["status"] = {"rc": st.returncode, "seconds":
+                          time.perf_counter() - t0,
+                          "degraded": report["degraded"],
+                          "probes": report["probes"],
+                          "host": report["host"]}
+        require(st.returncode == 0, f"status rc {line['status']}")
+        if card:
+            cu = report["probes"]["cuda"]
+            require(not report["degraded"] and cu["ok"]
+                    and cu["device_kind"] == torch.cuda.get_device_name(0),
+                    f"status: the card answers {line['status']}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # The path's launches: the protocols' and the drill's (the wire
+    # check's in-process K2 calls are comparisons and do not count).
+    path = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K2_bf16"), 0)
+    for part in ("serve_bench", "coalesce", "posed_kernel", "precision",
+                 "edge_drill"):
+        for k, v in line[part]["launches"].items():
+            path[k] += v
+    line["launches"] = path
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4566,6 +5030,13 @@ def main() -> int:
     #      them).
     emit(lanes_store(dev, counts, zero_counts))
 
+    # 18i. The serving front: the benchmark protocols, the edge drill and
+    #      `serve` behind a socket, K2 and K2-bf16 serving requests that
+    #      crossed it (counts zeroed just before each part that reads
+    #      them).
+    serve_line = serve_edge(dev, counts, zero_counts)
+    emit(serve_line)
+
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     #     K1 and K5 at every batch of their paths.
@@ -4734,7 +5205,8 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "path": "serving",
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
-         "graph_ms": k2_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2_ptxas},
+         "graph_ms": k2_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2_ptxas,
+         "launches_serve_edge": serve_line["launches"]["K2"]},
         {"name": "K3 skin", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/skin.cu",
          "replaces": "mano_hand_tpu/ops/pallas_lbs.py:107",
@@ -4768,7 +5240,8 @@ def main() -> int:
          "bound_by": k2b_by, "library_ms": None,
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
          "path": "bf16_tier",
-         "graph_ms": k2b_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2b_ptxas},
+         "graph_ms": k2b_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2b_ptxas,
+         "launches_serve_edge": serve_line["launches"]["K2_bf16"]},
     ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": kernels})

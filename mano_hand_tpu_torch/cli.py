@@ -20,11 +20,19 @@ messages and exit codes, on the port:
   trace-report  summarize a ``torch.profiler`` capture and/or an engine
            span export into one host+device report
            (``obs/trace_report.py``)
+  serve-bench  drive the serving engine with a synthetic request stream,
+           or one of its drills, and print one JSON line of metrics
+  serve    serve the engine over the edge wire protocol (``edge/``)
+  status   host and device health, goldens, a live edge worker, the last
+           persisted metrics scrape (one JSON document)
 
 ``--device {cuda,cpu}`` (default ``cuda``) picks the device every
 subcommand runs on, where the JAX CLI takes ``--platform``; ``demo
 --backend`` is ``np`` (the float64 oracle) or ``torch``. ``export-aot``
-exports for its own ``--platforms`` (device types, default ``cpu``).
+exports for its own ``--platforms`` (device types, default ``cpu``), and
+``status`` probes its own ``--platforms`` (``cpu``, ``cuda``, ``default``).
+``serve`` and ``serve-bench`` without a card exit 2 unless ``--device
+cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -986,6 +994,594 @@ def cmd_trace_report(args) -> int:
     return trace_report.run(argv)
 
 
+def _no_card(args, cmd: str) -> bool:
+    """True (after saying so) when ``cmd`` would run on a card this
+    machine lacks: ``serve``/``serve-bench`` never serve from the CPU on
+    their own — ``--device cpu`` asks for it."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print(f"{cmd}: CUDA is not available on this machine; the port "
+              "serves on the GPU by default and never falls back to the "
+              "CPU on its own — pass --device cpu to serve there",
+              file=sys.stderr)
+        return True
+    return False
+
+
+def cmd_serve_bench(args) -> int:
+    """Drive the serving engine with a synthetic ragged request stream and
+    print ONE JSON line of serving metrics (engine vs direct throughput,
+    steady builds, padding waste, per-bucket latency). The protocol lives
+    in ``serving.measure.serve_bench_run``. ``--chaos`` injects a
+    deterministic fault plan under supervised dispatch, or runs the full
+    recovery drill with ``--chaos drill``; ``--subjects N`` switches to
+    the mixed-subject coalescing protocol (``coalesce_bench_run``);
+    ``--overload`` runs the overload drill; ``--cold-start`` the restart
+    drill against a persistent ``--aot-dir``; ``--streams N`` the
+    streaming-session drill. ``--trace DIR`` spans every request and
+    exports the timeline and final flight record into DIR for
+    ``trace-report``; ``--metrics DIR`` persists the engine's final
+    registry scrape for ``status --metrics-dir`` — stdout stays EXACTLY
+    one JSON line (progress and incidents ride stderr / the trace dir).
+    JAX's flags, guards and exit codes; the line's ``backend`` is the
+    device type."""
+    import os
+
+    from mano_hand_tpu_torch.obs import log as obs_log
+    from mano_hand_tpu_torch.serving.measure import serve_bench_run
+
+    # Progress rides the leveled stderr logger, pinned to "info" here;
+    # stdout remains the one-JSON-line artifact channel.
+    log = obs_log.get_logger("serve-bench", level="info").info
+
+    if args.chaos != "drill":
+        # The drill fixes its own protocol sizes; these knobs shape the
+        # serve_bench_run stream only.
+        if args.requests < 1:
+            print(f"--requests must be >= 1, got {args.requests}",
+                  file=sys.stderr)
+            return 2
+        if args.min_rows < 1 or args.max_rows < args.min_rows:
+            print(f"need 1 <= --min-rows <= --max-rows, got "
+                  f"({args.min_rows}, {args.max_rows})", file=sys.stderr)
+            return 2
+        if args.max_rows > args.max_bucket:
+            print(f"--max-rows {args.max_rows} exceeds --max-bucket "
+                  f"{args.max_bucket}", file=sys.stderr)
+            return 2
+    if _no_card(args, "serve-bench"):
+        return 2
+    dev = args.device
+    params = _load_params(args.asset, args.side, "cpu").astype(torch.float32)
+
+    # Deadline watchdog: a wedged device call cannot be interrupted from
+    # Python, so a daemon THREAD prints the null line and hard-exits at
+    # the deadline. Armed before any card call (the engines' first touch
+    # of the card is inside the protocols below); the auto default
+    # (--emit-by unset) arms at 900 s and is disarmed on a --device cpu
+    # run, which has no card to wedge.
+    from mano_hand_tpu_torch.runtime.supervise import Watchdog
+
+    tracer = None
+    if args.trace:
+        from mano_hand_tpu_torch.obs import Tracer
+
+        tracer = Tracer()
+
+    metrics_reg = None
+    if args.metrics:
+        # The drill protocols fix their own engines internally: refuse
+        # rather than silently export an empty registry.
+        if (args.overload or args.cold_start or args.subjects > 0
+                or args.streams > 0 or args.chaos == "drill"):
+            print("--metrics composes only with the default protocol "
+                  "(optionally under a --chaos plan); the drill "
+                  "protocols (--overload/--cold-start/--subjects/"
+                  "--streams/--chaos drill) fix their own engines and "
+                  "export nothing into a caller registry",
+                  file=sys.stderr)
+            return 2
+        from mano_hand_tpu_torch.obs import MetricsRegistry
+
+        metrics_reg = MetricsRegistry()
+
+    emit_by = 900.0 if args.emit_by < 0 else args.emit_by
+
+    def _hard_exit(cause: str) -> None:
+        # The one-JSON-line artifact prints FIRST; the trace dump runs on
+        # a disposable thread with a bounded join, and os._exit lands
+        # regardless.
+        print(json.dumps({
+            "engine_evals_per_sec": None,
+            "error": f"serve-bench {cause} — hung device call",
+        }), flush=True)
+        if tracer is not None:
+            def dump():
+                try:
+                    from mano_hand_tpu_torch.obs import write_trace_dir
+
+                    write_trace_dir(tracer, args.trace,
+                                    reason="watchdog_kill")
+                except Exception:  # noqa: BLE001 — best-effort dump
+                    pass
+
+            import threading
+
+            t = threading.Thread(target=dump, name="trace-dump",
+                                 daemon=True)
+            t.start()
+            t.join(10.0)
+        os._exit(3)
+
+    wd = Watchdog(_hard_exit, deadline_s=emit_by or None,
+                  name="serve-bench-watchdog", tracer=tracer).start()
+    if args.emit_by < 0 and dev == "cpu":
+        wd.disarm()  # auto mode: no card to guard against on cpu
+
+    def export_trace(out: dict) -> None:
+        """Drop the timeline + final flight record into --trace DIR; an
+        unwritable dir is recorded in the artifact, never a lost run."""
+        if tracer is None:
+            return
+        try:
+            from mano_hand_tpu_torch.obs import write_trace_dir
+
+            out["trace_export"] = write_trace_dir(tracer, args.trace,
+                                                  reason="run_complete")
+        except OSError as e:
+            out["trace_export"] = {
+                "error": f"{type(e).__name__}: {e} (trace dir "
+                         f"{args.trace!r} unwritable; the run's "
+                         "metrics above are unaffected)"}
+
+    def finish(out: dict) -> int:
+        out["backend"] = dev
+        if args.chaos and args.chaos != "drill":
+            out["chaos"] = args.chaos
+        export_trace(out)
+        print(json.dumps(out))
+        return 0
+
+    if args.cold_start:
+        if (args.chaos or args.subjects > 0 or args.overload
+                or args.streams > 0 or args.deadline_s is not None):
+            print("--cold-start fixes its own protocol and does not "
+                  "compose with --chaos, --subjects, --overload, "
+                  "--streams, or --deadline-s", file=sys.stderr)
+            return 2
+        if not args.aot_dir:
+            print("--cold-start requires --aot-dir (the executable "
+                  "lattice and SubjectTable checkpoint live there; "
+                  "without it there is nothing for a restart to "
+                  "restore from)", file=sys.stderr)
+            return 2
+        from mano_hand_tpu_torch.serving.measure import cold_start_drill_run
+
+        return finish(cold_start_drill_run(
+            params, aot_dir=args.aot_dir, seed=args.seed, tracer=tracer,
+            device=dev, log=log))
+
+    if args.streams > 0:
+        if (args.chaos or args.subjects > 0 or args.overload
+                or args.cold_start or args.aot_dir
+                or args.deadline_s is not None):
+            print("--streams fixes its own protocol and does not "
+                  "compose with --chaos, --subjects, --overload, "
+                  "--cold-start, --aot-dir, or --deadline-s",
+                  file=sys.stderr)
+            return 2
+        from mano_hand_tpu_torch.serving.measure import stream_drill_run
+
+        return finish(stream_drill_run(
+            params, streams=args.streams, seed=args.seed, tracer=tracer,
+            device=dev, log=log))
+
+    if args.overload:
+        if (args.chaos or args.subjects > 0 or args.aot_dir
+                or args.deadline_s is not None):
+            print("--overload fixes its own protocol and does not "
+                  "compose with --chaos, --subjects, --aot-dir, or "
+                  "--deadline-s", file=sys.stderr)
+            return 2
+        from mano_hand_tpu_torch.serving.measure import overload_drill_run
+
+        return finish(overload_drill_run(
+            params, saturation=args.overload_saturation, seed=args.seed,
+            tracer=tracer, device=dev, log=log))
+
+    if args.chaos == "drill":
+        if args.subjects > 0:
+            print("--subjects does not compose with --chaos drill (the "
+                  "drill fixes its own protocol, which already drives "
+                  "mixed-subject pose-only streams); use --subjects "
+                  "with a custom --chaos plan instead", file=sys.stderr)
+            return 2
+        from mano_hand_tpu_torch.serving.measure import recovery_drill_run
+
+        # The drill fixes its own protocol sizes; only the deadline is
+        # tunable.
+        kw = ({} if args.deadline_s is None
+              else {"deadline_s": args.deadline_s})
+        return finish(recovery_drill_run(
+            params, max_bucket=8, seed=args.seed, tracer=tracer,
+            device=dev, log=log, **kw))
+    policy = None
+    if args.chaos:
+        # A custom fault schedule under supervised dispatch; the breaker's
+        # probe always answers True (the fault is simulated). The CPU
+        # tier serves a CPU engine only.
+        from mano_hand_tpu_torch.runtime import (
+            ChaosPlan, CircuitBreaker, DispatchPolicy,
+        )
+
+        try:
+            plan = ChaosPlan(args.chaos)
+        except ValueError as e:
+            print(f"--chaos {args.chaos!r}: {e}", file=sys.stderr)
+            return 2
+        policy = DispatchPolicy(
+            deadline_s=30.0 if args.deadline_s is None else args.deadline_s,
+            retries=2,
+            breaker=CircuitBreaker(
+                failure_threshold=3, probe=lambda: True,
+                probe_interval_s=1.0, respect_priority_claim=False),
+            chaos=plan, cpu_fallback=dev == "cpu",
+        )
+    if args.subjects > 0:
+        if args.aot_dir:
+            print("--aot-dir does not apply to --subjects (the gathered "
+                  "programs have no AOT tier; table and index are "
+                  "runtime arguments)", file=sys.stderr)
+            return 2
+        from mano_hand_tpu_torch.serving.measure import coalesce_bench_run
+
+        return finish(coalesce_bench_run(
+            params, subjects=args.subjects, requests=args.requests,
+            min_rows=args.min_rows, max_rows=args.max_rows,
+            max_bucket=args.max_bucket,
+            max_delay_s=args.max_delay_ms * 1e-3, seed=args.seed,
+            policy=policy, tracer=tracer, device=dev, log=log))
+    out = serve_bench_run(
+        params, requests=args.requests, min_rows=args.min_rows,
+        max_rows=args.max_rows, max_bucket=args.max_bucket,
+        max_delay_s=args.max_delay_ms * 1e-3,
+        aot_dir=args.aot_dir or None, seed=args.seed, policy=policy,
+        tracer=tracer, metrics=metrics_reg, device=dev)
+    if metrics_reg is not None:
+        # The final scrape as metrics.json + Prometheus text; an
+        # unwritable dir is recorded in the artifact.
+        try:
+            from mano_hand_tpu_torch.obs.metrics import export_metrics_dir
+
+            out["metrics_export"] = export_metrics_dir(
+                metrics_reg.snapshot(), args.metrics)
+        except OSError as e:
+            out["metrics_export"] = {
+                "error": f"{type(e).__name__}: {e} (metrics dir "
+                         f"{args.metrics!r} unwritable; the run's "
+                         "metrics above are unaffected)"}
+    return finish(out)
+
+
+def cmd_serve(args) -> int:
+    """``serve`` — the network edge: one worker process exposing a
+    ``ServingEngine`` over the edge wire protocol (``edge/server.py``):
+    ``POST /v1/forward`` (+ ``/v1/specialize``) with QoS headers, the
+    stream upgrade, 429 + Retry-After backpressure, ``/metrics``
+    (Prometheus text) and ``/healthz``, flight-record-bearing 5xx bodies,
+    and a graceful drain on SIGTERM/SIGINT through the engine's
+    ``stop(timeout_s=)`` sweep.
+
+    ``--device-lock auto`` takes the SHARED device lock
+    (``utils.devicelock.DeviceLock("server")``) on the card — N workers
+    coexist, an exclusive benchmark's lock or priority claim makes a new
+    worker stand down with rc 2 — and no lock with ``--device cpu``.
+
+    stdout carries exactly two JSON lines: the ready line at bind time
+    (host/port/pid) and the drain report at exit; logs go to stderr.
+    """
+    import contextlib
+    import os
+    import signal
+    import threading
+
+    from mano_hand_tpu_torch.edge import EdgeServer
+    from mano_hand_tpu_torch.obs import Tracer
+    from mano_hand_tpu_torch.obs.metrics import engine_registry
+    from mano_hand_tpu_torch.obs.recorder import FlightRecorder
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+    from mano_hand_tpu_torch.utils.devicelock import DeviceBusy, DeviceLock
+
+    if _no_card(args, "serve"):
+        return 2
+    params = _load_params(args.asset, args.side, "cpu").astype(torch.float32)
+    tracer = Tracer()
+    tier_quotas = ({1: args.tier1_quota}
+                   if args.max_queued and args.tier1_quota else None)
+    # --store-warm-capacity N: the tiered store with a host-RAM warm tier
+    # of N rows (sharded when the worker runs lanes — the shards ARE the
+    # per-lane tables).
+    store = None
+    if args.store_warm_capacity:
+        from mano_hand_tpu_torch.serving.subject_store import (
+            SubjectStore, SubjectStoreConfig,
+        )
+
+        store = SubjectStore(SubjectStoreConfig(
+            warm_capacity=int(args.store_warm_capacity),
+            sharded=bool(args.lanes)))
+    eng = ServingEngine(
+        params,
+        device=args.device,
+        max_bucket=args.max_bucket,
+        max_delay_s=args.max_delay_ms / 1e3,
+        aot_dir=args.aot_dir or None,
+        max_queued=args.max_queued or None,
+        tier_quotas=tier_quotas,
+        lanes=args.lanes or None,
+        posed_kernel=args.posed_kernel,
+        tracer=tracer,
+        subject_store=store,
+        max_subjects=args.max_subjects,
+    )
+    recorder = FlightRecorder(tracer, eng.counters,
+                              out_dir=args.flight_dir or None)
+    registry = engine_registry(eng, tracer=tracer)
+
+    lock_mode = args.device_lock
+    if lock_mode == "auto":
+        lock_mode = "off" if args.device == "cpu" else "server"
+    lock_ctx = (DeviceLock("server", log=lambda m: print(
+        m, file=sys.stderr)) if lock_mode == "server"
+        else contextlib.nullcontext())
+
+    stop_evt = threading.Event()
+
+    def _on_signal(signum, frame):
+        print(f"signal {signum}: draining", file=sys.stderr)
+        stop_evt.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+
+    try:
+        with lock_ctx:
+            eng.start()
+            if not args.no_warmup:
+                eng.warmup()
+            # --warm-streams: one synthetic stream (specialize, fit a
+            # frame, close) BEFORE the ready line, so the first real
+            # stream frame pays no first-use cost. Best-effort: a failure
+            # logs and boots the worker cold rather than not at all.
+            warmed = False
+            if args.warm_streams:
+                try:
+                    sess = eng.open_stream(
+                        np.zeros((params.n_shape,), np.float32))
+                    try:
+                        sess.submit_frame(
+                            np.zeros((params.n_joints, 3), np.float32)
+                        ).result(timeout=300)
+                    finally:
+                        sess.close()
+                    warmed = True
+                    print("warm-streams: stream-fit family warm",
+                          file=sys.stderr)
+                except Exception as e:  # noqa: BLE001 — cold > dead
+                    print(f"warm-streams failed (worker boots cold): "
+                          f"{type(e).__name__}: {e}", file=sys.stderr)
+            srv = EdgeServer(
+                eng, host=args.host, port=args.port, registry=registry,
+                drain_timeout_s=args.drain_timeout_s, warm_streams=warmed,
+                log=lambda m: print(m, file=sys.stderr)).start()
+            print(json.dumps({
+                "edge": {"host": srv.host, "port": srv.port,
+                         "pid": os.getpid(),
+                         "device_lock": lock_mode}}), flush=True)
+            # Interruptible wait: the signal handler runs on this main
+            # thread between wait windows.
+            while not stop_evt.wait(0.5):
+                pass
+            report = srv.drain(timeout_s=args.drain_timeout_s)
+            report["incident_captures"] = len(recorder.captures)
+            # The exit line carries the worker's tracer accounting and
+            # build counters for a supervisor to aggregate.
+            report["accounting"] = tracer.accounting()
+            snap = eng.counters.snapshot()
+            report["counters"] = {
+                k: snap[k] for k in
+                ("compiles", "aot_loads", "aot_load_failures")}
+            print(json.dumps({"edge_exit": report}), flush=True)
+    except DeviceBusy as e:
+        print(f"device busy: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+# The killable probe of one device type (``status --platforms``): a
+# fresh interpreter names the device and moves one element to it and
+# back. Prints "count type kind".
+_STATUS_PROBE = (
+    "import torch\n"
+    "plat = {plat!r}\n"
+    "if plat == 'cpu':\n"
+    "    n, kind = 1, 'cpu'\n"
+    "else:\n"
+    "    assert torch.cuda.is_available(), 'CUDA is not available'\n"
+    "    n, kind = torch.cuda.device_count(), "
+    "torch.cuda.get_device_name(0)\n"
+    "x = torch.ones(1, device=plat).cpu()\n"
+    "assert float(x[0]) == 1.0\n"
+    "print(n, plat, kind)\n"
+)
+
+
+def cmd_status(args) -> int:
+    """``status`` — the operator's one-look health surface: host facts,
+    device health, the committed numerics goldens, (``--server``) a live
+    edge worker's ``/healthz`` and ``/metrics``, and (``--metrics-dir``)
+    the last persisted metrics scrape of a ``serve-bench --metrics`` run,
+    as one JSON document on stdout.
+
+    Each device type of ``--platforms`` (``cpu``, ``cuda``, or
+    ``default`` = the port's default, ``cuda``) is probed ONLY in a
+    killable subprocess (``runtime.supervise.run_python``): a failed or
+    hung probe degrades the report (``degraded: true``) instead of
+    hanging the command; rc stays 0 — status is a report, not a gate.
+
+    ``--prom`` re-renders the persisted metrics snapshot as Prometheus
+    text (probes are skipped in that mode). The host block names
+    ``torch`` (with ``torch.version.cuda``) and ``numpy`` where JAX's
+    names ``jax``, ``jaxlib`` and ``numpy``."""
+    from mano_hand_tpu_torch.obs.metrics import METRICS_JSON, prometheus_text
+    from mano_hand_tpu_torch.obs.sentinel import (
+        default_goldens_path, load_goldens,
+    )
+
+    metrics_snap = None
+    metrics_info = None
+    if args.metrics_dir:
+        path = Path(args.metrics_dir) / METRICS_JSON
+        try:
+            metrics_snap = json.loads(path.read_text())
+            metrics_info = {
+                "path": str(path),
+                "schema": metrics_snap.get("schema"),
+                "metrics": len(metrics_snap.get("metrics") or {}),
+                "wall_time_utc": metrics_snap.get("wall_time_utc"),
+            }
+        except (OSError, ValueError) as e:
+            metrics_info = {"path": str(path),
+                            "error": f"{type(e).__name__}: {e}"}
+    if args.prom:
+        if metrics_snap is None:
+            print("--prom needs a readable --metrics-dir (the "
+                  "persisted scrape of a `serve-bench --metrics DIR` "
+                  "run)" + (f": {metrics_info['error']}"
+                            if metrics_info else ""), file=sys.stderr)
+            return 2
+        print(prometheus_text(metrics_snap), end="")
+        return 0
+
+    host = {"python": sys.version.split()[0], "platform": sys.platform}
+    from importlib import metadata
+
+    for pkg in ("torch", "numpy"):
+        try:
+            host[pkg] = metadata.version(pkg)
+        except Exception:  # noqa: BLE001 — a missing dist is a fact
+            host[pkg] = None
+    host["torch_cuda"] = torch.version.cuda
+
+    from mano_hand_tpu_torch.runtime import supervise
+
+    probes = {}
+    degraded = False
+    for plat in [p.strip() for p in args.platforms.split(",")
+                 if p.strip()]:
+        dev_type = "cuda" if plat == "default" else plat
+        res = supervise.run_python(_STATUS_PROBE.format(plat=dev_type),
+                                   timeout_s=args.probe_timeout)
+        entry = {"ok": bool(res.ok)}
+        if res.ok:
+            parts = (res.out or "").splitlines()[-1].split(None, 2)
+            if len(parts) == 3:
+                entry.update(devices=int(parts[0]), platform=parts[1],
+                             device_kind=parts[2])
+        else:
+            entry["error"] = res.err
+            entry["killed"] = bool(getattr(res, "killed", False))
+            degraded = True
+        probes[plat] = entry
+
+    server_block = None
+    if args.server:
+        # Probe a live edge worker: bounded (the client's socket timeout
+        # covers connect and every read) and degrading (any failure is a
+        # fact in the report, not a crash) — rc stays 0 either way.
+        from urllib.parse import urlparse
+
+        from mano_hand_tpu_torch.edge import EdgeClient
+
+        spec = (args.server if "//" in args.server
+                else f"http://{args.server}")
+        u = urlparse(spec)
+        server_block = {"url": args.server, "ok": False}
+        cli = EdgeClient(u.hostname or "127.0.0.1", u.port or 8077,
+                         timeout_s=args.server_timeout)
+        try:
+            h = cli.healthz()
+            server_block["ok"] = bool(h.get("ok"))
+            server_block["healthz"] = {
+                k: h.get(k) for k in ("status", "degraded",
+                                      "uptime_s", "breaker", "lanes")}
+            server_block["engine"] = h.get("engine")
+            server_block["streams"] = h.get("streams")
+            if h.get("role") == "proxy":
+                # A fleet front tier: its /healthz already carries the
+                # bounded per-backend fan-out.
+                server_block["role"] = "proxy"
+                server_block["proxy_role"] = h.get("proxy_role")
+                server_block["takeovers"] = h.get("takeovers")
+                server_block["backends"] = {
+                    name: {k: b.get(k) for k in
+                           ("ok", "status", "degraded", "breaker",
+                            "draining_via_proxy", "outstanding",
+                            "streams", "stream_warm", "error")}
+                    for name, b in (h.get("backends") or {}).items()}
+                server_block["counters"] = h.get("counters")
+            try:
+                text = cli.metrics_text()
+                server_block["metrics"] = {
+                    "lines": len(text.splitlines()),
+                    "has_serving": "mano_serving_" in text,
+                }
+            except Exception as e:  # noqa: BLE001 — degrade per leg
+                server_block["metrics"] = {
+                    "error": f"{type(e).__name__}: {e}"}
+        except Exception as e:  # noqa: BLE001 — down/hung server
+            server_block["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            cli.close()
+
+    gpath = default_goldens_path()
+    goldens = load_goldens(gpath)
+    report = {
+        "schema": 1,
+        "host": host,
+        "probes": probes,
+        "degraded": degraded,
+        "goldens": {
+            "path": str(gpath),
+            "present": goldens is not None,
+            "entries": sorted((goldens or {}).get("entries", {})),
+        },
+    }
+    if degraded:
+        report["note"] = (
+            "device probe failed/hung — host-only report (no card "
+            "answered; a card engine cannot serve, a --device cpu one "
+            "can)")
+    if server_block is not None:
+        report["server"] = server_block
+    if metrics_info is not None:
+        report["metrics"] = metrics_info
+    if metrics_snap is not None:
+        # The persisted scrape's streams block: live sessions and the
+        # per-stream backlog age at one look.
+        m = metrics_snap.get("metrics") or {}
+        streams_block = {}
+        for short in ("active", "frames_in_flight", "backlog_age_s",
+                      "opened", "frames_submitted", "frames_resolved"):
+            entry = m.get(f"load_streams_{short}")
+            samples = (entry or {}).get("samples") or []
+            if samples:
+                streams_block[short] = samples[0][1]
+        if streams_block:
+            report["streams"] = streams_block
+    print(json.dumps(report, indent=2))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mano_hand_tpu_torch",
                                 description=__doc__)
@@ -1227,6 +1823,157 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu")
     e.set_defaults(fn=cmd_export_aot)
 
+    sb = sub.add_parser(
+        "serve-bench",
+        help="measure the bucketed micro-batching engine on a synthetic "
+             "ragged request stream (one JSON line of serving metrics)",
+    )
+    sb.add_argument("--asset", default="synthetic")
+    sb.add_argument("--side", default=None, choices=SIDES)
+    sb.add_argument("--requests", type=int, default=256,
+                    help="requests per measured pass")
+    sb.add_argument("--min-rows", type=int, default=1)
+    sb.add_argument("--max-rows", type=int, default=64,
+                    help="request batch sizes are uniform in "
+                         "[--min-rows, --max-rows]")
+    sb.add_argument("--max-bucket", type=int, default=256)
+    sb.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="coalescing window once a request is pending")
+    sb.add_argument("--aot-dir", default="",
+                    help="persistent executable lattice of the engine "
+                         "(io/export_aot.py); empty = in-memory only")
+    sb.add_argument("--chaos", default="",
+                    help="inject a deterministic fault plan "
+                         "(runtime/chaos.py spec, e.g. "
+                         "'error@0-1,latency:0.2@4,hang@7') into the "
+                         "engine's primary programs under supervised "
+                         "dispatch, or 'drill' to run the full recovery "
+                         "drill (serving/measure.py:recovery_drill_run) "
+                         "and print its one-line artifact")
+    sb.add_argument("--deadline-s", type=float, default=None,
+                    help="per-batch supervised dispatch deadline used "
+                         "with --chaos (hung batches are abandoned, "
+                         "retried, then failed over to the CPU tier of a "
+                         "--device cpu engine). Default: 30 for a --chaos "
+                         "plan, the drill protocol's own 2 s for --chaos "
+                         "drill")
+    sb.add_argument("--emit-by", type=float, default=-1.0,
+                    help="hard wall-clock deadline in seconds: emit a "
+                         "null JSON line and hard-exit if the run hangs "
+                         "(a wedged device call cannot be interrupted). "
+                         "Default: 900 on the card, off with --device "
+                         "cpu; 0 disables")
+    sb.add_argument("--subjects", type=int, default=0,
+                    help="run the MIXED-SUBJECT coalescing protocol "
+                         "instead (serving/measure.py:coalesce_bench_run):"
+                         " this many baked subjects submit an "
+                         "interleaved pose-only stream through the "
+                         "gathered engine dispatch, measured against the "
+                         "per-subject-split baseline. 0 = the classic "
+                         "full-path protocol")
+    sb.add_argument("--overload", action="store_true",
+                    help="run the OVERLOAD/saturation drill instead "
+                         "(serving/measure.py:overload_drill_run): "
+                         "bounded admission + per-request deadlines + "
+                         "priority shedding under a burst submitter at "
+                         "--overload-saturation x the measured service "
+                         "rate. Saturation is throttled in-process "
+                         "(chaos 'sat' plan)")
+    sb.add_argument("--cold-start", action="store_true",
+                    help="run the cold-start/restart drill instead "
+                         "(serving/measure.py:cold_start_drill_run): "
+                         "bake the lattice + subject checkpoint into a "
+                         "drill-owned coldstart_drill/ subdir of "
+                         "--aot-dir (required), kill mid-traffic, "
+                         "cold-boot, and judge zero builds after "
+                         "restore; does not compose with --chaos/"
+                         "--subjects/--overload/--deadline-s")
+    sb.add_argument("--overload-saturation", type=float, default=4.0,
+                    help="offered-load multiple of the measured "
+                         "service rate for --overload (criteria are "
+                         "judged at >= 4x achieved)")
+    sb.add_argument("--streams", type=int, default=0,
+                    help="run the STREAMING-SESSION drill instead "
+                         "(serving/measure.py:stream_drill_run): this "
+                         "many concurrent per-user tracking sessions. "
+                         "0 = off")
+    sb.add_argument("--trace", default="",
+                    help="request-lifecycle tracing: span every request "
+                         "through an obs.Tracer and export the "
+                         "Chrome-trace timeline + final flight record "
+                         "into this directory (read it with "
+                         "`trace-report DIR`). Composes with every "
+                         "protocol; stdout stays one JSON line")
+    sb.add_argument("--metrics", default="",
+                    help="persist the run's final metrics-registry "
+                         "scrape into this directory as metrics.json + "
+                         "metrics.prom (read them with `status "
+                         "--metrics-dir DIR [--prom]`). Default protocol "
+                         "only (optionally under a --chaos plan)")
+    sb.add_argument("--seed", type=int, default=0)
+    sb.set_defaults(fn=cmd_serve_bench)
+
+    sv = sub.add_parser(
+        "serve",
+        help="serve the engine over the edge wire protocol: "
+             "forward/stream endpoints with QoS headers, 429 "
+             "backpressure, /metrics + /healthz, SIGTERM drain")
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address (default loopback)")
+    sv.add_argument("--port", type=int, default=8077,
+                    help="bind port (0 = ephemeral; the bound port is "
+                         "in the stdout ready line)")
+    sv.add_argument("--asset", default="synthetic")
+    sv.add_argument("--side", default=None, choices=SIDES)
+    sv.add_argument("--max-bucket", type=int, default=64)
+    sv.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="coalesce window (the latency/throughput "
+                         "knob)")
+    sv.add_argument("--max-queued", type=int, default=256,
+                    help="bounded admission: outstanding cap; 0 = "
+                         "unbounded (429s never fire)")
+    sv.add_argument("--max-subjects", type=int, default=4096,
+                    help="specialized-subject table ceiling; under "
+                         "--lanes it also sizes the per-lane shard "
+                         "tables (ceil(max-subjects / lanes))")
+    sv.add_argument("--tier1-quota", type=int, default=0,
+                    help="tier-1 admission quota (0 = the default: half "
+                         "of max-queued)")
+    sv.add_argument("--lanes", type=int, default=0,
+                    help="dispatch lanes (0 = single-context dispatch)")
+    sv.add_argument("--posed-kernel", default="xla",
+                    choices=["xla", "fused"],
+                    help="gathered pose-only program family: the plain "
+                         "gathered program, or the hand-written kernel "
+                         "(K2 on the card)")
+    sv.add_argument("--aot-dir", default="",
+                    help="executable lattice dir for a build-free boot")
+    sv.add_argument("--store-warm-capacity", type=int, default=0,
+                    help="tiered subject store: host-RAM warm tier of N "
+                         "rows (sharded under --lanes); 0 = device-table "
+                         "only")
+    sv.add_argument("--no-warmup", action="store_true",
+                    help="skip the boot-time bucket warm-up (builds "
+                         "then land in the first requests)")
+    sv.add_argument("--warm-streams", action="store_true",
+                    help="exercise one synthetic stream fit before the "
+                         "ready line")
+    sv.add_argument("--drain-timeout-s", type=float, default=15.0,
+                    help="SIGTERM drain budget: in-flight requests "
+                         "resolve, the engine stop() sweep runs, the "
+                         "process exits inside this window")
+    sv.add_argument("--flight-dir", default="",
+                    help="persist flight-recorder incident captures "
+                         "here (default: in-memory only)")
+    sv.add_argument("--device-lock", default="auto",
+                    choices=["auto", "server", "off"],
+                    help="multi-worker coexistence: 'server' takes the "
+                         "SHARED device lock (N workers coexist; an "
+                         "exclusive benchmark lock or priority claim -> "
+                         "rc 2); 'auto' = server on the card, off with "
+                         "--device cpu")
+    sv.set_defaults(fn=cmd_serve)
+
     i = sub.add_parser("info", help="print asset summary")
     i.add_argument("--asset", default="synthetic")
     i.add_argument("--side", default=None, choices=SIDES)
@@ -1264,6 +2011,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="include host tracks even when a device track "
                          "exists")
     tr.set_defaults(fn=cmd_trace_report)
+
+    st = sub.add_parser(
+        "status",
+        help="host + device health report (killable-subprocess device "
+             "probes), committed numerics goldens, a live edge worker, "
+             "and the last persisted metrics scrape",
+    )
+    st.add_argument("--platforms", default="cpu,default",
+                    help="comma-separated device types to probe (cpu, "
+                         "cuda; 'default' = the port's default, cuda) — "
+                         "a failed or hung probe degrades the report, "
+                         "never hangs it")
+    st.add_argument("--probe-timeout", type=float, default=20.0,
+                    help="per-device probe deadline in seconds; a hung "
+                         "probe is SIGKILLed at the deadline")
+    st.add_argument("--server", default="",
+                    help="probe a running edge worker: hit its /healthz "
+                         "+ /metrics with a bounded timeout and fold the "
+                         "answer into the report — a down/hung server "
+                         "degrades the block (rc stays 0, never hangs)")
+    st.add_argument("--server-timeout", type=float, default=3.0,
+                    help="per-read bound on the --server probe")
+    st.add_argument("--metrics-dir", default="",
+                    help="read the metrics.json a `serve-bench --metrics "
+                         "DIR` run persisted and include it in the "
+                         "report")
+    st.add_argument("--prom", action="store_true",
+                    help="print the persisted metrics snapshot as "
+                         "Prometheus text instead of the JSON report "
+                         "(requires --metrics-dir; skips the device "
+                         "probes)")
+    st.set_defaults(fn=cmd_status)
     return p
 
 

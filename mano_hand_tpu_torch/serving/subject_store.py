@@ -10,9 +10,9 @@ shard map of a lane fleet:
   re-running the shape stage. ``prefetch`` (called at coalesce admit and
   ``open_stream``, where a dispatch is known to be coming) starts the
   host-to-device copy asynchronously on a side stream and records an
-  event behind it; ``fetch_row`` makes the installing stream wait on that
-  event before any copy can read the rows, and times what the install
-  still waited for into ``subject_store_promotion_ms``.
+  event behind it; ``fetch_row`` orders a copy still in flight before
+  the install and times what the install still waited for into
+  ``subject_store_promotion_ms``.
 * **cold** — warm-LRU overflow pages rows to disk as the port's row pages
   (``io/state_ckpt.py``: JAX's pickle layout, one directory per subject
   digest with a sha256 per array). A damaged page never errors a request:
@@ -125,8 +125,9 @@ class SubjectStore:
             **kw)
         self._lock = threading.Lock()
         self._warm: "OrderedDict[str, dict]" = OrderedDict()
-        # digest -> (device rows, event or None) of an in-flight
-        # promotion; consumed (popped) by fetch_row on the install path.
+        # digest -> (device rows, event, stream the rows are marked used
+        # by) of an in-flight promotion (event and stream None off a
+        # card); consumed (popped) by fetch_row on the install path.
         self._promotions: dict = {}
         self._cold_index: set = set()
         self._counters = None
@@ -236,39 +237,51 @@ class SubjectStore:
             if digest in self._promotions:
                 return False
             row = self._warm.get(digest)
-            if row is not None and self._card and self._side is None:
-                self._side = torch.cuda.Stream(self._device)
         if row is None:
             return False
         # Device work outside the lock; returning with the copy in flight
         # IS the prefetch.
-        event = None
-        if self._card:
-            with torch.cuda.device(self._device), \
-                    torch.cuda.stream(self._side):
-                rows = {k: v.to(self._device, non_blocking=True)
-                        for k, v in row.items()}
-                event = torch.cuda.Event()
-                event.record(self._side)
-        else:
-            rows = {k: v.to(self._device) for k, v in row.items()}
+        promotion = self._copy(row)
         with self._lock:
             # A racing prefetch of the same digest copied the same bytes;
             # the last writer wins harmlessly.
-            self._promotions[digest] = (rows, event)
+            self._promotions[digest] = promotion
         if self._counters is not None:
             self._counters.count_store_prefetch()
         return True
+
+    def _copy(self, row: dict) -> tuple:
+        """Start a host row's copy to the device: ``(rows, event,
+        used_by)``. On a card the copy runs on the side stream, its event
+        recorded behind it, and the rows are marked as used by the current
+        stream (the installing one: the engine prefetches and installs
+        under the same stream), so their memory is not reused before that
+        stream is done with them. Marking them here keeps those calls off
+        the install's path."""
+        if not self._card:
+            return {k: v.to(self._device) for k, v in row.items()}, None, None
+        with self._lock:
+            if self._side is None:
+                self._side = torch.cuda.Stream(self._device)
+            side = self._side
+        used_by = torch.cuda.current_stream(self._device)
+        with torch.cuda.device(self._device), torch.cuda.stream(side):
+            rows = {k: v.to(self._device, non_blocking=True)
+                    for k, v in row.items()}
+            event = torch.cuda.Event()
+            event.record(side)
+        for t in rows.values():
+            t.record_stream(used_by)
+        return rows, event, used_by
 
     # --------------------------------------------------------------- fetch
     def fetch_row(self, digest: str):
         """Resolve one digest from the warm or cold tier for an install;
         returns ``(rows, tier)`` with the rows on the bound device and
-        ordered before any later work of the CURRENT stream (the
-        install's), or None on a miss (the caller re-bakes and counts
-        it). What this call waited for lands in the promotion-stall
-        reservoir: for a prefetched row only the residual wait on its
-        event."""
+        ready for any later work of the CURRENT stream (the install's),
+        or None on a miss (the caller re-bakes and counts it). What this
+        call waited for lands in the promotion-stall reservoir: for a
+        prefetched row only the residual wait on its copy."""
         t0 = time.perf_counter()
         with self._lock:
             prom = self._promotions.pop(digest, None)
@@ -276,10 +289,9 @@ class SubjectStore:
             if row is not None:
                 self._warm.move_to_end(digest)
         if prom is not None:
-            rows, event = prom
-            self._settle(rows, event)
+            self._settle(*prom)
             self._record(t0, "warm")
-            return rows, "warm"
+            return prom[0], "warm"
         if row is not None:
             # A warm hit without a prefetch: the stall is the whole
             # synchronous copy, measured as such.
@@ -303,31 +315,30 @@ class SubjectStore:
         self._record(t0, "cold")
         return rows, "cold"
 
-    def _settle(self, rows: dict, event) -> None:
-        """Order a prefetched promotion before the current stream's later
-        work and wait for it: the stream waits on the side stream's
-        event, the rows are marked as used by the current stream (their
-        memory is not reused before it is done with them), and the host
-        waits for the event (the residual stall)."""
+    def _settle(self, rows: dict, event, used_by) -> None:
+        """Make a promotion's rows ready for the current stream's later
+        work. Rows the current stream was not marked as using are marked
+        now. A copy that has landed (its event done) needs no ordering and
+        no wait, so the prefetched install makes no call that blocks or
+        gives up the interpreter lock (each such call can cost the install
+        a wait for another thread's turn). A copy still in flight is
+        waited for on the host: the residual stall, and the current
+        stream's later work is enqueued after it."""
         if event is None:
             return
         cur = torch.cuda.current_stream(self._device)
-        cur.wait_event(event)
-        for t in rows.values():
-            t.record_stream(cur)
-        event.synchronize()
+        if cur != used_by:
+            for t in rows.values():
+                t.record_stream(cur)
+        if not event.query():
+            event.synchronize()
 
     def _promote(self, row: dict) -> dict:
-        """A host row on the device, copied on the current stream and
-        waited for."""
-        if not self._card:
-            return {k: v.to(self._device) for k, v in row.items()}
-        rows = {k: v.to(self._device, non_blocking=True)
-                for k, v in row.items()}
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self._device))
-        done.synchronize()
-        return rows
+        """A host row on the device, its copy waited for (and nothing
+        else)."""
+        promotion = self._copy(row)
+        self._settle(*promotion)
+        return promotion[0]
 
     def _record(self, t0: float, tier: str) -> None:
         c = self._counters

@@ -13,7 +13,8 @@ across table installs between captures and replays, against a woken
 supervised attempt, under the caller's TF32 switch and against a
 CPU-baked lattice; the pipelined dispatch against its direct calls with
 a side stream current in another thread, an attempt abandoned after its
-launch, and a warm promotion prefetched on a stalled side stream; the
+launch, a warm promotion prefetched on a stalled side stream and one
+whose copy landed (settled with no wait); the
 dispatch lanes (two lanes replaying concurrently against one, a row
 installed on a stalled engine stream, a staging slab fenced behind a
 stalled lane, captures while lanes serve, every lane down). Shapes cover what ``chip_smoke.py`` does not: ragged
@@ -1754,6 +1755,46 @@ def test_prefetched_promotion_waits_for_its_copy(dev):
     np.testing.assert_array_equal(again, want)
 
 
+def test_landed_prefetch_installs_without_a_wait(dev, monkeypatch):
+    """A warm row whose prefetched copy has landed settles without a host
+    wait on its event, and its rows equal the warm row's bits; a
+    promotion consumed on another stream than the one it was marked for
+    serves the same bits."""
+    from mano_hand_tpu_torch.serving.subject_store import (
+        ROW_KEYS, SubjectStore, subject_digest,
+    )
+    from mano_hand_tpu_torch.utils.profiling import ServingCounters
+
+    rng = np.random.default_rng(31)
+    store = SubjectStore(warm_capacity=4)
+    store.bind(ServingCounters(), device=dev)
+    digests = []
+    for _ in range(2):
+        row = {"v_shaped": rng.normal(size=(778, 3)).astype(np.float32),
+               "joints": rng.normal(size=(16, 3)).astype(np.float32),
+               "shape": rng.normal(size=(10,)).astype(np.float32)}
+        digests.append(subject_digest(row["shape"]))
+        store.demote(digests[-1], row)
+    assert store.prefetch(digests[0]) and store.prefetch(digests[1])
+    torch.cuda.synchronize(dev)
+
+    def no_wait(self):
+        raise AssertionError("a landed copy was waited for")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda.Event, "synchronize", no_wait)
+        rows, tier = store.fetch_row(digests[0])
+    other = torch.cuda.Stream(dev)
+    with torch.cuda.stream(other):
+        rows_other, tier_other = store.fetch_row(digests[1])
+        got_other = {k: v.cpu() for k, v in rows_other.items()}
+    assert tier == tier_other == "warm"
+    for d, got in ((digests[0], rows), (digests[1], got_other)):
+        for k in ROW_KEYS:
+            np.testing.assert_array_equal(
+                got[k].cpu().numpy(), store._warm[d][k].numpy())
+
+
 def test_loaded_artifact_graph_keeps_its_module(dev, tmp_path):
     """A program loaded from a legacy artifact is captured into a graph
     that reads the loaded module's constants (FK's index tensors) in
@@ -1960,3 +2001,114 @@ def test_card_lane_engine_with_every_lane_down_is_a_servingerror(dev):
     assert eng.counters.failovers == 0
     assert all(p["cpu_failovers"] == 0 for p in snap["per_lane"])
     assert sum(p["errors"] for p in snap["per_lane"]) == 2
+
+
+def test_wire_forward_through_a_fused_engine_equals_submit(dev):
+    """A request that crossed the edge's socket is served by K2 on the
+    card: bit for bit the same engine's in-process submit, one K2 launch
+    a gathered dispatch (the graph replays count theirs)."""
+    from mano_hand_tpu_torch.edge import EdgeClient, EdgeServer
+    from mano_hand_tpu_torch.obs import Tracer
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    eng = ServingEngine(params, device=dev, max_bucket=8,
+                        posed_kernel="fused", tracer=Tracer())
+    rng = np.random.default_rng(160)
+    key = eng.specialize(rng.normal(size=10).astype(np.float32))
+    eng.warmup_posed()
+    srv = EdgeServer(eng, port=0).start()
+    try:
+        before = eng.counters.snapshot()
+        fused_posed.launches = 0
+        with EdgeClient("127.0.0.1", srv.port, timeout_s=60.0) as cli:
+            for n in (1, 2, 3, 4, 8):
+                pose = rng.normal(scale=0.4, size=(n, 16, 3)).astype(
+                    np.float32)
+                wire = cli.forward(pose, subject=key)
+                local = eng.submit(pose, subject=key).result(timeout=60)
+                np.testing.assert_array_equal(wire, local)
+        after = eng.counters.snapshot()
+        assert fused_posed.launches == (after["dispatches"]
+                                        - before["dispatches"]) == 10
+        assert after["compiles"] == before["compiles"]
+    finally:
+        assert srv.drain(timeout_s=10.0)["drained"]
+
+
+def test_serve_subprocess_on_the_card(dev, tmp_path):
+    """``serve --posed-kernel fused`` on the card: the ready line (the
+    shared ``server`` device lock taken), requests within 1e-5 of an
+    in-process K2 call, and the SIGTERM drain's exit line."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import threading
+    from pathlib import Path
+
+    from mano_hand_tpu_torch.edge import EdgeClient
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, MANO_DEVICE_LOCK_DIR=str(tmp_path),
+               PYTHONPATH=str(root))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mano_hand_tpu_torch", "serve",
+         "--posed-kernel", "fused", "--port", "0", "--max-bucket", "8",
+         "--drain-timeout-s", "10"],
+        cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        box = []
+        t = threading.Thread(target=lambda: box.append(
+            proc.stdout.readline()), daemon=True)
+        t.start()
+        t.join(300)
+        ready = json.loads(box[0])["edge"]
+        assert ready["device_lock"] == "server"
+        params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(161)
+        betas = rng.normal(size=10).astype(np.float32)
+        table = core.stack_shaped([core.specialize(
+            params, torch.from_numpy(betas).to(dev))])
+        with EdgeClient("127.0.0.1", ready["port"], timeout_s=120.0) as cli:
+            key = cli.specialize(betas)
+            for n in (1, 2, 4, 3):
+                pose = rng.normal(scale=0.4, size=(n, 16, 3)).astype(
+                    np.float32)
+                got = cli.forward(pose, subject=key)
+                want = core.forward_posed_gather_fused(
+                    table, torch.zeros(n, dtype=torch.int32, device=dev),
+                    torch.from_numpy(pose).to(dev))
+                assert _err(got, want) <= TOL
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0
+        exit_line = json.loads(out.strip().splitlines()[-1])["edge_exit"]
+        assert exit_line["drained"] and exit_line["within_timeout"]
+        assert exit_line["accounting"]["spans_open"] == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+
+
+def test_posed_kernel_bench_run_parity_on_the_card(dev):
+    """The engine-level K2 protocol on the card: K2 within 1e-5 of the
+    per-subject posed program, the plain gathered program 0.0 at matched
+    padded size (its rows in a coalesced batch round by that batch's
+    size), no steady capture on either side, and the artifact says K2
+    ran."""
+    from mano_hand_tpu_torch.serving import posed_kernel_bench_run
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    out = posed_kernel_bench_run(params, device=dev, subjects=4,
+                                 requests=24, max_bucket=16, trials=1,
+                                 lm_batch=0)
+    assert out["platform"] == "cuda" and out["interpret"] is False
+    assert out["gather_fused_active"] is True
+    assert out["fused_vs_gather_max_abs_err"] <= TOL
+    assert out["xla_vs_gather_matched_max_abs_err"] == 0.0
+    assert out["xla_vs_gather_max_abs_err"] <= 1e-6
+    assert out["steady_recompiles_fused"] == 0
+    assert out["steady_recompiles_xla"] == 0

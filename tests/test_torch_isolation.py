@@ -3,7 +3,8 @@ the JAX package, not even the JAX package's pure-numpy modules.
 
 Checked twice: by importing every module of ``mano_hand_tpu_torch`` in a
 fresh interpreter and reading ``sys.modules``, and by an AST scan of every
-source file of the package and of ``chip_smoke.py``.
+source file of the package, of ``chip_smoke.py`` and of the port's timing
+scripts.
 """
 
 import ast
@@ -48,11 +49,17 @@ def test_importing_the_port_loads_no_jax():
     assert leaked == []
 
 
+# The port's own timing scripts (the rest of ``scripts/`` is the JAX
+# package's).
+PORT_SCRIPTS = ("time_fused_forward.py", "time_store_promotion.py")
+
+
 def _sources():
     files = sorted(PKG.rglob("*.py"))
     smoke = ROOT / "chip_smoke.py"
     if smoke.exists():
         files.append(smoke)
+    files += [ROOT / "scripts" / name for name in PORT_SCRIPTS]
     return files
 
 

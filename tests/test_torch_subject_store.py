@@ -127,6 +127,45 @@ def test_warm_demote_promote_roundtrip():
     assert st.fetch_row("0" * 16) is None
 
 
+class _FakeEvent:
+    def __init__(self, done: bool):
+        self.done, self.waits = done, 0
+
+    def query(self) -> bool:
+        return self.done
+
+    def synchronize(self) -> None:
+        self.waits += 1
+
+
+class _FakeRow:
+    def __init__(self):
+        self.marked = []
+
+    def record_stream(self, stream) -> None:
+        self.marked.append(stream)
+
+
+@pytest.mark.parametrize("landed,same_stream", [
+    (True, True), (False, True), (True, False)])
+def test_settle_waits_only_for_a_copy_in_flight(monkeypatch, landed,
+                                                same_stream):
+    """A card promotion's settle, with stand-ins for the event, the
+    stream and the rows: a landed copy is neither waited for nor ordered
+    (no call that blocks), a copy in flight is waited for on the host
+    once, and rows reach a stream they were not marked as used by only
+    after being marked for it."""
+    mine, other = object(), object()
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: mine)
+    event, rows = _FakeEvent(landed), {k: _FakeRow() for k in ROW_KEYS}
+    SubjectStore(warm_capacity=2)._settle(
+        rows, event, mine if same_stream else other)
+    assert event.waits == (0 if landed else 1)
+    for r in rows.values():
+        assert r.marked == ([] if same_stream else [mine])
+
+
 def test_cold_roundtrip_inclusive_promotion(tmp_path):
     st = SubjectStore(warm_capacity=1, cold_dir=str(tmp_path),
                       backend="pickle")
