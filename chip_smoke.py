@@ -100,6 +100,16 @@ each with every launch count zeroed just before it and read just after:
   through ``EdgeClient`` against an in-process K2 call, ``status
   --server``, the wire's one-row latency against an in-process submit,
   the SIGTERM drain) and ``status --platforms cpu,cuda``.
+* the fleet (phase ``fleet``: ``serve`` worker processes on the card,
+  each its own interpreter and CUDA context): the fleet drill (a
+  mid-wave SIGKILL and a drain under 48 live streams through the proxy)
+  and the self-heal drill (a supervisor's heals, an active/standby
+  ``proxy`` pair's takeover, the restart storm, a shard rebalance and a
+  damaged page) at JAX's criteria, and 1, 2 and 3 workers with K2
+  behind each against client processes, through a ``proxy`` process and
+  straight, every result against the in-process plain gathered
+  program, each worker's K2 launches (read from its exit line) equal to
+  its gathered dispatches plus one warm call a capture.
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -298,6 +308,23 @@ SE_WIRE_REQUESTS = 64               # one-to-four-row pose-only requests
 SE_TIMED = 200                      # one-row requests a side, in turns
 SE_READY_TIMEOUT_S = 300.0          # serve's cold start: import, warm-up
 SE_DRAIN_TIMEOUT_S = 15.0           # serve's --drain-timeout-s
+# The fleet on one card (phase fleet): the fleet drill at JAX's defaults
+# but its streams cut from 208 to 48, the self-heal drill at JAX's
+# defaults, and N worker processes against one (`serve --posed-kernel
+# fused`: K2 behind every worker), driven by client processes.
+FL_DRILL = dict(streams=48, frames_per_stream=4, stream_workers=16,
+                unique_tracks=8)
+FL_WORKERS = 3                      # the capacity leg's fleet
+FL_BUCKET = 64
+FL_SUBJECTS = 8                     # specialized through the proxy
+FL_CLIENTS = 4                      # client processes
+FL_THREADS = 4                      # threads a client process
+FL_REQUESTS = 300                   # requests a client process, a trial
+FL_MOST_ROWS = 4                    # one-to-four-row pose-only requests
+FL_PROXY_TURNS = (1, 2, 3, 3, 2, 1)  # workers behind the proxy, in turns
+FL_DIRECT_TURNS = (1, 3, 3, 1)       # workers straight (round-robin)
+FL_READY_TIMEOUT_S = 420.0          # JAX's ready_timeout_s
+FL_SAMPLE_MS = 100                  # nvidia-smi utilization period
 PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
     ("H100 PCIe", 51e12, 756e12, 2.0e12),
     ("H100 NVL", 60e12, 835e12, 3.9e12),
@@ -2325,17 +2352,27 @@ def _ob_capture(d: str) -> dict:
     device tracks it holds (``obs/trace_report.py``'s rules), its top
     device ops, K2's and K2-bf16's launches by their kernel names, the
     device-busy share of its window (the union of the device events over
-    the profiler's window) and the device events."""
+    the body's host span, ``TRACE_BODY``), the device events, and the
+    largest lead of a device event's start over the start of the host
+    call that launched it (matched by correlation id; > 0 where the
+    device clock, mapped onto the host's, runs ahead)."""
     import contextlib
     import io
 
     from mano_hand_tpu_torch.obs import trace_report
-    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE
+    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE, TRACE_BODY
 
     cap = trace_report.load_capture(os.path.join(d, TORCH_TRACE))
     events = [e for e in cap.get("traceEvents", []) if e.get("ph") == "X"]
     dev = [e for e in events if trace_report.is_device_event(e)]
-    frame = [e for e in events if e.get("cat") == "Trace"] or events
+    frame = [e for e in events if e.get("name") == TRACE_BODY
+             and e.get("cat") == "user_annotation"] or events
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    leads = [launch_ts[e["args"]["correlation"]] - float(e["ts"])
+             for e in dev
+             if e.get("args", {}).get("correlation") in launch_ts]
     t0 = min(float(e["ts"]) for e in frame)
     t1 = max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in frame)
     busy, end = 0.0, None
@@ -2366,6 +2403,7 @@ def _ob_capture(d: str) -> dict:
         "categories": sorted({str(e.get("cat")) for e in events}),
         "device_tracks": sorted(tracks),
         "device_events": len(dev),
+        "device_lead_us": max(leads) if leads else None,
         "window_ms": (t1 - t0) / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / (t1 - t0) if t1 > t0 else 0.0,
@@ -3209,6 +3247,7 @@ def pipeline_streams(dev, counts, zero_counts, bucket=PS_BUCKET,
                     "window_ms": cap["window_ms"],
                     "device_busy_ms": cap["device_busy_ms"],
                     "device_busy_share": cap["device_busy_share"],
+                    "device_lead_us": cap["device_lead_us"],
                     "k2_kernels": cap["k2_kernels"],
                     "readback": _ps_memcpy(d),
                     "top_device_ops": cap["top_device_ops"],
@@ -3738,6 +3777,7 @@ def lanes_store(dev, counts, zero_counts, drill_kw=None, lanes=LS_LANES,
                 "window_ms": cap["window_ms"],
                 "device_busy_ms": cap["device_busy_ms"],
                 "device_busy_share": cap["device_busy_share"],
+                "device_lead_us": cap["device_lead_us"],
                 **_ls_streams(d)}
         lane_loads = {}
         for name in names:
@@ -4377,6 +4417,497 @@ def serve_edge(dev, counts, zero_counts, bucket=SE_BUCKET, sb_kw=None,
         for k, v in line[part]["launches"].items():
             path[k] += v
     line["launches"] = path
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
+def fl_client(job: dict) -> dict:
+    """One client process of the fleet phase's capacity leg (started by
+    ``multiprocessing`` spawn): ``job["threads"]`` threads, each with
+    its own keep-alive ``EdgeClient`` to one of ``job["targets"]``, send
+    this process's seeded pose-only requests (thread t takes every t-th
+    one) from ``job["start_at"]`` on, and hold every result against its
+    in-process reference (the plain gathered program, read from
+    ``job["data"]``, written by the phase). Imports only the edge
+    client."""
+    import threading
+
+    from mano_hand_tpu_torch.edge.client import EdgeClient
+
+    with np.load(job["data"]) as z:
+        off, subj, pose, want = (z["offsets"], z["subjects"], z["poses"],
+                                 z["want"])
+    keys, targets, threads = job["keys"], job["targets"], job["threads"]
+    out = [None] * threads
+
+    def run(t):
+        host, port = targets[(job["index"] * threads + t) % len(targets)]
+        lat, err, bad, first = [], 0.0, 0, None
+        with EdgeClient(host, port, timeout_s=120.0) as cli:
+            cli.healthz()                        # connected before start
+            while time.monotonic() < job["start_at"]:
+                time.sleep(0.0005)
+            t0 = time.monotonic()
+            for j in range(t, len(subj), threads):
+                a, b = off[j], off[j + 1]
+                t1 = time.perf_counter()
+                try:
+                    got = cli.forward(pose[a:b], subject=keys[subj[j]])
+                except Exception as e:  # noqa: BLE001 — counted, judged
+                    bad += 1
+                    first = first or f"{type(e).__name__}: {e}"[:200]
+                    continue
+                lat.append((time.perf_counter() - t1) * 1e3)
+                err = max(err, float(np.abs(got - want[a:b]).max()))
+            t_end = time.monotonic()
+        out[t] = {"t0": t0, "t1": t_end, "lat": lat, "err": err,
+                  "errors": bad, "first_error": first}
+
+    ts = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join()
+    return {"t0": min(o["t0"] for o in out),
+            "t1": max(o["t1"] for o in out),
+            "lat": [x for o in out for x in o["lat"]],
+            "err": max(o["err"] for o in out),
+            "errors": sum(o["errors"] for o in out),
+            "first_error": next((o["first_error"] for o in out
+                                 if o["first_error"]), None),
+            "requests": int(len(subj))}
+
+
+def _fl_smi(args) -> list:
+    out = subprocess.run(["nvidia-smi"] + args, capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def _fl_used_mib() -> float:
+    return float(_fl_smi(["--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"])[0])
+
+
+def _fl_trial(pool, jobs, card) -> dict:
+    """One capacity trial: every client process at once, the card's
+    utilization sampled by ``nvidia-smi`` beside it."""
+    sampler = (subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", f"-lms={FL_SAMPLE_MS}"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        if card else None)
+    start_at = time.monotonic() + 0.5
+    try:
+        res = pool.map(fl_client, [dict(j, start_at=start_at)
+                                   for j in jobs])
+    finally:
+        if sampler is not None:
+            sampler.terminate()
+            out, _ = sampler.communicate(timeout=30)
+    util = ([float(x) for x in out.split() if x.strip().isdigit()]
+            if sampler is not None else [])
+    lat = [x for r in res for x in r["lat"]]
+    n = sum(r["requests"] for r in res)
+    wall = max(r["t1"] for r in res) - min(r["t0"] for r in res)
+    return {"req_per_s": n / wall, "wall_s": wall, "requests": n,
+            "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+            "max_abs_err": max(r["err"] for r in res),
+            "errors": sum(r["errors"] for r in res),
+            "first_error": next((r["first_error"] for r in res
+                                 if r["first_error"]), None),
+            "util_pct": ({"mean": float(np.mean(util)),
+                          "max": float(np.max(util)), "samples": len(util)}
+                         if util else None)}
+
+
+def _fl_capacity(dev, params, tmp, env, rng, workers, bucket, subjects,
+                 clients, threads, requests, proxy_turns, direct_turns,
+                 ready_timeout_s) -> dict:
+    """N ``serve`` worker processes on the card against one: the same
+    client processes through a ``proxy`` process over the first 1, 2
+    and 3 workers in turns, then straight at the workers."""
+    import multiprocessing
+
+    from mano_hand_tpu_torch.edge import (
+        EdgeClient, Fleet, ProxyProc, ProxySpec, WorkerSpec,
+    )
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.serving import bucket_sizes
+    from mano_hand_tpu_torch.serving.measure import _free_ports
+
+    card = dev.type == "cuda"
+    j, s = params.n_joints, params.n_shape
+    host = "127.0.0.1"
+    out = {"cpu_count": os.cpu_count(),
+           "affinity": sorted(os.sched_getaffinity(0)),
+           "workers": workers, "clients": clients, "threads": threads,
+           "requests_per_client": requests, "bucket": bucket,
+           "subjects": subjects}
+    # One spec a worker: K2 behind the gathered family, no lanes, the
+    # warm-up before the ready line, the shared device lock ("auto").
+    spec = WorkerSpec(device=dev.type, lanes=0, max_bucket=bucket,
+                      extra=("--posed-kernel", "fused"))
+    fleet = Fleet([spec.with_port(0) for _ in range(workers)], env=env,
+                  stderr_dir=tmp, external_proxy=True)
+    proxies, pool = [], None
+    # Card memory: nvidia-smi's per-process list names no process of
+    # this machine's PID namespace, so each worker's share is read as
+    # the card's used memory over the boot and warm-up, less the smoke's
+    # own reserved growth, split N ways: an upper bound (the window also
+    # holds whatever else grew on the card, the smoke's context included).
+    if card:
+        mem0 = _fl_used_mib()
+        own0 = torch.cuda.memory_reserved(dev) / 2**20
+    t0 = time.perf_counter()
+    fleet.start(ready_timeout_s=ready_timeout_s)
+    try:
+        out["boot_s"] = time.perf_counter() - t0
+        names = sorted(fleet.workers)
+        ports = {n: fleet.workers[n].port for n in names}
+        out["device_lock"] = {n: fleet.workers[n].ready_info["device_lock"]
+                              for n in names}
+        ready_compiles = {}
+        for n in names:
+            with EdgeClient(host, ports[n], timeout_s=60.0) as c:
+                ready_compiles[n] = _se_compiles(c.metrics_text())
+        # A proxy process over the first k workers, k = 1..workers.
+        for k, port in enumerate(_free_ports(host, workers), 1):
+            p = ProxyProc(f"p{k}", ProxySpec(
+                port=port, lock_path=os.path.join(
+                    tmp, f"proxy{k}.lock"),
+                backends=[(n, host, ports[n]) for n in names[:k]]),
+                env=env, stderr_path=os.path.join(tmp, f"p{k}.stderr"))
+            proxies.append(p.start())
+        for p in proxies:
+            p.wait_ready(timeout_s=120.0).wait_active(timeout_s=120.0)
+        # Subjects through the widest proxy (its broadcast reaches every
+        # worker).
+        betas = rng.normal(size=(subjects, s)).astype(np.float32)
+        with EdgeClient(host, proxies[-1].spec.port, timeout_s=120.0) as c:
+            keys = [c.specialize(b) for b in betas]
+        # Every worker captures each bucket's gathered program once.
+        for n in names:
+            with EdgeClient(host, ports[n], timeout_s=120.0) as c:
+                for b in bucket_sizes(1, bucket):
+                    c.forward(rng.normal(scale=0.4, size=(b, j, 3))
+                              .astype(np.float32), subject=keys[0])
+                settled = _se_compiles(c.metrics_text())
+            out.setdefault("warm_compiles", {})[n] = settled
+        if card:
+            mem1 = _fl_used_mib()
+            own = torch.cuda.memory_reserved(dev) / 2**20 - own0
+            out["memory_mib"] = {
+                "card_used_before_boot": mem0,
+                "card_used_after_warm": mem1,
+                "smoke_reserved_growth": own,
+                "per_worker_upper_bound": (mem1 - mem0 - own) / workers,
+                "compute_apps": _fl_smi([
+                    "--query-compute-apps=pid,used_memory",
+                    "--format=csv,noheader,nounits"])}
+        # Each client process's seeded requests and their references: the
+        # plain gathered program over the in-process table (K2 in process
+        # is held against it too, beside).
+        with torch.no_grad():
+            table = core.stack_shaped([core.specialize(
+                params, torch.from_numpy(b).to(dev)) for b in betas])
+        jobs, k2_vs_plain = [], 0.0
+        for i in range(clients):
+            crng = np.random.default_rng(SEED + 1000 + i)
+            rows = crng.integers(1, FL_MOST_ROWS + 1, size=requests)
+            subj = crng.integers(0, subjects, size=requests)
+            pose = crng.normal(scale=0.4, size=(int(rows.sum()), j, 3)
+                               ).astype(np.float32)
+            off = np.concatenate([[0], np.cumsum(rows)])
+            with torch.no_grad():
+                pt = torch.from_numpy(pose).to(dev)
+                idx = torch.from_numpy(np.repeat(subj, rows).astype(
+                    np.int32)).to(dev)
+                spans = list(zip(off[:-1], off[1:]))
+                want = torch.cat([core.forward_posed_gather(
+                    table, idx[a:b], pt[a:b]).verts for a, b in spans])
+                k2 = torch.cat([core.forward_posed_gather_fused(
+                    table, idx[a:b], pt[a:b]) for a, b in spans])
+            k2_vs_plain = max(k2_vs_plain,
+                              float((k2 - want).abs().max()))
+            want = want.cpu().numpy()
+            path = os.path.join(tmp, f"client{i}.npz")
+            np.savez(path, offsets=off, subjects=subj, poses=pose,
+                     want=want)
+            jobs.append({"index": i, "data": path, "keys": keys,
+                         "threads": threads})
+        out["inprocess_k2_vs_plain_max_abs_err"] = k2_vs_plain
+        ctx = multiprocessing.get_context("spawn")
+        pool = ctx.Pool(clients)
+        pool.map(fl_client, [dict(jb, start_at=0.0, targets=[
+            (host, ports[names[0]])]) for jb in jobs])       # untimed
+        trials = []
+        for mode, turns in (("proxy", proxy_turns),
+                            ("direct", direct_turns)):
+            for k in turns:
+                targets = ([(host, proxies[k - 1].spec.port)]
+                           if mode == "proxy" else
+                           [(host, ports[n]) for n in names[:k]])
+                tr = _fl_trial(pool, [dict(jb, targets=targets)
+                                      for jb in jobs], card)
+                trials.append({"mode": mode, "workers": k, **tr})
+        out["trials"] = trials
+        summary = {}
+        for t in trials:
+            key = f"{t['mode']}_{t['workers']}"
+            summary.setdefault(key, []).append(t["req_per_s"])
+        out["req_per_s"] = {k: {"median": float(np.median(v)),
+                                "trials": v}
+                            for k, v in summary.items()}
+        st = subprocess.run(
+            [sys.executable, "-m", "mano_hand_tpu_torch", "status",
+             "--platforms", "", "--server",
+             f"{host}:{proxies[-1].spec.port}", "--server-timeout", "10"],
+            cwd=tmp, env=dict(os.environ, **env), capture_output=True,
+            text=True, timeout=120)
+        server = json.loads(st.stdout)["server"]
+        out["status_server"] = {"rc": st.returncode, "ok": server["ok"],
+                                "role": server.get("role"),
+                                "backends": sorted(server.get("backends")
+                                                   or ())}
+        steady = {}
+        for n in names:
+            with EdgeClient(host, ports[n], timeout_s=60.0) as c:
+                steady[n] = _se_compiles(c.metrics_text()) \
+                    - out["warm_compiles"][n]
+        out["steady_captures"] = steady
+        out["proxy_exit"] = {p.name: p.terminate(timeout_s=30.0)
+                             for p in proxies}
+        reports = fleet.stop(timeout_s=60.0)
+        out["rc"] = {n: fleet.workers[n].returncode for n in names}
+        # The kernel gate: K2 launches == gathered dispatches + one eager
+        # warm call a captured gathered program (the full family's
+        # captures were done before the ready line).
+        out["exit_launches"] = {}
+        for n in names:
+            ln = reports[n]["launches"]
+            captures = reports[n]["counters"]["compiles"] \
+                - ready_compiles[n]
+            out["exit_launches"][n] = dict(
+                ln, gathered_captures=captures,
+                expected_K2=ln["dispatches_gathered"] + captures)
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        for p in proxies:
+            if p.alive():
+                p.kill()
+        fleet.stop(timeout_s=30.0)
+    return out
+
+
+def fl_fleet_drill(dev, params, counts, zero_counts, kw) -> dict:
+    """The fleet drill on ``dev`` (JAX's defaults, ``kw``'s cuts), held
+    to JAX's ``judge_fleet`` criteria. Returns its line."""
+    from mano_hand_tpu_torch.serving import fleet_drill_run
+
+    t0 = time.perf_counter()
+    zero_counts()
+    fd = fleet_drill_run(params, device=dev, seed=SEED, **kw)
+    out = {"seconds": time.perf_counter() - t0,
+           "launches_in_process": counts(), **fd}
+    require(fd["cold_boot_zero_compiles"],
+            f"fleet: every worker boots from the lattice, no capture "
+            f"{fd['cold_boot']}")
+    oc = fd["outcomes"]
+    require(fd["terminal_fraction"] == 1.0 and oc["exception"] == 0
+            and not fd["close_errors"] and fd["closes_ok"] == fd["streams"],
+            f"fleet: every frame terminal {oc} {fd['close_errors']}")
+    require(fd["intra_fleet_pose_max_abs_err"] == 0.0
+            and fd["wire_vs_inprocess_pose_max_abs_err"] == 0.0
+            and fd["wire_vs_inprocess_max_abs_err"] <= 1e-6
+            and fd["frames_compared"] == fd["frame_numbering_ok"] > 0,
+            f"fleet: poses bit-equal, verts within 1e-6 {out}")
+    dr = fd["drain"]
+    require(dr["clean"] and dr["wall_s"] <= dr["budget_s"]
+            and dr["streams_migrated"] == dr["streams_hosted"],
+            f"fleet: the drain {dr}")
+    require(fd["steady_recompiles_total"] == 0
+            and fd["aot_load_failures_total"] == 0,
+            f"fleet: no steady capture "
+            f"{fd['steady_recompiles_by_worker']}")
+    reported = [n for n, v in fd["spans_by_worker"].items() if v]
+    require(fd["spans_closed_exactly_once"]
+            and len(reported) == fd["workers"] - 1,
+            f"fleet: spans closed once {fd['spans_by_worker']}")
+    return out
+
+
+def fl_selfheal_drill(dev, params, counts, zero_counts, kw) -> dict:
+    """The self-heal drill on ``dev`` (JAX's defaults, ``kw``), held to
+    JAX's ``judge_selfheal`` criteria. Returns its line."""
+    from mano_hand_tpu_torch.serving import selfheal_drill_run
+
+    t0 = time.perf_counter()
+    zero_counts()
+    sd = selfheal_drill_run(params, device=dev, seed=SEED, **kw)
+    sup = sd["supervisor"]
+    out = {"seconds": time.perf_counter() - t0,
+           "launches_in_process": counts(),
+           "mttr_ms_by_channel": {
+               ch: [h["mttr_ms"] for h in sup["heals"]
+                    if h["reason"] == ch] for ch in ("exit", "probe")},
+           **sd}
+    require(sd["lattice_boot_ok"],
+            f"selfheal: lattice boot {sd['boot_counters']}")
+    oc = sd["outcomes"]
+    require(sd["terminal_fraction"] == 1.0 and oc["exception"] == 0
+            and not sd["close_errors"] and sd["closes_ok"] == sd["streams"]
+            and sd["campaign_done"],
+            f"selfheal: every frame terminal {oc} {sd['close_errors']}")
+    require(sd["pose_max_abs_err"] == 0.0
+            and sd["verts_max_abs_err"] <= 1e-6
+            and sd["frames_compared"] == sd["frame_numbering_ok"] > 0,
+            f"selfheal: healed streams bit-equal {out}")
+    require(sd["all_deaths_auto_healed"]
+            and sd["supervisor_restarts"] >= sd["expected_heals"]
+            and sup["restarts_failed"] == 0 and not sup["abandoned"],
+            f"selfheal: every death healed {sup}")
+    ph = sd["proxy_health"] or {}
+    require(ph.get("takeovers") == sd["takeovers_expected"]
+            and len(sd["takeover_walls_ms"]) == sd["takeovers_expected"]
+            and ph.get("proxy_role") == "active",
+            f"selfheal: the takeover {ph} {sd['takeover_walls_ms']}")
+    require(sd["mttr_within_budget"] and sd["heal_mttr_ms"],
+            f"selfheal: MTTR {sd['heal_mttr_ms']}")
+    require(sd["steady_recompiles_total"] == 0
+            and any(v is not None for v in
+                    sd["steady_recompiles_by_worker"].values()),
+            f"selfheal: no steady capture "
+            f"{sd['steady_recompiles_by_worker']}")
+    require(sd["spans_closed_exactly_once"],
+            f"selfheal: spans {sd['spans_by_worker']}")
+    st = sd["storm"] or {}
+    require(st.get("incidents", 0) >= 1
+            and st.get("victim") in (st.get("abandoned") or [])
+            and st.get("degraded_without_flap")
+            and st.get("degraded_frames_ok", 0) >= 1
+            and st.get("degraded_pose_max_abs_err") == 0.0,
+            f"selfheal: the storm degrades, never flaps {st}")
+    rb = sd["rebalance"]
+    require(rb["shard_rebalances"] >= 1 and rb["steady_recompiles"] == 0
+            and rb["max_abs_err"] == 0.0
+            and rb["pre_loss_max_abs_err"] == 0.0,
+            f"selfheal: shard rebalance {rb}")
+    dm = sd["damage"]
+    require(dm["injected"] and dm["damage_counted"] >= 1
+            and dm["request_max_abs_err"] == 0.0,
+            f"selfheal: damaged page re-baked {dm}")
+    return out
+
+
+def fl_capacity(dev, params, counts, zero_counts, workers=FL_WORKERS,
+                bucket=FL_BUCKET, subjects=FL_SUBJECTS, clients=FL_CLIENTS,
+                threads=FL_THREADS, requests=FL_REQUESTS,
+                proxy_turns=FL_PROXY_TURNS, direct_turns=FL_DIRECT_TURNS,
+                ready_timeout_s=FL_READY_TIMEOUT_S) -> dict:
+    """The capacity leg (``_fl_capacity``) and its gates. Returns its
+    line."""
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.serving.measure import _worker_env
+
+    card = dev.type == "cuda"
+    env = _worker_env()
+    tmp = tempfile.mkdtemp(prefix="mano_fleet_")
+    t0 = time.perf_counter()
+    zero_counts()
+    try:
+        cap = _fl_capacity(dev, params, tmp, env,
+                           np.random.default_rng(SEED + 17), workers,
+                           bucket, subjects, clients, threads, requests,
+                           proxy_turns, direct_turns, ready_timeout_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cap["seconds"] = time.perf_counter() - t0
+    cap["launches_in_process"] = counts()       # K2 against the plain
+    for t in cap["trials"]:
+        require(t["errors"] == 0 and t["max_abs_err"] <= KERNEL_TOL,
+                f"capacity: every result vs the plain gathered program "
+                f"{t}")
+    require(cap["inprocess_k2_vs_plain_max_abs_err"] <= KERNEL_TOL,
+            f"capacity: in-process K2 vs the plain gathered program "
+            f"{cap['inprocess_k2_vs_plain_max_abs_err']}")
+    require(all(v == 0 for v in cap["steady_captures"].values()),
+            f"capacity: no steady capture {cap['steady_captures']}")
+    require(all(rc == 0 for rc in cap["rc"].values()),
+            f"capacity: rc 0 on SIGTERM {cap['rc']}")
+    sv = cap["status_server"]
+    require(sv["rc"] == 0 and sv["role"] == "proxy" and sv["ok"],
+            f"capacity: status --server against the proxy {sv}")
+    if card:
+        require(all(v == "server" for v in cap["device_lock"].values()),
+                f"capacity: the shared device lock {cap['device_lock']}")
+        for n, ln in cap["exit_launches"].items():
+            require(ln["K2"] == ln["expected_K2"]
+                    and ln["dispatches_gathered"] > 0,
+                    f"capacity: {n}'s K2 launches == gathered dispatches "
+                    f"+ one eager warm call a captured program {ln}")
+    return cap
+
+
+def fleet(dev, counts, zero_counts) -> dict:
+    """The fleet on the card: ``serve`` worker processes (each its own
+    interpreter and CUDA context under the shared ``server`` device
+    lock), the proxy, the supervisor and the active/standby ``proxy``
+    pair, with K2 serving from the worker processes:
+
+    * ``fleet_drill_run`` at JAX's defaults but ``FL_DRILL``'s cuts (3
+      workers at 2 lanes cold-booting from a lattice baked here for the
+      card, 48 streams, a mid-wave SIGKILL and a drain), held to JAX's
+      ``judge_fleet`` criteria: every worker's cold boot builds nothing
+      and loads from the lattice, every frame terminal, the poses
+      bit-equal fleet-wide and to the in-process reference, verts within
+      1e-6, the drain inside its budget with every hosted stream moved,
+      no steady capture, every span closed once;
+    * ``selfheal_drill_run`` at JAX's defaults (the campaign
+      ``kill_worker@0.2s, kill_proxy@1.5s, partition:25@3s``, the storm
+      leg, leg B on the card), held to JAX's ``judge_selfheal``
+      criteria, with the MTTR of each heal by its channel, the takeover
+      and the reconnects;
+    * capacity: ``FL_WORKERS`` workers with ``--posed-kernel fused``
+      (K2), no lanes, ``max_bucket=FL_BUCKET``, ``FL_SUBJECTS``
+      subjects specialized through the proxy; ``FL_CLIENTS`` client
+      processes of ``FL_THREADS`` threads, ``FL_REQUESTS``
+      one-to-four-row pose-only requests each, through a ``proxy``
+      process over the first 1, 2, 3 workers in the turns
+      ``FL_PROXY_TURNS`` and straight at the workers in
+      ``FL_DIRECT_TURNS`` (after an untimed trial); req/s of every
+      trial, p50/p99, the card's utilization, card memory a worker (an
+      upper bound: the card's used memory over the boot and warm-up,
+      less the smoke's own reserved growth, split); every result within
+      1e-5 of the in-process plain gathered program (in-process K2's
+      error against it beside); no steady capture; rc
+      0 on SIGTERM; ``status --server`` against a ``proxy`` process (rc
+      0, role proxy); and, in every worker's exit line, K2 launches ==
+      gathered dispatches + one eager warm call a captured gathered
+      program.
+
+    The kernel library is built by ``main`` before the phase: every
+    worker and replacement loads it and none runs ``nvcc``. The smoke
+    holds no device lock. Returns the phase's JSON line."""
+    from mano_hand_tpu_torch.assets import synthetic_params
+
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    line = {"phase": "fleet"}
+    line["fleet_drill"] = fl_fleet_drill(dev, params, counts, zero_counts,
+                                         FL_DRILL)
+    line["selfheal_drill"] = fl_selfheal_drill(dev, params, counts,
+                                               zero_counts, {})
+    cap = line["capacity"] = fl_capacity(dev, params, counts, zero_counts)
+    line["launches_fleet"] = {
+        "K2": sum(ln["K2"] for ln in cap["exit_launches"].values()),
+        "K2_bf16": sum(ln["K2_bf16"]
+                       for ln in cap["exit_launches"].values())}
     line["seconds"] = round(time.perf_counter() - t_phase, 3)
     return line
 
@@ -5037,6 +5568,13 @@ def main() -> int:
     serve_line = serve_edge(dev, counts, zero_counts)
     emit(serve_line)
 
+    # 18j. The fleet: worker processes on the card behind the proxy, the
+    #      fleet and self-heal drills, and N workers against one with K2
+    #      behind each (the workers' launches come from their exit lines;
+    #      counts zeroed just before each leg read the in-process ones).
+    fleet_line = fleet(dev, counts, zero_counts)
+    emit(fleet_line)
+
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     #     K1 and K5 at every batch of their paths.
@@ -5206,7 +5744,8 @@ def main() -> int:
          "library_ms": None, "path": "serving",
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
          "graph_ms": k2_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2_ptxas,
-         "launches_serve_edge": serve_line["launches"]["K2"]},
+         "launches_serve_edge": serve_line["launches"]["K2"],
+         "launches_fleet": fleet_line["launches_fleet"]["K2"]},
         {"name": "K3 skin", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/skin.cu",
          "replaces": "mano_hand_tpu/ops/pallas_lbs.py:107",

@@ -23,6 +23,8 @@ messages and exit codes, on the port:
   serve-bench  drive the serving engine with a synthetic request stream,
            or one of its drills, and print one JSON line of metrics
   serve    serve the engine over the edge wire protocol (``edge/``)
+  proxy    one member of the active/standby fleet proxy pair
+           (``edge/proxy.py`` behind a flock on a fixed service port)
   status   host and device health, goldens, a live edge worker, the last
            persisted metrics scrape (one JSON document)
 
@@ -1390,11 +1392,175 @@ def cmd_serve(args) -> int:
             report["counters"] = {
                 k: snap[k] for k in
                 ("compiles", "aot_loads", "aot_load_failures")}
+            # Port-only: this process's K2 and K2-bf16 launches beside its
+            # gathered dispatches — a kernel launch in a worker process is
+            # visible to its supervisor only here. For an f32 worker with
+            # --posed-kernel fused on the card, K2 launches == gathered
+            # dispatches + one eager warm call a captured gathered
+            # program; bf16-tier batches, --posed-kernel xla and CPU-tier
+            # failovers count as gathered dispatches without a K2 launch.
+            # On the CPU the plain version runs (0 launches).
+            from mano_hand_tpu_torch.ops import fused_posed
+
+            report["launches"] = {
+                "K2": fused_posed.launches,
+                "K2_bf16": fused_posed.bf16_launches,
+                "dispatches": snap["dispatches"],
+                "dispatches_gathered": snap["dispatches_gathered"],
+                "dispatches_bf16": snap["dispatches_bf16"]}
             print(json.dumps({"edge_exit": report}), flush=True)
     except DeviceBusy as e:
         print(f"device busy: {e}", file=sys.stderr)
         return 2
     return 0
+
+
+def cmd_proxy(args) -> int:
+    """``proxy`` — ONE member of the active/standby proxy pair: the
+    proxy tier's single point of failure, made killable. It holds no
+    device.
+
+    Arbitration is the DeviceLock pattern at the socket level: both
+    members run this command against the same ``--lock`` file; exactly
+    one wins the EXCLUSIVE flock, binds the service ``--port``, and
+    serves. The loser parks in a bounded-step, SIGTERM-interruptible
+    ``LOCK_NB`` poll (never a C-level ``LOCK_EX`` wait — signal
+    handlers need the main thread). When the active dies — SIGKILL
+    included — the kernel releases its flock and the standby takes
+    over: it reads+increments the takeover generation stored IN the
+    lock file (under the flock), waits (bounded) for the corpse's port
+    to free, rebuilds per-backend routing state from the workers' own
+    ``/healthz`` (``EdgeProxy.resync_backends``), and serves. Live
+    streams are not lost: clients reconnect through
+    ``edge.client.ResilientStream``, which re-opens with
+    ``resume_pose`` (the last-confirmed-pose protocol) against the new
+    active.
+
+    stdout contract (edge/fleet.py's ``ProxyPair`` parses it):
+    a ready line at spawn ``{"proxy": {pid, port, role: "standby"}}``
+    BEFORE the (possibly unbounded) park; on activation
+    ``{"proxy_event": {event: "active", takeovers: N, port}}``; on
+    SIGTERM a final ``{"proxy_exit": {...}}``. Logs go to stderr.
+    """
+    import errno
+    import fcntl
+    import os
+    import signal
+    import socket
+    import threading
+    import time as _time
+
+    from mano_hand_tpu_torch.edge.proxy import Backend, EdgeProxy
+
+    backends = []
+    for spec in args.backend:
+        name, _, hp = spec.partition("=")
+        host, _, port = hp.rpartition(":")
+        if not name or not host or not port.isdigit():
+            print(f"--backend wants NAME=HOST:PORT, got {spec!r}",
+                  file=sys.stderr)
+            return 2
+        backends.append(Backend(name, host, int(port)))
+    if not backends:
+        print("proxy needs at least one --backend NAME=HOST:PORT",
+              file=sys.stderr)
+        return 2
+
+    stop_evt = threading.Event()
+
+    def _on_signal(signum, frame):
+        print(f"signal {signum}: proxy stopping", file=sys.stderr)
+        stop_evt.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+
+    # Ready line FIRST: the pair supervisor needs the pid before the
+    # park, which lasts as long as the active lives.
+    print(json.dumps({"proxy": {"pid": os.getpid(),
+                                "port": int(args.port),
+                                "role": "standby"}}), flush=True)
+
+    fd = open(args.lock, "a+")
+    try:
+        while not stop_evt.is_set():
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except OSError as e:
+                if e.errno not in (errno.EAGAIN, errno.EACCES):
+                    raise
+                stop_evt.wait(0.05)
+        if stop_evt.is_set():
+            print(json.dumps({"proxy_exit": {
+                "role": "standby", "served": False}}), flush=True)
+            return 0
+
+        # The takeover generation lives IN the lock file, mutated only
+        # under the flock we now hold: generation 0 is the first-boot
+        # active, N the Nth takeover winner.
+        fd.seek(0)
+        try:
+            gen = int(json.loads(fd.read() or "{}").get(
+                "takeovers", -1)) + 1
+        except ValueError:
+            gen = 0
+        fd.seek(0)
+        fd.truncate(0)
+        fd.write(json.dumps({"takeovers": gen, "pid": os.getpid()}))
+        fd.flush()
+
+        # A SIGKILLed predecessor's listener closes with its process
+        # (the same teardown that released the flock), but give the
+        # kernel a bounded beat rather than crash-looping on EADDRINUSE.
+        bind_deadline = _time.monotonic() + 10.0
+        while not stop_evt.is_set():
+            probe = socket.socket()
+            probe.setsockopt(socket.SOL_SOCKET,
+                             socket.SO_REUSEADDR, 1)
+            try:
+                probe.bind((args.host, int(args.port)))
+                break
+            except OSError as e:
+                if _time.monotonic() > bind_deadline:
+                    print(f"service port {args.port} never freed: {e}",
+                          file=sys.stderr)
+                    print(json.dumps({"proxy_exit": {
+                        "role": "active", "takeovers": gen,
+                        "error": f"bind: {e}"}}), flush=True)
+                    return 1
+                stop_evt.wait(0.05)
+            finally:
+                probe.close()
+        if stop_evt.is_set():
+            print(json.dumps({"proxy_exit": {
+                "role": "standby", "served": False}}), flush=True)
+            return 0
+
+        proxy = EdgeProxy(
+            backends, host=args.host, port=int(args.port),
+            drain_timeout_s=args.drain_timeout_s,
+            upstream_timeout_s=args.upstream_timeout_s,
+            role="active", takeovers=gen,
+            log=lambda m: print(m, file=sys.stderr))
+        # Routing rebuild BEFORE the first proxied byte: a takeover
+        # winner must not start with an empty breaker ledger aimed at
+        # a dead worker. Bounded (concurrent, per-backend timeout).
+        resynced = proxy.resync_backends(timeout_s=5.0)
+        proxy.start()
+        print(json.dumps({"proxy_event": {
+            "event": "active", "takeovers": gen, "port": proxy.port,
+            "backends_up": sum(1 for ok in resynced.values() if ok),
+            "backends": len(resynced)}}), flush=True)
+        while not stop_evt.wait(0.2):
+            pass
+        report = proxy.drain(timeout_s=args.drain_timeout_s)
+        print(json.dumps({"proxy_exit": {
+            "role": "active", "takeovers": gen, "drain": report,
+            "counters": proxy._counter_dict()}}), flush=True)
+        return 0
+    finally:
+        fd.close()                      # releases the flock if held
 
 
 # The killable probe of one device type (``status --platforms``): a
@@ -1973,6 +2139,30 @@ def build_parser() -> argparse.ArgumentParser:
                          "rc 2); 'auto' = server on the card, off with "
                          "--device cpu")
     sv.set_defaults(fn=cmd_serve)
+
+    px = sub.add_parser(
+        "proxy",
+        help="one member of the active/standby fleet-proxy pair: "
+             "parks on an exclusive flock; the winner binds "
+             "the service port, resyncs backend health from worker "
+             "/healthz, and serves — a SIGKILLed active's kernel-"
+             "released lock activates the standby with an incremented "
+             "takeover generation")
+    px.add_argument("--port", type=int, required=True,
+                    help="the pair's stable service port (clients and "
+                         "ResilientStream reconnect here across "
+                         "takeovers)")
+    px.add_argument("--host", default="127.0.0.1")
+    px.add_argument("--lock", required=True,
+                    help="flock arbitration file; also carries the "
+                         "takeover generation (mutated only under the "
+                         "flock)")
+    px.add_argument("--backend", action="append", default=[],
+                    metavar="NAME=HOST:PORT",
+                    help="one worker address (repeatable)")
+    px.add_argument("--drain-timeout-s", type=float, default=10.0)
+    px.add_argument("--upstream-timeout-s", type=float, default=300.0)
+    px.set_defaults(fn=cmd_proxy)
 
     i = sub.add_parser("info", help="print asset summary")
     i.add_argument("--asset", default="synthetic")

@@ -745,13 +745,14 @@ class _StageItem:
     """One launched batch in the completion stage."""
 
     __slots__ = ("seq", "fn", "reqs", "rows", "bucket", "n_subjects",
-                 "staging", "bf16", "mark")
+                 "staging", "bf16", "mark", "posed")
 
     def __init__(self, seq, fn, reqs, rows, bucket, n_subjects, staging,
-                 bf16, mark):
+                 bf16, mark, posed):
         self.seq, self.fn, self.reqs, self.rows = seq, fn, reqs, rows
         self.bucket, self.n_subjects = bucket, n_subjects
         self.staging, self.bf16, self.mark = staging, bf16, mark
+        self.posed = posed
 
 
 class _CompletionStage:
@@ -805,7 +806,8 @@ class _CompletionStage:
             return self._inflight
 
     def submit(self, fn, reqs, rows: int, bucket: int, n_subjects: int,
-               staging, bf16: bool = False, mark=None) -> int:
+               staging, bf16: bool = False, mark=None,
+               posed: bool = False) -> int:
         """Hand one launched batch to the stage; blocks at ``depth``.
         Returns the in-flight count after the enqueue. Re-raises a
         worker's engine-fatal failure on the dispatcher; the batch is
@@ -824,7 +826,8 @@ class _CompletionStage:
             self._next_seq += 1
             self._inflight += 1
             self._items.append(_StageItem(seq, fn, reqs, rows, bucket,
-                                          n_subjects, staging, bf16, mark))
+                                          n_subjects, staging, bf16, mark,
+                                          posed))
             self._completion_lock.notify_all()
             return self._inflight
 
@@ -928,7 +931,7 @@ class _CompletionStage:
         eng.counters.count_dispatch(item.bucket, item.rows,
                                     requests=len(reqs),
                                     subjects=item.n_subjects,
-                                    bf16=item.bf16)
+                                    bf16=item.bf16, gathered=item.posed)
         if item.mark is not None:
             item.mark()            # unless the replay's enqueue stamped it
         return ("ok", verts)
@@ -2904,7 +2907,7 @@ class ServingEngine:
                     for r in reqs:
                         tr.event(r.span, "staged", inflight=depth_now)
                 n = stage.submit(fn, reqs, rows, bucket, n_subjects,
-                                 staging, bf16, mark)
+                                 staging, bf16, mark, posed)
                 self.counters.observe_pipeline_inflight(n)
                 return None
             if self._policy is not None:
@@ -2915,7 +2918,8 @@ class ServingEngine:
             else:
                 verts = self._run_full(pose, shape, **kw)
             self.counters.count_dispatch(bucket, rows, requests=len(reqs),
-                                         subjects=n_subjects, bf16=bf16)
+                                         subjects=n_subjects, bf16=bf16,
+                                         gathered=posed)
             if mark is not None:
                 mark()          # unless the replay's enqueue stamped it
             return verts, reqs, bucket, staging

@@ -901,7 +901,8 @@ class LaneSet:
             self._release_staging(staging, tried, done[0])
             staging = None
             eng.counters.count_dispatch(bucket, rows, requests=len(reqs),
-                                        subjects=n_subjects, bf16=bf16)
+                                        subjects=n_subjects, bf16=bf16,
+                                        gathered=posed)
             with self._lock:
                 lane.dispatched += 1
             if mark is not None:

@@ -7,7 +7,9 @@ Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``,
 ``dispatch_pipeline_drill_run``, ``lane_drill_run``,
 ``subject_store_drill_run``, the benchmark protocols ``measure_overhead``,
 ``serve_bench_run``, ``coalesce_bench_run``, ``posed_kernel_bench_run``
-and ``precision_bench_run``, and the loopback ``edge_drill_run`` — the
+and ``precision_bench_run``, the loopback ``edge_drill_run``, and the
+fleet's ``fleet_drill_run`` and ``selfheal_drill_run`` (worker and proxy
+processes on ``device``, driven over loopback sockets) — the
 same arguments, protocol and returned keys (each drill attaches its
 tracer's ``flight_record``), plus ``device=`` and ``posed_kernel=``
 (JAX's ``interpret=`` goes: a CPU engine runs K2's plain version, a card
@@ -4286,4 +4288,1216 @@ def edge_drill_run(
         "span_accounting": acc,
         "flight_record": flight_record(
             tracer, eng.counters, reason="edge_drill_complete"),
+    }
+
+
+def _prom_value(text: str, name: str):
+    """First value of a plain (label-free) Prometheus sample, or None."""
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            try:
+                return float(ln.rsplit(" ", 1)[1])
+            except ValueError:
+                pass
+    return None
+
+
+def _worker_env() -> dict:
+    """The fleet-wide environment of worker and proxy processes: the
+    directory that holds this package on ``PYTHONPATH`` (they start as
+    ``python -m mano_hand_tpu_torch.cli``, whatever the caller's working
+    directory) and this process's torch thread count (a CPU fit rounds
+    by it, and the drills hold the workers' poses against fits in this
+    process bit for bit); nothing of XLA — the port has no compile
+    cache."""
+    import os
+
+    import mano_hand_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(mano_hand_tpu_torch.__file__)))
+    path = os.environ.get("PYTHONPATH", "")
+    return {"PYTHONPATH": root + (os.pathsep + path if path else ""),
+            "OMP_NUM_THREADS": str(torch.get_num_threads())}
+
+
+def _stream_tracks(params, dev, rng, tracks: int, frames: int, max_bucket,
+                   max_subjects):
+    """Seeded per-track betas and fit targets (the drills' reference
+    tracks), and each track's frames through an in-process engine on
+    ``dev`` — the reference every wire frame is held against."""
+    from mano_hand_tpu_torch.models import anim, core
+    from mano_hand_tpu_torch.ops.common import ieee_fp32
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+
+    n_joints, n_shape = params.n_joints, params.n_shape
+    betas = [rng.normal(size=(n_shape,)).astype(np.float32)
+             for _ in range(tracks)]
+    keys = np.zeros((tracks, 3, n_joints, 3), np.float32)
+    keys[:, 1] = rng.normal(scale=0.2, size=(tracks, n_joints, 3))
+    keys[:, 2] = keys[:, 1] + rng.normal(
+        scale=0.1, size=(tracks, n_joints, 3))
+    track_poses = np.stack([
+        anim.resample_poses(keys[t], frames)
+        for t in range(tracks)]).astype(np.float32)
+    flat_pose = track_poses.reshape(tracks * frames, n_joints, 3)
+    flat_beta = np.stack([betas[t] for t in range(tracks)
+                          for _ in range(frames)])
+    with torch.no_grad(), ieee_fp32():
+        gt = core.forward_batched(params,
+                                  torch.from_numpy(flat_pose).to(dev),
+                                  torch.from_numpy(flat_beta).to(dev))
+    targets = gt.posed_joints.cpu().numpy().reshape(
+        tracks, frames, n_joints, 3)
+    ref_eng = ServingEngine(params, device=dev, max_bucket=max_bucket,
+                            max_delay_s=0.001, max_subjects=max_subjects)
+    ref_eng.start()
+    ref_frames = []
+    try:
+        for t in range(tracks):
+            sess = ref_eng.open_stream(betas[t])
+            ref_frames.append([sess.step(targets[t, f])
+                               for f in range(frames)])
+            sess.close()
+    finally:
+        ref_eng.stop()
+    return betas, targets, ref_frames
+
+
+def _exit_spans(reports: dict) -> tuple:
+    """Per-worker exit-line span accounting (None for a worker that
+    printed no exit line) and whether every reporting worker closed
+    each span exactly once."""
+    spans = {}
+    for name, rep in reports.items():
+        if rep is None:
+            spans[name] = None
+            continue
+        acc = rep.get("accounting") or {}
+        spans[name] = {
+            "started": acc.get("spans_started"),
+            "closed": acc.get("spans_closed"),
+            "open": acc.get("spans_open"),
+            "double_closed": acc.get("spans_double_closed"),
+        }
+    balanced = all(
+        v is None or (v["started"] == v["closed"] and v["open"] == 0
+                      and not v["double_closed"])
+        for v in spans.values())
+    return spans, balanced
+
+
+def fleet_drill_run(
+    params,
+    *,
+    workers: int = 3,
+    lanes: int = 2,
+    streams: int = 208,
+    frames_per_stream: int = 4,
+    stream_workers: int = 16,
+    unique_tracks: int = 8,
+    max_bucket: int = 8,
+    max_subjects: int = 32,
+    store_warm_capacity: int = 16,
+    drain_budget_s: float = 10.0,
+    ready_timeout_s: float = 420.0,
+    frame_deadline_s: float = 120.0,
+    client_timeout_s: float = 180.0,
+    work_dir=None,
+    seed: int = 0,
+    device=None,
+    log: Callable[[str], None] = None,
+) -> dict:
+    """THE fleet chaos drill: a rolling deploy that never drops a frame,
+    measured end to end across real process boundaries (JAX's
+    ``fleet_drill_run``, its arguments, protocol and keys, plus
+    ``device=``).
+
+    The substrate is the fleet front tier at full depth: N ``serve``
+    worker PROCESSES (``edge.fleet``) on ``device`` (each its own
+    interpreter; on a card each its own CUDA context under the shared
+    ``server`` device lock) cold-booting from a per-lane program lattice
+    baked in THIS process for ``device``, fronted by one
+    ``edge.EdgeProxy`` doing health-aware routing and live stream
+    migration. Phases:
+
+    1. **Bake + boot**: bake the lattice (the shard capacity included),
+       boot every worker with ``--lanes`` + ``--aot-dir``, and scrape
+       each worker's /metrics: the cold-boot criterion is compiles == 0
+       AND aot_loads > 0 PER WORKER at lanes=N.
+    2. **Warm + baseline**: one direct stream per worker warms the
+       fit stage, then the drill's stream fleet opens through the proxy
+       and settles one frame wave; per-worker build baselines are
+       scraped HERE — everything after is steady state.
+    3. **Chaos**: SIGKILL one worker while the next frame wave is in
+       flight (relays fail over mid-frame: siblings re-derive identical
+       frames from the last confirmed pose), then DRAIN a second worker
+       under the remaining live streams (polite migration: close on the
+       old worker, warm re-open on a sibling) against
+       ``drain_budget_s``.
+    4. **Judgment inputs**: every frame of every stream must reach an
+       HTTP terminal; every stream's POSE chain must be bit-equal to its
+       track's in-process reference and to every fleet sibling on the
+       same track, migrated streams included (verts get the f32 anchor
+       tolerance: which bucket serves a coalesced batch varies); steady
+       builds must be 0 fleet-wide (exit-line counters minus the
+       baselines; the SIGKILLed worker is excluded by construction —
+       its counters died with it); spans must close exactly once on
+       every worker that reported.
+
+    Each worker's environment carries nothing of XLA (no
+    ``XLA_FLAGS``, no compile-cache dir: the port has neither). The
+    sockets are loopback.
+    """
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mano_hand_tpu_torch.edge import (
+        EdgeClient,
+        EdgeError,
+        Fleet,
+        WorkerSpec,
+    )
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+    from mano_hand_tpu_torch.serving.subject_store import (
+        SubjectStore,
+        SubjectStoreConfig,
+    )
+
+    if workers < 3:
+        raise ValueError(f"workers must be >= 3 (kill one, drain one, "
+                         f"serve on the rest), got {workers}")
+    if streams < workers:
+        raise ValueError(f"streams must be >= workers, got {streams}")
+    if frames_per_stream < 3:
+        raise ValueError(f"frames_per_stream must be >= 3 (settle + "
+                         f"kill + drain waves), got {frames_per_stream}")
+    log = _logger(log)
+    dev = resolve_device(device)
+    host = "127.0.0.1"
+    rng = np.random.default_rng(seed)
+    prm32 = params.astype(torch.float32).to(dev)
+    tracks = min(max(1, unique_tracks), streams)
+
+    own_work_dir = work_dir is None
+    if own_work_dir:
+        work_dir = tempfile.mkdtemp(prefix="mano_fleet_drill_")
+    aot_dir = os.path.join(work_dir, "aot")
+    log_dir = os.path.join(work_dir, "logs")
+    os.makedirs(aot_dir, exist_ok=True)
+    os.makedirs(log_dir, exist_ok=True)
+
+    # ---- Phase 1: bake the per-lane lattice, boot the fleet ----------
+    t_bake0 = time.monotonic()
+    bake_eng = ServingEngine(
+        prm32, device=dev, max_bucket=max_bucket, aot_dir=aot_dir,
+        lanes=lanes, max_subjects=max_subjects,
+        subject_store=SubjectStore(SubjectStoreConfig(
+            warm_capacity=store_warm_capacity, sharded=True)))
+    manifest = bake_eng.bake_lattice(include_cpu_fallback=False)
+    bake_wall = time.monotonic() - t_bake0
+    log(f"fleet: baked {len(manifest['entries'])} lattice entries in "
+        f"{bake_wall:.1f}s")
+
+    specs = [WorkerSpec(device=dev.type, lanes=lanes,
+                        max_bucket=max_bucket,
+                        max_delay_ms=1.0, max_subjects=max_subjects,
+                        aot_dir=aot_dir,
+                        store_warm_capacity=store_warm_capacity,
+                        drain_timeout_s=max(15.0, drain_budget_s))
+             for _ in range(workers)]
+    fleet = Fleet(specs, env=_worker_env(), stderr_dir=log_dir,
+                  proxy_kwargs=dict(connect_timeout_s=5.0,
+                                    probe_timeout_s=2.0,
+                                    upstream_timeout_s=client_timeout_s),
+                  log=lambda m: log(f"fleet: {m}"))
+    t_boot0 = time.monotonic()
+    fleet.start(ready_timeout_s=ready_timeout_s)
+    boot_wall = time.monotonic() - t_boot0
+    ports = {name: w.port for name, w in fleet.workers.items()}
+    log(f"fleet: {workers} workers up in {boot_wall:.1f}s "
+        f"(lanes={lanes} each), proxy on :{fleet.proxy.port}")
+
+    def scrape(name: str) -> dict:
+        cli = EdgeClient(host, ports[name], timeout_s=30.0)
+        try:
+            text = cli.metrics_text()
+        finally:
+            cli.close()
+        return {k: int(_prom_value(text, f"mano_serving_{k}") or 0)
+                for k in ("compiles", "aot_loads", "aot_load_failures")}
+
+    try:
+        # Cold-boot criterion: per-worker lattice boot, zero builds.
+        cold_boot = {name: scrape(name) for name in fleet.workers}
+        log(f"fleet: cold boot counters {cold_boot}")
+
+        # ---- Reference tracks + targets (deterministic fits) ---------
+        betas, targets, ref_frames = _stream_tracks(
+            prm32, dev, rng, tracks, frames_per_stream, max_bucket,
+            max_subjects)
+
+        # ---- Phase 2: warm the fit stage on EVERY worker -------------
+        for name in fleet.workers:
+            wcli = EdgeClient(host, ports[name], timeout_s=60.0)
+            with wcli.open_stream(betas=betas[0],
+                                  frame_deadline_s=frame_deadline_s) as ws:
+                ws.frame(targets[0, 0])
+            wcli.close()
+
+        # The drill's stream fleet, all through the proxy.
+        clients = []
+        stream_clis = []
+        for s in range(streams):
+            cli = EdgeClient(host, fleet.proxy.port,
+                             timeout_s=client_timeout_s)
+            st = cli.open_stream(betas=betas[s % tracks],
+                                 frame_deadline_s=frame_deadline_s)
+            clients.append(cli)
+            stream_clis.append(st)
+        log(f"fleet: {streams} live streams open through the proxy "
+            f"({tracks} distinct tracks)")
+
+        outcomes = {"ok": 0, "http_error": 0, "exception": 0}
+        got = [[None] * frames_per_stream for _ in range(streams)]
+        rec_lock = threading.Lock()
+
+        def step(s: int, f: int):
+            try:
+                fr = stream_clis[s].frame(targets[s % tracks, f])
+                with rec_lock:
+                    outcomes["ok"] += 1
+                    got[s][f] = fr
+            except EdgeError as e:
+                with rec_lock:
+                    outcomes["http_error"] += 1
+                    got[s][f] = ("http", e.status, e.kind)
+            except Exception as e:  # noqa: BLE001 — NOT a terminal
+                with rec_lock:
+                    outcomes["exception"] += 1
+                    got[s][f] = ("exc", type(e).__name__, str(e)[:120])
+
+        pool = ThreadPoolExecutor(max_workers=stream_workers)
+
+        def wave(f: int):
+            list(pool.map(lambda s: step(s, f), range(streams)))
+
+        # Settle wave 0, then everything after is steady state.
+        t_w0 = time.monotonic()
+        wave(0)
+        wave0_wall = time.monotonic() - t_w0
+        baseline = {name: scrape(name) for name in fleet.workers}
+
+        # ---- Phase 3: chaos. SIGKILL mid-wave, then drain. -----------
+        load = {be.name: len(be.streams)
+                for be in fleet.proxy.backends().values()}
+        kill_victim = max(load, key=lambda n: load[n])
+        t_w1 = time.monotonic()
+        killer_fired = threading.Event()
+
+        def killer():
+            # Mid-wave: frames are on the wire when the SIGKILL lands.
+            time.sleep(min(0.05, wave0_wall / 4))
+            fleet.kill_worker(kill_victim)
+            killer_fired.set()
+
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        wave(1)
+        kt.join(timeout=30.0)
+        kill_wave_wall = time.monotonic() - t_w1
+        log(f"fleet: killed {kill_victim} (hosted "
+            f"{load[kill_victim]} streams) mid-wave; wave 1 resolved "
+            f"in {kill_wave_wall:.1f}s, migrations so far "
+            f"{fleet.proxy.migrations}")
+
+        load2 = {be.name: len(be.streams)
+                 for be in fleet.proxy.backends().values()
+                 if be.name != kill_victim}
+        drain_victim = max(load2, key=lambda n: load2[n])
+        t_dr = time.monotonic()
+        drain_report = fleet.drain_worker(
+            drain_victim, migrate_timeout_s=drain_budget_s,
+            term_timeout_s=max(30.0, drain_budget_s * 3))
+        drain_wall = time.monotonic() - t_dr
+        log(f"fleet: drained {drain_victim} (hosted "
+            f"{load2[drain_victim]} streams): migrated "
+            f"{drain_report.get('streams_migrated')} in "
+            f"{drain_report.get('wall_s')}s (budget {drain_budget_s}s, "
+            f"clean={drain_report.get('clean')})")
+
+        for f in range(2, frames_per_stream):
+            wave(f)
+        pool.shutdown(wait=True)
+
+        closes_ok = 0
+        close_errors = []
+        for s in range(streams):
+            try:
+                stream_clis[s].close()
+                closes_ok += 1
+            except Exception as e:  # noqa: BLE001
+                close_errors.append(f"{type(e).__name__}: {e}"[:120])
+            clients[s].close()
+
+        proxy_counters = {
+            "migrations": fleet.proxy.migrations,
+            "migrated_frames": fleet.proxy.migrated_frames,
+            "frames_relayed": fleet.proxy.frames_relayed,
+            "reroutes": fleet.proxy.reroutes,
+            "upstream_failures": fleet.proxy.upstream_failures,
+            "streams_opened": fleet.proxy.streams_opened,
+        }
+
+        # ---- Phase 4: teardown + cross-process aggregation -----------
+        reports = fleet.stop(timeout_s=max(30.0, drain_budget_s * 3))
+    finally:
+        try:
+            fleet.stop(timeout_s=30.0)
+        except Exception:  # noqa: BLE001 — teardown must finish
+            pass
+
+    # Parity, two tiers. (1) POSE bit-equality — intra-fleet AND
+    # against the in-process reference: the pose chain IS the fit state
+    # the migration handoff transfers (resume_pose), the fits are
+    # deterministic and run per-stream, so a migrated stream's poses
+    # must be IDENTICAL to an unmigrated sibling's and to the reference.
+    # (2) VERTS at f32 tolerance: verts ride the coalesced batch, and
+    # WHICH bucket serves a batch varies run to run (a row rounds by
+    # batch size), with no chaos at all.
+    frames_expected = streams * frames_per_stream
+    parity_err = 0.0
+    pose_err = 0.0
+    intra_err = 0.0
+    intra_pose_err = 0.0
+    numbering_ok = 0
+    compared = 0
+    canon = {}
+    for s in range(streams):
+        for f in range(frames_per_stream):
+            fr = got[s][f]
+            if not hasattr(fr, "verts"):
+                continue
+            compared += 1
+            ref = ref_frames[s % tracks][f]
+            parity_err = max(parity_err, float(
+                np.max(np.abs(fr.verts - ref.verts))))
+            pose_err = max(pose_err, float(
+                np.max(np.abs(fr.pose - ref.pose))))
+            first = canon.setdefault((s % tracks, f), fr)
+            if first is not fr:
+                intra_err = max(intra_err, float(
+                    np.max(np.abs(fr.verts - first.verts))))
+                intra_pose_err = max(intra_pose_err, float(
+                    np.max(np.abs(fr.pose - first.pose))))
+            if fr.frame == f:
+                numbering_ok += 1
+
+    # Steady builds: exit-line counters minus the post-warm baselines.
+    # The SIGKILLed worker is excluded by construction (no exit line —
+    # its counters and spans died with it).
+    steady_by_worker = {}
+    aot_failures = 0
+    for name, rep in reports.items():
+        if rep is None:
+            steady_by_worker[name] = None
+            continue
+        cnt = rep.get("counters") or {}
+        steady_by_worker[name] = (
+            int(cnt.get("compiles", 0))
+            - baseline.get(name, {}).get("compiles", 0))
+        aot_failures += int(cnt.get("aot_load_failures", 0))
+    spans_by_worker, spans_balanced = _exit_spans(reports)
+    steady_total = sum(v for v in steady_by_worker.values()
+                       if v is not None)
+
+    if own_work_dir:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    terminals = outcomes["ok"] + outcomes["http_error"]
+    return {
+        "fleet_drill_schema": 1,
+        # The workers and the in-process reference both run on this
+        # device type; JAX's judge applies the exact-zero in-process
+        # pose anchor only when it is "cpu" (intra-fleet bit-equality
+        # is judged always).
+        "reference_platform": dev.type,
+        "workers": int(workers),
+        "lanes": int(lanes),
+        "streams": int(streams),
+        "frames_per_stream": int(frames_per_stream),
+        "unique_tracks": int(tracks),
+        "max_bucket": int(max_bucket),
+        "max_subjects": int(max_subjects),
+        "store_warm_capacity": int(store_warm_capacity),
+        "lattice_entries": len(manifest["entries"]),
+        "bake_wall_s": float(f"{bake_wall:.4g}"),
+        "boot_wall_s": float(f"{boot_wall:.4g}"),
+        "cold_boot": cold_boot,
+        "cold_boot_zero_compiles": all(
+            c["compiles"] == 0 and c["aot_loads"] > 0
+            and c["aot_load_failures"] == 0
+            for c in cold_boot.values()),
+        "frames_expected": int(frames_expected),
+        "outcomes": outcomes,
+        "terminal_fraction": float(
+            f"{terminals / frames_expected:.6g}") if frames_expected
+            else None,
+        "closes_ok": int(closes_ok),
+        "close_errors": close_errors[:5],
+        "frames_compared": int(compared),
+        "frame_numbering_ok": int(numbering_ok),
+        "intra_fleet_max_abs_err": intra_err,
+        "intra_fleet_pose_max_abs_err": intra_pose_err,
+        "wire_vs_inprocess_max_abs_err": parity_err,
+        "wire_vs_inprocess_pose_max_abs_err": pose_err,
+        "kill": {
+            "victim": kill_victim,
+            "streams_hosted": int(load[kill_victim]),
+            "fired_mid_wave": bool(killer_fired.is_set()),
+            "wave_wall_s": float(f"{kill_wave_wall:.4g}"),
+        },
+        "drain": {
+            "victim": drain_victim,
+            "streams_hosted": int(load2[drain_victim]),
+            "budget_s": float(drain_budget_s),
+            "wall_s": drain_report.get("wall_s"),
+            "clean": bool(drain_report.get("clean")),
+            "streams_migrated": drain_report.get("streams_migrated"),
+            "total_wall_s": float(f"{drain_wall:.4g}"),
+        },
+        "proxy": proxy_counters,
+        "steady_recompiles_by_worker": steady_by_worker,
+        "steady_recompiles_total": int(steady_total),
+        "aot_load_failures_total": int(aot_failures),
+        "spans_by_worker": spans_by_worker,
+        "spans_closed_exactly_once": bool(spans_balanced),
+        "worker_exit_reports": {
+            name: (None if rep is None else {
+                k: rep.get(k) for k in
+                ("drained", "incident_captures")})
+            for name, rep in reports.items()},
+    }
+
+
+def _free_ports(host: str, n: int) -> list:
+    """``n`` distinct free ports: bound all at once (so the kernel makes
+    them distinct), then released for the fixed-port heal contract."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind((host, 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def selfheal_drill_run(
+    params,
+    *,
+    workers: int = 3,
+    lanes: int = 2,
+    streams: int = 12,
+    frames_per_stream: int = 7,
+    stream_workers: int = 8,
+    unique_tracks: int = 4,
+    max_bucket: int = 8,
+    max_subjects: int = 32,
+    store_warm_capacity: int = 16,
+    campaign: str = "kill_worker@0.2s, kill_proxy@1.5s, partition:25@3s",
+    store_campaign: str = "damage_page@0s",
+    mttr_budget_ms: float = 300000.0,
+    restart_budget: int = 6,
+    budget_window_s: float = 900.0,
+    probe_interval_s: float = 0.25,
+    probe_timeout_s: float = 2.0,
+    failure_threshold: int = 3,
+    heal_timeout_s: float = 300.0,
+    ready_timeout_s: float = 420.0,
+    frame_deadline_s: float = 120.0,
+    client_timeout_s: float = 60.0,
+    storm_leg: bool = True,
+    work_dir=None,
+    seed: int = 0,
+    device=None,
+    log: Callable[[str], None] = None,
+) -> dict:
+    """THE self-healing chaos campaign: every recovery tier drilled end
+    to end, with ZERO human invocations — detection and repair belong
+    to the supervisor/standby/overlay, the drill only schedules faults
+    and measures (JAX's ``selfheal_drill_run``, its arguments, protocol
+    and keys, plus ``device=``).
+
+    **Leg A — process campaign.** ``workers`` fixed-port ``serve``
+    processes on ``device`` (``--warm-streams``, the per-lane lattice)
+    supervised by a ``FleetSupervisor``; an active/standby ``proxy``
+    :class:`~mano_hand_tpu_torch.edge.fleet.ProxyPair` behind one
+    flock-arbitered service port; ``streams``
+    :class:`~mano_hand_tpu_torch.edge.client.ResilientStream` clients. A
+    seeded :class:`~mano_hand_tpu_torch.runtime.chaos.ChaosCampaign`
+    (``KIND[:PARAM]@Ts`` grammar) then fires ``kill_worker`` (SIGKILL a
+    worker — the supervisor's exit-line channel), ``kill_proxy``
+    (SIGKILL the ACTIVE proxy — flock takeover, clients
+    reconnect-and-resume), and ``partition`` (SIGSTOP a worker: the
+    process lives, ``/healthz`` stops — the supervisor's breaker
+    channel; a SIGCONT backstop fires at ``:PARAM`` seconds in case the
+    supervisor is the thing that broke). Judgment inputs: every frame
+    reaches an HTTP terminal with CONTINUOUS numbering, pose chains
+    stay bit-equal to the in-process reference, heals == scheduled
+    deaths with the post-heal steady wave building NOTHING, per-heal
+    MTTR within ``mttr_budget_ms``, spans closed exactly once on every
+    worker that reported an exit line.
+
+    **Leg C — restart storm** (rides the same fleet, after the steady
+    check): a fresh supervisor with ``restart_budget=1`` takes one kill
+    (heals) and then a second (budget exhausted) — the drill passes
+    only if the second death DEGRADES (worker abandoned, incident
+    recorded, surviving workers still serve a fresh stream) instead of
+    flapping.
+
+    **Leg B — in-process store/lane tier.** A sharded ``lanes``-lane
+    engine on ``device`` over a warm+cold ``SubjectStore``: force one
+    lane's breaker DOWN — the next dead-shard placement AUTO-kicks the
+    shard rebalance, after which the dead lane's subjects serve
+    bit-identical with 0 builds. Then a second seeded campaign fires
+    ``damage_page`` against one COLD row page (``io/state_ckpt.py``'s
+    row pages): the next access is a COUNTED re-bake (never an error)
+    and the result stays bit-identical. The policy's CPU tier is on for
+    a CPU engine only (a card engine has none).
+
+    Each worker's environment carries nothing of XLA. The sockets are
+    loopback.
+    """
+    import os
+    import shutil
+    import signal as signal_mod
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mano_hand_tpu_torch.edge import (
+        EdgeClient,
+        EdgeError,
+        Fleet,
+        FleetSupervisor,
+        ProxyPair,
+        ProxySpec,
+        ResilientStream,
+        WorkerSpec,
+    )
+    from mano_hand_tpu_torch.io import state_ckpt
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.runtime import health as health_mod
+    from mano_hand_tpu_torch.runtime.chaos import ChaosCampaign
+    from mano_hand_tpu_torch.runtime.health import CircuitBreaker
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+    from mano_hand_tpu_torch.serving.subject_store import (
+        SubjectStore,
+        SubjectStoreConfig,
+    )
+
+    if workers < 3:
+        raise ValueError(f"workers must be >= 3 (kill one, partition "
+                         f"one, serve on the rest), got {workers}")
+    if frames_per_stream < 6:
+        raise ValueError(
+            f"frames_per_stream must be >= 6 (settle + >=2 chaos + "
+            f"post-heal settle + steady waves), got {frames_per_stream}")
+    # Parse up front: a bad campaign spec must fail before any process
+    # boots. The process leg takes exactly the three process kinds.
+    proc_campaign = ChaosCampaign(campaign, seed=seed)
+    bad = sorted({e.kind for e in proc_campaign.events}
+                 - {"kill_worker", "kill_proxy", "partition"})
+    if bad:
+        raise ValueError(f"process campaign kinds {bad} not drillable "
+                         "here (damage_page is the store campaign's)")
+    expected_heals = sum(1 for e in proc_campaign.events
+                         if e.kind in ("kill_worker", "partition"))
+    expected_takeovers = sum(1 for e in proc_campaign.events
+                             if e.kind == "kill_proxy")
+    if restart_budget < expected_heals + 2:
+        raise ValueError(
+            f"restart_budget {restart_budget} cannot absorb "
+            f"{expected_heals} scheduled deaths plus boot-failure "
+            "retries")
+    log = _logger(log)
+    dev = resolve_device(device)
+    host = "127.0.0.1"
+    n_joints, n_shape = params.n_joints, params.n_shape
+    rng = np.random.default_rng(seed)
+    prm32 = params.astype(torch.float32).to(dev)
+    tracks = min(max(1, unique_tracks), streams)
+
+    own_work_dir = work_dir is None
+    if own_work_dir:
+        work_dir = tempfile.mkdtemp(prefix="mano_selfheal_drill_")
+    aot_dir = os.path.join(work_dir, "aot")
+    log_dir = os.path.join(work_dir, "logs")
+    os.makedirs(aot_dir, exist_ok=True)
+    os.makedirs(log_dir, exist_ok=True)
+
+    ports = _free_ports(host, workers + 1)
+    service_port = ports[-1]
+    worker_ports = {f"w{i}": ports[i] for i in range(workers)}
+
+    # ---- Phase 1: bake the per-lane lattice ---------------------------
+    t_bake0 = time.monotonic()
+    bake_eng = ServingEngine(
+        prm32, device=dev, max_bucket=max_bucket, aot_dir=aot_dir,
+        lanes=lanes, max_subjects=max_subjects,
+        subject_store=SubjectStore(SubjectStoreConfig(
+            warm_capacity=store_warm_capacity, sharded=True)))
+    manifest = bake_eng.bake_lattice(include_cpu_fallback=False)
+    bake_wall = time.monotonic() - t_bake0
+    log(f"selfheal: baked {len(manifest['entries'])} lattice entries "
+        f"in {bake_wall:.1f}s")
+
+    # FIXED ports + --warm-streams: the replacement a heal boots binds
+    # the dead worker's own port after a full warm pass (fit-stage
+    # programs are not in the lattice), so it re-enters the standby
+    # pair's STATIC routing with zero wiring calls and zero steady
+    # builds.
+    env = _worker_env()
+    specs = [WorkerSpec(device=dev.type, lanes=lanes,
+                        max_bucket=max_bucket,
+                        max_delay_ms=1.0, max_subjects=max_subjects,
+                        aot_dir=aot_dir,
+                        store_warm_capacity=store_warm_capacity,
+                        warm_streams=True,
+                        drain_timeout_s=15.0,
+                        port=worker_ports[f"w{i}"])
+             for i in range(workers)]
+    fleet = Fleet(specs, env=env, stderr_dir=log_dir, external_proxy=True,
+                  log=lambda m: log(f"selfheal: {m}"))
+    pair = ProxyPair(
+        ProxySpec(port=service_port,
+                  lock_path=os.path.join(work_dir, "proxy.lock"),
+                  backends=[(n, host, p)
+                            for n, p in worker_ports.items()],
+                  drain_timeout_s=10.0,
+                  upstream_timeout_s=client_timeout_s * 4),
+        env=env, stderr_dir=log_dir, log=lambda m: log(f"selfheal: {m}"))
+    sup = FleetSupervisor(
+        fleet, poll_interval_s=0.05,
+        probe_interval_s=probe_interval_s,
+        probe_timeout_s=probe_timeout_s,
+        failure_threshold=failure_threshold,
+        restart_budget=restart_budget,
+        budget_window_s=budget_window_s,
+        ready_timeout_s=ready_timeout_s,
+        log=lambda m: log(f"selfheal: {m}"))
+    sup2 = None
+
+    def scrape(name: str):
+        cli = EdgeClient(host, worker_ports[name], timeout_s=30.0)
+        try:
+            text = cli.metrics_text()
+        except Exception:  # noqa: BLE001 — a dead worker scrapes None
+            return None
+        finally:
+            cli.close()
+        return {k: int(_prom_value(text, f"mano_serving_{k}") or 0)
+                for k in ("compiles", "aot_loads", "aot_load_failures")}
+
+    t_boot0 = time.monotonic()
+    fleet.start(ready_timeout_s=ready_timeout_s)
+    try:
+        pair.start(timeout_s=60.0)
+        boot_wall = time.monotonic() - t_boot0
+        log(f"selfheal: {workers} fixed-port workers + proxy pair up "
+            f"in {boot_wall:.1f}s (service :{service_port})")
+
+        boot_counters = {name: scrape(name) for name in fleet.workers}
+        lattice_boot_ok = all(
+            c is not None and c["aot_loads"] > 0
+            and c["aot_load_failures"] == 0
+            for c in boot_counters.values())
+
+        # ---- Reference tracks (deterministic fits) -------------------
+        betas, targets, ref_frames = _stream_tracks(
+            prm32, dev, rng, tracks, frames_per_stream, max_bucket,
+            max_subjects)
+
+        # ---- Streams: reconnect-and-resume clients -------------------
+        stream_clis = [
+            ResilientStream(host, service_port,
+                            timeout_s=client_timeout_s,
+                            betas=betas[s % tracks],
+                            max_reconnects=12,
+                            reconnect_backoff_s=0.1,
+                            reconnect_timeout_s=60.0,
+                            frame_deadline_s=frame_deadline_s)
+            for s in range(streams)]
+        log(f"selfheal: {streams} resilient streams open through the "
+            f"pair ({tracks} distinct tracks)")
+
+        outcomes = {"ok": 0, "http_error": 0, "exception": 0}
+        got = [[None] * frames_per_stream for _ in range(streams)]
+        rec_lock = threading.Lock()
+
+        def step(s: int, f: int):
+            try:
+                fr = stream_clis[s].frame(targets[s % tracks, f])
+                with rec_lock:
+                    outcomes["ok"] += 1
+                    got[s][f] = fr
+            except EdgeError as e:
+                with rec_lock:
+                    outcomes["http_error"] += 1
+                    got[s][f] = ("http", e.status, e.kind)
+            except Exception as e:  # noqa: BLE001 — NOT a terminal
+                with rec_lock:
+                    outcomes["exception"] += 1
+                    got[s][f] = ("exc", type(e).__name__, str(e)[:120])
+
+        pool = ThreadPoolExecutor(max_workers=stream_workers)
+
+        def wave(f: int):
+            list(pool.map(lambda s: step(s, f), range(streams)))
+
+        wave(0)                                         # settle
+        sup.start()
+
+        # ---- Leg A: the campaign fires under live waves --------------
+        takeover_walls = []
+
+        def on_kill_worker(ev):
+            alive = [n for n, w in fleet.workers.items() if w.alive()]
+            victim = proc_campaign.pick(alive)
+            if victim is None:
+                raise RuntimeError("no live worker to kill")
+            fleet.kill_worker(victim)
+            return victim
+
+        def on_kill_proxy(ev):
+            t0 = time.monotonic()
+            victim = pair.kill_active()
+            pair.wait_active(timeout_s=60.0)
+            dt_ms = (time.monotonic() - t0) * 1e3
+            takeover_walls.append(round(dt_ms, 1))
+            return {"victim": victim,
+                    "takeover_ms": round(dt_ms, 1)}
+
+        def on_partition(ev):
+            alive = [n for n, w in fleet.workers.items() if w.alive()]
+            victim = proc_campaign.pick(alive)
+            if victim is None:
+                raise RuntimeError("no live worker to partition")
+            pid = fleet.workers[victim].pid
+            os.kill(pid, signal_mod.SIGSTOP)
+
+            def backstop():
+                # Only matters if the supervisor ITSELF failed: its heal
+                # SIGKILLs the stopped remains long before this.
+                try:
+                    os.kill(pid, signal_mod.SIGCONT)
+                except OSError:
+                    pass
+
+            t = threading.Timer(ev.param, backstop)
+            t.daemon = True
+            t.start()
+            return {"victim": victim, "stopped_pid": pid,
+                    "sigcont_backstop_s": ev.param}
+
+        proc_campaign.on("kill_worker", on_kill_worker)
+        proc_campaign.on("kill_proxy", on_kill_proxy)
+        proc_campaign.on("partition", on_partition)
+        proc_campaign.start()
+
+        t_chaos0 = time.monotonic()
+        for f in range(1, frames_per_stream - 2):        # chaos waves
+            wave(f)
+        last_event_s = (proc_campaign.events[-1].at_s
+                        if proc_campaign.events else 0.0)
+        campaign_done = proc_campaign.join(
+            timeout_s=last_event_s + 120.0)
+
+        # Wait until the supervisor healed every scheduled death
+        # (bounded — a heal that never lands is the drill's failure,
+        # not its hang).
+        t_heal0 = time.monotonic()
+        heal_deadline = t_heal0 + heal_timeout_s
+        while time.monotonic() < heal_deadline:
+            if sup.load()["fleet"]["restarts"] >= expected_heals:
+                break
+            time.sleep(0.1)
+        heal_wait_wall = time.monotonic() - t_heal0
+        chaos_wall = time.monotonic() - t_chaos0
+
+        wave(frames_per_stream - 2)                      # post-heal settle
+        baseline2 = {name: scrape(name) for name in fleet.workers}
+        wave(frames_per_stream - 1)                      # steady
+        final_counters = {name: scrape(name) for name in fleet.workers}
+        pool.shutdown(wait=True)
+
+        # Post-heal steady builds: scraped live over the fixed ports
+        # (exit lines would miss the healed workers' baselines).
+        steady_by_worker = {}
+        for name in fleet.workers:
+            b2, fc = baseline2.get(name), final_counters.get(name)
+            steady_by_worker[name] = (
+                None if b2 is None or fc is None
+                else fc["compiles"] - b2["compiles"])
+        steady_total = sum(v for v in steady_by_worker.values()
+                           if v is not None)
+
+        closes_ok = 0
+        close_errors = []
+        reconnects_total = 0
+        for s in range(streams):
+            reconnects_total += stream_clis[s].reconnects
+            try:
+                stream_clis[s].close()
+                closes_ok += 1
+            except Exception as e:  # noqa: BLE001
+                close_errors.append(f"{type(e).__name__}: {e}"[:120])
+
+        sup_ledger = sup.load()["fleet"]
+        sup.stop()
+
+        # ---- Leg C: restart storm -> degraded + incident -------------
+        storm = None
+        if storm_leg:
+            sup2 = FleetSupervisor(
+                fleet, poll_interval_s=0.05,
+                probe_interval_s=probe_interval_s,
+                probe_timeout_s=probe_timeout_s,
+                failure_threshold=failure_threshold,
+                restart_budget=1, budget_window_s=3600.0,
+                ready_timeout_s=ready_timeout_s,
+                log=lambda m: log(f"selfheal-storm: {m}"))
+            sup2.start()
+            victim = sorted(n for n, w in fleet.workers.items()
+                            if w.alive())[0]
+            fleet.kill_worker(victim)
+            d1 = time.monotonic() + heal_timeout_s
+            while (time.monotonic() < d1
+                   and sup2.load()["fleet"]["restarts"] < 1):
+                time.sleep(0.1)
+            fleet.kill_worker(victim)            # budget now exhausted
+            d2 = time.monotonic() + 60.0
+            while time.monotonic() < d2:
+                led = sup2.load()["fleet"]
+                if led["incidents"] >= 1 and victim in led["abandoned"]:
+                    break
+                time.sleep(0.1)
+            storm_ledger = sup2.load()["fleet"]
+            sup2.stop()
+            sup2 = None
+            # Degraded-but-serving: a FRESH stream through the pair must
+            # still produce bit-exact frames off the survivors.
+            deg_err = None
+            deg_frames = 0
+            try:
+                rs = ResilientStream(host, service_port,
+                                     timeout_s=client_timeout_s,
+                                     betas=betas[0], max_reconnects=12,
+                                     reconnect_timeout_s=60.0,
+                                     frame_deadline_s=frame_deadline_s)
+                try:
+                    deg_err = 0.0
+                    for f in range(2):
+                        fr = rs.frame(targets[0, f])
+                        deg_err = max(deg_err, float(np.max(np.abs(
+                            fr.pose - ref_frames[0][f].pose))))
+                        deg_frames += 1
+                finally:
+                    rs.abort()
+            except Exception as e:  # noqa: BLE001 — recorded, judged
+                close_errors.append(
+                    f"storm-degraded: {type(e).__name__}: {e}"[:120])
+            storm = {
+                "victim": victim,
+                "restarts": storm_ledger["restarts"],
+                "deaths_detected": storm_ledger["deaths_detected"],
+                "incidents": storm_ledger["incidents"],
+                "incident_log": storm_ledger["incident_log"],
+                "abandoned": storm_ledger["abandoned"],
+                "budget_left": storm_ledger["budget"]["left"],
+                "degraded_frames_ok": deg_frames,
+                "degraded_pose_max_abs_err": deg_err,
+                "degraded_without_flap": bool(
+                    storm_ledger["restarts"] == 1
+                    and storm_ledger["incidents"] == 1
+                    and victim in storm_ledger["abandoned"]),
+            }
+            log(f"selfheal: storm leg — {storm['restarts']} heal, "
+                f"{storm['incidents']} incident, abandoned "
+                f"{storm['abandoned']}, degraded serve err={deg_err}")
+
+        # Takeover facts from the surviving active proxy itself.
+        proxy_health = None
+        try:
+            hcli = EdgeClient(host, service_port, timeout_s=10.0)
+            h = hcli.healthz()
+            hcli.close()
+            proxy_health = {"proxy_role": h.get("proxy_role"),
+                            "takeovers": h.get("takeovers")}
+        except Exception as e:  # noqa: BLE001 — recorded, judged
+            close_errors.append(
+                f"proxy-healthz: {type(e).__name__}: {e}"[:120])
+
+        proxy_reports = pair.stop(timeout_s=30.0)
+        reports = fleet.stop(timeout_s=60.0)
+    finally:
+        try:
+            if sup2 is not None:
+                sup2.stop()
+            sup.stop()
+        except Exception:  # noqa: BLE001 — teardown must finish
+            pass
+        try:
+            proc_campaign.stop()
+        except Exception:  # noqa: BLE001 — teardown must finish
+            pass
+        try:
+            pair.stop(timeout_s=10.0)
+        except Exception:  # noqa: BLE001 — teardown must finish
+            pass
+        try:
+            fleet.stop(timeout_s=30.0)
+        except Exception:  # noqa: BLE001 — teardown must finish
+            pass
+
+    # ---- Leg A parity + spans (same bars as the fleet drill) ---------
+    frames_expected = streams * frames_per_stream
+    pose_err = 0.0
+    verts_err = 0.0
+    numbering_ok = 0
+    compared = 0
+    for s in range(streams):
+        for f in range(frames_per_stream):
+            fr = got[s][f]
+            if not hasattr(fr, "verts"):
+                continue
+            compared += 1
+            ref = ref_frames[s % tracks][f]
+            pose_err = max(pose_err, float(
+                np.max(np.abs(fr.pose - ref.pose))))
+            verts_err = max(verts_err, float(
+                np.max(np.abs(fr.verts - ref.verts))))
+            if fr.frame == f:
+                numbering_ok += 1
+    spans_by_worker, spans_balanced = _exit_spans(reports)
+
+    mttr_ms = list(sup_ledger["mttr_ms"])
+    mttr_p99 = (float(np.percentile(mttr_ms, 99)) if mttr_ms else None)
+
+    # ---- Leg B: shard rebalance + cold-page damage (in-process) ------
+    log("selfheal: leg B — in-process shard rebalance + damage_page")
+    n_b = 6
+    betas_b = [rng.normal(size=(n_shape,)).astype(np.float32)
+               for _ in range(n_b)]
+    poses_b = [rng.normal(scale=0.4,
+                          size=(2, n_joints, 3)).astype(np.float32)
+               for _ in range(n_b)]
+    with ServingEngine(prm32, device=dev, max_bucket=max_bucket,
+                       max_delay_s=0.001) as ref_b:
+        keys_r = [ref_b.specialize(b) for b in betas_b]
+        want_b = [ref_b.forward(poses_b[i], subject=keys_r[i])
+                  for i in range(n_b)]
+
+    cold_dir = os.path.join(work_dir, "cold")
+    store_b = SubjectStore(SubjectStoreConfig(
+        warm_capacity=2, cold_dir=cold_dir, sharded=True,
+        backend="pickle"))
+    lane_ok = [True] * lanes
+    policy_b = DispatchPolicy(
+        deadline_s=30.0, retries=1, backoff_s=0.005,
+        backoff_cap_s=0.01, jitter=0.0,
+        breaker=CircuitBreaker(failure_threshold=2,
+                               probe_interval_s=0.001,
+                               respect_priority_claim=False),
+        cpu_fallback=dev.type == "cpu")
+    rebalance = {}
+    damage = {}
+    store_campaign_fired = []
+    with ServingEngine(prm32, device=dev, max_bucket=max_bucket,
+                       max_delay_s=0.002, policy=policy_b, lanes=lanes,
+                       lane_probe=lambda i: lane_ok[i],
+                       max_subjects=4,
+                       subject_store=store_b) as eng_b:
+        keys_b = [eng_b.specialize(b) for b in betas_b]
+        pre_err = 0.0
+        for i in range(n_b):                     # warm every program
+            got_b = eng_b.forward(poses_b[i], subject=keys_b[i])
+            pre_err = max(pre_err, float(
+                np.abs(got_b - want_b[i]).max()))
+        shards_pop = sorted({store_b.shard_for(k) for k in keys_b})
+        dead = store_b.shard_for(keys_b[0])
+        owned = [i for i in range(n_b)
+                 if store_b.shard_for(keys_b[i]) == dead]
+        base_b = eng_b.counters.snapshot()
+        # Lane loss: probe pinned false + breaker driven DOWN through
+        # its public API (never a raw state poke).
+        lane_ok[dead] = False
+        lane_set = eng_b._get_lanes()
+        br = lane_set.lanes[dead].breaker
+        for _ in range(64):
+            if br is None or br.record_failure() == health_mod.DOWN:
+                break
+        # The next dead-shard placement AUTO-kicks the rebalance; the
+        # drill never calls it (0 human invocations).
+        trigger = eng_b.forward(poses_b[owned[0]],
+                                subject=keys_b[owned[0]])
+        reb_deadline = time.monotonic() + 60.0
+        while (eng_b.counters.snapshot()["shard_rebalances"] < 1
+               and time.monotonic() < reb_deadline):
+            time.sleep(0.02)
+        reb_err = float(np.abs(trigger - want_b[owned[0]]).max())
+        for i in owned:                          # adopted-shard serving
+            got_b = eng_b.forward(poses_b[i], subject=keys_b[i])
+            reb_err = max(reb_err, float(
+                np.abs(got_b - want_b[i]).max()))
+        after_b = eng_b.counters.snapshot()
+        rebalance = {
+            "dead_shard": int(dead),
+            "shards_populated": shards_pop,
+            "owned_subjects": len(owned),
+            "pre_loss_max_abs_err": pre_err,
+            "shard_rebalances": int(after_b["shard_rebalances"]),
+            "rebalance_rows": int(after_b["shard_rebalance_rows"]),
+            "steady_recompiles": int(after_b["compiles"]
+                                     - base_b["compiles"]),
+            "max_abs_err": reb_err,
+            "reassigned": store_b.snapshot().get("reassigned_shards"),
+        }
+        log(f"selfheal: rebalanced shard {dead} "
+            f"({rebalance['shard_rebalances']} rebalance, "
+            f"{rebalance['rebalance_rows']} rows adopted, "
+            f"{rebalance['steady_recompiles']} recompiles, "
+            f"err={reb_err})")
+
+        # -- damage_page: seeded store campaign vs the cold tier ------
+        camp2 = ChaosCampaign(store_campaign, seed=seed + 1,
+                              log=lambda m: log(f"selfheal: {m}"))
+        dmg_digest = {}
+
+        def on_damage(ev):
+            victim_d = camp2.pick(store_b.cold_digests())
+            if victim_d is None:
+                raise RuntimeError("no cold page to damage")
+            # A page whose per-array hashes verify but whose digest
+            # preimage does not — self-consistent, for the WRONG
+            # subject.
+            _meta, arrays = state_ckpt.load_row_page(victim_d, cold_dir)
+            arrays["shape"] = np.asarray(arrays["shape"]) + 1.0
+            state_ckpt.save_row_page(victim_d, arrays, cold_dir)
+            dmg_digest["digest"] = victim_d
+            return victim_d
+
+        camp2.on("damage_page", on_damage).start()
+        camp2.join(timeout_s=30.0)
+        store_campaign_fired = list(camp2.events_fired)
+        dig = dmg_digest.get("digest")
+        req_err = None
+        dmg_counted = 0
+        if dig is not None and dig in keys_b:
+            # Push the damaged digest out of the hot table AND the
+            # 2-row warm tier so the verification request must read the
+            # (damaged) cold page.
+            for i in range(n_b):
+                if keys_b[i] != dig:
+                    eng_b.forward(poses_b[i], subject=keys_b[i])
+            dmg_base = eng_b.counters.snapshot()[
+                "subject_store_cold_damage"]
+            i = keys_b.index(dig)
+            got_b = eng_b.forward(poses_b[i], subject=keys_b[i])
+            req_err = float(np.abs(got_b - want_b[i]).max())
+            dmg_counted = (eng_b.counters.snapshot()[
+                "subject_store_cold_damage"] - dmg_base)
+        damage = {
+            "injected": dig is not None,
+            "digest": (dig or "")[:12],
+            "damage_counted": int(dmg_counted),
+            "request_max_abs_err": req_err,
+        }
+        log(f"selfheal: damage_page — counted {dmg_counted} re-bake, "
+            f"err={req_err}")
+
+    if own_work_dir:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    terminals = outcomes["ok"] + outcomes["http_error"]
+    return {
+        "selfheal_drill_schema": 1,
+        # The workers and the in-process references both run on this
+        # device type; JAX's judge applies the exact-zero pose anchors
+        # only when it is "cpu".
+        "reference_platform": dev.type,
+        "workers": int(workers),
+        "lanes": int(lanes),
+        "streams": int(streams),
+        "frames_per_stream": int(frames_per_stream),
+        "unique_tracks": int(tracks),
+        "max_bucket": int(max_bucket),
+        "max_subjects": int(max_subjects),
+        "campaign": campaign,
+        "store_campaign": store_campaign,
+        "campaign_done": bool(campaign_done),
+        "campaign_fired": proc_campaign.events_fired,
+        "store_campaign_fired": store_campaign_fired,
+        "lattice_entries": len(manifest["entries"]),
+        "bake_wall_s": float(f"{bake_wall:.4g}"),
+        "boot_wall_s": float(f"{boot_wall:.4g}"),
+        "boot_counters": boot_counters,
+        "lattice_boot_ok": bool(lattice_boot_ok),
+        "chaos_wall_s": float(f"{chaos_wall:.4g}"),
+        "frames_expected": int(frames_expected),
+        "outcomes": outcomes,
+        "terminal_fraction": float(
+            f"{terminals / frames_expected:.6g}") if frames_expected
+            else None,
+        "frames_compared": int(compared),
+        "frame_numbering_ok": int(numbering_ok),
+        "pose_max_abs_err": pose_err,
+        "verts_max_abs_err": verts_err,
+        "closes_ok": int(closes_ok),
+        "close_errors": close_errors[:8],
+        "reconnects_total": int(reconnects_total),
+        "takeovers_expected": int(expected_takeovers),
+        "takeover_walls_ms": takeover_walls,
+        "proxy_health": proxy_health,
+        "proxy_exit_reports": {
+            name: (None if rep is None else
+                   {k: rep.get(k) for k in ("role", "takeovers")})
+            for name, rep in proxy_reports.items()},
+        "expected_heals": int(expected_heals),
+        "heal_wait_wall_s": float(f"{heal_wait_wall:.4g}"),
+        "supervisor": sup_ledger,
+        "supervisor_restarts": int(sup_ledger["restarts"]),
+        "all_deaths_auto_healed": bool(
+            sup_ledger["restarts"] >= expected_heals
+            and not sup_ledger["abandoned"]),
+        "heal_mttr_ms": mttr_ms,
+        "heal_p99_mttr_ms": (None if mttr_p99 is None
+                             else float(f"{mttr_p99:.5g}")),
+        "heal_max_mttr_ms": (max(mttr_ms) if mttr_ms else None),
+        "mttr_budget_ms": float(mttr_budget_ms),
+        "mttr_within_budget": bool(
+            mttr_ms and max(mttr_ms) <= mttr_budget_ms),
+        "steady_recompiles_by_worker": steady_by_worker,
+        "steady_recompiles_total": int(steady_total),
+        "spans_by_worker": spans_by_worker,
+        "spans_closed_exactly_once": bool(spans_balanced),
+        "storm": storm,
+        "storm_restarts": (None if storm is None
+                           else int(storm["restarts"])),
+        "rebalance": rebalance,
+        "damage": damage,
+        "worker_exit_reports": {
+            name: (None if rep is None else {
+                k: rep.get(k) for k in
+                ("drained", "incident_captures")})
+            for name, rep in reports.items()},
     }

@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import json
 import threading
+import time
 import warnings
 from pathlib import Path
 from typing import Dict
@@ -38,6 +39,19 @@ import numpy as np
 #: File name of ``torch_trace``'s capture (``*.trace.json``: what
 #: ``obs/trace_report.py`` globs).
 TORCH_TRACE = "torch.trace.json"
+
+#: Name of the host span ``torch_trace`` puts around its body: a reader
+#: takes the body's window from it, without the pads below.
+TRACE_BODY = "torch_trace.body"
+
+#: Seconds the host idles, the card synchronized, inside each end of a
+#: CUDA capture. The profiler keeps only the device events that fall
+#: inside its window on the host's clock, and a kernel's time, mapped
+#: onto that clock, can land milliseconds before the host call that
+#: launched it (``chip_smoke.py`` prints the largest such lead of each
+#: capture as ``device_lead_us``). Without the pad, a kernel launched
+#: just after the capture starts can fall out of it.
+CUDA_WINDOW_PAD_S = 0.05
 
 #: Samples kept in a bounded reservoir (the promotion stalls): a ring
 #: past this many, as JAX's latency reservoirs.
@@ -56,21 +70,38 @@ def torch_trace(log_dir, tracer=None):
     closes, so ``python -m mano_hand_tpu_torch trace-report <log_dir>``
     reads the host and device halves of the SAME window as one report —
     the counterpart of the JAX package's ``utils/profiling.py:xla_trace``.
+
+    The body runs inside a ``TRACE_BODY`` host span. Where a card is
+    present, the card is synchronized and the host idles
+    ``CUDA_WINDOW_PAD_S`` inside each end of the capture, so that every
+    kernel the body launched stays in it.
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
+
+    def pad():
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(CUDA_WINDOW_PAD_S)
+
     prof = profile(activities=activities)
     prof.start()
     try:
-        yield prof
+        pad()
+        with record_function(TRACE_BODY):
+            yield prof
     finally:
-        prof.stop()
+        try:
+            pad()
+        finally:
+            prof.stop()
         prof.export_chrome_trace(str(out / TORCH_TRACE))
         if tracer is not None:
             # Best-effort inside a finally: a raise here would mask an
@@ -91,6 +122,12 @@ class ServingCounters:
         self._lock = threading.Lock()
         self.dispatches = 0              # batches sent to the device
         self.dispatches_bf16 = 0         # of them, bf16-family batches
+        # Of them, batches of the gathered pose-only family, any kernel
+        # or precision (bf16-tier batches, the plain program under
+        # posed_kernel="xla" and CPU-tier failovers included); port-only
+        # like dispatches_bf16. ``serve``'s exit line carries it beside
+        # the worker process's K2 launches.
+        self.dispatches_gathered = 0
         self.rows_live = 0               # real request rows dispatched
         self.rows_padded = 0             # pad rows dispatched alongside them
         self.requests_dispatched = 0     # requests merged across dispatches
@@ -149,13 +186,16 @@ class ServingCounters:
         self._promotion_writes = 0
 
     def count_dispatch(self, bucket: int, live_rows: int, requests: int = 1,
-                       subjects: int = 1, bf16: bool = False) -> None:
+                       subjects: int = 1, bf16: bool = False,
+                       gathered: bool = False) -> None:
         """One batch sent to the device: ``requests`` submits coalesced,
         ``subjects`` distinct subjects in it (>= 2 is a mixed batch),
-        served from the bf16 family when ``bf16``."""
+        served from the bf16 family when ``bf16``, from the gathered
+        pose-only family when ``gathered``."""
         with self._lock:
             self.dispatches += 1
             self.dispatches_bf16 += int(bf16)
+            self.dispatches_gathered += int(gathered)
             self.rows_live += live_rows
             self.rows_padded += bucket - live_rows
             self.requests_dispatched += requests
@@ -385,6 +425,7 @@ class ServingCounters:
             out = {
                 "dispatches": self.dispatches,
                 "dispatches_bf16": self.dispatches_bf16,
+                "dispatches_gathered": self.dispatches_gathered,
                 "rows_live": self.rows_live,
                 "rows_padded": self.rows_padded,
                 "requests_dispatched": self.requests_dispatched,

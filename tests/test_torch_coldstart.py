@@ -563,7 +563,7 @@ def _counters_twin(params32, jax_params, pipe):
         jax_params, max_bucket=4, max_subjects=9, policy=pol, **pipe))
     assert ps["table_growths"] >= 1 and ps["specializations_evicted"] >= 1
     assert ps["compiles"] > 0
-    shared = set(ps) - {"dispatches_bf16"}
+    shared = set(ps) - {"dispatches_bf16", "dispatches_gathered"}
     assert shared <= set(js)
     assert {k: ps[k] for k in shared} == {k: js[k] for k in shared}
     for a, b in zip(po, jo):
@@ -577,7 +577,8 @@ def test_counters_match_the_jax_engine_compiles_included(params32,
     kinds, a table growth (whose stale gathered programs rebuild), LRU
     evictions and the CPU tier's build under a policy — at serial
     dispatch: every counter the port keeps equals JAX's, ``compiles``
-    included (the port's one extra key, ``dispatches_bf16``, aside)."""
+    included (the port's extra keys, ``dispatches_bf16`` and
+    ``dispatches_gathered``, aside)."""
     ps = _counters_twin(params32, jax_params, {
         "inflight_depth": 1, "adaptive_coalesce": False})
     assert ps["pipeline_completions"] == 0

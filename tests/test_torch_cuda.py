@@ -2038,7 +2038,9 @@ def test_wire_forward_through_a_fused_engine_equals_submit(dev):
 def test_serve_subprocess_on_the_card(dev, tmp_path):
     """``serve --posed-kernel fused`` on the card: the ready line (the
     shared ``server`` device lock taken), requests within 1e-5 of an
-    in-process K2 call, and the SIGTERM drain's exit line."""
+    in-process K2 call, and the SIGTERM drain's exit line, whose K2
+    launches equal its gathered dispatches plus one eager warm call a
+    gathered program captured after the ready line."""
     import json
     import os
     import signal
@@ -2072,6 +2074,8 @@ def test_serve_subprocess_on_the_card(dev, tmp_path):
         table = core.stack_shaped([core.specialize(
             params, torch.from_numpy(betas).to(dev))])
         with EdgeClient("127.0.0.1", ready["port"], timeout_s=120.0) as cli:
+            ready_compiles = _metric(cli.metrics_text(),
+                                     "mano_serving_compiles")
             key = cli.specialize(betas)
             for n in (1, 2, 4, 3):
                 pose = rng.normal(scale=0.4, size=(n, 16, 3)).astype(
@@ -2087,10 +2091,61 @@ def test_serve_subprocess_on_the_card(dev, tmp_path):
         exit_line = json.loads(out.strip().splitlines()[-1])["edge_exit"]
         assert exit_line["drained"] and exit_line["within_timeout"]
         assert exit_line["accounting"]["spans_open"] == 0
+        ln = exit_line["launches"]
+        captures = exit_line["counters"]["compiles"] - ready_compiles
+        assert ln["dispatches_gathered"] == ln["dispatches"] == 4
+        assert captures >= 1
+        assert ln["K2"] == ln["dispatches_gathered"] + captures
+        assert ln["K2_bf16"] == 0
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=30)
+
+
+def _metric(text, name):
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return int(float(ln.split()[1]))
+    raise AssertionError(f"no {name} in the /metrics text")
+
+
+def test_selfheal_drill_on_the_card(dev, tmp_path, monkeypatch):
+    """``selfheal_drill_run`` at plumbing size with ``serve`` workers on
+    the card (each its own CUDA context under the shared device lock):
+    every death healed by its channel, the proxy pair's takeover, the
+    storm degrading without a flap, the shard rebalance and the damaged
+    page on a card engine, every frame terminal with continuous
+    numbering, verts within 1e-6 of the in-process reference. (It runs
+    over 40 s on the CPU, where its plumbing test is slow-marked.)"""
+    from mano_hand_tpu_torch.serving import selfheal_drill_run
+
+    monkeypatch.setenv("MANO_DEVICE_LOCK_DIR", str(tmp_path))
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    sd = selfheal_drill_run(
+        params, device=dev, workers=3, lanes=2, streams=4,
+        frames_per_stream=6, stream_workers=4, unique_tracks=2,
+        max_bucket=4, max_subjects=8, store_warm_capacity=4,
+        work_dir=str(tmp_path / "work"), ready_timeout_s=420.0)
+    assert sd["reference_platform"] == "cuda"
+    assert sd["lattice_boot_ok"] and sd["campaign_done"]
+    assert sd["terminal_fraction"] == 1.0 and not sd["close_errors"]
+    assert sd["outcomes"]["exception"] == 0 and sd["closes_ok"] == 4
+    assert sd["frames_compared"] == sd["frame_numbering_ok"] > 0
+    assert sd["verts_max_abs_err"] <= 1e-6
+    assert sd["all_deaths_auto_healed"]
+    assert sd["supervisor_restarts"] == sd["expected_heals"] == 2
+    assert sorted(h["reason"] for h in sd["supervisor"]["heals"]) == [
+        "exit", "probe"]
+    assert sd["proxy_health"] == {"proxy_role": "active", "takeovers": 1}
+    assert sd["steady_recompiles_total"] == 0
+    assert sd["spans_closed_exactly_once"]
+    st = sd["storm"]
+    assert st["degraded_without_flap"] and st["degraded_frames_ok"] >= 1
+    rb, dm = sd["rebalance"], sd["damage"]
+    assert rb["shard_rebalances"] == 1 and rb["steady_recompiles"] == 0
+    assert rb["max_abs_err"] == 0.0 and rb["pre_loss_max_abs_err"] == 0.0
+    assert dm["damage_counted"] >= 1 and dm["request_max_abs_err"] == 0.0
 
 
 def test_posed_kernel_bench_run_parity_on_the_card(dev):

@@ -80,3 +80,28 @@ def test_no_source_imports_jax(path):
               and _forbidden(str(node.args[0].value))):
             bad.append(node.args[0].value)
     assert bad == []
+
+
+@pytest.mark.parametrize("module", ["mano_hand_tpu_torch.edge.proxy",
+                                    "mano_hand_tpu_torch.edge.fleet"])
+def test_fleet_modules_and_their_processes_stay_in_the_port(module):
+    """The fleet's modules load no JAX in a fresh interpreter, and the
+    processes they spawn (``serve`` workers, ``proxy`` pair members) run
+    the port's command line, never the JAX package's."""
+    code = (
+        "import json, sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "from mano_hand_tpu_torch.edge import ProxySpec, WorkerSpec\n"
+        "argv = [WorkerSpec(device='cuda').argv(), ProxySpec(port=1, "
+        "lock_path='l', backends=[('w0', 'h', 2)]).argv()]\n"
+        "print(json.dumps({'after': sorted(sys.modules), 'argv': argv}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in got["after"] if _forbidden(m)] == []
+    for argv in got["argv"]:
+        assert argv[1:3] == ["-m", "mano_hand_tpu_torch.cli"]
+        assert not [a for a in argv if _forbidden(a)]
+    assert got["argv"][0][3:5] == ["--device", "cuda"]

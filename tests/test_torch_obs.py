@@ -585,3 +585,30 @@ def test_torch_trace_co_exports_engine_timeline(tmp_path):
     assert sorted(p.name for p in (tmp_path / "bare").iterdir()) == [
         TORCH_TRACE]
     assert trace_report.main([str(tmp_path / "cap"), "--json"]) == 0
+
+
+def test_torch_trace_marks_its_body(tmp_path):
+    """``torch_trace`` runs its body inside one ``TRACE_BODY`` host span,
+    within the profiler's window and around the body's ops: the window a
+    reader takes, without the pads of a CUDA capture."""
+    from mano_hand_tpu_torch.utils.profiling import (
+        TORCH_TRACE, TRACE_BODY, torch_trace,
+    )
+
+    with torch_trace(tmp_path / "cap"):
+        x = torch.ones(8, 8)
+        (x @ x).sum()
+    events = [e for e in json.loads((tmp_path / "cap" / TORCH_TRACE)
+                                    .read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    body = [e for e in events if e.get("name") == TRACE_BODY]
+    assert [e["cat"] for e in body] == ["user_annotation"]
+    b0 = float(body[0]["ts"])
+    b1 = b0 + float(body[0]["dur"])
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert mm and all(b0 <= float(e["ts"]) and float(e["ts"])
+                      + float(e["dur"]) <= b1 for e in mm)
+    for e in events:
+        if e.get("cat") == "Trace":
+            assert float(e["ts"]) <= b0 and b1 <= float(e["ts"]) + float(
+                e["dur"])

@@ -212,6 +212,11 @@ def _outage(side):
         for s in range(2):
             outs.append(side.outcome(eng.submit(_pose(3, 10 + s),
                                                 _shape(3, 10 + s))))
+        # ``held`` holds only a dispatcher not yet running: stop the
+        # running one (nothing is pending), so the three submits below
+        # queue before the restarted dispatcher reads any of them and
+        # ride one batch however slowly this thread runs.
+        eng.stop()
         with held(eng):
             futs = [eng.submit(_pose(n, 20 + i), subject=keys[i])
                     for i, n in enumerate((1, 2, 2))]

@@ -28,7 +28,7 @@ from mano_hand_tpu_torch.serving import measure
 JAX_ONLY_COUNTERS = {"control_ticks", "control_actuations",
                      "control_reverts"}
 #: ... and keeps beside JAX's: bf16-family batches.
-PORT_ONLY_COUNTERS = {"dispatches_bf16"}
+PORT_ONLY_COUNTERS = {"dispatches_bf16", "dispatches_gathered"}
 
 SMALL = dict(subjects=2, requests=8, max_bucket=4, trials=1)
 

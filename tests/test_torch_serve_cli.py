@@ -35,7 +35,7 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_ONLY_COUNTERS = {"control_ticks", "control_actuations",
                      "control_reverts"}
 #: ... and keeps beside JAX's: bf16-family batches.
-PORT_ONLY_COUNTERS = {"dispatches_bf16"}
+PORT_ONLY_COUNTERS = {"dispatches_bf16", "dispatches_gathered"}
 
 
 def _run(capsys, main, argv):
