@@ -110,6 +110,16 @@ each with every launch count zeroed just before it and read just after:
   straight, every result against the in-process plain gathered
   program, each worker's K2 launches (read from its exit line) equal to
   its gathered dispatches plus one warm call a capture.
+* closed-loop control (phase ``control``): the control drill at JAX's
+  defaults (one seeded flash crowd through the socket, static and
+  controlled legs in pairs, a crashed controller) under JAX's six
+  ``judge_control`` criteria; the bucket-ladder bias over K2 and
+  K2-bf16 (every bias of a 64-bucket engine against the plain programs
+  and bias 0, ms per request by bias, a ``Controller`` raising the bias
+  to its top and restoring it under traffic); and ``serve --control
+  --posed-kernel fused`` as a process under a flash crowd from client
+  processes (its control block in ``status --server``, every 429 with
+  the controller's Retry-After, K2 launches from its exit line).
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -325,6 +335,21 @@ FL_PROXY_TURNS = (1, 2, 3, 3, 2, 1)  # workers behind the proxy, in turns
 FL_DIRECT_TURNS = (1, 3, 3, 1)       # workers straight (round-robin)
 FL_READY_TIMEOUT_S = 420.0          # JAX's ready_timeout_s
 FL_SAMPLE_MS = 100                  # nvidia-smi utilization period
+CT_BUCKET = 64                     # parts (b) and (c): max_bucket
+CT_SUBJECTS = 8                    # specialized subjects, both parts
+CT_REQUESTS = 96                   # (b): the fixed set, 1-4 rows each
+CT_MOST_ROWS = 4
+CT_BIAS_TRIALS = 3                 # (b): passes a bias, in turns
+CT_THREADS = 4                     # (b): threads sending under the controller
+CT_CLIENTS = 2                     # (c): client processes
+CT_CLIENT_THREADS = 16             # (c): threads a client process (the
+#                                    calibration wave: max_queued // CT_CLIENTS)
+CT_CLIENT_REQUESTS = 256           # (c): seeded requests a client process
+CT_TRACE = dict(kind="flash_crowd", seed=7, duration_s=3.0,
+                base_fraction=0.5, peak_multiple=4.0, tier0_fraction=0.15)
+CT_MAX_QUEUED, CT_TIER1_QUOTA = 16, 4   # (c): serve's admission, the drill's
+CT_READY_TIMEOUT_S = 300.0
+CT_DRAIN_TIMEOUT_S = 15.0
 PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
     ("H100 PCIe", 51e12, 756e12, 2.0e12),
     ("H100 NVL", 60e12, 835e12, 3.9e12),
@@ -4912,6 +4937,713 @@ def fleet(dev, counts, zero_counts) -> dict:
     return line
 
 
+def ct_drill(dev, params, counts, zero_counts, kw=None,
+             comparative=True) -> dict:
+    """Part (a) of phase ``control``: ``control_drill_run`` on ``dev`` at
+    JAX's defaults, held to JAX's six ``judge_control`` criteria
+    (``scripts/bench_report.py``), its thresholds unchanged, and to every
+    span closed once in every leg. ``kw`` and ``comparative=False`` are
+    the CPU rehearsal's plumbing size, where (as in JAX's plumbing test)
+    the two static-against-controlled criteria are reported, not judged:
+    a 0.7 s trace is too short to compare legs. The drill's traffic is the
+    full family (the plain core on the card), so it launches no kernel.
+    Returns its line."""
+    from mano_hand_tpu_torch.serving import control_drill_run
+
+    t0 = time.perf_counter()
+    zero_counts()
+    cd = control_drill_run(params, device=dev, seed=SEED, **(kw or {}))
+    c = counts()
+    legs = cd["legs"] + [cd["crash_leg"]]
+    cl = cd["crash_leg"]
+    clc = cl["control"]
+    criteria = {
+        "tier0_goodput_held": (cd["controlled_tier0_goodput"]
+                               >= cd["static_tier0_goodput"]),
+        "tier1_served_strictly_more": (cd["controlled_tier1_served"]
+                                       > cd["static_tier1_served"]),
+        "all_terminal": (cd["unresolved_total"] == 0
+                         and all(lg["drained"] for lg in legs)),
+        "zero_steady_recompiles": cd["steady_recompiles_total"] == 0,
+        "actuations_evented": (cd["actuations_total"] > 0
+                               and cd["actuations_evented"] is True),
+        "crash_degrades_to_static": (
+            cl.get("crash_injected") is True and clc["crashed"] is True
+            and clc["reverts"] >= 1 and cl["reverted_to_static"] is True
+            and cl["unresolved"] == 0
+            and cl["control_revert_events"] >= 1),
+    }
+    keep = ("name", "controlled", "submitted", "resolved", "drained",
+            "unresolved", "by_tier", "tier0_goodput", "tier1_ok",
+            "tier1_total", "retry_after_seen", "steady_recompiles",
+            "wall_s", "control", "control_events",
+            "control_revert_events", "actuations_evented",
+            "reverted_to_static", "slo_burn_rates",
+            "spans_closed_exactly_once", "crash_injected")
+    line = {
+        "seconds": time.perf_counter() - t0,
+        "service_rate_per_sec": cd["service_rate_per_sec"],
+        "trace": cd["trace"], "pairs": cd["pairs"],
+        "legs": [{k: lg[k] for k in keep if k in lg} for lg in legs],
+        **{k: cd[k] for k in (
+            "static_tier0_goodput", "controlled_tier0_goodput",
+            "static_tier1_served", "controlled_tier1_served",
+            "static_tier1_served_per_sec",
+            "controlled_tier1_served_per_sec", "steady_recompiles_total",
+            "unresolved_total", "actuations_total", "actuations_evented",
+            "spans_closed_exactly_once")},
+        "criteria": criteria, "launches": c}
+    for name, ok in criteria.items():
+        if comparative or name not in ("tier0_goodput_held",
+                                       "tier1_served_strictly_more"):
+            require(ok, f"control drill: judge_control's {name} "
+                        f"{json.dumps(line)}")
+    require(cd["spans_closed_exactly_once"]
+            and all(lg["spans_closed_exactly_once"] for lg in legs),
+            f"control drill: every span closed once in every leg "
+            f"{json.dumps(line['legs'])}")
+    return line
+
+
+def ct_ladder(dev, params, counts, zero_counts, bucket=CT_BUCKET,
+              subjects=CT_SUBJECTS, requests=CT_REQUESTS,
+              trials=CT_BIAS_TRIALS, threads=CT_THREADS) -> dict:
+    """Part (b) of phase ``control``: the bucket-ladder bias over K2 and
+    K2-bf16. One card engine (``posed_kernel="fused"`` under
+    ``PrecisionPolicy()``, ``max_bucket=bucket``, ``subjects``
+    specialized, ``warmup()`` and ``warmup_posed()``) serves one fixed
+    seeded set of ``requests`` pose-only requests of 1-4 rows, tier 0 and
+    tier 1 interleaved, one at a time, at every bias from 0 to
+    ``len(buckets) - 1`` (``trials`` passes a bias, in turns); then a
+    ``Controller`` attached to it, driven by ``tick(signals=...)`` (a hot
+    tier-0 burn, the engine's own fill counters; then a cold one), raises
+    the bias to ``bucket_bias_max`` and restores it while ``threads``
+    threads send the set. Gates: f32 rows <= 1e-5 against the plain
+    gathered program; bf16 rows inside the tier's envelope against f32
+    and <= 1e-5 against the plain bf16 version; every bias within 1e-5 of
+    bias 0's rows; no capture after warm-up; K2 launches == f32 gathered
+    dispatches and K2-bf16 launches == ``dispatches_bf16``, from zero
+    after warm-up; ``rows_padded`` never falls as the bias rises. Prints
+    each bias's largest difference from bias 0 and its ms per request
+    (median, with its trials). Returns its line."""
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.ops import fused_posed
+    from mano_hand_tpu_torch.serving import PrecisionPolicy, ServingEngine
+    from mano_hand_tpu_torch.serving.control import (
+        ControlConfig, Controller,
+    )
+
+    card = dev.type == "cuda"
+    j, s = params.n_joints, params.n_shape
+    rng = np.random.default_rng(SEED + 18)
+    betas = rng.normal(size=(subjects, s)).astype(np.float32)
+    reqs = [(int(rng.integers(0, subjects)), i % 2,
+             rng.normal(scale=0.4, size=(int(rng.integers(
+                 1, CT_MOST_ROWS + 1)), j, 3)).astype(np.float32))
+            for i in range(requests)]
+    eng = ServingEngine(params, device=dev, max_bucket=bucket,
+                        max_subjects=subjects, max_delay_s=0.0,
+                        posed_kernel="fused",
+                        precision_policy=PrecisionPolicy())
+    nb = len(eng.buckets)
+    line = {"bucket": bucket, "subjects": subjects, "requests": requests,
+            "rows": int(sum(p.shape[0] for _, _, p in reqs)),
+            "buckets": list(eng.buckets), "trials": trials}
+    errors: list = []
+    with eng:
+        keys = [eng.specialize(b) for b in betas]
+        t0 = time.perf_counter()
+        eng.warmup()
+        eng.warmup_posed()
+        line["warmup_s"] = time.perf_counter() - t0
+        table = eng.table
+        tops16 = fused_posed.posed_operands(table, torch.bfloat16)
+        ref32, ref16 = [], []
+        with torch.no_grad():
+            for subj, tier, pose in reqs:
+                idx = torch.full((pose.shape[0],),
+                                 eng._subject_slots[keys[subj]],
+                                 dtype=torch.int32, device=dev)
+                pt = torch.from_numpy(pose).to(dev)
+                ref32.append(core.forward_posed_gather(table, idx, pt)
+                             .verts.cpu().numpy())
+                ref16.append(None if tier else
+                             fused_posed.forward_posed_gather_plain(
+                                 table.v_shaped, table.joints, idx, pt,
+                                 tops16, table.parents).cpu().numpy())
+        envelope = eng.precision_policy.max_vertex_err_m
+
+        def check(got, base=None):
+            e = {"f32_vs_plain": 0.0, "bf16_vs_plain": 0.0,
+                 "bf16_vs_f32": 0.0, "bf16_vs_f32_min": float("inf"),
+                 "vs_bias0": 0.0}
+            for i, ((_, tier, _), g) in enumerate(zip(reqs, got)):
+                if tier:
+                    e["f32_vs_plain"] = max(e["f32_vs_plain"],
+                                            max_err(g, ref32[i]))
+                else:
+                    d = max_err(g, ref32[i])
+                    e["bf16_vs_f32"] = max(e["bf16_vs_f32"], d)
+                    e["bf16_vs_f32_min"] = min(e["bf16_vs_f32_min"], d)
+                    e["bf16_vs_plain"] = max(e["bf16_vs_plain"],
+                                             max_err(g, ref16[i]))
+                if base is not None:
+                    e["vs_bias0"] = max(e["vs_bias0"], max_err(g, base[i]))
+            return e
+
+        def hold(e, what):
+            require(e["f32_vs_plain"] <= KERNEL_TOL
+                    and e["bf16_vs_plain"] <= KERNEL_TOL
+                    and 1e-6 < e["bf16_vs_f32_min"]
+                    and e["bf16_vs_f32"] <= envelope
+                    and e["vs_bias0"] <= KERNEL_TOL,
+                    f"ladder bias: {what}: rows vs the plain programs, the "
+                    f"envelope and bias 0 {e}")
+
+        # 1. Every bias, one request at a time, in turns.
+        compiles0 = eng.counters.compiles
+        zero_counts()
+        before = eng.counters.snapshot()
+        per = {b: {"ms": [], "rows_padded": [], "dispatches": []}
+               for b in range(nb)}
+        base = None
+        worst = {}
+        for t in range(trials):
+            for bias in (range(nb) if t % 2 == 0 else reversed(range(nb))):
+                eng.set_bucket_bias(bias)
+                s0 = eng.counters.snapshot()
+                t1 = time.perf_counter()
+                got = [eng.submit(p, subject=keys[k], priority=tier)
+                       .result(timeout=120) for k, tier, p in reqs]
+                ms = (time.perf_counter() - t1) * 1e3 / len(reqs)
+                s1 = eng.counters.snapshot()
+                if base is None:
+                    base = got          # trial 0 starts at bias 0
+                e = check(got, base)
+                hold(e, f"bias {bias}")
+                rec = per[bias]
+                rec["ms"].append(ms)
+                rec["rows_padded"].append(s1["rows_padded"]
+                                          - s0["rows_padded"])
+                rec["dispatches"].append(s1["dispatches"] - s0["dispatches"])
+                w = worst.setdefault(bias, dict(e))
+                for k, v in e.items():
+                    w[k] = (min if k.endswith("_min") else max)(w[k], v)
+        eng.set_bucket_bias(0)
+        c = counts()
+        after = eng.counters.snapshot()
+        disp_bf16 = after["dispatches_bf16"] - before["dispatches_bf16"]
+        disp_f32 = (after["dispatches_gathered"]
+                    - before["dispatches_gathered"] - disp_bf16)
+        by_bias = {}
+        for b in range(nb):
+            rec = per[b]
+            require(len(set(rec["rows_padded"])) == 1
+                    and set(rec["dispatches"]) == {len(reqs)},
+                    f"ladder bias: bias {b}: one dispatch a request, the "
+                    f"same pads every pass {rec}")
+            by_bias[str(b)] = {
+                "ms_per_request": float(np.median(rec["ms"])),
+                "ms_trials": rec["ms"],
+                "rows_padded": rec["rows_padded"][0],
+                "max_abs_err_vs_bias0": worst[b]["vs_bias0"],
+                "f32_vs_plain": worst[b]["f32_vs_plain"],
+                "bf16_vs_plain": worst[b]["bf16_vs_plain"],
+                "bf16_vs_f32": worst[b]["bf16_vs_f32"]}
+        padded = [by_bias[str(b)]["rows_padded"] for b in range(nb)]
+        line["by_bias"] = by_bias
+        line["bias_passes"] = {
+            "dispatches_f32": disp_f32, "dispatches_bf16": disp_bf16,
+            "launches": {"K2": c["K2"], "K2_bf16": c["K2_bf16"]},
+            "steady_captures": after["compiles"] - compiles0,
+            "envelope": envelope}
+        require(all(a <= b for a, b in zip(padded, padded[1:])),
+                f"ladder bias: rows_padded falls as the bias rises {padded}")
+        require(after["compiles"] == compiles0,
+                f"ladder bias: a capture after warm-up {line['bias_passes']}")
+        if card:
+            require(c["K2"] == disp_f32 and c["K2_bf16"] == disp_bf16
+                    and disp_f32 > 0 and disp_bf16 > 0,
+                    f"ladder bias: K2 launches == f32 gathered dispatches, "
+                    f"K2-bf16 == dispatches_bf16 {line['bias_passes']}")
+
+        # 2. The controller raises the bias to its top and restores it
+        #    while threads send the set.
+        # batch_fill_low=1.0: any batch short of the top bucket reads as
+        # fragmented, so the hot burn alone walks the bias up.
+        ctl = Controller(eng, config=ControlConfig(
+            cadence_s=3600.0, min_actuation_interval_s=0.0,
+            bucket_bias_max=nb - 1, batch_fill_low=1.0))
+        ctl.start()
+        ctl.stop()          # the anchor taken, the source attached: this
+        stop = threading.Event()    # thread owns every tick
+        results = [[] for _ in range(threads)]
+
+        def sender(tid):
+            try:
+                while not stop.is_set():
+                    for i in range(tid, len(reqs), threads):
+                        k, tier, p = reqs[i]
+                        results[tid].append((i, eng.submit(
+                            p, subject=keys[k], priority=tier)
+                            .result(timeout=120)))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        hot = {"tiers": {"0": {"burn_rates": {"goodput": 2.0}}}}
+        cold = {"tiers": {"0": {"burn_rates": {"goodput": 0.0}}}}
+        trajectory = []
+
+        def tick(slo):
+            d0 = eng.counters.dispatches
+            t_end = time.monotonic() + 30.0
+            while eng.counters.dispatches <= d0 + threads:
+                require(time.monotonic() < t_end and not errors,
+                        f"ladder bias: traffic stalled {errors[:1]}")
+                time.sleep(0.002)
+            ctl.tick({"load": eng.load(), "slo": slo,
+                      "counters": eng.counters.snapshot()})
+            trajectory.append(eng.bucket_bias)
+
+        compiles0 = eng.counters.compiles
+        zero_counts()
+        before = eng.counters.snapshot()
+        ths = [threading.Thread(target=sender, args=(t,))
+               for t in range(threads)]
+        for th in ths:
+            th.start()
+        try:
+            tick(hot)                   # the fill signal's first sample
+            while eng.bucket_bias < nb - 1 and len(trajectory) < 4 * nb:
+                tick(hot)
+            for _ in range(2):
+                tick(hot)               # held at the top under traffic
+            for _ in range(2):
+                tick(cold)              # restored
+        finally:
+            stop.set()
+            for th in ths:
+                th.join(timeout=300)
+        require(not any(th.is_alive() for th in ths),
+                "ladder bias: sender threads finished")
+        if errors:
+            raise errors[0]
+        c = counts()
+        after = eng.counters.snapshot()
+        snap = ctl.snapshot()
+        disp_bf16 = after["dispatches_bf16"] - before["dispatches_bf16"]
+        disp_f32 = (after["dispatches_gathered"]
+                    - before["dispatches_gathered"] - disp_bf16)
+        got = [None] * len(reqs)
+        err_any = 0.0
+        for res in results:
+            for i, g in res:
+                err_any = max(err_any, max_err(g, base[i]))
+                got[i] = g
+        e = check(got, base)
+        hold(e, "under the controller")
+        line["controller"] = {
+            "trajectory": trajectory,
+            "actuations": snap["actuations"],
+            "history": [{k: h[k] for k in ("actuator", "before", "after")}
+                        for h in snap["history"]],
+            "requests": sum(len(r) for r in results),
+            "max_abs_err_vs_bias0": err_any,
+            "dispatches_f32": disp_f32, "dispatches_bf16": disp_bf16,
+            "rows_padded": after["rows_padded"] - before["rows_padded"],
+            "rows_live": after["rows_live"] - before["rows_live"],
+            "launches": {"K2": c["K2"], "K2_bf16": c["K2_bf16"]},
+            "steady_captures": after["compiles"] - compiles0}
+        lc = line["controller"]
+        require(nb - 1 in trajectory and trajectory[-1] == 0
+                and {h["actuator"] for h in snap["history"]}
+                == {"bucket_bias"},
+                f"ladder bias: the controller raised the bias to its top "
+                f"and restored it {lc}")
+        require(err_any <= KERNEL_TOL and lc["steady_captures"] == 0,
+                f"ladder bias: rows under the controller vs bias 0, no "
+                f"capture {lc}")
+        if card:
+            require(c["K2"] == disp_f32 and c["K2_bf16"] == disp_bf16,
+                    f"ladder bias: K2 launches == f32 gathered dispatches "
+                    f"under the controller {lc}")
+    line["launches"] = {k: line["bias_passes"]["launches"][k]
+                        + lc["launches"][k] for k in ("K2", "K2_bf16")}
+    return line
+
+
+def ct_client(job: dict) -> dict:
+    """One client process of phase ``control``'s ``serve`` leg (started by
+    ``multiprocessing`` spawn): ``job["threads"]`` threads, each with a
+    keep-alive ``EdgeClient`` to ``job["target"]``, send this process's
+    seeded pose-only requests — every one of them once, unpaced, at tier 0
+    when ``job["arrivals"]`` is None (the calibration wave), else one per
+    ``(t_offset_s, tier)`` arrival, paced from ``job["start_at"]`` by a
+    feeder thread. Every 200 is held against its in-process reference
+    (the plain gathered program, from ``job["data"]``); every 429's
+    Retry-After is kept by tier. Imports only the edge client."""
+    import queue as queue_mod
+    import threading
+
+    from mano_hand_tpu_torch.edge.client import EdgeClient, EdgeError
+
+    with np.load(job["data"]) as z:
+        off, subj, pose, want = (z["offsets"], z["subjects"], z["poses"],
+                                 z["want"])
+    n = len(subj)
+    arrivals = job["arrivals"]
+    if arrivals is None:
+        arrivals = [(0.0, 0)] * n
+    keys, (host, port) = job["keys"], job["target"]
+    tasks: queue_mod.Queue = queue_mod.Queue()
+    lock = threading.Lock()
+    recs: list = []
+    firsts: list = []
+    connected = threading.Barrier(job["threads"] + 1)
+
+    def worker():
+        with EdgeClient(host, port, timeout_s=120.0) as cli:
+            cli.healthz()                       # connected before start
+            connected.wait()
+            while True:
+                item = tasks.get()
+                if item is None:
+                    return
+                i, tier = item
+                j = i % n
+                a, b = off[j], off[j + 1]
+                t1 = time.perf_counter()
+                try:
+                    got = cli.forward(pose[a:b], subject=keys[subj[j]],
+                                      priority=tier)
+                    rec = (tier, 200, None,
+                           float(np.abs(got - want[a:b]).max()))
+                except EdgeError as e:
+                    rec = (tier, e.status, e.retry_after_s, None)
+                except Exception as e:  # noqa: BLE001 — counted, judged
+                    rec = (tier, -1, None, None)
+                    with lock:
+                        firsts.append(f"{type(e).__name__}: {e}"[:200])
+                with lock:
+                    recs.append(rec + ((time.perf_counter() - t1) * 1e3,))
+
+    ts = [threading.Thread(target=worker) for _ in range(job["threads"])]
+    for th in ts:
+        th.start()
+    connected.wait()
+    while time.monotonic() < job["start_at"]:
+        time.sleep(0.0005)
+    t0 = time.monotonic()
+    for i, (t_off, tier) in enumerate(arrivals):
+        lag = t0 + t_off - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        tasks.put((i, tier))
+    for _ in ts:
+        tasks.put(None)
+    for th in ts:
+        th.join()
+    t1 = time.monotonic()
+    by = {}
+    for tier, status, _, _, _ in recs:
+        key = f"{tier}:{status}"
+        by[key] = by.get(key, 0) + 1
+    return {"t0": t0, "t1": t1, "requests": len(arrivals),
+            "resolved": len(recs), "by_tier_status": by,
+            "err": max([r[3] for r in recs if r[3] is not None],
+                       default=0.0),
+            "retry_after": {str(t): [r[2] for r in recs
+                                     if r[0] == t and r[1] == 429]
+                            for t in (0, 1)},
+            "ok_ms": [r[4] for r in recs if r[1] == 200],
+            "first_error": firsts[0] if firsts else None}
+
+
+def _ct_status(tmp, env, port) -> dict:
+    st = subprocess.run(
+        [sys.executable, "-m", "mano_hand_tpu_torch", "status",
+         "--platforms", "", "--server", f"127.0.0.1:{port}",
+         "--server-timeout", "10"],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+    server = json.loads(st.stdout)["server"]
+    return {"rc": st.returncode, "ok": server["ok"],
+            "control": server.get("control")}
+
+
+def ct_serve(dev, params, bucket=CT_BUCKET, subjects=CT_SUBJECTS,
+             clients=CT_CLIENTS, threads=CT_CLIENT_THREADS,
+             requests=CT_CLIENT_REQUESTS, trace_kw=None,
+             max_queued=CT_MAX_QUEUED, tier1_quota=CT_TIER1_QUOTA,
+             ready_timeout_s=CT_READY_TIMEOUT_S,
+             drain_timeout_s=CT_DRAIN_TIMEOUT_S) -> dict:
+    """Part (c) of phase ``control``: ``serve --control --posed-kernel
+    fused`` as a process (``max_bucket=bucket``, bounded admission
+    ``max_queued``/``tier1_quota``), ``subjects`` specialized over the
+    wire and every bucket's gathered program captured once; a calibration
+    wave from ``clients`` client processes (``max_queued // clients``
+    threads each, tier 0) scales one seeded ``traffic.make_trace`` flash
+    crowd (``CT_TRACE``) off the worker's measured rate, and the same
+    processes send it from ``threads`` threads each. Gates:
+    ``status --server`` shows the control block attached and running with
+    ticks > 0 (and, before the crowd, the controller's first actuation);
+    ``/metrics`` carries ``load_control_*``; every 200 within 1e-5 of the
+    in-process plain gathered program; every 429 carries a Retry-After the
+    controller held for its tier; no steady capture; the exit line's K2
+    launches == gathered dispatches + one warm call a captured program;
+    SIGTERM exits inside ``--drain-timeout-s`` plus a margin. Returns its
+    line."""
+    import hashlib
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from mano_hand_tpu_torch.edge import EdgeClient
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.serving import bucket_sizes, traffic
+    from mano_hand_tpu_torch.serving.control import ControlConfig
+
+    card = dev.type == "cuda"
+    # The calibration wave fits the queue bound (admitted whole, as JAX's
+    # drill calibrates under the quota); the crowd's pool is larger than
+    # the queue, or overload never materializes through blocking clients.
+    cal_threads = max_queued // clients
+    require(1 <= cal_threads < threads,
+            "control: calibration threads fit the queue, the crowd's not")
+    tkw = dict(CT_TRACE, **(trace_kw or {}))
+    j, s = params.n_joints, params.n_shape
+    rng = np.random.default_rng(SEED + 19)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    tmp = tempfile.mkdtemp(prefix="mano_control_")
+    line = {"bucket": bucket, "subjects": subjects, "clients": clients,
+            "threads": threads, "max_queued": max_queued,
+            "tier1_quota": tier1_quota}
+    proc = pool = None
+    t0 = time.perf_counter()
+    try:
+        err_path = os.path.join(tmp, "serve.stderr")
+        err_file = open(err_path, "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mano_hand_tpu_torch", "--device",
+             dev.type, "serve", "--control", "--posed-kernel", "fused",
+             "--port", "0", "--max-bucket", str(bucket), "--max-queued",
+             str(max_queued), "--tier1-quota", str(tier1_quota),
+             "--drain-timeout-s", str(drain_timeout_s)],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err_file,
+            text=True)
+        ready_line = _se_readline(proc, ready_timeout_s)
+        if not ready_line.strip():
+            proc.wait(timeout=30)
+            err_file.close()
+            with open(err_path) as f:
+                raise RuntimeError(
+                    f"serve --control exited {proc.returncode} before its "
+                    f"ready line: {f.read()[-2000:]}")
+        port = json.loads(ready_line)["edge"]["port"]
+        line["ready_s"] = time.perf_counter() - t0
+        host = "127.0.0.1"
+        betas = rng.normal(size=(subjects, s)).astype(np.float32)
+        with EdgeClient(host, port, timeout_s=120.0) as cli:
+            ready_compiles = _se_compiles(cli.metrics_text())
+            keys = [cli.specialize(b) for b in betas]
+            for b in bucket_sizes(1, bucket):   # every gathered program
+                cli.forward(rng.normal(scale=0.4, size=(b, j, 3))
+                            .astype(np.float32), subject=keys[0])
+            metrics = cli.metrics_text()
+        settled = _se_compiles(metrics)
+        line["load_control_gauges"] = sorted(
+            {ln.split()[0].split("{")[0] for ln in metrics.splitlines()
+             if ln.startswith("mano_load_control_")})
+        require(len(line["load_control_gauges"]) >= 7,
+                f"serve --control: /metrics carries load_control_* "
+                f"{line['load_control_gauges']}")
+        line["status_before"] = _ct_status(tmp, env, port)
+        ctl0 = line["status_before"]["control"] or {}
+        require(ctl0.get("attached") and ctl0.get("running")
+                and ctl0.get("ticks", 0) > 0
+                and ctl0.get("actuations", 0) > 0
+                and ctl0.get("retry_after_s"),
+                f"serve --control: status --server shows an attached, "
+                f"running controller that has acted {line['status_before']}")
+        # Each client process's requests and their references: the plain
+        # gathered program over the in-process table.
+        with torch.no_grad():
+            table = core.stack_shaped([core.specialize(
+                params, torch.from_numpy(b).to(dev)) for b in betas])
+        jobs = []
+        for i in range(clients):
+            crng = np.random.default_rng(SEED + 1900 + i)
+            rows = crng.integers(1, CT_MOST_ROWS + 1, size=requests)
+            subj = crng.integers(0, subjects, size=requests)
+            pose = crng.normal(scale=0.4, size=(int(rows.sum()), j, 3)
+                               ).astype(np.float32)
+            off = np.concatenate([[0], np.cumsum(rows)])
+            with torch.no_grad():
+                pt = torch.from_numpy(pose).to(dev)
+                idx = torch.from_numpy(np.repeat(subj, rows).astype(
+                    np.int32)).to(dev)
+                want = torch.cat([core.forward_posed_gather(
+                    table, idx[a:b], pt[a:b]).verts
+                    for a, b in zip(off[:-1], off[1:])]).cpu().numpy()
+            path = os.path.join(tmp, f"client{i}.npz")
+            np.savez(path, offsets=off, subjects=subj, poses=pose,
+                     want=want)
+            jobs.append({"index": i, "data": path, "keys": keys,
+                         "threads": threads, "target": (host, port)})
+        ctx = multiprocessing.get_context("spawn")
+        pool = ctx.Pool(clients)
+        # The calibration wave: every request once, unpaced, at tier 0.
+        start_at = time.monotonic() + 1.0
+        cal = pool.map(ct_client, [dict(jb, arrivals=None,
+                                        threads=cal_threads,
+                                        start_at=start_at) for jb in jobs])
+        wall = max(r["t1"] for r in cal) - min(r["t0"] for r in cal)
+        rate = sum(r["resolved"] for r in cal) / wall
+        trace = traffic.make_trace(
+            tkw["kind"], seed=tkw["seed"], duration_s=tkw["duration_s"],
+            base_hz=tkw["base_fraction"] * rate,
+            peak_hz=tkw["peak_multiple"] * rate,
+            tier0_fraction=tkw["tier0_fraction"])
+        line["calibration"] = {
+            "req_per_s": rate, "requests": sum(r["resolved"] for r in cal),
+            "by_tier_status": [r["by_tier_status"] for r in cal],
+            "max_abs_err": max(r["err"] for r in cal)}
+        line["trace"] = {**tkw, "sha256": hashlib.sha256(
+            traffic.serialize(trace)).hexdigest(),
+            "stats": traffic.trace_stats(trace)}
+        # The crowd: arrival i goes to client i % clients.
+        start_at = time.monotonic() + 1.0
+        res = pool.map(ct_client, [dict(
+            jb, arrivals=[a for k, a in enumerate(trace)
+                          if k % clients == i], start_at=start_at)
+            for i, jb in enumerate(jobs)])
+        by = {}
+        for r in cal + res:
+            require(r["first_error"] is None and r["resolved"]
+                    == r["requests"],
+                    f"serve --control: every request answered "
+                    f"{r['first_error']}")
+        for r in res:
+            for k, v in r["by_tier_status"].items():
+                by[k] = by.get(k, 0) + v
+        ok_ms = [x for r in res for x in r["ok_ms"]]
+        line["crowd"] = {
+            "requests": sum(r["requests"] for r in res),
+            "by_tier_status": dict(sorted(by.items())),
+            "wall_s": max(r["t1"] for r in res) - min(r["t0"]
+                                                     for r in res),
+            "ok_p50_ms": float(np.percentile(ok_ms, 50)) if ok_ms else None,
+            "ok_p99_ms": float(np.percentile(ok_ms, 99)) if ok_ms else None,
+            "max_abs_err": max(r["err"] for r in res)}
+        require(set(by) <= {"0:200", "1:200", "0:429", "1:429"},
+                f"serve --control: 200 or 429 for every request {by}")
+        require(max(line["calibration"]["max_abs_err"],
+                    line["crowd"]["max_abs_err"]) <= KERNEL_TOL,
+                f"serve --control: wire rows vs the in-process plain "
+                f"gathered program {line['crowd']}")
+        line["status_after"] = _ct_status(tmp, env, port)
+        ctl1 = line["status_after"]["control"] or {}
+        require(line["status_after"]["rc"] == 0 and ctl1.get("attached")
+                and ctl1.get("running") and not ctl1.get("crashed")
+                and ctl1.get("ticks", 0) > ctl0["ticks"],
+                f"serve --control: status --server after the crowd "
+                f"{line['status_after']}")
+        with EdgeClient(host, port, timeout_s=60.0) as cli:
+            line["steady_captures"] = _se_compiles(cli.metrics_text()) \
+                - settled
+        require(line["steady_captures"] == 0,
+                f"serve --control: no capture in steady traffic "
+                f"{line['steady_captures']}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=drain_timeout_s + 60.0)
+        line["sigterm_to_exit_s"] = time.perf_counter() - t1
+        err_file.close()
+        rc, proc = proc.returncode, None
+        exit_line = json.loads(out.strip().splitlines()[-1])["edge_exit"]
+        require(rc == 0 and exit_line["drained"]
+                and exit_line["within_timeout"]
+                and line["sigterm_to_exit_s"] <= drain_timeout_s + 10.0
+                and exit_line["accounting"]["spans_open"] == 0,
+                f"serve --control: SIGTERM drains inside its timeout "
+                f"{rc} {exit_line}")
+        with open(err_path) as f:
+            # The controller's own log lines (rejected actuations).
+            line["stderr_control_lines"] = [
+                ln.strip() for ln in f if ln.startswith("control:")][:20]
+        # What the controller can answer: tier 0 is always told 1 s;
+        # tier 1 walks 2 s, doubled up to retry_after_max_s and halved
+        # down to 1 s. The static formula's shed-state answers (tier 0:
+        # 2 s, tier 1: 3 s) are outside both sets.
+        top = ControlConfig().retry_after_max_s
+        held = {"0": {1}, "1": {2 ** k for k in range(top.bit_length())
+                                if 2 ** k <= top}}
+        ra = {t: [x for r in res for x in r["retry_after"][t]]
+              for t in ("0", "1")}
+        line["retry_after"] = {t: {"429s": len(v), "values": sorted(
+            {x for x in v if x is not None}),
+            "missing": sum(1 for x in v if x is None)}
+            for t, v in ra.items()}
+        require(all(x is not None and x in held[t]
+                    for t, v in ra.items() for x in v),
+                f"serve --control: every 429 carries a Retry-After the "
+                f"controller held {line['retry_after']} {held}")
+        ln = exit_line["launches"]
+        captures = exit_line["counters"]["compiles"] - ready_compiles
+        line["exit_launches"] = dict(ln, gathered_captures=captures,
+                                     expected_K2=ln["dispatches_gathered"]
+                                     + captures)
+        if card:
+            require(ln["K2"] == ln["dispatches_gathered"] + captures
+                    and ln["dispatches_gathered"] > 0
+                    and ln["K2_bf16"] == 0,
+                    f"serve --control: K2 launches == gathered dispatches "
+                    f"+ one warm call a captured program "
+                    f"{line['exit_launches']}")
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+def control(dev, counts, zero_counts) -> dict:
+    """Closed-loop control on the card (constants ``CT_*``):
+
+    * (a) ``control_drill_run`` at JAX's defaults (one seeded flash crowd
+      scaled off the socket-calibrated service rate, 2 interleaved pairs
+      of static and controlled legs, each on a fresh engine and
+      ``EdgeServer``, and the crash leg at half the trace), held to JAX's
+      six ``judge_control`` criteria and spans closed once in every leg;
+      it prints the service rate, each leg's counts and the trace digest;
+    * (b) the ladder bias over K2 and K2-bf16 (``ct_ladder``): every bias
+      of a 64-bucket engine under ``PrecisionPolicy()`` against the plain
+      programs and bias 0, its ms per request, and a ``Controller``
+      raising the bias to its top and restoring it under 4 threads;
+    * (c) ``serve --control --posed-kernel fused`` as a process
+      (``ct_serve``) under a flash crowd from client processes.
+
+    Each part's counts are zeroed just before it and read just after.
+    Returns the phase's JSON line."""
+    from mano_hand_tpu_torch.assets import synthetic_params
+
+    t_phase = time.perf_counter()
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    line = {"phase": "control"}
+    line["drill"] = ct_drill(dev, params, counts, zero_counts)
+    line["ladder_bias"] = ct_ladder(dev, params, counts, zero_counts)
+    line["serve"] = ct_serve(dev, params)
+    line["launches"] = line["ladder_bias"]["launches"]
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5575,6 +6307,13 @@ def main() -> int:
     fleet_line = fleet(dev, counts, zero_counts)
     emit(fleet_line)
 
+    # 18k. Closed-loop control: the control drill at JAX's defaults, the
+    #      ladder bias over K2 and K2-bf16 with a Controller raising and
+    #      restoring it, and `serve --control` under a flash crowd (counts
+    #      zeroed just before each part that reads them).
+    control_line = control(dev, counts, zero_counts)
+    emit(control_line)
+
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     #     K1 and K5 at every batch of their paths.
@@ -5745,7 +6484,10 @@ def main() -> int:
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
          "graph_ms": k2_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2_ptxas,
          "launches_serve_edge": serve_line["launches"]["K2"],
-         "launches_fleet": fleet_line["launches_fleet"]["K2"]},
+         "launches_fleet": fleet_line["launches_fleet"]["K2"],
+         "launches_control": control_line["launches"]["K2"],
+         "launches_control_serve": control_line["serve"]["exit_launches"][
+             "K2"]},
         {"name": "K3 skin", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/skin.cu",
          "replaces": "mano_hand_tpu/ops/pallas_lbs.py:107",
@@ -5780,7 +6522,8 @@ def main() -> int:
          "shape": f"B={K2_BATCH} C={K2_CAPACITIES[-1]}",
          "path": "bf16_tier",
          "graph_ms": k2b_by_batch[K2_BATCH]["graph_ms"], "ptxas": k2b_ptxas,
-         "launches_serve_edge": serve_line["launches"]["K2_bf16"]},
+         "launches_serve_edge": serve_line["launches"]["K2_bf16"],
+         "launches_control": control_line["launches"]["K2_bf16"]},
     ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": kernels})

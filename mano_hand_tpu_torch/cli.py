@@ -1264,6 +1264,30 @@ def cmd_serve_bench(args) -> int:
     return finish(out)
 
 
+def _control_from_prometheus(text: str) -> dict:
+    """A worker's control block from its /metrics text: the
+    ``load_control_*`` gauges (attached, running, crashed, version and the
+    actuated values, Retry-After by tier) and the ``control_*`` counters
+    (ticks, actuations, reverts). Empty when the text has none (a proxy)."""
+    out: dict = {}
+    for line in text.splitlines():
+        if line.startswith("#") or " " not in line:
+            continue
+        name, _, value = line.rpartition(" ")
+        for prefix in ("mano_load_control_", "mano_serving_control_"):
+            if not name.startswith(prefix):
+                continue
+            key, _, labels = name[len(prefix):].partition("{")
+            v = float(value)
+            if key in ("attached", "running", "crashed"):
+                out[key] = v != 0.0
+            elif labels:                   # retry_after_s{tier="1"}
+                out.setdefault(key, {})[labels.split('"')[1]] = int(v)
+            else:
+                out[key] = v if key == "coalesce_base_s" else int(v)
+    return out
+
+
 def cmd_serve(args) -> int:
     """``serve`` — the network edge: one worker process exposing a
     ``ServingEngine`` over the edge wire protocol (``edge/server.py``):
@@ -1328,6 +1352,14 @@ def cmd_serve(args) -> int:
     recorder = FlightRecorder(tracer, eng.counters,
                               out_dir=args.flight_dir or None)
     registry = engine_registry(eng, tracer=tracer)
+    # --control: the closed-loop controller; its retry_after_for also
+    # becomes the edge's 429 Retry-After source.
+    ctl = None
+    if args.control:
+        from mano_hand_tpu_torch.serving.control import Controller
+
+        ctl = Controller(eng, log=lambda m: print(
+            f"control: {m}", file=sys.stderr))
 
     lock_mode = args.device_lock
     if lock_mode == "auto":
@@ -1371,9 +1403,14 @@ def cmd_serve(args) -> int:
                 except Exception as e:  # noqa: BLE001 — cold > dead
                     print(f"warm-streams failed (worker boots cold): "
                           f"{type(e).__name__}: {e}", file=sys.stderr)
+            if ctl is not None:
+                ctl.start()
             srv = EdgeServer(
                 eng, host=args.host, port=args.port, registry=registry,
-                drain_timeout_s=args.drain_timeout_s, warm_streams=warmed,
+                drain_timeout_s=args.drain_timeout_s,
+                retry_after_source=(None if ctl is None
+                                    else ctl.retry_after_for),
+                warm_streams=warmed,
                 log=lambda m: print(m, file=sys.stderr)).start()
             print(json.dumps({
                 "edge": {"host": srv.host, "port": srv.port,
@@ -1383,6 +1420,8 @@ def cmd_serve(args) -> int:
             # thread between wait windows.
             while not stop_evt.wait(0.5):
                 pass
+            if ctl is not None:
+                ctl.stop()      # before the drain: no actuation mid-sweep
             report = srv.drain(timeout_s=args.drain_timeout_s)
             report["incident_captures"] = len(recorder.captures)
             # The exit line carries the worker's tracer accounting and
@@ -1701,6 +1740,11 @@ def cmd_status(args) -> int:
                     "lines": len(text.splitlines()),
                     "has_serving": "mano_serving_" in text,
                 }
+                control = _control_from_prometheus(text)
+                if control:
+                    # Port-only: a worker's controller, read from its
+                    # load_control_* gauges and control_* counters.
+                    server_block["control"] = control
             except Exception as e:  # noqa: BLE001 — degrade per leg
                 server_block["metrics"] = {
                     "error": f"{type(e).__name__}: {e}"}
@@ -2124,6 +2168,11 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--warm-streams", action="store_true",
                     help="exercise one synthetic stream fit before the "
                          "ready line")
+    sv.add_argument("--control", action="store_true",
+                    help="attach the closed-loop controller: live "
+                         "quota/coalesce/ladder-bias/Retry-After actuation "
+                         "off burn rates; a crash degrades to the static "
+                         "flags above")
     sv.add_argument("--drain-timeout-s", type=float, default=15.0,
                     help="SIGTERM drain budget: in-flight requests "
                          "resolve, the engine stop() sweep runs, the "

@@ -448,11 +448,21 @@ class FleetSupervisor:
     is never retried. Flapping is structurally impossible: every boot
     attempt consumes budget whether or not it succeeds.
 
+    HEALS RUN ON THEIR OWN THREADS, one per worker at a time, so the
+    sweep keeps watching the rest of the fleet while a replacement
+    boots (JAX's supervisor heals on its sweep thread; a ``serve``
+    worker on an H100 takes 17-28 s to boot, long enough for a worker
+    partitioned meanwhile to come back before three probes fail). A
+    worker with a heal in flight is neither polled nor probed until
+    that heal returns; a failed boot leaves the dead ``WorkerProc`` in
+    place and the next sweep heals it again, as before.
+
     Locking: ``_lock`` guards the ledger/counters/budget ONLY; all
-    blocking work (probes, kills, boots) runs outside it on the
-    supervisor thread, and ``load()`` is a single-hold snapshot (the
-    torn-telemetry rule). Stop the supervisor BEFORE a planned drain /
-    ``fleet.stop()`` — a polite operator-initiated exit is
+    blocking work (probes, kills, boots) runs outside it, on the
+    supervisor or a heal thread; ``_wire_lock`` serializes the heals'
+    proxy rewiring and nests nothing; and ``load()`` is a single-hold
+    snapshot (the torn-telemetry rule). Stop the supervisor BEFORE a
+    planned drain / ``fleet.stop()`` — a polite operator-initiated exit is
     indistinguishable from a death by design (the exit line says how,
     not why)."""
 
@@ -483,8 +493,10 @@ class FleetSupervisor:
         self._spec_factory = spec_factory
         self._log = log or (lambda m: None)
         self._lock = threading.Lock()
+        self._wire_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._heal_threads: Dict[str, threading.Thread] = {}
         self._breakers: Dict[str, object] = {}
         self._last_probe: Dict[str, float] = {}
         self._abandoned: set = set()
@@ -507,10 +519,15 @@ class FleetSupervisor:
         return self
 
     def stop(self, timeout_s: float = 10.0) -> None:
+        """Stop sweeping; wait at most ``timeout_s`` in all for the
+        sweep and any heal in flight."""
         self._stop.set()
+        deadline = time.monotonic() + timeout_s
         t = self._thread
         if t is not None:
             t.join(timeout_s)
+        for h in list(self._heal_threads.values()):
+            h.join(max(0.0, deadline - time.monotonic()))
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -552,17 +569,25 @@ class FleetSupervisor:
 
     def _sweep(self) -> None:
         now = time.monotonic()
-        for name, w in list(self._fleet.workers.items()):
+        for name in list(self._fleet.workers):
             if self._stop.is_set():
                 return
             with self._lock:
                 if name in self._abandoned:
                     continue
+            h = self._heal_threads.get(name)
+            if h is not None and h.is_alive():
+                continue
+            # Read the worker only after its heal is seen to have ended:
+            # a heal registers its replacement before it returns.
+            w = self._fleet.workers.get(name)
+            if w is None:
+                continue
             if not w.alive():
-                self._heal(name, w,
-                           reason=("clean_exit"
-                                   if w.exit_report is not None
-                                   else "exit"))
+                self._start_heal(name, w,
+                                 reason=("clean_exit"
+                                         if w.exit_report is not None
+                                         else "exit"))
                 continue
             if now - self._last_probe.get(name, 0.0) \
                     < self._probe_interval_s:
@@ -581,7 +606,7 @@ class FleetSupervisor:
                 # partitioned/wedged. SIGKILL the remains first — a
                 # half-dead process must not hold the port the
                 # replacement needs.
-                self._heal(name, w, reason="probe")
+                self._start_heal(name, w, reason="probe")
 
     # ----------------------------------------------------------------- heal
     def _budget_left(self, now: float) -> int:
@@ -590,6 +615,21 @@ class FleetSupervisor:
         self._restart_times = [t for t in self._restart_times
                                if t > cutoff]
         return self._restart_budget - len(self._restart_times)
+
+    def _start_heal(self, name: str, dead: WorkerProc,
+                    reason: str) -> None:
+        """Heal ``name`` on a thread of its own (sweep thread only)."""
+        def run():
+            try:
+                self._heal(name, dead, reason)
+            except Exception as e:  # noqa: BLE001 — the daemon survives
+                self._log(f"supervisor heal of {name} failed "
+                          f"({type(e).__name__}: {e})")
+
+        h = threading.Thread(target=run, name=f"mano-fleet-heal-{name}",
+                             daemon=True)
+        self._heal_threads[name] = h
+        h.start()
 
     def _heal(self, name: str, dead: WorkerProc, reason: str) -> None:
         fleet = self._fleet
@@ -616,10 +656,11 @@ class FleetSupervisor:
         # process): a partitioned worker still holds its socket.
         dead.kill()
         if fleet.proxy is not None:
-            try:
-                fleet.proxy.remove_backend(name)
-            except KeyError:
-                pass     # a previous heal round already removed it
+            with self._wire_lock:
+                try:
+                    fleet.proxy.remove_backend(name)
+                except KeyError:
+                    pass     # a previous heal round already removed it
         if inc is not None:
             self._log(f"supervisor: incident — {inc['incident']}")
             return
@@ -648,8 +689,9 @@ class FleetSupervisor:
         fleet.workers[name] = repl
         self._breakers.pop(name, None)       # fresh breaker, fresh state
         if fleet.proxy is not None:
-            fleet.proxy.add_backend(
-                Backend(name, "127.0.0.1", repl.port))
+            with self._wire_lock:
+                fleet.proxy.add_backend(
+                    Backend(name, "127.0.0.1", repl.port))
         # else: ProxyPair mode — the replacement bound the dead
         # worker's port, and the proxy's backend breaker re-probe
         # re-admits it with no wiring call.

@@ -1,9 +1,9 @@
 """Fleet front tier: a health-aware socket proxy over N edge workers.
 
 A port of the JAX package's ``edge/proxy.py`` (it holds no JAX: the
-port's copy differs in its imports, its drain and the absent
-``retry_after_source`` hook). One ``serve`` worker is reachable over
-the wire through ``edge/server.py``; this module makes a FLEET of them
+port's copy differs in its imports, its drain and its re-probe tick).
+One ``serve`` worker is reachable over the wire through
+``edge/server.py``; this module makes a FLEET of them
 killable, drainable, and redeployable without dropping a user. It is a
 process-level layer over machinery that already exists — every
 decision maps down:
@@ -56,6 +56,12 @@ decision maps down:
   awaited, bounded by 1 s — since Python 3.12 it waits for every open
   connection, so awaiting it first would hold the drain on an idle
   client for its whole window (``edge/server.py`` drains the same way).
+* **Re-admission without traffic**: every ``REPROBE_TICK_S`` the loop
+  kicks the due re-probe of each DOWN backend, as a pick does (JAX's
+  proxy re-probes only from a pick). A worker healed in place binds
+  its old port while the streams it lost live on a sibling; with no
+  pick in between, the first request after that sibling dies would
+  otherwise find every backend DOWN and get a 503.
 
 The proxy holds NO device and NO engine — it is pure socket work on
 one asyncio loop in a daemon thread (the EdgeServer lifecycle shape),
@@ -75,6 +81,10 @@ from mano_hand_tpu_torch.edge.server import (
     _LINE_LIMIT, MAX_BODY_BYTES, _Pushback, _Request, read_request,
     write_response)
 from mano_hand_tpu_torch.runtime.health import DOWN, HEALTHY, CircuitBreaker
+
+# How often the loop looks for due re-probes; each breaker's own
+# backoff (0.25 s doubling to 8 s) still spaces its probes.
+REPROBE_TICK_S = 0.25
 
 
 class BackendConnectError(Exception):
@@ -172,6 +182,7 @@ class EdgeProxy:
                  max_body_bytes: int = MAX_BODY_BYTES,
                  role: str = "active",
                  takeovers: int = 0,
+                 retry_after_source: Optional[Callable] = None,
                  log: Optional[Callable[[str], None]] = None):
         self._backends: Dict[str, Backend] = {}
         self._boot_seq = 0              # bumped by add_backend only
@@ -195,6 +206,13 @@ class EdgeProxy:
         self.probe_timeout_s = float(probe_timeout_s)
         self.upstream_timeout_s = float(upstream_timeout_s)
         self.max_body_bytes = int(max_body_bytes)
+        # An optional ``(tier, load) -> Optional[int]`` for PROXY-
+        # originated 503s (no routable backend, draining). A worker's 429
+        # keeps relaying the worker's own Retry-After verbatim — the
+        # worker's controller owns that value; this source covers only
+        # the responses the proxy itself makes (load is None there: the
+        # proxy has no engine). None -> no header.
+        self._retry_after_source = retry_after_source
         self._log = log or (lambda m: None)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.AbstractServer] = None
@@ -251,10 +269,19 @@ class EdgeProxy:
             self._handle, self.host, self.port, limit=_LINE_LIMIT)
         self.port = self._server.sockets[0].getsockname()[1]
         self._stop_event = asyncio.Event()
+        reprobe = asyncio.ensure_future(self._reprobe_loop())
         self._ready.set()
         self._log(f"proxy listening on {self.host}:{self.port} over "
                   f"{len(self._backends)} backends")
-        await self._stop_event.wait()
+        try:
+            await self._stop_event.wait()
+        finally:
+            reprobe.cancel()
+
+    async def _reprobe_loop(self) -> None:
+        while not self._draining:
+            self._kick_due_probes()
+            await asyncio.sleep(REPROBE_TICK_S)
 
     def drain(self, timeout_s: Optional[float] = None) -> dict:
         """Stop the PROXY itself (refuse new connections, resolve
@@ -444,15 +471,21 @@ class EdgeProxy:
         }
 
     # -------------------------------------------------------------- routing
-    def _pick(self, exclude=()) -> Optional[Backend]:
-        """Healthy-first, least-loaded, name as the deterministic
-        tie-break; kicks due re-probes onto disposable threads."""
-        cands = []
-        for be in self._backends.values():
+    def _kick_due_probes(self) -> None:
+        """Start each DOWN backend's due re-probe on a disposable
+        thread (the breaker lets one run at a time)."""
+        for be in list(self._backends.values()):
             if be.breaker.probe_due():
                 threading.Thread(target=be.breaker.allow_primary,
                                  name=f"probe-{be.name}",
                                  daemon=True).start()
+
+    def _pick(self, exclude=()) -> Optional[Backend]:
+        """Healthy-first, least-loaded, name as the deterministic
+        tie-break; kicks due re-probes onto disposable threads."""
+        self._kick_due_probes()
+        cands = []
+        for be in self._backends.values():
             if be.routable() and be.name not in exclude:
                 cands.append(be)
         if not cands:
@@ -472,12 +505,9 @@ class EdgeProxy:
         preferred at equal load — new capacity takes new sessions. Falls
         back to the plain pick when only cold workers remain:
         availability beats warmth."""
+        self._kick_due_probes()
         cands = []
         for be in self._backends.values():
-            if be.breaker.probe_due():
-                threading.Thread(target=be.breaker.allow_primary,
-                                 name=f"probe-{be.name}",
-                                 daemon=True).start()
             if (be.routable() and be.name not in exclude
                     and be.stream_warm is not False):
                 cands.append(be)
@@ -531,11 +561,30 @@ class EdgeProxy:
             except Exception:  # noqa: BLE001
                 pass
 
+    def _unavailable_headers(self, req: _Request) -> Optional[dict]:
+        """Retry-After for a PROXY-originated 503, from the attached
+        source. The request's priority header is the tier; the proxy has
+        no engine, so load is None. A source that raises or has no
+        opinion -> no header."""
+        if self._retry_after_source is None:
+            return None
+        try:
+            tier = int(req.headers.get(proto.PRIORITY_HEADER, 0))
+        except (TypeError, ValueError):
+            tier = 0
+        try:
+            retry_s = self._retry_after_source(tier, None)
+        except Exception:  # noqa: BLE001 — advisory header only
+            return None
+        return None if retry_s is None else {
+            "Retry-After": int(retry_s)}
+
     async def _dispatch(self, req: _Request, rd: _Pushback,
                         writer) -> bool:
         if self._draining:
             await write_response(writer, 503, proto.error_body(
                 "shutdown", "proxy is draining; connection closing"),
+                extra_headers=self._unavailable_headers(req),
                 close=True)
             return False
         route = (req.method, req.path.split("?", 1)[0])
@@ -642,7 +691,8 @@ class EdgeProxy:
             if be is None:
                 await write_response(writer, 503, proto.error_body(
                     "shutdown", "no routable backend in the fleet",
-                    phase="proxy"))
+                    phase="proxy"),
+                    extra_headers=self._unavailable_headers(req))
                 return True
             tried.add(be.name)
             be.outstanding += 1
@@ -692,7 +742,8 @@ class EdgeProxy:
         if not targets:
             await write_response(writer, 503, proto.error_body(
                 "shutdown", "no routable backend in the fleet",
-                phase="proxy"))
+                phase="proxy"),
+                extra_headers=self._unavailable_headers(req))
             return True
         results = await asyncio.gather(*(one(be) for be in targets))
         winner = None

@@ -211,6 +211,7 @@ class EdgeServer:
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
                  *, registry=None, drain_timeout_s: float = 10.0,
                  max_body_bytes: int = MAX_BODY_BYTES,
+                 retry_after_source: Optional[Callable] = None,
                  warm_streams: Optional[bool] = None,
                  log: Optional[Callable[[str], None]] = None):
         self._engine = engine
@@ -225,6 +226,12 @@ class EdgeServer:
         self._registry = registry
         self.drain_timeout_s = float(drain_timeout_s)
         self.max_body_bytes = int(max_body_bytes)
+        # An optional ``(tier, load) -> Optional[int]`` callback (a
+        # controller's ``retry_after_for``) that OWNS the 429 Retry-After
+        # when it returns an int; None (no controller, no opinion, or
+        # crashed) or a raise falls back to the static
+        # ``protocol.retry_after_s`` formula.
+        self._retry_after_source = retry_after_source
         self._log = log or (lambda m: None)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.AbstractServer] = None
@@ -636,13 +643,23 @@ class EdgeServer:
         status = proto.KIND_STATUS.get(e.kind, 500)
         extra = None
         if status == 429:
-            # Backpressure: the Retry-After derives from load()'s
-            # per-tier admission state (protocol.retry_after_s).
+            # Backpressure: the Retry-After is the controller's actuated
+            # value when one is attached and has an opinion, else it
+            # derives from load()'s per-tier admission state
+            # (protocol.retry_after_s).
             try:
                 load = self._engine.load()
             except Exception:  # noqa: BLE001 — the header is advisory
                 load = None
-            extra = {"Retry-After": proto.retry_after_s(tier, load)}
+            retry_s = None
+            if self._retry_after_source is not None:
+                try:
+                    retry_s = self._retry_after_source(tier, load)
+                except Exception:  # noqa: BLE001 — advisory header; a
+                    retry_s = None  # sick controller must not 500 a 429
+            if retry_s is None:
+                retry_s = proto.retry_after_s(tier, load)
+            extra = {"Retry-After": int(retry_s)}
         flight = (self._flight(f"edge_5xx_{e.kind}")
                   if status >= 500 else None)
         await self._respond(writer, status, proto.error_body(

@@ -453,8 +453,8 @@ def load_samples(load: dict) -> dict:
     snapshot as scrapeable gauges (admission state encoded
     ok=0/busy=1/shed=2 per tier; the lanes block as fleet gauges and
     per-lane samples labelled by lane, ``load_lane_backlog_batches``
-    beside JAX's names). The JAX engine's controller block, which the
-    port's engine has not yet, is not mapped."""
+    beside JAX's names; the controller block as ``load_control_*``
+    gauges)."""
     out: Dict[str, dict] = {}
     for key in ("outstanding", "queued", "backlog_peak"):
         if load.get(key) is not None:
@@ -583,6 +583,36 @@ def load_samples(load: dict) -> dict:
         if store.get(key) is not None:
             out[f"load_subject_store_{key}"] = metric(
                 "gauge", store[key], help=help_txt)
+    # Closed-loop control: the controller's liveness and its actuated set
+    # points, read beside the burn-rate gauges. The tick, actuation and
+    # revert counters ride serving_samples; these are the states and
+    # values only the control block knows.
+    ctl = load.get("control") or {}
+    for key, help_txt in (
+            ("attached", "a controller is attached (0/1)"),
+            ("running", "controller tick thread alive (0/1)"),
+            ("crashed", "controller crashed; engine reverted to "
+                        "static defaults (0/1)"),
+            ("version", "controller actuation version (torn-snapshot "
+                        "anchor)")):
+        if ctl.get(key) is not None:
+            out[f"load_control_{key}"] = metric(
+                "gauge", int(ctl[key]), help=help_txt)
+    values = ctl.get("values") or {}
+    for key, help_txt in (
+            ("coalesce_base_s", "actuated coalesce window base"),
+            ("max_queued", "actuated bounded-admission cap"),
+            ("bucket_bias", "actuated bucket-ladder selection bias")):
+        if values.get(key) is not None:
+            out[f"load_control_{key}"] = metric(
+                "gauge", values[key], help=help_txt)
+    retry = [sample(v, {"tier": t})
+             for t, v in sorted((values.get("retry_after_s")
+                                 or {}).items())]
+    if retry:
+        out["load_control_retry_after_s"] = metric(
+            "gauge", help="actuated per-tier Retry-After (seconds)",
+            samples=retry)
     return out
 
 

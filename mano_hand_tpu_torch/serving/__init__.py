@@ -1,16 +1,19 @@
 """Serving: the bucket policy, the precision policy, the micro-batching
 engine with its resilience and admission layer, its program cache and
 persistence, its pipelined dispatch, streaming sessions, tiered subject
-store and dispatch lanes, and the engine's drills, benchmark protocols
-and observability protocols."""
+store and dispatch lanes, the closed-loop controller and its traffic
+traces, and the engine's drills, benchmark protocols and observability
+protocols."""
 
 from mano_hand_tpu_torch.serving.buckets import (
     bucket_for, bucket_sizes, pad_rows, pad_tree_rows, subject_index_rows,
 )
+from mano_hand_tpu_torch.serving.control import ControlConfig, Controller
 from mano_hand_tpu_torch.serving.engine import ServingEngine, ServingError
 from mano_hand_tpu_torch.serving.lanes import Lane, LaneSet
 from mano_hand_tpu_torch.serving.measure import (
-    coalesce_bench_run, cold_start_drill_run, dispatch_pipeline_drill_run,
+    coalesce_bench_run, cold_start_drill_run, control_drill_run,
+    dispatch_pipeline_drill_run,
     edge_drill_run, fleet_drill_run, lane_drill_run, measure_overhead,
     metrics_overhead_run, overload_drill_run, posed_kernel_bench_run,
     precision_bench_run, recovery_drill_run, selfheal_drill_run,
@@ -22,10 +25,12 @@ from mano_hand_tpu_torch.serving.streams import (
     FrameResult, StreamManager, StreamSession,
 )
 
-__all__ = ["FrameResult", "Lane", "LaneSet", "PrecisionPolicy",
+__all__ = ["ControlConfig", "Controller", "FrameResult", "Lane", "LaneSet",
+           "PrecisionPolicy",
            "ServingEngine", "ServingError", "StreamManager",
            "StreamSession", "bucket_for", "bucket_sizes",
            "coalesce_bench_run", "cold_start_drill_run",
+           "control_drill_run",
            "dispatch_pipeline_drill_run", "edge_drill_run",
            "fleet_drill_run", "lane_drill_run", "measure_overhead", "metrics_overhead_run",
            "overload_drill_run", "pad_rows", "pad_tree_rows",

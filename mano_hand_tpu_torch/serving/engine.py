@@ -1133,6 +1133,13 @@ class ServingEngine:
         self.max_queued = None if max_queued is None else int(max_queued)
         self._tier_quotas = dict(tier_quotas or {})
         self.busy_fraction = float(busy_fraction)
+        # Closed-loop control (serving/control.py): the bucket-ladder
+        # selection bias (0 = the smallest fitting rung; N rounds N rungs
+        # up, see set_bucket_bias) and the attached controller's snapshot
+        # source (None = no controller; load()["control"] stays a
+        # shape-stable empty block).
+        self.bucket_bias = 0
+        self._control_source = None
         self.counters = ServingCounters()
         self._tracer = tracer
         if tracer is not None and policy is not None:
@@ -1606,6 +1613,49 @@ class ServingEngine:
             q = self.max_queued if tier <= 0 else self.max_queued // 2
         return min(q, self.max_queued)
 
+    # ------------------------------------------------ live control surface
+    def attach_control(self, source) -> None:
+        """Attach a controller's snapshot source: a zero-arg callable
+        returning the ``load()["control"]`` block, built in ONE
+        controller-lock hold. Detach with ``detach_control``; a failing
+        source degrades the block to the empty shape, never a load()
+        crash."""
+        self._control_source = source
+
+    def detach_control(self) -> None:
+        self._control_source = None
+
+    def set_coalesce_base(self, max_delay_s: float) -> dict:
+        """Retune the coalesce window BASE live (the controller's
+        batching actuator). ``_coalesce_window`` reads the attribute for
+        each batch, so the new base takes effect at the next assembly; a
+        single float swap needs no lock. Returns ``{"before", "after"}``.
+        """
+        v = float(max_delay_s)
+        if not 0.0 <= v <= 1.0:
+            raise ValueError(
+                f"max_delay_s must be in [0, 1] seconds, got {v}")
+        before = self.max_delay_s
+        self.max_delay_s = v
+        return {"before": before, "after": v}
+
+    def set_bucket_bias(self, bias: int) -> dict:
+        """Retune the bucket-ladder selection bias live (the controller's
+        ladder actuator): ``_launch`` adds ``bias`` rungs to the smallest
+        fitting bucket, capped at the largest. 0 is the plain ladder. A
+        positive bias pads more rows per dispatch but narrows the programs
+        steady traffic runs to the ladder's top rungs — every one of them
+        already built by warm-up, so the bias builds nothing. Returns
+        ``{"before", "after"}``."""
+        b = int(bias)
+        if not 0 <= b < len(self.buckets):
+            raise ValueError(
+                f"bucket_bias must be in [0, {len(self.buckets) - 1}], "
+                f"got {b}")
+        before = self.bucket_bias
+        self.bucket_bias = b
+        return {"before": before, "after": b}
+
     def set_admission(self, *, max_queued: Optional[int] = None,
                       tier_quotas: Optional[dict] = None) -> dict:
         """Retune bounded admission live: swap ``max_queued`` and/or
@@ -1698,6 +1748,18 @@ class ServingEngine:
         if self._subject_store is not None:
             # Tier occupancy and in-flight promotions, one store-lock hold.
             out["subject_store"] = self._subject_store.snapshot()
+        # The attached controller's state, one controller-lock hold. The
+        # empty block keeps the surface's shape without a controller, and
+        # a FAILING source degrades to it too: telemetry never crashes
+        # load().
+        from mano_hand_tpu_torch.serving import control as control_mod
+
+        src = self._control_source
+        try:
+            out["control"] = (control_mod.empty_snapshot() if src is None
+                              else src())
+        except Exception:  # noqa: BLE001 — degrade, never crash
+            out["control"] = control_mod.empty_snapshot()
         if self._tracer is not None:
             # Per-tier served latency quantiles and the backlog age, from
             # ONE tracer lock hold (obs/trace.py:load_snapshot).
@@ -2833,6 +2895,16 @@ class ServingEngine:
         mark = None
         try:
             bucket = bucket_mod.bucket_for(rows, self.buckets)
+            bias = self.bucket_bias
+            if bias:
+                # The ladder bias: ``bias`` rungs past the smallest fit,
+                # capped at the top. Applied before the staging pad, the
+                # index rows and the lane hand-off, so every one of them
+                # (and count_dispatch's rows_padded) sees the biased
+                # bucket; the pads repeat row 0 and are masked out at
+                # delivery like every padded dispatch.
+                i = self.buckets.index(bucket)
+                bucket = self.buckets[min(len(self.buckets) - 1, i + bias)]
             if tr is not None:
                 # The launch boundary: the queue and coalesce wait ends.
                 for r in reqs:

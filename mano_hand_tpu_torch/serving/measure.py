@@ -9,7 +9,8 @@ Port copies of the JAX package's ``serving/measure.py:recovery_drill_run``,
 ``serve_bench_run``, ``coalesce_bench_run``, ``posed_kernel_bench_run``
 and ``precision_bench_run``, the loopback ``edge_drill_run``, and the
 fleet's ``fleet_drill_run`` and ``selfheal_drill_run`` (worker and proxy
-processes on ``device``, driven over loopback sockets) — the
+processes on ``device``, driven over loopback sockets), and the
+closed-loop ``control_drill_run`` — the
 same arguments, protocol and returned keys (each drill attaches its
 tracer's ``flight_record``), plus ``device=`` and ``posed_kernel=``
 (JAX's ``interpret=`` goes: a CPU engine runs K2's plain version, a card
@@ -5501,3 +5502,407 @@ def selfheal_drill_run(
                 ("drained", "incident_captures")})
             for name, rep in reports.items()},
     }
+
+
+def control_drill_run(
+    params,
+    *,
+    # Trace shape: a flash crowd whose peak offers peak_multiple x the
+    # socket-calibrated service rate while the pre-crowd base leaves
+    # slack — the controller's cold window. Tier 0 is deliberately a
+    # MINORITY share so its offered load stays under capacity even at
+    # peak (priority scheduling then keeps its goodput ~flat in both
+    # legs and tier-1 served becomes the discriminator).
+    trace_kind: str = "flash_crowd",
+    trace_seed: int = 7,
+    trace_duration_s: float = 2.5,
+    base_fraction: float = 0.5,
+    peak_multiple: float = 4.0,
+    tier0_fraction: float = 0.15,
+    crowd_at_fraction: float = 0.35,
+    pairs: int = 2,
+    # Engine envelope (the edge-drill shape: pool > queue or overload
+    # never materializes through blocking clients).
+    max_queued: int = 16,
+    tier1_quota: int = 4,
+    deadline_s: float = 0.6,
+    sat_latency_s: float = 0.02,
+    max_bucket: int = 8,
+    batch_deadline_s: float = 0.5,
+    coalesce_base_s: float = 0.004,
+    workers: int = 24,
+    # Controller cadence for a seconds-long trace: ticks must land
+    # INSIDE the pre-crowd window or the grow leg never happens.
+    cadence_s: float = 0.05,
+    crash_at_fraction: float = 0.5,
+    drain_timeout_s: float = 10.0,
+    seed: int = 0,
+    device=None,
+    log: Callable[[str], None] = None,
+) -> dict:
+    """THE closed-loop control drill: the adaptive controller versus its
+    own static defaults on the SAME seeded flash crowd, through the real
+    socket, over engines on ``device`` (JAX's protocol, defaults and
+    returned keys).
+
+    Protocol:
+
+    1. **Calibrate**: measure this machine's wire service rate (waves
+       under quota, through the socket) and scale ONE seeded
+       ``traffic.make_trace`` flash crowd off it. The trace is made once;
+       its ``serialize()`` sha256 rides the artifact as the determinism
+       receipt. Every leg replays the same arrivals.
+    2. **Paired legs, interleaved**: ``pairs`` x (static, controlled),
+       alternating, each on a FRESH engine + EdgeServer with its own
+       tracer (the closed-once accounting is judged per leg). The static
+       leg keeps a fixed ``tier1_quota`` of ``max_queued``; the
+       controlled leg starts from the SAME statics and lets
+       ``serving.control.Controller`` steer quotas, coalesce, bucket bias
+       and per-tier Retry-After off live burn rates. Interleaving makes
+       machine-load drift cost both arms.
+    3. **Crash leg**: one controlled replay whose control thread is
+       killed ``crash_at_fraction`` into the trace. The controller must
+       revert every actuator to the static defaults, the engine keep
+       serving, and every request still reach an HTTP terminal.
+
+    Judgment inputs (the verdict belongs to the caller): controlled
+    tier-0 goodput >= static on the pooled pairs AND controlled tier-1
+    served STRICTLY greater; no steady builds in any leg; every actuation
+    evented (runtime-event count == the counter ledger, per controlled
+    leg); spans closed exactly once per leg; the crash leg reverted and
+    fully terminal. Burn rates come from ``slo_report`` on each leg's
+    exit counters. Saturation is a chaos throttle and the sockets are
+    loopback; the traffic is the full family (the plain core on a card).
+    """
+    import hashlib
+    import queue as queue_mod
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mano_hand_tpu_torch.edge import EdgeClient, EdgeError, EdgeServer
+    from mano_hand_tpu_torch.obs.metrics import slo_report
+    from mano_hand_tpu_torch.ops.common import resolve_device
+    from mano_hand_tpu_torch.runtime.chaos import ChaosPlan
+    from mano_hand_tpu_torch.runtime.supervise import DispatchPolicy
+    from mano_hand_tpu_torch.serving import traffic
+    from mano_hand_tpu_torch.serving.control import ControlConfig, Controller
+    from mano_hand_tpu_torch.serving.engine import ServingEngine
+
+    if pairs < 1:
+        raise ValueError(f"pairs must be >= 1, got {pairs}")
+    if workers < 2:
+        raise ValueError(f"workers must be >= 2, got {workers}")
+    if trace_duration_s <= 0:
+        raise ValueError(
+            f"trace_duration_s must be > 0, got {trace_duration_s}")
+    if not 0.0 < crash_at_fraction < 1.0:
+        raise ValueError(
+            f"crash_at_fraction must be in (0, 1), got "
+            f"{crash_at_fraction}")
+    log = _logger(log)
+    dev = resolve_device(device)
+    n_joints = params.n_joints
+    rng = np.random.default_rng(seed)
+    prm32 = params.astype(torch.float32).to(dev)
+    host = "127.0.0.1"
+    pose1 = rng.normal(scale=0.4, size=(1, n_joints, 3)).astype(
+        np.float32)
+    plan_spec = f"sat:{sat_latency_s}@0-"
+    static_quotas = {1: int(tier1_quota)}
+
+    def fresh_engine(tracer):
+        policy = DispatchPolicy(
+            deadline_s=batch_deadline_s, retries=0, backoff_s=0.0,
+            backoff_cap_s=0.0, jitter=0.0, breaker=None,
+            chaos=ChaosPlan(plan_spec),
+            # Overload is not a fault; a fallback tier would quietly
+            # raise capacity mid-leg.
+            cpu_fallback=False,
+        )
+        eng = ServingEngine(
+            prm32, device=dev, max_bucket=max_bucket,
+            max_delay_s=coalesce_base_s,
+            policy=policy, max_queued=max_queued,
+            tier_quotas=dict(static_quotas), tracer=tracer)
+        eng.start()
+        eng.warmup()
+        return eng
+
+    # ---- Calibrate the wire service rate (edge-drill definition) -----
+    cal_tracer = Tracer(capacity=32768)
+    cal_eng = fresh_engine(cal_tracer)
+    cal_srv = EdgeServer(cal_eng, host=host, port=0,
+                         drain_timeout_s=drain_timeout_s).start()
+    wave = min(max_bucket, max_queued)
+
+    def _cal_one():
+        # One client per request: EdgeClient owns one socket and is
+        # not safe to share across the wave's threads.
+        cli = EdgeClient(host, cal_srv.port, timeout_s=30.0)
+        try:
+            cli.forward(pose1, priority=0)
+        finally:
+            cli.close()
+
+    t0 = time.perf_counter()
+    served = 0
+    for _ in range(3):
+        with ThreadPoolExecutor(min(wave, workers)) as px:
+            futs = [px.submit(_cal_one) for _ in range(wave)]
+            for f in futs:
+                f.result(timeout=60.0)
+        served += wave
+    service_rate = served / (time.perf_counter() - t0)
+    cal_srv.drain(timeout_s=drain_timeout_s)
+
+    base_hz = base_fraction * service_rate
+    peak_hz = peak_multiple * service_rate
+    trace = traffic.make_trace(
+        trace_kind, seed=trace_seed, duration_s=trace_duration_s,
+        base_hz=base_hz, peak_hz=peak_hz,
+        tier0_fraction=tier0_fraction,
+        crowd_at_fraction=crowd_at_fraction)
+    trace_bytes = traffic.serialize(trace)
+    stats = traffic.trace_stats(trace)
+    log(f"control: wire service rate {service_rate:,.0f} req/s, trace "
+        f"{trace_kind} seed={trace_seed} -> {stats['arrivals']} "
+        f"arrivals ({stats['tier0']} tier-0), peak "
+        f"{stats['peak_rate_hz']:,.0f} req/s over {trace_duration_s}s")
+
+    # Budget: the engine's resolution window + one wire grace.
+    budget_s = deadline_s + batch_deadline_s + 0.5
+
+    def leg_run(name: str, controlled: bool,
+                crash_at_s: Optional[float] = None) -> dict:
+        tr = Tracer(capacity=32768)
+        eng = fresh_engine(tr)
+        ctl = None
+        if controlled:
+            ctl = Controller(eng, config=ControlConfig(
+                cadence_s=cadence_s,
+                min_actuation_interval_s=2.0 * cadence_s,
+                coalesce_max_s=max(coalesce_base_s, 0.004),
+                tier1_quota_max_fraction=0.75,
+            ), log=log)
+            ctl.start()
+        srv = EdgeServer(
+            eng, host=host, port=0, drain_timeout_s=drain_timeout_s,
+            retry_after_source=(None if ctl is None
+                                else ctl.retry_after_for)).start()
+        compiles_warm = eng.counters.compiles
+
+        tasks: queue_mod.Queue = queue_mod.Queue()
+        records: list = []
+        rec_lock = threading.Lock()
+        _STOP = object()
+
+        def worker():
+            cli = EdgeClient(host, srv.port, timeout_s=30.0)
+            while True:
+                item = tasks.get()
+                if item is _STOP:
+                    cli.close()
+                    return
+                tier = item
+                t0 = time.monotonic()
+                retry_after = None
+                try:
+                    cli.forward(pose1, priority=tier,
+                                deadline_s=deadline_s)
+                    out = "ok"
+                except EdgeError as e:
+                    out = {429: "shed", 504: "expired"}.get(
+                        e.status, "error")
+                    retry_after = e.retry_after_s
+                except Exception:  # noqa: BLE001 — a timeout IS the bug
+                    out = "unresolved"
+                t1 = time.monotonic()
+                with rec_lock:
+                    records.append((tier, t0, t1, out, retry_after))
+
+        pool = [threading.Thread(target=worker, daemon=True)
+                for _ in range(workers)]
+        for t in pool:
+            t.start()
+
+        crash_timer = None
+        crash_fired = threading.Event()
+        if crash_at_s is not None:
+            def _inject():
+                crash_fired.set()
+                # The drill reaches into the controller on purpose:
+                # _crash IS the crash path every BaseException in the
+                # control loop takes — injecting here exercises the
+                # revert contract without faking an exception class.
+                ctl._crash(RuntimeError(
+                    "control_drill: injected controller crash"))
+            crash_timer = threading.Timer(crash_at_s, _inject)
+            crash_timer.daemon = True
+            crash_timer.start()
+
+        # ---- Replay the ONE trace, paced to its offsets --------------
+        t_start = time.monotonic()
+        for (t_off, tier) in trace:
+            lag = (t_start + t_off) - time.monotonic()
+            if lag > 0:
+                time.sleep(lag)
+            tasks.put(tier)
+        submitted = len(trace)
+        dl = time.monotonic() + trace_duration_s + 2 * budget_s + 30.0
+        drained = False
+        while time.monotonic() < dl:
+            with rec_lock:
+                if len(records) >= submitted:
+                    drained = True
+                    break
+            time.sleep(0.005)
+        wall = time.monotonic() - t_start
+        if crash_timer is not None:
+            crash_timer.cancel()
+
+        # Exit-line bookkeeping BEFORE teardown: the control block and
+        # slo_report ride the same load() the controller steered by.
+        load_end = eng.load()
+        snapc = eng.counters.snapshot()
+        slo = slo_report(snapc, None, load_end["latency_by_tier"])
+        ctl_block = load_end["control"]
+        # The crash contract: every live actuator back at its static
+        # default (read the engine, not the controller's claim).
+        reverted = (
+            eng.max_delay_s == coalesce_base_s
+            and eng.max_queued == max_queued
+            and eng._tier_quotas == static_quotas
+            and eng.bucket_bias == 0)
+        if ctl is not None:
+            ctl.stop()
+        for _ in pool:
+            tasks.put(_STOP)
+        for t in pool:
+            t.join(timeout=10.0)
+        srv.drain(timeout_s=drain_timeout_s)
+
+        events = tr.snapshot()["events"]
+        n_ctl_events = sum(1 for e in events if e[2] == "control")
+        n_revert_events = sum(
+            1 for e in events if e[2] == "control_revert")
+        acc = tr.accounting()
+
+        by_tier = {0: {}, 1: {}}
+        retry_after_seen = {0: set(), 1: set()}
+        with rec_lock:
+            for (tier, _, _, out, ra) in records:
+                k = 0 if tier <= 0 else 1
+                by_tier[k][out] = by_tier[k].get(out, 0) + 1
+                if ra is not None:
+                    retry_after_seen[k].add(int(ra))
+        t0_total = sum(by_tier[0].values())
+        t0_ok = by_tier[0].get("ok", 0)
+        unresolved = sum(t.get("unresolved", 0)
+                         for t in by_tier.values())
+        leg = {
+            "name": name,
+            "controlled": bool(controlled),
+            "submitted": int(submitted),
+            "resolved": int(len(records)),
+            "drained": bool(drained),
+            "unresolved": int(unresolved),
+            "by_tier": {str(k): dict(sorted(v.items()))
+                        for k, v in by_tier.items()},
+            "tier0_goodput": float(
+                f"{(t0_ok / t0_total) if t0_total else 1.0:.4g}"),
+            "tier0_ok": int(t0_ok),
+            "tier0_total": int(t0_total),
+            "tier1_ok": int(by_tier[1].get("ok", 0)),
+            "tier1_total": int(sum(by_tier[1].values())),
+            "retry_after_seen": {
+                str(k): sorted(v) for k, v in
+                retry_after_seen.items()},
+            "steady_recompiles": int(
+                eng.counters.compiles - compiles_warm),
+            "wall_s": float(f"{wall:.4g}"),
+            "control": {
+                "ticks": int(ctl_block["ticks"]),
+                "actuations": int(ctl_block["actuations"]),
+                "reverts": int(ctl_block["reverts"]),
+                "crashed": bool(ctl_block["crashed"]),
+            },
+            "control_events": int(n_ctl_events),
+            "control_revert_events": int(n_revert_events),
+            "actuations_evented": bool(
+                n_ctl_events == ctl_block["actuations"]),
+            "reverted_to_static": bool(reverted),
+            "slo_burn_rates": {
+                t: rep.get("burn_rates", {})
+                for t, rep in slo.get("tiers", {}).items()},
+            "span_accounting": acc,
+            "spans_closed_exactly_once": bool(
+                acc["spans_started"] == acc["spans_closed"]
+                and acc["spans_open"] == 0),
+        }
+        if crash_at_s is not None:
+            leg["crash_injected"] = bool(crash_fired.is_set())
+        log(f"control: leg {name}: tier0 goodput "
+            f"{leg['tier0_goodput']:.3f} ({t0_ok}/{t0_total}), tier1 "
+            f"served {leg['tier1_ok']}/{leg['tier1_total']}, "
+            f"{ctl_block['actuations']} actuations "
+            f"({n_ctl_events} evented), steady recompiles "
+            f"{leg['steady_recompiles']}, unresolved {unresolved}")
+        return leg
+
+    # ---- Paired legs, interleaved ------------------------------------
+    legs = []
+    for p in range(pairs):
+        legs.append(leg_run(f"static_{p}", controlled=False))
+        legs.append(leg_run(f"controlled_{p}", controlled=True))
+    crash_leg = leg_run(
+        "crash", controlled=True,
+        crash_at_s=crash_at_fraction * trace_duration_s)
+
+    stat = [l for l in legs if not l["controlled"]]
+    ctrl = [l for l in legs if l["controlled"]]
+
+    def pooled_goodput(ls):
+        ok = sum(l["tier0_ok"] for l in ls)
+        total = sum(l["tier0_total"] for l in ls)
+        return float(f"{(ok / total) if total else 1.0:.4g}")
+
+    out = {
+        "control_drill_schema": 1,
+        "trace": {
+            "kind": trace_kind,
+            "seed": int(trace_seed),
+            "duration_s": float(trace_duration_s),
+            "base_hz": float(f"{base_hz:.4g}"),
+            "peak_hz": float(f"{peak_hz:.4g}"),
+            "tier0_fraction": float(tier0_fraction),
+            "sha256": hashlib.sha256(trace_bytes).hexdigest(),
+            "stats": stats,
+        },
+        "service_rate_per_sec": float(f"{service_rate:.4g}"),
+        "pairs": int(pairs),
+        "legs": legs,
+        "crash_leg": crash_leg,
+        "static_tier0_goodput": pooled_goodput(stat),
+        "controlled_tier0_goodput": pooled_goodput(ctrl),
+        "static_tier1_served": int(sum(l["tier1_ok"] for l in stat)),
+        "controlled_tier1_served": int(
+            sum(l["tier1_ok"] for l in ctrl)),
+        "static_tier1_served_per_sec": float(f"""{(
+            sum(l["tier1_ok"] for l in stat)
+            / max(1e-9, sum(l["wall_s"] for l in stat))):.4g}"""),
+        "controlled_tier1_served_per_sec": float(f"""{(
+            sum(l["tier1_ok"] for l in ctrl)
+            / max(1e-9, sum(l["wall_s"] for l in ctrl))):.4g}"""),
+        "steady_recompiles_total": int(
+            sum(l["steady_recompiles"] for l in legs + [crash_leg])),
+        "unresolved_total": int(
+            sum(l["unresolved"] for l in legs + [crash_leg])),
+        "actuations_total": int(
+            sum(l["control"]["actuations"] for l in ctrl)),
+        "actuations_evented": bool(
+            all(l["actuations_evented"] for l in ctrl + [crash_leg])),
+        "spans_closed_exactly_once": bool(
+            all(l["spans_closed_exactly_once"]
+                for l in legs + [crash_leg])),
+    }
+    return out

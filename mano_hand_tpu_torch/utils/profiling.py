@@ -128,6 +128,13 @@ class ServingCounters:
         # like dispatches_bf16. ``serve``'s exit line carries it beside
         # the worker process's K2 launches.
         self.dispatches_gathered = 0
+        # Closed-loop control (serving/control.py): decision sweeps run,
+        # knobs actually moved (each also a traced ``control`` runtime
+        # event with before/after), and restorations to the static
+        # defaults (a crashed or reverting-stopped controller).
+        self.control_ticks = 0
+        self.control_actuations = 0
+        self.control_reverts = 0
         self.rows_live = 0               # real request rows dispatched
         self.rows_padded = 0             # pad rows dispatched alongside them
         self.requests_dispatched = 0     # requests merged across dispatches
@@ -387,6 +394,23 @@ class ServingCounters:
         with self._lock:
             self.subject_store_resize_evictions += n
 
+    def count_control_tick(self, n: int = 1) -> None:
+        """One controller decision sweep, whether or not anything moved."""
+        with self._lock:
+            self.control_ticks += n
+
+    def count_control_actuation(self, n: int = 1) -> None:
+        """One knob the controller moved (quota, coalesce base, bucket
+        bias, Retry-After, warm capacity)."""
+        with self._lock:
+            self.control_actuations += n
+
+    def count_control_revert(self, n: int = 1) -> None:
+        """One restoration to the static defaults (a controller crash or
+        a reverting stop)."""
+        with self._lock:
+            self.control_reverts += n
+
     def count_shard_rebalance(self, rows: int = 0) -> None:
         """One dead shard's subjects adopted by the surviving lanes;
         ``rows`` is how many engine-hot rows the adopters took over at
@@ -426,6 +450,9 @@ class ServingCounters:
                 "dispatches": self.dispatches,
                 "dispatches_bf16": self.dispatches_bf16,
                 "dispatches_gathered": self.dispatches_gathered,
+                "control_ticks": self.control_ticks,
+                "control_actuations": self.control_actuations,
+                "control_reverts": self.control_reverts,
                 "rows_live": self.rows_live,
                 "rows_padded": self.rows_padded,
                 "requests_dispatched": self.requests_dispatched,

@@ -2167,3 +2167,73 @@ def test_posed_kernel_bench_run_parity_on_the_card(dev):
     assert out["xla_vs_gather_max_abs_err"] <= 1e-6
     assert out["steady_recompiles_fused"] == 0
     assert out["steady_recompiles_xla"] == 0
+
+
+def _zero_counts():
+    fused_posed.launches = 0
+    fused_posed.bf16_launches = 0
+
+
+def _counts():
+    return {"K2": fused_posed.launches, "K2_bf16": fused_posed.bf16_launches}
+
+
+def test_ladder_bias_over_k2_and_k2_bf16_on_the_card(dev):
+    """``chip_smoke.ct_ladder`` at a 16-bucket engine under
+    ``PrecisionPolicy()``: every bias's f32 rows within 1e-5 of the plain
+    gathered program and its bf16 rows of the plain bf16 version (inside
+    the envelope against f32), every bias within 1e-5 of bias 0, no
+    capture after warm-up, K2 / K2-bf16 launches equal to the f32 / bf16
+    gathered dispatches, rows_padded rising with the bias; then a
+    Controller raising the bias to the top and restoring it under two
+    threads (the function raises on any miss)."""
+    import chip_smoke
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    line = chip_smoke.ct_ladder(dev, params, _counts, _zero_counts,
+                                bucket=16, subjects=4, requests=24,
+                                trials=1, threads=2)
+    assert set(line["by_bias"]) == {"0", "1", "2", "3", "4"}
+    assert line["bias_passes"]["launches"]["K2"] > 0
+    assert line["bias_passes"]["launches"]["K2_bf16"] > 0
+    assert line["controller"]["trajectory"][-1] == 0
+    assert 4 in line["controller"]["trajectory"]
+
+
+def test_serve_control_process_on_the_card(dev, monkeypatch, tmp_path):
+    """``chip_smoke.ct_serve``: ``serve --control --posed-kernel fused``
+    at bucket 8 under a short flash crowd from two client processes —
+    the control block attached and running in ``status --server``,
+    ``load_control_*`` on /metrics, wire rows within 1e-5 of the plain
+    gathered program, every 429's Retry-After one the controller held,
+    the exit line's K2 launches == gathered dispatches + warm calls, the
+    SIGTERM drain in time (the function raises on any miss)."""
+    import chip_smoke
+
+    monkeypatch.setenv("MANO_DEVICE_LOCK_DIR", str(tmp_path))
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    line = chip_smoke.ct_serve(dev, params, bucket=8, subjects=2,
+                               clients=2, threads=6, requests=32,
+                               max_queued=8, tier1_quota=2,
+                               trace_kw=dict(duration_s=1.5))
+    ln = line["exit_launches"]
+    assert ln["K2"] == ln["expected_K2"] and ln["dispatches_gathered"] > 0
+    assert line["status_after"]["control"]["running"]
+
+
+def test_control_drill_on_the_card(dev):
+    """``control_drill_run`` at JAX's plumbing size over card engines: every
+    request terminal, no steady capture, actuations evented, the crash
+    leg reverted."""
+    from mano_hand_tpu_torch.serving import control_drill_run
+
+    params = synthetic_params(seed=0, dtype=torch.float32, device=dev)
+    out = control_drill_run(
+        params, device=dev, trace_duration_s=0.7, workers=8, pairs=1,
+        max_bucket=4, max_queued=8, tier1_quota=2, sat_latency_s=0.01,
+        cadence_s=0.03, seed=5)
+    assert out["unresolved_total"] == 0
+    assert out["steady_recompiles_total"] == 0
+    assert out["actuations_total"] > 0 and out["actuations_evented"]
+    assert out["spans_closed_exactly_once"]
+    assert out["crash_leg"]["reverted_to_static"]

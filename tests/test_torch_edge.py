@@ -283,6 +283,45 @@ def test_shed_is_429_with_jax_s_retry_after_and_no_dispatch():
         _drain(jsrv)
 
 
+@pytest.mark.parametrize("source", ["opinion", "none", "raises"])
+def test_429_retry_after_follows_the_source_as_jax(source):
+    """``retry_after_source`` owns a 429's Retry-After when it answers an
+    int; None or a raise falls back to ``protocol.retry_after_s``. The
+    source sees the tier and the engine's load()."""
+    seen = []
+
+    def src(tier, load):
+        seen.append((tier, sorted(load or {})))
+        if source == "raises":
+            raise RuntimeError("sick controller")
+        return None if source == "none" else 5 + tier
+
+    eng, jeng = _port_engine(max_queued=0), _jax_engine(max_queued=0)
+    srv = EdgeServer(eng, port=0, retry_after_source=src).start()
+    jsrv = JEdgeServer(jeng, port=0, retry_after_source=src).start()
+    try:
+        body = _body(pose=np.zeros((1, 16, 3), np.float32))
+        for tier in (0, 1, 3):
+            hdrs = {proto.PRIORITY_HEADER: str(tier)}
+            ours = _summary(_http(srv.port, "POST", "/v1/forward", body,
+                                  hdrs))
+            theirs = _summary(_http(jsrv.port, "POST", "/v1/forward",
+                                    body, hdrs))
+            assert ours == theirs, tier
+            assert ours["status"] == 429 and ours["kind"] == "shed"
+            want = (5 + tier if source == "opinion"
+                    else proto.retry_after_s(tier, eng.load()))
+            assert int(ours["retry_after"]) == want, tier
+        # Both servers called the source once per 429, with the tier and
+        # the same load() keys.
+        assert [t for t, _ in seen] == [0, 0, 1, 1, 3, 3]
+        assert all(seen[i][1] == seen[i + 1][1] for i in (0, 2, 4))
+        assert all("admission" in keys for _, keys in seen)
+    finally:
+        _drain(srv)
+        _drain(jsrv)
+
+
 def test_a_failed_dispatch_is_500_with_a_flight_record():
     eng = _port_engine(policy=DispatchPolicy(
         retries=0, chaos=ChaosPlan("error@0-"), cpu_fallback=False))

@@ -366,6 +366,78 @@ def test_supervisor_load_is_untorn_under_a_hammer_as_jax(monkeypatch):
     assert ours[:5] == ([], True, "w0", True, True)
 
 
+class _SlowBoot(_FakeBoot):
+    """A replacement that takes ``boot_s`` to print its ready line."""
+
+    boot_s = 1.5
+
+    def wait_ready(self, timeout_s=0.0):
+        time.sleep(type(self).boot_s)
+        return super().wait_ready(timeout_s)
+
+
+def _partition_during_boot(monkeypatch, module):
+    monkeypatch.setattr(module, "WorkerProc", _SlowBoot)
+    refused = _free_port()                       # w1's probes fail at once
+    fleet = _FakeFleet({
+        "w0": _FakeWorker("w0", alive=False),
+        "w1": _FakeWorker("w1", alive=True, port=refused)})
+    sup = _supervisor(module, fleet, restart_budget=100,
+                      budget_window_s=3600.0)
+    sup.start()
+    try:
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            f = sup.load()["fleet"]
+            if f["deaths_detected"] >= 2:
+                return f["restarts"], f["heals"]
+            time.sleep(0.002)
+        return None
+    finally:
+        sup.stop(timeout_s=5.0)
+
+
+def test_supervisor_probes_the_fleet_while_a_heal_boots(monkeypatch):
+    """A worker that stops answering while another worker's replacement
+    boots is caught by its probes during that boot: the port heals on a
+    thread per worker. JAX's supervisor heals on its sweep thread, so it
+    sees the second death only after the first replacement is up."""
+    ours = _partition_during_boot(monkeypatch, pfleet)
+    assert ours == (0, [])
+    restarts, heals = _partition_during_boot(monkeypatch, jfleet)
+    assert restarts == 1 and [h["worker"] for h in heals] == ["w0"]
+
+
+def _heal_ends_mid_sweep(monkeypatch, module):
+    boot = type("Boot", (_SlowBoot,), {"boot_s": 0.1})
+    monkeypatch.setattr(module, "WorkerProc", boot)
+    silent = socket.socket()                     # accepts, never answers
+    silent.bind((HOST, 0))
+    silent.listen(16)
+    fleet = _FakeFleet({
+        "w0": _FakeWorker("w0", alive=True, port=silent.getsockname()[1]),
+        "w1": _FakeWorker("w1", alive=False)})
+    sup = _supervisor(module, fleet, restart_budget=100,
+                      budget_window_s=3600.0, failure_threshold=10_000)
+    sup.start()
+    try:
+        time.sleep(1.5)
+        return _ledger(sup.load()["fleet"])
+    finally:
+        sup.stop(timeout_s=5.0)
+        silent.close()
+
+
+def test_a_heal_that_ends_mid_sweep_is_not_healed_again(monkeypatch):
+    """Each sweep probes the silent ``w0`` for 0.2 s before it reaches
+    ``w1``, whose 0.1 s heal ends meanwhile: the sweep reads ``w1``'s
+    replacement, not the dead process it listed, and heals once."""
+    ours = _heal_ends_mid_sweep(monkeypatch, pfleet)
+    assert ours == _heal_ends_mid_sweep(monkeypatch, jfleet)
+    assert ours["deaths_detected"] == ours["restarts"] == 1
+    assert ours["heals"] == [("w1", "exit")]
+
+
 def test_supervisor_rejects_a_zero_budget_as_jax():
     for module in (pfleet, jfleet):
         with pytest.raises(ValueError, match="restart_budget"):

@@ -105,3 +105,33 @@ def test_fleet_modules_and_their_processes_stay_in_the_port(module):
         assert argv[1:3] == ["-m", "mano_hand_tpu_torch.cli"]
         assert not [a for a in argv if _forbidden(a)]
     assert got["argv"][0][3:5] == ["--device", "cuda"]
+
+
+@pytest.mark.parametrize("module", ["mano_hand_tpu_torch.serving.traffic",
+                                    "mano_hand_tpu_torch.serving.control"])
+def test_control_modules_run_without_jax(module):
+    """The closed-loop controller and its traces load no JAX in a fresh
+    interpreter, also when they run: a trace is made and a controller
+    ticks once over a CPU engine, its signals swept from the engine's own
+    ``load()``, counters and ``slo_report``."""
+    code = (
+        "import json, sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "from mano_hand_tpu_torch.assets import synthetic_params\n"
+        "from mano_hand_tpu_torch.serving import ServingEngine, traffic\n"
+        "from mano_hand_tpu_torch.serving.control import Controller\n"
+        "tr = traffic.make_trace('flash_crowd', seed=1, duration_s=1.0, "
+        "base_hz=10.0, peak_hz=50.0)\n"
+        "eng = ServingEngine(synthetic_params(seed=0, device='cpu'), "
+        "device='cpu', max_bucket=2, max_queued=4)\n"
+        "ctl = Controller(eng)\n"
+        "ctl.tick()\n"
+        "print(json.dumps({'after': sorted(sys.modules), "
+        "'arrivals': len(tr), 'ticks': eng.counters.control_ticks}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in got["after"] if _forbidden(m)] == []
+    assert got["arrivals"] > 0 and got["ticks"] == 1

@@ -19,6 +19,7 @@ Every socket has a timeout, every server and proxy is drained in a
 ``finally``: a hung test must fail, not wait.
 """
 
+import http.client
 import json
 import os
 import socket
@@ -313,6 +314,62 @@ def test_429_and_its_retry_after_relay_verbatim(sides):
     assert rec["counters"]["reroutes"] == 0
 
 
+def _raw(port, method, path, headers):
+    conn = http.client.HTTPConnection(HOST, port, timeout=TIMEOUT)
+    try:
+        conn.request(method, path, body=b"{}", headers=headers)
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        return {"status": resp.status,
+                "retry_after": resp.getheader("Retry-After"),
+                "kind": body["error"]["kind"]}
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("source", ["opinion", "none", "raises", "absent"])
+def test_proxy_503s_carry_the_retry_after_source_as_jax(source):
+    """The proxy's own three 503s — no routable backend for a relay, no
+    routable backend for a specialize broadcast, and a request reaching a
+    draining proxy — carry the source's Retry-After for the request's
+    tier (load is None: the proxy has no engine); a source that answers
+    None or raises, or none at all, gives no header."""
+    calls = []
+
+    def src(tier, load):
+        calls.append((tier, load))
+        if source == "raises":
+            raise RuntimeError("sick controller")
+        return None if source == "none" else 3 + tier
+
+    kw = {} if source == "absent" else {"retry_after_source": src}
+    recs = {}
+    for name, cls in (("port", EdgeProxy), ("jax", JEdgeProxy)):
+        px = cls([], upstream_timeout_s=TIMEOUT, **kw).start()
+        try:
+            got = []
+            for tier in (0, 2):
+                hdrs = {proto.PRIORITY_HEADER: str(tier),
+                        "Content-Type": "application/json"}
+                got.append(_raw(px.port, "POST", "/v1/forward", hdrs))
+                got.append(_raw(px.port, "POST", "/v1/specialize", hdrs))
+            px._draining = True       # the drain window, held open
+            got.append(_raw(px.port, "GET", "/healthz",
+                            {proto.PRIORITY_HEADER: "1"}))
+            px._draining = False
+        finally:
+            px.drain(timeout_s=10.0)
+        recs[name] = got
+    assert recs["port"] == recs["jax"]
+    assert [r["status"] for r in recs["port"]] == [503] * 5
+    want = ([3, 3, 5, 5, 4] if source == "opinion" else [None] * 5)
+    assert [None if r["retry_after"] is None else int(r["retry_after"])
+            for r in recs["port"]] == want
+    if source != "absent":
+        assert [t for t, _ in calls] == [0, 0, 2, 2, 1] * 2
+        assert all(load is None for _, load in calls)
+
+
 # ------------------------------------------------------------- streams
 def _frames(frames):
     return {"frames": [f.frame for f in frames],
@@ -546,3 +603,26 @@ def test_drain_sweeps_an_idle_client_within_two_seconds(sides):
             socket.create_connection((HOST, px.port), timeout=2.0)
     finally:
         idle.close()
+
+
+def test_a_down_backend_is_readmitted_without_traffic(sides):
+    """A live worker whose breaker went DOWN comes back through the
+    port proxy's own re-probe tick, with no request through the proxy.
+    JAX's proxy re-probes only from a pick, so there it stays DOWN."""
+    def run(side):
+        px = side.proxy(("w0", side.servers[0].port))
+        try:
+            be = px.backends()["w0"]
+            for _ in range(3):
+                be.breaker.record_failure()
+            down = be.routable()
+            deadline = time.monotonic() + 3.0
+            while not be.routable() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            return down, be.breaker.state
+        finally:
+            px.drain(timeout_s=10.0)
+
+    port, jax = sides
+    assert run(port) == (False, "healthy")
+    assert run(jax) == (False, "down")

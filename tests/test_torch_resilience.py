@@ -30,6 +30,9 @@ from mano_hand_tpu_torch import runtime as prt
 from mano_hand_tpu_torch.assets import synthetic_params
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.serving import ServingEngine, ServingError, buckets
+from mano_hand_tpu_torch.serving.control import (
+    empty_snapshot as control_empty_snapshot,
+)
 from mano_hand_tpu_torch.serving.engine import _Request
 from mano_hand_tpu_torch.serving.streams import empty_snapshot
 
@@ -427,7 +430,8 @@ def test_set_admission_and_validation(sides):
         port.engine().set_admission(max_queued=4)
     assert port.engine().load() == {
         "outstanding": 0, "queued": 0, "max_queued": None, "admission": {},
-        "backlog_peak": 0, "streams": empty_snapshot()}
+        "backlog_peak": 0, "streams": empty_snapshot(),
+        "control": control_empty_snapshot()}
 
 
 def test_pop_parked_is_tier_first_then_earliest_deadline(sides):

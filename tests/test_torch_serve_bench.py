@@ -24,9 +24,8 @@ from mano_hand_tpu_torch.assets import synthetic_params
 from mano_hand_tpu_torch.serving import measure
 
 #: Counter-snapshot keys the port's ``ServingCounters`` does not keep:
-#: the closed-loop controller's (the port has no controller yet).
-JAX_ONLY_COUNTERS = {"control_ticks", "control_actuations",
-                     "control_reverts"}
+#: none (the closed-loop controller's three are the port's too).
+JAX_ONLY_COUNTERS = set()
 #: ... and keeps beside JAX's: bf16-family batches.
 PORT_ONLY_COUNTERS = {"dispatches_bf16", "dispatches_gathered"}
 

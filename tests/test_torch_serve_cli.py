@@ -31,9 +31,8 @@ from mano_hand_tpu_torch import cli
 ROOT = Path(__file__).resolve().parent.parent
 
 #: Counter-snapshot keys the port's ``ServingCounters`` does not keep:
-#: the closed-loop controller's (the port has no controller yet).
-JAX_ONLY_COUNTERS = {"control_ticks", "control_actuations",
-                     "control_reverts"}
+#: none (the closed-loop controller's three are the port's too).
+JAX_ONLY_COUNTERS = set()
 #: ... and keeps beside JAX's: bf16-family batches.
 PORT_ONLY_COUNTERS = {"dispatches_bf16", "dispatches_gathered"}
 
@@ -89,10 +88,57 @@ def test_serve_and_serve_bench_refuse_the_cpu_without_asking(capsys,
         rc, out, err = _run(capsys, cli.main, argv)
         assert rc == 2 and out == ""
         assert "pass --device cpu" in err
-    # `serve --control` is not there until the port has a controller.
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--device", "cpu", "serve", "--control"])
-    assert e.value.code == 2
+    # `serve --control` parses (and is off unless asked for).
+    parser = cli.build_parser()
+    assert parser.parse_args(["serve", "--control"]).control is True
+    assert parser.parse_args(["serve"]).control is False
+
+
+def test_serve_control_attaches_and_owns_the_retry_after(capsys,
+                                                         monkeypatch):
+    """``serve --control`` builds a Controller, starts it after warm-up,
+    hands its ``retry_after_for`` to the edge server, and stops it before
+    the drain (a stand-in server records what it was given and raises
+    SIGTERM at bind time)."""
+    import os
+
+    from mano_hand_tpu_torch import edge
+
+    seen = {}
+
+    class _Server:
+        host, port = "127.0.0.1", 0
+
+        def __init__(self, eng, **kw):
+            seen["eng"], seen["kw"] = eng, kw
+
+        def start(self):
+            seen["control_at_bind"] = seen["eng"].load()["control"]
+            os.kill(os.getpid(), signal.SIGTERM)
+            return self
+
+        def drain(self, timeout_s):
+            seen["control_at_drain"] = seen["eng"].load()["control"]
+            return {"drained": True}
+
+    monkeypatch.setattr(edge, "EdgeServer", _Server)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    try:
+        rc, out, _ = _run(capsys, cli.main, [
+            "--device", "cpu", "serve", "--port", "0", "--max-bucket", "2",
+            "--max-queued", "8", "--tier1-quota", "2", "--no-warmup",
+            "--control"])
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    assert rc == 0
+    src = seen["kw"]["retry_after_source"]
+    assert src is not None and src.__name__ == "retry_after_for"
+    at_bind = seen["control_at_bind"]
+    assert at_bind["attached"] and at_bind["running"]
+    assert not seen["control_at_drain"]["running"]   # stopped first
+    assert json.loads(out.splitlines()[-1])["edge_exit"]["drained"]
 
 
 def test_serve_bench_line_under_trace_and_metrics(capsys, tmp_path):
