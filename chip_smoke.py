@@ -46,7 +46,7 @@ each with every launch count zeroed just before it and read just after:
   (``hold_render``), ``render_sequence`` over a 120-frame right-hand clip
   (BASELINE config 5), the soft silhouette and soft depth at B = 16,
   64 x 64 against the CPU (values and gradients) and ``"vmap"`` against
-  ``"map"``, 20 steady Adam steps of the silhouette and depth fit terms
+  ``"map"``, 8 steady Adam steps of the silhouette and depth fit terms
   at B = 16 under sync debug "error" against the CPU, the JAX tests'
   silhouette and depth translation recoveries, a GLB round trip, and
   ``python -m mano_hand_tpu_torch render`` (to AVI) and ``fit
@@ -102,7 +102,7 @@ each with every launch count zeroed just before it and read just after:
   the SIGTERM drain) and ``status --platforms cpu,cuda``.
 * the fleet (phase ``fleet``: ``serve`` worker processes on the card,
   each its own interpreter and CUDA context): the fleet drill (a
-  mid-wave SIGKILL and a drain under 48 live streams through the proxy)
+  mid-wave SIGKILL and a drain under 16 live streams through the proxy)
   and the self-heal drill (a supervisor's heals, an active/standby
   ``proxy`` pair's takeover, the restart storm, a shard rebalance and a
   damaged page) at JAX's criteria, and 1, 2 and 3 workers with K2
@@ -159,6 +159,7 @@ import functools
 import json
 import os
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -225,10 +226,10 @@ FIT_WORST = 1e-2       # Adam: every mesh within 1 cm
 RENDER_SIZE, RENDER_FLIPS = 256, 8   # flipped hit pixels allowed, each
 EDGE_TOL = 1e-5                      # ... within this of a face's edge
 SOFT_BATCH, SOFT_SIZE = 16, 64
-SOFT_CPU_ROWS = 2          # images whose values and gradients the CPU holds
+SOFT_CPU_ROWS = 1          # images whose values and gradients the CPU holds
 COLOUR_SIZE = 128          # the vertex-colour render's size
 SOFT_TOL, SOFT_GRAD_TOL = 1e-5, 1e-4
-RASTER_STEPS, RASTER_CPU_ROWS = 20, 2   # card vs CPU losses, relative 1e-3
+RASTER_STEPS, RASTER_CPU_ROWS = 8, 2    # card vs CPU losses, relative 1e-3
 # The silhouette fit held against the CPU runs at 32 x 32 (its CPU side
 # is 4x cheaper), the depth fit at SOFT_SIZE: at 32 px a depth fit of the
 # full mesh parts from the CPU's past a few steps (a boundary pixel's
@@ -255,7 +256,7 @@ STALL_S, STALL_DEADLINE_S = 0.8, 0.5   # a device stall past the deadline
 PC_BUCKET = 256
 PC_SUBJECTS = 8             # max_subjects: the ladder's one capacity, 8
 PC_TIMED_BUCKETS = (1, 8, 64, 256)
-PC_TIMED = 60               # dispatches timed per family, bucket and mode
+PC_TIMED = 30               # dispatches timed per family, bucket and mode
 PC_THREADS, PC_REQUESTS = 4, 12
 PC_DRILL = dict(subjects=6, requests=48, max_bucket=8, max_subjects=8,
                 p99_waves=4)
@@ -271,7 +272,7 @@ OB_RACE_BUCKET = 64                  # the race engine's one bucket
 OB_SENTINEL_INTERVAL_S = 0.05        # the background sentinel's period
 OB_TIMED_PROBES = 5                  # clean probes timed per family
 OB_TRACE_BUCKETS = (1, 256)
-OB_TRACE_DISPATCHES = 60             # per family and bucket, profiled
+OB_TRACE_DISPATCHES = 30             # per family and bucket, profiled
 OB_EAGER_CALLS = 20                  # direct calls per family, profiled
 OB_OVERHEAD_BOUND = 1.03             # JAX's bound on both paired ratios
 # The pipelined dispatch, streams and the subject store (phase
@@ -283,8 +284,8 @@ PS_DRILL = dict(requests_steady=240, requests_chaos=48,
 PS_THREADS, PS_DEPTH_REQUESTS = 4, 24   # across depths: 96 requests
 PS_FULL_TOL = 1e-5                      # the full family across buckets
 PS_TRACE_BUCKETS = (1, 256)
-PS_TRACE_DISPATCHES = 60                # back-to-back, per side and bucket
-PS_STREAMS = dict(streams=32, frames_per_stream=4, subjects=8, workers=8,
+PS_TRACE_DISPATCHES = 30                # back-to-back, per side and bucket
+PS_STREAMS = dict(streams=16, frames_per_stream=4, subjects=8, workers=8,
                   warm_steps=4, cold_steps_candidates=(8, 16),
                   calib_probes=4, fit_trials=2, min_bucket=1, max_bucket=64)
 PS_STREAM_BUCKET = 16                   # the sessions' one bucket
@@ -301,7 +302,7 @@ LS_STORE = dict(subjects=100_000, requests_per_leg=120, lanes=2,
                 max_subjects=32, warm_capacity=64, max_rows=2, max_bucket=8,
                 zipf_a=1.2)                                # JAX's defaults
 LS_LOSS = dict(subjects=6, requests=12, max_bucket=8)      # per stage
-WARMUP, REPEATS, PER_SAMPLE = 3, 20, 10
+WARMUP, REPEATS, PER_SAMPLE = 3, 10, 10
 
 # Data-sheet peaks (dense, no sparsity): fp32 outside the tensor cores, bf16
 # on the tensor cores and device-memory bandwidth, by the name nvidia-smi
@@ -322,16 +323,16 @@ SE_DRAIN_TIMEOUT_S = 15.0           # serve's --drain-timeout-s
 # but its streams cut from 208 to 48, the self-heal drill at JAX's
 # defaults, and N worker processes against one (`serve --posed-kernel
 # fused`: K2 behind every worker), driven by client processes.
-FL_DRILL = dict(streams=48, frames_per_stream=4, stream_workers=16,
+FL_DRILL = dict(streams=16, frames_per_stream=4, stream_workers=16,
                 unique_tracks=8)
 FL_WORKERS = 3                      # the capacity leg's fleet
 FL_BUCKET = 64
 FL_SUBJECTS = 8                     # specialized through the proxy
 FL_CLIENTS = 4                      # client processes
 FL_THREADS = 4                      # threads a client process
-FL_REQUESTS = 300                   # requests a client process, a trial
+FL_REQUESTS = 150                   # requests a client process, a trial
 FL_MOST_ROWS = 4                    # one-to-four-row pose-only requests
-FL_PROXY_TURNS = (1, 2, 3, 3, 2, 1)  # workers behind the proxy, in turns
+FL_PROXY_TURNS = (1, 3, 3, 1)       # workers behind the proxy, in turns
 FL_DIRECT_TURNS = (1, 3, 3, 1)       # workers straight (round-robin)
 FL_READY_TIMEOUT_S = 420.0          # JAX's ready_timeout_s
 FL_SAMPLE_MS = 100                  # nvidia-smi utilization period
@@ -350,6 +351,13 @@ CT_TRACE = dict(kind="flash_crowd", seed=7, duration_s=3.0,
 CT_MAX_QUEUED, CT_TIER1_QUOTA = 16, 4   # (c): serve's admission, the drill's
 CT_READY_TIMEOUT_S = 300.0
 CT_DRAIN_TIMEOUT_S = 15.0
+PL_DP_BATCH = 8192                 # pallas_forward_dp (K1, K4) rows
+PL_SMAP_BATCH = 1024               # shard_map_forward, gspmd_forward rows
+PL_FIT_BATCH = 256                 # the sharded fit step's problems
+PL_FIT_STEPS, PL_FIT_LR = 50, 0.05  # JAX's test: adam(0.05), 50 steps
+PL_FIT_FALL = 50.0                 # JAX's test: the loss falls 50x
+PL_FIT_REL_TOL = 1e-4              # sharded vs unsharded step, relative
+PL_RANK_TIMEOUT_S = 300.0          # a rank process, from spawn to exit
 PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
     ("H100 PCIe", 51e12, 756e12, 2.0e12),
     ("H100 NVL", 60e12, 835e12, 3.9e12),
@@ -358,7 +366,14 @@ PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
 )
 
 
+#: ``time.perf_counter()`` at the start of ``main``: each phase line
+#: carries its end as ``at_s`` seconds from it.
+_T0: list = []
+
+
 def emit(obj) -> None:
+    if _T0 and "phase" in obj:
+        obj = dict(obj, at_s=round(time.perf_counter() - _T0[0], 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -4887,7 +4902,7 @@ def fleet(dev, counts, zero_counts) -> dict:
 
     * ``fleet_drill_run`` at JAX's defaults but ``FL_DRILL``'s cuts (3
       workers at 2 lanes cold-booting from a lattice baked here for the
-      card, 48 streams, a mid-wave SIGKILL and a drain), held to JAX's
+      card, 16 streams, a mid-wave SIGKILL and a drain), held to JAX's
       ``judge_fleet`` criteria: every worker's cold boot builds nothing
       and loads from the lattice, every frame terminal, the poses
       bit-equal fleet-wide and to the in-process reference, verts within
@@ -5644,6 +5659,409 @@ def control(dev, counts, zero_counts) -> dict:
     return line
 
 
+def _pl_comms(fn):
+    """(fn(), {collective: count}) of one call under ``CommDebugMode``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    mode = CommDebugMode()
+    with mode:
+        out = fn()
+    return out, {str(k).split("'")[1] if "'" in str(k) else str(k): v
+                 for k, v in mode.get_comm_counts().items()}
+
+
+def _pl_forward_launches(fn):
+    """(fn(), {"K1": n, "K4": n}): the K1 and K4 launches of one call of
+    ``fn`` in this process, counted from zero."""
+    from mano_hand_tpu_torch.ops import fused_forward
+
+    fused_forward.launches = fused_forward.blend_skin_launches = 0
+    out = fn()
+    _sync(out.device)
+    return out, {"K1": fused_forward.launches,
+                 "K4": fused_forward.blend_skin_launches}
+
+
+def _pl_fit(dev, step, state, targets, steps=PL_FIT_STEPS) -> tuple:
+    """(losses, ms a step) of ``steps`` fit steps."""
+    losses = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = step(state, targets)
+        losses.append(loss)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return [float(x) for x in losses], ms
+
+
+def _pl_ms(card: bool, fn, single):
+    """(ms of ``fn``, ms of ``single``) in turns on the card; (None,
+    None) elsewhere."""
+    return interleaved_ms(fn, single) if card else (None, None)
+
+
+def pl_rank_a(args: dict) -> dict:
+    """Part (a) of phase ``parallel``, in a process of its own: one rank,
+    NCCL, a 1x1 mesh on cuda:0 (the group ``make_mesh`` starts; gloo
+    where the device is the CPU)."""
+    import torch.distributed as dist
+
+    from mano_hand_tpu_torch import ops, parallel
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.fitting import objectives, solvers
+    from mano_hand_tpu_torch.models import core, oracle
+    from mano_hand_tpu_torch.ops import fused_forward
+    from mano_hand_tpu_torch.parallel import sharding as shd
+
+    d, dev = args["dir"], torch.device(args["device"])
+    card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(1, 1, devices=[dev])
+    require(dist.get_backend() == ("nccl" if card else "gloo"),
+            "part (a) runs over NCCL on the card")
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    inp = np.load(os.path.join(d, "inputs.npz"))
+    pose, shape = (torch.from_numpy(inp[k]).to(dev) for k in ("pose", "shape"))
+    line = {"backend": dist.get_backend(), "mesh": list(mesh.shape),
+            "setup_s": round(time.perf_counter() - t0, 3)}
+
+    def held(name, got, single):
+        err = max_err(got, single)
+        n = min(got.shape[0], ORACLE_ROWS)
+        ref = oracle.forward_batch_verts(params, inp["pose"][:n],
+                                         inp["shape"][:n])
+        err_o = max_err(got[:n], torch.from_numpy(ref))
+        require(tuple(got.shape) == tuple(single.shape),
+                f"{name}: shape {tuple(got.shape)}")
+        require(bool(torch.isfinite(got).all()), f"{name}: finite")
+        require(err <= KERNEL_TOL, f"{name} vs the single-device forward "
+                                   f"{err} <= {KERNEL_TOL}")
+        require(err_o <= ORACLE_TOL, f"{name} vs the oracle {err_o}")
+        return {"max_abs_err_single": err, "max_abs_err_oracle": err_o}
+
+    with torch.no_grad():
+        # pallas_forward_dp: K1 (full=True) and the K4 route, one launch a
+        # call on this rank, against the single-device kernel forward.
+        for full, kernel, single_fn in (
+                (True, "K1", fused_forward.forward_verts_fused_full),
+                (False, "K4", fused_forward.forward_verts_fused)):
+            t1 = time.perf_counter()
+            fwd = shd.pallas_forward_dp(params, mesh, full=full)
+            out, launches = _pl_forward_launches(lambda: fwd(pose, shape))
+            local = out.to_local()
+            single = single_fn(params, pose, shape)
+            name = "dp_full" if full else "dp_k4"
+            entry = held(name, local, single)
+            want = {"K1": int(full and card), "K4": int(card and not full)}
+            require(launches == want, f"{name}: launches {launches} == "
+                                      f"{want} a call on the rank")
+
+            def k1_single():
+                return fused_forward.forward_verts_fused_full(
+                    params, pose, shape)
+
+            ms, k1_ms = _pl_ms(card, lambda: fwd(pose, shape), k1_single)
+            entry.update(launches=launches, batch=int(out.shape[0]),
+                         placements=[repr(p) for p in out.placements],
+                         ms=ms, single_k1_ms=k1_ms,
+                         seconds=round(time.perf_counter() - t1, 3))
+            line[name] = entry
+            if full:
+                np.save(os.path.join(d, "a_dp_full.npy"), local.cpu().numpy())
+        # The vertex-sharded forwards at PL_SMAP_BATCH rows, against the
+        # port's plain single-device forward and K1.
+        b = args["smap_batch"]
+        p1, s1 = pose[:b], shape[:b]
+        sp = shd.shard_params(params, mesh)
+        plain = core.forward_batched(params, p1, s1).verts
+        for name, fwd in (("shard_map", shd.shard_map_forward(sp, mesh)),
+                          ("gspmd", shd.gspmd_forward(sp, mesh))):
+            t1 = time.perf_counter()
+            out, comms = _pl_comms(lambda: fwd(p1, s1))
+            got = out.full_tensor()
+            entry = held(name, got, plain)
+            if name == "shard_map":
+                require(comms == {"c10d.allreduce_": 1},
+                        f"shard_map: one all-reduce a call, got {comms}")
+                np.save(os.path.join(d, "a_smap.npy"), got.cpu().numpy())
+            ms, k1_ms = _pl_ms(
+                card, lambda: fwd(p1, s1),
+                lambda: fused_forward.forward_verts_fused_full(
+                    params, p1, s1))
+            entry.update(comms=comms, batch=b, ms=ms, single_k1_ms=k1_ms,
+                         seconds=round(time.perf_counter() - t1, 3))
+            line[name] = entry
+    # The sharded fit step against an unsharded step of the same parts
+    # (the staged forward, vertex_l2, optax's Adam).
+    t1 = time.perf_counter()
+    nb = args["fit_batch"]
+    with torch.no_grad():
+        targets = core.forward_batched(params, pose[:nb], shape[:nb]).verts
+    opt = solvers.adam(PL_FIT_LR)
+    step = parallel.make_fit_step(sp, mesh, opt)
+    state = parallel.init_state(sp, nb, opt, mesh=mesh)
+    losses, ms = _pl_fit(dev, step, state, targets)
+    fp = torch.zeros((nb, params.n_joints, 3), device=dev,
+                     requires_grad=True)
+    fs = torch.zeros((nb, params.n_shape), device=dev, requires_grad=True)
+    plain_opt = opt([fp, fs])
+    plain_losses = []
+    for _ in range(PL_FIT_STEPS):
+        plain_opt.zero_grad(set_to_none=True)
+        verts = core.forward_rotmats(params, ops.rotation_matrix(fp),
+                                     fs).verts
+        loss = objectives.vertex_l2(verts, targets)
+        loss.backward()
+        plain_opt.step()
+        plain_losses.append(loss.detach())
+    plain_losses = [float(x) for x in plain_losses]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    require(losses[-1] < losses[0] / PL_FIT_FALL,
+            f"fit: loss falls {PL_FIT_FALL}x ({losses[0]} -> {losses[-1]})")
+    require(rel <= PL_FIT_REL_TOL, f"fit vs unsharded {rel} <= "
+                                   f"{PL_FIT_REL_TOL}")
+    line["fit"] = {"batch": nb, "steps": PL_FIT_STEPS, "first": losses[0],
+                   "last": losses[-1], "fall": losses[0] / losses[-1],
+                   "max_rel_vs_unsharded": rel, "ms_per_step": ms,
+                   "seconds": round(time.perf_counter() - t1, 3)}
+    with open(os.path.join(d, "a_fit.json"), "w") as f:
+        json.dump(losses, f)
+    dist.destroy_process_group()
+    return line
+
+
+def pl_rank_b(args: dict) -> dict:
+    """Part (b) of phase ``parallel``, one of two processes on the one
+    card: gloo over CUDA tensors (NCCL refuses two ranks on one device),
+    the group started by ``multihost.initialize`` at an explicit
+    coordinator."""
+    import torch.distributed as dist
+
+    from mano_hand_tpu_torch import parallel
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.fitting import solvers
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.ops import fused_forward
+    from mano_hand_tpu_torch.parallel import multihost
+    from mano_hand_tpu_torch.parallel import sharding as shd
+
+    d, dev, rank = args["dir"], torch.device(args["device"]), args["rank"]
+    card, port = dev.type == "cuda", args["port"]
+    # Started while part (a) runs, so its imports overlap (a)'s work; it
+    # touches the card only once (a) has ended and the phase says go.
+    deadline = time.monotonic() + PL_RANK_TIMEOUT_S
+    while not os.path.exists(args["go"]):
+        require(time.monotonic() < deadline, "part (a) ended in time")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    require(multihost.initialize(f"localhost:{port}", 2, rank, device=dev,
+                                 backend="gloo"), "a two-process group")
+    line = {"rank": rank, "backend": dist.get_backend(),
+            "setup_s": round(time.perf_counter() - t0, 3)}
+    params = synthetic_params(seed=SEED, dtype=torch.float32, device=dev)
+    inp = np.load(os.path.join(d, "inputs.npz"))
+    with torch.no_grad():
+        # 2x1: each process loads its half of the global batch, assembled
+        # as one DTensor, and K1 runs once on each rank's rows.
+        t1 = time.perf_counter()
+        mesh = multihost.global_mesh()
+        sl = multihost.process_local_slice(args["dp_batch"], mesh)
+        pose = multihost.global_batch_array(inp["pose"][sl], mesh)
+        shape = multihost.global_batch_array(inp["shape"][sl], mesh)
+        fwd = shd.pallas_forward_dp(params, mesh, full=True)
+        out, launches = _pl_forward_launches(lambda: fwd(pose, shape))
+        require(launches == {"K1": int(card), "K4": 0},
+                f"rank {rank}: one K1 launch a call, got {launches}")
+        local = out.to_local()
+        np.save(os.path.join(d, f"b_dp_rank{rank}.npy"), local.cpu().numpy())
+        lp, ls = pose.to_local(), shape.to_local()
+        ms, k1_ms = _pl_ms(
+            card, lambda: fwd(pose, shape),
+            lambda: fused_forward.forward_verts_fused_full(params, lp, ls))
+        line["dp_full"] = {"mesh": list(mesh.shape),
+                           "slice": [sl.start, sl.stop],
+                           "local_rows": int(local.shape[0]),
+                           "launches": launches, "ms": ms,
+                           "single_k1_local_ms": k1_ms,
+                           "seconds": round(time.perf_counter() - t1, 3)}
+        # 1x2: the vertices split over the two processes, the joints'
+        # one all-reduce a call crossing them.
+        t1 = time.perf_counter()
+        mesh12 = parallel.make_mesh(1, 2)
+        sp = shd.shard_params(params, mesh12)
+        b = args["smap_batch"]
+        p1, s1 = (torch.from_numpy(inp[k][:b]).to(dev)
+                  for k in ("pose", "shape"))
+        smap = shd.shard_map_forward(sp, mesh12)
+        out, comms = _pl_comms(lambda: smap(p1, s1))
+        require(comms == {"c10d.allreduce_": 1},
+                f"rank {rank}: one all-reduce a call, got {comms}")
+        np.save(os.path.join(d, f"b_smap_rank{rank}.npy"),
+                out.to_local().cpu().numpy())
+        ms = cuda_ms(lambda: smap(p1, s1)) if card else None
+        line["shard_map"] = {"mesh": list(mesh12.shape), "comms": comms,
+                             "local": list(out.to_local().shape), "ms": ms,
+                             "seconds": round(time.perf_counter() - t1, 3)}
+        nb = args["fit_batch"]
+        targets = core.forward_batched(params, p1[:nb], s1[:nb]).verts
+    t1 = time.perf_counter()
+    opt = solvers.adam(PL_FIT_LR)
+    step = parallel.make_fit_step(sp, mesh12, opt)
+    state = parallel.init_state(sp, nb, opt, mesh=mesh12)
+    losses, ms = _pl_fit(dev, step, state, targets)
+    with open(os.path.join(d, f"b_fit_rank{rank}.json"), "w") as f:
+        json.dump(losses, f)
+    line["fit"] = {"batch": nb, "steps": PL_FIT_STEPS, "ms_per_step": ms,
+                   "seconds": round(time.perf_counter() - t1, 3)}
+    dist.barrier()
+    dist.destroy_process_group()
+    return line
+
+
+def _pl_spawn(args, d, tag):
+    """Start ``chip_smoke.py --parallel-rank`` with ``args``; its stderr to
+    a file in ``d``."""
+    err = open(os.path.join(d, f"{tag}.err"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         json.dumps(args)], stdout=subprocess.PIPE, stderr=err, text=True,
+        env=env)
+    return proc, err
+
+
+def _pl_wait(procs, d) -> list:
+    """Each rank's JSON line; every rank is killed on a timeout or a
+    failure of any."""
+    deadline = time.monotonic() + PL_RANK_TIMEOUT_S
+    lines = []
+    try:
+        for (proc, err), tag in procs:
+            out, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            err.close()
+            if proc.returncode != 0:
+                with open(os.path.join(d, f"{tag}.err")) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"parallel rank {tag} exited "
+                                   f"{proc.returncode}: {tail}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for (proc, err), _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+    return lines
+
+
+def parallel(dev, smi: str, dp_batch=PL_DP_BATCH, smap_batch=PL_SMAP_BATCH,
+             fit_batch=PL_FIT_BATCH) -> dict:
+    """The parallel package on the card (constants ``PL_*``), in rank
+    processes of its own so no process group outlives the phase here:
+
+    * (a) one rank over NCCL, a 1x1 mesh on cuda:0:
+      ``pallas_forward_dp`` with ``full=True`` (K1) and ``full=False``
+      (the K4 route) at B = 8192, one launch a call on the rank;
+      ``shard_map_forward`` (one all-reduce a call) and ``gspmd_forward``
+      at B = 1024; each within 1e-5 of the port's single-device forward
+      and 1e-4 of the oracle; 50 steps of ``make_fit_step`` at B = 256,
+      falling 50x, within relative 1e-4 of an unsharded step;
+    * (b) two processes on the one card over gloo (CUDA tensors),
+      started by ``multihost.initialize`` at an explicit coordinator: a
+      2x1 mesh runs K1 once a rank on half of B = 8192, fed through
+      ``process_local_slice``/``global_batch_array``, a 1x2 mesh
+      ``shard_map_forward`` (one cross-process all-reduce a call) and the
+      fit step; the gathered results within 1e-5 of (a)'s, the losses
+      within relative 1e-4.
+
+    Each part prints ms per call (each forward in turns with the
+    single-device K1 in its own process; per rank in (b)) and its
+    seconds, beside the card's name and power limit. Returns the phase's
+    JSON line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    line = {"phase": "parallel", "nvidia_smi": smi}
+    rng = np.random.default_rng(SEED + 19)
+    with tempfile.TemporaryDirectory(prefix="mano_parallel_") as d:
+        np.savez(os.path.join(d, "inputs.npz"),
+                 pose=rng.normal(scale=0.5, size=(dp_batch, 16, 3)
+                                 ).astype(np.float32),
+                 shape=rng.normal(size=(dp_batch, 10)).astype(np.float32))
+        base = {"dir": d, "device": str(dev), "dp_batch": dp_batch,
+                "smap_batch": smap_batch, "fit_batch": fit_batch}
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        go = os.path.join(d, "go")
+        t0 = time.perf_counter()
+        # (b)'s ranks start now and wait for ``go``: their imports overlap
+        # (a), their card work does not.
+        b_procs = [(_pl_spawn(dict(base, part="b", rank=r, port=port,
+                                   go=go), d, f"b{r}"), f"b{r}")
+                   for r in (0, 1)]
+        try:
+            (line["a"],) = _pl_wait([(_pl_spawn(dict(base, part="a"), d,
+                                                "a"), "a")], d)
+            line["a"]["seconds"] = round(time.perf_counter() - t0, 3)
+            t0 = time.perf_counter()
+            open(go, "w").close()
+            ranks = _pl_wait(b_procs, d)
+        finally:
+            for (proc, err), _ in b_procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                err.close()
+        line["b"] = {"ranks": ranks,
+                     "seconds": round(time.perf_counter() - t0, 3)}
+        # The gathered results of (b) against (a)'s.
+        a_dp = np.load(os.path.join(d, "a_dp_full.npy"))
+        b_dp = np.concatenate([np.load(os.path.join(d, f"b_dp_rank{r}.npy"))
+                               for r in (0, 1)])
+        a_smap = np.load(os.path.join(d, "a_smap.npy"))
+        b_smap = np.concatenate([np.load(os.path.join(
+            d, f"b_smap_rank{r}.npy")) for r in (0, 1)], axis=1)
+        with open(os.path.join(d, "a_fit.json")) as f:
+            a_fit = json.load(f)
+        b_fits = []
+        for r in (0, 1):
+            with open(os.path.join(d, f"b_fit_rank{r}.json")) as f:
+                b_fits.append(json.load(f))
+    dp_err, smap_err = max_err(b_dp, a_dp), max_err(b_smap, a_smap)
+    fit_rel = max(abs(x - y) / abs(y) for fit in b_fits
+                  for x, y in zip(fit, a_fit))
+    require(b_dp.shape == a_dp.shape, f"(b) dp shape {b_dp.shape}")
+    require(b_smap.shape == a_smap.shape, f"(b) smap shape {b_smap.shape}")
+    require(dp_err <= KERNEL_TOL, f"(b) K1 over two ranks vs (a) {dp_err}")
+    require(smap_err <= KERNEL_TOL, f"(b) shard_map over two ranks vs (a) "
+                                    f"{smap_err}")
+    require(fit_rel <= PL_FIT_REL_TOL, f"(b) fit losses vs (a) {fit_rel}")
+    line["b"].update(dp_full_max_abs_err_vs_a=dp_err,
+                     shard_map_max_abs_err_vs_a=smap_err,
+                     fit_max_rel_vs_a=fit_rel)
+    line["launches"] = {
+        "K1": line["a"]["dp_full"]["launches"]["K1"]
+        + sum(r["dp_full"]["launches"]["K1"] for r in ranks),
+        "K4": line["a"]["dp_k4"]["launches"]["K4"]}
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
+def pl_rank_main(spec: str) -> int:
+    """Entry of a rank process of phase ``parallel`` (on the device its
+    spec names)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = json.loads(spec)
+    emit(pl_rank_a(args) if args["part"] == "a" else pl_rank_b(args))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5676,6 +6094,7 @@ def main() -> int:
                 "K2_bf16": fused_posed.bf16_launches}
 
     t_start = time.perf_counter()
+    _T0[:] = [t_start]
     # 1. Environment. The plain versions must not run in TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6314,6 +6733,14 @@ def main() -> int:
     control_line = control(dev, counts, zero_counts)
     emit(control_line)
 
+    # 18l. The parallel package: the data- and vertex-parallel forwards
+    #      (K1 and K4 once a rank) and the sharded fit step, over NCCL in
+    #      one rank process and over gloo in two on the one card (the
+    #      ranks count their own launches; no group outlives the phase
+    #      in this process).
+    parallel_line = parallel(dev, smi)
+    emit(parallel_line)
+
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     #     K1 and K5 at every batch of their paths.
@@ -6473,7 +6900,9 @@ def main() -> int:
          "max_abs_err_oracle": k1_oracle, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "shape": f"B={b1}", "path": "serving",
-         "launches_train": train_launches["K1"], "ptxas": k1_ptxas},
+         "launches_train": train_launches["K1"],
+         "launches_parallel": parallel_line["launches"]["K1"],
+         "ptxas": k1_ptxas},
         {"name": "K2 fused_posed", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_posed.cu",
          "replaces": "mano_hand_tpu/ops/pallas_posed.py:382",
@@ -6503,7 +6932,9 @@ def main() -> int:
          "max_abs_err_oracle": k4_oracle, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
          "library_ms": None, "shape": f"B={b1}", "path": "train",
-         "max_abs_err_k1": k4_k1, "ptxas": k4_ptxas},
+         "max_abs_err_k1": k4_k1,
+         "launches_parallel": parallel_line["launches"]["K4"],
+         "ptxas": k4_ptxas},
         {"name": "K5 fused_forward_hands", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_forward.cu",
          "replaces": "mano_hand_tpu/ops/pallas_forward.py:830",
@@ -6534,4 +6965,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        sys.exit(pl_rank_main(sys.argv[2]))
     sys.exit(main())

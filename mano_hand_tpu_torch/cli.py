@@ -27,12 +27,16 @@ messages and exit codes, on the port:
            (``edge/proxy.py`` behind a flock on a fixed service port)
   status   host and device health, goldens, a live edge worker, the last
            persisted metrics scrape (one JSON document)
+  analyze  the port's static analysis (``analysis/``): policy linter,
+           lock-discipline checker, FX program auditor; exit 0 iff clean
 
 ``--device {cuda,cpu}`` (default ``cuda``) picks the device every
 subcommand runs on, where the JAX CLI takes ``--platform``; ``demo
 --backend`` is ``np`` (the float64 oracle) or ``torch``. ``export-aot``
 exports for its own ``--platforms`` (device types, default ``cpu``), and
 ``status`` probes its own ``--platforms`` (``cpu``, ``cuda``, ``default``).
+``analyze`` always traces on the CPU (JAX's ``--platform`` goes) and
+takes ``--skip-fx`` where JAX's takes ``--skip-jaxpr``.
 ``serve`` and ``serve-bench`` without a card exit 2 unless ``--device
 cpu`` asks for the CPU.
 """
@@ -1792,6 +1796,17 @@ def cmd_status(args) -> int:
     return 0
 
 
+def cmd_analyze(args) -> int:
+    """Project-invariant static analysis of the port (``analysis/``): the
+    policy linter, the lock-discipline checker and (on the CPU, no card
+    touched) the FX program auditor. Exit 0 iff clean; each failure names
+    the rule, file:line and its escape hatch."""
+    from mano_hand_tpu_torch.analysis.run import run_analysis
+
+    return run_analysis(update_baseline=args.update_baseline,
+                        skip_fx=args.skip_fx, as_json=args.json)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mano_hand_tpu_torch",
                                 description=__doc__)
@@ -2282,6 +2297,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "(requires --metrics-dir; skips the device "
                          "probes)")
     st.set_defaults(fn=cmd_status)
+
+    an = sub.add_parser(
+        "analyze",
+        help="run the port's static-analysis pass (policy linter, "
+             "lock-discipline checker, FX program auditor); exit 0 iff "
+             "clean",
+    )
+    an.add_argument("--update-baseline", action="store_true",
+                    help="recommit mano_hand_tpu_torch/analysis/"
+                         "baseline.json (the FX op counts) after an "
+                         "INTENTIONAL program change; justify the diff in "
+                         "the PR")
+    an.add_argument("--skip-fx", action="store_true",
+                    help="skip the FX program auditor (the one checker "
+                         "that traces; the AST checkers run in a second)")
+    an.add_argument("--json", action="store_true",
+                    help="one machine-readable JSON line instead of the "
+                         "report")
+    an.set_defaults(fn=cmd_analyze)
     return p
 
 

@@ -1,5 +1,6 @@
-"""Serving counters (what the engine did, as numbers) and ``torch_trace``
-(a ``torch.profiler`` capture with the engine's span timeline beside it).
+"""Serving counters (what the engine did, as numbers), ``torch_trace``
+(a ``torch.profiler`` capture with the engine's span timeline beside it)
+and ``Timer`` (accumulated wall-clock time).
 
 A thread-safe subset of the JAX package's ``ServingCounters``: batch
 dispatches and the rows in them, the coalescing of requests (and of
@@ -32,7 +33,7 @@ import threading
 import time
 import warnings
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -56,6 +57,36 @@ CUDA_WINDOW_PAD_S = 0.05
 #: Samples kept in a bounded reservoir (the promotion stalls): a ring
 #: past this many, as JAX's latency reservoirs.
 _LATENCY_RESERVOIR = 8192
+
+
+class Timer:
+    """Accumulating wall-clock timer (the JAX package's ``Timer``). Time
+    work on a card only when it ends in a synchronize inside the block:
+    CUDA launches return before the work is done.
+
+    >>> t = Timer()
+    >>> with t:
+    ...     work()
+    >>> t.total, t.count, t.mean
+    """
+
+    def __init__(self) -> None:
+        self.total = 0.0
+        self.count = 0
+        self._t0: Optional[float] = None
+
+    def __enter__(self) -> "Timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.total += time.perf_counter() - self._t0
+        self.count += 1
+        self._t0 = None
+
+    @property
+    def mean(self) -> float:
+        return self.total / max(self.count, 1)
 
 
 @contextlib.contextmanager

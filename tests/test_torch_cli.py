@@ -346,7 +346,7 @@ def test_module_entry_point_runs_and_refuses_a_missing_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert bad.returncode == 1 and "CUDA is not available" in bad.stderr
     subs = cli.build_parser()._subparsers._group_actions[0].choices
-    assert sorted(subs) == ["animate", "convert", "demo", "export-aot",
-                            "fit", "info", "proxy", "render", "serve",
-                            "serve-bench", "status", "trace-report",
-                            "verify"]
+    assert sorted(subs) == ["analyze", "animate", "convert", "demo",
+                            "export-aot", "fit", "info", "proxy", "render",
+                            "serve", "serve-bench", "status",
+                            "trace-report", "verify"]

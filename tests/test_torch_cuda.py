@@ -2237,3 +2237,133 @@ def test_control_drill_on_the_card(dev):
     assert out["actuations_total"] > 0 and out["actuations_evented"]
     assert out["spans_closed_exactly_once"]
     assert out["crash_leg"]["reverted_to_static"]
+
+
+# ------------------------------------------------------------ parallel
+@pytest.fixture(scope="module")
+def card_mesh(dev):
+    """A 1x1 mesh on the card: the single-rank NCCL group ``make_mesh``
+    starts in this process, torn down with the module."""
+    import torch.distributed as dist
+
+    from mano_hand_tpu_torch import parallel
+    from mano_hand_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = parallel.make_mesh(1, 1, devices=[dev])
+    assert dist.get_backend() == "nccl"
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        mesh_mod._group_device.clear()
+
+
+def _comms(fn):
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    mode = CommDebugMode()
+    with mode:
+        out = fn()
+    torch.cuda.synchronize()
+    # A collective's key prints as "c10d.allreduce_" or, in newer torch,
+    # as "<OpOverloadPacket(op='c10d.allreduce_')>".
+    return out, {str(k).split("'")[1] if "'" in str(k) else str(k): v
+                 for k, v in mode.get_comm_counts().items()}
+
+
+@pytest.mark.parametrize("b", [1, 1000, 4096])
+def test_pallas_forward_dp_launches_k1_and_k4_on_the_card(dev, card_mesh,
+                                                          b):
+    from mano_hand_tpu_torch.parallel import sharding as shd
+
+    params = _params(dev)
+    rng = np.random.default_rng(b)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(b, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(b, 10)).astype(
+        np.float32)).to(dev)
+    plain = fused_forward.forward_verts_plain(
+        fused_forward.fused_operands(params), pose, shape)
+    for full, counter in ((True, "launches"), (False, "blend_skin_launches")):
+        fwd = shd.pallas_forward_dp(params, card_mesh, full=full)
+        before = (fused_forward.launches, fused_forward.blend_skin_launches)
+        with torch.no_grad():
+            out = fwd(pose, shape)
+        torch.cuda.synchronize()
+        after = (fused_forward.launches, fused_forward.blend_skin_launches)
+        want = (1, 0) if full else (0, 1)
+        assert tuple(a - c for a, c in zip(after, before)) == want
+        assert out.to_local().device == dev and tuple(out.shape) == (
+            b, 778, 3)
+        assert _err(out.to_local(), plain) <= TOL
+
+
+def test_sharded_forwards_on_the_card_with_one_all_reduce(dev, card_mesh):
+    from mano_hand_tpu_torch.parallel import sharding as shd
+
+    params = _params(dev)
+    rng = np.random.default_rng(3)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(256, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(256, 10)).astype(
+        np.float32)).to(dev)
+    want = core.forward_batched(params, pose, shape).verts
+    sp = shd.shard_params(params, card_mesh)
+    with torch.no_grad():
+        out, comms = _comms(lambda: shd.shard_map_forward(sp, card_mesh)(
+            pose, shape))
+        assert comms == {"c10d.allreduce_": 1}
+        assert _err(out.full_tensor(), want) <= TOL
+        got = shd.gspmd_forward(sp, card_mesh)(pose, shape).full_tensor()
+    assert got.device == dev and _err(got, want) <= TOL
+
+
+def test_sharded_fit_step_on_the_card_tracks_the_unsharded_step(dev,
+                                                                card_mesh):
+    from mano_hand_tpu_torch import ops, parallel
+    from mano_hand_tpu_torch.fitting import objectives, solvers
+
+    params = _params(dev)
+    rng = np.random.default_rng(5)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(64, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(64, 10)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        targets = core.forward_batched(params, pose, shape).verts
+    opt = solvers.adam(0.05)
+    step = parallel.make_fit_step(params, card_mesh, opt)
+    state = parallel.init_state(params, 64, opt, mesh=card_mesh)
+    p = torch.zeros((64, 16, 3), device=dev, requires_grad=True)
+    s = torch.zeros((64, 10), device=dev, requires_grad=True)
+    plain_opt = opt([p, s])
+    for _ in range(5):
+        state, loss = step(state, targets)
+        plain_opt.zero_grad()
+        want = objectives.vertex_l2(core.forward_rotmats(
+            params, ops.rotation_matrix(p), s).verts, targets)
+        want.backward()
+        plain_opt.step()
+        assert loss.device == dev
+        want = float(want.detach())
+        assert abs(float(loss) - want) <= 1e-4 * want
+    assert _err(state.pose, p) <= 1e-5
+
+
+def test_prefetch_lands_batches_on_the_card_in_order(dev, card_mesh):
+    from mano_hand_tpu_torch.utils import batches, prefetch_to_device
+
+    rng = np.random.default_rng(7)
+    arrs = {"pose": rng.normal(size=(64, 16, 3)).astype(np.float32),
+            "beta": rng.normal(size=(64, 10)).astype(np.float32)}
+    got = list(prefetch_to_device(batches(arrs, 8), size=3, device=dev))
+    assert len(got) == 8
+    for b, h in zip(got, batches(arrs, 8)):
+        assert b["pose"].device == dev and b["beta"].device == dev
+        assert torch.equal(b["pose"].cpu(), torch.from_numpy(h["pose"]))
+    sharded = list(prefetch_to_device(batches(arrs, 16), mesh=card_mesh))
+    assert len(sharded) == 4
+    for b, h in zip(sharded, batches(arrs, 16)):
+        local = b["beta"].to_local()
+        assert local.device == dev
+        assert torch.equal(local.cpu(), torch.from_numpy(h["beta"]))

@@ -60,6 +60,8 @@ def _sources():
     if smoke.exists():
         files.append(smoke)
     files += [ROOT / "scripts" / name for name in PORT_SCRIPTS]
+    # The rank processes of the parallel tests run the port alone.
+    files.append(ROOT / "tests" / "torch_parallel_ranks.py")
     return files
 
 
@@ -135,3 +137,44 @@ def test_control_modules_run_without_jax(module):
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in got["after"] if _forbidden(m)] == []
     assert got["arrivals"] > 0 and got["ticks"] == 1
+
+
+def test_parallel_utils_and_analysis_run_without_jax():
+    """The parallel package, the utilities and the static analysis load no
+    JAX in a fresh interpreter, also when they run: a one-rank CPU mesh
+    (its own gloo group) runs K1's data-parallel forward, the sharded
+    forwards and a fit step, a prefetch lands on it, and ``analyze``'s
+    AST checkers pass."""
+    code = (
+        "import json, sys, torch\n"
+        "from mano_hand_tpu_torch import parallel\n"
+        "from mano_hand_tpu_torch.analysis.run import run_analysis\n"
+        "from mano_hand_tpu_torch.assets import synthetic_params\n"
+        "from mano_hand_tpu_torch.fitting import solvers\n"
+        "from mano_hand_tpu_torch.utils import ManoConfig, batches, "
+        "prefetch_to_device\n"
+        "p = synthetic_params(seed=0, dtype=torch.float32, device='cpu')\n"
+        "mesh = ManoConfig().build_mesh(devices=['cpu'])\n"
+        "pose, shape = torch.zeros(4, 16, 3), torch.zeros(4, 10)\n"
+        "sp = parallel.shard_params(p, mesh)\n"
+        "outs = [f(pose, shape).full_tensor() for f in ("
+        "parallel.pallas_forward_dp(p, mesh, full=True), "
+        "parallel.shard_map_forward(sp, mesh), "
+        "parallel.gspmd_forward(sp, mesh))]\n"
+        "opt = solvers.adam(0.05)\n"
+        "st = parallel.init_state(p, 4, opt, mesh=mesh)\n"
+        "st, loss = parallel.make_fit_step(sp, mesh, opt)(st, outs[0])\n"
+        "b = next(prefetch_to_device(batches({'x': pose.numpy()}, 2), "
+        "mesh=mesh))\n"
+        "rc = run_analysis(skip_fx=True, log=lambda *a: None)\n"
+        "print(json.dumps({'after': sorted(sys.modules), 'rc': rc, "
+        "'loss': float(loss), 'shapes': [list(o.shape) for o in outs], "
+        "'batch': list(b['x'].shape)}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in got["after"] if _forbidden(m)] == []
+    assert got["rc"] == 0 and 0.0 <= got["loss"] < 1e-12
+    assert got["shapes"] == [[4, 778, 3]] * 3 and got["batch"] == [2, 16, 3]
