@@ -120,6 +120,17 @@ each with every launch count zeroed just before it and read just after:
   --posed-kernel fused`` as a process under a flash crowd from client
   processes (its control block in ``status --server``, every 429 with
   the controller's Retry-After, K2 launches from its exit line).
+* the examples (phase ``examples``): ``examples_torch/01``-``21``
+  through their ``main`` on the card at ``tests/test_examples.py``'s
+  reduced flags (``EX_FLAGS``), 06 in this process and the twenty that
+  launch no kernel in ``EX_WORKERS`` worker processes at once, each
+  example's own asserts held, its seconds and key figure printed;
+  example 06 runs K4 through its three routes at
+  ``--batch 4096`` (one fused call, four chunks, one data-parallel call
+  on a one-rank mesh, and the timed warm launch: exactly seven K4
+  launches, no K1), each route within 1e-5 of K4's plain version and
+  1e-4 of the oracle; and ``python examples_torch/01_quickstart.py``
+  with no device flag, in a fresh process, runs on the card.
 
 Each kernel is held against its plain PyTorch version and the float64
 NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
@@ -140,9 +151,12 @@ by back-to-back calls as every row; ``graph_ms`` the same calls
 replayed from a CUDA graph, the kernel's device time, since the
 wrappers' host time exceeds the kernels' at these batches);
 ``blend_sgemm_ms`` times one cuBLAS fp32 product of the blend alone as a
-yardstick (the port never calls it), and the K1/K5, K2, K2-bf16, K3 and
-K4 entries carry their kernels' registers and spills from the
-``-Xptxas -v`` build log (a spill fails the run).
+yardstick (the port never calls it), K3's and K4's ``library_ms`` one
+einsum of the kernel's whole function on homogeneous operands in IEEE
+fp32, its contraction order given (in turns with the kernel; the port
+never calls them), and the K1/K5, K2, K2-bf16, K3 and K4 entries carry
+their kernels' registers and spills from the ``-Xptxas -v`` build log (a
+spill fails the run).
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
@@ -320,7 +334,7 @@ SE_TIMED = 200                      # one-row requests a side, in turns
 SE_READY_TIMEOUT_S = 300.0          # serve's cold start: import, warm-up
 SE_DRAIN_TIMEOUT_S = 15.0           # serve's --drain-timeout-s
 # The fleet on one card (phase fleet): the fleet drill at JAX's defaults
-# but its streams cut from 208 to 48, the self-heal drill at JAX's
+# but its streams cut from 208 to 16, the self-heal drill at JAX's
 # defaults, and N worker processes against one (`serve --posed-kernel
 # fused`: K2 behind every worker), driven by client processes.
 FL_DRILL = dict(streams=16, frames_per_stream=4, stream_workers=16,
@@ -358,6 +372,66 @@ PL_FIT_STEPS, PL_FIT_LR = 50, 0.05  # JAX's test: adam(0.05), 50 steps
 PL_FIT_FALL = 50.0                 # JAX's test: the loss falls 50x
 PL_FIT_REL_TOL = 1e-4              # sharded vs unsharded step, relative
 PL_RANK_TIMEOUT_S = 300.0          # a rank process, from spawn to exit
+#: The examples (``examples_torch/``) at ``tests/test_examples.py``'s
+#: reduced flags; 06 at its default --batch 4096.
+EX_FLAGS = {
+    "02_fitting": ["--batch", "2"],
+    "03_two_hands_video": ["--frames", "4", "--size", "48"],
+    "04_keypoint2d_fitting": ["--steps", "150"],
+    "05_sequence_tracking": ["--frames", "6", "--steps", "150"],
+    "08_streaming_tracking": ["--frames", "4", "--steps", "4"],
+    "10_two_hands_fitting": ["--steps", "120"],
+    "11_neural_pose_regression": ["--steps", "150", "--batch", "16"],
+    "12_silhouette_fitting": ["--steps", "150", "--size", "24"],
+    "13_mask_supervised_training": ["--steps", "200", "--batch", "12",
+                                    "--size", "20"],
+    "14_dataset_calibration": ["--steps", "200", "--size", "40"],
+    "15_depth_fitting": ["--steps", "200", "--size", "24"],
+    "18_uncentered_scan_lm": ["--points", "200", "--steps", "12"],
+    "20_bulk_registration": ["--frames", "64", "--batch", "32",
+                             "--steps", "8"],
+    "21_grasp_fitting": ["--steps", "200"],
+}
+#: The words ``tests/test_examples.py`` looks for in an example's output.
+EX_KEYWORDS = ("wrote", "fit", "tracked", "fused kernel", "trained")
+#: Each example's key figure: a number its output prints, by pattern.
+EX_FIGURES = {
+    "02_fitting": r"LM mesh fit: worst max-vertex error (\S+)",
+    "03_two_hands_video": r"\((\d+) frames\)",
+    "04_keypoint2d_fitting": r"trusted-joint reprojection max err (\S+) NDC",
+    "05_sequence_tracking": r"mean reprojection err (\S+) NDC",
+    "06_fast_inference": r"max err vs plain path: (\S+)",
+    "07_scan_registration": r"distance: mean (\S+) mm",
+    "08_streaming_tracking": r"worst per-frame vertex error: (\S+) m",
+    "09_aot_serving": r"batch=16: .* max err vs live forward (\S+)",
+    "10_two_hands_fitting": r"repulsion cut penetration (\S+)x",
+    "11_neural_pose_regression": r"held-out mean per-vertex error (\S+) mm",
+    "12_silhouette_fitting": r"front view soft IoU: (\S+)",
+    "13_mask_supervised_training": r"translation error (\S+) mm",
+    "14_dataset_calibration": r"mean reprojection error (\S+) px",
+    "15_depth_fitting": r"depth +fit: xy err +\S+ mm, z err +(\S+) mm",
+    "16_joint_limits": r"joint-limited fit: joint err (\S+) mm",
+    "17_detector_to_glb": r"fit: keypoint err (\S+) mm",
+    "18_uncentered_scan_lm": r"trans error: +(\S+) m",
+    "19_smpl_body_family": r"body pose to (\S+) mm",
+    "20_bulk_registration": r"worst vertex error (\S+) mm",
+    "21_grasp_fitting": r"grasp fit \(\+object term\): kp err (\S+) mm",
+}
+#: Worker processes that run the examples off the kernel path at once.
+EX_WORKERS = 4
+#: Those examples, longest first (as they ran on an H100), so that the
+#: workers finish together.
+EX_LONGEST_FIRST = (
+    "15_depth_fitting", "14_dataset_calibration", "09_aot_serving",
+    "13_mask_supervised_training", "12_silhouette_fitting",
+    "16_joint_limits", "07_scan_registration", "10_two_hands_fitting",
+    "21_grasp_fitting", "01_quickstart", "02_fitting", "17_detector_to_glb",
+    "11_neural_pose_regression", "04_keypoint2d_fitting",
+    "05_sequence_tracking", "08_streaming_tracking", "19_smpl_body_family",
+    "18_uncentered_scan_lm", "20_bulk_registration", "03_two_hands_video")
+#: K4 launches of example 06 on the card: one fused call, four chunks,
+#: one data-parallel call (one rank) and the timed warm launch.
+EX_K4_LAUNCHES = 7
 PEAKS = (  # (name fragment, fp32 FLOP/s, bf16 FLOP/s, bytes/s), first wins
     ("H100 PCIe", 51e12, 756e12, 2.0e12),
     ("H100 NVL", 60e12, 835e12, 3.9e12),
@@ -6051,6 +6125,270 @@ def parallel(dev, smi: str, dp_batch=PL_DP_BATCH, smap_batch=PL_SMAP_BATCH,
     return line
 
 
+def _ex_module(path: str):
+    """An example script as a module (its ``main`` not yet run)."""
+    import importlib.util
+
+    name = "example_" + os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples(dev, smi: str, counts, zero_counts, only=None) -> dict:
+    """The port's examples (``examples_torch/01``-``21``), each through its
+    ``main(argv)`` with ``--device`` the card, at ``EX_FLAGS``
+    (``tests/test_examples.py``'s reduced flags), each in a temporary
+    working directory of its own. Example 06, the kernel path, runs in
+    this process; the others, which launch no kernel, run in
+    ``EX_WORKERS`` spawned processes at once, longest first (``EX_LONGEST_FIRST``),
+    each in process there. An example's failed assert, error or non-zero
+    exit fails the phase. Each reports its seconds (beside the others
+    running then), its launches and its key figure (``EX_FIGURES``);
+    01's written OBJ is held against the float64 oracle (1e-4). Example
+    06: counts zeroed just before it and read just after, K4 launched
+    exactly ``EX_K4_LAUNCHES`` times on a card (0 on the CPU, where the
+    wrappers run the plain version) and K1 never; each route's vertices
+    (fused, chunked, data-parallel) within 1e-5 of K4's plain version on
+    the same rows and 1e-4 of the oracle. Meanwhile ``python
+    examples_torch/01_quickstart.py``, a fresh process with no device
+    flag, must run on the card (the default; without a card it must
+    refuse, naming ``--device cpu``). ``only`` runs a subset (a
+    rehearsal on the CPU). Returns the phase's JSON line."""
+    import re
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex_dir = os.path.join(root, "examples_torch")
+    names = sorted(f[:-3] for f in os.listdir(ex_dir)
+                   if re.fullmatch(r"\d\d_\w+\.py", f))
+    require(len(names) == 21, f"21 examples, found {names}")
+    if only is not None:
+        names = [n for n in names if n in only]
+    line = {"phase": "examples", "nvidia_smi": smi, "device": str(dev),
+            "workers": EX_WORKERS, "examples": {},
+            # Threads this process holds as the phase starts: each one
+            # left running by an earlier phase competes for the
+            # interpreter lock with example 06.
+            "threads_at_start": sorted(t.name for t in threading.enumerate())}
+    with tempfile.TemporaryDirectory(prefix="mano_ex_") as fresh:
+        # Started first and read last: its start-up overlaps the rest.
+        t_fresh = time.perf_counter()
+        with open(os.path.join(fresh, "stdout"), "w") as so, \
+                open(os.path.join(fresh, "stderr"), "w") as se:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(ex_dir, "01_quickstart.py")],
+                cwd=fresh, stdout=so, stderr=se)
+        try:
+            _ex_all(dev, names, ex_dir, counts, zero_counts, line)
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(os.path.join(fresh, "stdout")) as f:
+            stdout = f.read()
+        with open(os.path.join(fresh, "stderr")) as f:
+            stderr = f.read()
+        wrote = os.path.exists(os.path.join(fresh, "quickstart_hand.obj"))
+    if dev.type == "cuda":
+        require(proc.returncode == 0,
+                f"01 with no device flag exited {proc.returncode}: "
+                f"{stderr[-2000:]}")
+        require("device cuda" in stdout and wrote,
+                f"01 with no device flag did not run on the card: "
+                f"{stdout[-500:]}")
+        said = stdout.strip().splitlines()[0]
+    else:
+        # Without a card the default refuses and names the flag.
+        require(proc.returncode != 0 and "--device cpu" in stderr
+                and not wrote, "01 with no device flag and no card must "
+                f"refuse, naming --device cpu: {stderr[-500:]}")
+        said = stderr.strip().splitlines()[-1]
+    line["default_device"] = {
+        "rc": proc.returncode, "said": said,
+        "seconds_to_exit": round(time.perf_counter() - t_fresh, 3)}
+    if "06_fast_inference" in names:
+        _ex_k4(dev, line)
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    return line
+
+
+def _ex_all(dev, names, ex_dir, counts, zero_counts, line):
+    """Phase ``examples``: the examples off the kernel path submitted to
+    the worker processes, then 06 in this process, then each worker's
+    result; every example's checks, into ``line["examples"]``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    here = [n for n in names if n == "06_fast_inference"]
+    rank = {n: i for i, n in enumerate(EX_LONGEST_FIRST)}
+    away = sorted((n for n in names if n not in here),
+                  key=lambda n: rank.get(n, len(rank)))
+    threads = max(1, torch.get_num_threads() // EX_WORKERS)
+    pool = ProcessPoolExecutor(
+        max_workers=EX_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_ex_worker_init, initargs=(threads,)) if away else None
+    try:
+        futures = {n: pool.submit(_ex_run, n, ex_dir, dev.type)
+                   for n in away}
+        results = {}
+        for n in here:
+            k4 = line["_k4"] = {}
+            results[n] = _ex_run(n, ex_dir, dev.type, counts, zero_counts,
+                                 outputs=k4)
+        for n in away:
+            results[n] = futures[n].result()
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    for n in names:
+        line["examples"][n] = _ex_check(dev, n, results[n])
+
+
+def _ex_worker_init(threads: int) -> None:
+    """A worker process of phase ``examples``: as this script's own
+    process (no TF32), ``threads`` torch threads."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(threads)
+
+
+def _ex_run(name, ex_dir, device_type, counts=None, zero_counts=None,
+            outputs=None) -> dict:
+    """One example's ``main`` in a temporary working directory: its exit
+    code, output, seconds and launches (counts zeroed just before it and
+    read just after), and 01's written vertices. ``counts`` and
+    ``zero_counts`` default to the kernel wrappers' own counts (a worker
+    process's). ``outputs`` goes to 06's ``main``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mano_hand_tpu_torch.io import read_obj
+
+    counts = counts or kernel_counts
+    zero_counts = zero_counts or zero_kernel_counts
+    mod = _ex_module(os.path.join(ex_dir, name + ".py"))
+    argv = ["--device", device_type, *EX_FLAGS.get(name, [])]
+    kw = {} if outputs is None else {"outputs": outputs}
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="mano_ex_") as d:
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = mod.main(argv, **kw)
+            _sync(torch.device(device_type))
+            seconds = time.perf_counter() - t0
+            launched = counts()
+            written = ({f: read_obj(f).verts for f in os.listdir(d)
+                        if f.endswith(".obj") and "_restpose" not in f}
+                       if name == "01_quickstart" else {})
+        finally:
+            os.chdir(cwd)
+    return {"rc": rc, "text": out.getvalue(), "seconds": seconds,
+            "launches": launched, "written": written}
+
+
+def _ex_check(dev, name, res) -> dict:
+    """Phase ``examples``: one example's exit, words and key figure (01's:
+    its OBJ against the oracle); its entry of the phase's line."""
+    import re
+
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import oracle
+
+    text = res["text"]
+    require(res["rc"] == 0, f"example {name} exited {res['rc']}: "
+            f"{text[-2000:]}")
+    require(any(k in text for k in EX_KEYWORDS),
+            f"example {name} printed none of {EX_KEYWORDS}")
+    entry = {"seconds": round(res["seconds"], 3),
+             "launches": res["launches"]}
+    pattern = EX_FIGURES.get(name)
+    if pattern:
+        m = re.search(pattern, text)
+        require(m is not None, f"example {name}: no figure in {text!r}")
+        entry["figure"] = float(m.group(1))
+    if name == "01_quickstart":
+        # The OBJ 01 wrote against the float64 oracle, its inputs drawn
+        # as the example draws them.
+        rng = np.random.default_rng(0)
+        pose = rng.normal(scale=0.3, size=(16, 3))
+        shape = rng.normal(size=10)
+        p32 = synthetic_params(seed=SEED, device=dev).astype(torch.float32)
+        want = oracle.forward(p32, pose=pose.astype(np.float32),
+                              shape=shape.astype(np.float32)).verts
+        written = res["written"]
+        require(len(written) == 1, f"01 wrote {sorted(written)}")
+        entry["figure"] = max_err(next(iter(written.values())), want)
+        require(entry["figure"] <= ORACLE_TOL,
+                f"01's OBJ vs the oracle {entry['figure']}")
+    return entry
+
+
+def _ex_k4(dev, line):
+    """Phase ``examples``: example 06's K4 launches and each route's
+    vertices against K4's plain version and the oracle, into
+    ``line["k4"]``."""
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import oracle
+    from mano_hand_tpu_torch.ops import fused_forward
+
+    k4 = line.pop("_k4")
+    k4_run = line["examples"]["06_fast_inference"]["launches"]
+    k4_launches = EX_K4_LAUNCHES if dev.type == "cuda" else 0
+    require(k4_run["K4"] == k4_launches,
+            f"example 06 launched K4 {k4_run['K4']} times, not {k4_launches}")
+    require(k4_run["K1"] == 0, f"example 06 launched K1 {k4_run['K1']}")
+    p32 = synthetic_params(seed=SEED, device=dev).astype(torch.float32)
+    with torch.no_grad():
+        plain = fused_forward.forward_verts_plain(
+            fused_forward.fused_operands(p32), k4["pose"], k4["beta"])
+        n = ORACLE_ROWS
+        want = oracle.forward_batch_verts(p32, k4["pose"][:n].cpu().numpy(),
+                                          k4["beta"][:n].cpu().numpy())
+    k4_line = {"rows": int(k4["pose"].shape[0])}
+    for route in ("fused", "chunked", "sharded"):
+        got = k4[route]
+        require(tuple(got.shape) == tuple(plain.shape),
+                f"06 {route} shape {tuple(got.shape)}")
+        err, err_o = max_err(got, plain), max_err(got[:n], want)
+        require(err <= KERNEL_TOL, f"06 {route} vs K4's plain {err}")
+        require(err_o <= ORACLE_TOL, f"06 {route} vs the oracle {err_o}")
+        k4_line[route] = {"max_abs_err_plain": err,
+                          "max_abs_err_oracle": err_o}
+    line["k4"] = dict(k4_line, launches=k4_run["K4"])
+
+
+def zero_kernel_counts() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
+
+    fused_forward.launches = 0
+    fused_forward.blend_skin_launches = 0
+    fused_forward.hands_launches = 0
+    fused_posed.launches = 0
+    fused_posed.bf16_launches = 0
+    fused_skin.launches = 0
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
+
+    return {"K1": fused_forward.launches, "K2": fused_posed.launches,
+            "K3": fused_skin.launches,
+            "K4": fused_forward.blend_skin_launches,
+            "K5": fused_forward.hands_launches,
+            "K2_bf16": fused_posed.bf16_launches}
+
+
 def pl_rank_main(spec: str) -> int:
     """Entry of a rank process of phase ``parallel`` (on the device its
     spec names)."""
@@ -6078,20 +6416,7 @@ def main() -> int:
     from mano_hand_tpu_torch.ops.common import ieee_fp32
     from mano_hand_tpu_torch.serving import PrecisionPolicy, ServingEngine
 
-    def zero_counts():
-        fused_forward.launches = 0
-        fused_forward.blend_skin_launches = 0
-        fused_forward.hands_launches = 0
-        fused_posed.launches = 0
-        fused_posed.bf16_launches = 0
-        fused_skin.launches = 0
-
-    def counts():
-        return {"K1": fused_forward.launches, "K2": fused_posed.launches,
-                "K3": fused_skin.launches,
-                "K4": fused_forward.blend_skin_launches,
-                "K5": fused_forward.hands_launches,
-                "K2_bf16": fused_posed.bf16_launches}
+    zero_counts, counts = zero_kernel_counts, kernel_counts
 
     t_start = time.perf_counter()
     _T0[:] = [t_start]
@@ -6741,6 +7066,15 @@ def main() -> int:
     parallel_line = parallel(dev, smi)
     emit(parallel_line)
 
+    # 18m. The examples: examples_torch/01-21 on the card at the tests'
+    #      reduced flags, each example's asserts held; example 06, in
+    #      this process, launches K4 through its three routes (counts
+    #      zeroed just before each example and read just after it), the
+    #      other twenty in worker processes at once; 01 with no device
+    #      flag in a fresh process runs on the card.
+    examples_line = examples(dev, smi, counts, zero_counts)
+    emit(examples_line)
+
     # 19. Times, at the main paths' largest shapes, in turns with the plain
     #     version; the bound from this run's shapes and the card's peaks.
     #     K1 and K5 at every batch of their paths.
@@ -6805,6 +7139,30 @@ def main() -> int:
                 lambda: fused_skin.skin_batched_plain(*b3, transpose_r=True))
         k3_ms = k3_by_batch[K3_BATCH]["ms"]
         k3_plain_ms = k3_by_batch[K3_BATCH]["plain_ms"]
+        # The library's one call for K3's function, at K3_BATCH in IEEE
+        # fp32: out[b, v, a] = sum_j w[v, j] sum_c [R | t][b, j, a, c]
+        # [v_posed | 1][b, v, c], its homogeneous operands built here,
+        # outside the timed region; timed in turns with K3. Its order is
+        # given: left to right (opt_einsum off), w with [R | t] first into
+        # [b, v, a, c], then the homogeneous dot, a batched matmul over
+        # b and v (on an H100 6.0 ms, against 8.6 on opt_einsum's path,
+        # whose same pairs swap the last one's operands).
+        rt3 = torch.cat([k3_args[1], k3_args[2][..., None]], dim=-1
+                        ).contiguous()
+        vh3 = torch.cat([k3_args[3], torch.ones_like(k3_args[3][..., :1])],
+                        dim=-1).contiguous()
+
+        def k3_library():
+            return torch.einsum("vj,bjac,bvc->bva", w3, rt3, vh3)
+
+        with ieee_fp32(), torch.backends.opt_einsum.flags(enabled=False):
+            k3_lib_err = max_err(k3_library(),
+                                 fused_skin.skin_batched_plain(*k3_args))
+            k3_beside_lib, k3_library_ms = interleaved_ms(
+                lambda: fused_skin.skin_batched(*k3_args), k3_library)
+        require(k3_lib_err <= KERNEL_TOL,
+                f"K3's einsum vs its plain version {k3_lib_err}")
+        del rt3, vh3
         k4_by_batch = {}
         for b in K4_TIMED:
             pose_b, shape_b = (torch.from_numpy(x).to(dev) for x in k1_in[b])
@@ -6815,9 +7173,37 @@ def main() -> int:
                 lambda: fused_forward.blend_skin_fused(ops1, c4, r4, tt4),
                 lambda: fused_forward.blend_skin_plain(ops1, c4, r4, tt4))))
             if b == b1:
-                coef4 = c4
+                coef4, rot4, t4 = c4, r4, tt4
         k4_ms = k4_by_batch[b1]["ms"]
         k4_plain_ms = k4_by_batch[b1]["plain_ms"]
+        # The library's one call for K4's function, at b1 in IEEE fp32,
+        # as K3's: out[b, v, a] = sum_j w[v, j] sum_c [R | t][b, j, a, c]
+        # sum_k coef[b, k] basis[k, c, v], the basis given a fourth
+        # coordinate that is 1 on the coefficients' constant row (so the
+        # blended vertex is homogeneous); operands built here, untimed.
+        # Its order is given as a path: w with [R | t] first, then the
+        # blend, then the homogeneous dot (on an H100 6.3 ms, against 9.0
+        # on opt_einsum's path: the same pairs, the blend first).
+        basis_h = torch.cat([ops1.basis, torch.zeros_like(
+            ops1.basis[:, :1])], dim=1)
+        basis_h[s, 3] = 1.0                   # coefficient s is the 1
+        rt4 = torch.cat([rot4, t4[..., None]], dim=-1).contiguous()
+        w4 = ops1.wt.T.contiguous()
+
+        def k4_library():
+            return torch.ops.aten.einsum(
+                "bk,kcv,bjac,vj->bva", [coef4, basis_h, rt4, w4],
+                path=[2, 3, 0, 1, 0, 1])
+
+        with ieee_fp32():
+            k4_lib_err = max_err(k4_library(), fused_forward.blend_skin_plain(
+                ops1, coef4, rot4, t4))
+            k4_beside_lib, k4_library_ms = interleaved_ms(
+                lambda: fused_forward.blend_skin_fused(ops1, coef4, rot4, t4),
+                k4_library)
+        require(k4_lib_err <= KERNEL_TOL,
+                f"K4's einsum vs its plain version {k4_lib_err}")
+        del basis_h, rt4, w4
         b5 = K5_BATCHES[0]
         pose5, shape5 = (torch.from_numpy(x).to(dev) for x in k5_in[b5])
         k5_ms, k5_plain_ms = (k5_by_batch[b5]["ms"],
@@ -6875,9 +7261,18 @@ def main() -> int:
                  "rows_used": used, "ms": k2_ms, "plain_ms": k2_plain_ms,
                  "flops": f2, "bytes": m2},
           "K3": {"batch": K3_BATCH, "ms": k3_ms, "plain_ms": k3_plain_ms,
-                 "flops": f3, "bytes": m3},
+                 "flops": f3, "bytes": m3, "library_ms": k3_library_ms,
+                 "ms_beside_library": k3_beside_lib,
+                 "library_max_abs_err_plain": k3_lib_err,
+                 "library_call": "torch.einsum('vj,bjac,bvc->bva'), "
+                                 "opt_einsum off"},
           "K4": {"batch": b1, "ms": k4_ms, "plain_ms": k4_plain_ms,
-                 "flops": f4, "bytes": m4},
+                 "flops": f4, "bytes": m4, "library_ms": k4_library_ms,
+                 "ms_beside_library": k4_beside_lib,
+                 "library_max_abs_err_plain": k4_lib_err,
+                 "library_call": "torch.ops.aten.einsum("
+                                 "'bk,kcv,bjac,vj->bva', "
+                                 "path=[2, 3, 0, 1, 0, 1])"},
           "K5": {"hands": 2, "batch": b5, "ms": k5_ms,
                  "plain_ms": k5_plain_ms, "flops": f5, "bytes": m5,
                  "ms_beside_two_k1": k5_vs_k1x2, "two_k1_ms": k1x2_ms},
@@ -6923,7 +7318,8 @@ def main() -> int:
          "launches": train_launches["K3"], "max_abs_err": k3_err,
          "max_abs_err_oracle": k3_oracle, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None, "shape": f"B={K3_BATCH}", "path": "train",
+         "library_ms": k3_library_ms, "shape": f"B={K3_BATCH}",
+         "path": "train",
          "ptxas": k3_ptxas},
         {"name": "K4 blend_skin", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_forward.cu",
@@ -6931,9 +7327,10 @@ def main() -> int:
          "launches": train_launches["K4"], "max_abs_err": k4_err,
          "max_abs_err_oracle": k4_oracle, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": None, "shape": f"B={b1}", "path": "train",
+         "library_ms": k4_library_ms, "shape": f"B={b1}", "path": "train",
          "max_abs_err_k1": k4_k1,
          "launches_parallel": parallel_line["launches"]["K4"],
+         "launches_examples": examples_line["k4"]["launches"],
          "ptxas": k4_ptxas},
         {"name": "K5 fused_forward_hands", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_forward.cu",

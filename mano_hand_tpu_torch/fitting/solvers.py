@@ -27,6 +27,10 @@ rasterisers of ``viz/silhouette.py``. Their value checks (mask range,
 valid depth pixels, ``sil_sigma``, the camera's magnification and
 calibrated resolution) run once, at the entry (``validate_mask_target``),
 never inside a step.
+
+``fit`` and ``fit_sequence`` also take a target sharded over ranks (a
+``DTensor`` split over a mesh's ``data`` dim), as JAX's take a target
+placed with ``P('data')``: ``fitting/sharded.py``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from mano_hand_tpu_torch import ops
-from mano_hand_tpu_torch.fitting import objectives
+from mano_hand_tpu_torch.fitting import objectives, sharded
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.ops.common import IdentityCache
 from mano_hand_tpu_torch.serving import buckets as bucket_mod
@@ -843,6 +847,7 @@ def _fit_batched(
     )
 
 
+@sharded.over_data_rows
 @validate_mask_target
 @normalize_tips_kwarg
 @prepare_self_pen
@@ -1051,6 +1056,7 @@ class SequenceFitResult(NamedTuple):
     trans: Optional[torch.Tensor] = None  # [T, 3] when fit_trans=True
 
 
+@sharded.over_data_frames
 @validate_mask_target
 @normalize_tips_kwarg
 @prepare_self_pen
@@ -1088,7 +1094,9 @@ def fit_sequence(
     velocity coupling is wrap-free) and translation, coupled by
     squared-velocity smoothness priors, so frames with poor observations
     borrow from their neighbours. All T frames' forwards are one batched
-    forward inside one Adam loop."""
+    forward inside one Adam loop. A clip sharded over ranks (a DTensor
+    over a mesh's ``data`` dim) is fitted whole on every rank, each
+    keeping its frames (``fitting/sharded.py``)."""
     _check_data_term(data_term, camera, target_conf)
     _check_pose_prior(pose_prior, pose_space, joint_limits)
     pose_prior_vars, joint_limits = _prior_operands(params, pose_prior_vars,

@@ -61,6 +61,15 @@ def group_device() -> torch.device:
     return torch.device("cpu")
 
 
+def destroy_group() -> None:
+    """End this process's group, if any, and forget its rank device: the
+    teardown of a group ``make_mesh`` or ``multihost.initialize``
+    started, so a caller that runs one in process keeps none after."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _group_device.clear()
+
+
 def _single_rank_group(device: torch.device) -> None:
     device = set_group_device(device)
     dist.init_process_group(backend_for(device), store=dist.HashStore(),

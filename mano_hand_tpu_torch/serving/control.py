@@ -304,6 +304,12 @@ class Controller:
             self._crash_error = msg
             self._running = False
         self._stop_evt.set()          # a crashed loop must not respin
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            # Raised off the tick thread (an injected crash): the tick in
+            # flight ends first, or an actuation it makes would land
+            # after the revert.
+            t.join(timeout=10.0)
         self._log(f"controller crashed ({msg}); reverting to static "
                   "defaults")
         tr = self._eng.tracer

@@ -5759,6 +5759,11 @@ def control_drill_run(
         wall = time.monotonic() - t_start
         if crash_timer is not None:
             crash_timer.cancel()
+        # The controller stops (its tick in flight ends) before the
+        # reads below, so its counts and its events are of the same
+        # ticks; the actuators stay where it left them.
+        if ctl is not None:
+            ctl.stop()
 
         # Exit-line bookkeeping BEFORE teardown: the control block and
         # slo_report ride the same load() the controller steered by.
@@ -5773,8 +5778,6 @@ def control_drill_run(
             and eng.max_queued == max_queued
             and eng._tier_quotas == static_quotas
             and eng.bucket_bias == 0)
-        if ctl is not None:
-            ctl.stop()
         for _ in pool:
             tasks.put(_STOP)
         for t in pool:

@@ -365,6 +365,39 @@ def test_crashed_run_loop_reverts_via_thread(params32):
     assert eng._tier_quotas == {1: 2}       # statics restored
 
 
+def test_crash_off_the_tick_thread_waits_for_the_tick_in_flight(params32):
+    """A crash raised on another thread (the drill's injected crash) while
+    the tick thread is inside an actuation: the revert lands after that
+    tick ends, so every actuator is back at its static default (port
+    only: the tick's actuation used to land after the revert)."""
+    import threading
+
+    eng = _engine(params32, max_bucket=4, max_queued=8, max_delay_s=0.004)
+    ctl = Controller(eng, config=ControlConfig(
+        cadence_s=0.01, min_actuation_interval_s=0.0,
+        backlog_age_high_s=0.1, max_step_fraction=0.5))
+    ctl._signals = lambda: _sig(burn0=0.0, backlog_s=0.5)
+    inside, setter = threading.Event(), eng.set_coalesce_base
+
+    def slow_setter(value):
+        inside.set()
+        time.sleep(0.2)            # the crash and its revert run now
+        return setter(value)
+
+    eng.set_coalesce_base = slow_setter
+    try:
+        ctl.start()
+        assert inside.wait(10.0)
+        ctl._crash(RuntimeError("injected off the tick thread"))
+        ctl.stop()
+        assert eng.max_delay_s == 0.004
+        assert eng.max_queued == 8
+        assert eng.bucket_bias == 0
+        assert ctl.snapshot()["reverts"] == 1
+    finally:
+        eng.stop()
+
+
 def test_live_tick_thread_reads_the_engine_signals(params32):
     """Without synthetic signals the thread sweeps the engine's own
     ``load()``, counters and ``slo_report`` and ticks at its cadence."""

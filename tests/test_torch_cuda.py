@@ -2367,3 +2367,61 @@ def test_prefetch_lands_batches_on_the_card_in_order(dev, card_mesh):
         local = b["beta"].to_local()
         assert local.device == dev
         assert torch.equal(local.cpu(), torch.from_numpy(h["beta"]))
+
+
+# ------------------------------------------------- sharded fits (examples)
+def _sharded_fit_ranks(tmp_path, world, device):
+    """``tests/torch_sharded_fits.py`` in ``world`` gloo rank processes on
+    ``device``; each rank's arrays."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+    logs = [open(tmp_path / f"log{r}.txt", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "torch_sharded_fits.py"),
+         str(r), str(world), str(tmp_path / "store"), str(tmp_path),
+         device], env=env, cwd=tmp_path, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (tmp_path / f"log{r}.txt").read_text()[
+            -3000:]
+    return [dict(np.load(tmp_path / f"sharded_fits_rank{r}.npz"))
+            for r in range(world)]
+
+
+def test_sharded_fits_over_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """JAX's two sharded fits (the mask batch and the clip's frames over
+    'data') on two gloo ranks sharing cuda:0: each rank's rows and the
+    replicated leaves within 1e-5 of the unsharded fit on the card."""
+    ranks = _sharded_fit_ranks(tmp_path, 2, "cuda:0")
+    for case, leaves, sharded in (
+            ("mask", ("pose", "shape", "trans", "loss_history"), "all"),
+            ("seq", ("pose", "loss_history", "shape"), ("pose",)),
+            ("seq6d", ("pose", "trans", "shape"), ("pose", "trans"))):
+        for leaf in leaves:
+            want = ranks[0][f"{case}_{leaf}_local"]
+            if sharded == "all" or leaf in sharded:
+                got = np.concatenate([r[f"{case}_{leaf}"] for r in ranks])
+            else:
+                got = ranks[1][f"{case}_{leaf}"]
+                np.testing.assert_array_equal(got, ranks[0][f"{case}_{leaf}"])
+            assert got.shape == want.shape, (case, leaf)
+            np.testing.assert_allclose(got, want, atol=TOL, rtol=0,
+                                       err_msg=f"{case} {leaf}")
+    for fit in ("fit", "fit_sequence"):
+        said = {str(r[f"uneven_{fit}_error"]) for r in ranks}
+        assert len(said) == 1 and "chunk rule" in said.pop(), fit

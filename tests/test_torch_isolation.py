@@ -3,8 +3,9 @@ the JAX package, not even the JAX package's pure-numpy modules.
 
 Checked twice: by importing every module of ``mano_hand_tpu_torch`` in a
 fresh interpreter and reading ``sys.modules``, and by an AST scan of every
-source file of the package, of ``chip_smoke.py`` and of the port's timing
-scripts.
+source file of the package, of ``chip_smoke.py``, of the port's timing
+scripts, of the parallel tests' rank workers and of the port's examples
+(``examples_torch/``).
 """
 
 import ast
@@ -18,7 +19,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "mano_hand_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "mano_hand_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mano_hand_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -62,6 +63,9 @@ def _sources():
     files += [ROOT / "scripts" / name for name in PORT_SCRIPTS]
     # The rank processes of the parallel tests run the port alone.
     files.append(ROOT / "tests" / "torch_parallel_ranks.py")
+    files.append(ROOT / "tests" / "torch_sharded_fits.py")
+    # The port's examples (and their shared helpers).
+    files += sorted((ROOT / "examples_torch").glob("*.py"))
     return files
 
 

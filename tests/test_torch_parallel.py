@@ -23,7 +23,13 @@ import optax
 import pytest
 import torch
 
+import jax.numpy as jnp
+import torch_sharded_fits as fits
+from mano_hand_tpu import fitting as jfitting
 from mano_hand_tpu import parallel as jpar
+from mano_hand_tpu import viz as jviz
+from mano_hand_tpu.assets import synthetic_params as jsyn
+from mano_hand_tpu.viz import silhouette as jsil
 from mano_hand_tpu.models import core as jcore
 from mano_hand_tpu.parallel import sharding as jshd
 from mano_hand_tpu_torch.assets import synthetic_params
@@ -119,6 +125,24 @@ def jax_refs(spawned, jparams):
         state, loss = step(state, targets)
         losses.append(float(loss))
     refs["fit_2x2"] = losses
+    # JAX's two sharded-fit tests, unsharded, on the same inputs.
+    small = jsyn(seed=3, n_verts=48, n_faces=64, dtype=np.float32)
+    cam = jviz.WeakPerspectiveCamera(rot=jnp.eye(3, dtype=jnp.float32),
+                                     scale=3.0)
+    masks = (jsil.soft_silhouette(
+        jcore.forward(small).verts[None] + fits.mask_inputs(), small.faces,
+        cam, height=16, width=16, sigma=1.0) > 0.5).astype(jnp.float32)
+    res = jfitting.fit(small, masks, camera=cam, **fits.MASK_KW)
+    refs.update(mask_target=masks, mask_loss_history=res.loss_history)
+    targets = jcore.forward_batched(
+        jparams, jnp.asarray(fits.sequence_poses()),
+        jnp.zeros((fits.SEQ_FRAMES, 10), jnp.float32)).verts
+    for case, kw in (("seq", fits.SEQ_KW),
+                     ("seq6d", dict(fits.SEQ_KW, fit_trans=True,
+                                    pose_space="6d"))):
+        res = jfitting.fit_sequence(jparams, targets, **kw)
+        refs[case + "_loss_history"] = res.loss_history
+        refs[case + "_pose"] = res.pose
     return {k: np.asarray(v) for k, v in refs.items()}
 
 
@@ -254,3 +278,68 @@ def test_multihost_helpers_in_four_ranks(ranks):
         assert f["global_batch_total"] == pytest.approx(
             f["global_batch_expect"], rel=1e-6)
         assert f["global_batch_forward_err"] <= TOL
+
+
+# ------------------------------------------- JAX's two sharded fits
+#: The leaves each fit returns and which of them are per row (sharded).
+FIT_CASES = {"mask": (("pose", "shape", "trans", "loss_history"), "all"),
+             "seq": (("pose", "shape", "loss_history", "final_loss"),
+                     ("pose",)),
+             "seq6d": (("pose", "shape", "trans", "loss_history"),
+                       ("pose", "trans"))}
+
+
+@pytest.mark.parametrize("mesh_shape", ["4x1", "2x2"])
+@pytest.mark.parametrize("case", sorted(FIT_CASES))
+def test_sharded_fit_matches_the_unsharded_fit(ranks, case, mesh_shape):
+    """JAX's ``test_mask_fit_batch_shards_over_data_axis`` (the batch of
+    mask fits over 'data') and ``test_fit_sequence_frames_shard_over_
+    data_axis`` (the clip's frames over 'data', the smoothness crossing
+    each shard boundary), at JAX's sizes, seeds and atol=1e-5: the
+    gathered sharded result against the unsharded fit, placements as
+    JAX's shardings."""
+    arrays, facts = ranks
+    leaves, per_row = FIT_CASES[case]
+    tag = f"fits_{mesh_shape}_{case}_"
+    for leaf in leaves:
+        got, want = arrays[tag + leaf + "_full"], arrays[tag + leaf + "_local"]
+        assert got.shape == want.shape, leaf
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=0,
+                                   err_msg=f"{case} {leaf}")
+        sharded = per_row == "all" or leaf in per_row
+        for f in facts:
+            placements = f[f"fits_{mesh_shape}_placements"][f"{case}_{leaf}"]
+            assert placements == (["Shard(dim=0)", "Replicate()"] if sharded
+                                  else ["Replicate()", "Replicate()"]), leaf
+
+
+@pytest.mark.parametrize("mesh_shape", ["4x1", "2x2"])
+@pytest.mark.parametrize("fit", ["fit", "fit_sequence"])
+def test_sharded_fit_refuses_a_split_other_than_the_chunk_rule(ranks, fit,
+                                                               mesh_shape):
+    """A target built with ``DTensor.from_local`` split otherwise than by
+    DTensor's chunk rule (the first rank one row more, the last one
+    less) raises the same ValueError on every rank, none left waiting in
+    a collective."""
+    _, facts = ranks
+    said = [f[f"fits_{mesh_shape}_errors"][fit] for f in facts]
+    assert len(set(said)) == 1, said
+    assert "chunk rule" in said[0], said
+
+
+@pytest.mark.parametrize("case", sorted(FIT_CASES))
+def test_unsharded_fit_matches_jax(ranks, jax_refs, case):
+    """The port's unsharded fits against JAX's on the same inputs, at the
+    port's mask-fit and tracking tolerances: the loss history within 1e-4
+    relative; the clip's poses within 1e-3."""
+    arrays, _ = ranks
+    tag = f"fits_4x1_{case}_"
+    if case == "mask":
+        np.testing.assert_array_equal(arrays["fits_4x1_mask_target"],
+                                      jax_refs["mask_target"])
+    got = arrays[tag + "loss_history_local"]
+    want = jax_refs[case + "_loss_history"]
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-4
+    if case != "mask":
+        assert np.abs(arrays[tag + "pose_local"]
+                      - jax_refs[case + "_pose"]).max() <= 1e-3

@@ -36,8 +36,8 @@ def _comm_counts(fn):
 def main() -> int:
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store_path, inputs_path, out_dir = sys.argv[3:6]
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.dirname(here), here]
     import torch
     import torch.distributed as dist
 
@@ -134,6 +134,24 @@ def main() -> int:
     state4 = parallel.init_state(sp4, batch=8, optimizer=opt, mesh=mesh4)
     state4, loss4 = step4(state4, targets)
     facts["fit_1x4_loss"] = float(loss4)
+
+    # JAX's two sharded fits (tests/torch_sharded_fits.py): over 'data'
+    # of 4 (JAX's split) and of 2 with the model dim replicated.
+    from torch_sharded_fits import cases
+
+    for shape in ((4, 1), (2, 2)):
+        fits = cases(parallel.make_mesh(*shape), torch.device("cpu"),
+                     gather=True)
+        if rank == 0:
+            tag = "fits_{}x{}_".format(*shape)
+            arrays.update({tag + k: v for k, v in fits.items()
+                           if not k.endswith(("_placements", "_error"))})
+        facts["fits_{}x{}_placements".format(*shape)] = {
+            k[:-len("_placements")]: [str(p) for p in v]
+            for k, v in fits.items() if k.endswith("_placements")}
+        facts["fits_{}x{}_errors".format(*shape)] = {
+            k[len("uneven_"):-len("_error")]: str(v)
+            for k, v in fits.items() if k.endswith("_error")}
 
     # The multi-process helpers over the same four ranks.
     facts["initialize"] = multihost.initialize()
