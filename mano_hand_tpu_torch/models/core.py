@@ -40,9 +40,11 @@ from mano_hand_tpu_torch import constants, ops
 from mano_hand_tpu_torch.assets.schema import (
     ARRAY_FIELDS, STACKED, ManoParams, StackedParams,
 )
+from mano_hand_tpu_torch.obs import spans
 from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 from mano_hand_tpu_torch.ops.common import (
-    IdentityCache, check_compute_dtype, einsum, index_tensor, subject_rows,
+    IdentityCache, check_compute_dtype, einsum, index_tensor, operand,
+    subject_rows,
 )
 
 
@@ -520,9 +522,8 @@ def forward_posed_gather(table: SubjectTable, subject_idx: torch.Tensor,
 # ------------------------------------------------------- the CUDA kernel routes
 def _f32_inputs(params: ManoParams, pose: torch.Tensor, shape: torch.Tensor):
     b = pose.shape[0]
-    pose = pose.reshape(b, params.n_joints, 3).to(torch.float32)
-    shape = shape.reshape(b, params.n_shape).to(torch.float32)
-    return pose.contiguous(), shape.contiguous()
+    return (operand(pose.reshape(b, params.n_joints, 3), torch.float32),
+            operand(shape.reshape(b, params.n_shape), torch.float32))
 
 
 def forward_batched_pallas(params: ManoParams, pose: torch.Tensor,
@@ -584,6 +585,8 @@ def forward_chunked(params: ManoParams, pose: torch.Tensor,
     ``use_pallas_fused`` through K4, ``use_pallas`` through K3 (first
     flag set wins, in that order); the default is
     ``forward_batched(...).verts``. Differentiable through every route.
+    Spans (``obs/spans.py``): the entry, the padding, each chunk's
+    launch, the concatenation.
     """
     if use_pallas_fused_full:
         chunk_fn = forward_batched_pallas_fused_full
@@ -595,12 +598,14 @@ def forward_chunked(params: ManoParams, pose: torch.Tensor,
         def chunk_fn(prm, p, s):
             return forward_batched(prm, p, s).verts
     b = pose.shape[0]
-    if b == 0:
-        return chunk_fn(params, pose, shape)
-    pose_c, shape_c, _ = _pad_and_chunk(pose, shape, chunk_size)
-    verts = torch.cat([chunk_fn(params, p, s)
-                       for p, s in zip(pose_c, shape_c)])
-    return verts[:b]
+    with spans.span(spans.ENTRY_CHUNKED):
+        if b == 0:
+            return chunk_fn(params, pose, shape)
+        pose_c, shape_c, _ = _pad_and_chunk(pose, shape, chunk_size)
+        parts = [chunk_fn(params, p, s) for p, s in zip(pose_c, shape_c)]
+        with spans.span(spans.CONCAT):
+            verts = torch.cat(parts)
+        return verts[:b]
 
 
 def _pad_and_chunk(pose: torch.Tensor, shape: torch.Tensor, chunk_size: int):
@@ -610,8 +615,10 @@ def _pad_and_chunk(pose: torch.Tensor, shape: torch.Tensor, chunk_size: int):
     chunk_size = max(1, min(chunk_size, b))   # max(1, ..) keeps B = 0 legal
     pad = (-b) % chunk_size
     if pad:
-        pose = torch.cat([pose, pose.new_zeros((pad, *pose.shape[1:]))])
-        shape = torch.cat([shape, shape.new_zeros((pad, *shape.shape[1:]))])
+        with spans.span(spans.PAD):
+            pose = torch.cat([pose, pose.new_zeros((pad, *pose.shape[1:]))])
+            shape = torch.cat([shape,
+                               shape.new_zeros((pad, *shape.shape[1:]))])
     n_chunks = (b + pad) // chunk_size
     return (pose.reshape(n_chunks, chunk_size, *pose.shape[1:]),
             shape.reshape(n_chunks, chunk_size, *shape.shape[1:]),
@@ -650,11 +657,13 @@ def forward_posed_gather_fused(table: SubjectTable,
     bf16 variant (the serving bf16 tier, the same roundings as
     ``forward_posed_gather(compute_dtype=...)``)."""
     b = pose.shape[0]
-    pose = pose.reshape(b, table.n_joints, 3).to(torch.float32)
-    idx = torch.as_tensor(subject_idx, device=table.v_shaped.device)
-    return fused_posed.forward_posed_gather_fused(
-        table, idx.to(torch.int32).contiguous(), pose.contiguous(),
-        compute_dtype=compute_dtype)
+    with spans.span(spans.ENTRY_POSED_GATHER):
+        pose = operand(pose.reshape(b, table.n_joints, 3), torch.float32)
+        with spans.span(spans.COPY):
+            idx = torch.as_tensor(subject_idx, device=table.v_shaped.device)
+        return fused_posed.forward_posed_gather_fused(
+            table, operand(idx, torch.int32), pose,
+            compute_dtype=compute_dtype)
 
 
 # ------------------------------------------------------------------ two hands
@@ -689,5 +698,7 @@ def forward_hands_pallas_fused_full(stacked: StackedParams,
     counterpart of ``forward_hands``. Inference only; pose [2, B, J, 3]
     (or flat [2, B, J*3]), shape [2, B, S]. On a CPU tensor the kernel's
     plain version runs."""
-    return fused_forward.forward_verts_fused_full_hands(
-        stacked, pose.to(torch.float32), shape.to(torch.float32))
+    with spans.span(spans.ENTRY_HANDS):
+        return fused_forward.forward_verts_fused_full_hands(
+            stacked, operand(pose, torch.float32),
+            operand(shape, torch.float32))

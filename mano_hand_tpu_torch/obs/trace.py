@@ -33,7 +33,11 @@ Clock discipline: every stamp is
 ``time.monotonic()`` — the same domain as the engine's deadlines, so
 span timings and deadline sweeps compare directly and an NTP step
 cannot tear a timeline. Wall-clock appears only in flight-recorder
-artifacts as a human-readable label (obs/recorder.py).
+artifacts as a human-readable label (obs/recorder.py), and in the
+Chrome export, which moves the stamps onto the profiler's clock (the
+Unix epoch of ``time.time_ns``) by one offset sampled at export and
+written beside them, so an engine export and a ``torch.profiler``
+capture of the same window share one timeline.
 
 Export: ``chrome_trace()`` renders spans as Chrome-trace complete
 events (one slice per request plus per-stage sub-slices, one thread
@@ -433,8 +437,17 @@ class Tracer:
         breakdown — which is what marks the file as an engine span
         export to ``obs/trace_report.py``. The whole export
         derives from ONE snapshot, so its traceEvents, accounting, and
-        stage table all describe the same instant."""
+        stage table all describe the same instant.
+
+        Timestamps are on the profiler's clock (µs since the Unix
+        epoch) for a tracer on ``time.monotonic``, the default: each
+        stamp plus one offset sampled here, which the block gives as
+        ``epoch_offset_us`` (less it, a ``ts`` is the monotonic stamp's
+        µs). A tracer on another clock exports that clock's own µs."""
         snap = self.snapshot()
+        shift = 0.0
+        if self._clock is time.monotonic:
+            shift = time.time_ns() / 1e3 - time.monotonic() * 1e6
         spans = spans_from_events(snap["events"], set(snap["open_spans"]))
         pid = self.CHROME_PID
         ev: List[dict] = [{
@@ -461,7 +474,7 @@ class Tracer:
             label = (f"request/{st['kind'] or '?'}"
                      f"/b{st['bucket']}")
             ev.append({"ph": "X", "pid": pid, "tid": tid, "name": label,
-                       "ts": t0 * 1e6, "dur": st["total_s"] * 1e6,
+                       "ts": t0 * 1e6 + shift, "dur": st["total_s"] * 1e6,
                        "args": {"terminal": span["closed_kind"]}})
             slices = [
                 ("queue", at["submit"], st["queue_s"]),
@@ -474,19 +487,22 @@ class Tracer:
             for stage, start, dur in slices:
                 ev.append({"ph": "X", "pid": pid, "tid": tid,
                            "name": f"stage/{stage}",
-                           "ts": start * 1e6, "dur": dur * 1e6})
+                           "ts": start * 1e6 + shift, "dur": dur * 1e6})
         for ts, sid, name, fields in snap["events"]:
             if sid != 0:
                 continue
             ev.append({"ph": "i", "pid": pid, "tid": tid_for(-1),
-                       "name": name, "ts": ts * 1e6, "s": "p",
+                       "name": name, "ts": ts * 1e6 + shift, "s": "p",
                        **({"args": fields} if fields else {})})
+        block = {
+            "schema": 1,
+            "accounting": {k: snap[k] for k in ACCOUNTING_KEYS},
+            "stages": self.stage_breakdown(spans),
+        }
+        if shift:
+            block["epoch_offset_us"] = shift
         return {
             "displayTimeUnit": "ms",
             "traceEvents": ev,
-            "manoEngineTrace": {
-                "schema": 1,
-                "accounting": {k: snap[k] for k in ACCOUNTING_KEYS},
-                "stages": self.stage_breakdown(spans),
-            },
+            "manoEngineTrace": block,
         }

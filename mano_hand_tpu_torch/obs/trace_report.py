@@ -26,6 +26,13 @@ tracks are reported separately so dispatch overhead is visible next to
 device compute. Durations are SUMS over a track (nested slices
 double-count parents; compare names at the same nesting level — kernel
 rows are leaves, so their sums are honest).
+
+Where a directory holds a ``torch_trace`` capture with device work, the
+report also sums the device's idle gaps inside the capture's
+``torch_trace.body`` span by the innermost program span open when each
+gap begins, both on the profiler's clock ("outside" where none is
+open): the engine's (``engine.trace.json``) or the library's (the
+capture's own ``mano.*`` host ranges, ``obs/spans.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +76,13 @@ def load_capture(trace_path: str) -> dict:
 
 def load_events(trace_path: str) -> list[dict]:
     return load_capture(trace_path).get("traceEvents", [])
+
+
+#: ``utils/profiling.py``'s name of the body span of a ``torch_trace``
+#: capture.
+TRACE_BODY = "torch_trace.body"
+#: The prefix of the library's span names (``obs/spans.py``).
+LIBRARY_SPAN = "mano."
 
 
 def summarize(events: list[dict]) -> dict:
@@ -136,6 +150,110 @@ def is_device_track(track: str) -> bool:
     return "tpu" in t or "/device" in t or "xla op" in t
 
 
+def idle_gaps(intervals, lo: float, hi: float) -> list:
+    """(start, end) of the stretches of [lo, hi] no interval covers."""
+    gaps, cursor = [], lo
+    for a, b in sorted(intervals):
+        if a > cursor:
+            gaps.append((cursor, min(a, hi)))
+        cursor = max(cursor, b)
+        if cursor >= hi:
+            break
+    if cursor < hi:
+        gaps.append((cursor, hi))
+    return [(a, b) for a, b in gaps if b > a]
+
+
+def innermost(spans, times) -> list:
+    """For each of the ascending ``times``, the name of the innermost of
+    ``spans`` ((name, start, end)) open then, or "outside": one sweep
+    (spans that overlap without nesting count as if the later one
+    nested)."""
+    order = sorted((a, -b, n) for n, a, b in spans)
+    names, stack, i = [], [], 0
+    for t in times:
+        while i < len(order) and order[i][0] <= t:
+            a, nb, n = order[i]
+            while stack and stack[-1][1] <= a:
+                stack.pop()
+            stack.append((a, -nb, n))
+            i += 1
+        while stack and stack[-1][1] <= t:
+            stack.pop()
+        names.append(stack[-1][2] if stack else "outside")
+    return names
+
+
+def capture_timeline(cap: dict):
+    """(body (start, end), device intervals) of a ``torch.profiler``
+    capture in µs since the Unix epoch (its ``ts`` plus its
+    ``baseTimeNanoseconds``), or None without a ``TRACE_BODY`` span or
+    device work."""
+    base = cap.get("baseTimeNanoseconds")
+    if base is None:
+        return None
+    base_us = base / 1e3
+    body, device = None, []
+    for e in cap.get("traceEvents", []):
+        if e.get("ph") != "X":
+            continue
+        a = float(e.get("ts", 0.0)) + base_us
+        b = a + float(e.get("dur", 0.0))
+        if e.get("name") == TRACE_BODY:
+            body = (a, b)
+        elif is_device_event(e):
+            device.append((a, b))
+    return (body, device) if body is not None and device else None
+
+
+def program_spans(cap: dict) -> list:
+    """(name, start, end), in µs since the Unix epoch, of the program's
+    spans in one file: an engine span export's complete events, or the
+    library's ``mano.*`` host ranges in a ``torch.profiler`` capture (not
+    the copies the profiler draws of them on the device's track); else
+    []."""
+    engine = "manoEngineTrace" in cap
+    if not engine and "baseTimeNanoseconds" not in cap:
+        return []
+    base_us = 0.0 if engine else cap["baseTimeNanoseconds"] / 1e3
+    spans = []
+    for e in cap.get("traceEvents", []):
+        name = str(e.get("name", "?"))
+        if e.get("ph") != "X" or "ts" not in e or not engine and (
+                not name.startswith(LIBRARY_SPAN)
+                or str(e.get("cat", "")).startswith("gpu_")):
+            continue
+        a = float(e["ts"]) + base_us
+        spans.append((name, a, a + float(e.get("dur", 0.0))))
+    return spans
+
+
+def idle_by_span(body, device, spans) -> dict:
+    """The device's idle gaps inside ``body``, summed by the innermost
+    program span open when each gap begins."""
+    gaps = idle_gaps(device, *body)
+    by = collections.defaultdict(lambda: [0.0, 0])
+    for (a, b), name in zip(gaps, innermost(spans, [a for a, _ in gaps])):
+        by[name][0] += b - a
+        by[name][1] += 1
+    return {"body_us": body[1] - body[0],
+            "idle_us": sum(b - a for a, b in gaps), "gaps": len(gaps),
+            "by_span": sorted(((n, us, c) for n, (us, c) in by.items()),
+                              key=lambda row: (-row[1], row[0]))}
+
+
+def show_idle_gaps(run: str, idle: dict, top: int) -> None:
+    print(f"\n== device idle gaps by program span [{run}]  "
+          f"(body {idle['body_us'] / 1e3:.3f} ms, idle "
+          f"{idle['idle_us'] / 1e3:.3f} ms in {idle['gaps']} gaps)")
+    rows = idle["by_span"][:top]
+    width = max((len(n[:60]) for n, _, _ in rows), default=4)
+    for name, us, cnt in rows:
+        pct = 100.0 * us / idle["idle_us"] if idle["idle_us"] else 0.0
+        print(f"  {name[:60]:<{width}}  {us / 1e3:9.3f} ms "
+              f"{pct:5.1f}%  x{cnt}")
+
+
 def show_stage_breakdown(run: str, engine: dict) -> None:
     """The engine export's per-(bucket, tier) stage table: where one
     request's wall time went — queue wait vs dispatch vs device vs
@@ -187,12 +305,20 @@ def main(argv: list[str] | None = None) -> int:
     summary: dict = {}
     cuda_tracks: set = set()   # keys of tracks holding CUDA device work
     engines: dict = {}   # run -> manoEngineTrace block (span exports)
+    # Per directory: torch_trace captures' (body, device) and the program
+    # spans in its files.
+    captures: dict = collections.defaultdict(list)
+    programs: dict = collections.defaultdict(list)
     for t in traces:
         cap = load_capture(t)
         events = cap.get("traceEvents", [])
         per = summarize(events)
         on_card = device_event_tracks(events)
         run = os.path.basename(os.path.dirname(t))
+        timeline = capture_timeline(cap)
+        if timeline is not None:
+            captures[os.path.dirname(t)].append(timeline)
+        programs[os.path.dirname(t)] += program_spans(cap)
         for track, rows in per.items():
             key = f"{run}:{track}" if len(traces) > 1 else track
             summary[key] = rows
@@ -214,6 +340,11 @@ def main(argv: list[str] | None = None) -> int:
 
     device = {k: v for k, v in summary.items() if on_device(k)}
     host = {k: v for k, v in summary.items() if not on_device(k)}
+    idle = {}
+    for path, timelines in captures.items():
+        for i, (body, dev) in enumerate(timelines):
+            run = os.path.basename(path) + (f"#{i}" if i else "")
+            idle[run] = idle_by_span(body, dev, programs[path])
 
     if args.json:
         out = {
@@ -228,6 +359,14 @@ def main(argv: list[str] | None = None) -> int:
         }
         if engines:
             out["engine"] = engines
+        if idle:
+            out["idle_gaps"] = {
+                run: {**{k: round(v, 1) if k.endswith("_us") else v
+                         for k, v in g.items() if k != "by_span"},
+                      "by_span": [{"name": n, "total_us": round(us, 1),
+                                   "count": c}
+                                  for n, us, c in g["by_span"][:args.top]]}
+                for run, g in idle.items()}
         print(json.dumps(out))
         return 0
 
@@ -255,6 +394,8 @@ def main(argv: list[str] | None = None) -> int:
     # queue/dispatch/device/readback waits read as one report.
     for run, eng in engines.items():
         show_stage_breakdown(run, eng)
+    for run, g in idle.items():
+        show_idle_gaps(run, g, args.top)
     return 0
 
 

@@ -33,6 +33,8 @@ from typing import Tuple
 
 import torch
 
+from mano_hand_tpu_torch.obs import spans
+
 
 # ------------------------------------------------------------ IEEE fp32 pin
 # The float32 matmul setting is process-global (cuBLAS reads it when an op
@@ -179,7 +181,8 @@ class IdentityCache:
         if (hit is not None and hit[1] == versions
                 and all(ref() is o for ref, o in zip(hit[0], objs))):
             return hit[2]
-        value = build(obj)
+        with spans.span(spans.PACK):
+            value = build(obj)
         if tracing():
             return value
         entries = self._entries
@@ -231,7 +234,9 @@ def captured_launches():
 
 def count_launch(module, name: str) -> None:
     """Add one to the launch counter ``module.name`` — unless this
-    thread is capturing under ``captured_launches``, which notes it."""
+    thread is capturing under ``captured_launches``, which notes it. Every
+    kernel wrapper counts here, beside the ``mano.launch.*`` span it
+    opens around the launch (``obs/spans.py``)."""
     log = _capture_log.log
     if log is not None and tracing():
         log.append((module, name))
@@ -314,6 +319,19 @@ def check_operands(want: dict, device: torch.device) -> None:
             raise ValueError(f"{name} must be contiguous")
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
+
+
+def operand(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x`` converted to ``dtype`` (None: its own) and made contiguous,
+    as a kernel reads it: ``x`` itself where nothing has to change, else
+    one copy a step, each a device operation under a ``mano.copy`` span."""
+    if dtype is not None and x.dtype != dtype:
+        with spans.span(spans.COPY):
+            x = x.to(dtype)
+    if not x.is_contiguous():
+        with spans.span(spans.COPY):
+            x = x.contiguous()
+    return x
 
 
 def subject_rows(subject_idx: torch.Tensor, capacity: int) -> torch.Tensor:

@@ -60,17 +60,18 @@ references on the card.
 from __future__ import annotations
 
 import dataclasses
-import threading
+import sys
 from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS, ManoParams
+from mano_hand_tpu_torch.obs import spans
 from mano_hand_tpu_torch.ops import _build, fk, fused_skin, lbs
 from mano_hand_tpu_torch.ops.common import (
-    MAX_JOINTS, IdentityCache, cdiv, check_operands, einsum, ieee_fp32,
-    parents_tensor, refuse_grad, tracing,
+    MAX_JOINTS, IdentityCache, cdiv, check_operands, count_launch, einsum,
+    ieee_fp32, operand, parents_tensor, refuse_grad, tracing,
 )
 from mano_hand_tpu_torch.ops.rodrigues import rotation_matrix
 
@@ -80,7 +81,11 @@ launches = 0
 blend_skin_launches = 0
 #: K5 (several hands in one launch) launches so far.
 hands_launches = 0
-_count_lock = threading.Lock()
+
+#: (launch counter, span) of the one kernel's two launches: one hand (K1)
+#: and several (K5).
+_K1 = ("launches", spans.LAUNCH_K1)
+_K5 = ("hands_launches", spans.LAUNCH_K5)
 
 
 #: Vertices of one tile of the kernels' operands (``kVertTile`` in
@@ -341,28 +346,27 @@ def forward_verts_fused_full(params, pose: torch.Tensor,
         return forward_verts_plain(ops, pose, shape)
     if pose.shape[0] == 0:
         return pose.new_empty((0, ops.n_verts, 3))
-    out = _launch_forward(ops, pose[None], shape[None])[0]
-    global launches
-    with _count_lock:
-        launches += 1
-    return out
+    return _launch_forward(ops, pose[None], shape[None])[0]
 
 
 def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
-                    shape: torch.Tensor, split: int = 0) -> torch.Tensor:
+                    shape: torch.Tensor, split: int = 0,
+                    kernel=_K1) -> torch.Tensor:
     """One launch of the K1/K5 kernel over H hands: pose [H, B, J, 3],
     shape [H, B, S] -> [H, B, V, 3] with B >= 1; ``ops`` is one hand's
     (H = 1) or stacked. ``split``: vertex spans per row tile (0: the
-    kernel's choice from B). Raises on a non-CUDA device or a failed
+    kernel's choice from B). ``kernel``: ``_K1`` or ``_K5``, the counter
+    and span of the launch. Raises on a non-CUDA device or a failed
     launch."""
     dev = pose.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    pose, shape = pose.contiguous(), shape.contiguous()
+    pose, shape = operand(pose), operand(shape)
     h, b, v = pose.shape[0], pose.shape[1], ops.n_verts
     out = torch.empty((h, b, v, 3), dtype=torch.float32, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    counter, name = kernel
+    with torch.cuda.device(dev), spans.span(name):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_fused_forward(
             pose.data_ptr(), shape.data_ptr(), ops.basis_tiles.data_ptr(),
@@ -370,6 +374,7 @@ def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
             ops.parents.data_ptr(), out.data_ptr(), h, b, v, ops.n_joints,
             ops.n_shape, ops.kpad, split, stream)
     _build.check(lib, rc, "fused_forward")
+    count_launch(sys.modules[__name__], counter)
     return out
 
 
@@ -402,11 +407,7 @@ def forward_verts_fused_full_hands(stacked, pose: torch.Tensor,
         return forward_verts_hands_plain(ops, pose, shape)
     if b == 0:
         return pose.new_empty((h, 0, ops.n_verts, 3))
-    out = _launch_forward(ops, pose, shape)
-    global hands_launches
-    with _count_lock:
-        hands_launches += 1
-    return out
+    return _launch_forward(ops, pose, shape, kernel=_K5)
 
 
 def blend_skin_fused(ops: FusedOperands, coef: torch.Tensor,
@@ -436,16 +437,14 @@ def blend_skin_fused(ops: FusedOperands, coef: torch.Tensor,
     if b == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), spans.span(spans.LAUNCH_K4):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_blend_skin(
             coef.data_ptr(), skin_rot.data_ptr(), skin_t.data_ptr(),
             ops.basis_tiles.data_ptr(), ops.wt_tiles.data_ptr(),
             out.data_ptr(), b, ops.n_verts, j, ops.kpad, stream)
     _build.check(lib, rc, "blend_skin")
-    global blend_skin_launches
-    with _count_lock:
-        blend_skin_launches += 1
+    count_launch(sys.modules[__name__], "blend_skin_launches")
     return out
 
 

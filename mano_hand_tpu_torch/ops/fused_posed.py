@@ -52,10 +52,11 @@ import sys
 
 import torch
 
+from mano_hand_tpu_torch.obs import spans
 from mano_hand_tpu_torch.ops import _build, fk, lbs
 from mano_hand_tpu_torch.ops.common import (
     IdentityCache, cdiv, check_compute_dtype, count_launch, einsum,
-    parents_tensor, round_bf16, subject_rows,
+    operand, parents_tensor, round_bf16, subject_rows,
 )
 from mano_hand_tpu_torch.ops.fused_forward import (
     check_tree, memo, tile_verts, untile_verts, vert_buffer,
@@ -225,23 +226,26 @@ def forward_posed_gather_fused(table, subject_idx: torch.Tensor,
             tuple(table.parents))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    v_shaped = table.v_shaped.contiguous()
-    joints = table.joints.contiguous()
-    idx, pose = subject_idx.contiguous(), pose.contiguous()
+    # A table's joints come from a batched regression as a strided view
+    # (``core.specialize`` of many shapes): its copy is one more device
+    # operation a call.
+    v_shaped, joints = operand(table.v_shaped), operand(table.joints)
+    idx, pose = operand(subject_idx), operand(pose)
     b, c, v = pose.shape[0], v_shaped.shape[0], v_shaped.shape[1]
     out = torch.empty((b, v, 3), dtype=torch.float32, device=dev)
     if b == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(dev):
+    bf16 = compute_dtype is not None
+    with torch.cuda.device(dev), spans.span(
+            spans.LAUNCH_K2_BF16 if bf16 else spans.LAUNCH_K2):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_fused_posed(
             v_shaped.data_ptr(), joints.data_ptr(), idx.data_ptr(),
             pose.data_ptr(), ops.basis_tiles.data_ptr(),
             ops.wt_tiles.data_ptr(), parents.data_ptr(), out.data_ptr(), b,
-            c, v, table.n_joints, ops.kpad, int(compute_dtype is not None),
-            stream)
+            c, v, table.n_joints, ops.kpad, int(bf16), stream)
     _build.check(lib, rc, "fused_posed")
     count_launch(sys.modules[__name__],
-                 "launches" if compute_dtype is None else "bf16_launches")
+                 "bf16_launches" if bf16 else "launches")
     return out

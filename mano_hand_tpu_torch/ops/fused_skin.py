@@ -34,20 +34,20 @@ CPU path and the kernel's reference on the card.
 
 from __future__ import annotations
 
-import threading
+import sys
 from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from mano_hand_tpu_torch.obs import spans
 from mano_hand_tpu_torch.ops import _build, lbs
 from mano_hand_tpu_torch.ops.common import (
-    MAX_JOINTS, check_operands, einsum, refuse_grad,
+    MAX_JOINTS, check_operands, count_launch, einsum, refuse_grad,
 )
 
 #: Kernel launches so far (the main-path evidence; reset it to 0 freely).
 launches = 0
-_count_lock = threading.Lock()
 
 
 def skin_batched_plain(weights: torch.Tensor, rot: torch.Tensor,
@@ -100,16 +100,14 @@ def skin_batched(weights: torch.Tensor, rot: torch.Tensor,
     if b == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), spans.span(spans.LAUNCH_K3):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_skin(weights.data_ptr(), rot.data_ptr(),
                            None if t is None else t.data_ptr(),
                            v_posed.data_ptr(), out.data_ptr(), b, v,
                            weights.shape[1], int(transpose_r), stream)
     _build.check(lib, rc, "skin")
-    global launches
-    with _count_lock:
-        launches += 1
+    count_launch(sys.modules[__name__], "launches")
     return out
 
 

@@ -2425,3 +2425,50 @@ def test_sharded_fits_over_two_gloo_ranks_on_the_card(dev, tmp_path):
     for fit in ("fit", "fit_sequence"):
         said = {str(r[f"uneven_{fit}_error"]) for r in ranks}
         assert len(said) == 1 and "chunk rule" in said.pop(), fit
+
+
+# ----------------------------------------------- launch counts (ops/common)
+def test_captured_launches_count_on_every_replay(dev):
+    """K1, K5, K4 and K3 count through ``common.count_launch``: a launch
+    captured into a CUDA graph counts nothing while captured and one on
+    each replay (``add_launches``), as K2's always did."""
+    from mano_hand_tpu_torch.ops.common import add_launches, \
+        captured_launches
+
+    params = _params(dev)
+    ops = fused_forward.fused_operands(params)
+    stacked = core.stack_params(mirror_params(params), params)
+    pose = 0.3 * torch.randn(16, 16, 3, device=dev)
+    shape = torch.randn(16, 10, device=dev)
+    coef, rot, t = (x.contiguous() for x in
+                    fused_forward._packed_pre_stage(ops, pose, shape))
+    w = params.lbs_weights.contiguous()
+    v_posed = torch.randn(16, params.n_verts, 3, device=dev)
+
+    def step():
+        return (fused_forward.forward_verts_fused_full(params, pose, shape),
+                core.forward_hands_pallas_fused_full(
+                    stacked, torch.stack([pose, pose]),
+                    torch.stack([shape, shape])),
+                fused_forward.blend_skin_fused(ops, coef, rot, t),
+                fused_skin.skin_batched(w, rot, t, v_posed))
+
+    names = ((fused_forward, "launches"), (fused_forward, "hands_launches"),
+             (fused_forward, "blend_skin_launches"), (fused_skin, "launches"))
+    with torch.no_grad():
+        eager = step()
+        torch.cuda.synchronize()
+        before = [getattr(m, n) for m, n in names]
+        graph = torch.cuda.CUDAGraph()
+        with captured_launches() as log, torch.cuda.graph(graph):
+            outs = step()
+        assert [getattr(m, n) for m, n in names] == before
+        assert sorted(log, key=str) == sorted(names, key=str)
+        for k in (1, 2):
+            graph.replay()
+            add_launches(log)
+            assert [getattr(m, n) for m, n in names] == [
+                c + k for c in before]
+        torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert _err(got, want) == 0.0

@@ -612,3 +612,213 @@ def test_torch_trace_marks_its_body(tmp_path):
         if e.get("cat") == "Trace":
             assert float(e["ts"]) <= b0 and b1 <= float(e["ts"]) + float(
                 e["dur"])
+
+
+# ------------------------------------------------ the library's own spans
+def _chunked_inputs(b=47, seed=3):
+    """A float32 asset and ``b`` rows: 3 chunks of 20, the last partial."""
+    params = synthetic_params(seed=0, device="cpu").astype(torch.float32)
+    g = torch.Generator().manual_seed(seed)
+    pose = 0.3 * torch.randn(b, params.n_joints, 3, generator=g)
+    shape = torch.randn(b, params.n_shape, generator=g)
+    return params, pose, shape
+
+
+def _chunked(params, pose, shape):
+    from mano_hand_tpu_torch.models import core
+
+    with torch.no_grad():
+        return core.forward_chunked(params, pose, shape, chunk_size=20,
+                                    use_pallas_fused_full=True)
+
+
+def _profiled(fn):
+    """(result, {span name: [(start_ns, end_ns), ...]}) of ``fn()`` under
+    a CPU profile: the library's ranges among its events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("mano."):
+            ranges[e.name()].append((e.start_ns(),
+                                     e.start_ns() + e.duration_ns()))
+    return out, dict(ranges)
+
+
+def test_library_spans_record_nothing_unprofiled():
+    """No profiler: ``span`` hands back one shared no-op context, and a
+    capture started after a call holds none of its ranges; under the
+    profiler each span is a range of its name."""
+    from mano_hand_tpu_torch.obs import spans
+
+    params, pose, shape = _chunked_inputs()
+    assert spans.span(spans.CONCAT) is spans.span(spans.ENTRY_CHUNKED)
+    with spans.span(spans.PAD) as opened:
+        assert opened is None
+    _chunked(params, pose, shape)
+    _, ranges = _profiled(lambda: None)
+    assert ranges == {}
+    _, ranges = _profiled(lambda: _chunked(params, pose, shape))
+    assert sorted(ranges) == sorted([spans.ENTRY_CHUNKED, spans.PAD,
+                                     spans.CONCAT])
+    assert spans.span(spans.CONCAT) is spans.span(spans.PAD)
+
+
+def test_forward_chunked_spans_under_the_profiler():
+    """Under a CPU profile, ``forward_chunked`` over 3 chunks (one
+    partial) opens one root entry range holding its padding and then its
+    concatenation (on the CPU the chunks run the plain version, no
+    launch), and its output is the unprofiled one."""
+    from mano_hand_tpu_torch.obs import spans
+
+    params, pose, shape = _chunked_inputs()
+    want = _chunked(params, pose, shape)     # the operand caches built
+    out, ranges = _profiled(lambda: _chunked(params, pose, shape))
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    (r0, r1), = ranges[spans.ENTRY_CHUNKED]
+    (p0, p1), = ranges[spans.PAD]
+    (c0, c1), = ranges[spans.CONCAT]
+    assert r0 <= p0 <= p1 <= c0 <= c1 <= r1
+    assert not any(name.startswith(spans.LAUNCH) for name in ranges)
+
+
+@pytest.mark.parametrize("route", ["chunked", "hands", "gather"])
+def test_each_route_opens_its_entry_span(route):
+    """Each forward route, on CPU tensors under a CPU profile, opens its
+    one entry range around everything else it opens."""
+    from mano_hand_tpu_torch.assets import mirror_params
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.obs import spans
+
+    params, pose, shape = _chunked_inputs(b=6)
+    if route == "chunked":
+        entry = spans.ENTRY_CHUNKED
+        call = lambda: _chunked(params, pose, shape)       # noqa: E731
+    elif route == "hands":
+        entry = spans.ENTRY_HANDS
+        stacked = core.stack_params(mirror_params(params), params)
+        call = lambda: core.forward_hands_pallas_fused_full(  # noqa: E731
+            stacked, torch.stack([pose, pose]), torch.stack([shape, shape]))
+    else:
+        entry = spans.ENTRY_POSED_GATHER
+        shaped = core.specialize(params, shape[:3])
+        table = core.SubjectTable(shaped.v_shaped, shaped.joints,
+                                  shaped.shape, shaped.pose_basis,
+                                  shaped.lbs_weights, tuple(shaped.parents))
+        call = lambda: core.forward_posed_gather_fused(  # noqa: E731
+            table, [0, 2, 1, 1, 0, 2], pose)
+    with torch.no_grad():
+        want = call()
+        out, ranges = _profiled(call)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    (r0, r1), = ranges.pop(entry)
+    assert set(ranges) <= set(spans.LIBRARY_OPS)
+    assert all(r0 <= a <= b <= r1 for rs in ranges.values() for a, b in rs)
+
+
+def test_operand_copies_only_what_a_kernel_cannot_read():
+    """``operand`` returns its input where nothing changes; a conversion
+    and a contiguity copy are one ``mano.copy`` range each."""
+    from mano_hand_tpu_torch.obs import spans
+    from mano_hand_tpu_torch.ops.common import operand
+
+    x = torch.arange(12.0).reshape(3, 4)
+
+    def copies():
+        assert operand(x) is x and operand(x, torch.float32) is x
+        return operand(x.T, torch.float64)
+
+    y, ranges = _profiled(copies)
+    assert y.is_contiguous() and y.dtype == torch.float64
+    assert torch.equal(y, x.T.double())
+    assert list(ranges) == [spans.COPY] and len(ranges[spans.COPY]) == 2
+
+
+def test_library_spans_nest_and_close_on_a_raise():
+    """A span opened inside another nests in its range; a span whose
+    body raises lets the error through and still closes its range."""
+    from mano_hand_tpu_torch.obs import spans
+
+    def body():
+        with spans.span(spans.ENTRY_HANDS):
+            with spans.span(spans.ENTRY_POSED_GATHER):
+                with spans.span(spans.COPY):
+                    pass
+            with pytest.raises(RuntimeError):
+                with spans.span(spans.CONCAT):
+                    raise RuntimeError("x")
+
+    _, ranges = _profiled(body)
+    (o0, o1), = ranges[spans.ENTRY_HANDS]
+    (i0, i1), = ranges[spans.ENTRY_POSED_GATHER]
+    (k0, k1), = ranges[spans.COPY]
+    (c0, c1), = ranges[spans.CONCAT]
+    assert o0 <= i0 <= k0 <= k1 <= i1 <= c0 <= c1 <= o1
+
+
+def test_tracer_on_the_monotonic_clock_exports_jaxs_trace_moved(
+        monkeypatch):
+    """A tracer on ``time.monotonic`` (the default clock) exports JAX's
+    Chrome trace of the same calls with every stamp moved by one offset,
+    the one its block names, onto the profiler's clock: µs since the
+    Unix epoch. Both tracers read the same deterministic stand-in for
+    ``time.monotonic``."""
+    exports = {}
+    for name, obs in (("port", pobs), ("jax", jobs)):
+        monkeypatch.setattr(time, "monotonic", _clock())
+        tr = obs.Tracer(clock=time.monotonic)
+        for tier, bucket in ((0, 4), (1, 8)):
+            s = tr.start("full", tier=tier, rows=2)
+            for stage in ("coalesce", "launch", "dispatched", "readback"):
+                tr.event(s, stage, **({"bucket": bucket}
+                                      if stage == "launch" else {}))
+            tr.close(s, "ok", bucket=bucket)
+        tr.runtime_event("compile", family="full", bucket=8)
+        exports[name] = tr.chrome_trace()
+    port, jax_ = exports["port"], exports["jax"]
+    offset = port["manoEngineTrace"].pop("epoch_offset_us")
+    assert port["manoEngineTrace"] == jax_["manoEngineTrace"]
+    assert abs(offset - time.time_ns() / 1e3) < 3600e6
+    stamped = [e for e in jax_["traceEvents"] if "ts" in e]
+    assert len(stamped) == 11
+    for p, j in zip(port["traceEvents"], jax_["traceEvents"]):
+        if "ts" in j:
+            assert abs(p.pop("ts") - offset - j["ts"]) < 1.0, j["name"]
+            j = {k: v for k, v in j.items() if k != "ts"}
+        assert p == j
+
+
+def test_engine_span_lands_inside_the_torch_trace_body(tmp_path):
+    """A request span of a tracer on the default clock, exported by
+    ``Tracer.chrome_trace()`` beside a ``torch_trace`` capture, lies
+    inside the capture's ``torch_trace.body`` range: both files are on
+    the profiler's clock, as is the capture's own library entry range."""
+    from mano_hand_tpu_torch.obs import spans, trace_report
+    from mano_hand_tpu_torch.utils.profiling import (
+        TORCH_TRACE, TRACE_BODY, torch_trace,
+    )
+
+    params, pose, shape = _chunked_inputs()
+    _chunked(params, pose, shape)
+    tr = pobs.Tracer()
+    with torch_trace(tmp_path / "cap", tracer=tr):
+        s = tr.start("full", tier=0, rows=1)
+        for name in ("launch", "dispatched", "readback"):
+            tr.event(s, name, **({"bucket": 2} if name == "launch" else {}))
+        _chunked(params, pose, shape)
+        tr.close(s, "ok", bucket=2)
+    cap = json.loads((tmp_path / "cap" / TORCH_TRACE).read_text())
+    base_us = cap["baseTimeNanoseconds"] / 1e3
+    body, = [e for e in cap["traceEvents"] if e.get("name") == TRACE_BODY]
+    b0 = float(body["ts"]) + base_us
+    b1 = b0 + float(body["dur"])
+    engine = json.loads((tmp_path / "cap" / "engine.trace.json").read_text())
+    req, = [e for e in engine["traceEvents"]
+            if e.get("name", "").startswith("request/")]
+    assert b0 <= req["ts"] and req["ts"] + req["dur"] <= b1
+    entry, = [(a, b) for n, a, b in trace_report.program_spans(cap)
+              if n == spans.ENTRY_CHUNKED]
+    assert b0 <= entry[0] <= entry[1] <= b1
+    assert req["ts"] <= entry[0] <= entry[1] <= req["ts"] + req["dur"]

@@ -262,3 +262,108 @@ def test_torch_profiler_capture_reads_cleanly(tmp_path, capsys):
     assert "no device track found" in out         # a CPU capture
     assert "aten::mm" in out
     assert "engine stage breakdown" in out and "b2/tier0" in out
+
+
+def _idle_fixture(tmp_path: Path) -> Path:
+    """A ``torch_trace`` directory on the profiler's clock: a capture
+    (``ts`` from its ``baseTimeNanoseconds``) whose body holds three
+    kernels and the library's host ranges (and their copies on the
+    device's track, which are no program span), and an engine span
+    export (absolute µs) beside it. Idle gaps in the body, in µs from
+    its start: [0, 10) inside the request's queue stage, [20, 30) inside
+    ``mano.forward_chunked``, [40, 45) inside ``mano.concat``, [60, 100)
+    after every span."""
+    from mano_hand_tpu_torch.obs import spans
+    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE, TRACE_BODY
+
+    assert trace_report.TRACE_BODY == TRACE_BODY
+    base_ns = 1_790_000_000_000_000_000
+    t = 5_000.0                    # the body's start, µs after the base
+    at = base_ns / 1e3 + t         # ... on the absolute clock
+    cdir = tmp_path / "cap"
+    cdir.mkdir()
+
+    def host(name, start, dur):
+        return {"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 1,
+                "name": name, "ts": t + start, "dur": dur}
+
+    def kernel(name, start, dur, cat="kernel"):
+        return {"ph": "X", "cat": cat, "pid": 0, "tid": 7, "name": name,
+                "ts": t + start, "dur": dur}
+
+    (cdir / TORCH_TRACE).write_text(json.dumps({
+        "baseTimeNanoseconds": base_ns, "traceEvents": [
+            host(TRACE_BODY, 0, 100.0),
+            host(spans.ENTRY_CHUNKED, 15, 40.0),
+            host(spans.LAUNCH_K1, 16, 2.0),
+            host(spans.CONCAT, 38, 10.0),
+            kernel(spans.ENTRY_CHUNKED, 10, 50.0, "gpu_user_annotation"),
+            kernel("fused_forward_kernel", 10, 10.0),
+            kernel("fused_forward_kernel", 30, 10.0),
+            kernel("CatArrayBatchedCopy", 45, 15.0)]}))
+    (cdir / "engine.trace.json").write_text(json.dumps({
+        "manoEngineTrace": {"schema": 1, "accounting": {}, "stages": {}},
+        "traceEvents": [
+            {"ph": "X", "pid": 9001, "tid": 0, "name": "request/ok/b8",
+             "ts": at - 5, "dur": 60.0},
+            {"ph": "X", "pid": 9001, "tid": 0, "name": "stage/queue",
+             "ts": at - 5, "dur": 16.0}]}))
+    return cdir
+
+
+def test_idle_gaps_by_program_span(tmp_path, capsys):
+    """``trace-report`` over a ``torch_trace`` directory sums the device's
+    idle gaps inside the body by the innermost program span, engine or
+    library, open when each gap begins; the op tables it printed before
+    stay as they were."""
+    cdir = _idle_fixture(tmp_path)
+    rc, out, _ = _port(capsys, cdir, "--json")
+    data = json.loads(out)
+    assert rc == 0
+    assert data["idle_gaps"] == {"cap": {
+        "body_us": 100.0, "idle_us": 65.0, "gaps": 4, "by_span": [
+            {"name": "outside", "total_us": 40.0, "count": 1},
+            {"name": "mano.forward_chunked", "total_us": 10.0, "count": 1},
+            {"name": "stage/queue", "total_us": 10.0, "count": 1},
+            {"name": "mano.concat", "total_us": 5.0, "count": 1}]}}
+    assert {"name": "fused_forward_kernel", "total_us": 20.0,
+            "count": 2} in data["tracks"]["cap:0"]
+    rc, out, _ = _port(capsys, cdir)
+    head, _, tail = out.partition("\n== device idle gaps by program span")
+    assert rc == 0 and "fused_forward_kernel" in head
+    assert tail.startswith(" [cap]  (body 0.100 ms, idle 0.065 ms in 4 "
+                           "gaps)")
+    assert "mano.concat" in tail and "outside" in tail
+    (cdir / "engine.trace.json").unlink()
+    rc, alone, _ = _port(capsys, cdir, "--json")
+    assert json.loads(alone)["idle_gaps"]["cap"]["by_span"][:2] == [
+        {"name": "outside", "total_us": 50.0, "count": 2},
+        {"name": "mano.forward_chunked", "total_us": 10.0, "count": 1}]
+
+
+def test_capture_library_ranges_are_program_spans(tmp_path):
+    """A ``torch_trace`` capture of ``forward_chunked`` holds the
+    library's ranges, which the report reads as program spans inside the
+    capture's body, on its absolute clock."""
+    from mano_hand_tpu_torch.assets import synthetic_params
+    from mano_hand_tpu_torch.models import core
+    from mano_hand_tpu_torch.utils.profiling import TORCH_TRACE, torch_trace
+
+    params = synthetic_params(seed=0, device="cpu").astype(torch.float32)
+    pose = torch.zeros(5, params.n_joints, 3)
+    shape = torch.zeros(5, params.n_shape)
+    with torch.no_grad():
+        core.forward_chunked(params, pose, shape, chunk_size=2)
+        with torch_trace(tmp_path / "cap"):
+            core.forward_chunked(params, pose, shape, chunk_size=2)
+    assert sorted(p.name for p in (tmp_path / "cap").iterdir()) == [
+        TORCH_TRACE]
+    cap = trace_report.load_capture(str(tmp_path / "cap" / TORCH_TRACE))
+    got = trace_report.program_spans(cap)
+    assert sorted(n for n, _, _ in got) == [
+        "mano.concat", "mano.forward_chunked", "mano.pad"]
+    base_us = cap["baseTimeNanoseconds"] / 1e3
+    body, = [e for e in cap["traceEvents"]
+             if e.get("name") == trace_report.TRACE_BODY]
+    b0 = float(body["ts"]) + base_us
+    assert all(b0 <= a <= b <= b0 + float(body["dur"]) for _, a, b in got)
