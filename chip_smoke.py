@@ -137,7 +137,8 @@ NumPy oracle (K2's bf16 variant: against its plain bf16 version, and
 against f32 K2 inside the policy's stated envelope; both K2 variants at
 C = 64 and 1000, and on indices out of range, which map as the port's and
 JAX's gather maps them) and timed beside it; ``forward_chunked`` is held
-on every route against its default route, the tiered engine's results
+on every route against its default route (its K1 route writing each
+chunk in place, counted), the tiered engine's results
 against direct calls of each family, a 120-frame two-hand clip
 (``models/anim.py``) against the oracle and K5, and the f32 family
 against its kernels under the caller's TF32 setting. K3 is held in both
@@ -6687,6 +6688,8 @@ def main() -> int:
              "K1": {"use_pallas_fused_full": True}}
     zero_counts()
     chunk_err = {}
+    n_chunks = -(-CHUNK_BATCH // CHUNK_SIZE)
+    in_place = fused_forward.chunks_in_place
     with torch.no_grad():
         want = core.forward_chunked(params, posec, shapec, CHUNK_SIZE)
         for name, kw in flags.items():
@@ -6694,13 +6697,16 @@ def main() -> int:
             torch.cuda.synchronize()
             require(tuple(got.shape) == (CHUNK_BATCH, v, 3), "chunked shape")
             chunk_err[name] = max_err(got, want)
+    in_place = fused_forward.chunks_in_place - in_place
     chunk_launches = counts()
     emit({"phase": "chunked", "batch": CHUNK_BATCH, "chunk": CHUNK_SIZE,
-          "max_abs_err_default": chunk_err, "launches": chunk_launches})
+          "max_abs_err_default": chunk_err, "launches": chunk_launches,
+          "chunks_in_place": in_place})
     for name, e in chunk_err.items():
         require(e <= KERNEL_TOL, f"forward_chunked {name} route {e}")
-        require(chunk_launches[name] == -(-CHUNK_BATCH // CHUNK_SIZE),
+        require(chunk_launches[name] == n_chunks,
                 f"{name} ran once per chunk")
+    require(in_place == n_chunks, f"K1 wrote {in_place} chunks in place")
 
     # 11. Training, this slice's main path: 5 SGD steps on (pose, shape)
     #     from zero through each kernel route and through the plain path,

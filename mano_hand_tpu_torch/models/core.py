@@ -15,7 +15,7 @@ three differentiable, ``forward_hands_pallas_fused_full`` K5 (both hands
 of a ``stack_params`` pair in one launch, inference only) and
 ``forward_posed_gather_fused`` K2 (``ops/fused_posed.py``, inference
 only, f32 or the bf16 serving tier). ``forward_chunked`` is the
-huge-batch entry point over K1, K3 and K4.
+huge-batch entry point over K1 (each chunk written in place), K3 and K4.
 The pose-only functions take ``compute_dtype`` (None, or
 ``torch.bfloat16`` for the bf16 serving tier: the pose blend and the
 skinning contractions take bf16 operands and accumulate in f32, while
@@ -579,18 +579,23 @@ def forward_chunked(params: ManoParams, pose: torch.Tensor,
     """Huge-batch vertices [B, V, 3], ``chunk_size`` rows at a time.
 
     Bounds each chunk's intermediates (the plain path's [chunk, V, 3, 3]
-    blend) while every launch stays large. Any batch size works: a
-    trailing partial chunk is zero-padded and the padding sliced off.
-    ``use_pallas_fused_full`` runs each chunk through K1,
-    ``use_pallas_fused`` through K4, ``use_pallas`` through K3 (first
-    flag set wins, in that order); the default is
-    ``forward_batched(...).verts``. Differentiable through every route.
-    Spans (``obs/spans.py``): the entry, the padding, each chunk's
-    launch, the concatenation.
+    blend) while every launch stays large. Any batch size works.
+    ``use_pallas_fused_full`` runs each chunk through K1, written straight
+    into its rows of one output (a trailing partial chunk launches with
+    the rows left); ``use_pallas_fused`` through K4, ``use_pallas``
+    through K3 (first flag set wins, in that order); the default is
+    ``forward_batched(...).verts``. These three zero-pad a trailing
+    partial chunk, concatenate the chunks and slice the padding off.
+    Differentiable through every route. Spans (``obs/spans.py``): the
+    entry, each chunk's launch, and on all but the K1 route the padding
+    and the concatenation.
     """
     if use_pallas_fused_full:
-        chunk_fn = forward_batched_pallas_fused_full
-    elif use_pallas_fused:
+        with spans.span(spans.ENTRY_CHUNKED):
+            pose, shape = _f32_inputs(params, pose, shape)
+            return fused_forward.forward_verts_fused_full_chunked_ad(
+                params, pose, shape, chunk_size)
+    if use_pallas_fused:
         chunk_fn = forward_batched_pallas_fused
     elif use_pallas:
         chunk_fn = forward_batched_pallas

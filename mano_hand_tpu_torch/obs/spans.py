@@ -8,7 +8,8 @@ request ring). Each forward route opens an entry span around the call:
 (``ENTRY_POSED_GATHER``). Inside it, each device operation the library
 enqueues sits in a device-op span: a kernel launch (``mano.launch.<k>``,
 around the wrapper's call into the built library) and the library's own
-operations (``PAD`` and ``CONCAT`` in ``forward_chunked``, ``COPY``: an
+operations (``PAD`` and ``CONCAT`` in ``forward_chunked``'s K4, K3 and
+default routes, whose chunks are separate tensors, ``COPY``: an
 operand converted or made contiguous, ``PACK``: an operand cache's
 rebuild). A span opened inside another nests in it; an entry span inside
 no other is a root: one call.

@@ -39,6 +39,9 @@ autograd, the vertex cotangent comes from the skinning kernel K3
 cotangent from one product with the packed basis, and the parameter
 cotangents (``v_template``, ``shape_basis``, ``pose_basis``,
 ``j_regressor``, ``lbs_weights``) only where autograd asks for them.
+``forward_verts_fused_full_chunked_ad`` is K1 over a huge batch a chunk
+a launch, each chunk written into its rows of one output, with the same
+backward run a chunk at a time.
 
 Operand prep is cached per ``ManoParams`` object and rebuilt on the
 params' device when one of its tensors changes in place: the packed
@@ -81,6 +84,9 @@ launches = 0
 blend_skin_launches = 0
 #: K5 (several hands in one launch) launches so far.
 hands_launches = 0
+#: Chunks ``forward_verts_fused_full_chunked_ad`` wrote straight into
+#: their rows of its one output.
+chunks_in_place = 0
 
 #: (launch counter, span) of the one kernel's two launches: one hand (K1)
 #: and several (K5).
@@ -351,19 +357,24 @@ def forward_verts_fused_full(params, pose: torch.Tensor,
 
 def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
                     shape: torch.Tensor, split: int = 0,
-                    kernel=_K1) -> torch.Tensor:
+                    kernel=_K1, out=None) -> torch.Tensor:
     """One launch of the K1/K5 kernel over H hands: pose [H, B, J, 3],
     shape [H, B, S] -> [H, B, V, 3] with B >= 1; ``ops`` is one hand's
     (H = 1) or stacked. ``split``: vertex spans per row tile (0: the
     kernel's choice from B). ``kernel``: ``_K1`` or ``_K5``, the counter
-    and span of the launch. Raises on a non-CUDA device or a failed
-    launch."""
+    and span of the launch. ``out``: where the kernel writes, [H, B, V,
+    3] float32 and contiguous on the operands' device (a row slice of a
+    larger output is one); None allocates it. Raises on a non-CUDA
+    device or a failed launch."""
     dev = pose.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     pose, shape = operand(pose), operand(shape)
     h, b, v = pose.shape[0], pose.shape[1], ops.n_verts
-    out = torch.empty((h, b, v, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((h, b, v, 3), dtype=torch.float32, device=dev)
+    else:
+        check_operands({"out": (out, (h, b, v, 3))}, ops.basis_tiles.device)
     lib = _build.load()
     counter, name = kernel
     with torch.cuda.device(dev), spans.span(name):
@@ -464,13 +475,15 @@ def forward_verts_fused(params, pose: torch.Tensor,
 
 
 # ------------------------------------------------------------- the backward
-def _fused_backward(ctx, g):
+def _fused_backward(params, need, saved, g):
     """``pallas_forward.py:_bwd``: cotangents (pose, shape, *the five
-    parameter tensors*) for the vertex cotangent ``g`` [B, V, 3]."""
+    parameter tensors*) for the vertex cotangent ``g`` [B, V, 3], where
+    ``saved`` holds those seven inputs and ``need`` whether each wants
+    its cotangent, in that order."""
     names = ("pose", "shape") + FORWARD_FIELDS
-    need = dict(zip(names, ctx.needs_input_grad[1:]))
-    saved = dict(zip(names, ctx.saved_tensors))
-    ops = fused_operands(ctx.params)
+    need = dict(zip(names, need))
+    saved = dict(zip(names, saved))
+    ops = fused_operands(params)
     s = ops.n_shape
     g = g.float().contiguous()
     f32 = torch.float32
@@ -549,7 +562,9 @@ class FusedVerts(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         with ieee_fp32():    # covers the pre-stage's autograd.grad too
-            return (None, *_fused_backward(ctx, g))
+            return (None, *_fused_backward(ctx.params,
+                                           ctx.needs_input_grad[1:],
+                                           ctx.saved_tensors, g))
 
 
 class FusedVertsFull(FusedVerts):
@@ -561,6 +576,62 @@ class FusedVertsFull(FusedVerts):
         ctx.params = params
         ctx.save_for_backward(pose, shape, *param_tensors)
         return forward_verts_fused_full(params, pose, shape)
+
+
+def _chunks(b: int, chunk_size: int):
+    """The row ranges ``(i, j)`` of ``b`` rows ``chunk_size`` at a time
+    (at least 1), the last one short where ``chunk_size`` does not divide
+    ``b``."""
+    step = max(1, chunk_size)
+    return [(i, min(i + step, b)) for i in range(0, b, step)]
+
+
+class FusedVertsFullChunked(torch.autograd.Function):
+    """K1 over a huge batch, ``chunk_size`` rows a launch, each chunk
+    written straight into its rows of one output [B, V, 3]: no chunk
+    tensor, padding or concatenation. The last chunk launches with the
+    rows that are left. Inputs: the params object and ``chunk_size`` (not
+    differentiated), pose [B, J, 3], shape [B, S], then the
+    ``FORWARD_FIELDS`` tensors. The backward runs ``_fused_backward``
+    a chunk at a time, so its memory stays bounded by one chunk."""
+
+    @staticmethod
+    def forward(ctx, params, chunk_size, pose, shape, *param_tensors):
+        ctx.params, ctx.chunk_size = params, chunk_size
+        ctx.save_for_backward(pose, shape, *param_tensors)
+        ops = fused_operands(params)
+        _check(ops, pose, shape)
+        b = pose.shape[0]
+        out = pose.new_empty((b, ops.n_verts, 3))
+        for i, j in _chunks(b, chunk_size):
+            if pose.device.type == "cpu":
+                out[i:j] = forward_verts_plain(ops, pose[i:j], shape[i:j])
+            else:
+                _launch_forward(ops, pose[None, i:j], shape[None, i:j],
+                                out=out[None, i:j])
+            count_launch(sys.modules[__name__], "chunks_in_place")
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        pose, shape, *tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        grads = [torch.zeros_like(x) if n else None
+                 for x, n in zip(ctx.saved_tensors, need)]
+        with ieee_fp32():    # covers the pre-stage's autograd.grad too
+            for i, j in _chunks(pose.shape[0], ctx.chunk_size):
+                got = _fused_backward(ctx.params, need,
+                                      (pose[i:j], shape[i:j], *tensors),
+                                      g[i:j])
+                for k, x in enumerate(got):
+                    if x is None:
+                        continue
+                    if k < 2:       # pose and shape: the chunk's rows
+                        grads[k][i:j] = x
+                    else:           # the parameters: summed over chunks
+                        grads[k] += x
+        return (None, None, *grads)
 
 
 def forward_verts_fused_ad(params, pose: torch.Tensor,
@@ -576,3 +647,13 @@ def forward_verts_fused_full_ad(params, pose: torch.Tensor,
     shape and the five parameter tensors (once differentiable)."""
     return FusedVertsFull.apply(params, pose, shape,
                                 *params.forward_tensors())
+
+
+def forward_verts_fused_full_chunked_ad(params, pose: torch.Tensor,
+                                        shape: torch.Tensor,
+                                        chunk_size: int) -> torch.Tensor:
+    """Differentiable K1 over a huge batch, ``chunk_size`` rows a launch
+    into one output (``FusedVertsFullChunked``): the same rows as
+    ``forward_verts_fused_full_ad`` chunk by chunk, with no copy."""
+    return FusedVertsFullChunked.apply(params, chunk_size, pose, shape,
+                                       *params.forward_tensors())

@@ -56,14 +56,22 @@ ROUTES = {
         core.forward_batched_pallas_fused_full,
         lambda prm, p, s: jcore.forward_batched_pallas_fused_full(
             prm, p, s, HI, 4, True)),
+    # chunks of 2 over B = 3: the last chunk is short.
+    "chunked_fused_full": (
+        lambda prm, p, s: core.forward_chunked(
+            prm, p, s, chunk_size=2, use_pallas_fused_full=True),
+        lambda prm, p, s: jcore.forward_chunked(
+            prm, p, s, chunk_size=2, precision=HI, interpret=True,
+            use_pallas_fused_full=True)),
     "plain": (
         lambda prm, p, s: core.forward_batched(prm, p, s).verts,
         lambda prm, p, s: jcore.forward_batched(prm, p, s, HI).verts),
 }
-KERNEL_ROUTES = ("pallas", "fused", "fused_full")
+KERNEL_ROUTES = ("pallas", "fused", "fused_full", "chunked_fused_full")
 FUNCTIONS = {"pallas": fused_skin.SkinBatched,
              "fused": fused_forward.FusedVerts,
-             "fused_full": fused_forward.FusedVertsFull}
+             "fused_full": fused_forward.FusedVertsFull,
+             "chunked_fused_full": fused_forward.FusedVertsFullChunked}
 
 
 def _rel(a, b) -> float:
@@ -283,3 +291,58 @@ def test_forward_chunked_empty_batch_and_grads(assets, route):
     whole = _t(POSE).requires_grad_(True)
     core.forward_batched(tp, whole, _t(BETA)).verts.square().sum().backward()
     assert _rel(pose.grad, whole.grad) < GRAD_REL
+
+
+def _k1_chunks_concatenated(prm, pose, shape, chunk_size):
+    """The K1 route of ``forward_chunked`` built as separate chunks: each
+    through ``FusedVertsFull`` (the last zero-padded to a whole chunk),
+    concatenated, the padding sliced off."""
+    b = pose.shape[0]
+    if b == 0:
+        return core.forward_batched_pallas_fused_full(prm, pose, shape)
+    pose_c, shape_c, _ = core._pad_and_chunk(pose, shape, chunk_size)
+    return torch.cat([core.forward_batched_pallas_fused_full(prm, p, s)
+                      for p, s in zip(pose_c, shape_c)])[:b]
+
+
+@pytest.mark.parametrize("b", [0, 1, 19, 20, 41, 60])
+def test_forward_chunked_k1_writes_chunks_in_place(assets, b):
+    """``forward_chunked``'s K1 route, chunks of 20 written into one
+    output, against the same chunks concatenated: vertices bit for bit on
+    whole chunks and within 1e-6 m on a short last one (its launch has
+    fewer rows); the gradients of ``(out * w).sum()`` in pose, shape and
+    the five parameter tensors to a relative 1e-5 of their largest
+    entry; one count of ``chunks_in_place`` a chunk."""
+    _, tp, _ = assets
+    chunk = 20
+    pose, beta = _inputs(b, seed=25)
+    w = _t(np.random.default_rng(26).normal(size=(b, 778, 3))
+           .astype(np.float32))
+
+    def run(fn):
+        leaves = {f: getattr(tp, f).clone().requires_grad_(True)
+                  for f in FIELDS}
+        prm = dataclasses.replace(tp, **leaves)
+        p = _t(pose).requires_grad_(True)
+        s = _t(beta).requires_grad_(True)
+        out = fn(prm, p, s, chunk)
+        (out * w).sum().backward()
+        return out.detach(), [p.grad, s.grad] + [leaves[f].grad
+                                                 for f in FIELDS]
+
+    fused_forward.chunks_in_place = 0
+    got, got_grads = run(functools.partial(core.forward_chunked,
+                                           use_pallas_fused_full=True))
+    assert fused_forward.chunks_in_place == -(-b // chunk)
+    want, want_grads = run(_k1_chunks_concatenated)
+    assert fused_forward.chunks_in_place == -(-b // chunk)
+    assert got.shape == want.shape == (b, 778, 3)
+    whole = b // chunk * chunk
+    assert torch.equal(got[:whole], want[:whole])
+    if whole < b:
+        assert _err(got[whole:], want[whole:]) <= 1e-6
+    for name, g, h in zip(GRAD_NAMES, got_grads, want_grads):
+        g, h = g.double().numpy(), h.double().numpy()
+        assert g.shape == h.shape, name
+        assert np.abs(g - h).max(initial=0) <= 1e-5 * np.abs(h).max(
+            initial=0), name

@@ -151,6 +151,44 @@ def test_k1_follows_an_in_place_template_update(dev):
     assert _err(after, before + 0.01) <= TOL
 
 
+@pytest.mark.parametrize("b", [65536, 20000])
+def test_forward_chunked_k1_writes_chunks_in_place(dev, b):
+    """``forward_chunked``'s K1 route in chunks of 8,192 against the same
+    chunks launched into tensors of their own (the last zero-padded to a
+    whole chunk) and concatenated: bit for bit on whole chunks (the same
+    launches, another destination), within TOL on a short last chunk
+    (launched with its own rows); one ``chunks_in_place`` and one K1
+    launch a chunk; and the call's peak memory is the output's, plus at
+    most 1 % of it."""
+    chunk = 8192
+    params = _params(dev)
+    g = torch.Generator(device=dev).manual_seed(b)
+    pose = 0.5 * torch.randn(b, 16, 3, generator=g, device=dev)
+    shape = torch.randn(b, 10, generator=g, device=dev)
+    with torch.no_grad():
+        pose_c, shape_c, _ = core._pad_and_chunk(pose, shape, chunk)
+        want = torch.cat([core.forward_batched_pallas_fused_full(
+            params, p, s) for p, s in zip(pose_c, shape_c)])[:b]
+        del pose_c, shape_c
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        n_chunks = -(-b // chunk)
+        before = (fused_forward.chunks_in_place, fused_forward.launches)
+        got = core.forward_chunked(params, pose, shape, chunk_size=chunk,
+                                   use_pallas_fused_full=True)
+        torch.cuda.synchronize()
+    assert (fused_forward.chunks_in_place - before[0],
+            fused_forward.launches - before[1]) == (n_chunks, n_chunks)
+    out_bytes = got.numel() * got.element_size()
+    assert torch.cuda.max_memory_allocated(dev) - base <= 1.01 * out_bytes
+    assert got.shape == want.shape == (b, 778, 3)
+    whole = b // chunk * chunk
+    assert torch.equal(got[:whole], want[:whole])
+    if whole < b:
+        assert _err(got[whole:], want[whole:]) <= TOL
+
+
 def _table(params, c, seed=2):
     rng = np.random.default_rng(seed)
     betas = torch.from_numpy(rng.normal(size=(c, params.n_shape)).astype(
@@ -479,7 +517,7 @@ ROUTES = ("forward_batched_pallas", "forward_batched_pallas_fused",
           "forward_batched_pallas_fused_full")
 
 
-def _grads(params, route, pose, shape):
+def _grads(params, route, pose, shape, **kw):
     leaves = {f: getattr(params, f).clone().requires_grad_(True)
               for f in FIELDS}
     prm = dataclasses.replace(params, **leaves)
@@ -488,7 +526,7 @@ def _grads(params, route, pose, shape):
     if route is None:
         out = core.forward_batched(prm, pose, shape).verts
     else:
-        out = getattr(core, route)(prm, pose, shape)
+        out = getattr(core, route)(prm, pose, shape, **kw)
     (out * out).sum().backward()
     return {"pose": pose.grad, "shape": shape.grad,
             **{f: leaves[f].grad for f in FIELDS}}
@@ -511,6 +549,29 @@ def test_route_grads_match_plain_autograd(dev, route):
         a = got[name]
         rel = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
         assert rel < 1e-4, (name, rel)
+        assert float(b.abs().max()) > 0, name
+
+
+def test_forward_chunked_k1_grads_match_plain_autograd(dev):
+    """``forward_chunked``'s K1 route over a ragged batch (37 rows in
+    chunks of 16: one K1 launch and one backward K3 a chunk): pose, shape
+    and the five parameter gradients against the plain path's autograd,
+    relative 1e-4 as the other routes."""
+    params = _params(dev)
+    rng = np.random.default_rng(12)
+    pose = torch.from_numpy(rng.normal(scale=0.5, size=(37, 16, 3)).astype(
+        np.float32)).to(dev)
+    shape = torch.from_numpy(rng.normal(size=(37, 10)).astype(
+        np.float32)).to(dev)
+    before = (fused_forward.launches, fused_skin.launches)
+    got = _grads(params, "forward_chunked", pose, shape,
+                 chunk_size=16, use_pallas_fused_full=True)
+    torch.cuda.synchronize()
+    assert (fused_forward.launches - before[0],
+            fused_skin.launches - before[1]) == (3, 3)
+    want = _grads(params, None, pose, shape)
+    for name, b in want.items():
+        assert _rel(got[name], b) < 1e-4, (name, _rel(got[name], b))
         assert float(b.abs().max()) > 0, name
 
 

@@ -624,12 +624,18 @@ def _chunked_inputs(b=47, seed=3):
     return params, pose, shape
 
 
-def _chunked(params, pose, shape):
+#: ``forward_chunked``'s K1 route, which writes each chunk in place, and
+#: its K4 route, which pads the last chunk and concatenates the chunks.
+CHUNKED_ROUTES = {"k1": {"use_pallas_fused_full": True},
+                  "k4": {"use_pallas_fused": True}}
+
+
+def _chunked(params, pose, shape, route="k1"):
     from mano_hand_tpu_torch.models import core
 
     with torch.no_grad():
         return core.forward_chunked(params, pose, shape, chunk_size=20,
-                                    use_pallas_fused_full=True)
+                                    **CHUNKED_ROUTES[route])
 
 
 def _profiled(fn):
@@ -647,41 +653,51 @@ def _profiled(fn):
     return out, dict(ranges)
 
 
-def test_library_spans_record_nothing_unprofiled():
+@pytest.mark.parametrize("route", list(CHUNKED_ROUTES))
+def test_library_spans_record_nothing_unprofiled(route):
     """No profiler: ``span`` hands back one shared no-op context, and a
     capture started after a call holds none of its ranges; under the
-    profiler each span is a range of its name."""
+    profiler each span is a range of its name: on the K1 route the entry
+    alone (its chunks are written in place), on K4's the entry, the
+    padding and the concatenation."""
     from mano_hand_tpu_torch.obs import spans
 
     params, pose, shape = _chunked_inputs()
     assert spans.span(spans.CONCAT) is spans.span(spans.ENTRY_CHUNKED)
     with spans.span(spans.PAD) as opened:
         assert opened is None
-    _chunked(params, pose, shape)
+    _chunked(params, pose, shape, route)
     _, ranges = _profiled(lambda: None)
     assert ranges == {}
-    _, ranges = _profiled(lambda: _chunked(params, pose, shape))
-    assert sorted(ranges) == sorted([spans.ENTRY_CHUNKED, spans.PAD,
-                                     spans.CONCAT])
+    _, ranges = _profiled(lambda: _chunked(params, pose, shape, route))
+    want = [spans.ENTRY_CHUNKED]
+    if route == "k4":
+        want += [spans.PAD, spans.CONCAT]
+    assert sorted(ranges) == sorted(want)
     assert spans.span(spans.CONCAT) is spans.span(spans.PAD)
 
 
-def test_forward_chunked_spans_under_the_profiler():
+@pytest.mark.parametrize("route", list(CHUNKED_ROUTES))
+def test_forward_chunked_spans_under_the_profiler(route):
     """Under a CPU profile, ``forward_chunked`` over 3 chunks (one
-    partial) opens one root entry range holding its padding and then its
-    concatenation (on the CPU the chunks run the plain version, no
-    launch), and its output is the unprofiled one."""
+    partial) opens one root entry range: on the K1 route holding nothing
+    else, on K4's holding its padding and then its concatenation (on the
+    CPU the chunks run the plain version, no launch), and its output is
+    the unprofiled one."""
     from mano_hand_tpu_torch.obs import spans
 
     params, pose, shape = _chunked_inputs()
-    want = _chunked(params, pose, shape)     # the operand caches built
-    out, ranges = _profiled(lambda: _chunked(params, pose, shape))
+    want = _chunked(params, pose, shape, route)   # the operand caches built
+    out, ranges = _profiled(lambda: _chunked(params, pose, shape, route))
     torch.testing.assert_close(out, want, rtol=0, atol=0)
-    (r0, r1), = ranges[spans.ENTRY_CHUNKED]
+    (r0, r1), = ranges.pop(spans.ENTRY_CHUNKED)
+    assert not any(name.startswith(spans.LAUNCH) for name in ranges)
+    if route == "k1":
+        assert ranges == {}
+        return
     (p0, p1), = ranges[spans.PAD]
     (c0, c1), = ranges[spans.CONCAT]
     assert r0 <= p0 <= p1 <= c0 <= c1 <= r1
-    assert not any(name.startswith(spans.LAUNCH) for name in ranges)
 
 
 @pytest.mark.parametrize("route", ["chunked", "hands", "gather"])
