@@ -2,7 +2,7 @@
 
 Each call runs ``forward_chunked(params, pose, shape, chunk_size,
 use_pallas_fused_full=True)``: the rows in chunks of ``chunk_size``, one
-K1 launch a chunk, and the library's concatenation.
+K1 launch a chunk, each written into its rows of one output.
 """
 
 from __future__ import annotations

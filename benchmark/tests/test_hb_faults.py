@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.small import SMALL
+from benchmark.tests.small import sizes
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 77
@@ -16,9 +16,8 @@ BULK = [w["name"] for w in harness.load_spec()["workloads"]]
 
 
 def run(cell, wrap=None):
-    traffic = harness.find_cell(harness.load_spec(), cell)["traffic"]
     return harness.run_cell(cell, SEED, 0.2, False, CPU, time.perf_counter(),
-                            wrap=wrap, overrides=SMALL[traffic])
+                            wrap=wrap, overrides=sizes(cell))
 
 
 def broken(fault):

@@ -13,6 +13,8 @@ from benchmark import harness, library_spans, timeline
 from benchmark.tests.small import SMALL
 
 US = 1_000   # ns
+#: Seconds of pause on each side of a card test's window start.
+SKEW_S = 0.01
 READERS = ("library_ops_pct.forward", "launches_per_call.forward",
            "entry_host_ms.forward")
 
@@ -199,8 +201,9 @@ def test_launches_per_call_is_the_profilers_device_ops(card, route):
     ``launches_per_call.forward`` is the profiler's device operations a
     call, each of them was enqueued inside one of the library's
     device-op spans, and the library's ops' share reads where the route
-    has its own (the chunked route's padding and concatenation, the
-    gather's copy of its table's strided joints)."""
+    has its own: only the gather's, its copy of its table's strided
+    joints (the chunked K1 route writes each chunk into its rows of one
+    output, with no padding and no concatenation)."""
     from torch.profiler import record_function
 
     call = _route_call(card, route)
@@ -214,7 +217,12 @@ def test_launches_per_call_is_the_profilers_device_ops(card, route):
             for _ in range(64):
                 x.add_(1)
             torch.cuda.synchronize()
+            # The profiler's device stamps lie up to about a millisecond
+            # off the host's clock, either way: pauses around the window's
+            # start keep the operations on their own side of it.
+            time.sleep(SKEW_S)
             with record_function("bench.window"):
+                time.sleep(SKEW_S)
                 for _ in range(3):
                     with record_function("bench.call"):
                         call()
@@ -226,5 +234,5 @@ def test_launches_per_call_is_the_profilers_device_ops(card, route):
     assert all(n in library_spans.LIBRARY_OPS
                or n.startswith(library_spans.LAUNCH) for n in names), names
     share = read("library_ops_pct.forward", r)
-    assert (share > 0) == (route != "hands"), share
+    assert (share > 0) == (route == "gather"), share
     assert 0 < read("entry_host_ms.forward", r)
