@@ -157,7 +157,8 @@ einsum of the kernel's whole function on homogeneous operands in IEEE
 fp32, its contraction order given (in turns with the kernel; the port
 never calls them), and the K1/K5, K2, K2-bf16, K3 and K4 entries carry
 their kernels' registers and spills from the ``-Xptxas -v`` build log (a
-spill fails the run).
+spill fails the run); the K1 entry's ``tile_rows`` counts the main
+path's K1 launches by the row tile each took.
 
 Every phase prints one JSON line. The line before the last two is the
 ``{"kernels": [...]}`` summary, then the card's name and power limit as
@@ -188,6 +189,7 @@ import torch
 SEED = 0
 DEVICE = "cuda"                  # the card this run measures
 K1_BATCHES = (8192, 1000, 1)     # the timed batch, a ragged tile, one row
+TILE_ROWS = (64, 32, 16, 8)      # K1/K5 row tiles (tiled_phase_d.cuh)
 K3_BATCH = 8192
 K3_TIMED = (8192, 1024)          # the timed batch and the training batch
 K4_BATCHES = K1_BATCHES
@@ -6377,6 +6379,8 @@ def zero_kernel_counts() -> None:
     fused_posed.launches = 0
     fused_posed.bf16_launches = 0
     fused_skin.launches = 0
+    for r in TILE_ROWS:
+        setattr(fused_forward, f"tile_rows_{r}", 0)
 
 
 def kernel_counts() -> dict:
@@ -6388,6 +6392,15 @@ def kernel_counts() -> dict:
             "K4": fused_forward.blend_skin_launches,
             "K5": fused_forward.hands_launches,
             "K2_bf16": fused_posed.bf16_launches}
+
+
+def tile_row_counts() -> dict:
+    """K1 and K5 launches by the row tile the kernel took, since
+    ``zero_kernel_counts`` (``fused_forward.tile_rows_<rows>``)."""
+    from mano_hand_tpu_torch.ops import fused_forward
+
+    return {str(r): getattr(fused_forward, f"tile_rows_{r}")
+            for r in TILE_ROWS}
 
 
 def pl_rank_main(spec: str) -> int:
@@ -6519,10 +6532,18 @@ def main() -> int:
         full_out = [f.result(timeout=300) for f in full_futs]
     torch.cuda.synchronize()
     launches = {"K1": fused_forward.launches, "K2": fused_posed.launches}
+    tile_rows = tile_row_counts()
     snap = eng.counters.snapshot()
     emit({"phase": "main_path", "seconds": round(time.perf_counter() - t0, 3),
-          "launches": launches, "engine": snap})
+          "launches": launches, "tile_rows": tile_rows, "engine": snap})
     require(launches["K1"] > 0, "K1 launched on the main path")
+    # No K5 runs on the main path, so its row tiles are K1's, and the
+    # timed batch (8,192 rows at MANO's widths) takes the 64-row tile.
+    require(fused_forward.hands_launches == 0
+            and sum(tile_rows.values()) == launches["K1"]
+            and tile_rows["64"] > 0,
+            f"main path's K1 launches {launches['K1']} by row tile "
+            f"{tile_rows}")
     require(launches["K2"] > 0, "K2 launched on the main path")
     require(snap["mixed_subject_batches"] >= 1,
             "the engine served a mixed-subject batch")
@@ -7303,7 +7324,7 @@ def main() -> int:
          "library_ms": None, "shape": f"B={b1}", "path": "serving",
          "launches_train": train_launches["K1"],
          "launches_parallel": parallel_line["launches"]["K1"],
-         "ptxas": k1_ptxas},
+         "tile_rows": tile_rows, "ptxas": k1_ptxas},
         {"name": "K2 fused_posed", "route": "cuda",
          "source": "mano_hand_tpu_torch/csrc/fused_posed.cu",
          "replaces": "mano_hand_tpu/ops/pallas_posed.py:382",

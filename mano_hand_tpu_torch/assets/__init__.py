@@ -5,7 +5,7 @@ and the asset audit (``verify``)."""
 from mano_hand_tpu_torch.assets.convert import params_from_numpy
 from mano_hand_tpu_torch.assets.loader import (
     load_dumped_pickle, load_model, load_npz, load_official_pickle,
-    load_smpl_pickle, save_dumped_pickle, save_npz,
+    load_smpl_pickle, load_smplx, save_dumped_pickle, save_npz,
 )
 from mano_hand_tpu_torch.assets.mirror import mirror_params
 from mano_hand_tpu_torch.assets.scans import (
@@ -22,8 +22,8 @@ from mano_hand_tpu_torch.assets.synthetic import (
 __all__ = [
     "ARRAY_FIELDS", "ManoParams", "StackedParams", "decode_scan_poses",
     "extract_scan_poses", "load_dumped_pickle", "load_model", "load_npz",
-    "load_official_pickle", "load_smpl_pickle", "mirror_params",
-    "mirror_pose", "mirror_verts", "params_from_numpy",
+    "load_official_pickle", "load_smpl_pickle", "load_smplx",
+    "mirror_params", "mirror_pose", "mirror_verts", "params_from_numpy",
     "save_dumped_pickle", "save_npz", "save_scan_poses", "synthetic_arrays",
     "synthetic_pair", "synthetic_params", "validate",
 ]

@@ -16,6 +16,8 @@ Formats:
     (``parents[0] = None``), str or bytes keys;
   * official SMPL-family body pickles (no hand PCA: an identity basis
     and zero mean are synthesised, the asset is unsided);
+  * the official SMPL-X ``.npz`` and chumpy-era ``.pkl`` (``load_smplx``:
+    betas and expression split out of ``shapedirs``, no hand PCA);
   * the canonical flat ``.npz`` (no pickle at load time).
 """
 
@@ -169,9 +171,19 @@ def load_official_pickle(path: PathLike, side: str | None = None,
     Works WITHOUT chumpy installed: unresolvable classes unpickle as
     ``_StubPickled``, whose ``.r`` hands ``_dense`` the wrapped array.
     """
-    dev = resolve_device(device)
+    return _official_params(_read_latin1(path), path, side,
+                            resolve_device(device), dtype)
+
+
+def _read_latin1(path: PathLike) -> dict:
+    """A chumpy-era pickle's dict (``encoding='latin1'``, no chumpy)."""
     with open(path, "rb") as f:
-        raw = _tolerant_load(f, encoding="latin1")
+        return _tolerant_load(f, encoding="latin1")
+
+
+def _official_params(raw: dict, path: PathLike, side: str | None, dev,
+                     dtype) -> ManoParams:
+    """``load_official_pickle`` on the dict ``_read_latin1`` gave."""
     arrays = dict(
         v_template=_dense(raw["v_template"]).astype(np.float64),
         shape_basis=_dense(raw["shapedirs"]).astype(np.float64),
@@ -199,9 +211,12 @@ def load_smpl_pickle(path: PathLike, side: str | None = None,
     themselves. Body assets are unsided (``side='neutral'``); SMPL's root
     parent arrives as uint32 ``2**32 - 1`` and maps to -1.
     """
-    dev = resolve_device(device)
-    with open(path, "rb") as f:
-        raw = _tolerant_load(f, encoding="latin1")
+    return _smpl_params(_read_latin1(path), side, resolve_device(device),
+                        dtype)
+
+
+def _smpl_params(raw: dict, side: str | None, dev, dtype) -> ManoParams:
+    """``load_smpl_pickle`` on the dict ``_read_latin1`` gave."""
     j_reg = _dense(raw["J_regressor"]).astype(np.float64)
     n_aa = (j_reg.shape[0] - 1) * 3
     arrays = dict(
@@ -217,6 +232,107 @@ def load_smpl_pickle(path: PathLike, side: str | None = None,
     parents = _parents_from(_dense(raw["kintree_table"]).astype(np.int64)[0])
     return _build(arrays, parents, C.NEUTRAL if side is None else side,
                   dev, dtype)
+
+
+#: The SMPL-X file's shape space when it holds the full one (v1.1): 300
+#: betas, then 100 expression columns (the ``smplx`` package's
+#: ``SMPLX.SHAPE_SPACE_DIM`` and ``EXPRESSION_SPACE_DIM``). A shorter file
+#: (v1.0) holds 10 betas, then 10 expression columns.
+SMPLX_BETAS, SMPLX_EXPRESSION = 300, 100
+SMPLX_SHORT_BETAS = 10
+#: SMPL-X's joints: body 22, jaw, two eyes, 2 x 15 finger joints.
+SMPLX_JOINTS = len(C.SMPLX_PARENTS)
+
+
+def _smplx_arrays(raw) -> dict:
+    """The numeric arrays of an official SMPL-X file's contents (an open
+    ``.npz`` or the chumpy-era ``.pkl``'s dict) by their own names
+    (``shapedirs``, ``posedirs``, ``J_regressor``, ...), densified.
+    Nothing else is read: no object array of the ``.npz`` is unpickled."""
+    return {k: _dense(raw[k]) for k in (
+        "v_template", "shapedirs", "posedirs", "J_regressor", "weights",
+        "kintree_table", "f")}
+
+
+def _is_smplx(raw, pickled: bool) -> bool:
+    """An official SMPL-X file's contents: a 55-joint ``kintree_table``
+    (SMPL-H, which shares every other key, has 52) beside ``shapedirs``,
+    without the port's own ``shape_basis`` (an ``.npz``), or with the
+    per-hand PCA's ``hands_componentsl`` (a pickle)."""
+    keys = set(raw.keys())
+    need = {"shapedirs", "kintree_table"}
+    if pickled:
+        need.add("hands_componentsl")
+    return (need <= keys and "shape_basis" not in keys
+            and np.shape(_dense(raw["kintree_table"]))[-1] == SMPLX_JOINTS)
+
+
+def _smplx_params(raw: dict, name: str, side: str | None, dev, dtype,
+                  num_betas: int = 10, num_expression: int = 10) -> ManoParams:
+    """``load_smplx`` on the arrays ``_smplx_arrays`` read from ``name``."""
+    dirs = raw["shapedirs"].astype(np.float64)
+    cols = dirs.shape[-1]
+    if cols >= SMPLX_BETAS + SMPLX_EXPRESSION:
+        betas, start, expression = SMPLX_BETAS, SMPLX_BETAS, SMPLX_EXPRESSION
+    else:
+        betas = start = SMPLX_SHORT_BETAS
+        expression = max(0, min(cols - start, SMPLX_SHORT_BETAS))
+    if not (0 <= num_betas <= min(betas, cols)
+            and 0 <= num_expression <= expression):
+        raise ValueError(
+            f"{name} has {cols} shape columns: at most "
+            f"{min(betas, cols)} betas and {expression} expression "
+            f"coefficients, asked for {num_betas} and {num_expression}")
+    j_reg = raw["J_regressor"].astype(np.float64)
+    n_aa = (j_reg.shape[0] - 1) * 3
+    arrays = dict(
+        v_template=raw["v_template"].astype(np.float64),
+        shape_basis=np.concatenate(
+            [dirs[..., :num_betas],
+             dirs[..., start:start + num_expression]], axis=-1),
+        pose_basis=raw["posedirs"].astype(np.float64),
+        j_regressor=j_reg,
+        lbs_weights=raw["weights"].astype(np.float64),
+        pca_basis=np.eye(n_aa, dtype=np.float64),
+        pca_mean=np.zeros(n_aa, dtype=np.float64),
+        faces=raw["f"].astype(np.int32),
+    )
+    parents = _parents_from(raw["kintree_table"].astype(np.int64)[0])
+    return _build(arrays, parents, C.NEUTRAL if side is None else side,
+                  dev, dtype)
+
+
+def load_smplx(path: PathLike, num_betas: int = 10, num_expression: int = 10,
+               side: str | None = None, device=None,
+               dtype=torch.float64) -> ManoParams:
+    """Load an official SMPL-X model (Pavlakos et al., CVPR 2019:
+    ``SMPLX_{NEUTRAL,MALE,FEMALE}.npz`` or the chumpy-era ``.pkl``).
+
+    V = 10,475, J = 55 (``kintree_table`` row 0 as the parents, the
+    root's sentinel mapped to -1), P = 486. The shape basis is
+    ``num_betas`` body columns followed by ``num_expression`` expression
+    columns of ``shapedirs``, where the expression columns start at 300
+    in a file of at least 400 columns (v1.1) and at 10 otherwise (v1.0),
+    as the ``smplx`` package's ``SMPLX.__init__`` reads them. So the
+    port's shape input is ``shape = cat(betas, expression)``, [B,
+    num_betas + num_expression]. A count the file cannot give raises
+    ``ValueError`` (the ``smplx`` package would clamp it).
+
+    Like SMPL bodies (``load_smpl_pickle``), the hand pose is full
+    axis-angle: the pose-PCA space is the identity pass-through ((J - 1)
+    * 3 dims, zero mean). The file's own hand PCA (``hands_componentsl``,
+    ``hands_componentsr``, their means), its face landmarks and every
+    other key are not read. The asset is unsided (``side='neutral'``
+    unless given)."""
+    dev = resolve_device(device)
+    p = Path(path)
+    if p.suffix == ".npz":
+        with np.load(p) as z:
+            raw = _smplx_arrays(z)
+    else:
+        raw = _smplx_arrays(_read_latin1(p))
+    return _smplx_params(raw, p.name, side, dev, dtype, num_betas,
+                         num_expression)
 
 
 def save_npz(params: ManoParams, path: PathLike) -> None:
@@ -261,23 +377,32 @@ def load_model(path: PathLike, side: str | None = None, device=None,
     dev = resolve_device(device)
     p = Path(path)
     if p.suffix == ".npz":
+        with np.load(p) as z:
+            raw = _smplx_arrays(z) if _is_smplx(z, pickled=False) else None
+        if raw is not None:
+            return _smplx_params(raw, p.name, side, dev, dtype)
         return load_npz(p, side=side, device=dev, dtype=dtype)
     # Every pickle flavour ends in .pkl; sniff by content: reference-style
-    # dumped keys, then official MANO (has the hand-PCA keys), then an
-    # SMPL-family body (same container, no hand PCA).
+    # dumped keys, then official MANO (has the hand-PCA keys), then
+    # SMPL-X (per-hand PCA keys), then an SMPL-family body (same
+    # container, no hand PCA).
     try:
         return load_dumped_pickle(p, side=side, device=dev, dtype=dtype)
     except (KeyError, UnicodeDecodeError):
         pass
+    raw = _read_latin1(p)
     try:
-        return load_official_pickle(p, side=side, device=dev, dtype=dtype)
+        return _official_params(raw, p, side, dev, dtype)
     except KeyError as e:
         # Fall through to the body loader ONLY when what is missing is the
         # hand-PCA pair: any other missing key is a corrupt official
         # pickle that must fail loudly, not load as a fabricated body.
         if e.args and e.args[0] not in ("hands_components", "hands_mean"):
             raise
-        loaded = load_smpl_pickle(p, side=side, device=dev, dtype=dtype)
+        if _is_smplx(raw, pickled=True):
+            return _smplx_params(_smplx_arrays(raw), p.name, side, dev,
+                                 dtype)
+        loaded = _smpl_params(raw, side, dev, dtype)
         if loaded.n_joints == C.N_JOINTS:
             # A 16-joint asset without the hand-PCA keys is a broken MANO
             # file, not a body model: an identity PCA would silently

@@ -34,6 +34,17 @@ SMPLH_PARENTS = (
     21, 37, 38, 21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50,
 )
 
+# The SMPL-X kinematic tree (``kintree_table`` row 0 of the official
+# SMPLX_NEUTRAL.npz): pelvis, 21 body joints, jaw, two eyes, then 15
+# left-hand and 15 right-hand joints; 55 joints in 11 levels.
+SMPLX_PARENTS = (
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
+    18, 19,
+    15, 15, 15,
+    20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,
+    21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53,
+)
+
 # ---------------------------------------------------------------- keypoints
 # The MANO skeleton regresses 16 joints and no fingertips (the tips are
 # mesh surface, not skeleton). Hand-pose datasets and detectors (FreiHAND,

@@ -174,14 +174,17 @@ blend_skin_kernel(const float* __restrict__ coef,   // [B, kpad]
 // H hands: operands stacked on a leading hand axis (H = 1: K1, H > 1: K5).
 // basis and wt are the vertex-tiled operands of ops/fused_forward.py:_pack.
 // split: vertex sub-tile spans per row tile (0: chosen from B and the card).
+// tile_rows (may be null): set to the row tile with_row_tile took.
 extern "C" int mano_fused_forward(const void* pose, const void* shape,
                                   const void* basis, const void* wt,
                                   const void* jb, const void* parents,
                                   void* out, int H, int B, int V, int J,
-                                  int S, int kpad, int split, void* stream) {
+                                  int S, int kpad, int split, void* stream,
+                                  int* tile_rows) {
   const auto bytes = [&](int rows) { return smem_bytes(rows, kpad, J); };
   return with_row_tile(B, H, V, bytes, [&](auto rows) {
     constexpr int kRows = decltype(rows)::value;
+    if (tile_rows != nullptr) *tile_rows = kRows;
     return launch<kRows>(
         fused_forward_kernel<kRows>, bytes(kRows), H, B, V, split,
         static_cast<cudaStream_t>(stream), static_cast<const float*>(pose),

@@ -128,7 +128,8 @@ def build_log() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mano_fused_forward.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.mano_fused_forward.argtypes = ([ptr] * 7 + [i32] * 7
+                                       + [ptr, ctypes.POINTER(i32)])
     lib.mano_fused_forward.restype = i32
     lib.mano_fused_posed.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.mano_fused_posed.restype = i32

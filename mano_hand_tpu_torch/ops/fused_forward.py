@@ -62,6 +62,7 @@ references on the card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import sys
 from typing import Tuple
@@ -87,6 +88,10 @@ hands_launches = 0
 #: Chunks ``forward_verts_fused_full_chunked_ad`` wrote straight into
 #: their rows of its one output.
 chunks_in_place = 0
+#: K1 and K5 launches by the row tile the kernel took (64, 32, 16 or 8
+#: rows: ``csrc/tiled_phase_d.cuh:with_row_tile``, as the launch reports
+#: it): large batches of MANO take 64, SMPL-X's widths 16 at most.
+tile_rows_64 = tile_rows_32 = tile_rows_16 = tile_rows_8 = 0
 
 #: (launch counter, span) of the one kernel's two launches: one hand (K1)
 #: and several (K5).
@@ -377,15 +382,18 @@ def _launch_forward(ops: FusedOperands, pose: torch.Tensor,
         check_operands({"out": (out, (h, b, v, 3))}, ops.basis_tiles.device)
     lib = _build.load()
     counter, name = kernel
+    rows = ctypes.c_int(0)
     with torch.cuda.device(dev), spans.span(name):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mano_fused_forward(
             pose.data_ptr(), shape.data_ptr(), ops.basis_tiles.data_ptr(),
             ops.wt_tiles.data_ptr(), ops.jb.data_ptr(),
             ops.parents.data_ptr(), out.data_ptr(), h, b, v, ops.n_joints,
-            ops.n_shape, ops.kpad, split, stream)
+            ops.n_shape, ops.kpad, split, stream, ctypes.byref(rows))
     _build.check(lib, rc, "fused_forward")
-    count_launch(sys.modules[__name__], counter)
+    module = sys.modules[__name__]
+    count_launch(module, counter)
+    count_launch(module, f"tile_rows_{rows.value}")
     return out
 
 

@@ -19,7 +19,10 @@ dispatch lanes (two lanes replaying concurrently against one, a row
 installed on a stalled engine stream, a staging slab fenced behind a
 stalled lane, captures while lanes serve, every lane down). Shapes cover what ``chip_smoke.py`` does not: ragged
 and tiny batches, generic kinematic trees (J = 7 to 64), V from 1 to
-778, rows that are not 16-byte aligned, subject tables of 1 to 1000
+778, SMPL-X's published widths (V = 10,475, J = 55, K = 507: K1, K4
+and f32 K2 against ``benchmark/reference/smplx.py`` in float64, within
+1e-5), the row tile each K1 launch counts, rows that are not 16-byte
+aligned, subject tables of 1 to 1000
 rows and out-of-range (negative: wrapped once) subject indices. Tolerance: kernel vs plain
 version, both fp32 with TF32 off, <= 1e-5 (summation order only; K2's
 bf16 tier too, whose roundings act on bit-equal values in both and whose
@@ -32,6 +35,7 @@ max|b|) < 1e-4.
 
 import dataclasses
 import time
+import types
 
 import numpy as np
 import pytest
@@ -39,6 +43,7 @@ import torch
 
 from mano_hand_tpu_torch.assets import mirror_params, synthetic_params
 from mano_hand_tpu_torch.assets.schema import FORWARD_FIELDS as FIELDS
+from mano_hand_tpu_torch.constants import SMPLX_PARENTS
 from mano_hand_tpu_torch.models import core
 from mano_hand_tpu_torch.ops import fused_forward, fused_posed, fused_skin
 from mano_hand_tpu_torch.serving import PrecisionPolicy, ServingEngine
@@ -1131,6 +1136,166 @@ def test_smplh_52_joint_rig_kernels_on_the_card(dev):
         assert got.shape == (3, 389, 3)
         assert _err(got, ref) <= TOL
         assert _err(got, want) <= 1e-4
+
+
+# ---------------------------------- SMPL-X at its published widths
+#: Kernel vs the float64 SMPL-X reference: fp32 rounding of a 507-term
+#: blend and an 11-level chain on a ~10 cm mesh (the repo's kernel bar).
+SMPLX_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def smplx_rig(dev):
+    """SMPL-X's published widths (V = 10,475, J = 55, S = 10 betas + 10
+    expression, P = 486, K = 507) with synthetic weights, fp32 on the
+    card: a 64 MB packed basis, past the 50 MB L2."""
+    p = synthetic_params(seed=26, n_verts=10475, n_joints=55, n_shape=20,
+                         n_faces=50, dtype=torch.float32, device=dev)
+    return dataclasses.replace(p, parents=SMPLX_PARENTS)
+
+
+def _smplx_inputs(params, b, seed=0):
+    """The benchmark's spreads: root 1.0 rad, every other joint 0.4,
+    shape 1.0."""
+    g = torch.Generator(device=params.device).manual_seed(seed)
+    pose = 0.4 * torch.randn(b, params.n_joints, 3, generator=g,
+                             device=params.device)
+    pose[:, 0] *= 2.5
+    shape = torch.randn(b, params.n_shape, generator=g, device=params.device)
+    return pose, shape
+
+
+def _smplx_err(params, got, pose, shape):
+    """max |got - reference| over every vertex, the float64 reference
+    (``benchmark/reference/smplx.py``) in blocks: betas against
+    ``shapedirs``, expression against ``exprdirs``."""
+    from benchmark.entries.forward_chunked_smplx import reference_model
+    from benchmark.reference import smplx
+
+    model = reference_model({f.name: getattr(params, f.name)
+                             for f in dataclasses.fields(params)}, 10)
+    err = 0.0
+    for lo, hi, ref in smplx.forward_blocks(model, pose, shape[:, :10],
+                                            shape[:, 10:]):
+        err = max(err, float((got[lo:hi].double() - ref).abs().max()))
+    return err
+
+
+@pytest.mark.parametrize("b", [1, 8191, 16384])
+def test_smplx_k1_through_forward_chunked(dev, smplx_rig, b):
+    """``forward_chunked``'s K1 route at SMPL-X's widths in chunks of
+    8,192: B = 1 (the 8-row tile), 8,191 (one short chunk) and 2 x 8,192,
+    which take the 16-row tile (its carve of kpad + 15 J floats a row
+    leaves no room for 32). One launch and one chunk in place a chunk,
+    each counted under its row tile; every vertex within SMPLX_TOL of
+    the float64 reference."""
+    pose, shape = _smplx_inputs(smplx_rig, b)
+    n, tile = -(-b // 8192), "tile_rows_8" if b == 1 else "tile_rows_16"
+    names = ("launches", "chunks_in_place", tile)
+    before = [getattr(fused_forward, k) for k in names]
+    with torch.no_grad():
+        got = core.forward_chunked(smplx_rig, pose, shape, chunk_size=8192,
+                                   use_pallas_fused_full=True)
+    torch.cuda.synchronize()
+    assert [getattr(fused_forward, k) - c
+            for k, c in zip(names, before)] == [n, n, n]
+    assert got.shape == (b, 10475, 3) and bool(torch.isfinite(got).all())
+    assert _smplx_err(smplx_rig, got, pose, shape) <= SMPLX_TOL
+
+
+def test_official_smplx_file_runs_k1_on_the_card(dev, tmp_path):
+    """An official-layout SMPL-X ``.npz`` at the published widths (400
+    shape columns, the uint32 root sentinel, the per-hand PCA keys) goes
+    through ``load_model`` (float64 on the card) and unchanged into
+    ``forward_chunked``'s K1 route: two chunks of 16-row tiles, within
+    SMPLX_TOL of the float64 reference on the file's own columns."""
+    from mano_hand_tpu_torch.assets import load_model
+    from mano_hand_tpu_torch.assets.synthetic import synthetic_arrays
+
+    a = synthetic_arrays(seed=27, n_verts=10475, n_joints=55, n_shape=400,
+                         n_faces=50)
+    root = np.uint32(4294967295)
+    np.savez(tmp_path / "SMPLX_NEUTRAL.npz", v_template=a["v_template"],
+             shapedirs=a["shape_basis"], posedirs=a["pose_basis"],
+             J_regressor=a["j_regressor"], weights=a["lbs_weights"],
+             f=np.asarray(a["faces"], np.uint32),
+             kintree_table=np.stack([
+                 np.asarray([root] + list(SMPLX_PARENTS[1:]), np.uint32),
+                 np.arange(55, dtype=np.uint32)]),
+             hands_componentsl=np.eye(45), hands_componentsr=np.eye(45))
+    params = load_model(tmp_path / "SMPLX_NEUTRAL.npz", device=dev)
+    assert (params.n_verts, params.n_joints, params.n_shape,
+            params.pose_basis.shape[-1]) == (10475, 55, 20, 486)
+    assert params.parents == SMPLX_PARENTS
+    dirs = torch.from_numpy(a["shape_basis"]).to(dev)
+    assert torch.equal(params.shape_basis, torch.cat(
+        [dirs[..., :10], dirs[..., 300:310]], dim=-1))
+    pose, shape = _smplx_inputs(params, 3000, seed=2)
+    before = (fused_forward.launches, fused_forward.tile_rows_16)
+    with torch.no_grad():
+        got = core.forward_chunked(params, pose, shape, chunk_size=2048,
+                                   use_pallas_fused_full=True)
+    torch.cuda.synchronize()
+    assert (fused_forward.launches - before[0],
+            fused_forward.tile_rows_16 - before[1]) == (2, 2)
+    assert _smplx_err(params, got, pose, shape) <= SMPLX_TOL
+
+
+def test_smplx_k4_and_k2_at_the_serving_batch(dev, smplx_rig):
+    """K4 (blend + skin behind the PyTorch pre-stage) and f32 K2 (four
+    baked subjects, gathered) at B = 256, SMPL-X's widths, against the
+    float64 reference."""
+    pose, shape = _smplx_inputs(smplx_rig, 256, seed=1)
+    idx = torch.arange(256, dtype=torch.int32, device=dev) % 4
+    table = core.stack_shaped([core.specialize(smplx_rig, s)
+                               for s in shape[:4]])
+    counts = (fused_forward.blend_skin_launches, fused_posed.launches)
+    with torch.no_grad():
+        k4 = core.forward_batched_pallas_fused(smplx_rig, pose, shape)
+        k2 = core.forward_posed_gather_fused(table, idx, pose)
+    torch.cuda.synchronize()
+    assert (fused_forward.blend_skin_launches,
+            fused_posed.launches) == tuple(c + 1 for c in counts)
+    assert _smplx_err(smplx_rig, k4, pose, shape) <= SMPLX_TOL
+    assert _smplx_err(smplx_rig, k2, pose, shape[idx.long()]) <= SMPLX_TOL
+
+
+def test_row_tile_counters_and_the_basis_metric(dev, smplx_rig):
+    """K1 at B = 8,192 counts under its row tile, 16 at SMPL-X's widths
+    and 64 at MANO's; the benchmark's ``basis_mb_per_mesh.forward`` reads
+    the same tiles off a short profiler capture of those launches: 4.14
+    and 0.0258 MB of packed operand a mesh."""
+    from torch.profiler import record_function
+
+    from benchmark import harness, timeline
+
+    read = harness.load_reader("basis_mb_per_mesh.forward")
+    runs = {"smplx_neutral.bulk_forward": (smplx_rig, 16, 4.143296),
+            "mano_right.bulk_forward": (_params(dev), 64, 0.02576)}
+    tiles = (64, 32, 16, 8)
+    for cell, (params, rows, mb) in runs.items():
+        pose, shape = _smplx_inputs(params, 8192)
+
+        def call():
+            return core.forward_chunked(params, pose, shape,
+                                        chunk_size=8192,
+                                        use_pallas_fused_full=True)
+        with torch.no_grad():
+            call()
+            torch.cuda.synchronize()
+            before = [getattr(fused_forward, f"tile_rows_{r}") for r in tiles]
+            with timeline.capture(dev) as cap:
+                time.sleep(0.01)   # the profiler drops a capture's first
+                with record_function("bench.window"):   # few records
+                    for _ in range(10):
+                        call()
+                    torch.cuda.synchronize()
+        got = [getattr(fused_forward, f"tile_rows_{r}") - c
+               for r, c in zip(tiles, before)]
+        assert got == [10 if r == rows else 0 for r in tiles], cell
+        tl = timeline.Timeline.from_capture(cap.events)
+        value = read(types.SimpleNamespace(cell=cell, timeline=tl))
+        assert value == pytest.approx(mb, rel=0.01), cell
 
 
 @pytest.mark.filterwarnings(
@@ -2516,20 +2681,22 @@ def test_captured_launches_count_on_every_replay(dev):
 
     names = ((fused_forward, "launches"), (fused_forward, "hands_launches"),
              (fused_forward, "blend_skin_launches"), (fused_skin, "launches"))
+    # K1 and K5 at B = 16 both take the 8-row tile, each counted there.
+    tile = (fused_forward, "tile_rows_8")
     with torch.no_grad():
         eager = step()
         torch.cuda.synchronize()
-        before = [getattr(m, n) for m, n in names]
+        before = [getattr(m, n) for m, n in names + (tile,)]
         graph = torch.cuda.CUDAGraph()
         with captured_launches() as log, torch.cuda.graph(graph):
             outs = step()
-        assert [getattr(m, n) for m, n in names] == before
-        assert sorted(log, key=str) == sorted(names, key=str)
+        assert [getattr(m, n) for m, n in names + (tile,)] == before
+        assert sorted(log, key=str) == sorted(names + (tile, tile), key=str)
         for k in (1, 2):
             graph.replay()
             add_launches(log)
-            assert [getattr(m, n) for m, n in names] == [
-                c + k for c in before]
+            assert [getattr(m, n) for m, n in names + (tile,)] == [
+                c + k for c in before[:-1]] + [before[-1] + 2 * k]
         torch.cuda.synchronize()
     for got, want in zip(outs, eager):
         assert _err(got, want) == 0.0
